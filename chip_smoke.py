@@ -11,11 +11,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    CUDA events beside its roofline bound and one PyTorch library call
    as a yardstick (the port never calls it).
 2. Serve 16 requests through ContinuousBatchingEngine at Llama-3-8B full
-   width (32 layers, random bf16 weights from a seed), with every kernel
-   launch counter reset just before and read just after; then hold the
-   served tokens against a teacher-forced plain forward.
-3. Print the kernel table as one JSON line, the card's name and power
-   limit, and the closing {"ok": true, ...} line.
+   width (32 layers, random bf16 weights from a seed) on the cold split
+   path (prefix_cache=False); then hold the served tokens against a
+   teacher-forced plain forward.
+3. The split path with the prefix cache (the JAX engine's default): 24
+   requests sharing a 512-token system prompt; cache hits prefill their
+   suffixes through prefix_prefill_attention.
+4. The unified step: 16 requests, long prompts chunked into 256-token
+   windows through ragged_paged_attention, some sharing a cached prefix.
+5. Print the kernel table as one JSON line (each kernel's launches from
+   the phase that drives it), the card's name and power limit, and the
+   closing {"ok": true, ...} line.
+
+Every phase resets the kernel launch counters just before it serves and
+reads them just after.
 
 Exits non-zero (and prints no result) without a CUDA device, or when
 the paddle_tpu_torch package is not beside this script.
@@ -193,6 +202,86 @@ def check_paged_decode(b: int, hq: int, hkv: int, d: int, bs: int):
                 bound_by=by, library_ms=lib_ms)
 
 
+def check_paged_prefill(name: str, b: int, tn: int, cached, new,
+                        w: int = 0, hq: int = 32, hkv: int = 8,
+                        d: int = 128, page: int = 64):
+    """One launch path of csrc/paged_prefill_attention.cu against its
+    plain version: permuted tables, page ids past the cached tokens left
+    as pad (page 0), pad query rows (>= new) checked for exact zeros and
+    nothing NaN. Both versions score and accumulate in f32 (P and V stay
+    f32, as in the JAX body) from the same bf16 inputs and round once:
+    one bf16 rounding step apart at most (ulp_check)."""
+    from paddle_tpu_torch.kernels.prefix_prefill import (
+        prefix_prefill_attention, prefix_prefill_reference)
+    from paddle_tpu_torch.kernels.ragged_attention import (
+        ragged_paged_attention, ragged_paged_attention_reference)
+
+    fn, ref_fn = {
+        "prefix_prefill_attention": (prefix_prefill_attention,
+                                     prefix_prefill_reference),
+        "ragged_paged_attention": (ragged_paged_attention,
+                                   ragged_paged_attention_reference),
+    }[name]
+    g = torch.Generator(device="cuda").manual_seed(SEED + tn + b)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    w = max(w, max(-(-c // page) for c in cached), 1)
+    n_pages = b * w + 1
+    kc, vc = rnd(n_pages, hkv, page, d), rnd(n_pages, hkv, page, d)
+    q, kn, vn = rnd(b, tn, hq, d), rnd(b, tn, hkv, d), rnd(b, tn, hkv, d)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(SEED)) + 1
+    tables = torch.zeros(b, w, dtype=torch.int32)
+    for row, c in enumerate(cached):
+        n = -(-c // page)
+        tables[row, :n] = perm[row * w: row * w + n].to(torch.int32)
+    tables = tables.cuda()
+    cl = torch.tensor(cached, dtype=torch.int32, device="cuda")
+    nl = torch.tensor(new, dtype=torch.int32, device="cuda")
+    args = (q, kn, vn, kc, vc, tables, cl, nl)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if torch.isnan(out.float()).any():
+        raise AssertionError(f"{name}: NaN in the output")
+    for row, n in enumerate(new):
+        if (out[row, n:] != 0).any():
+            raise AssertionError(f"{name}: pad rows of row {row} not zero")
+    err = ulp_check(name, out, ref_fn(*args))
+    ms = time_ms(lambda: fn(*args))
+    plain_ms = time_ms(lambda: ref_fn(*args), iters=5)
+    # library yardstick: SDPA over the cache gathered beforehand and
+    # concatenated with the window, under the same mask as an explicit one
+    span = w * page
+    tl = tables.long()
+    keys, vals = (torch.cat([pool[tl].permute(0, 2, 1, 3, 4).reshape(
+        b, hkv, span, d), new_.transpose(1, 2)], dim=2)
+        for pool, new_ in ((kc, kn), (vc, vn)))
+    pos = torch.arange(tn, device="cuda")
+    cache_ok = torch.arange(span, device="cuda")[None, :] < cl[:, None]
+    win_ok = (pos[None, :] <= pos[:, None])[None] \
+        & (pos[None, None, :] < nl[:, None, None])
+    mask = torch.cat([cache_ok[:, None, :].expand(b, tn, span), win_ok],
+                     dim=-1)[:, None]
+    qt = q.transpose(1, 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, keys, vals, attn_mask=mask, enable_gqa=True))
+    # what this run's data needs: live query rows read, every output row
+    # written, cached tokens' K/V and live window K/V read once; each live
+    # query of row r at window position i attends cached[r] + i + 1 keys
+    live = sum(new)
+    n_bytes = 2 * (hq * d * (live + b * tn)
+                   + 2 * hkv * d * (sum(cached) + live)) + 4 * b * (w + 2)
+    pairs = sum(n * c + n * (n + 1) // 2 for c, n in zip(cached, new))
+    b_ms, by = bound_ms(n_bytes, 4 * hq * d * pairs)
+    return dict(case=f"B{b} tn{tn} Hq{hq} Hkv{hkv} D{d} page{page} W{w} "
+                     f"cached {list(cached)} new {list(new)}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, library_ms=lib_ms)
+
+
 def phase_kernels():
     """Returns {kernel name: [case results]}; the first case of each is
     at the shape the engine's main path gives it."""
@@ -209,6 +298,15 @@ def phase_kernels():
                                 check_flash(2, 200, 333, 32, 8, 128)],
         "paged_decode_attention": [check_paged_decode(8, 32, 8, 128, 64),
                                    check_paged_decode(8, 32, 32, 128, 64)],
+        "prefix_prefill_attention": [
+            check_paged_prefill("prefix_prefill_attention", 4, 128,
+                                [0, 64, 256, 512], [128, 1, 77, 100], w=8)],
+        "ragged_paged_attention": [
+            check_paged_prefill("ragged_paged_attention", 2, 256,
+                                [0, 1344 + 37], [256, 100]),
+            check_paged_prefill("ragged_paged_attention", 8, 64,
+                                [0, 37, 64, 200, 511, 700, 1381, 256],
+                                [1, 1, 1, 1, 1, 1, 1, 64])],
     }
     for name, cases in res.items():
         for c in cases:
@@ -224,13 +322,10 @@ def phase_kernels():
 # phase 2: the engine at full width
 # ---------------------------------------------------------------------------
 
-def phase_engine():
-    from paddle_tpu_torch.kernels import _build
-    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
-                                         init_serving_params)
-    from paddle_tpu_torch.models.llama import (_make_head_logits,
-                                               _make_prefill)
-    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+def build_model():
+    """Llama-3-8B at full width, random bf16 weights from SEED, made on
+    the card (shared by phases 2-4)."""
+    from paddle_tpu_torch.models import LlamaConfig, init_serving_params
 
     cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
@@ -240,14 +335,14 @@ def phase_engine():
     n_params = sum(p.numel() for p in params.values())
     log(f"[engine] Llama-3-8B {n_params / 1e9:.2f}B params bf16 on card in "
         f"{time.perf_counter() - t0:.1f}s")
-    eng = ContinuousBatchingEngine(
-        cfg, params, slots=8, prompt_bucket=128, max_prompt_len=512,
-        max_new_tokens=32, block_size=64, steps_per_sync=8,
-        dtype=torch.bfloat16, device="cuda")
-    eng.warm()
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
-               for n in rng.integers(16, 501, 16)]
+    return cfg, params
+
+
+def serve(eng, prompts, phase: str):
+    """Submit every prompt at once and drain the engine, with every
+    kernel launch counter reset just before and read just after. Gates:
+    each request returns 32 in-vocabulary tokens."""
+    from paddle_tpu_torch.kernels import _build
 
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -256,21 +351,61 @@ def phase_engine():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _build.launch_counts()
-
     for r in reqs:
         if not r.done or len(r.tokens) != 32:
-            raise AssertionError(f"request {r.req_id}: {len(r.tokens)} "
-                                 "tokens, expected 32")
-        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
-            raise AssertionError(f"request {r.req_id}: token out of vocab")
+            raise AssertionError(f"{phase} request {r.req_id}: "
+                                 f"{len(r.tokens)} tokens, expected 32")
+        if not all(0 <= t < eng.cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"{phase} request {r.req_id}: token out "
+                                 "of vocab")
     m = eng.metrics()
     n_tok = sum(len(r.tokens) for r in reqs)
+    log(f"[{phase}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f}s: "
+        f"{n_tok / wall:.1f} tok/s; prefill calls {m['prefill_calls']} "
+        f"({m['prefill_s']:.3f}s), prefill windows {m['prefill_chunks']}, "
+        f"device steps {m['device_steps']} (decode {m['decode_s']:.3f}s); "
+        f"prompt tokens {m['prompt_tokens']}, cache hits "
+        f"{m['prefix_hit_tokens']} ({100 * m['prefix_hit_rate']:.1f}%), "
+        f"inserts {m['prefix_inserts']}, evictions {m['prefix_evictions']}; "
+        f"launches {json.dumps(launches)}")
+    return reqs, wall, launches, m
+
+
+def rank_margin(plain, r) -> float:
+    """Teacher-forced bf16 plain forward over prompt + served tokens: the
+    worst gap between a served token's logit and the row's argmax."""
+    n = len(r.prompt)
+    ids = torch.tensor([r.prompt + r.tokens[:-1]], device="cuda")
+    with torch.no_grad():
+        rows = plain(ids)[0, n - 1:].float()
+    gen = torch.tensor(r.tokens, device="cuda")
+    return float((rows.max(-1).values
+                  - rows.gather(1, gen[:, None])[:, 0]).max())
+
+
+def rel_rms(a, b) -> float:
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+
+def phase_engine(cfg, params):
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.llama import (_make_head_logits,
+                                               _make_prefill)
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(
+        cfg, params, slots=8, prompt_bucket=128, max_prompt_len=512,
+        max_new_tokens=32, block_size=64, steps_per_sync=8,
+        prefix_cache=False, dtype=torch.bfloat16, device="cuda")
+    eng.warm()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(16, 501, 16)]
+    reqs, wall, launches, m = serve(eng, prompts, "engine")
+    n_tok = sum(len(r.tokens) for r in reqs)
     chunk_ms = 1e3 * m["decode_s"] / max(m["device_steps"], 1)
-    log(f"[engine] 16 requests, {n_tok} tokens in {wall:.3f}s: "
-        f"{n_tok / wall:.1f} tok/s; {m['prefill_calls']} prefill calls "
-        f"{m['prefill_s']:.3f}s; {m['device_steps']} decode chunks of 8 "
-        f"steps x 8 slots, {chunk_ms:.2f} ms per chunk; launches "
-        f"{json.dumps(launches)}")
+    log(f"[engine] {m['device_steps']} decode chunks of 8 steps x 8 slots, "
+        f"{chunk_ms:.2f} ms per chunk")
 
     # numerics: teacher-forced plain forward over prompt + generated
     # tokens (plain rms_norm / attention on the card, same weights), and
@@ -280,10 +415,6 @@ def phase_engine():
     params32 = {k: v.float() for k, v in params.items()}
     plain32 = LlamaForCausalLM(cfg, use_kernels=False).load_params(params32)
     head = _make_head_logits(cfg)
-
-    def rel_rms(a, b):
-        return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
-
     worst = {"kernel_vs_f32": 0.0, "plain_vs_f32": 0.0, "margin": 0.0}
     for r in sorted(reqs, key=lambda r: len(r.prompt))[::15]:  # 2 extremes
         n = len(r.prompt)
@@ -329,16 +460,12 @@ def phase_engine():
             "chunk_ms": chunk_ms, "worst": worst}
 
 
-def profile_decode(eng, prompts):
-    """One short traced window (8 requests, 8 new tokens each) after the
-    counted run: device time by kernel and the device's busy share of
-    the host wall time. Its launches are not counted."""
+def profile_step(eng, title: str):
+    """Trace one `eng.step()` under torch.profiler: device time by kernel
+    and the device's busy share of the host wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for p in prompts:
-        eng.add_request(p, max_new=9)
-    eng._admit()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -346,7 +473,6 @@ def profile_decode(eng, prompts):
         eng.step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    eng.run()
     # device-side events only: a CPU op (aten::mm) also reports the
     # time of the kernels it launched, which would count them twice
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -354,11 +480,179 @@ def profile_decode(eng, prompts):
             if e.device_type != DeviceType.CPU
             and e.self_device_time_total > 0]
     busy = sum(r[1] for r in rows)
-    log(f"[profile] one decode chunk (8 steps x 8 slots): wall "
-        f"{wall_ms:.2f} ms, device busy {busy:.2f} ms "
-        f"({100 * busy / wall_ms:.1f}%)")
+    log(f"[profile] {title}: wall {wall_ms:.2f} ms, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%)")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"[profile]   {ms:8.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def profile_decode(eng, prompts):
+    """One short traced window (8 requests, 8 new tokens each) after the
+    counted run: one decode chunk. Its launches are not counted."""
+    for p in prompts:
+        eng.add_request(p, max_new=9)
+    eng._admit()
+    profile_step(eng, "one decode chunk (8 steps x 8 slots)")
+    eng.run()
+
+
+def profile_mixed(eng, short, long):
+    """After the counted run: 4 short prompts prefill (one window each),
+    then a long prompt's window rides beside their decode chunk; trace
+    that mixed step. Its launches are not counted."""
+    for p in short:
+        eng.add_request(p)
+    eng.add_request(long)
+    while eng._prefilling is None or eng._prefilling["req"].prompt != long:
+        if not eng.has_work:
+            raise AssertionError("profile: the long prompt never prefilled")
+        eng.step()
+    profile_step(eng, f"one mixed step ({eng.n_active} live slots x 8 "
+                      f"decode steps + one {eng.token_budget}-token window "
+                      f"at cached {eng._prefilling['done']})")
+    eng.run()
+
+
+def _gate_ranks(phase: str, plain, reqs) -> None:
+    """Every served token of `reqs` ranks within 0.5 logit of the bf16
+    plain forward's argmax (phase 2's rule: random bf16 weights make
+    near-ties, so token identity is not the test)."""
+    worst = 0.0
+    for r in reqs:
+        margin = rank_margin(plain, r)
+        log(f"[{phase}] request {r.req_id} (prompt {len(r.prompt)}, cached "
+            f"{r.cached_tokens}): served tokens' worst gap to the bf16 "
+            f"plain argmax {margin:.3f}")
+        worst = max(worst, margin)
+    if worst > 0.5:
+        raise AssertionError(f"{phase}: a served token ranks {worst:.3f} "
+                             "below the plain argmax (limit 0.5)")
+
+
+def phase_prefix_cache(cfg, params):
+    """Phase 3: the split path with the prefix cache (the JAX engine's
+    default configuration). 24 requests, each one shared 512-token system
+    prompt (8 pages) plus its own suffix of 16-200 tokens, all submitted at
+    once: the first batch prefills cold and inserts the shared pages, later
+    batches prefill only their suffixes through prefix_prefill_attention."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.llama import (_make_head_logits,
+                                               _make_prefill_with_prefix)
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(
+        cfg, params, slots=8, prompt_bucket=128, max_prompt_len=1024,
+        max_new_tokens=32, block_size=64, steps_per_sync=8,
+        prefix_cache=True, dtype=torch.bfloat16, device="cuda")
+    eng.warm()
+    rng = np.random.default_rng(SEED + 3)
+    system = rng.integers(1, cfg.vocab_size, 512).tolist()
+    prompts = [system + rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(16, 201, 24)]
+    reqs, wall, launches, m = serve(eng, prompts, "prefix")
+    n = launches["prefix_prefill_attention"]
+    if m["prefix_hit_tokens"] <= 0:
+        raise AssertionError("prefix: no prompt token was served from the "
+                             "prefix cache")
+    if n <= 0 or n % cfg.num_hidden_layers:
+        raise AssertionError(f"prefix: {n} prefix_prefill_attention "
+                             "launches, expected a positive multiple of "
+                             f"{cfg.num_hidden_layers}")
+    hits = [r for r in reqs if r.cached_tokens]
+    plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
+    _gate_ranks("prefix", plain, [hits[0], hits[-1]])
+
+    # logits of the prefix path (suffix prefill over the cached pages the
+    # engine kept) against an f32 plain forward, beside the bf16 plain
+    # forward's error: every suffix position, the last of which picked
+    # the first token
+    r = hits[0]
+    bs, nc = eng.block_size, r.cached_tokens
+    pages = eng.mgr.acquire_prefix(r.prompt, nc // bs, hashes=r.block_hashes)
+    if len(pages) * bs != nc:
+        raise AssertionError("prefix: the cached pages were evicted")
+    s = len(r.prompt) - nc
+    sb = -(-s // eng.prompt_bucket) * eng.prompt_bucket
+    ids = torch.zeros(1, sb, dtype=torch.long, device="cuda")
+    ids[0, :s] = torch.tensor(r.prompt[nc:], device="cuda")
+    full = torch.tensor([r.prompt], device="cuda")
+    head = _make_head_logits(cfg)
+    with torch.no_grad():
+        h, _ = _make_prefill_with_prefix(cfg, 1, sb, len(pages), bs)(
+            params, eng.kcs, eng.vcs, ids,
+            torch.tensor([pages], dtype=torch.int32, device="cuda"),
+            torch.tensor([nc], dtype=torch.int32, device="cuda"),
+            torch.tensor([s], dtype=torch.int32, device="cuda"))
+        got = head(h[:, :s], params)[0].float()
+        ref = plain(full)[0, nc:].float()
+    eng.mgr.free(pages)
+    del eng
+    params32 = {k: v.float() for k, v in params.items()}
+    with torch.no_grad():
+        ref32 = LlamaForCausalLM(cfg, use_kernels=False).load_params(
+            params32)(full)[0, nc:]
+    del params32
+    e_prefix, e_plain = rel_rms(got, ref32), rel_rms(ref, ref32)
+    e_first = rel_rms(got[-1], ref32[-1])
+    e_first_plain = rel_rms(ref[-1], ref32[-1])
+    log(f"[prefix] request {r.req_id} (prompt {len(r.prompt)}, {nc} cached):"
+        f" logits rel. RMS error vs the f32 plain forward, prefix path / "
+        f"bf16 plain path: first-token row {e_first:.3e} / "
+        f"{e_first_plain:.3e}, every suffix row {e_prefix:.3e} / "
+        f"{e_plain:.3e}")
+    # phase 2's rule: the kernel path no less accurate than the bf16
+    # plain path (within 25%), on the first-token row and on all rows
+    if not torch.isfinite(got).all() \
+            or e_first > 1.25 * e_first_plain + 1e-3 \
+            or e_prefix > 1.25 * e_plain + 1e-3:
+        raise AssertionError(f"prefix: prefix-path logits error {e_first} "
+                             f"(first token) / {e_prefix} vs bf16 plain "
+                             f"{e_first_plain} / {e_plain}")
+    return {"launches": launches}
+
+
+def phase_unified(cfg, params):
+    """Phase 4: the unified step. 16 requests submitted at once: a long
+    prompt first and 4 that share its first 512 tokens right after it (a
+    prefix becomes visible only when its request's last window commits,
+    and admission is FIFO), then 3 more long prompts (1200-2000 tokens,
+    5-8 windows of 256) and 8 short cold ones (16-200)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(
+        cfg, params, slots=8, prompt_bucket=128, max_prompt_len=2048,
+        max_new_tokens=32, block_size=64, steps_per_sync=8,
+        prefix_cache=True, unified_step=True, token_budget=256,
+        dtype=torch.bfloat16, device="cuda")
+    eng.warm()
+    rng = np.random.default_rng(SEED + 4)
+
+    def toks(n):
+        return rng.integers(1, cfg.vocab_size, int(n)).tolist()
+
+    longs = [toks(n) for n in rng.integers(1200, 2001, 4)]
+    sharers = [longs[0][:512] + toks(n) for n in rng.integers(100, 701, 4)]
+    shorts = [toks(n) for n in rng.integers(16, 201, 8)]
+    prompts = [longs[0]] + sharers + longs[1:] + shorts
+    reqs, wall, launches, m = serve(eng, prompts, "unified")
+    n = launches["ragged_paged_attention"]
+    if m["prefill_chunks"] <= 16:
+        raise AssertionError(f"unified: {m['prefill_chunks']} prefill "
+                             "windows, expected more than 16")
+    if m["prefix_hit_tokens"] <= 0:
+        raise AssertionError("unified: no prompt token was served from the "
+                             "prefix cache")
+    if n != cfg.num_hidden_layers * m["prefill_chunks"]:
+        raise AssertionError(f"unified: {n} ragged_paged_attention launches "
+                             f"for {m['prefill_chunks']} windows")
+    # fresh prompts: the served ones would now hit the prefix cache
+    profile_mixed(eng, [toks(n) for n in (100, 150, 40, 200)], toks(1500))
+    del eng
+    plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
+    hit = next(r for r in reqs if r.cached_tokens)
+    _gate_ranks("unified", plain, [reqs[0], hit])
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -373,7 +667,15 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     kernels = phase_kernels()
-    engine = phase_engine()
+    cfg, params = build_model()
+    # each kernel's launches come from the phase that drives its path
+    phases = {"engine": phase_engine(cfg, params),
+              "prefix": phase_prefix_cache(cfg, params),
+              "unified": phase_unified(cfg, params)}
+    own_phase = {"rms_norm": "engine", "flash_attention_fwd": "engine",
+                 "paged_decode_attention": "engine",
+                 "prefix_prefill_attention": "prefix",
+                 "ragged_paged_attention": "unified"}
 
     sources = {
         "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
@@ -384,13 +686,19 @@ def main() -> int:
         "paged_decode_attention": (
             "paddle_tpu_torch/csrc/paged_decode_attention.cu",
             "paddle_tpu/kernels/decode_attention.py:422"),
+        "prefix_prefill_attention": (
+            "paddle_tpu_torch/csrc/paged_prefill_attention.cu",
+            "paddle_tpu/kernels/prefix_prefill.py:266"),
+        "ragged_paged_attention": (
+            "paddle_tpu_torch/csrc/paged_prefill_attention.cu",
+            "paddle_tpu/kernels/ragged_attention.py:73"),
     }
     rows = []
     for name, cases in kernels.items():
-        n = engine["launches"][name]
+        n = phases[own_phase[name]]["launches"][name]
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the "
-                                 "engine's main path")
+                                 f"{own_phase[name]} phase's main path")
         main_case = cases[0]
         rows.append({
             "name": name, "route": "cuda", "source": sources[name][0],

@@ -70,8 +70,9 @@ def flag(name: str):
 # --- serving flags read by the port's engine ---
 define_flag("prefix_prefill_kernel", True,
             "serve cached-prefix suffix prefills through the ragged "
-            "paged prefix-prefill kernel (not ported yet: the port's "
-            "engine refuses prefix_cache=True) "
+            "paged prefix-prefill kernel. Mirrors the JAX registry; the "
+            "port has no jnp fallback to switch to, so its CUDA path "
+            "always launches the kernel "
             "(also: PADDLE_TPU_PREFIX_PREFILL_KERNEL)",
             env_aliases=("PADDLE_TPU_PREFIX_PREFILL_KERNEL",))
 define_flag("kv_cache_dtype", "bf16",
@@ -88,7 +89,7 @@ define_flag("decode_megakernel", "off",
 define_flag("unified_step", "auto",
             "serve mixed prefill+decode through the unified ragged step; "
             "'auto' (default) resolves to the split path in the port, "
-            "'1'/'0' force (the unified step is not ported yet) "
+            "'1'/'0' force "
             "(also: PADDLE_TPU_UNIFIED_STEP)",
             env_aliases=("PADDLE_TPU_UNIFIED_STEP",))
 define_flag("serving_mp", 1,

@@ -7,6 +7,10 @@ from .decode_attention import (paged_decode_attention,  # noqa: F401
 from .flash_attention import (flash_attention,  # noqa: F401
                               flash_attention_fwd,
                               flash_attention_reference)
+from .prefix_prefill import (prefix_prefill_attention,  # noqa: F401
+                             prefix_prefill_reference)
+from .ragged_attention import (ragged_paged_attention,  # noqa: F401
+                               ragged_paged_attention_reference)
 from .rms_norm import rms_norm, rms_norm_reference  # noqa: F401
 from .rms_norm import rms_norm as fused_rms_norm  # noqa: F401
 from .rope import apply_rotary_emb, rope_freqs  # noqa: F401

@@ -52,6 +52,14 @@ SIGNATURES = {
         "paged_decode_attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I,
                                           _I, _I, _I, _I, _I, _F, _I, _P),
     },
+    "paged_prefill_attention": {
+        # q, k_new, v_new, k_cache, v_cache, tables, cached_lens, new_lens,
+        # out, B, TN, Hq, Hkv, D, page, table_width, max_pages, scale,
+        # dtype, stream
+        "paged_prefill_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                           _P, _I, _I, _I, _I, _I, _I, _I,
+                                           _I, _F, _I, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -156,10 +164,17 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# launch counters, one per kernel function of the JAX package that a
+# wrapper stands for: a library serving two functions (paged prefill
+# attention serves prefix_prefill_attention and ragged_paged_attention)
+# has one counter per function
+COUNTERS = ("rms_norm", "flash_attention_fwd", "paged_decode_attention",
+            "prefix_prefill_attention", "ragged_paged_attention")
+
 # launches of each kernel since the last reset: every wrapper adds one
 # where it launches its kernel, and nowhere else (a run can then show
 # that its main path really went through the kernels)
-LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 
 def reset_launch_counts() -> None:

@@ -7,8 +7,10 @@ What is here:
 - the inference forward as ``nn.Module``s (``LlamaForCausalLM`` and its
   parts), used as the plain oracle the serving path is checked against;
 - the functional serving pieces over a decode-params dict
-  (``_make_prefill``, ``_make_decode_step``, ``make_paged_kv_helpers``,
-  ``PagedKVManager``), which ``serving.engine`` drives.
+  (``_make_prefill``, ``_make_prefill_with_prefix``,
+  ``_make_chunk_prefill``, ``_make_decode_step``,
+  ``make_paged_kv_helpers``, ``PagedKVManager``), which
+  ``serving.engine`` drives.
 
 Weight layout: every projection keeps paddle's ``Linear`` layout
 [in_features, out_features] (``y = x @ w``), in the decode-params dict and
@@ -17,7 +19,8 @@ the modules share storage with the dict. Keys are the JAX package's
 (``llama.layers.{i}.self_attn.q_proj.weight`` ...).
 
 The kernel wrappers (``rms_norm``, ``flash_attention``,
-``paged_decode_attention``) launch the CUDA kernels for CUDA tensors and
+``paged_decode_attention``, ``prefix_prefill_attention``,
+``ragged_paged_attention``) launch the CUDA kernels for CUDA tensors and
 run their plain versions for CPU tensors. ``LlamaForCausalLM(...,
 use_kernels=False)`` runs the plain versions on any device, which is how
 the card checks the kernels end to end.
@@ -25,6 +28,7 @@ the card checks the kernels end to end.
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import OrderedDict, namedtuple
 from typing import Dict, Optional
 
@@ -38,6 +42,8 @@ from ..framework.flags import flag as _flag
 from ..kernels.decode_attention import paged_decode_attention
 from ..kernels.flash_attention import (flash_attention,
                                        flash_attention_reference)
+from ..kernels.prefix_prefill import prefix_prefill_attention
+from ..kernels.ragged_attention import ragged_paged_attention
 from ..kernels.rms_norm import rms_norm as _k_rms
 from ..kernels.rms_norm import rms_norm_reference
 from ..kernels.rope import apply_rotary_emb
@@ -400,43 +406,121 @@ def _layer_kv(kcs, vcs, i, n_layers):
     return kcs[i], vcs[i], 0
 
 
+def _layers(cfg, p, h, pos_ids, attend):
+    """The decoder stack over the decode-params dict, from embedded
+    tokens h [b, s, hidden]: L x (rms / attention / mlp) -> final rms.
+    q and k are rotary-encoded at `pos_ids` ([s] or [b, s]); layer i's
+    attention context comes from ``attend(i, q, k, v)``. Returns (h_final,
+    [(k_i, v_i)]) with the rotary-applied K/V [b, s, nkv, dh] per layer."""
+    nh, nkv, dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                   cfg.head_dim)
+    eps = cfg.rms_norm_eps
+    b, s, _ = h.shape
+    kvs = []
+    for i in range(cfg.num_hidden_layers):
+        x = _k_rms(h, _lw(p, i, "input_layernorm.weight"), eps)
+        q = _mm(x, _lw(p, i, "self_attn.q_proj.weight")).reshape(
+            b, s, nh, dh)
+        k = _mm(x, _lw(p, i, "self_attn.k_proj.weight")).reshape(
+            b, s, nkv, dh)
+        v = _mm(x, _lw(p, i, "self_attn.v_proj.weight")).reshape(
+            b, s, nkv, dh)
+        q, k = apply_rotary_emb(q, k, position_ids=pos_ids,
+                                base=cfg.rope_theta)
+        kvs.append((k, v))
+        attn = attend(i, q, k, v)
+        h = h + _mm(attn.reshape(b, s, nh * dh),
+                    _lw(p, i, "self_attn.o_proj.weight"))
+        x2 = _k_rms(h, _lw(p, i, "post_attention_layernorm.weight"), eps)
+        gate = _mm(x2, _lw(p, i, "mlp.gate_proj.weight"))
+        up = _mm(x2, _lw(p, i, "mlp.up_proj.weight"))
+        h = h + _mm(F.silu(gate) * up, _lw(p, i, "mlp.down_proj.weight"))
+    return _k_rms(h, p["llama.norm.weight"], eps), kvs
+
+
 def _make_prefill(cfg, b, sb):
     """Per-layer prefill over the decode-params dict: embed ->
     L x (rms / attention / mlp) -> final rms. Returns (h_final,
     [(k_i, v_i)]) with rotary-applied K/V [b, sb, nkv, dh] per layer;
     the caller owns the cache layout."""
-    nh, nkv, dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                   cfg.head_dim)
-    n_layers = cfg.num_hidden_layers
-    eps = cfg.rms_norm_eps
-
     def prefill(p, ids):
         h = p["llama.embed_tokens.weight"][ids]          # [b, sb, h]
-        pos_ids = torch.arange(sb, device=h.device)
-        kvs = []
-        for i in range(n_layers):
-            x = _k_rms(h, _lw(p, i, "input_layernorm.weight"), eps)
-            q = _mm(x, _lw(p, i, "self_attn.q_proj.weight")).reshape(
-                b, sb, nh, dh)
-            k = _mm(x, _lw(p, i, "self_attn.k_proj.weight")).reshape(
-                b, sb, nkv, dh)
-            v = _mm(x, _lw(p, i, "self_attn.v_proj.weight")).reshape(
-                b, sb, nkv, dh)
-            q, k = apply_rotary_emb(q, k, position_ids=pos_ids,
-                                    base=cfg.rope_theta)
-            kvs.append((k, v))
-            attn = flash_attention(q, k, v, causal=True)
-            h = h + _mm(attn.reshape(b, sb, nh * dh),
-                        _lw(p, i, "self_attn.o_proj.weight"))
-            x2 = _k_rms(h, _lw(p, i, "post_attention_layernorm.weight"),
-                        eps)
-            gate = _mm(x2, _lw(p, i, "mlp.gate_proj.weight"))
-            up = _mm(x2, _lw(p, i, "mlp.up_proj.weight"))
-            h = h + _mm(F.silu(gate) * up, _lw(p, i, "mlp.down_proj.weight"))
-        h = _k_rms(h, p["llama.norm.weight"], eps)
-        return h, kvs
+        return _layers(cfg, p, h, torch.arange(sb, device=h.device),
+                       lambda i, q, k, v: flash_attention(q, k, v,
+                                                          causal=True))
 
     return prefill
+
+
+def _pool_pair(kcs, vcs, i, n_layers):
+    """Layer `i`'s bf16/f32 pools; an (int8 pool, scale) tuple is
+    refused (the int8 kernels are a later slice)."""
+    kc, vc, _ = _layer_kv(kcs, vcs, i, n_layers)
+    if isinstance(kc, tuple) or isinstance(vc, tuple):
+        raise NotImplementedError(
+            "int8 KV pools ((pool, scale) tuples) are not ported yet; see "
+            "ROADMAP.md 'TPU kernels to port', item 3 (int8 pools)")
+    return kc, vc
+
+
+def _make_window_prefill(cfg, tn, paged_attention):
+    """The prefill shared by the cached-prefix suffix prefill and the
+    unified step's chunk lane: `tn` new tokens per row at positions
+    cached[:, None] + arange(tn), each layer attending the row's cached
+    pool pages plus the window through `paged_attention` (the
+    prefix-prefill or ragged wrapper)."""
+    n_layers = cfg.num_hidden_layers
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+
+    def prefill(p, kcs, vcs, ids, tables, cached, new_lens=None):
+        h = p["llama.embed_tokens.weight"][ids]          # [b, tn, h]
+        pos_ids = cached.to(torch.int64)[:, None] \
+            + torch.arange(tn, device=h.device)[None, :]
+
+        def attend(i, q, k, v):
+            kc, vc = _pool_pair(kcs, vcs, i, n_layers)
+            return paged_attention(q, k, v, kc, vc, tables, cached,
+                                   new_lens, scale=scale)
+
+        return _layers(cfg, p, h, pos_ids, attend)
+
+    return prefill
+
+
+def _make_prefill_with_prefix(cfg, b, sb, w_pre, block_size):
+    """Suffix prefill over a cached block-aligned prefix (the JAX
+    function's single-device branch): hidden states for the `sb` uncached
+    suffix tokens only, attending over the prefix pages named by
+    `prefix_tables` [b, w_pre] plus the suffix, causally, through
+    ``prefix_prefill_attention``. `prefix_lens` [b] are cached token
+    counts (whole pages); suffix positions start there.
+
+    Returns prefill(p, kcs, vcs, ids, prefix_tables, prefix_lens,
+    suffix_lens=None) -> (h_final [b, sb, h], [(k_i, v_i)]) with
+    rotary-applied suffix K/V [b, sb, nkv, dh] per layer; the caller owns
+    the page scatter. Pad rows (>= suffix_lens) attend nothing and come
+    out of the attention as zeros."""
+    if sb % block_size or w_pre < 1:
+        raise ValueError(
+            f"prefix prefill needs a suffix bucket that is a whole number "
+            f"of pages ({sb} % {block_size}) and a prefix table at least "
+            f"one page wide (w_pre {w_pre})")
+    return _make_window_prefill(cfg, sb, prefix_prefill_attention)
+
+
+def _make_chunk_prefill(cfg, tn):
+    """Chunk lane of the unified serving step (the JAX function's
+    single-device branch): one prefill window of `tn` tokens for one
+    request, attending its committed tokens (earlier windows or a cached
+    prefix, named by `chunk_table` [1, w]) plus the window causally,
+    through ``ragged_paged_attention``. `cached_len` [1] may be any
+    token count; `new_len` [1] is the true chunk length (window rows past
+    it are pad rows, zeroed by the attention).
+
+    Returns prefill(p, kcs, vcs, ids, chunk_table, cached_len, new_len)
+    -> (h_final [1, tn, h], [(k_i, v_i)]) with rotary-applied window K/V
+    [1, tn, nkv, dh] per layer; the caller owns the page scatter."""
+    return _make_window_prefill(cfg, tn, ragged_paged_attention)
 
 
 def make_paged_kv_helpers(b, n_pre, nkv, dh, block_size, tables):
@@ -480,38 +564,20 @@ def _make_decode_step(cfg, b, max_seq=None, kv_write=None, kv_attend=None):
             "the contiguous-cache decode step (decode_attention / "
             "gqa_decode_attention kernels) is not ported yet; pass the "
             "paged kv_write / kv_attend")
-    nh, nkv, dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                   cfg.head_dim)
     n_layers = cfg.num_hidden_layers
-    eps = cfg.rms_norm_eps
     head_logits = _make_head_logits(cfg)
 
     def decode_step(p, kcs, vcs, tok, pos):
         """tok [B, 1] token ids; pos [B] tokens already cached (the new
         token's position, one per row)."""
         h = p["llama.embed_tokens.weight"][tok[:, 0]][:, None, :]
-        pos_ids = pos[:, None]
-        for i in range(n_layers):
-            x = _k_rms(h, _lw(p, i, "input_layernorm.weight"), eps)
-            q = _mm(x, _lw(p, i, "self_attn.q_proj.weight")).reshape(
-                b, 1, nh, dh)
-            k = _mm(x, _lw(p, i, "self_attn.k_proj.weight")).reshape(
-                b, 1, nkv, dh)
-            v = _mm(x, _lw(p, i, "self_attn.v_proj.weight")).reshape(
-                b, 1, nkv, dh)
-            q, k = apply_rotary_emb(q, k, position_ids=pos_ids,
-                                    base=cfg.rope_theta)
+
+        def attend(i, q, k, v):
             kc, vc, _ = _layer_kv(kcs, vcs, i, n_layers)
             kv_write(kc, vc, k, v, pos)
-            ctx = kv_attend(q[:, 0].contiguous(), kc, vc, pos)
-            h = h + _mm(ctx.reshape(b, 1, nh * dh),
-                        _lw(p, i, "self_attn.o_proj.weight"))
-            x2 = _k_rms(h, _lw(p, i, "post_attention_layernorm.weight"),
-                        eps)
-            gate = _mm(x2, _lw(p, i, "mlp.gate_proj.weight"))
-            up = _mm(x2, _lw(p, i, "mlp.up_proj.weight"))
-            h = h + _mm(F.silu(gate) * up, _lw(p, i, "mlp.down_proj.weight"))
-        h = _k_rms(h, p["llama.norm.weight"], eps)
+            return kv_attend(q[:, 0].contiguous(), kc, vc, pos)
+
+        h, _ = _layers(cfg, p, h, pos[:, None], attend)
         return head_logits(h, p)[:, -1], kcs, vcs
 
     return decode_step

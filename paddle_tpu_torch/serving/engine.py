@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over the paged KV cache
-(counterpart of paddle_tpu/serving/engine.py, split scheduler only).
+(counterpart of paddle_tpu/serving/engine.py, on one device).
 
 New prompts enter while other sequences decode, finished rows retire
 mid-stream and their pages recycle into the pool. The device sees fixed
@@ -12,18 +12,30 @@ shapes between host scheduling points:
   table columns past a request's pages repeat its last page);
 - per-slot lengths, tokens, budgets and live flags.
 
-Admission is FIFO and batched: the head run of waiting requests sharing
-a prompt bucket prefills in one call, padded to a power-of-two batch
-with rows aimed at the scratch page (the cold path: flash-attention
-prefill, then a page scatter). Decode runs `steps_per_sync` tokens for
-every slot per chunk (a Python loop of decode steps, each one paged
-decode attention per layer), then the host reads the chunk back, retires
-EOS / finished rows and admits from the queue. A per-row budget
-(prompt + max_new) freezes rows on the device, so a chunk never writes
-past a request's reserved pages.
+Two schedulers, as in the JAX engine:
 
-Options of the JAX engine that this port does not serve yet raise
-NotImplementedError naming their ROADMAP.md item.
+- **split** (``unified_step=False``, the default): FIFO admission,
+  batched. The head run of waiting requests sharing a (suffix bucket,
+  cached-vs-cold) key prefills in one call, padded to a power-of-two batch
+  with rows aimed at the scratch page. Cold rows take the flash-attention
+  prefill; rows whose prompt head hit the prefix cache map the cached
+  pages into their tables and prefill only the suffix, through the
+  prefix-prefill kernel. Decode then runs `steps_per_sync` tokens for
+  every slot per chunk, the host reads the chunk back, retires EOS /
+  finished rows and admits from the queue.
+- **unified** (``unified_step=True``): the FIFO head streams its prompt
+  through `token_budget`-token windows (chunked prefill, over the ragged
+  paged attention kernel), each window dispatched together with every
+  live slot's decode chunk; pure-decode steps run the plain decode chunk.
+
+With ``prefix_cache`` (default on) every freshly computed full prompt
+block is registered in the manager's refcounted prefix cache once its
+request's prefill commits, and later requests map it in.
+
+A per-row budget (prompt + max_new) freezes rows on the device, so a
+chunk never writes past a request's reserved pages. Options of the JAX
+engine that this port does not serve yet raise NotImplementedError naming
+their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -38,10 +50,11 @@ import torch
 from ..device import resolve_device
 from ..kernels import _build
 from ..kernels.flash_attention import KERNEL_HEAD_DIMS
-from ..models.llama import (PagedKVManager, _make_head_logits,
-                            _make_prefill, _sample_next,
-                            make_paged_decode_step, make_paged_kv_helpers,
-                            resolve_decode_megakernel,
+from ..models.llama import (PagedKVManager, _make_chunk_prefill,
+                            _make_head_logits, _make_prefill,
+                            _make_prefill_with_prefix, _sample_next,
+                            hash_prefix_blocks, make_paged_decode_step,
+                            make_paged_kv_helpers, resolve_decode_megakernel,
                             resolve_kv_cache_dtype, resolve_serving_cp,
                             resolve_serving_mp, resolve_unified_step)
 
@@ -66,7 +79,12 @@ class ServeRequest:
     # host-side scheduling state (None until admitted)
     slot: Optional[int] = None
     pages: Optional[list] = None
-    bucket: Optional[int] = None           # prompt bucket it prefilled at
+    bucket: Optional[int] = None           # suffix bucket it prefilled at
+    n_prefix: int = 0                      # cached prefix blocks mapped in
+    cached_tokens: int = 0                 # prompt tokens served from cache
+    # chained block hashes, computed once at add_request (planning runs
+    # for every waiting request on every scheduling step)
+    block_hashes: Optional[list] = None
 
     @property
     def done(self) -> bool:
@@ -83,8 +101,10 @@ class _Slot:
         self.done = False      # EOS seen inside a chunk
 
 
-# admission plan for one waiting request: prompt bucket, pages to reserve
-_Plan = namedtuple("_Plan", "sb need")
+# admission plan for one waiting request: suffix bucket, cached prefix
+# blocks, cached pages currently refcount-0 (they leave the available pool
+# on acquire), private pages to reserve, true suffix length
+_Plan = namedtuple("_Plan", "sb_suf n_cached n_lru need suffix_len")
 
 
 class ContinuousBatchingEngine:
@@ -100,9 +120,13 @@ class ContinuousBatchingEngine:
 
     `params` is the decode-params dict (``init_serving_params`` or
     ``params_from_jax``) on `device` (None = cuda). A request is admitted
-    when a slot is free and the pool holds its full reservation
-    (ceil((bucketed prompt + max_new) / block_size) pages), so no
-    preemption is ever needed."""
+    when a slot is free and the pool holds its full reservation (cached
+    prefix blocks map in for free; the private pages cover the bucketed
+    suffix plus max_new), so no preemption is ever needed.
+
+    `unified_step` (default from FLAGS_unified_step; 'auto' is the split
+    path) serves prefill through `token_budget`-token windows (a multiple
+    of `block_size`; default the prompt bucket) next to the decode chunk."""
 
     def __init__(self, cfg, dec_params, *, slots: int = 8,
                  prompt_bucket: int = 64, max_prompt_len: int = 512,
@@ -114,17 +138,15 @@ class ContinuousBatchingEngine:
                  top_k: int = 0, temperature: float = 1.0,
                  top_p: float = 1.0, seed: int = 0,
                  dtype: torch.dtype = torch.bfloat16,
-                 prefix_cache: bool = False, double_buffer: bool = False,
+                 prefix_cache: bool = True, double_buffer: bool = False,
                  kv_cache_dtype: Optional[str] = None,
                  decode_megakernel=None,
                  serving_mp: Optional[int] = None,
                  serving_cp: Optional[int] = None,
                  disaggregated: bool = False, unified_step=None,
+                 token_budget: Optional[int] = None,
                  speculative: Optional[str] = None,
                  config=None, tracer=None, metrics=None, device=None):
-        if prefix_cache:
-            raise _unported("prefix_cache=True (it needs the prefix_prefill "
-                            "kernel)")
         if double_buffer:
             raise _unported("double_buffer=True")
         if disaggregated:
@@ -138,8 +160,6 @@ class ContinuousBatchingEngine:
             raise _unported("kv_cache_dtype='int8'")
         if resolve_decode_megakernel(decode_megakernel) != "off":
             raise _unported("decode_megakernel other than 'off'")
-        if resolve_unified_step(unified_step):
-            raise _unported("unified_step=True")
         if resolve_serving_mp(serving_mp) > 1:
             raise _unported("serving_mp > 1")
         if resolve_serving_cp(serving_cp) > 1:
@@ -156,6 +176,16 @@ class ContinuousBatchingEngine:
                 f"prompt_bucket {prompt_bucket} must be a whole number of "
                 f"KV pages (multiple of block_size {block_size}) so "
                 f"prefill scatters whole pages")
+        self.unified = resolve_unified_step(unified_step)
+        if token_budget is None:
+            token_budget = prompt_bucket
+        if token_budget % block_size or token_budget < block_size:
+            raise ValueError(
+                f"token_budget {token_budget} must be a whole number "
+                f"of KV pages (multiple of block_size {block_size}) so "
+                "chunk boundaries stay page-aligned and the window "
+                "scatter writes whole pages")
+        self.token_budget = int(token_budget)
         self.device = resolve_device(device)
         emb = dec_params["llama.embed_tokens.weight"]
         if emb.device != self.device:
@@ -180,10 +210,17 @@ class ContinuousBatchingEngine:
         self.top_k = int(top_k)
         self.temperature = temperature
         self.top_p = top_p
+        self.prefix_cache = bool(prefix_cache)
         # pool capacity: every slot full-length at the engine budget, plus
-        # the scratch page; the cold-path width bounds every block table
+        # the scratch page. Per-request reservations are never larger:
+        # _plan trims a cached prefix until cached blocks + the bucketed
+        # suffix's pages fit the cold-path worst case, so the cold-path
+        # width bounds every block table and admission cannot livelock
         cap = self._capacity_pages(self.max_prompt_len)
         self.table_width = cap
+        # widest cached prefix any request can map (>= 1 suffix token
+        # always prefills, so the last block is never part of a prefix)
+        self._prefix_width = max(1, (self.max_prompt_len - 1) // block_size)
         nkv, dh = cfg.num_key_value_heads, cfg.head_dim
         if max_pages is None:
             max_pages = slots * cap + 1
@@ -207,8 +244,18 @@ class ContinuousBatchingEngine:
         self._next_id = 0
         self._prefill_cache = {}
         self._decode = self._build_decode_chunk()
-        self.device_steps = 0    # decode-chunk dispatches
+        # the mixed prefill-window + decode program, unified path only
+        self._unified = self._build_unified_step() if self.unified else None
+        # the request streaming prefill windows through the unified step:
+        # {"req": ServeRequest, "done": prompt tokens committed}
+        self._prefilling = None
+        self.device_steps = 0    # decode-chunk (and mixed-step) dispatches
         self.prefill_calls = 0   # batched-admission device calls
+        self.prefill_chunks = 0  # unified prefill windows dispatched
+        self.chunk_tokens = 0    # prompt tokens prefilled via windows
+        self.prompt_tokens = 0       # prompt tokens admitted in total
+        self.prefix_hit_tokens = 0   # prompt tokens served from the cache
+        self.prefix_inserts = 0      # blocks registered into the cache
         self.decode_s = 0.0      # host wall time of decode chunks, synced
         self.prefill_s = 0.0     # host wall time of prefill calls, synced
 
@@ -226,17 +273,38 @@ class ContinuousBatchingEngine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.waiting) or self.n_active > 0
+        return bool(self.waiting) or self._prefilling is not None \
+            or self.n_active > 0
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of admitted prompt tokens served from the prefix
+        cache instead of being prefilled."""
+        if not self.prompt_tokens:
+            return 0.0
+        return self.prefix_hit_tokens / self.prompt_tokens
 
     def metrics(self) -> dict:
-        """Scheduling counters and each kernel's launch count (since the
-        last ``kernels.reset_launch_counts()``)."""
+        """Scheduling counters, prefix-cache effectiveness and each
+        kernel's launch count (since the last
+        ``kernels.reset_launch_counts()``)."""
         return {
             "requests_finished": len(self.finished),
             "requests_waiting": len(self.waiting),
             "requests_active": self.n_active,
             "prefill_calls": self.prefill_calls,
             "device_steps": self.device_steps,
+            "unified_step": self.unified,
+            "token_budget": self.token_budget,
+            "prefill_chunks": self.prefill_chunks,
+            "chunk_tokens": self.chunk_tokens,
+            "prefix_hit_rate": self.prefix_hit_rate,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prompt_tokens": self.prompt_tokens,
+            "prefix_inserts": self.prefix_inserts,
+            "prefix_evictions": self.mgr.prefix_evictions,
+            "n_available": self.mgr.n_available,
+            "n_cached": self.mgr.n_cached,
             "decode_s": self.decode_s,
             "prefill_s": self.prefill_s,
             "kernel_launches": _build.launch_counts(),
@@ -269,15 +337,25 @@ class ContinuousBatchingEngine:
                 f"request needs {need} pages (bucketed prompt {sb} + "
                 f"max_new {req.max_new}) but the pool holds only "
                 f"{self.mgr.max_pages - 1}")
+        if self.prefix_cache:
+            req.block_hashes = hash_prefix_blocks(prompt, self.block_size)
         self._next_id += 1
         self.waiting.append(req)
         return req
 
     # ---- device programs ------------------------------------------------
 
+    def _first_token(self, h, last, p, head_logits):
+        """Sample each row's first token from h[row, last[row]]."""
+        rows = torch.arange(h.shape[0], device=h.device)
+        logits = head_logits(h[rows, last][:, None], p)[:, -1]
+        return _sample_next(logits.to(torch.float32), self._gen,
+                            self.do_sample, self.temperature, self.top_k,
+                            self.top_p)
+
     def _build_prefill(self, sb: int, bsz: int):
-        """Prefill `bsz` requests in one call: scatter each row's pages,
-        pick each row's first token at its own true length."""
+        """Prefill `bsz` cold requests in one call: scatter each row's
+        pages, pick each row's first token at its own true length."""
         cfg = self.cfg
         base = _make_prefill(cfg, bsz, sb)
         head_logits = _make_head_logits(cfg)
@@ -289,18 +367,36 @@ class ContinuousBatchingEngine:
                 scatter(kcs[i], vcs[i], k, v, pages)
             # the first token reads row s0-1 (clamped like a JAX gather)
             last = torch.clamp(s0_vec - 1, 0, sb - 1)
-            h_last = h[torch.arange(bsz, device=h.device), last][:, None]
-            logits = head_logits(h_last, p)[:, -1]
-            return _sample_next(logits.to(torch.float32), self._gen,
-                                self.do_sample, self.temperature,
-                                self.top_k, self.top_p)
+            return self._first_token(h, last, p, head_logits)
+
+        return run
+
+    def _build_prefix_prefill(self, sb: int, bsz: int, w_pre: int):
+        """Like _build_prefill, for rows whose prompt head hit the prefix
+        cache: only the `sb`-bucketed suffix is computed, reading the
+        cached prefix through per-row prefix tables [bsz, w_pre] (the
+        prefix-prefill kernel)."""
+        cfg = self.cfg
+        base = _make_prefill_with_prefix(cfg, bsz, sb, w_pre,
+                                         self.block_size)
+        head_logits = _make_head_logits(cfg)
+        scatter = self._page_scatter(bsz, sb // self.block_size)
+
+        def run(p, kcs, vcs, ids, s0_vec, pages, ptables, plens):
+            h, kvs = base(p, kcs, vcs, ids, ptables, plens,
+                          s0_vec.to(torch.int32))
+            for i, (k, v) in enumerate(kvs):
+                scatter(kcs[i], vcs[i], k, v, pages)
+            last = torch.clamp(s0_vec - 1, 0, sb - 1)
+            return self._first_token(h, last, p, head_logits)
 
         return run
 
     def _page_scatter(self, bsz: int, n_pre: int):
-        """Prefill K/V [bsz, sb, nkv, dh] -> whole pages, in place. Pad
-        positions [s0, sb) land in pages above the decode watermark;
-        decode overwrites them before any row attends them."""
+        """Prefill K/V [bsz, n_pre*block_size, nkv, dh] -> whole pages, in
+        place. Pad positions land in pages above the decode watermark (or
+        in the scratch page, which no row attends); decode overwrites them
+        before any row attends them."""
         cfg = self.cfg
         to_pages, _ = make_paged_kv_helpers(
             bsz, n_pre, cfg.num_key_value_heads, cfg.head_dim,
@@ -353,11 +449,76 @@ class ContinuousBatchingEngine:
 
         return run
 
+    def _build_unified_step(self):
+        """The mixed step: every live slot's decode chunk (the split
+        engine's, unchanged) composed with ONE ragged prefill window of
+        `token_budget` tokens for the request currently prefilling. The
+        lanes touch disjoint pages (the window's pages belong to a request
+        no decode slot maps), so they run one after the other on the same
+        pools. A decode lane with no live slot would only compute frozen
+        rows, so it is skipped; its outputs are then all frozen."""
+        cfg, b, bs = self.cfg, self.slots, self.block_size
+        tn = self.token_budget
+        eos = self.eos
+        decode_chunk = self._decode
+        chunk_body = _make_chunk_prefill(cfg, tn)
+        head_logits = _make_head_logits(cfg)
+        scatter = self._page_scatter(1, tn // bs)
+
+        def run(p, kcs, vcs, toks, lens, budgets, tables, live, any_live,
+                chunk_ids, chunk_table, chunk_cached, chunk_len,
+                chunk_pages):
+            if any_live:
+                out, lens_o, done = decode_chunk(p, kcs, vcs, toks, lens,
+                                                 budgets, tables, live)
+            else:
+                out = torch.full((b, self.steps),
+                                 eos if eos is not None else 0,
+                                 dtype=torch.int64, device=toks.device)
+                lens_o, done = lens, torch.zeros_like(live)
+            h, kvs = chunk_body(p, kcs, vcs, chunk_ids, chunk_table,
+                                chunk_cached, chunk_len)
+            for i, (k, v) in enumerate(kvs):
+                scatter(kcs[i], vcs[i], k, v, chunk_pages)
+            # first-token logits at the window's true last position --
+            # meaningful only when this window completes the prompt
+            last = torch.clamp(chunk_len.to(torch.int64) - 1, 0, tn - 1)
+            first = self._first_token(h, last, p, head_logits)
+            return out, lens_o, done, first
+
+        return run
+
     def _get_prefill(self, sb: int, bsz: int):
-        key = (sb, bsz)
+        key = ("cold", sb, bsz)
         if key not in self._prefill_cache:
             self._prefill_cache[key] = self._build_prefill(sb, bsz)
         return self._prefill_cache[key]
+
+    def _get_prefix_prefill(self, sb: int, bsz: int, w_pre: int):
+        key = ("prefix", sb, bsz, w_pre)
+        if key not in self._prefill_cache:
+            self._prefill_cache[key] = self._build_prefix_prefill(
+                sb, bsz, w_pre)
+        return self._prefill_cache[key]
+
+    def _prefix_width_ladder(self) -> list:
+        """The prefix-table widths (in pages) prefix prefills run at:
+        powers of two of the pages-per-prompt-bucket quantum, capped at
+        `_prefix_width`. A batch's width is padded up to the next rung, so
+        a shallow-hit batch does not walk the deepest possible table."""
+        ppb = max(1, self.prompt_bucket // self.block_size)
+        widths, w = [], ppb
+        while w < self._prefix_width:
+            widths.append(w)
+            w *= 2
+        widths.append(self._prefix_width)
+        return widths
+
+    def _prefix_width_for(self, n_blocks: int) -> int:
+        for w in self._prefix_width_ladder():
+            if w >= n_blocks:
+                return w
+        return self._prefix_width
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -379,17 +540,47 @@ class ContinuousBatchingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    # ---- scheduling -----------------------------------------------------
+    # ---- split scheduling -----------------------------------------------
 
     def _plan(self, req: ServeRequest) -> _Plan:
-        sb = -(-len(req.prompt) // self.prompt_bucket) * self.prompt_bucket
-        return _Plan(sb, self._capacity_pages_for(sb, req.max_new))
+        """Admission plan: cached-prefix split + page reservation for one
+        waiting request (a pure lookup; takes no references)."""
+        bs = self.block_size
+        L = len(req.prompt)
+        cold_sb = -(-L // self.prompt_bucket) * self.prompt_bucket
+        cold_total = self._capacity_pages_for(cold_sb, req.max_new)
+        n_cached = 0
+        if self.prefix_cache:
+            # at least one suffix token always prefills (the first-token
+            # logits must be computed even on a full hit)
+            max_blocks = (L - 1) // bs
+            if max_blocks > 0:
+                n_cached, _ = self.mgr.prefix_lookup(
+                    req.prompt, max_blocks, hashes=req.block_hashes)
+        while True:
+            suffix_len = L - n_cached * bs
+            sb_suf = -(-suffix_len // self.prompt_bucket) \
+                * self.prompt_bucket
+            need = self._capacity_pages_for(sb_suf, req.max_new)
+            # a block- but not bucket-aligned prefix widens the suffix
+            # bucket: trim it until the hit path's pages never exceed the
+            # cold path's (what the pool and table_width are sized to)
+            if n_cached == 0 or n_cached + need <= cold_total:
+                break
+            n_cached -= 1
+        n_lru = 0
+        if n_cached:
+            n_lru = self.mgr.prefix_lookup(req.prompt, n_cached,
+                                           hashes=req.block_hashes)[1]
+        return _Plan(sb_suf, n_cached, n_lru, need, suffix_len)
 
     def _admit(self):
         """FIFO admission, batched: the head run of waiting requests
-        sharing a prompt bucket -- bounded by free slots, available pages
-        and prefill_batch -- prefills in ONE call, padded to a power of
-        two with rows aimed at the scratch page."""
+        sharing a (suffix bucket, cached-vs-cold) key -- bounded by free
+        slots, available pages and prefill_batch -- prefills in ONE call,
+        padded to a power of two with rows aimed at the scratch page.
+        After the call, every freshly computed full prompt block enters
+        the prefix cache."""
         bs = self.block_size
         while self.waiting:
             free_slots = [i for i, s in enumerate(self._slots)
@@ -398,48 +589,93 @@ class ContinuousBatchingEngine:
                 return
             limit = min(len(free_slots), self.prefill_batch)
             head = self._plan(self.waiting[0])
+            key = (head.sb_suf, head.n_cached > 0)
             batch, plans = [], []
+            # available = free + evictable; acquiring a refcount-0 cached
+            # page also consumes availability (n_lru)
             avail = self.mgr.n_available
             for req in self.waiting:
                 if len(batch) >= limit:
                     break
                 plan = head if not batch else self._plan(req)
-                if plan.sb != head.sb:
+                if (plan.sb_suf, plan.n_cached > 0) != key:
                     break
-                if plan.need > avail:
+                if plan.need + plan.n_lru > avail:
                     break  # FIFO: a short request must not starve the head
-                avail -= plan.need
+                avail -= plan.need + plan.n_lru
                 batch.append(req)
                 plans.append(plan)
             if not batch:
                 return  # head is blocked on pages
-            sb = head.sb
-            n_pre = sb // bs
+            sb_suf, has_prefix = key
+            n_pre = sb_suf // bs
             bsz = 1
             while bsz < len(batch):
                 bsz *= 2
-            ids = np.zeros((bsz, sb), np.int64)
+            ids = np.zeros((bsz, sb_suf), np.int64)
             s0s = np.ones((bsz,), np.int64)
             pages = np.full((bsz, n_pre), self.scratch_page, np.int64)
+            # prefix-table width: the ladder rung covering the deepest hit
+            # in this batch
+            w_call = self._prefix_width_for(
+                max(plan.n_cached for plan in plans)) if has_prefix else 1
+            ptbl = np.full((bsz, w_call), self.scratch_page, np.int32)
+            plens = np.zeros((bsz,), np.int32)
+            # pin every row's cached prefix BEFORE any alloc: alloc_pages
+            # evicts refcount-0 cached pages, and a pinned page never is
+            acquired = [self.mgr.acquire_prefix(req.prompt, plan.n_cached,
+                                                hashes=req.block_hashes)
+                        if plan.n_cached else []
+                        for req, plan in zip(batch, plans)]
             for row, (req, plan) in enumerate(zip(batch, plans)):
-                req.pages = self.mgr.alloc_pages(plan.need)
-                req.bucket = sb
+                cached = acquired[row]
+                priv = self.mgr.alloc_pages(plan.need)
+                req.bucket = sb_suf
                 req.slot = free_slots[row]
-                ids[row, :len(req.prompt)] = req.prompt
-                s0s[row] = len(req.prompt)
-                pages[row] = req.pages[:n_pre]
+                req.pages = cached + priv
+                req.n_prefix = len(cached)
+                req.cached_tokens = len(cached) * bs
+                suffix = req.prompt[req.cached_tokens:]
+                ids[row, :len(suffix)] = suffix
+                s0s[row] = len(suffix)
+                pages[row] = priv[:n_pre]
+                if cached:
+                    ptbl[row, :len(cached)] = cached
+                    plens[row] = req.cached_tokens
             self.prefill_calls += 1
             t0 = time.perf_counter()
-            firsts = self._get_prefill(sb, bsz)(
-                self.p, self.kcs, self.vcs, self._to_dev(ids),
-                self._to_dev(s0s), self._to_dev(pages)).cpu().numpy()
+            if has_prefix:
+                fn = self._get_prefix_prefill(sb_suf, bsz, w_call)
+                firsts = fn(self.p, self.kcs, self.vcs, self._to_dev(ids),
+                            self._to_dev(s0s), self._to_dev(pages),
+                            self._to_dev(ptbl), self._to_dev(plens))
+            else:
+                fn = self._get_prefill(sb_suf, bsz)
+                firsts = fn(self.p, self.kcs, self.vcs, self._to_dev(ids),
+                            self._to_dev(s0s), self._to_dev(pages))
+            firsts = firsts.cpu().numpy()
             self.prefill_s += time.perf_counter() - t0
             del self.waiting[:len(batch)]
             now = time.perf_counter()
             for row, req in enumerate(batch):
                 req.tokens.append(int(firsts[row]))
                 req.prefill_time = now
+                self._account_prefill(req)
                 self._bind_slot(req.slot, req)
+
+    def _account_prefill(self, req: ServeRequest):
+        """A request's prefill committed: count its prompt and cache hits
+        and register its freshly computed full prompt blocks (their K/V
+        depends on the prefix alone; decode writes start at len(prompt),
+        never inside them). First writer wins on a hash race."""
+        self.prompt_tokens += len(req.prompt)
+        self.prefix_hit_tokens += req.cached_tokens
+        if self.prefix_cache:
+            full = len(req.prompt) // self.block_size
+            if full > req.n_prefix:
+                self.prefix_inserts += self.mgr.insert_prefix(
+                    req.prompt, req.pages[req.n_prefix:full],
+                    start_block=req.n_prefix, hashes=req.block_hashes)
 
     def _bind_slot(self, slot_id: int, req: ServeRequest):
         """Install a prefilled request into a decode slot: map its pages
@@ -464,6 +700,8 @@ class ContinuousBatchingEngine:
         req = slot.req
         req.finish_time = time.perf_counter()
         self.finished.append(req)
+        # refcount-aware: private pages recycle now; shared prefix pages
+        # only once no live slot maps them (then LRU, evicted on pressure)
         self.mgr.free(req.pages)
         req.pages = None
         slot.req, slot.length, slot.emitted, slot.done = None, 0, 0, False
@@ -472,18 +710,24 @@ class ContinuousBatchingEngine:
         self._tokens[slot_id] = 0
         self._budgets[slot_id] = 0
 
+    def _live(self) -> np.ndarray:
+        return np.asarray([s.req is not None for s in self._slots])
+
+    def _decode_inputs(self, live):
+        lens = np.asarray([s.length for s in self._slots], np.int32)
+        return (self._to_dev(self._tokens), self._to_dev(lens),
+                self._to_dev(self._budgets), self._to_dev(self._tables),
+                self._to_dev(live))
+
     def _dispatch_chunk(self):
         """Enqueue one decode chunk; returns its record (None if no slot
         is live)."""
-        live = np.asarray([s.req is not None for s in self._slots])
+        live = self._live()
         if not live.any():
             return None
-        lens = np.asarray([s.length for s in self._slots], np.int32)
         t0 = time.perf_counter()
-        out, new_lens, done = self._decode(
-            self.p, self.kcs, self.vcs, self._to_dev(self._tokens),
-            self._to_dev(lens), self._to_dev(self._budgets),
-            self._to_dev(self._tables), self._to_dev(live))
+        out, new_lens, done = self._decode(self.p, self.kcs, self.vcs,
+                                           *self._decode_inputs(live))
         self.device_steps += 1
         return {"out": out, "lens": new_lens, "done": done,
                 "reqs": [s.req for s in self._slots], "t0": t0}
@@ -514,9 +758,123 @@ class ContinuousBatchingEngine:
                 self._retire(slot_id)
         return produced
 
+    # ---- unified scheduling ---------------------------------------------
+
+    def _plan_unified(self, req: ServeRequest) -> _Plan:
+        """Token-budget admission plan: the EXACT page reservation,
+        ceil((prompt - cached + max_new) / block) private pages next to
+        the cached prefix blocks. No bucket rounding, so no prefix trim:
+        cached + private = ceil((prompt + max_new) / block), within the
+        cold-path bound the pool and table_width are sized to."""
+        bs = self.block_size
+        L = len(req.prompt)
+        n_cached = n_lru = 0
+        if self.prefix_cache:
+            max_blocks = (L - 1) // bs  # >= 1 window token always prefills
+            if max_blocks > 0:
+                n_cached, n_lru = self.mgr.prefix_lookup(
+                    req.prompt, max_blocks, hashes=req.block_hashes)
+        suffix = L - n_cached * bs
+        need = -(-(suffix + req.max_new) // bs)
+        return _Plan(None, n_cached, n_lru, need, suffix)
+
+    def _admit_unified(self):
+        """Start prefilling the FIFO head when the chunk lane is free, its
+        pages fit, and a decode slot will exist at completion. Its whole
+        reservation (cached prefix pinned + private pages) commits here;
+        the prompt then streams through `token_budget` windows."""
+        if self._prefilling is not None or not self.waiting:
+            return
+        req = self.waiting[0]
+        plan = self._plan_unified(req)
+        # one free slot now guarantees one at completion: only completion
+        # binds slots in unified mode, retirements only add free ones
+        if not any(s.req is None for s in self._slots):
+            return
+        if plan.need + plan.n_lru > self.mgr.n_available:
+            return
+        cached = self.mgr.acquire_prefix(
+            req.prompt, plan.n_cached,
+            hashes=req.block_hashes) if plan.n_cached else []
+        priv = self.mgr.alloc_pages(plan.need)
+        self.waiting.pop(0)
+        req.pages = cached + priv
+        req.n_prefix = len(cached)
+        req.cached_tokens = len(cached) * self.block_size
+        req.bucket = self.token_budget
+        self._prefilling = {"req": req, "done": req.cached_tokens}
+
+    def _dispatch_commit_unified(self) -> int:
+        """One mixed step: every live slot's decode chunk plus the next
+        prefill window of the prefilling request; commit both lanes."""
+        st = self._prefilling
+        req = st["req"]
+        L = len(req.prompt)
+        done = st["done"]
+        tn, bs = self.token_budget, self.block_size
+        n_win = tn // bs
+        this_chunk = min(L - done, tn)
+        wp0 = done // bs
+        # window pages past the request's reservation go to the scratch
+        # page (repeated ids in one scatter are fine: nothing attends it)
+        win_pages = req.pages[wp0:wp0 + n_win]
+        win_pages += [self.scratch_page] * (n_win - len(win_pages))
+        ids = np.zeros((1, tn), np.int64)
+        ids[0, :this_chunk] = req.prompt[done:done + this_chunk]
+        tbl = np.full((1, self.table_width), self.scratch_page, np.int32)
+        tbl[0, :len(req.pages)] = req.pages
+        live = self._live()
+        t0 = time.perf_counter()
+        out, new_lens, dn, first = self._unified(
+            self.p, self.kcs, self.vcs, *self._decode_inputs(live),
+            bool(live.any()), self._to_dev(ids), self._to_dev(tbl),
+            self._to_dev(np.asarray([done], np.int32)),
+            self._to_dev(np.asarray([this_chunk], np.int32)),
+            self._to_dev(np.asarray([win_pages], np.int64)))
+        self.device_steps += 1
+        self.prefill_chunks += 1
+        rec = {"out": out, "lens": new_lens, "done": dn,
+               "reqs": [s.req for s in self._slots], "t0": t0}
+        produced = self._commit_chunk(rec)
+        first = int(first.cpu()[0])
+        st["done"] = done + this_chunk
+        self.chunk_tokens += this_chunk
+        if st["done"] >= L:
+            self._prefilling = None
+            self._finish_unified_prefill(req, first)
+        return produced
+
+    def _finish_unified_prefill(self, req: ServeRequest, first: int):
+        """The final window of a prompt committed: account the admission,
+        register its fresh full blocks in the prefix cache, and bind it to
+        a decode slot."""
+        req.tokens.append(first)
+        req.prefill_time = time.perf_counter()
+        self._account_prefill(req)
+        free = [i for i, s in enumerate(self._slots) if s.req is None]
+        if not free:
+            raise RuntimeError(
+                "no free decode slot at unified prefill completion -- "
+                "_admit_unified guarantees one")
+        self._bind_slot(free[0], req)
+
+    def _step_unified(self) -> int:
+        self._admit_unified()
+        if self._prefilling is not None:
+            return self._dispatch_commit_unified()
+        rec = self._dispatch_chunk()
+        if rec is None:
+            return 0
+        return self._commit_chunk(rec)
+
+    # ---- the loop -------------------------------------------------------
+
     def step(self) -> int:
-        """One scheduling iteration: admit -> decode chunk -> read back
-        -> retire. Returns the number of tokens produced."""
+        """One scheduling iteration: admit -> decode chunk (with a
+        prefill window on the unified path) -> read back -> retire.
+        Returns the number of tokens produced."""
+        if self.unified:
+            return self._step_unified()
         self._admit()
         rec = self._dispatch_chunk()
         if rec is None:

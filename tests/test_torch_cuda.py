@@ -7,10 +7,12 @@ without them:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: rms_norm and paged decode compute in f32 from the same
-inputs and round once, so they may differ by one bf16 rounding step
-(|a - b| <= 2^-7 * max(|ref|, 1)); flash attention's plain twin rounds
-the scores to bf16 where the kernel keeps f32 (atol 3e-2 on N(0, 1)).
+Tolerances: rms_norm, paged decode and paged prefill attention compute
+in f32 from the same inputs and round once, so they may differ by one
+bf16 rounding step (|a - b| <= 2^-7 * max(|ref|, 1)), or by 1e-5 in f32;
+flash attention's plain twin rounds the scores to bf16 where the kernel
+keeps f32 (atol 3e-2 on N(0, 1)). Paged prefill attention's pad query
+rows must be exact zeros on the card too.
 """
 import numpy as np
 import pytest
@@ -109,3 +111,89 @@ def test_paged_decode_refuses_int64_tables(dev):
         paged_decode_attention(q, kc, kc, torch.zeros(1, 1, device=dev,
                                                       dtype=torch.int64),
                                torch.zeros(1, device=dev, dtype=torch.int32))
+
+
+def _prefill_inputs(dev, dtype, b, tn, hq, hkv, d, page, cached, new, seed):
+    """Permuted tables covering each row's cached tokens; pools hold
+    every row's pages plus page 0, which stands for the scratch page."""
+    g = torch.Generator().manual_seed(seed)
+    w = max(1, max(-(-c // page) for c in cached))
+    n_pages = b * w + 1
+    kc, vc = (torch.randn(n_pages, hkv, page, d, generator=g)
+              for _ in range(2))
+    q = torch.randn(b, tn, hq, d, generator=g)
+    kn, vn = (torch.randn(b, tn, hkv, d, generator=g) for _ in range(2))
+    tables = (torch.randperm(n_pages - 1, generator=g)[: b * w] + 1
+              ).reshape(b, w).to(torch.int32)
+    lens = [torch.tensor(x, dtype=torch.int32).to(dev) for x in (cached, new)]
+    return [t.to(dev, dtype) for t in (q, kn, vn, kc, vc)] \
+        + [tables.to(dev)] + lens
+
+
+def _check_paged_prefill(got, ref, new, dtype):
+    """Pad rows exact zeros, nothing NaN; live rows within 1e-5 (f32:
+    same f32 math, other summation order) or one bf16 rounding step
+    (both compute in f32 from the same inputs and round once)."""
+    assert torch.isfinite(got.float()).all()
+    for row, n in enumerate(new):
+        assert (got[row, n:] == 0).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref.to(dtype), atol=1e-5, rtol=0)
+    else:
+        _within_one_bf16_step(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (8, 8, 64), (8, 1, 128)])
+def test_prefix_prefill_kernel(dev, dtype, hq, hkv, d):
+    """Whole-page prefixes of 0..8 pages, suffix lengths with pad rows
+    and a one-token suffix."""
+    from paddle_tpu_torch.kernels.prefix_prefill import (
+        prefix_prefill_attention, prefix_prefill_reference)
+
+    page, sb = 64, 128
+    cached, new = [0, 64, 256, 512], [128, 1, 77, 100]
+    args = _prefill_inputs(dev, dtype, 4, sb, hq, hkv, d, page, cached,
+                           new, seed=hq + d)
+    got = _launched("prefix_prefill_attention",
+                    lambda: prefix_prefill_attention(*args))
+    _check_paged_prefill(got, prefix_prefill_reference(*args), new, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cached,new,tn", [
+    ([0, 1344 + 37], [256, 100], 256),             # mid-page cached length
+    ([0, 5, 63, 64, 65, 130, 700, 0], [1, 1, 1, 1, 1, 1, 1, 64], 64),
+    ([9, 0, 200], [0, 40, 3], 40),                 # window not page-sized
+])
+def test_ragged_paged_attention_kernel(dev, dtype, cached, new, tn):
+    from paddle_tpu_torch.kernels.ragged_attention import (
+        ragged_paged_attention, ragged_paged_attention_reference)
+
+    args = _prefill_inputs(dev, dtype, len(cached), tn, 32, 8, 128, 64,
+                           cached, new, seed=tn)
+    got = _launched("ragged_paged_attention",
+                    lambda: ragged_paged_attention(*args))
+    _check_paged_prefill(got, ragged_paged_attention_reference(*args), new,
+                         dtype)
+
+
+def test_paged_prefill_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.kernels.prefix_prefill import (
+        prefix_prefill_attention)
+    from paddle_tpu_torch.kernels.ragged_attention import (
+        ragged_paged_attention)
+
+    args = _prefill_inputs(dev, torch.bfloat16, 1, 64, 4, 2, 128, 64, [64],
+                           [64], seed=0)
+    with pytest.raises(ValueError, match="whole number"):
+        prefix_prefill_attention(*[a[:, :48] if i < 3 else a
+                                   for i, a in enumerate(args)])
+    bad = list(args)
+    bad[5] = bad[5].to(torch.int64)
+    with pytest.raises(ValueError, match="int32"):
+        ragged_paged_attention(*bad)
+    odd = _prefill_inputs(dev, torch.bfloat16, 1, 64, 4, 2, 48, 64, [64],
+                          [64], seed=0)
+    with pytest.raises(ValueError, match="head_dim"):
+        ragged_paged_attention(*odd)

@@ -1,7 +1,7 @@
 """The port's continuous-batching engine (paddle_tpu_torch.serving)
 against the JAX engine, on the CPU, in f32 on ``LlamaConfig.tiny()``.
 
-The JAX engine is built on the same split path the port serves
+The JAX engine is built on the same split path as the port's engine
 (``unified_step=False, prefix_cache=False``, f32 pools), on the same
 weights. Greedy token streams must be identical; a divergence is
 allowed only at a step where the JAX model's top-2 logit margin is below
@@ -64,9 +64,10 @@ def test_engine_tokens_match_jax_engine():
     prompts = [rng.integers(1, cfg.vocab_size, (n,)).tolist()
                for n in (3, 7, 9, 5, 8, 2)]
     kw = dict(slots=2, prompt_bucket=8, max_prompt_len=16,
-              max_new_tokens=6, block_size=8, steps_per_sync=3)
-    jeng = JaxEngine(jcfg, raw, unified_step=False, prefix_cache=False,
-                     dtype=jnp.float32, **kw)
+              max_new_tokens=6, block_size=8, steps_per_sync=3,
+              prefix_cache=False)
+    jeng = JaxEngine(jcfg, raw, unified_step=False, dtype=jnp.float32,
+                     **kw)
     teng = _engine(cfg, p, **kw)
     for pr in prompts:
         jeng.add_request(pr)
@@ -189,14 +190,14 @@ def test_warm_metrics_and_cpu_launch_counts():
     assert m["requests_finished"] == 1 and m["prefill_calls"] == 1
     assert m["device_steps"] == 2
     # CPU tensors take the plain versions: no kernel launched
-    assert m["kernel_launches"] == {n: 0 for n in _build.SIGNATURES}
+    assert m["kernel_launches"] == {n: 0 for n in _build.COUNTERS}
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(prefix_cache=True), dict(double_buffer=True),
+    dict(double_buffer=True),
     dict(disaggregated=True), dict(config={"a": 1}),
     dict(kv_cache_dtype="int8"), dict(decode_megakernel="attn"),
-    dict(unified_step=True), dict(serving_mp=2), dict(serving_cp=2),
+    dict(serving_mp=2), dict(serving_cp=2),
     dict(speculative="ngram"), dict(tracer=object()),
     dict(metrics=object())])
 def test_unported_options_raise(kwargs):

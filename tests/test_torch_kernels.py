@@ -209,4 +209,4 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     torch.testing.assert_close(flash_attention(q, q, q, causal=True),
                                flash_attention_reference(q, q, q, True),
                                atol=0, rtol=0)
-    assert _build.launch_counts() == {name: 0 for name in _build.SIGNATURES}
+    assert _build.launch_counts() == {name: 0 for name in _build.COUNTERS}
