@@ -19,12 +19,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    suffixes through prefix_prefill_attention.
 4. The unified step: 16 requests, long prompts chunked into 256-token
    windows through ragged_paged_attention, some sharing a cached prefix.
-5. Print the kernel table as one JSON line (each kernel's launches from
+5. int8 KV pools on the split path with the prefix cache: phase 3's
+   traffic, the pool sized by kv_pool_bytes= at phase 3's bf16 pool
+   bytes; decode and cache-hit prefills through the int8 kernels.
+6. int8 KV pools on the unified step: phase 4's traffic; windows through
+   the int8 ragged kernel beside the int8 decode lane.
+7. Print the kernel table as one JSON line (each kernel's launches from
    the phase that drives it), the card's name and power limit, and the
    closing {"ok": true, ...} line.
 
 Every phase resets the kernel launch counters just before it serves and
-reads them just after.
+reads them just after: a bf16 phase must launch no int8 kernel, an int8
+phase no bf16 paged-attention kernel.
 
 Exits non-zero (and prints no result) without a CUDA device, or when
 the paddle_tpu_torch package is not beside this script.
@@ -47,6 +53,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 SEED = 0
+# int8 phases: a served token must rank within this many logits of the
+# teacher-forced bf16 plain forward's argmax (that forward reads no
+# quantized cache; the bf16 phases' bar is 0.5)
+INT8_RANK_MARGIN = 1.0
+PAGED_ATTENTION = ("paged_decode_attention", "prefix_prefill_attention",
+                   "ragged_paged_attention")
 
 
 def log(msg: str) -> None:
@@ -158,11 +170,26 @@ def check_flash(b: int, sq: int, sk: int, hq: int, hkv: int, d: int):
                 bound_ms=b_ms, bound_by=by, library_ms=lib_ms)
 
 
-def check_paged_decode(b: int, hq: int, hkv: int, d: int, bs: int):
+def quantized(pools):
+    """bf16 pools -> [(int8 pool, f32 scales)] through the port's own
+    quantize-on-scatter, and the bf16 pools those stand for (dequantized
+    in f32, rounded once), which the library yardsticks read."""
+    from paddle_tpu_torch.models.llama import quantize_kv_pages
+
+    q8 = [quantize_kv_pages(p) for p in pools]
+    deq = [(p.float() * s[..., None, None]).to(torch.bfloat16)
+           for p, s in q8]
+    return q8, deq
+
+
+def check_paged_decode(b: int, hq: int, hkv: int, d: int, bs: int,
+                       q8: bool = False):
     """Permuted tables, ragged lens including 0, a page boundary
     (lens = k*bs - 1 and k*bs) and a row past its table (lens >= W*bs).
     Both versions score and accumulate in f32 from the same bf16 inputs
-    and round once: one bf16 ulp apart at most (ulp_check)."""
+    and round once: one bf16 ulp apart at most (ulp_check). `q8`: the
+    same over int8 pools with their scales (the plain version dequantizes
+    in f32 first, the kernel folds the scales into its f32 sums)."""
     from paddle_tpu_torch.kernels.decode_attention import (
         paged_decode_attention, paged_decode_attention_reference)
 
@@ -178,13 +205,20 @@ def check_paged_decode(b: int, hq: int, hkv: int, d: int, bs: int):
     tables = perm[: b * w].reshape(b, w).to(torch.int32).cuda()
     lens_l = [0, bs - 1, bs, 3 * bs + 17, 500, w * bs - 1, w * bs + 5, 257]
     lens = torch.tensor((lens_l * b)[:b], dtype=torch.int32, device="cuda")
-    args = (q, pools[0], pools[1], tables, lens)
-    err = ulp_check(f"paged_decode_attention Hq{hq}/Hkv{hkv}",
-                    paged_decode_attention(*args),
-                    paged_decode_attention_reference(*args))
-    ms = time_ms(lambda: paged_decode_attention(*args))
-    plain_ms = time_ms(lambda: paged_decode_attention_reference(*args))
-    # library yardstick: SDPA over the cache gathered beforehand
+    kw = {}
+    if q8:
+        ((kc, ksc), (vc, vsc)), pools = quantized(pools)
+        args = (q, kc, vc, tables, lens)
+        kw = dict(k_scale=ksc, v_scale=vsc)
+    else:
+        args = (q, pools[0], pools[1], tables, lens)
+    err = ulp_check(f"paged_decode_attention Hq{hq}/Hkv{hkv} q8={q8}",
+                    paged_decode_attention(*args, **kw),
+                    paged_decode_attention_reference(*args, **kw))
+    ms = time_ms(lambda: paged_decode_attention(*args, **kw))
+    plain_ms = time_ms(lambda: paged_decode_attention_reference(*args, **kw))
+    # library yardstick: SDPA over the cache gathered (and, for int8,
+    # dequantized) beforehand
     tl = tables.long()
     kg, vg = (p[tl].permute(0, 2, 1, 3, 4).reshape(b, hkv, w * bs, d)
               for p in pools)
@@ -192,25 +226,30 @@ def check_paged_decode(b: int, hq: int, hkv: int, d: int, bs: int):
             <= lens.long()[:, None])[:, None, None, :]
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None, :], kg, vg, attn_mask=mask, enable_gqa=True))
-    # pages this run's lens name: min(W, len // bs + 1) per row
+    # pages this run's lens name: min(W, len // bs + 1) per row; an int8
+    # page is 1 byte per element plus its two f32 scales per kv head
     pages = sum(min(w, int(n) // bs + 1) for n in lens.tolist())
     ctx = pages * bs
-    n_bytes = 2 * ctx * hkv * d * 2 + 2 * b * hq * d * 2 + b * (w + 1) * 4
+    pool_bytes = 2 * ctx * hkv * d + 2 * pages * hkv * 4 if q8 \
+        else 2 * ctx * hkv * d * 2
+    n_bytes = pool_bytes + 2 * b * hq * d * 2 + b * (w + 1) * 4
     b_ms, by = bound_ms(n_bytes, 4 * hq * d * ctx)
-    return dict(case=f"B{b} Hq{hq} Hkv{hkv} D{d} block{bs} pages{pages}",
+    return dict(case=f"B{b} Hq{hq} Hkv{hkv} D{d} block{bs} pages{pages}"
+                     f"{' int8 pools' if q8 else ''}",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, library_ms=lib_ms)
 
 
 def check_paged_prefill(name: str, b: int, tn: int, cached, new,
                         w: int = 0, hq: int = 32, hkv: int = 8,
-                        d: int = 128, page: int = 64):
+                        d: int = 128, page: int = 64, q8: bool = False):
     """One launch path of csrc/paged_prefill_attention.cu against its
     plain version: permuted tables, page ids past the cached tokens left
     as pad (page 0), pad query rows (>= new) checked for exact zeros and
     nothing NaN. Both versions score and accumulate in f32 (P and V stay
     f32, as in the JAX body) from the same bf16 inputs and round once:
-    one bf16 rounding step apart at most (ulp_check)."""
+    one bf16 rounding step apart at most (ulp_check). `q8`: the same over
+    int8 pools with their scales."""
     from paddle_tpu_torch.kernels.prefix_prefill import (
         prefix_prefill_attention, prefix_prefill_reference)
     from paddle_tpu_torch.kernels.ragged_attention import (
@@ -241,24 +280,30 @@ def check_paged_prefill(name: str, b: int, tn: int, cached, new,
     tables = tables.cuda()
     cl = torch.tensor(cached, dtype=torch.int32, device="cuda")
     nl = torch.tensor(new, dtype=torch.int32, device="cuda")
+    kw = {}
+    if q8:
+        ((kc, ksc), (vc, vsc)), (kd, vd) = quantized([kc, vc])
+        kw = dict(k_scale=ksc, v_scale=vsc)
     args = (q, kn, vn, kc, vc, tables, cl, nl)
-    out = fn(*args)
+    out = fn(*args, **kw)
     torch.cuda.synchronize()
     if torch.isnan(out.float()).any():
         raise AssertionError(f"{name}: NaN in the output")
     for row, n in enumerate(new):
         if (out[row, n:] != 0).any():
             raise AssertionError(f"{name}: pad rows of row {row} not zero")
-    err = ulp_check(name, out, ref_fn(*args))
-    ms = time_ms(lambda: fn(*args))
-    plain_ms = time_ms(lambda: ref_fn(*args), iters=5)
-    # library yardstick: SDPA over the cache gathered beforehand and
-    # concatenated with the window, under the same mask as an explicit one
+    err = ulp_check(f"{name} q8={q8}", out, ref_fn(*args, **kw))
+    ms = time_ms(lambda: fn(*args, **kw))
+    plain_ms = time_ms(lambda: ref_fn(*args, **kw), iters=5)
+    # library yardstick: SDPA over the cache gathered (and, for int8,
+    # dequantized) beforehand and concatenated with the window, under the
+    # same mask as an explicit one
     span = w * page
     tl = tables.long()
     keys, vals = (torch.cat([pool[tl].permute(0, 2, 1, 3, 4).reshape(
         b, hkv, span, d), new_.transpose(1, 2)], dim=2)
-        for pool, new_ in ((kc, kn), (vc, vn)))
+        for pool, new_ in (((kd, kn), (vd, vn)) if q8
+                           else ((kc, kn), (vc, vn))))
     pos = torch.arange(tn, device="cuda")
     cache_ok = torch.arange(span, device="cuda")[None, :] < cl[:, None]
     win_ok = (pos[None, :] <= pos[:, None])[None] \
@@ -269,15 +314,21 @@ def check_paged_prefill(name: str, b: int, tn: int, cached, new,
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, keys, vals, attn_mask=mask, enable_gqa=True))
     # what this run's data needs: live query rows read, every output row
-    # written, cached tokens' K/V and live window K/V read once; each live
-    # query of row r at window position i attends cached[r] + i + 1 keys
+    # written, cached tokens' K/V and live window K/V read once (int8: one
+    # byte per cached element plus two f32 scales per named page and kv
+    # head); each live query of row r at window position i attends
+    # cached[r] + i + 1 keys
     live = sum(new)
-    n_bytes = 2 * (hq * d * (live + b * tn)
-                   + 2 * hkv * d * (sum(cached) + live)) + 4 * b * (w + 2)
+    named = sum(-(-c // page) for c in cached)
+    cache_bytes = 2 * hkv * d * sum(cached) + 2 * 4 * hkv * named if q8 \
+        else 2 * 2 * hkv * d * sum(cached)
+    n_bytes = 2 * (hq * d * (live + b * tn) + 2 * hkv * d * live) \
+        + cache_bytes + 4 * b * (w + 2)
     pairs = sum(n * c + n * (n + 1) // 2 for c, n in zip(cached, new))
     b_ms, by = bound_ms(n_bytes, 4 * hq * d * pairs)
     return dict(case=f"B{b} tn{tn} Hq{hq} Hkv{hkv} D{d} page{page} W{w} "
-                     f"cached {list(cached)} new {list(new)}",
+                     f"cached {list(cached)} new {list(new)}"
+                     f"{' int8 pools' if q8 else ''}",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, library_ms=lib_ms)
 
@@ -307,6 +358,20 @@ def phase_kernels():
             check_paged_prefill("ragged_paged_attention", 8, 64,
                                 [0, 37, 64, 200, 511, 700, 1381, 256],
                                 [1, 1, 1, 1, 1, 1, 1, 64])],
+        # the int8-pool variants at the same shapes
+        "paged_decode_attention_int8": [
+            check_paged_decode(8, 32, 8, 128, 64, q8=True),
+            check_paged_decode(8, 32, 32, 128, 64, q8=True)],
+        "prefix_prefill_attention_int8": [
+            check_paged_prefill("prefix_prefill_attention", 4, 128,
+                                [0, 64, 256, 512], [128, 1, 77, 100], w=8,
+                                q8=True)],
+        "ragged_paged_attention_int8": [
+            check_paged_prefill("ragged_paged_attention", 2, 256,
+                                [0, 1344 + 37], [256, 100], q8=True),
+            check_paged_prefill("ragged_paged_attention", 8, 64,
+                                [0, 37, 64, 200, 511, 700, 1381, 256],
+                                [1, 1, 1, 1, 1, 1, 1, 64], q8=True)],
     }
     for name, cases in res.items():
         for c in cases:
@@ -360,6 +425,13 @@ def serve(eng, prompts, phase: str):
                                  "of vocab")
     m = eng.metrics()
     n_tok = sum(len(r.tokens) for r in reqs)
+    int8 = sum(n for k, n in launches.items() if k.endswith("_int8"))
+    bf16 = sum(launches[k] for k in PAGED_ATTENTION)
+    if (eng.kv_dtype == "int8" and bf16) or (eng.kv_dtype != "int8"
+                                             and int8):
+        raise AssertionError(f"{phase}: {eng.kv_dtype} pools launched "
+                             f"{bf16} bf16 and {int8} int8 paged-attention "
+                             f"kernels: {launches}")
     log(f"[{phase}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f}s: "
         f"{n_tok / wall:.1f} tok/s; prefill calls {m['prefill_calls']} "
         f"({m['prefill_s']:.3f}s), prefill windows {m['prefill_chunks']}, "
@@ -492,7 +564,8 @@ def profile_decode(eng, prompts):
     for p in prompts:
         eng.add_request(p, max_new=9)
     eng._admit()
-    profile_step(eng, "one decode chunk (8 steps x 8 slots)")
+    profile_step(eng, f"one decode chunk (8 steps x 8 slots, "
+                      f"{eng.kv_dtype} pools)")
     eng.run()
 
 
@@ -513,10 +586,10 @@ def profile_mixed(eng, short, long):
     eng.run()
 
 
-def _gate_ranks(phase: str, plain, reqs) -> None:
-    """Every served token of `reqs` ranks within 0.5 logit of the bf16
+def _gate_ranks(phase: str, plain, reqs, limit: float = 0.5) -> float:
+    """Every served token of `reqs` ranks within `limit` logit of the bf16
     plain forward's argmax (phase 2's rule: random bf16 weights make
-    near-ties, so token identity is not the test)."""
+    near-ties, so token identity is not the test). Returns the worst."""
     worst = 0.0
     for r in reqs:
         margin = rank_margin(plain, r)
@@ -524,9 +597,68 @@ def _gate_ranks(phase: str, plain, reqs) -> None:
             f"{r.cached_tokens}): served tokens' worst gap to the bf16 "
             f"plain argmax {margin:.3f}")
         worst = max(worst, margin)
-    if worst > 0.5:
+    if worst > limit:
         raise AssertionError(f"{phase}: a served token ranks {worst:.3f} "
-                             "below the plain argmax (limit 0.5)")
+                             f"below the plain argmax (limit {limit})")
+    return worst
+
+
+def _gate_multiple(phase: str, launches, name: str, per: int) -> int:
+    n = launches[name]
+    if n <= 0 or n % per:
+        raise AssertionError(f"{phase}: {n} {name} launches, expected a "
+                             f"positive multiple of {per}")
+    return n
+
+
+def prefix_traffic(cfg):
+    """Phase 3's (and phase 5's) prompts: one shared 512-token system
+    prompt (8 pages) plus 24 suffixes of 16-200 tokens."""
+    rng = np.random.default_rng(SEED + 3)
+    system = rng.integers(1, cfg.vocab_size, 512).tolist()
+    return [system + rng.integers(1, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(16, 201, 24)]
+
+
+def unified_traffic(cfg):
+    """Phase 4's (and phase 6's) prompts: a long prompt first and 4 that
+    share its first 512 tokens right after it, then 3 more long prompts
+    (1200-2000 tokens) and 8 short cold ones (16-200)."""
+    rng = np.random.default_rng(SEED + 4)
+
+    def toks(n):
+        return rng.integers(1, cfg.vocab_size, int(n)).tolist()
+
+    longs = [toks(n) for n in rng.integers(1200, 2001, 4)]
+    sharers = [longs[0][:512] + toks(n) for n in rng.integers(100, 701, 4)]
+    shorts = [toks(n) for n in rng.integers(16, 201, 8)]
+    return [longs[0]] + sharers + longs[1:] + shorts
+
+
+def prefix_path_logits(eng, r, phase: str):
+    """Logits of request `r`'s suffix rows through the prefix path: the
+    suffix prefill over the cached prefix pages `eng` kept (its own pool
+    dtype), at r's true suffix length. Returns [suffix, vocab] f32."""
+    from paddle_tpu_torch.models.llama import (_make_head_logits,
+                                               _make_prefill_with_prefix)
+
+    bs, nc = eng.block_size, r.cached_tokens
+    pages = eng.mgr.acquire_prefix(r.prompt, nc // bs, hashes=r.block_hashes)
+    if len(pages) * bs != nc:
+        raise AssertionError(f"{phase}: the cached pages were evicted")
+    s = len(r.prompt) - nc
+    sb = -(-s // eng.prompt_bucket) * eng.prompt_bucket
+    ids = torch.zeros(1, sb, dtype=torch.long, device="cuda")
+    ids[0, :s] = torch.tensor(r.prompt[nc:], device="cuda")
+    with torch.no_grad():
+        h, _ = _make_prefill_with_prefix(eng.cfg, 1, sb, len(pages), bs)(
+            eng.p, eng.kcs, eng.vcs, ids,
+            torch.tensor([pages], dtype=torch.int32, device="cuda"),
+            torch.tensor([nc], dtype=torch.int32, device="cuda"),
+            torch.tensor([s], dtype=torch.int32, device="cuda"))
+        got = _make_head_logits(eng.cfg)(h[:, :s], eng.p)[0].float()
+    eng.mgr.free(pages)
+    return got
 
 
 def phase_prefix_cache(cfg, params):
@@ -536,8 +668,6 @@ def phase_prefix_cache(cfg, params):
     once: the first batch prefills cold and inserts the shared pages, later
     batches prefill only their suffixes through prefix_prefill_attention."""
     from paddle_tpu_torch.models import LlamaForCausalLM
-    from paddle_tpu_torch.models.llama import (_make_head_logits,
-                                               _make_prefill_with_prefix)
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
 
     eng = ContinuousBatchingEngine(
@@ -545,19 +675,14 @@ def phase_prefix_cache(cfg, params):
         max_new_tokens=32, block_size=64, steps_per_sync=8,
         prefix_cache=True, dtype=torch.bfloat16, device="cuda")
     eng.warm()
-    rng = np.random.default_rng(SEED + 3)
-    system = rng.integers(1, cfg.vocab_size, 512).tolist()
-    prompts = [system + rng.integers(1, cfg.vocab_size, int(n)).tolist()
-               for n in rng.integers(16, 201, 24)]
-    reqs, wall, launches, m = serve(eng, prompts, "prefix")
-    n = launches["prefix_prefill_attention"]
+    reqs, wall, launches, m = serve(eng, prefix_traffic(cfg), "prefix")
     if m["prefix_hit_tokens"] <= 0:
         raise AssertionError("prefix: no prompt token was served from the "
                              "prefix cache")
-    if n <= 0 or n % cfg.num_hidden_layers:
-        raise AssertionError(f"prefix: {n} prefix_prefill_attention "
-                             "launches, expected a positive multiple of "
-                             f"{cfg.num_hidden_layers}")
+    _gate_multiple("prefix", launches, "prefix_prefill_attention",
+                   cfg.num_hidden_layers)
+    pool = {"kv_pool_bytes": m["kv_pool_bytes"],
+            "n_cacheable_pages": m["n_cacheable_pages"]}
     hits = [r for r in reqs if r.cached_tokens]
     plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
     _gate_ranks("prefix", plain, [hits[0], hits[-1]])
@@ -567,31 +692,21 @@ def phase_prefix_cache(cfg, params):
     # forward's error: every suffix position, the last of which picked
     # the first token
     r = hits[0]
-    bs, nc = eng.block_size, r.cached_tokens
-    pages = eng.mgr.acquire_prefix(r.prompt, nc // bs, hashes=r.block_hashes)
-    if len(pages) * bs != nc:
-        raise AssertionError("prefix: the cached pages were evicted")
-    s = len(r.prompt) - nc
-    sb = -(-s // eng.prompt_bucket) * eng.prompt_bucket
-    ids = torch.zeros(1, sb, dtype=torch.long, device="cuda")
-    ids[0, :s] = torch.tensor(r.prompt[nc:], device="cuda")
+    nc = r.cached_tokens
+    got = prefix_path_logits(eng, r, "prefix")
     full = torch.tensor([r.prompt], device="cuda")
-    head = _make_head_logits(cfg)
     with torch.no_grad():
-        h, _ = _make_prefill_with_prefix(cfg, 1, sb, len(pages), bs)(
-            params, eng.kcs, eng.vcs, ids,
-            torch.tensor([pages], dtype=torch.int32, device="cuda"),
-            torch.tensor([nc], dtype=torch.int32, device="cuda"),
-            torch.tensor([s], dtype=torch.int32, device="cuda"))
-        got = head(h[:, :s], params)[0].float()
         ref = plain(full)[0, nc:].float()
-    eng.mgr.free(pages)
+    # phase 5 profiles the same chunk over int8 pools
+    profile_decode(eng, prefix_traffic(cfg)[:8])
     del eng
     params32 = {k: v.float() for k, v in params.items()}
     with torch.no_grad():
         ref32 = LlamaForCausalLM(cfg, use_kernels=False).load_params(
             params32)(full)[0, nc:]
     del params32
+    oracle = {"req_id": r.req_id, "prompt": r.prompt, "ref": ref,
+              "ref32": ref32}
     e_prefix, e_plain = rel_rms(got, ref32), rel_rms(ref, ref32)
     e_first = rel_rms(got[-1], ref32[-1])
     e_first_plain = rel_rms(ref[-1], ref32[-1])
@@ -608,7 +723,8 @@ def phase_prefix_cache(cfg, params):
         raise AssertionError(f"prefix: prefix-path logits error {e_first} "
                              f"(first token) / {e_prefix} vs bf16 plain "
                              f"{e_first_plain} / {e_plain}")
-    return {"launches": launches}
+    return {"launches": launches, "tokens": [r.tokens for r in reqs],
+            "oracle": oracle, "e_prefix": (e_first, e_prefix), **pool}
 
 
 def phase_unified(cfg, params):
@@ -626,16 +742,12 @@ def phase_unified(cfg, params):
         prefix_cache=True, unified_step=True, token_budget=256,
         dtype=torch.bfloat16, device="cuda")
     eng.warm()
-    rng = np.random.default_rng(SEED + 4)
+    reqs, wall, launches, m = serve(eng, unified_traffic(cfg), "unified")
+    rng = np.random.default_rng(SEED + 5)
 
     def toks(n):
         return rng.integers(1, cfg.vocab_size, int(n)).tolist()
 
-    longs = [toks(n) for n in rng.integers(1200, 2001, 4)]
-    sharers = [longs[0][:512] + toks(n) for n in rng.integers(100, 701, 4)]
-    shorts = [toks(n) for n in rng.integers(16, 201, 8)]
-    prompts = [longs[0]] + sharers + longs[1:] + shorts
-    reqs, wall, launches, m = serve(eng, prompts, "unified")
     n = launches["ragged_paged_attention"]
     if m["prefill_chunks"] <= 16:
         raise AssertionError(f"unified: {m['prefill_chunks']} prefill "
@@ -655,6 +767,108 @@ def phase_unified(cfg, params):
     return {"launches": launches}
 
 
+def phase_int8_split(cfg, params, bf16):
+    """Phase 5: int8 KV pools on the split path with the prefix cache,
+    over phase 3's traffic, the pool sized by a byte budget equal to
+    phase 3's bf16 pool bytes (so it holds about twice the pages). Gates:
+    every request returns 32 tokens, int8 decode and cache-hit prefill
+    launches are positive multiples of the layer count and no bf16
+    paged-attention kernel runs (serve), served tokens rank within
+    INT8_RANK_MARGIN of the bf16 plain argmax. Prints, without gating,
+    the token-match rate against phase 3's bf16 tokens."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(
+        cfg, params, slots=8, prompt_bucket=128, max_prompt_len=1024,
+        max_new_tokens=32, block_size=64, steps_per_sync=8,
+        prefix_cache=True, kv_cache_dtype="int8",
+        kv_pool_bytes=bf16["kv_pool_bytes"], dtype=torch.bfloat16,
+        device="cuda")
+    eng.warm()
+    reqs, wall, launches, m = serve(eng, prefix_traffic(cfg), "int8-split")
+    if m["prefix_hit_tokens"] <= 0:
+        raise AssertionError("int8-split: no prompt token was served from "
+                             "the prefix cache")
+    L = cfg.num_hidden_layers
+    _gate_multiple("int8-split", launches, "paged_decode_attention_int8", L)
+    _gate_multiple("int8-split", launches, "prefix_prefill_attention_int8",
+                   L)
+    log(f"[int8-split] pools at kv_pool_bytes={bf16['kv_pool_bytes']} "
+        f"(phase 3's bf16 bytes): int8 {m['kv_pool_bytes']} bytes, "
+        f"{m['n_cacheable_pages']} cacheable pages against bf16's "
+        f"{bf16['n_cacheable_pages']} "
+        f"({m['n_cacheable_pages'] / bf16['n_cacheable_pages']:.3f}x)")
+    same = total = first = 0
+    for r, theirs in zip(reqs, bf16["tokens"]):
+        same += sum(a == b for a, b in zip(r.tokens, theirs))
+        total += len(theirs)
+        first += r.tokens[0] == theirs[0]
+    log(f"[int8-split] token match vs phase 3 (bf16 pools, same traffic): "
+        f"{same}/{total} = {same / total:.4f}; first tokens {first}/"
+        f"{len(reqs)}")
+    # accuracy where no token choice intervenes: the int8 prefix path's
+    # logits for phase 3's checked request against phase 3's f32 and
+    # bf16 plain forwards (printed, not gated)
+    o = bf16["oracle"]
+    r = reqs[o["req_id"]]
+    if r.prompt != o["prompt"] or not r.cached_tokens:
+        raise AssertionError("int8-split: phase 3's checked request was "
+                             "not a cache hit here")
+    got = prefix_path_logits(eng, r, "int8-split")
+    ref32 = o["ref32"]
+    e_first, e_all = rel_rms(got[-1], ref32[-1]), rel_rms(got, ref32)
+    log(f"[int8-split] request {r.req_id} ({r.cached_tokens} cached): "
+        f"logits rel. RMS error vs the f32 plain forward, int8 prefix path "
+        f"/ bf16 prefix path (phase 3) / bf16 plain path: first-token row "
+        f"{e_first:.3e} / {bf16['e_prefix'][0]:.3e} / "
+        f"{rel_rms(o['ref'][-1], ref32[-1]):.3e}, every suffix row "
+        f"{e_all:.3e} / {bf16['e_prefix'][1]:.3e} / "
+        f"{rel_rms(o['ref'], ref32):.3e}; int8 vs bf16 plain max |diff| "
+        f"{float((got - o['ref']).abs().max()):.3f}")
+    profile_decode(eng, prefix_traffic(cfg)[:8])
+    del eng
+    plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
+    hits = [r for r in reqs if r.cached_tokens]
+    worst = _gate_ranks("int8-split", plain, [hits[0], hits[-1]],
+                        INT8_RANK_MARGIN)
+    return {"launches": launches, "worst_margin": worst,
+            "match_rate": same / total}
+
+
+def phase_int8_unified(cfg, params):
+    """Phase 6: int8 KV pools on the unified step, over phase 4's traffic:
+    windows through the int8 ragged kernel (one launch per layer per
+    window) beside the int8 decode lane; phase 5's gates."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(
+        cfg, params, slots=8, prompt_bucket=128, max_prompt_len=2048,
+        max_new_tokens=32, block_size=64, steps_per_sync=8,
+        prefix_cache=True, unified_step=True, token_budget=256,
+        kv_cache_dtype="int8", dtype=torch.bfloat16, device="cuda")
+    eng.warm()
+    reqs, wall, launches, m = serve(eng, unified_traffic(cfg),
+                                    "int8-unified")
+    L = cfg.num_hidden_layers
+    if m["prefill_chunks"] <= 16 or m["prefix_hit_tokens"] <= 0:
+        raise AssertionError(f"int8-unified: {m['prefill_chunks']} windows, "
+                             f"{m['prefix_hit_tokens']} cache-hit tokens")
+    _gate_multiple("int8-unified", launches, "paged_decode_attention_int8", L)
+    n = _gate_multiple("int8-unified", launches,
+                       "ragged_paged_attention_int8", L)
+    if n != L * m["prefill_chunks"]:
+        raise AssertionError(f"int8-unified: {n} int8 ragged launches for "
+                             f"{m['prefill_chunks']} windows")
+    del eng
+    plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
+    hit = next(r for r in reqs if r.cached_tokens)
+    worst = _gate_ranks("int8-unified", plain, [reqs[0], hit],
+                        INT8_RANK_MARGIN)
+    return {"launches": launches, "worst_margin": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -669,13 +883,24 @@ def main() -> int:
     kernels = phase_kernels()
     cfg, params = build_model()
     # each kernel's launches come from the phase that drives its path
-    phases = {"engine": phase_engine(cfg, params),
-              "prefix": phase_prefix_cache(cfg, params),
-              "unified": phase_unified(cfg, params)}
+    phases = {}
+    for name, fn in (
+            ("engine", lambda: phase_engine(cfg, params)),
+            ("prefix", lambda: phase_prefix_cache(cfg, params)),
+            ("unified", lambda: phase_unified(cfg, params)),
+            ("int8-split",
+             lambda: phase_int8_split(cfg, params, phases["prefix"])),
+            ("int8-unified", lambda: phase_int8_unified(cfg, params))):
+        t0 = time.perf_counter()
+        phases[name] = fn()
+        log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")
     own_phase = {"rms_norm": "engine", "flash_attention_fwd": "engine",
                  "paged_decode_attention": "engine",
                  "prefix_prefill_attention": "prefix",
-                 "ragged_paged_attention": "unified"}
+                 "ragged_paged_attention": "unified",
+                 "paged_decode_attention_int8": "int8-split",
+                 "prefix_prefill_attention_int8": "int8-split",
+                 "ragged_paged_attention_int8": "int8-unified"}
 
     sources = {
         "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
@@ -692,6 +917,15 @@ def main() -> int:
         "ragged_paged_attention": (
             "paddle_tpu_torch/csrc/paged_prefill_attention.cu",
             "paddle_tpu/kernels/ragged_attention.py:73"),
+        "paged_decode_attention_int8": (
+            "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+            "paddle_tpu/kernels/decode_attention.py:430"),
+        "prefix_prefill_attention_int8": (
+            "paddle_tpu_torch/csrc/paged_prefill_attention.cu",
+            "paddle_tpu/kernels/prefix_prefill.py:248"),
+        "ragged_paged_attention_int8": (
+            "paddle_tpu_torch/csrc/paged_prefill_attention.cu",
+            "paddle_tpu/kernels/ragged_attention.py:91"),
     }
     rows = []
     for name, cases in kernels.items():

@@ -77,8 +77,10 @@ define_flag("prefix_prefill_kernel", True,
             env_aliases=("PADDLE_TPU_PREFIX_PREFILL_KERNEL",))
 define_flag("kv_cache_dtype", "bf16",
             "element type of the paged serving KV pools: 'bf16' "
-            "(default) or 'int8' (not ported yet). Read when an engine "
-            "is BUILT (also: PADDLE_TPU_KV_CACHE_DTYPE)",
+            "(default) or 'int8' (int8 pools with per-(page, kv head) f32 "
+            "absmax scales, attended by the int8 paged-attention "
+            "kernels). Read when an engine is BUILT "
+            "(also: PADDLE_TPU_KV_CACHE_DTYPE)",
             env_aliases=("PADDLE_TPU_KV_CACHE_DTYPE",))
 define_flag("decode_megakernel", "off",
             "fusion rung of the paged decode step: 'off' (default, the "

@@ -51,6 +51,12 @@ SIGNATURES = {
         # block_size, table_width, max_pages, scale, dtype, stream
         "paged_decode_attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I,
                                           _I, _I, _I, _I, _I, _F, _I, _P),
+        # int8 pools: q, k_cache, v_cache, k_scale, v_scale, tables, lens,
+        # out, B, Hq, Hkv, D, block_size, table_width, max_pages, scale,
+        # dtype (of q), stream
+        "paged_decode_attention_q8_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                             _I, _I, _I, _I, _I, _I, _I, _F,
+                                             _I, _P),
     },
     "paged_prefill_attention": {
         # q, k_new, v_new, k_cache, v_cache, tables, cached_lens, new_lens,
@@ -59,6 +65,12 @@ SIGNATURES = {
         "paged_prefill_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                            _P, _I, _I, _I, _I, _I, _I, _I,
                                            _I, _F, _I, _P),
+        # int8 pools: q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
+        # tables, cached_lens, new_lens, out, B, TN, Hq, Hkv, D, page,
+        # table_width, max_pages, scale, dtype (of q), stream
+        "paged_prefill_attention_q8_launch": (_P, _P, _P, _P, _P, _P, _P,
+                                              _P, _P, _P, _P, _I, _I, _I, _I,
+                                              _I, _I, _I, _I, _F, _I, _P),
     },
 }
 
@@ -165,11 +177,15 @@ def stream_ptr(device) -> int:
 
 
 # launch counters, one per kernel function of the JAX package that a
-# wrapper stands for: a library serving two functions (paged prefill
-# attention serves prefix_prefill_attention and ragged_paged_attention)
-# has one counter per function
+# wrapper stands for and per pool dtype: a library serving two functions
+# (paged prefill attention serves prefix_prefill_attention and
+# ragged_paged_attention) has one counter per function, and a launch over
+# int8 pools counts under the function's name plus "_int8"
+INT8_SUFFIX = "_int8"
 COUNTERS = ("rms_norm", "flash_attention_fwd", "paged_decode_attention",
-            "prefix_prefill_attention", "ragged_paged_attention")
+            "prefix_prefill_attention", "ragged_paged_attention",
+            "paged_decode_attention_int8", "prefix_prefill_attention_int8",
+            "ragged_paged_attention_int8")
 
 # launches of each kernel since the last reset: every wrapper adds one
 # where it launches its kernel, and nowhere else (a run can then show
@@ -202,3 +218,33 @@ def require_contiguous(what: str, **tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def int8_pools(key_cache: torch.Tensor, k_scale, v_scale) -> bool:
+    """Whether the KV pools are int8, with the JAX wrappers' argument
+    checks: int8 pools need their per-(page, kv head) scales, and scales
+    apply to int8 pools only."""
+    quant = key_cache.dtype == torch.int8
+    if quant and (k_scale is None or v_scale is None):
+        raise ValueError(
+            "int8 KV pools need their per-(page, kv head) k_scale / "
+            "v_scale arrays: a quantized pool without scales decodes "
+            "garbage")
+    if not quant and (k_scale is not None or v_scale is not None):
+        raise ValueError("k_scale/v_scale only apply to int8 KV pools")
+    return quant
+
+
+def require_q8_operands(what: str, key_cache, value_cache, k_scale,
+                        v_scale) -> None:
+    """The int8 kernels' pool operands: int8 pools of one shape and f32
+    scales [max_pages, Hkv], all contiguous."""
+    if value_cache.dtype != torch.int8:
+        raise ValueError(f"{what}: both pools must be int8, got "
+                         f"{key_cache.dtype}/{value_cache.dtype}")
+    want = tuple(key_cache.shape[:2])
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if s.dtype != torch.float32 or tuple(s.shape) != want:
+            raise ValueError(f"{what}: {name} must be float32 {list(want)}, "
+                             f"got {s.dtype} {list(s.shape)}")
+    require_contiguous(what, k_scale=k_scale, v_scale=v_scale)

@@ -7,11 +7,15 @@ covering positions [0, W*block_size); lens [B] int32 = tokens cached
 before the current one, whose K/V is already written at position
 lens[b] -- so positions <= lens[b] are attended (an inclusive mask).
 
+int8 pools (``kv_cache_dtype="int8"``) pass their per-(page, kv head)
+f32 absmax scales ``k_scale`` / ``v_scale`` [max_pages, Hkv]: a stored
+value x of page p, kv head h stands for x * scale[p, h].
+
 CUDA tensors launch ``csrc/paged_decode_attention.cu`` (one kernel for
 every group size Hq/Hkv >= 1, i.e. both the JAX package's GQA grid and
-its equal-heads grid); CPU tensors run
-``paged_decode_attention_reference``. int8 pools with per-page scales are
-a later slice.
+its equal-heads grid, with an int8-pool variant that applies the scales
+inside its f32 accumulation); CPU tensors run
+``paged_decode_attention_reference``.
 """
 from __future__ import annotations
 
@@ -27,10 +31,13 @@ _NEG_INF = -1e30
 
 def paged_decode_attention_reference(q, key_cache, value_cache,
                                      block_tables, lens,
-                                     scale: Optional[float] = None):
+                                     scale: Optional[float] = None, *,
+                                     k_scale=None, v_scale=None):
     """Plain PyTorch paged decode: gather the table's pages, mask
     positions > lens, softmax in f32. Page ids are clamped into the
-    pool, as the CUDA kernel clamps them."""
+    pool, as the CUDA kernel clamps them. int8 pages are dequantized in
+    f32 against `k_scale` / `v_scale` [max_pages, Hkv] (never through a
+    narrower type)."""
     b, hq, d = q.shape
     n_pages, hkv, bs, _ = key_cache.shape
     w = block_tables.shape[1]
@@ -39,11 +46,13 @@ def paged_decode_attention_reference(q, key_cache, value_cache,
         scale = 1.0 / math.sqrt(d)
     tbl = block_tables.to(torch.int64).clamp(0, n_pages - 1)
 
-    def gather(pool):  # [B, W, Hkv, bs, D] -> [B, Hkv, W*bs, D] f32
-        return pool[tbl].permute(0, 2, 1, 3, 4).reshape(
-            b, hkv, w * bs, d).to(torch.float32)
+    def gather(pool, sc):  # [B, W, Hkv, bs, D] -> [B, Hkv, W*bs, D] f32
+        pages = pool[tbl].to(torch.float32)
+        if sc is not None:
+            pages = pages * sc.to(torch.float32)[tbl][..., None, None]
+        return pages.permute(0, 2, 1, 3, 4).reshape(b, hkv, w * bs, d)
 
-    k, v = gather(key_cache), gather(value_cache)
+    k, v = gather(key_cache, k_scale), gather(value_cache, v_scale)
     qg = q.reshape(b, hkv, g, d).to(torch.float32)
     s = torch.einsum("bhgd,bhtd->bhgt", qg, k) * scale
     pos = torch.arange(w * bs, device=q.device)
@@ -64,11 +73,7 @@ def paged_decode_attention(q: torch.Tensor, key_cache: torch.Tensor,
                            v_scale: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """One decode step over a paged cache. Returns [B, Hq, D]."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV pools (k_scale/v_scale) are not ported yet; see "
-            "ROADMAP.md 'TPU kernels to port': the int8 paged-decode "
-            "variants")
+    quant = _build.int8_pools(key_cache, k_scale, v_scale)
     b, hq, d = q.shape
     n_pages, hkv, bs, _ = key_cache.shape
     if hq % hkv:
@@ -77,14 +82,19 @@ def paged_decode_attention(q: torch.Tensor, key_cache: torch.Tensor,
         scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
-            q, key_cache, value_cache, block_tables, lens, scale)
+            q, key_cache, value_cache, block_tables, lens, scale,
+            k_scale=k_scale, v_scale=v_scale)
     what = "paged_decode_attention"
+    scales = (k_scale, v_scale) if quant else ()
     dev = _build.require_cuda(what, q, key_cache, value_cache,
-                              block_tables, lens)
+                              block_tables, lens, *scales)
     _build.require_contiguous(what, q=q, key_cache=key_cache,
                               value_cache=value_cache,
                               block_tables=block_tables, lens=lens)
-    if not (q.dtype == key_cache.dtype == value_cache.dtype):
+    if quant:
+        _build.require_q8_operands(what, key_cache, value_cache, k_scale,
+                                   v_scale)
+    elif not (q.dtype == key_cache.dtype == value_cache.dtype):
         raise ValueError(f"{what}: q and pools must share a dtype, got "
                          f"{q.dtype}/{key_cache.dtype}/{value_cache.dtype}")
     if value_cache.shape != key_cache.shape or key_cache.shape[3] != d:
@@ -102,11 +112,18 @@ def paged_decode_attention(q: torch.Tensor, key_cache: torch.Tensor,
         raise ValueError(f"{what}: {hkv} kv heads exceed the grid")
     out = torch.empty_like(q)
     lib = _build.library(what)
-    code = lib.paged_decode_attention_launch(
-        q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-        block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(), b, hq,
-        hkv, d, bs, block_tables.shape[1], n_pages, float(scale),
-        _build.dtype_code(q.dtype), _build.stream_ptr(dev))
+    dims = (b, hq, hkv, d, bs, block_tables.shape[1], n_pages, float(scale),
+            _build.dtype_code(q.dtype), _build.stream_ptr(dev))
+    if quant:
+        code = lib.paged_decode_attention_q8_launch(
+            q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), *dims)
+        what += _build.INT8_SUFFIX
+    else:
+        code = lib.paged_decode_attention_launch(
+            q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+            block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(), *dims)
     _build.check(lib, code, what)
     _build.LAUNCHES[what] += 1
     return out

@@ -8,9 +8,14 @@ has ``cached_len`` at the tokens already committed. Unlike
 page may be partial) and the new-token window need not be a whole number
 of pages. Rows past ``new_len`` are exact zeros.
 
+int8 pools (``kv_cache_dtype="int8"``) pass their per-(page, kv head) f32
+absmax scales ``k_scale`` / ``v_scale`` [max_pages, Hkv]; the window K/V
+stay in q's dtype.
+
 CUDA tensors launch ``csrc/paged_prefill_attention.cu`` (the kernel that
-also serves ``prefix_prefill_attention``; each function has its own launch
-counter); CPU tensors run ``ragged_paged_attention_reference``.
+also serves ``prefix_prefill_attention``, with its int8-pool variant; each
+function has its own launch counter per pool dtype); CPU tensors run
+``ragged_paged_attention_reference``.
 """
 from __future__ import annotations
 
@@ -19,23 +24,27 @@ from typing import Optional
 
 import torch
 
-from .prefix_prefill import (_INT8_TODO, launch_paged_prefill,
-                             paged_prefill_reference)
+from . import _build
+from .prefix_prefill import launch_paged_prefill, paged_prefill_reference
 
 
 def ragged_paged_attention_reference(q, k_new, v_new, key_cache,
                                      value_cache, block_tables, cached_lens,
                                      new_lens: Optional[torch.Tensor] = None,
-                                     *, scale: Optional[float] = None):
+                                     *, scale: Optional[float] = None,
+                                     k_scale: Optional[torch.Tensor] = None,
+                                     v_scale: Optional[torch.Tensor] = None):
     """Plain twin of the JAX ``ragged_paged_attention_reference``:
     [b, tn, Hq, D] in f32, rows >= new_lens exact zeros."""
+    _build.int8_pools(key_cache, k_scale, v_scale)
     b, tn, _, dh = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
     if new_lens is None:
         new_lens = torch.full((b,), tn, dtype=torch.int32, device=q.device)
     return paged_prefill_reference(q, k_new, v_new, key_cache, value_cache,
-                                   block_tables, cached_lens, new_lens, scale)
+                                   block_tables, cached_lens, new_lens, scale,
+                                   k_scale, v_scale)
 
 
 def ragged_paged_attention(q: torch.Tensor, k_new: torch.Tensor,
@@ -50,8 +59,6 @@ def ragged_paged_attention(q: torch.Tensor, k_new: torch.Tensor,
                            ) -> torch.Tensor:
     """Mixed decode / prefill / chunk attention over the paged pools in
     one launch. Returns [b, tn, Hq, D] in q's dtype."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(_INT8_TODO)
     b, tn, nh, dh = q.shape
     nkv = key_cache.shape[1]
     if nh % nkv:
@@ -59,6 +66,7 @@ def ragged_paged_attention(q: torch.Tensor, k_new: torch.Tensor,
     if block_tables.shape[1] < 1:
         raise ValueError("block_tables must be at least one page wide "
                          "(pad with the scratch page and cached_lens 0)")
+    _build.int8_pools(key_cache, k_scale, v_scale)
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
     if new_lens is None:
@@ -66,7 +74,9 @@ def ragged_paged_attention(q: torch.Tensor, k_new: torch.Tensor,
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
             q, k_new, v_new, key_cache, value_cache, block_tables,
-            cached_lens, new_lens, scale=scale).to(q.dtype)
+            cached_lens, new_lens, scale=scale, k_scale=k_scale,
+            v_scale=v_scale).to(q.dtype)
     return launch_paged_prefill("ragged_paged_attention", q, k_new, v_new,
                                 key_cache, value_cache, block_tables,
-                                cached_lens, new_lens, scale)
+                                cached_lens, new_lens, scale, k_scale,
+                                v_scale)

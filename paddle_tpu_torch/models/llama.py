@@ -9,8 +9,11 @@ What is here:
 - the functional serving pieces over a decode-params dict
   (``_make_prefill``, ``_make_prefill_with_prefix``,
   ``_make_chunk_prefill``, ``_make_decode_step``,
-  ``make_paged_kv_helpers``, ``PagedKVManager``), which
-  ``serving.engine`` drives.
+  ``make_paged_kv_helpers``, and for int8 pools ``quantize_kv_pages`` and
+  ``make_paged_kv_q8_helpers``, ``PagedKVManager``), which
+  ``serving.engine`` drives. A layer's K/V pool is a tensor
+  [max_pages, Hkv, block_size, D] (bf16 / f32), or on int8 pools a pair
+  (int8 pool, f32 scale [max_pages, Hkv]).
 
 Weight layout: every projection keeps paddle's ``Linear`` layout
 [in_features, out_features] (``y = x @ w``), in the decode-params dict and
@@ -452,15 +455,18 @@ def _make_prefill(cfg, b, sb):
     return prefill
 
 
+def _split_pool(entry):
+    """A pool entry -> (pool, scale): (int8 pool, f32 scale) pairs split,
+    a bf16 / f32 pool comes with scale None."""
+    return entry if isinstance(entry, tuple) else (entry, None)
+
+
 def _pool_pair(kcs, vcs, i, n_layers):
-    """Layer `i`'s bf16/f32 pools; an (int8 pool, scale) tuple is
-    refused (the int8 kernels are a later slice)."""
+    """Layer `i`'s pools as (kc, vc, k_scale, v_scale); the scales are
+    None for bf16 / f32 pools."""
     kc, vc, _ = _layer_kv(kcs, vcs, i, n_layers)
-    if isinstance(kc, tuple) or isinstance(vc, tuple):
-        raise NotImplementedError(
-            "int8 KV pools ((pool, scale) tuples) are not ported yet; see "
-            "ROADMAP.md 'TPU kernels to port', item 3 (int8 pools)")
-    return kc, vc
+    (kc, ksc), (vc, vsc) = _split_pool(kc), _split_pool(vc)
+    return kc, vc, ksc, vsc
 
 
 def _make_window_prefill(cfg, tn, paged_attention):
@@ -468,7 +474,8 @@ def _make_window_prefill(cfg, tn, paged_attention):
     unified step's chunk lane: `tn` new tokens per row at positions
     cached[:, None] + arange(tn), each layer attending the row's cached
     pool pages plus the window through `paged_attention` (the
-    prefix-prefill or ragged wrapper)."""
+    prefix-prefill or ragged wrapper). Pool entries may be (int8 pool, f32
+    scale) pairs: the wrapper then dequantizes inside its f32 math."""
     n_layers = cfg.num_hidden_layers
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
@@ -478,9 +485,10 @@ def _make_window_prefill(cfg, tn, paged_attention):
             + torch.arange(tn, device=h.device)[None, :]
 
         def attend(i, q, k, v):
-            kc, vc = _pool_pair(kcs, vcs, i, n_layers)
+            kc, vc, ksc, vsc = _pool_pair(kcs, vcs, i, n_layers)
             return paged_attention(q, k, v, kc, vc, tables, cached,
-                                   new_lens, scale=scale)
+                                   new_lens, scale=scale, k_scale=ksc,
+                                   v_scale=vsc)
 
         return _layers(cfg, p, h, pos_ids, attend)
 
@@ -550,6 +558,75 @@ def make_paged_kv_helpers(b, n_pre, nkv, dh, block_size, tables):
     return to_pages, kv_write
 
 
+def quantize_kv_pages(kv):
+    """Symmetric absmax int8 quantization of whole K/V pages (the JAX
+    package's ``quantize_kv_pages``, op for op).
+
+    kv: [..., block_size, dh], reduced per (page, kv head) over the
+    trailing two axes. The absmax is taken in f32 before any rounding to a
+    narrower type; scale = absmax / 127, values divide by the scale (never
+    multiply by its reciprocal) and round half to even, so identical f32
+    inputs give identical bytes in both frameworks. Returns (int8 same
+    shape, scale [...] f32); an all-zero page keeps scale 0 (dequantizes
+    to exact zeros)."""
+    kf = kv.to(torch.float32)
+    amax = torch.amax(torch.abs(kf), dim=(-2, -1)) / 127.0
+    safe = torch.where(amax > 0, amax, torch.ones_like(amax))
+    q = torch.round(kf / safe[..., None, None]).to(torch.int8)
+    return q, amax
+
+
+def make_paged_kv_q8_helpers(b, n_pre, nkv, dh, block_size, tables):
+    """int8 twins of `make_paged_kv_helpers`, over (int8 pool
+    [max_pages, nkv, block, dh], f32 scale [max_pages, nkv]) pairs:
+
+    - `to_pages_q8(kv)` -> (int8 pages, scales): the prefill transpose
+      fused with quantize-on-scatter;
+    - `kv_write_q8(kct, vct, k, v, lens)`: the per-token decode commit,
+      IN PLACE on both tensors of each pair (the JAX version returns new
+      arrays). The page's absmax scale is monotone: a token louder than
+      the page's absmax grows the scale and the stored rows are rescaled
+      in the same read-modify-write; `slot == 0` resets the scale, so a
+      recycled page never inherits its previous owner's absmax.
+
+    As in `make_paged_kv_helpers`, the page column of a row frozen at
+    lens == W*block_size is clamped to W - 1 (JAX clamps the gather)."""
+    to_pages, _ = make_paged_kv_helpers(b, n_pre, nkv, dh, block_size,
+                                        tables)
+
+    def to_pages_q8(kv):
+        return quantize_kv_pages(to_pages(kv))
+
+    def _commit_token(pool, scales, tok, page, slot):
+        rows = torch.arange(b, device=tok.device)
+        tokf = tok.to(torch.float32)                           # [b, nkv, dh]
+        tok_amax = torch.amax(torch.abs(tokf), dim=-1) / 127.0  # [b, nkv]
+        # a fresh page (slot 0): the scale its previous owner left behind
+        # is dead, the absmax chain starts from this token
+        old = torch.where((slot == 0)[:, None], torch.zeros_like(tok_amax),
+                          scales[page])
+        new = torch.maximum(old, tok_amax)
+        safe = torch.where(new > 0, new, torch.ones_like(new))
+        ratio = old / safe                                      # <= 1
+        pg = torch.round(pool[page].to(torch.float32)
+                         * ratio[..., None, None])
+        pg[rows, :, slot, :] = torch.round(tokf / safe[..., None])
+        pool[page] = torch.clamp(pg, -127, 127).to(torch.int8)
+        scales[page] = new
+
+    def kv_write_q8(kct, vct, k, v, lens):
+        lens = lens.to(torch.int64)
+        col = torch.clamp(lens // block_size, max=tables.shape[1] - 1)
+        rows = torch.arange(b, device=lens.device)
+        page = tables[rows, col].to(torch.int64)
+        slot = lens % block_size
+        _commit_token(*kct, k[:, 0], page, slot)
+        _commit_token(*vct, v[:, 0], page, slot)
+        return kct, vct
+
+    return to_pages_q8, kv_write_q8
+
+
 def _make_decode_step(cfg, b, max_seq=None, kv_write=None, kv_attend=None):
     """Single-token decode step over the decode-params dict; the KV
     store is injected:
@@ -557,8 +634,10 @@ def _make_decode_step(cfg, b, max_seq=None, kv_write=None, kv_attend=None):
       kv_write(kc, vc, k, v, pos)  -> (kc, vc)   store the token's K/V
       kv_attend(q1, kc, vc, pos)   -> ctx [B, Hq, D]
 
-    (pos: [B] cached counts). The contiguous-cache defaults of the JAX
-    version ride the contiguous decode kernels, which are not ported."""
+    (pos: [B] cached counts; kc / vc are a layer's pool entries, (int8
+    pool, scale) pairs on int8 pools). The contiguous-cache defaults of
+    the JAX version ride the contiguous decode kernels, which are not
+    ported."""
     if kv_write is None or kv_attend is None:
         raise NotImplementedError(
             "the contiguous-cache decode step (decode_attention / "
@@ -583,16 +662,24 @@ def _make_decode_step(cfg, b, max_seq=None, kv_write=None, kv_attend=None):
     return decode_step
 
 
-def make_paged_decode_step(cfg, b, block_size, tables):
+def make_paged_decode_step(cfg, b, block_size, tables,
+                           kv_cache_dtype: str = "bf16"):
     """`_make_decode_step` over paged pools [P, nkv, block_size, dh]
     with block table `tables` [b, W] int32: the token's K/V is written
-    in place, then ``paged_decode_attention`` attends positions <= pos."""
-    _, kv_write = make_paged_kv_helpers(b, 0, cfg.num_key_value_heads,
-                                        cfg.head_dim, block_size, tables)
+    in place, then ``paged_decode_attention`` attends positions <= pos.
+    On int8 pools (`kv_cache_dtype="int8"`) every pool entry is an (int8
+    pool, f32 scale) pair: the q8 commit writes the token and the int8
+    kernel attends with the scales."""
+    helpers = make_paged_kv_q8_helpers if kv_cache_dtype == "int8" \
+        else make_paged_kv_helpers
+    _, kv_write = helpers(b, 0, cfg.num_key_value_heads, cfg.head_dim,
+                          block_size, tables)
 
     def kv_attend(q1, kc, vc, pos):
+        (kc, ksc), (vc, vsc) = _split_pool(kc), _split_pool(vc)
         return paged_decode_attention(q1, kc, vc, tables,
-                                      pos.to(torch.int32))
+                                      pos.to(torch.int32), k_scale=ksc,
+                                      v_scale=vsc)
 
     return _make_decode_step(cfg, b, kv_write=kv_write, kv_attend=kv_attend)
 

@@ -6,7 +6,11 @@ mid-stream and their pages recycle into the pool. The device sees fixed
 shapes between host scheduling points:
 
 - per-layer K/V pools [max_pages, Hkv, block_size, D], updated IN PLACE
-  by the prefill page scatter and the decode-step token write;
+  by the prefill page scatter and the decode-step token write. With
+  ``kv_cache_dtype="int8"`` each pool is an (int8 pool, f32 scale
+  [max_pages, Hkv]) pair: the scatter quantizes whole pages by their
+  absmax, the decode commit grows a page's scale and rescales its stored
+  rows, and the int8 attention kernels apply the scales in f32;
 - a block table [slots, table_width] int32 mapping each slot's logical
   blocks to pool pages (free slots point at a reserved scratch page,
   table columns past a request's pages repeat its last page);
@@ -54,7 +58,8 @@ from ..models.llama import (PagedKVManager, _make_chunk_prefill,
                             _make_head_logits, _make_prefill,
                             _make_prefill_with_prefix, _sample_next,
                             hash_prefix_blocks, make_paged_decode_step,
-                            make_paged_kv_helpers, resolve_decode_megakernel,
+                            make_paged_kv_helpers, make_paged_kv_q8_helpers,
+                            resolve_decode_megakernel,
                             resolve_kv_cache_dtype, resolve_serving_cp,
                             resolve_serving_mp, resolve_unified_step)
 
@@ -119,20 +124,30 @@ class ContinuousBatchingEngine:
         for req in eng.finished: print(req.tokens)
 
     `params` is the decode-params dict (``init_serving_params`` or
-    ``params_from_jax``) on `device` (None = cuda). A request is admitted
+    ``params_from_jax``) on `device` (None = cuda); `dtype` is the type
+    of the activations and of bf16 pools. A request is admitted
     when a slot is free and the pool holds its full reservation (cached
     prefix blocks map in for free; the private pages cover the bucketed
     suffix plus max_new), so no preemption is ever needed.
 
     `unified_step` (default from FLAGS_unified_step; 'auto' is the split
     path) serves prefill through `token_budget`-token windows (a multiple
-    of `block_size`; default the prompt bucket) next to the decode chunk."""
+    of `block_size`; default the prompt bucket) next to the decode chunk.
+
+    `kv_cache_dtype` ('bf16' | 'int8'; default from FLAGS_kv_cache_dtype)
+    is the pools' element type: int8 pools halve the bytes every decode
+    and prefix step streams, so a byte budget holds about twice the
+    pages. `kv_pool_bytes` sizes the pool by a byte budget instead of
+    `max_pages` (not both): at the same budget an int8 pool holds ~2x
+    `n_cacheable_pages`."""
 
     def __init__(self, cfg, dec_params, *, slots: int = 8,
                  prompt_bucket: int = 64, max_prompt_len: int = 512,
                  max_new_tokens: int = 64,
                  block_size: Optional[int] = None,
-                 max_pages: Optional[int] = None, steps_per_sync: int = 8,
+                 max_pages: Optional[int] = None,
+                 kv_pool_bytes: Optional[int] = None,
+                 steps_per_sync: int = 8,
                  prefill_batch: int = 4,
                  eos_token_id: Optional[int] = None, do_sample: bool = False,
                  top_k: int = 0, temperature: float = 1.0,
@@ -156,8 +171,6 @@ class ContinuousBatchingEngine:
         if tracer not in (None, False) or metrics not in (None, False):
             raise _unported("tracer= / metrics= (observability)")
         self.kv_dtype = resolve_kv_cache_dtype(kv_cache_dtype)
-        if self.kv_dtype != "bf16":
-            raise _unported("kv_cache_dtype='int8'")
         if resolve_decode_megakernel(decode_megakernel) != "off":
             raise _unported("decode_megakernel other than 'off'")
         if resolve_serving_mp(serving_mp) > 1:
@@ -222,6 +235,19 @@ class ContinuousBatchingEngine:
         # always prefills, so the last block is never part of a prefix)
         self._prefix_width = max(1, (self.max_prompt_len - 1) // block_size)
         nkv, dh = cfg.num_key_value_heads, cfg.head_dim
+        if kv_pool_bytes is not None:
+            if max_pages is not None:
+                raise ValueError(
+                    "pass max_pages OR kv_pool_bytes, not both")
+            max_pages = PagedKVManager.pages_for_bytes(
+                kv_pool_bytes, block_size, n_layers=cfg.num_hidden_layers,
+                num_kv_heads=nkv, head_dim=dh, kv_cache_dtype=self.kv_dtype)
+            if max_pages < cap + 2:
+                raise ValueError(
+                    f"kv_pool_bytes {kv_pool_bytes} holds only {max_pages} "
+                    f"pages at kv_cache_dtype={self.kv_dtype}; need at "
+                    f"least {cap + 2} (one full request + scratch + one "
+                    "cacheable page)")
         if max_pages is None:
             max_pages = slots * cap + 1
         self.mgr = PagedKVManager(max_pages, block_size)
@@ -230,10 +256,17 @@ class ContinuousBatchingEngine:
                                    kv_cache_dtype=self.kv_dtype)
         self.scratch_page = self.mgr.alloc_pages(1)[0]  # free rows' sink
         shape = (max_pages, nkv, block_size, dh)
-        self.kcs = [torch.zeros(shape, dtype=dtype, device=self.device)
-                    for _ in range(cfg.num_hidden_layers)]
-        self.vcs = [torch.zeros(shape, dtype=dtype, device=self.device)
-                    for _ in range(cfg.num_hidden_layers)]
+
+        def pool():
+            if self.kv_dtype == "int8":
+                return (torch.zeros(shape, dtype=torch.int8,
+                                    device=self.device),
+                        torch.zeros((max_pages, nkv), dtype=torch.float32,
+                                    device=self.device))
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        self.kcs = [pool() for _ in range(cfg.num_hidden_layers)]
+        self.vcs = [pool() for _ in range(cfg.num_hidden_layers)]
         self._slots = [_Slot() for _ in range(slots)]
         self._tables = np.full((slots, cap), self.scratch_page, np.int32)
         self._tokens = np.zeros((slots,), np.int64)
@@ -272,6 +305,14 @@ class ContinuousBatchingEngine:
         return sum(1 for s in self._slots if s.req is not None)
 
     @property
+    def n_cacheable_pages(self) -> int:
+        """Pages that can hold K/V content (all but the scratch page), the
+        ceiling on resident prefix-cache blocks. Capacity math counts
+        pages whatever the pool dtype; what int8 changes is how many
+        pages a byte budget buys (~2x at the same `kv_pool_bytes`)."""
+        return self.mgr.max_pages - 1
+
+    @property
     def has_work(self) -> bool:
         return bool(self.waiting) or self._prefilling is not None \
             or self.n_active > 0
@@ -305,6 +346,9 @@ class ContinuousBatchingEngine:
             "prefix_evictions": self.mgr.prefix_evictions,
             "n_available": self.mgr.n_available,
             "n_cached": self.mgr.n_cached,
+            "kv_cache_dtype": self.kv_dtype,
+            "kv_pool_bytes": self.mgr.kv_pool_bytes(),
+            "n_cacheable_pages": self.n_cacheable_pages,
             "decode_s": self.decode_s,
             "prefill_s": self.prefill_s,
             "kernel_launches": _build.launch_counts(),
@@ -396,11 +440,24 @@ class ContinuousBatchingEngine:
         """Prefill K/V [bsz, n_pre*block_size, nkv, dh] -> whole pages, in
         place. Pad positions land in pages above the decode watermark (or
         in the scratch page, which no row attends); decode overwrites them
-        before any row attends them."""
+        before any row attends them. On int8 pools this is the
+        quantize-on-scatter: each page's absmax (pad positions included,
+        as in the JAX engine) becomes its scale, and the int8 page and its
+        scale row are stored together."""
         cfg = self.cfg
-        to_pages, _ = make_paged_kv_helpers(
-            bsz, n_pre, cfg.num_key_value_heads, cfg.head_dim,
-            self.block_size, None)
+        args = (bsz, n_pre, cfg.num_key_value_heads, cfg.head_dim,
+                self.block_size, None)
+        if self.kv_dtype == "int8":
+            to_pages_q8, _ = make_paged_kv_q8_helpers(*args)
+
+            def scatter_q8(kct, vct, k, v, pages):
+                for (pool, sc), kv in ((kct, k), (vct, v)):
+                    qkv, skv = to_pages_q8(kv)
+                    pool[pages] = qkv
+                    sc[pages] = skv
+
+            return scatter_q8
+        to_pages, _ = make_paged_kv_helpers(*args)
 
         def scatter(kc, vc, k, v, pages):
             kc[pages] = to_pages(k).to(kc.dtype)
@@ -413,7 +470,8 @@ class ContinuousBatchingEngine:
         cfg, b, bs = self.cfg, self.slots, self.block_size
 
         def make_step(tables):
-            return make_paged_decode_step(cfg, b, bs, tables)
+            return make_paged_decode_step(cfg, b, bs, tables,
+                                          kv_cache_dtype=self.kv_dtype)
 
         return make_step
 

@@ -12,7 +12,11 @@ in f32 from the same inputs and round once, so they may differ by one
 bf16 rounding step (|a - b| <= 2^-7 * max(|ref|, 1)), or by 1e-5 in f32;
 flash attention's plain twin rounds the scores to bf16 where the kernel
 keeps f32 (atol 3e-2 on N(0, 1)). Paged prefill attention's pad query
-rows must be exact zeros on the card too.
+rows must be exact zeros on the card too. The int8-pool kernels are held
+against the same plain versions on the same int8 pools and scales (pages
+quantized by the port's own quantize_kv_pages), with the same bars: the
+kernel folds the scales into its f32 sums, the plain version dequantizes
+in f32 first.
 """
 import numpy as np
 import pytest
@@ -104,6 +108,40 @@ def test_paged_decode(dev, dtype, hq, hkv):
         _within_one_bf16_step(got, ref)
 
 
+def _q8_pool(pool):
+    """A float pool [P, Hkv, bs, D] -> (int8 pool, f32 scales [P, Hkv])."""
+    from paddle_tpu_torch.models.llama import quantize_kv_pages
+
+    return quantize_kv_pages(pool)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (32, 32), (8, 1)])
+def test_paged_decode_int8(dev, dtype, hq, hkv):
+    """int8 pools: group 4, group 1 and MQA; ragged lens including 0, a
+    page boundary and a row past its table; a free row on page 0."""
+    g = torch.Generator().manual_seed(7)
+    n_pages, bs, d, w = 40, 64, 128, 6
+    (kc, ksc), (vc, vsc) = (_q8_pool(torch.randn(n_pages, hkv, bs, d,
+                                                 generator=g))
+                            for _ in range(2))
+    q = torch.randn(6, hq, d, generator=g)
+    perm = torch.randperm(n_pages - 1, generator=g) + 1
+    tables = perm[: 6 * w].reshape(6, w).to(torch.int32)
+    tables[3] = 0
+    lens = torch.tensor([0, bs - 1, bs, 0, 300, w * bs + 9], dtype=torch.int32)
+    args = [q.to(dev, dtype), kc.to(dev), vc.to(dev), tables.to(dev),
+            lens.to(dev)]
+    sc = dict(k_scale=ksc.to(dev), v_scale=vsc.to(dev))
+    got = _launched("paged_decode_attention_int8",
+                    lambda: paged_decode_attention(*args, **sc))
+    ref = paged_decode_attention_reference(*args, **sc)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    else:
+        _within_one_bf16_step(got, ref)
+
+
 def test_paged_decode_refuses_int64_tables(dev):
     q = torch.randn(1, 4, 128, device=dev, dtype=torch.bfloat16)
     kc = torch.randn(2, 2, 64, 128, device=dev, dtype=torch.bfloat16)
@@ -128,6 +166,14 @@ def _prefill_inputs(dev, dtype, b, tn, hq, hkv, d, page, cached, new, seed):
     lens = [torch.tensor(x, dtype=torch.int32).to(dev) for x in (cached, new)]
     return [t.to(dev, dtype) for t in (q, kn, vn, kc, vc)] \
         + [tables.to(dev)] + lens
+
+
+def _q8_args(args):
+    """_prefill_inputs' operands with the two pools quantized: (args with
+    int8 pools, {k_scale, v_scale})."""
+    (kc, ksc), (vc, vsc) = _q8_pool(args[3].float()), _q8_pool(
+        args[4].float())
+    return args[:3] + [kc, vc] + args[5:], dict(k_scale=ksc, v_scale=vsc)
 
 
 def _check_paged_prefill(got, ref, new, dtype):
@@ -176,6 +222,62 @@ def test_ragged_paged_attention_kernel(dev, dtype, cached, new, tn):
                     lambda: ragged_paged_attention(*args))
     _check_paged_prefill(got, ragged_paged_attention_reference(*args), new,
                          dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (8, 8, 64), (8, 1, 128)])
+def test_prefix_prefill_kernel_int8(dev, dtype, hq, hkv, d):
+    """int8 pools: whole-page prefixes of 0..8 pages, pad rows and a
+    one-token suffix; group 4, group 1 (D 64) and MQA."""
+    from paddle_tpu_torch.kernels.prefix_prefill import (
+        prefix_prefill_attention, prefix_prefill_reference)
+
+    cached, new = [0, 64, 256, 512], [128, 1, 77, 100]
+    args, sc = _q8_args(_prefill_inputs(dev, dtype, 4, 128, hq, hkv, d, 64,
+                                        cached, new, seed=hq + d + 1))
+    got = _launched("prefix_prefill_attention_int8",
+                    lambda: prefix_prefill_attention(*args, **sc))
+    _check_paged_prefill(got, prefix_prefill_reference(*args, **sc), new,
+                         dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cached,new,tn,page", [
+    ([0, 1344 + 37], [256, 100], 256, 64),        # mid-page cached length
+    ([0, 5, 63, 64, 65, 130, 700, 0], [1, 1, 1, 1, 1, 1, 1, 64], 64, 64),
+    ([9, 0, 200], [0, 40, 3], 40, 64),            # window not page-sized
+    ([13, 100, 37], [16, 5, 0], 16, 8),           # 64-key tiles cross pages
+])
+def test_ragged_paged_attention_kernel_int8(dev, dtype, cached, new, tn,
+                                            page):
+    from paddle_tpu_torch.kernels.ragged_attention import (
+        ragged_paged_attention, ragged_paged_attention_reference)
+
+    args, sc = _q8_args(_prefill_inputs(dev, dtype, len(cached), tn, 32, 8,
+                                        128, page, cached, new,
+                                        seed=tn + page))
+    got = _launched("ragged_paged_attention_int8",
+                    lambda: ragged_paged_attention(*args, **sc))
+    _check_paged_prefill(got, ragged_paged_attention_reference(*args, **sc),
+                         new, dtype)
+
+
+def test_int8_pools_launch_only_the_int8_kernels(dev):
+    """An int8 launch counts under its own counter, never the bf16 one."""
+    from paddle_tpu_torch.kernels.ragged_attention import (
+        ragged_paged_attention)
+
+    args, sc = _q8_args(_prefill_inputs(dev, torch.bfloat16, 2, 16, 8, 2,
+                                        128, 64, [70, 0], [16, 3], seed=1))
+    _build.reset_launch_counts()
+    ragged_paged_attention(*args, **sc)
+    q1 = args[0][:, 0].contiguous()
+    paged_decode_attention(q1, args[3], args[4], args[5], args[6], **sc)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    assert counts["ragged_paged_attention_int8"] == 1
+    assert counts["paged_decode_attention_int8"] == 1
+    assert sum(counts.values()) == 2
 
 
 def test_paged_prefill_refuses_what_it_does_not_take(dev):

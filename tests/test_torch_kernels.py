@@ -190,12 +190,18 @@ def test_paged_decode_mask_is_inclusive():
 
 
 def test_paged_decode_refuses_int8_scales():
+    """Scales belong to int8 pools only, and an int8 pool needs them: the
+    JAX wrapper's two ValueErrors (int8 pools are served since the int8
+    kernels were ported; tests/test_torch_kv_quant.py holds them)."""
     q, kc, vc, tables, lens = (torch.from_numpy(a)
                                for a in _paged_inputs(4, 2))
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="only apply to int8"):
         paged_decode_attention(q, kc, vc, tables, lens,
                                k_scale=torch.ones(12, 2),
                                v_scale=torch.ones(12, 2))
+    q8 = kc.to(torch.int8)
+    with pytest.raises(ValueError, match="k_scale / v_scale"):
+        paged_decode_attention(q, q8, q8, tables, lens)
 
 
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors():

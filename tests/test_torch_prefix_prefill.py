@@ -105,7 +105,7 @@ def test_prefix_prefill_refuses_what_the_jax_wrapper_refuses():
     with pytest.raises(ValueError, match="at least one page"):
         prefix_prefill_attention(q, ks, vs, kc, vc,
                                  torch.zeros(1, 0, dtype=torch.int32), lens)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="only apply to int8"):
         prefix_prefill_attention(q, ks, vs, kc, vc, torch.from_numpy(tables),
                                  lens, k_scale=torch.ones(4, 2),
                                  v_scale=torch.ones(4, 2))
@@ -160,14 +160,20 @@ def test_make_prefill_with_prefix_matches_jax(nkv):
 
 
 def test_prefill_with_prefix_refuses_int8_pools_and_odd_buckets():
+    """An int8 pool without its scales is refused (an (int8 pool, scale)
+    pair serves: tests/test_torch_kv_quant.py), as is a suffix bucket
+    that is not a whole number of pages."""
     _, _, cfg, p = _model_setup(2)
     with pytest.raises(ValueError, match="whole number"):
         pl._make_prefill_with_prefix(cfg, 1, 12, 1, 8)
     fn = pl._make_prefill_with_prefix(cfg, 1, 8, 1, 8)
-    pool = (torch.zeros(3, 2, 8, cfg.head_dim, dtype=torch.int8),
-            torch.ones(3, 2))
+    pool = torch.zeros(3, 2, 8, cfg.head_dim, dtype=torch.int8)
     n = cfg.num_hidden_layers
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fn(p, [pool] * n, [pool] * n, torch.ones(1, 8, dtype=torch.int64),
-           torch.zeros(1, 1, dtype=torch.int32),
-           torch.zeros(1, dtype=torch.int32))
+    args = (torch.ones(1, 8, dtype=torch.int64),
+            torch.zeros(1, 1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="k_scale / v_scale"):
+        fn(p, [pool] * n, [pool] * n, *args)
+    pair = (pool, torch.zeros(3, 2))
+    h, _ = fn(p, [pair] * n, [pair] * n, *args)
+    assert torch.isfinite(h).all()

@@ -114,10 +114,14 @@ def test_ragged_refuses_int8_and_empty_tables():
     with pytest.raises(ValueError, match="at least one page"):
         ragged_paged_attention(*t, torch.zeros(1, 0, dtype=torch.int32),
                                lens)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="only apply to int8"):
         ragged_paged_attention(*t, torch.from_numpy(tables), lens,
                                k_scale=torch.ones(16, 2),
                                v_scale=torch.ones(16, 2))
+    q8 = t[3].to(torch.int8)
+    with pytest.raises(ValueError, match="k_scale / v_scale"):
+        ragged_paged_attention(*t[:3], q8, q8, torch.from_numpy(tables),
+                               lens)
 
 
 # ---------------------------------------------------------------------------
