@@ -24,7 +24,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bytes; decode and cache-hit prefills through the int8 kernels.
 6. int8 KV pools on the unified step: phase 4's traffic; windows through
    the int8 ragged kernel beside the int8 decode lane.
-7. Print the kernel table as one JSON line (each kernel's launches from
+7. int4-split: weight-only int4 params made on the card by
+   init_quant_serving_params (no bf16 projection ever exists), served on
+   the split path with the prefix cache over phase 3's traffic; decode
+   matmuls through the int4 GEMV kernel, prefills through the large-M
+   dequantize-then-matmul route.
+8. int8w-int8kv-unified: int8 weights from decode_params over the bf16
+   params, int8 KV pools, the unified step over phase 4's traffic.
+9. quant-generate: build_quant_generate (contiguous caches) over phase
+   7's int4 params, 8 prompts of 448 tokens, 32 new tokens each; decode
+   attention through gqa_decode_attention. 9b: the same program on a
+   2-layer Llama-2-7B (equal heads) with int8 weights, through
+   decode_attention.
+10. Print the kernel table as one JSON line (each kernel's launches from
    the phase that drives it), the card's name and power limit, and the
    closing {"ok": true, ...} line.
 
@@ -37,11 +49,14 @@ the paddle_tpu_torch package is not beside this script.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -59,6 +74,16 @@ SEED = 0
 INT8_RANK_MARGIN = 1.0
 PAGED_ATTENTION = ("paged_decode_attention", "prefix_prefill_attention",
                    "ragged_paged_attention")
+# (K, N) of the decode matmuls of Llama-3-8B: q and o, k and v, gate and
+# up, down, lm_head; per decode step each layer runs q, k, v, o, gate,
+# up, down once and the model the lm_head once
+GEMV_SHAPES = ((4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096),
+               (4096, 128256))
+GEMV_PER_STEP = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64,
+                 (14336, 4096): 32, (4096, 128256): 1}
+# weight-only matmuls per decode step: 7 per layer plus the lm_head
+MATMULS_PER_LAYER = 7
+L2_BYTES = 50e6
 
 
 def log(msg: str) -> None:
@@ -77,6 +102,39 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_cold_ms(fn, operands, iters: int = 20) -> float:
+    """Device time of one fn(*operands), cycling through enough copies of
+    the operands (at least 2.5x the card's 50 MB L2 in all) that every
+    launch reads them from device memory, as a decode step does: each
+    layer's weights and cache are read once per step. The launches are
+    captured in one CUDA graph and replayed, so the time is the kernels'
+    own, back to back, without the Python wrapper's host time between
+    launches (a few tens of microseconds, longer than the small decode
+    kernels themselves)."""
+    per = sum(t.numel() * t.element_size() for t in operands)
+    n = max(1, math.ceil(2.5 * L2_BYTES / per))
+    copies = [tuple(operands)] + [tuple(t.clone() for t in operands)
+                                  for _ in range(n - 1)]
+    reps = max(iters, n)
+    for ops in copies:                       # warm-up, outside the capture
+        fn(*ops)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for ops in itertools.islice(itertools.cycle(copies), reps):
+            fn(*ops)
+    graph.replay()                           # warm-up replay
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -333,6 +391,93 @@ def check_paged_prefill(name: str, b: int, tn: int, cached, new,
                 bound_by=by, library_ms=lib_ms)
 
 
+def check_gemv(quant: str, m: int, k: int, n: int):
+    """The weight-only GEMV (int4 or int8 weights) against its plain
+    version on the same bf16 x and quantized weight: both sum exact
+    integer weights times x in f32, scale in f32 and round once, so they
+    are one bf16 rounding step apart at most (ulp_check). Timed cold (each
+    launch streams the weights from device memory, as a decode step
+    does). Library yardstick: torch.matmul over the weight dequantized to
+    bf16 beforehand (the dequantization is not timed)."""
+    from paddle_tpu_torch.kernels.int4_matmul import (
+        int4_matmul, int4_matmul_reference, int8_weight_matmul,
+        int8_weight_matmul_reference)
+    from paddle_tpu_torch.nn.quant import weight_dequantize, weight_quantize
+
+    fn, ref_fn = ((int4_matmul, int4_matmul_reference)
+                  if quant == "weight_only_int4" else
+                  (int8_weight_matmul, int8_weight_matmul_reference))
+    g = torch.Generator(device="cuda").manual_seed(SEED + k + n)
+    wq, sc = weight_quantize(
+        torch.randn(k, n, generator=g, device="cuda") * 0.02, algo=quant)
+    x = torch.randn(m, k, generator=g, device="cuda", dtype=torch.bfloat16)
+    err = ulp_check(f"{quant} M{m} K{k} N{n}", fn(x, wq, sc),
+                    ref_fn(x, wq, sc))
+    ms = time_cold_ms(fn, (x, wq, sc))
+    plain_ms = time_ms(lambda: ref_fn(x, wq, sc), iters=5)
+    wd = weight_dequantize(wq, sc, algo=quant, out_dtype=torch.bfloat16)
+    lib_ms = time_cold_ms(torch.matmul, (x, wd))
+    del wd
+    b_ms, by = bound_ms(wq.numel() + 4 * n + 2 * m * k + 2 * m * n,
+                        2 * m * n * k)
+    return dict(case=f"M{m} K{k} N{n} {quant[12:]}", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=lib_ms, shape=(m, k, n))
+
+
+def check_contiguous_decode(name: str, b: int, hq: int, hkv: int, d: int,
+                            max_seq: int):
+    """decode_attention / gqa_decode_attention over contiguous caches
+    [B, Hkv, max_seq, D] against the plain version: ragged lens including
+    0 and max_seq - 1. Both score and accumulate in f32 from the same bf16
+    inputs and round once (ulp_check). Timed cold (each layer's cache is
+    read once per step). Library: SDPA (enable_gqa) with a length mask."""
+    from paddle_tpu_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_reference, gqa_decode_attention)
+
+    fn = {"decode_attention": decode_attention,
+          "gqa_decode_attention": gqa_decode_attention}[name]
+    g = torch.Generator(device="cuda").manual_seed(SEED + hq + hkv)
+    q = torch.randn(b, hq, d, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    kc, vc = (torch.randn(b, hkv, max_seq, d, generator=g, device="cuda",
+                          dtype=torch.bfloat16) for _ in range(2))
+    lens_l = [0, 63, 64, 300, 447, 500, max_seq - 2, max_seq - 1]
+    lens = torch.tensor((lens_l * b)[:b], dtype=torch.int32, device="cuda")
+    args = (q, kc, vc, lens)
+    err = ulp_check(f"{name} Hq{hq}/Hkv{hkv}", fn(*args),
+                    decode_attention_reference(*args))
+    ms = time_cold_ms(fn, args)
+    plain_ms = time_ms(lambda: decode_attention_reference(*args))
+
+    def sdpa(q, kc, vc, lens):
+        mask = (torch.arange(max_seq, device="cuda")[None, :]
+                <= lens.long()[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], kc, vc, attn_mask=mask, enable_gqa=True)
+
+    lib_ms = time_cold_ms(sdpa, args)
+    ctx = sum(min(max_seq, int(n) + 1) for n in lens.tolist())
+    n_bytes = 2 * ctx * hkv * d * 2 + 2 * b * hq * d * 2 + 4 * b
+    b_ms, by = bound_ms(n_bytes, 4 * hq * d * ctx)
+    return dict(case=f"B{b} Hq{hq} Hkv{hkv} D{d} max_seq{max_seq} "
+                     f"positions{ctx}", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def gemv_step_totals(cases):
+    """One Llama-3-8B decode step's weight-only matmuls at M = 8, summed
+    from the per-shape cases: (kernel ms, bound ms, library ms)."""
+    tot = [0.0, 0.0, 0.0]
+    for c in cases:
+        m, k, n = c["shape"]
+        if m == 8:
+            for i, key in enumerate(("ms", "bound_ms", "library_ms")):
+                tot[i] += GEMV_PER_STEP[(k, n)] * c[key]
+    return tot
+
+
 def phase_kernels():
     """Returns {kernel name: [case results]}; the first case of each is
     at the shape the engine's main path gives it."""
@@ -373,6 +518,22 @@ def phase_kernels():
                                 [0, 37, 64, 200, 511, 700, 1381, 256],
                                 [1, 1, 1, 1, 1, 1, 1, 64], q8=True)],
     }
+    # the weight-only GEMV at the decode matmuls' shapes (M = 8 slots),
+    # plus the edges M = 1 and M = 64; contiguous decode at Llama-3-8B's
+    # GQA shape and at equal heads
+    for quant, name in (("weight_only_int4", "int4_matmul"),
+                        ("weight_only_int8", "int8_weight_matmul")):
+        res[name] = [check_gemv(quant, 8, k, n) for k, n in GEMV_SHAPES] \
+            + [check_gemv(quant, m, 4096, 14336) for m in (1, 64)]
+        step = gemv_step_totals(res[name])
+        log(f"[kernel] {name}: one Llama-3-8B decode step's matmuls (M=8, "
+            f"225 calls): {step[0]:.3f} ms, bound {step[1]:.3f} ms "
+            f"({100 * step[1] / step[0]:.1f}% of bound), bf16 torch.matmul "
+            f"{step[2]:.3f} ms")
+    res["gqa_decode_attention"] = [
+        check_contiguous_decode("gqa_decode_attention", 8, 32, 8, 128, 1024)]
+    res["decode_attention"] = [
+        check_contiguous_decode("decode_attention", 8, 32, 32, 128, 1024)]
     for name, cases in res.items():
         for c in cases:
             log(f"[kernel] {name} {c['case']}: {c['ms']:.4f} ms, bound "
@@ -535,6 +696,11 @@ def phase_engine(cfg, params):
 def profile_step(eng, title: str):
     """Trace one `eng.step()` under torch.profiler: device time by kernel
     and the device's busy share of the host wall time."""
+    profile_call(eng.step, title)
+
+
+def profile_call(fn, title: str):
+    """Trace one `fn()` under torch.profiler (see profile_step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -542,7 +708,7 @@ def profile_step(eng, title: str):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step()
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device-side events only: a CPU op (aten::mm) also reports the
@@ -560,13 +726,20 @@ def profile_step(eng, title: str):
 
 def profile_decode(eng, prompts):
     """One short traced window (8 requests, 8 new tokens each) after the
-    counted run: one decode chunk. Its launches are not counted."""
+    counted run: one decode chunk. Its launches do not join the phase's;
+    they are counted apart (reset just before the chunk, read just after)
+    and returned."""
+    from paddle_tpu_torch.kernels import _build
+
     for p in prompts:
         eng.add_request(p, max_new=9)
     eng._admit()
+    _build.reset_launch_counts()
     profile_step(eng, f"one decode chunk (8 steps x 8 slots, "
                       f"{eng.kv_dtype} pools)")
+    chunk = _build.launch_counts()
     eng.run()
+    return chunk
 
 
 def profile_mixed(eng, short, long):
@@ -869,6 +1042,244 @@ def phase_int8_unified(cfg, params):
     return {"launches": launches, "worst_margin": worst}
 
 
+# ---------------------------------------------------------------------------
+# phases 7-9: weight-only quantized serving
+# ---------------------------------------------------------------------------
+
+def dense_oracle(params, quant):
+    """The plain forward's weights: every weight-only pair dequantized to
+    bf16 (weight_dequantize: q * scale in f32, rounded once), the rest as
+    is. The served matmul sums x * q in f32 and scales the sum; the oracle
+    rounds q * scale to bf16 first, a bf16 rounding of each weight, the
+    same function to bf16 accuracy."""
+    from paddle_tpu_torch.nn.quant import weight_dequantize
+
+    return {k: weight_dequantize(*v, algo=quant, out_dtype=torch.bfloat16)
+            if isinstance(v, tuple) else v for k, v in params.items()}
+
+
+def plain_over(cfg, params, quant):
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    return LlamaForCausalLM(cfg, use_kernels=False).load_params(
+        dense_oracle(params, quant))
+
+
+def _release():
+    """Return the memory of tensors the caller just dropped to the card
+    (each phase frees its dequantized oracle weights before the next)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _quant_launch_gates(phase, launches, name):
+    """A weight-only phase's matmuls: decode through the GEMV kernel
+    `name`, prefills (M > 64 rows) through its large-M route, and nothing
+    through the other format's."""
+    other = "int8_weight_matmul" if name == "int4_matmul" else "int4_matmul"
+    if launches[name] <= 0 or launches[name + "_large_m"] <= 0 \
+            or launches[other] or launches[other + "_large_m"]:
+        raise AssertionError(f"{phase}: weight-only matmul launches "
+                             f"{launches}")
+
+
+def phase_int4_split(cfg):
+    """Phase 7: weight-only int4 params made on the card by
+    init_quant_serving_params (no bf16 projection exists), served on the
+    split path with the prefix cache over phase 3's traffic (bf16 pools).
+    Gates: every request returns 32 in-vocabulary tokens; the decode
+    matmuls launch the int4 GEMV and the prefills its large-M route; one
+    decode chunk profiled alone launches the GEMV exactly 225 times per
+    step (7 x 32 layers + lm_head) and the large-M route never; served
+    tokens rank within 0.5 logit of the plain forward over the same
+    weights dequantized to bf16."""
+    from paddle_tpu_torch.models import init_quant_serving_params
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    quant = "weight_only_int4"
+    t0 = time.perf_counter()
+    params = init_quant_serving_params(cfg, quant, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    dense = [k for k, v in params.items() if not isinstance(v, tuple)
+             and (k.endswith("_proj.weight") or k == "lm_head.weight")]
+    if dense:
+        raise AssertionError(f"int4-split: dense projections {dense[:3]}")
+    n_bytes = sum(t.numel() * t.element_size() for v in params.values()
+                  for t in (v if isinstance(v, tuple) else (v,)))
+    log(f"[int4-split] Llama-3-8B int4 weight-only params on card in "
+        f"{time.perf_counter() - t0:.1f}s: {n_bytes / 1e9:.3f} GB "
+        f"(projections and lm_head packed int4 + f32 scales, embedding and "
+        f"norms bf16)")
+    eng = ContinuousBatchingEngine(
+        cfg, params, slots=8, prompt_bucket=128, max_prompt_len=1024,
+        max_new_tokens=32, block_size=64, steps_per_sync=8,
+        prefix_cache=True, dtype=torch.bfloat16, device="cuda")
+    eng.warm()
+    reqs, wall, launches, m = serve(eng, prefix_traffic(cfg), "int4-split")
+    if m["prefix_hit_tokens"] <= 0:
+        raise AssertionError("int4-split: no prompt token was served from "
+                             "the prefix cache")
+    _quant_launch_gates("int4-split", launches, "int4_matmul")
+    chunk = profile_decode(eng, prefix_traffic(cfg)[:8])
+    per_step = MATMULS_PER_LAYER * cfg.num_hidden_layers + 1
+    if chunk["int4_matmul"] != per_step * eng.steps \
+            or chunk["int4_matmul_large_m"]:
+        raise AssertionError(f"int4-split: one decode chunk of {eng.steps} "
+                             f"steps launched {chunk['int4_matmul']} int4 "
+                             f"GEMVs (expected {per_step * eng.steps}) and "
+                             f"{chunk['int4_matmul_large_m']} large-M "
+                             "matmuls (expected 0)")
+    log(f"[int4-split] one decode chunk: {chunk['int4_matmul']} int4 GEMV "
+        f"launches ({per_step} per step), 0 large-M")
+    del eng
+    plain = plain_over(cfg, params, quant)
+    hits = [r for r in reqs if r.cached_tokens]
+    worst = _gate_ranks("int4-split", plain, [hits[0], hits[-1]])
+    del plain
+    _release()
+    return {"launches": launches, "params": params, "worst_margin": worst,
+            "chunk": chunk}
+
+
+def phase_int8w_unified(cfg, params):
+    """Phase 8: weight-only int8 params from decode_params over the bf16
+    params, int8 KV pools, the unified step over phase 4's traffic.
+    Phase 6's gates (windows, cache hits, int8 decode and ragged launches
+    per layer and window), the int8 GEMV on decode and its large-M route
+    on the windows, and served tokens within INT8_RANK_MARGIN of the plain
+    forward over the int8 weights dequantized to bf16 (the plain forward
+    reads no quantized cache)."""
+    from paddle_tpu_torch.models import decode_params
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    quant, phase = "weight_only_int8", "int8w-int8kv-unified"
+    params8 = decode_params(params, quant)
+    eng = ContinuousBatchingEngine(
+        cfg, params8, slots=8, prompt_bucket=128, max_prompt_len=2048,
+        max_new_tokens=32, block_size=64, steps_per_sync=8,
+        prefix_cache=True, unified_step=True, token_budget=256,
+        kv_cache_dtype="int8", dtype=torch.bfloat16, device="cuda")
+    eng.warm()
+    reqs, wall, launches, m = serve(eng, unified_traffic(cfg), phase)
+    L = cfg.num_hidden_layers
+    if m["prefill_chunks"] <= 16 or m["prefix_hit_tokens"] <= 0:
+        raise AssertionError(f"{phase}: {m['prefill_chunks']} windows, "
+                             f"{m['prefix_hit_tokens']} cache-hit tokens")
+    _gate_multiple(phase, launches, "paged_decode_attention_int8", L)
+    n = _gate_multiple(phase, launches, "ragged_paged_attention_int8", L)
+    if n != L * m["prefill_chunks"]:
+        raise AssertionError(f"{phase}: {n} int8 ragged launches for "
+                             f"{m['prefill_chunks']} windows")
+    _quant_launch_gates(phase, launches, "int8_weight_matmul")
+    del eng
+    plain = plain_over(cfg, params8, quant)
+    hit = next(r for r in reqs if r.cached_tokens)
+    worst = _gate_ranks(phase, plain, [reqs[0], hit], INT8_RANK_MARGIN)
+    del plain, params8
+    _release()
+    return {"launches": launches, "worst_margin": worst}
+
+
+def quant_generate(cfg, params, quant, phase, attention):
+    """build_quant_generate(b=8, sb=512, max_new=32), greedy, over 8
+    prompts of 448 tokens (s0 = 448, so max_seq = 1024), with the launch
+    counts reset just before and read just after. Gates: 8 x 32
+    in-vocabulary tokens; `attention` launched once per layer and decode
+    step (31 steps); the weight-only GEMV 31 times per step's matmuls
+    plus once (the first token's lm_head, M = 8); the large-M route
+    exactly once per prefill matmul (M = 4096); tokens rank within 0.5
+    logit of the plain forward over the weights dequantized to bf16.
+    Also times the prefill alone (max_new = 1) for a per-step figure."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import build_quant_generate
+
+    b, sb, s0, max_new = 8, 512, 448, 32
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [rng.integers(1, cfg.vocab_size, s0).tolist()
+               for _ in range(b)]
+    ids = torch.zeros(b, sb, dtype=torch.long, device="cuda")
+    ids[:, :s0] = torch.tensor(prompts, device="cuda")
+    run = build_quant_generate(cfg, b=b, sb=sb, max_new=max_new)
+    first = build_quant_generate(cfg, b=b, sb=sb, max_new=1)
+    with torch.no_grad():
+        first(params, ids, s0)                     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first(params, ids, s0)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = run(params, ids, s0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    gemv = "int4_matmul" if quant == "weight_only_int4" \
+        else "int8_weight_matmul"
+    L, steps = cfg.num_hidden_layers, max_new - 1
+    per_step = MATMULS_PER_LAYER * L + 1
+    want = {attention: L * steps, gemv: per_step * steps + 1,
+            gemv + "_large_m": MATMULS_PER_LAYER * L}
+    other = ({"decode_attention", "gqa_decode_attention"} - {attention}).pop()
+    if any(launches[k] != v for k, v in want.items()) or launches[other] \
+            or tuple(toks.shape) != (b, max_new) \
+            or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{phase}: tokens {tuple(toks.shape)}, "
+                             f"launches {launches}, expected {want}")
+    step_ms = 1e3 * (wall - prefill_s) / steps
+    log(f"[{phase}] {b} x {max_new} tokens in {wall:.3f}s "
+        f"({b * max_new / wall:.1f} tok/s); prefill + first token "
+        f"{prefill_s:.3f}s; decode {step_ms:.2f} ms per step of {b} rows; "
+        f"launches {json.dumps(launches)}")
+    profile_quant_step(cfg, params, b, s0)
+    plain = plain_over(cfg, params, quant)
+    reqs = [SimpleNamespace(req_id=i, prompt=prompts[i],
+                            tokens=toks[i].tolist(), cached_tokens=0)
+            for i in (0, b - 1)]
+    worst = _gate_ranks(phase, plain, reqs)
+    del plain
+    _release()
+    return {"launches": launches, "worst_margin": worst, "wall_s": wall,
+            "step_ms": step_ms}
+
+
+def profile_quant_step(cfg, params, b: int, pos: int, max_seq: int = 1024):
+    """Trace one decode step of the quant-only program (the contiguous
+    caches at position `pos`, contents irrelevant to the time), after the
+    counted run; its launches are not counted."""
+    from paddle_tpu_torch.models.llama import _make_decode_step
+
+    shape = (b, cfg.num_key_value_heads, max_seq, cfg.head_dim)
+    kcs, vcs = ([torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+                 for _ in range(cfg.num_hidden_layers)] for _ in range(2))
+    step = _make_decode_step(cfg, b, max_seq)
+    tok = torch.ones(b, 1, dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        step(params, kcs, vcs, tok, pos)                  # warm-up
+        profile_call(lambda: step(params, kcs, vcs, tok, pos),
+                     f"one quant-generate decode step ({b} rows at "
+                     f"position {pos})")
+    del kcs, vcs
+    _release()
+
+
+def phase_quant_generate_7b():
+    """Phase 9b: the quant-only program on Llama-2-7B widths cut to 2
+    layers (equal heads: 32 q and 32 kv heads) with int8 weights, so the
+    equal-heads contiguous decode (decode_attention) runs on a served
+    path."""
+    from paddle_tpu_torch.models import LlamaConfig, init_quant_serving_params
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2)
+    quant = "weight_only_int8"
+    params = init_quant_serving_params(cfg, quant, seed=SEED, device="cuda")
+    out = quant_generate(cfg, params, quant, "quant-generate-7b",
+                         "decode_attention")
+    del params
+    _release()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -890,7 +1301,14 @@ def main() -> int:
             ("unified", lambda: phase_unified(cfg, params)),
             ("int8-split",
              lambda: phase_int8_split(cfg, params, phases["prefix"])),
-            ("int8-unified", lambda: phase_int8_unified(cfg, params))):
+            ("int8-unified", lambda: phase_int8_unified(cfg, params)),
+            ("int4-split", lambda: phase_int4_split(cfg)),
+            ("int8w-int8kv-unified",
+             lambda: phase_int8w_unified(cfg, params)),
+            ("quant-generate", lambda: quant_generate(
+                cfg, phases["int4-split"]["params"], "weight_only_int4",
+                "quant-generate", "gqa_decode_attention")),
+            ("quant-generate-7b", phase_quant_generate_7b)):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")
@@ -900,7 +1318,11 @@ def main() -> int:
                  "ragged_paged_attention": "unified",
                  "paged_decode_attention_int8": "int8-split",
                  "prefix_prefill_attention_int8": "int8-split",
-                 "ragged_paged_attention_int8": "int8-unified"}
+                 "ragged_paged_attention_int8": "int8-unified",
+                 "int4_matmul": "int4-split",
+                 "int8_weight_matmul": "int8w-int8kv-unified",
+                 "gqa_decode_attention": "quant-generate",
+                 "decode_attention": "quant-generate-7b"}
 
     sources = {
         "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
@@ -926,6 +1348,16 @@ def main() -> int:
         "ragged_paged_attention_int8": (
             "paddle_tpu_torch/csrc/paged_prefill_attention.cu",
             "paddle_tpu/kernels/ragged_attention.py:91"),
+        "int4_matmul": ("paddle_tpu_torch/csrc/weight_only_gemv.cu",
+                        "paddle_tpu/kernels/int4_matmul.py:76"),
+        # the int8 product XLA fuses into the dot: no Pallas kernel
+        "int8_weight_matmul": ("paddle_tpu_torch/csrc/weight_only_gemv.cu",
+                               "paddle_tpu/models/llama.py:685"),
+        "gqa_decode_attention": (
+            "paddle_tpu_torch/csrc/decode_attention.cu",
+            "paddle_tpu/kernels/decode_attention.py:512"),
+        "decode_attention": ("paddle_tpu_torch/csrc/decode_attention.cu",
+                             "paddle_tpu/kernels/decode_attention.py:156"),
     }
     rows = []
     for name, cases in kernels.items():

@@ -72,6 +72,16 @@ SIGNATURES = {
                                               _P, _P, _P, _P, _I, _I, _I, _I,
                                               _I, _I, _I, _I, _F, _I, _P),
     },
+    "decode_attention": {
+        # contiguous caches: q, k_cache, v_cache, lens, out, B, Hq, Hkv, D,
+        # max_seq, scale, dtype, stream
+        "contiguous_decode_attention_launch": (_P, _P, _P, _P, _P, _I, _I,
+                                               _I, _I, _I, _F, _I, _P),
+    },
+    "weight_only_gemv": {
+        # x, w, scale, out, M, N, K, int4, dtype, stream
+        "weight_only_gemv_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -180,12 +190,17 @@ def stream_ptr(device) -> int:
 # wrapper stands for and per pool dtype: a library serving two functions
 # (paged prefill attention serves prefix_prefill_attention and
 # ragged_paged_attention) has one counter per function, and a launch over
-# int8 pools counts under the function's name plus "_int8"
+# int8 pools counts under the function's name plus "_int8". The
+# weight-only matmuls also count their large-M route (the JAX package's
+# dequantize-then-matmul form for M > 64, no kernel of this package) under
+# the function's name plus "_large_m"
 INT8_SUFFIX = "_int8"
 COUNTERS = ("rms_norm", "flash_attention_fwd", "paged_decode_attention",
             "prefix_prefill_attention", "ragged_paged_attention",
             "paged_decode_attention_int8", "prefix_prefill_attention_int8",
-            "ragged_paged_attention_int8")
+            "ragged_paged_attention_int8", "decode_attention",
+            "gqa_decode_attention", "int4_matmul", "int8_weight_matmul",
+            "int4_matmul_large_m", "int8_weight_matmul_large_m")
 
 # launches of each kernel since the last reset: every wrapper adds one
 # where it launches its kernel, and nowhere else (a run can then show

@@ -1,7 +1,18 @@
-"""Paged single-token decode attention (counterpart of
-paddle_tpu/kernels/decode_attention.py ``paged_decode_attention``).
+"""Single-token decode attention (counterpart of
+paddle_tpu/kernels/decode_attention.py): ``paged_decode_attention`` over
+paged pools, and ``decode_attention`` / ``gqa_decode_attention`` over
+contiguous per-layer caches.
 
-Layouts match the JAX function: q [B, Hq, D]; key/value pools
+Contiguous caches: q [B, Hq, D]; k/v caches [B, Hkv, max_seq, D] in q's
+dtype; lens [B] int32 = tokens cached before the current one, whose K/V
+is already written at position lens[b] -- positions <= lens[b] are
+attended. ``decode_attention`` takes equal heads (Hq == Hkv),
+``gqa_decode_attention`` any Hq that is a multiple of Hkv; CUDA tensors
+launch ``csrc/decode_attention.cu`` (one kernel for both, each wrapper
+with its own launch counter), CPU tensors run
+``decode_attention_reference``.
+
+Paged pools (``paged_decode_attention``): q [B, Hq, D]; key/value pools
 [max_pages, Hkv, block_size, D]; block tables [B, W] int32 page ids
 covering positions [0, W*block_size); lens [B] int32 = tokens cached
 before the current one, whose K/V is already written at position
@@ -127,3 +138,84 @@ def paged_decode_attention(q: torch.Tensor, key_cache: torch.Tensor,
     _build.check(lib, code, what)
     _build.LAUNCHES[what] += 1
     return out
+
+
+def decode_attention_reference(q, k_cache, v_cache, lens,
+                               scale: Optional[float] = None):
+    """Plain PyTorch decode over contiguous caches [B, Hkv, max_seq, D]:
+    mask positions > lens, softmax in f32, any group size."""
+    b, hq, d = q.shape
+    hkv, max_seq = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, hkv, g, d).to(torch.float32)
+    s = torch.einsum("bhgd,bhtd->bhgt", qg,
+                     k_cache.to(torch.float32)) * scale
+    pos = torch.arange(max_seq, device=q.device)
+    valid = pos[None, :] <= lens.to(torch.int64)[:, None]       # [B, T]
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full_like(s, _NEG_INF))
+    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    out = torch.einsum("bhgt,bhtd->bhgd", p, v_cache.to(torch.float32)) \
+        / p.sum(-1, keepdim=True)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _contiguous_decode(what: str, q, k_cache, v_cache, lens, scale):
+    b, hq, d = q.shape
+    if k_cache.ndim != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{what}: caches must be [{b}, Hkv, max_seq, {d}], "
+                         f"got {list(k_cache.shape)} / "
+                         f"{list(v_cache.shape)}")
+    hkv, max_seq = k_cache.shape[1], k_cache.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq {hq} not a multiple of Hkv {hkv}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, k_cache, v_cache, lens, scale)
+    dev = _build.require_cuda(what, q, k_cache, v_cache, lens)
+    _build.require_contiguous(what, q=q, k_cache=k_cache, v_cache=v_cache,
+                              lens=lens)
+    if not (q.dtype == k_cache.dtype == v_cache.dtype):
+        raise ValueError(f"{what}: q and caches must share a dtype, got "
+                         f"{q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
+    if lens.dtype != torch.int32 or lens.shape != (b,):
+        raise ValueError(f"{what}: lens must be int32 [{b}], got "
+                         f"{lens.dtype} {list(lens.shape)}")
+    if hkv > 65535:
+        raise ValueError(f"{what}: {hkv} kv heads exceed the grid")
+    out = torch.empty_like(q)
+    lib = _build.library("decode_attention")
+    code = lib.contiguous_decode_attention_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), b, hq, hkv, d, max_seq, float(scale),
+        _build.dtype_code(q.dtype), _build.stream_ptr(dev))
+    _build.check(lib, code, what)
+    _build.LAUNCHES[what] += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lens: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """One decode step over contiguous caches with equal heads: q
+    [B, H, D], caches [B, H, max_seq, D]. Returns [B, H, D]."""
+    if k_cache.ndim == 4 and k_cache.shape[1] != q.shape[1]:
+        raise ValueError(f"decode_attention: equal heads expected, got Hq "
+                         f"{q.shape[1]} and Hkv {k_cache.shape[1]} (use "
+                         "gqa_decode_attention)")
+    return _contiguous_decode("decode_attention", q, k_cache, v_cache, lens,
+                              scale)
+
+
+def gqa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lens: torch.Tensor,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """One grouped-query decode step over contiguous caches: q
+    [B, Hq, D], caches [B, Hkv, max_seq, D], Hq % Hkv == 0. Returns
+    [B, Hq, D]."""
+    return _contiguous_decode("gqa_decode_attention", q, k_cache, v_cache,
+                              lens, scale)

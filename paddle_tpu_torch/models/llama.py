@@ -13,7 +13,12 @@ What is here:
   ``make_paged_kv_q8_helpers``, ``PagedKVManager``), which
   ``serving.engine`` drives. A layer's K/V pool is a tensor
   [max_pages, Hkv, block_size, D] (bf16 / f32), or on int8 pools a pair
-  (int8 pool, f32 scale [max_pages, Hkv]).
+  (int8 pool, f32 scale [max_pages, Hkv]);
+- weight-only quantized serving: ``decode_params`` and
+  ``init_quant_serving_params`` make the JAX ``_decode_params`` layout,
+  where every projection and the lm_head is an (int8 [N, K] or packed
+  int4 [N, K // 2], f32 scale [N]) pair, and ``build_quant_generate``
+  serves it over contiguous per-layer caches.
 
 Weight layout: every projection keeps paddle's ``Linear`` layout
 [in_features, out_features] (``y = x @ w``), in the decode-params dict and
@@ -23,8 +28,10 @@ the modules share storage with the dict. Keys are the JAX package's
 
 The kernel wrappers (``rms_norm``, ``flash_attention``,
 ``paged_decode_attention``, ``prefix_prefill_attention``,
-``ragged_paged_attention``) launch the CUDA kernels for CUDA tensors and
-run their plain versions for CPU tensors. ``LlamaForCausalLM(...,
+``ragged_paged_attention``, ``decode_attention``,
+``gqa_decode_attention``, ``int4_matmul``, ``int8_weight_matmul``)
+launch the CUDA kernels for CUDA tensors and run their plain versions for
+CPU tensors. ``LlamaForCausalLM(...,
 use_kernels=False)`` runs the plain versions on any device, which is how
 the card checks the kernels end to end.
 """
@@ -42,14 +49,20 @@ from torch import nn
 
 from ..device import resolve_device
 from ..framework.flags import flag as _flag
-from ..kernels.decode_attention import paged_decode_attention
+from ..kernels.decode_attention import (decode_attention,
+                                        gqa_decode_attention,
+                                        paged_decode_attention)
 from ..kernels.flash_attention import (flash_attention,
                                        flash_attention_reference)
+from ..kernels.int4_matmul import int4_matmul, int8_weight_matmul
 from ..kernels.prefix_prefill import prefix_prefill_attention
 from ..kernels.ragged_attention import ragged_paged_attention
 from ..kernels.rms_norm import rms_norm as _k_rms
 from ..kernels.rms_norm import rms_norm_reference
 from ..kernels.rope import apply_rotary_emb
+from ..nn.quant import weight_quantize
+
+WEIGHT_QUANTS = ("weight_only_int8", "weight_only_int4")
 
 
 @dataclasses.dataclass
@@ -150,18 +163,79 @@ def params_from_jax(np_params: dict, device=None,
     """The JAX ``raw_state()`` / ``_decode_params`` dict (values as numpy
     arrays, same keys) -> the port's decode-params dict on `device`.
     Layouts are unchanged ([in, out] projections); `dtype` casts every
-    floating weight. Quantized (int, scale) pairs are refused."""
+    floating weight. A weight-only quantized (int8 weight, f32 scale) pair
+    of ``_decode_params`` carries across as a pair of tensors, unchanged
+    (`dtype` does not touch it)."""
     dev = resolve_device(device)
+
+    def tensor(arr):
+        return torch.from_numpy(np.array(arr)).to(dev)  # a writable copy
+
     out = {}
     for name, arr in np_params.items():
         if isinstance(arr, tuple):
-            raise NotImplementedError(
-                f"{name}: weight-only quantized serving params are not "
-                "ported yet (ROADMAP.md: int4_matmul)")
-        t = torch.from_numpy(np.array(arr))  # a writable copy
+            out[name] = tuple(tensor(a) for a in arr)
+            continue
+        t = tensor(arr)
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
-        out[name] = t.to(dev)
+        out[name] = t
+    return out
+
+
+def _quantized_name(name: str) -> bool:
+    """The decode-params keys that weight-only serving quantizes: every
+    projection and the lm_head (the embedding and the norms stay dense)."""
+    return name.endswith("_proj.weight") or name == "lm_head.weight"
+
+
+def _check_quant(quant) -> None:
+    if quant not in WEIGHT_QUANTS:
+        raise ValueError(f"quant must be None, 'weight_only_int8' or "
+                         f"'weight_only_int4', got {quant!r}")
+
+
+def decode_params(params: dict, quant: Optional[str]) -> dict:
+    """The JAX ``LlamaForCausalLM._decode_params`` layout: with `quant`
+    ('weight_only_int8' | 'weight_only_int4') every ``*_proj.weight`` and
+    ``lm_head.weight`` becomes a (w_q, scale) pair of ``weight_quantize``
+    over the f32 weight, on the weight's device; the embedding and the
+    norms stay dense. `quant=None` returns `params` itself.
+
+    The JAX method caches the pairs per source array (its arrays are
+    immutable, so identity means "unchanged"). A torch tensor updated in
+    place keeps its identity, so no cache is kept here: every call
+    quantizes, and the caller keeps the result."""
+    if quant is None:
+        return params
+    _check_quant(quant)
+    return {name: weight_quantize(w, algo=quant) if _quantized_name(name)
+            else w for name, w in params.items()}
+
+
+def init_quant_serving_params(cfg: LlamaConfig, quant: str, seed: int = 0,
+                              device=None,
+                              dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Random weights (normal, std 0.02; norms at 1) in the
+    ``decode_params`` layout, made weight by weight on `device` from a
+    ``torch.Generator`` seeded with `seed`: each projection is drawn in
+    f32 and quantized at once, so the full-precision model never exists;
+    the peak transient is one f32 weight (the lm_head, 2.1 GB at
+    Llama-3-8B). The embedding and the norms are `dtype`. Stands in for a
+    quantized checkpoint (the JAX ``init_quant_serving_params``, whose
+    random stream differs)."""
+    _check_quant(quant)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    out = {}
+    for name, shape in param_shapes(cfg).items():
+        if name.endswith("norm.weight"):
+            out[name] = torch.ones(shape, dtype=dtype, device=dev)
+            continue
+        w = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32).mul_(0.02)
+        out[name] = weight_quantize(w, algo=quant) if _quantized_name(name) \
+            else w.to(dtype)
     return out
 
 
@@ -354,11 +428,21 @@ class LlamaForCausalLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 def _mm(x, w):
-    """Matmul against a dense decode weight [K, N]."""
+    """Matmul against a decode weight: dense [K, N], or a weight-only
+    pair -- int8 [N, K] or packed int4 [N, K // 2] (told apart by the
+    stored K, as in JAX) with per-channel f32 scales [N]. Both sum in f32,
+    scale in f32 and round once to x's dtype (``int4_matmul`` /
+    ``int8_weight_matmul``: the GEMV kernel for M <= 64 rows on the card,
+    the dequantize-then-matmul route above)."""
     if isinstance(w, tuple):
-        raise NotImplementedError(
-            "weight-only quantized projections are not ported yet "
-            "(ROADMAP.md: int4_matmul)")
+        wq, sc = w
+        k = x.shape[-1]
+        x2 = x.reshape(-1, k).contiguous()
+        if wq.shape[1] != k:          # packed int4: two nibbles per byte
+            out = int4_matmul(x2, wq, sc)
+        else:
+            out = int8_weight_matmul(x2, wq, sc)
+        return out.reshape(*x.shape[:-1], wq.shape[0])
     return x @ w
 
 
@@ -634,21 +718,42 @@ def _make_decode_step(cfg, b, max_seq=None, kv_write=None, kv_attend=None):
       kv_write(kc, vc, k, v, pos)  -> (kc, vc)   store the token's K/V
       kv_attend(q1, kc, vc, pos)   -> ctx [B, Hq, D]
 
-    (pos: [B] cached counts; kc / vc are a layer's pool entries, (int8
-    pool, scale) pairs on int8 pools). The contiguous-cache defaults of
-    the JAX version ride the contiguous decode kernels, which are not
-    ported."""
-    if kv_write is None or kv_attend is None:
-        raise NotImplementedError(
-            "the contiguous-cache decode step (decode_attention / "
-            "gqa_decode_attention kernels) is not ported yet; pass the "
-            "paged kv_write / kv_attend")
+    (kc / vc are a layer's cache entries, (int8 pool, scale) pairs on int8
+    pools). `pos` counts the tokens already cached: a [B] tensor (one per
+    row, the paged batch) or a scalar (the contiguous caches).
+
+    Defaults (both None): contiguous caches [B, Hkv, max_seq, D], written
+    IN PLACE at `pos` (the JAX dynamic_update_slice, whose start index
+    clamps to max_seq - 1 where torch would raise) and attended through
+    ``decode_attention`` (group 1) or ``gqa_decode_attention``."""
     n_layers = cfg.num_hidden_layers
+    group = cfg.num_attention_heads // cfg.num_key_value_heads
     head_logits = _make_head_logits(cfg)
 
+    if kv_write is None:
+        if max_seq is None:
+            raise ValueError("the contiguous-cache decode step needs "
+                             "max_seq")
+
+        def kv_write(kc, vc, k, v, pos):
+            start = torch.clamp(pos.to(torch.int64), 0, max_seq - 1)
+            start = start.expand(b) if start.ndim == 0 else start
+            rows = torch.arange(b, device=kc.device)
+            kc[rows, :, start, :] = k[:, 0].to(kc.dtype)
+            vc[rows, :, start, :] = v[:, 0].to(vc.dtype)
+            return kc, vc
+
+    if kv_attend is None:
+        def kv_attend(q1, kc, vc, pos):
+            lens = pos.to(torch.int32).expand(b).contiguous()
+            if group == 1:
+                return decode_attention(q1, kc, vc, lens)
+            return gqa_decode_attention(q1, kc, vc, lens)
+
     def decode_step(p, kcs, vcs, tok, pos):
-        """tok [B, 1] token ids; pos [B] tokens already cached (the new
-        token's position, one per row)."""
+        """tok [B, 1] token ids; pos: tokens already cached (the new
+        token's position), [B] or a scalar."""
+        pos = torch.as_tensor(pos, device=tok.device)
         h = p["llama.embed_tokens.weight"][tok[:, 0]][:, None, :]
 
         def attend(i, q, k, v):
@@ -656,7 +761,8 @@ def _make_decode_step(cfg, b, max_seq=None, kv_write=None, kv_attend=None):
             kv_write(kc, vc, k, v, pos)
             return kv_attend(q[:, 0].contiguous(), kc, vc, pos)
 
-        h, _ = _layers(cfg, p, h, pos[:, None], attend)
+        pos_ids = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
+        h, _ = _layers(cfg, p, h, pos_ids, attend)
         return head_logits(h, p)[:, -1], kcs, vcs
 
     return decode_step
@@ -682,6 +788,82 @@ def make_paged_decode_step(cfg, b, block_size, tables,
                                       v_scale=vsc)
 
     return _make_decode_step(cfg, b, kv_write=kv_write, kv_attend=kv_attend)
+
+
+def _decode_tail(decode_step, p_dec, kcs, vcs, last_logits, s0, generator,
+                 temperature, top_p, ids_dtype, max_new, eos_token_id,
+                 do_sample, top_k, b):
+    """The shared post-prefill decode loop: the first token from the
+    prompt's last logits, then `max_new - 1` single-token decode steps (a
+    Python loop; the JAX package scans). With `eos_token_id`, a row that
+    emitted it keeps emitting it. Returns [b, max_new] in `ids_dtype`."""
+    def sample(logits):
+        return _sample_next(logits.to(torch.float32), generator, do_sample,
+                            temperature, top_k, top_p)
+
+    tok = sample(last_logits)
+    done = tok == eos_token_id if eos_token_id is not None \
+        else torch.zeros((b,), dtype=torch.bool, device=tok.device)
+    pos = torch.as_tensor(s0, dtype=torch.int32, device=tok.device)
+    out = [tok]
+    for _ in range(max_new - 1):
+        logits, kcs, vcs = decode_step(p_dec, kcs, vcs, tok[:, None], pos)
+        nxt = sample(logits)
+        if eos_token_id is not None:
+            nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
+            done = done | (nxt == eos_token_id)
+        out.append(nxt)
+        tok, pos = nxt, pos + 1
+    return torch.stack(out, dim=1).to(ids_dtype)
+
+
+def build_quant_generate(cfg, b, sb, max_new, max_seq=None,
+                         eos_token_id=None, do_sample=False, top_k=0):
+    """The quant-only generation program (the JAX ``build_quant_generate``):
+    prefill and decode read only the ``decode_params`` layout (weight-only
+    pairs plus the dense embedding and norms), so no full-precision
+    parameter set exists on the device.
+
+    Returns ``run(dec_params, ids_padded, s0, generator, temperature,
+    top_p) -> new_tokens [b, max_new]``: ids_padded [b, sb]; `s0` is the
+    true prompt length, one for every row. The prompt prefills through
+    ``_make_prefill`` (flash attention; the weight-only matmuls at M =
+    b * sb rows); its K/V fills contiguous caches [b, nkv, max_seq, dh] in
+    the activation dtype, with max_seq = sb + max_new below 512, else
+    rounded up to a multiple of 512; the first token comes from the logits
+    at position s0 - 1, then ``_decode_tail``'s decode steps write at s0,
+    s0 + 1, ... ."""
+    nkv, dh = cfg.num_key_value_heads, cfg.head_dim
+    if max_seq is None:
+        total = sb + max_new
+        max_seq = total if total < 512 else ((total + 511) // 512) * 512
+    if max_seq < sb:
+        raise ValueError(f"max_seq {max_seq} is shorter than the prompt "
+                         f"bucket {sb}")
+    head_logits = _make_head_logits(cfg)
+    prefill = _make_prefill(cfg, b, sb)
+    decode_step = _make_decode_step(cfg, b, max_seq)
+
+    def run(p_dec, ids, s0, generator=None, temperature=1.0, top_p=1.0):
+        h, kvs = prefill(p_dec, ids)
+        kcs, vcs = [], []
+        for k, v in kvs:
+            for caches, x in ((kcs, k), (vcs, v)):
+                c = torch.zeros((b, nkv, max_seq, dh), dtype=h.dtype,
+                                device=h.device)
+                c[:, :, :sb] = x.transpose(1, 2)
+                caches.append(c)
+        del kvs
+        # logits at the TRUE last prompt position (clamped like JAX's
+        # dynamic index)
+        last = min(max(int(s0) - 1, 0), sb - 1)
+        last_logits = head_logits(h[:, last:last + 1], p_dec)[:, -1]
+        return _decode_tail(decode_step, p_dec, kcs, vcs, last_logits,
+                            int(s0), generator, temperature, top_p,
+                            ids.dtype, max_new, eos_token_id, do_sample,
+                            top_k, b)
+
+    return run
 
 
 # ---------------------------------------------------------------------------

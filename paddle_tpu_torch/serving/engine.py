@@ -125,7 +125,11 @@ class ContinuousBatchingEngine:
 
     `params` is the decode-params dict (``init_serving_params`` or
     ``params_from_jax``) on `device` (None = cuda); `dtype` is the type
-    of the activations and of bf16 pools. A request is admitted
+    of the activations and of bf16 pools. Weight-only quantized params
+    (``decode_params`` / ``init_quant_serving_params``: projections and
+    lm_head as (int8 or packed int4, f32 scale) pairs) serve on every
+    path unchanged, since every path reaches a projection only through
+    ``_mm``. A request is admitted
     when a slot is free and the pool holds its full reservation (cached
     prefix blocks map in for free; the private pages cover the bucketed
     suffix plus max_new), so no preemption is ever needed.
@@ -179,8 +183,6 @@ class ContinuousBatchingEngine:
             raise _unported("serving_cp > 1")
         if speculative not in (None, "off"):
             raise _unported("speculative decoding")
-        if any(isinstance(w, tuple) for w in dec_params.values()):
-            raise _unported("weight-only quantized params")
         if block_size is None:
             block_size = 64
         block_size = int(block_size)

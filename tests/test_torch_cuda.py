@@ -17,6 +17,11 @@ against the same plain versions on the same int8 pools and scales (pages
 quantized by the port's own quantize_kv_pages), with the same bars: the
 kernel folds the scales into its f32 sums, the plain version dequantizes
 in f32 first.
+
+The weight-only GEMV (int4 and int8, bf16 or f16 x on the tensor cores)
+and the contiguous decode kernel compute in f32 from the same inputs and
+round once, so their results are within one rounding step of the plain
+version (bf16 2^-7, f16 2^-10 relative).
 """
 import numpy as np
 import pytest
@@ -299,3 +304,123 @@ def test_paged_prefill_refuses_what_it_does_not_take(dev):
                           [64], seed=0)
     with pytest.raises(ValueError, match="head_dim"):
         ragged_paged_attention(*odd)
+
+
+# ---------------------------------------------------------------------------
+# weight-only GEMV and contiguous decode
+# ---------------------------------------------------------------------------
+
+def _quant_pair(dev, k, n, quant, seed):
+    from paddle_tpu_torch.nn.quant import weight_quantize
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(k, n, generator=g, device=dev) * 0.02
+    return weight_quantize(w, algo=quant)
+
+
+@pytest.mark.parametrize("quant", ["weight_only_int4", "weight_only_int8"])
+@pytest.mark.parametrize("m,k,n", [
+    (8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336), (8, 14336, 4096),
+    (8, 4096, 128256), (1, 4096, 4096), (64, 4096, 4096),
+    (5, 288, 1000),                 # ragged N and a partial k block
+])
+def test_weight_only_gemv(dev, quant, m, k, n):
+    from paddle_tpu_torch.kernels.int4_matmul import (
+        int4_matmul, int4_matmul_reference, int8_weight_matmul,
+        int8_weight_matmul_reference)
+
+    fn, ref_fn, name = (
+        (int4_matmul, int4_matmul_reference, "int4_matmul")
+        if quant == "weight_only_int4" else
+        (int8_weight_matmul, int8_weight_matmul_reference,
+         "int8_weight_matmul"))
+    wq, sc = _quant_pair(dev, k, n, quant, seed=m + k + n)
+    x = torch.randn(m, k, device=dev, dtype=torch.bfloat16)
+    got = _launched(name, lambda: fn(x, wq, sc))
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _within_one_bf16_step(got, ref_fn(x, wq, sc))
+
+
+@pytest.mark.parametrize("quant", ["weight_only_int4", "weight_only_int8"])
+def test_weight_only_gemv_f16(dev, quant):
+    """float16 x (the f16 tensor-core path): within one f16 rounding step
+    (2^-10 relative) of the plain version."""
+    from paddle_tpu_torch.kernels.int4_matmul import (
+        int4_matmul, int4_matmul_reference, int8_weight_matmul,
+        int8_weight_matmul_reference)
+
+    fn, ref_fn = ((int4_matmul, int4_matmul_reference)
+                  if quant == "weight_only_int4" else
+                  (int8_weight_matmul, int8_weight_matmul_reference))
+    wq, sc = _quant_pair(dev, 14336, 520, quant, seed=1)
+    x = torch.randn(9, 14336, device=dev, dtype=torch.float16)
+    got, ref = fn(x, wq, sc).float(), ref_fn(x, wq, sc).float()
+    assert ((got - ref).abs() <= 2.0 ** -10 * ref.abs().clamp(min=1.0)).all()
+
+
+@pytest.mark.parametrize("quant", ["weight_only_int4", "weight_only_int8"])
+def test_weight_only_large_m_route(dev, quant):
+    """M > 64 takes the dequantize-then-matmul route under its own counter
+    and launches no GEMV; the result is the plain version's within one
+    bf16 step (both sum in f32 and round once)."""
+    from paddle_tpu_torch.kernels.int4_matmul import (
+        int4_matmul, int4_matmul_reference, int8_weight_matmul,
+        int8_weight_matmul_reference)
+
+    fn, ref_fn, name = (
+        (int4_matmul, int4_matmul_reference, "int4_matmul")
+        if quant == "weight_only_int4" else
+        (int8_weight_matmul, int8_weight_matmul_reference,
+         "int8_weight_matmul"))
+    wq, sc = _quant_pair(dev, 4096, 1024, quant, seed=2)
+    x = torch.randn(65, 4096, device=dev, dtype=torch.bfloat16)
+    _build.reset_launch_counts()
+    got = fn(x, wq, sc)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    assert counts[name + "_large_m"] == 1 and counts[name] == 0
+    _within_one_bf16_step(got, ref_fn(x, wq, sc))
+
+
+def test_weight_only_gemv_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.kernels.int4_matmul import (int4_matmul,
+                                                      int8_weight_matmul)
+
+    wq, sc = _quant_pair(dev, 48, 64, "weight_only_int4", seed=0)
+    x = torch.randn(2, 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        int4_matmul(x, wq, sc)
+    w8, s8 = _quant_pair(dev, 64, 64, "weight_only_int8", seed=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_weight_matmul(torch.randn(64, 2, device=dev,
+                                       dtype=torch.bfloat16).t(), w8, s8)
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
+        int8_weight_matmul(torch.randn(2, 64, device=dev), w8, s8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        int8_weight_matmul(torch.randn(2, 64, device=dev), w8.cpu(), s8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hq,hkv,max_seq", [
+    (32, 8, 1024), (32, 32, 1024), (8, 1, 544), (32, 8, 96)])
+def test_contiguous_decode(dev, dtype, hq, hkv, max_seq):
+    """Ragged lens including 0 and max_seq - 1; max_seq not a multiple of
+    the kernel's 64-position tile (544 = 8.5 tiles, 96 = 1.5)."""
+    from paddle_tpu_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_reference, gqa_decode_attention)
+
+    g = torch.Generator().manual_seed(hq + max_seq)
+    b, d = 6, 128
+    q = torch.randn(b, hq, d, generator=g)
+    kc, vc = (torch.randn(b, hkv, max_seq, d, generator=g) for _ in range(2))
+    lens = torch.tensor([0, 63, 64, max_seq // 2 + 5, max_seq - 2,
+                         max_seq - 1], dtype=torch.int32)
+    args = [t.to(dev, dtype) for t in (q, kc, vc)] + [lens.to(dev)]
+    fn, name = ((decode_attention, "decode_attention") if hq == hkv
+                else (gqa_decode_attention, "gqa_decode_attention"))
+    got = _launched(name, lambda: fn(*args))
+    ref = decode_attention_reference(*args)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    else:
+        _within_one_bf16_step(got, ref)

@@ -207,12 +207,11 @@ def test_unported_options_raise(kwargs):
 
 
 def test_unported_runtime_options_raise():
+    """watchdog_timeout raises at run(); weight-only quantized params no
+    longer raise (they are served since the weight-only slice)."""
     _, _, _, cfg, p = _setup()
-    qp = dict(p)
-    qp["lm_head.weight"] = (torch.ones(2, 2, dtype=torch.int8),
-                            torch.ones(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _engine(cfg, qp)
+    from paddle_tpu_torch.models import decode_params
+    _engine(cfg, decode_params(p, "weight_only_int4"))
     eng = _engine(cfg, p, prompt_bucket=8, block_size=8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         eng.run(watchdog_timeout=1.0)

@@ -251,10 +251,15 @@ def test_entry_points_default_to_cuda():
 
 
 def test_decode_step_refuses_the_contiguous_cache():
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        pl._make_decode_step(LlamaConfig.tiny(), 2, max_seq=16)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        pl._mm(torch.ones(2, 2), (torch.ones(2, 2), torch.ones(2)))
+    """The contiguous-cache defaults are served since weight-only serving
+    ported them; they refuse a cache without a length, and `_mm` refuses
+    a weight pair that matches neither the int8 nor the packed int4 K."""
+    with pytest.raises(ValueError, match="max_seq"):
+        pl._make_decode_step(LlamaConfig.tiny(), 2)
+    assert callable(pl._make_decode_step(LlamaConfig.tiny(), 2, max_seq=16))
+    with pytest.raises(ValueError, match="does not match"):
+        pl._mm(torch.ones(2, 8), (torch.ones(2, 3, dtype=torch.int8),
+                                  torch.ones(2)))
 
 
 class TestPagedKVManager:
