@@ -466,6 +466,275 @@ def check_contiguous_decode(name: str, b: int, hq: int, hkv: int, d: int,
                 library_ms=lib_ms)
 
 
+# the megakernels at the shape of Llama-3-8B's decode step on the main
+# path: 8 slots, 17 table columns of 64-token pages (137 pages a layer,
+# as phase 10's engine), contexts like phase 3's (one row at a page
+# boundary, where the commit resets an int8 page's scale)
+MK_LENS = (520, 576, 600, 630, 660, 700, 720, 743)
+MK_W = 17
+MK_ROWS = 8
+
+
+def mk_operands(cfg, n_layers: int, quant: bool, q8: bool):
+    """Stacked Llama-3-8B layer weights [L, ...] made on the card from
+    SEED (bf16 dense, or weight-only int8 pairs), a layer-major pool of L
+    x 137 pages (bf16, or int8 with scales), permuted tables, MK_LENS and
+    h [8, 1, H]: (h, lens, tables, weights, pools, scale kwargs)."""
+    from paddle_tpu_torch.models.llama import _layer_shapes, quantize_kv_pages
+    from paddle_tpu_torch.nn.quant import weight_quantize
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    b, pages = MK_ROWS, MK_ROWS * MK_W + 1
+    weights = []
+    for name, shape in _layer_shapes(cfg).items():
+        if name.endswith("norm.weight"):
+            weights.append((1 + 0.1 * torch.randn(
+                (n_layers,) + shape, generator=g, device="cuda")).to(
+                    torch.bfloat16))
+            continue
+        per = [torch.randn(shape, generator=g, device="cuda") * 0.02
+               for _ in range(n_layers)]
+        if quant:
+            pairs = [weight_quantize(w, algo="weight_only_int8") for w in per]
+            weights.append((torch.stack([q for q, _ in pairs]),
+                            torch.stack([s for _, s in pairs])))
+        else:
+            weights.append(torch.stack(per).to(torch.bfloat16))
+        del per
+    shape = (n_layers * pages, cfg.num_key_value_heads, 64, cfg.head_dim)
+    pools = [torch.randn(shape, generator=g, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2)]
+    kw = {}
+    if q8:
+        (kc, ks), (vc, vs) = (quantize_kv_pages(p) for p in pools)
+        pools, kw = [kc, vc], dict(k_scale=ks, v_scale=vs)
+    perm = torch.randperm(pages - 1, generator=torch.Generator().manual_seed(
+        SEED)) + 1
+    tables = perm[: b * MK_W].reshape(b, MK_W).to(torch.int32).cuda()
+    lens = torch.tensor(MK_LENS, dtype=torch.int32, device="cuda")
+    h = torch.randn(b, 1, cfg.hidden_size, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    return h, lens, tables, weights, pools, kw
+
+
+def mk_layers(ops, n_layers: int):
+    """The first `n_layers` layers of stacked operands (views)."""
+    h, lens, tables, weights, pools, kw = ops
+    pages = n_layers * (MK_ROWS * MK_W + 1)
+    cut = [(w[0][:n_layers], w[1][:n_layers]) if isinstance(w, tuple)
+           else w[:n_layers] for w in weights]
+    return (h, lens, tables, cut, [p[:pages] for p in pools],
+            {k: v[:pages] for k, v in kw.items()})
+
+
+def mk_call(rung: str, plain: bool, ops, clone: bool = True):
+    """One megakernel rung (or its plain version) on clones of the pools
+    (in place with clone=False): (h_out, k pool, v pool, k scale, v
+    scale)."""
+    from paddle_tpu_torch.kernels import decode_megakernel as mk
+
+    h, lens, tables, weights, pools, kw = ops
+    if clone:
+        pools = [p.clone() for p in pools]
+        kw = {k: v.clone() for k, v in kw.items()}
+    sfx = "_reference" if plain else ""
+    one = [(w[0][0], w[1][0]) if isinstance(w, tuple) else w[0]
+           for w in weights]
+    if rung == "attn":
+        out = getattr(mk, "decode_layer_megakernel" + sfx)(
+            h, lens, tables, one[0], *one[2:6], *pools, **kw)
+    elif rung == "full":
+        out = getattr(mk, "decode_layer_megakernel_full" + sfx)(
+            h, lens, tables, *one, *pools, **kw)
+    else:
+        out = getattr(mk, "decode_layers_megakernel" + sfx)(
+            h, lens, tables, *weights, *pools,
+            n_layers=weights[0].shape[0], **kw)
+    return out[0], pools[0], pools[1], kw.get("k_scale"), kw.get("v_scale")
+
+
+def off_step(rung: str, ops):
+    """The off rung's multi-kernel work for the same layers (the library
+    column's yardstick): rms_norm, _mm projections, rotary, the paged
+    commit and paged_decode_attention, o projection, and for full / scan
+    the MLP half, per layer; pools updated in place."""
+    from paddle_tpu_torch.kernels.decode_attention import \
+        paged_decode_attention
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm
+    from paddle_tpu_torch.kernels.rope import apply_rotary_emb
+    from paddle_tpu_torch.models.llama import (_mm, make_paged_kv_helpers,
+                                               make_paged_kv_q8_helpers)
+
+    h, lens, tables, weights, pools, kw = ops
+    b, _, H = h.shape
+    n_layers = weights[0].shape[0]
+    nkv, bs, dh = pools[0].shape[1:]
+    stride = pools[0].shape[0] // n_layers
+    q8 = bool(kw)
+    for i in range(n_layers):
+        w_in, w_post, wq, wk, wv, wo, wg, wu, wd = (
+            (w[0][i], w[1][i]) if isinstance(w, tuple) else w[i]
+            for w in weights)
+        tbl = tables + i * stride
+        helpers = make_paged_kv_q8_helpers if q8 else make_paged_kv_helpers
+        _, write = helpers(b, 0, nkv, dh, bs, tbl)
+        x = rms_norm(h, w_in)
+        q = _mm(x, wq).reshape(b, 1, -1, dh)
+        k = _mm(x, wk).reshape(b, 1, nkv, dh)
+        v = _mm(x, wv).reshape(b, 1, nkv, dh)
+        q, k = apply_rotary_emb(q, k, position_ids=lens[:, None],
+                                base=10000.0)
+        if q8:
+            kct = (pools[0], kw["k_scale"])
+            vct = (pools[1], kw["v_scale"])
+            write(kct, vct, k, v, lens)
+        else:
+            write(pools[0], pools[1], k, v, lens)
+        ctx = paged_decode_attention(q[:, 0].contiguous(), pools[0], pools[1],
+                                     tbl, lens, **kw)
+        h = h + _mm(ctx.reshape(b, 1, -1), wo)
+        if rung != "attn":
+            x2 = rms_norm(h, w_post)
+            h = h + _mm(F.silu(_mm(x2, wg)) * _mm(x2, wu), wd)
+    return h
+
+
+def check_mk_commits(name, got, ref, ref32, L: int, q8: bool):
+    """The pools after a megakernel step against the plain version's: at
+    most one commit page per (layer, row) differs, every other page
+    byte-identical. The first layer's commits come from the same inputs
+    and differ by the rounding of the projection: v within one bf16 step
+    (2^-7 max(|v|, 1)); k within two steps of its rotate-half pair's norm
+    (rotary subtracts two rounded products, so one step of either operand
+    survives the cancellation; the pair's norm bounds both operands); on
+    int8 pools compared dequantized, plus one step of the page's scale. A
+    later layer's commits come from hidden states that already differ by
+    rounding, so they meet phase 2's rule instead: no further from the
+    f32 plain version's than the bf16 plain version's are (x1.25 + 1e-3,
+    relative RMS, dequantized on int8)."""
+    pages = MK_ROWS * MK_W + 1
+
+    def deq(res, i, mask):
+        t = res[i][mask].float()
+        return t * res[i + 2][mask][..., None, None] if q8 else t
+
+    for i in (1, 2):
+        diff = (got[i] != ref[i]).flatten(1).any(1)
+        if q8:
+            diff = diff | (got[i + 2] != ref[i + 2]).any(1)
+        if int(diff.sum()) > L * MK_ROWS:
+            raise AssertionError(f"{name}: {int(diff.sum())} pages differ")
+        first = diff.clone()
+        first[pages:] = False
+        r = deq(ref, i, first)
+        if i == 1:
+            d2 = r.shape[-1] // 2
+            norm = (r[..., :d2].square() + r[..., d2:].square()).sqrt()
+            tol = 2.0 ** -6 * torch.cat([norm, norm], -1).clamp(min=1.0)
+        else:
+            tol = 2.0 ** -7 * r.abs().clamp(min=1.0)
+        if q8:
+            tol = tol + ref[i + 2][first][..., None, None]
+        err = (deq(got, i, first) - r).abs()
+        if bool((err > tol).any()):
+            raise AssertionError(f"{name}: first-layer commit err "
+                                 f"{float(err.max()):.3e} beyond its bound")
+        later = diff.clone()
+        later[:pages] = False
+        if not bool(later.any()):
+            continue
+        want = deq(ref32, i, later)
+        e_k = rel_rms(deq(got, i, later), want)
+        e_p = rel_rms(deq(ref, i, later), want)
+        if e_k > 1.25 * e_p + 1e-3:
+            raise AssertionError(f"{name}: later layers' commits rel. RMS "
+                                 f"vs f32 plain {e_k:.3e}, bf16 plain "
+                                 f"{e_p:.3e}")
+
+
+def check_megakernel(cfg, rung: str, quant: bool, q8: bool, ops):
+    """One rung of csrc/decode_megakernel.cu against its plain version on
+    the same operands at the main path's shape. h: no further from the
+    plain version run in f32 than the bf16 plain version is (x1.25 +
+    1e-3, relative RMS, phase 2's rule). Pools: only commit pages change,
+    committed values within one bf16 step (int8: one integer step, scales
+    within 1e-2 relative), every other page byte-identical. Timed with
+    CUDA events (the step's weights exceed the L2 cache, so every launch
+    streams them); the library column is the off rung's multi-kernel work
+    for the same layers (off_step), there being no one PyTorch call for
+    the function."""
+    from paddle_tpu_torch.kernels.decode_megakernel import megakernel_roofline
+
+    L = 2 if rung == "scan" else 1
+    ops = mk_layers(ops, L)
+    h, lens, tables, weights, pools, kw = ops
+    got = mk_call(rung, False, ops)
+    torch.cuda.synchronize()
+    ref = mk_call(rung, True, ops)
+    f32 = [(w if isinstance(w, tuple) else w.float()) for w in weights]
+    ref32 = mk_call(rung, True, (h.float(), lens, tables, f32,
+                                 [p if q8 else p.float() for p in pools],
+                                 kw))
+    e_k = rel_rms(got[0].float(), ref32[0])
+    e_p = rel_rms(ref[0].float(), ref32[0])
+    name = f"megakernel {rung} {'int8' if quant else 'bf16'} weights, " \
+        f"{'int8' if q8 else 'bf16'} pools"
+    if not torch.isfinite(got[0].float()).all() or e_k > 1.25 * e_p + 1e-3:
+        raise AssertionError(f"{name}: rel. RMS vs f32 plain {e_k:.3e}, "
+                             f"bf16 plain {e_p:.3e}")
+    check_mk_commits(name, got, ref, ref32, L, q8)
+    err = float((got[0].float() - ref[0].float()).abs().max())
+    own = (h, lens, tables, weights, [p.clone() for p in pools],
+           {k: v.clone() for k, v in kw.items()})
+    ms = time_ms(lambda: mk_call(rung, False, own, clone=False), iters=10)
+    plain_ms = time_ms(lambda: mk_call(rung, True, own, clone=False),
+                       iters=2, warmup=1)
+    lib_ops = (h, lens, tables, weights, [p.clone() for p in pools],
+               {k: v.clone() for k, v in kw.items()})
+    lib_ms = time_ms(lambda: off_step(rung, lib_ops), iters=10)
+    used = weights if rung != "attn" else [weights[i] for i in (0, 2, 3, 4, 5)]
+    w_bytes = sum(t.numel() * t.element_size() for w in used
+                  for t in (w if isinstance(w, tuple) else (w,)))
+    roof = megakernel_roofline(
+        b=MK_ROWS, H=cfg.hidden_size, F=cfg.intermediate_size,
+        nh=cfg.num_attention_heads, nkv=cfg.num_key_value_heads,
+        dh=cfg.head_dim, bs=64, n_layers=L, weight_bytes=w_bytes,
+        positions=sum(MK_LENS), kv_itemsize=1 if q8 else 2, row_itemsize=2,
+        mlp=rung != "attn")
+    b_ms, by = bound_ms(roof["hbm_bytes"], roof["flops"])
+    return dict(case=f"{name}, L{L} B8 H4096 Hq32 Hkv8 D128 block64 W17 "
+                     f"positions {sum(MK_LENS)}; rel. RMS vs f32 plain "
+                     f"{e_k:.3e} (bf16 plain {e_p:.3e}); library = off-rung "
+                     f"step", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=by, library_ms=lib_ms)
+
+
+def megakernel_cases(cfg):
+    """Every rung over both weight kinds and both pool dtypes. Returns
+    {counter name: [cases]}, the first case of each at the configuration
+    the main path serves it in (phases 10-12)."""
+    res = {}
+    for quant in (True, False):
+        for q8 in (False, True):
+            ops = mk_operands(cfg, 2, quant, q8)
+            for rung in ("scan", "full", "attn"):
+                name = {"scan": "decode_layers_megakernel",
+                        "full": "decode_layer_megakernel_full",
+                        "attn": "decode_layer_megakernel"}[rung]
+                name += "_int8" if q8 else ""
+                res.setdefault(name, []).append(
+                    (quant, check_megakernel(cfg, rung, quant, q8, ops)))
+            del ops
+            _release()
+    # main configurations: int8 weights for scan / full (phases 10, 11),
+    # bf16 weights for attn (phase 12)
+    for name, cases in res.items():
+        want = name.split("_int8")[0] != "decode_layer_megakernel"
+        cases.sort(key=lambda qc: qc[0] != want)
+        res[name] = [c for _, c in cases]
+    return res
+
+
 def gemv_step_totals(cases):
     """One Llama-3-8B decode step's weight-only matmuls at M = 8, summed
     from the per-shape cases: (kernel ms, bound ms, library ms)."""
@@ -534,6 +803,9 @@ def phase_kernels():
         check_contiguous_decode("gqa_decode_attention", 8, 32, 8, 128, 1024)]
     res["decode_attention"] = [
         check_contiguous_decode("decode_attention", 8, 32, 32, 128, 1024)]
+    from paddle_tpu_torch.models import LlamaConfig
+
+    res.update(megakernel_cases(LlamaConfig.llama3_8b()))
     for name, cases in res.items():
         for c in cases:
             log(f"[kernel] {name} {c['case']}: {c['ms']:.4f} ms, bound "
@@ -695,8 +967,9 @@ def phase_engine(cfg, params):
 
 def profile_step(eng, title: str):
     """Trace one `eng.step()` under torch.profiler: device time by kernel
-    and the device's busy share of the host wall time."""
-    profile_call(eng.step, title)
+    and the device's busy share of the host wall time. Returns (wall ms,
+    busy ms)."""
+    return profile_call(eng.step, title)
 
 
 def profile_call(fn, title: str):
@@ -722,24 +995,26 @@ def profile_call(fn, title: str):
         f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%)")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"[profile]   {ms:8.3f} ms  x{count:<5d} {key[:90]}")
+    return wall_ms, busy
 
 
 def profile_decode(eng, prompts):
     """One short traced window (8 requests, 8 new tokens each) after the
     counted run: one decode chunk. Its launches do not join the phase's;
     they are counted apart (reset just before the chunk, read just after)
-    and returned."""
+    and returned with the chunk's (wall ms, busy ms)."""
     from paddle_tpu_torch.kernels import _build
 
     for p in prompts:
         eng.add_request(p, max_new=9)
     eng._admit()
     _build.reset_launch_counts()
-    profile_step(eng, f"one decode chunk (8 steps x 8 slots, "
-                      f"{eng.kv_dtype} pools)")
+    prof = profile_step(eng, f"one decode chunk (8 steps x 8 slots, "
+                             f"{eng.kv_dtype} pools, megakernel "
+                             f"{eng.megakernel_rung})")
     chunk = _build.launch_counts()
     eng.run()
-    return chunk
+    return chunk, prof
 
 
 def profile_mixed(eng, short, long):
@@ -1120,7 +1395,7 @@ def phase_int4_split(cfg):
         raise AssertionError("int4-split: no prompt token was served from "
                              "the prefix cache")
     _quant_launch_gates("int4-split", launches, "int4_matmul")
-    chunk = profile_decode(eng, prefix_traffic(cfg)[:8])
+    chunk, _ = profile_decode(eng, prefix_traffic(cfg)[:8])
     per_step = MATMULS_PER_LAYER * cfg.num_hidden_layers + 1
     if chunk["int4_matmul"] != per_step * eng.steps \
             or chunk["int4_matmul_large_m"]:
@@ -1177,7 +1452,8 @@ def phase_int8w_unified(cfg, params):
     worst = _gate_ranks(phase, plain, [reqs[0], hit], INT8_RANK_MARGIN)
     del plain, params8
     _release()
-    return {"launches": launches, "worst_margin": worst}
+    return {"launches": launches, "worst_margin": worst,
+            "tokens": [r.tokens for r in reqs]}
 
 
 def quant_generate(cfg, params, quant, phase, attention):
@@ -1280,6 +1556,164 @@ def phase_quant_generate_7b():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12: the decode megakernel ladder
+# ---------------------------------------------------------------------------
+
+def _gate_exact(phase: str, launches, name: str, want: int) -> None:
+    if launches[name] != want:
+        raise AssertionError(f"{phase}: {launches[name]} {name} launches, "
+                             f"expected {want}: {launches}")
+
+
+def _token_match(reqs, theirs) -> float:
+    same = sum(a == b for r, t in zip(reqs, theirs)
+               for a, b in zip(r.tokens, t))
+    return same / sum(len(t) for t in theirs)
+
+
+def _serve_rung(cfg, params, rung: str, phase: str, traffic, **kw):
+    """One engine at megakernel rung `rung` over `traffic`: (requests,
+    launches, metrics, decode-chunk ms, one profiled chunk's launches and
+    (wall ms, busy ms))."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(
+        cfg, params, slots=8, prompt_bucket=128, max_new_tokens=32,
+        block_size=64, steps_per_sync=8, dtype=torch.bfloat16,
+        device="cuda", decode_megakernel=rung, **kw)
+    if eng.megakernel_rung != rung:
+        raise AssertionError(f"{phase}: planned rung {eng.megakernel_rung}, "
+                             f"asked for {rung}")
+    eng.warm()
+    reqs, wall, launches, m = serve(eng, traffic, f"{phase}/{rung}")
+    chunk_ms = 1e3 * m["decode_s"] / max(m["device_steps"], 1)
+    chunk, prof = profile_decode(eng, traffic[:8])
+    del eng
+    _release()
+    return reqs, launches, m, chunk_ms, chunk, prof
+
+
+def phase_mega_scan(cfg, params):
+    """Phase 10: the main path of the megakernel slice. Llama-3-8B over
+    decode_params(params, "weight_only_int8") (phase 8's weights), bf16
+    pools, the split path with the prefix cache, phase 3's traffic: first
+    at decode_megakernel="off", then "scan", then "full", in this call.
+    Gates for scan: the planned rung is scan; one decode_layers_megakernel
+    launch per decode step (and exactly 8 in one profiled chunk); no
+    paged_decode_attention launch; cache hits still prefill through
+    prefix_prefill_attention over the layer-major pool's offset tables;
+    served tokens rank within 0.5 logit of the plain forward over the
+    dequantized weights. Full: 32 decode_layer_megakernel_full launches
+    per decode step. Logs each rung's decode-chunk wall, busy share and
+    token match against off."""
+    from paddle_tpu_torch.models import decode_params
+
+    quant, phase = "weight_only_int8", "mega-scan"
+    params8 = decode_params(params, quant)
+    traffic = prefix_traffic(cfg)
+    kw = dict(max_prompt_len=1024, prefix_cache=True)
+    L, out = cfg.num_hidden_layers, {}
+    for rung in ("off", "scan", "full"):
+        out[rung] = _serve_rung(cfg, params8, rung, phase, traffic, **kw)
+    reqs, launches, m, chunk_ms, chunk, prof = out["scan"]
+    steps = m["device_steps"] * 8
+    _gate_exact(phase, launches, "decode_layers_megakernel", steps)
+    _gate_exact(phase, chunk, "decode_layers_megakernel", 8)
+    if launches["paged_decode_attention"] or chunk["paged_decode_attention"]:
+        raise AssertionError(f"{phase}: the scan rung launched the "
+                             f"multi-kernel decode: {launches}")
+    if m["prefix_hit_tokens"] <= 0:
+        raise AssertionError(f"{phase}: no cache hit")
+    _gate_multiple(phase, launches, "prefix_prefill_attention", L)
+    f_reqs, f_launches, f_m, _, f_chunk, _ = out["full"]
+    _gate_exact(phase, f_launches, "decode_layer_megakernel_full",
+                f_m["device_steps"] * 8 * L)
+    _gate_exact(phase, f_chunk, "decode_layer_megakernel_full", 8 * L)
+    off_tokens = [r.tokens for r in out["off"][0]]
+    for rung, (rq, _, mm, cms, _, (wall_ms, busy)) in out.items():
+        log(f"[{phase}] rung {rung}: decode chunks {mm['device_steps']} at "
+            f"{cms:.2f} ms each; profiled chunk wall {wall_ms:.2f} ms, busy "
+            f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%); token match vs "
+            f"off {_token_match(rq, off_tokens):.4f}")
+    plain = plain_over(cfg, params8, quant)
+    hits = [r for r in reqs if r.cached_tokens]
+    worst = _gate_ranks(phase, plain, [hits[0], hits[-1]])
+    worst_full = _gate_ranks(phase + "/full", plain, [f_reqs[0]])
+    del plain, params8
+    _release()
+    return {"launches": launches, "full_launches": f_launches,
+            "worst_margin": max(worst, worst_full),
+            "rungs": {rung: {"chunk_ms": o[3], "profile": o[5]}
+                      for rung, o in out.items()}}
+
+
+def phase_mega_full(cfg, params, yardstick):
+    """Phase 11: phase 8's configuration (int8 weights, int8 pools, the
+    unified step, phase 4's traffic) at decode_megakernel="full". Gates:
+    the int8 full kernel 32 times per decode step (exactly 256 in one
+    profiled chunk), no multi-kernel int8 decode, windows through the int8
+    ragged kernel; served tokens within INT8_RANK_MARGIN of the plain
+    forward over the dequantized weights. Phase 8 is the yardstick."""
+    from paddle_tpu_torch.models import decode_params
+
+    quant, phase = "weight_only_int8", "mega-full"
+    params8 = decode_params(params, quant)
+    L = cfg.num_hidden_layers
+    reqs, launches, m, chunk_ms, chunk, (wall_ms, busy) = _serve_rung(
+        cfg, params8, "full", phase, unified_traffic(cfg),
+        max_prompt_len=2048, prefix_cache=True, unified_step=True,
+        token_budget=256, kv_cache_dtype="int8")
+    n = _gate_multiple(phase, launches, "decode_layer_megakernel_full_int8",
+                       8 * L)
+    _gate_exact(phase, chunk, "decode_layer_megakernel_full_int8", 8 * L)
+    if launches["paged_decode_attention_int8"]:
+        raise AssertionError(f"{phase}: multi-kernel decode launched")
+    _gate_multiple(phase, launches, "ragged_paged_attention_int8", L)
+    log(f"[{phase}] {n // (8 * L)} decode chunks through the full rung; "
+        f"profiled chunk wall {wall_ms:.2f} ms, busy {busy:.2f} ms "
+        f"({100 * busy / wall_ms:.1f}%); token match vs phase 8 "
+        f"{_token_match(reqs, yardstick['tokens']):.4f}")
+    plain = plain_over(cfg, params8, quant)
+    hit = next(r for r in reqs if r.cached_tokens)
+    worst = _gate_ranks(phase, plain, [reqs[0], hit], INT8_RANK_MARGIN)
+    del plain, params8
+    _release()
+    return {"launches": launches, "worst_margin": worst}
+
+
+def phase_mega_attn(cfg, params, yardstick):
+    """Phase 12: bf16 dense weights and bf16 pools on the cold split path
+    (prefix_cache=False), phase 2's traffic, decode_megakernel="attn" (a
+    rung the JAX package refuses at this width for its TPU VMEM budget).
+    Gates: 32 decode_layer_megakernel launches per decode step (exactly
+    256 in one profiled chunk), no paged_decode_attention; served tokens
+    within 0.5 logit of the bf16 plain forward. Phase 2 is the
+    yardstick."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    phase, L = "mega-attn", cfg.num_hidden_layers
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(16, 501, 16)]
+    reqs, launches, m, chunk_ms, chunk, (wall_ms, busy) = _serve_rung(
+        cfg, params, "attn", phase, prompts, max_prompt_len=512,
+        prefix_cache=False)
+    _gate_exact(phase, launches, "decode_layer_megakernel",
+                m["device_steps"] * 8 * L)
+    _gate_exact(phase, chunk, "decode_layer_megakernel", 8 * L)
+    if launches["paged_decode_attention"]:
+        raise AssertionError(f"{phase}: multi-kernel decode launched")
+    log(f"[{phase}] decode chunks at {chunk_ms:.2f} ms (phase 2: "
+        f"{yardstick['chunk_ms']:.2f} ms); profiled chunk wall {wall_ms:.2f} "
+        f"ms, busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%)")
+    plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
+    worst = _gate_ranks(phase, plain, [reqs[0], reqs[-1]])
+    del plain
+    _release()
+    return {"launches": launches, "worst_margin": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1308,7 +1742,12 @@ def main() -> int:
             ("quant-generate", lambda: quant_generate(
                 cfg, phases["int4-split"]["params"], "weight_only_int4",
                 "quant-generate", "gqa_decode_attention")),
-            ("quant-generate-7b", phase_quant_generate_7b)):
+            ("quant-generate-7b", phase_quant_generate_7b),
+            ("mega-scan", lambda: phase_mega_scan(cfg, params)),
+            ("mega-full", lambda: phase_mega_full(
+                cfg, params, phases["int8w-int8kv-unified"])),
+            ("mega-attn", lambda: phase_mega_attn(cfg, params,
+                                                  phases["engine"]))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")
@@ -1322,7 +1761,13 @@ def main() -> int:
                  "int4_matmul": "int4-split",
                  "int8_weight_matmul": "int8w-int8kv-unified",
                  "gqa_decode_attention": "quant-generate",
-                 "decode_attention": "quant-generate-7b"}
+                 "decode_attention": "quant-generate-7b",
+                 "decode_layers_megakernel": "mega-scan",
+                 "decode_layer_megakernel_full": "mega-scan-full",
+                 "decode_layer_megakernel_full_int8": "mega-full",
+                 "decode_layer_megakernel": "mega-attn"}
+    phases["mega-scan-full"] = {
+        "launches": phases["mega-scan"]["full_launches"]}
 
     sources = {
         "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
@@ -1358,9 +1803,23 @@ def main() -> int:
             "paddle_tpu/kernels/decode_attention.py:512"),
         "decode_attention": ("paddle_tpu_torch/csrc/decode_attention.cu",
                              "paddle_tpu/kernels/decode_attention.py:156"),
+        "decode_layers_megakernel": (
+            "paddle_tpu_torch/csrc/decode_megakernel.cu",
+            "paddle_tpu/kernels/decode_megakernel.py:868"),
+        "decode_layer_megakernel_full": (
+            "paddle_tpu_torch/csrc/decode_megakernel.cu",
+            "paddle_tpu/kernels/decode_megakernel.py:1351"),
+        "decode_layer_megakernel_full_int8": (
+            "paddle_tpu_torch/csrc/decode_megakernel.cu",
+            "paddle_tpu/kernels/decode_megakernel.py:1351"),
+        "decode_layer_megakernel": (
+            "paddle_tpu_torch/csrc/decode_megakernel.cu",
+            "paddle_tpu/kernels/decode_megakernel.py:239"),
     }
     rows = []
     for name, cases in kernels.items():
+        if name not in own_phase:
+            continue    # a variant no phase serves: checked in phase 1 only
         n = phases[own_phase[name]]["launches"][name]
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the "

@@ -4,6 +4,9 @@ names follow paddle_tpu.kernels for what exists."""
 from ._build import launch_counts, reset_launch_counts  # noqa: F401
 from .decode_attention import (paged_decode_attention,  # noqa: F401
                                paged_decode_attention_reference)
+from .decode_megakernel import (  # noqa: F401
+    decode_layer_megakernel, decode_layer_megakernel_full,
+    decode_layers_megakernel)
 from .flash_attention import (flash_attention,  # noqa: F401
                               flash_attention_fwd,
                               flash_attention_reference)

@@ -82,6 +82,11 @@ SIGNATURES = {
         # x, w, scale, out, M, N, K, int4, dtype, stream
         "weight_only_gemv_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
+    "decode_megakernel": {
+        # host arrays of the operand pointers and of the int dims (their
+        # order is in csrc/decode_megakernel.cu), scale, eps, stream
+        "decode_megakernel_launch": (_P, _P, _F, _F, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -200,7 +205,11 @@ COUNTERS = ("rms_norm", "flash_attention_fwd", "paged_decode_attention",
             "paged_decode_attention_int8", "prefix_prefill_attention_int8",
             "ragged_paged_attention_int8", "decode_attention",
             "gqa_decode_attention", "int4_matmul", "int8_weight_matmul",
-            "int4_matmul_large_m", "int8_weight_matmul_large_m")
+            "int4_matmul_large_m", "int8_weight_matmul_large_m",
+            "decode_layer_megakernel", "decode_layer_megakernel_full",
+            "decode_layers_megakernel", "decode_layer_megakernel_int8",
+            "decode_layer_megakernel_full_int8",
+            "decode_layers_megakernel_int8")
 
 # launches of each kernel since the last reset: every wrapper adds one
 # where it launches its kernel, and nowhere else (a run can then show

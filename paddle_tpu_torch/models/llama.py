@@ -18,7 +18,12 @@ What is here:
   ``init_quant_serving_params`` make the JAX ``_decode_params`` layout,
   where every projection and the lm_head is an (int8 [N, K] or packed
   int4 [N, K // 2], f32 scale [N]) pair, and ``build_quant_generate``
-  serves it over contiguous per-layer caches.
+  serves it over contiguous per-layer caches;
+- the decode megakernel ladder: ``plan_megakernel_rung`` (scan -> full
+  -> attn -> off, one reason per refused rung),
+  ``_make_decode_step_megakernel`` and, for 'scan', the stacked layout
+  (``stack_decode_layer_params``, read back through ``_lw``; one
+  layer-major pool whose readers add ``_layer_kv``'s page offset).
 
 Weight layout: every projection keeps paddle's ``Linear`` layout
 [in_features, out_features] (``y = x @ w``), in the decode-params dict and
@@ -52,6 +57,12 @@ from ..framework.flags import flag as _flag
 from ..kernels.decode_attention import (decode_attention,
                                         gqa_decode_attention,
                                         paged_decode_attention)
+from ..kernels.decode_megakernel import (decode_layer_megakernel,
+                                         decode_layer_megakernel_full,
+                                         decode_layers_megakernel,
+                                         megakernel_full_supported,
+                                         megakernel_scan_supported,
+                                         megakernel_supported)
 from ..kernels.flash_attention import (flash_attention,
                                        flash_attention_reference)
 from ..kernels.int4_matmul import int4_matmul, int8_weight_matmul
@@ -480,17 +491,70 @@ def _make_head_logits(cfg):
     return head_logits
 
 
+# ---------------------------------------------------------------------------
+# stacked decode-layer parameters (decode_megakernel="scan"): every
+# per-layer weight on a leading layer axis, made once at engine build
+# ---------------------------------------------------------------------------
+
+STACKED_PREFIX = "llama.layers.stacked."
+
+# the per-layer weights the scan megakernel streams, in the call order of
+# decode_layers_megakernel
+STACKED_LAYER_NAMES = (
+    "input_layernorm.weight",
+    "post_attention_layernorm.weight",
+    "self_attn.q_proj.weight",
+    "self_attn.k_proj.weight",
+    "self_attn.v_proj.weight",
+    "self_attn.o_proj.weight",
+    "mlp.gate_proj.weight",
+    "mlp.up_proj.weight",
+    "mlp.down_proj.weight",
+)
+
+
+def stack_decode_layer_params(p: dict, n_layers: int) -> dict:
+    """A new decode-params dict in which every weight of
+    `STACKED_LAYER_NAMES` moves from its ``llama.layers.{i}.`` entries into
+    one ``llama.layers.stacked.<name>`` entry stacked along a leading
+    layer axis (weight-only pairs stack both members); the per-layer
+    entries are dropped from the new dict, so once the caller drops its
+    own dict each weight lives on the device once. Every program reads
+    layer slices back through `_lw`."""
+    out = dict(p)
+    for name in STACKED_LAYER_NAMES:
+        per = [out.pop(f"llama.layers.{i}.{name}") for i in range(n_layers)]
+        if isinstance(per[0], tuple):
+            out[STACKED_PREFIX + name] = (torch.stack([w[0] for w in per]),
+                                          torch.stack([w[1] for w in per]))
+        else:
+            out[STACKED_PREFIX + name] = torch.stack(per)
+    return out
+
+
 def _lw(p, i, name):
-    """Layer `i`'s weight `name` from a decode-params dict."""
-    return p[f"llama.layers.{i}.{name}"]
+    """Layer `i`'s weight `name` from a decode-params dict: the per-layer
+    entry, or a slice of the stacked entry (a view, no copy)."""
+    w = p.get(f"llama.layers.{i}.{name}")
+    if w is not None:
+        return w
+    st = p[STACKED_PREFIX + name]
+    if isinstance(st, tuple):
+        return (st[0][i], st[1][i])
+    return st[i]
 
 
 def _layer_kv(kcs, vcs, i, n_layers):
-    """(kc_i, vc_i, page_off): layer `i`'s K/V pools (per-layer lists;
-    the layer-stacked pool of the scan megakernel is not ported)."""
-    if len(kcs) != n_layers:
-        raise NotImplementedError("layer-stacked pools are not ported")
-    return kcs[i], vcs[i], 0
+    """(kc_i, vc_i, page_off): layer `i`'s K/V pool entries. Per-layer
+    lists return entry i with offset 0; the scan layout's one-entry lists
+    hold ONE layer-major pool where layer i owns page rows [i * pp,
+    (i + 1) * pp), so readers add `page_off` to their block-table ids
+    (a slice would be a view too, but the kernels take whole pools)."""
+    if len(kcs) == n_layers:
+        return kcs[i], vcs[i], 0
+    kc, vc = kcs[0], vcs[0]
+    pool = kc[0] if isinstance(kc, tuple) else kc
+    return kc, vc, i * (pool.shape[0] // n_layers)
 
 
 def _layers(cfg, p, h, pos_ids, attend):
@@ -546,11 +610,11 @@ def _split_pool(entry):
 
 
 def _pool_pair(kcs, vcs, i, n_layers):
-    """Layer `i`'s pools as (kc, vc, k_scale, v_scale); the scales are
-    None for bf16 / f32 pools."""
-    kc, vc, _ = _layer_kv(kcs, vcs, i, n_layers)
+    """Layer `i`'s pools as (kc, vc, k_scale, v_scale, page_off); the
+    scales are None for bf16 / f32 pools."""
+    kc, vc, poff = _layer_kv(kcs, vcs, i, n_layers)
     (kc, ksc), (vc, vsc) = _split_pool(kc), _split_pool(vc)
-    return kc, vc, ksc, vsc
+    return kc, vc, ksc, vsc, poff
 
 
 def _make_window_prefill(cfg, tn, paged_attention):
@@ -569,8 +633,9 @@ def _make_window_prefill(cfg, tn, paged_attention):
             + torch.arange(tn, device=h.device)[None, :]
 
         def attend(i, q, k, v):
-            kc, vc, ksc, vsc = _pool_pair(kcs, vcs, i, n_layers)
-            return paged_attention(q, k, v, kc, vc, tables, cached,
+            kc, vc, ksc, vsc, poff = _pool_pair(kcs, vcs, i, n_layers)
+            tbl = tables + poff if poff else tables
+            return paged_attention(q, k, v, kc, vc, tbl, cached,
                                    new_lens, scale=scale, k_scale=ksc,
                                    v_scale=vsc)
 
@@ -757,7 +822,12 @@ def _make_decode_step(cfg, b, max_seq=None, kv_write=None, kv_attend=None):
         h = p["llama.embed_tokens.weight"][tok[:, 0]][:, None, :]
 
         def attend(i, q, k, v):
-            kc, vc, _ = _layer_kv(kcs, vcs, i, n_layers)
+            kc, vc, poff = _layer_kv(kcs, vcs, i, n_layers)
+            if poff:
+                raise ValueError(
+                    "the multi-kernel decode step takes per-layer pools; "
+                    "the layer-stacked pool is served by the scan "
+                    "megakernel")
             kv_write(kc, vc, k, v, pos)
             return kv_attend(q[:, 0].contiguous(), kc, vc, pos)
 
@@ -903,6 +973,158 @@ def resolve_decode_megakernel(decode_megakernel=None) -> str:
             f"decode_megakernel must be one of {MEGAKERNEL_MODES} (or a "
             f"legacy boolean), got {decode_megakernel!r}")
     return s
+
+
+def megakernel_rung_order(mode: str):
+    """The fallback ladder below (and including) `mode`, strongest first:
+    a refused rung steps DOWN one fusion level at a time -- scan -> full
+    -> attn -> off -- never sideways."""
+    return MEGAKERNEL_MODES[MEGAKERNEL_MODES.index(mode)::-1]
+
+
+def _megakernel_rung_reason(rung, cfg, b, p, kcs, vcs, tables,
+                            on_card: Optional[bool] = None) -> Optional[str]:
+    """None when fusion rung `rung` can serve this decode step's operands
+    (layer 0's weights stand in for every layer), else the reason the
+    rung steps down. Shape-only: meta tensors serve as spec views.
+    `on_card` adds the CUDA kernel's limits (default: whether the pool
+    is a CUDA tensor)."""
+    if rung == "off":
+        return None
+    kc0, vc0 = kcs[0], vcs[0]
+    ksc = vsc = None
+    if isinstance(kc0, tuple):
+        (kc0, ksc), (vc0, vsc) = kc0, vc0
+    h_spec = torch.empty((b, 1, cfg.hidden_size), device="meta",
+                         dtype=p["llama.embed_tokens.weight"].dtype)
+    kw = dict(k_scale=ksc, v_scale=vsc, on_card=on_card)
+    if rung == "scan":
+        if any(STACKED_PREFIX + n not in p for n in STACKED_LAYER_NAMES):
+            return ("scan needs the stacked-parameter re-layout "
+                    "(stack_decode_layer_params \u2014 the serving engine "
+                    "builds it at engine build)")
+        return megakernel_scan_supported(
+            h_spec, *(p[STACKED_PREFIX + n] for n in STACKED_LAYER_NAMES),
+            kc0, vc0, tables, n_layers=cfg.num_hidden_layers, **kw)
+    layer = [_lw(p, 0, n) for n in STACKED_LAYER_NAMES]
+    if rung == "full":
+        return megakernel_full_supported(h_spec, *layer, kc0, vc0, tables,
+                                         **kw)
+    w_in, _, wq, wk, wv, wo = layer[:6]
+    return megakernel_supported(h_spec, w_in, wq, wk, wv, wo, kc0, vc0,
+                                tables, **kw)
+
+
+def plan_megakernel_rung(mode, cfg, b, p, kcs, vcs, tables,
+                         on_card: Optional[bool] = None):
+    """(served_rung, refusals) for a requested decode_megakernel mode:
+    walk the ladder strongest first, stepping down one fusion level per
+    refusal; `refusals` is [(rung, reason), ...]. 'off' always serves."""
+    refusals = []
+    for rung in megakernel_rung_order(mode):
+        reason = _megakernel_rung_reason(rung, cfg, b, p, kcs, vcs, tables,
+                                         on_card=on_card)
+        if reason is None:
+            return rung, refusals
+        refusals.append((rung, reason))
+    return "off", refusals
+
+
+def warn_refusals(refusals, rung: str, where: str = "here") -> None:
+    """One warning per refused rung, naming its reason and what serves."""
+    import warnings
+
+    down = "the multi-kernel path" if rung == "off" else f"the '{rung}' rung"
+    for refused, reason in refusals:
+        warnings.warn(f"decode_megakernel rung '{refused}' unsupported "
+                      f"{where} ({reason}); serving {down}", stacklevel=3)
+
+
+def _megakernel_or_fallback_step(cfg, b, tables, p, kcs, vcs, base,
+                                 mode: str = "attn", warn: bool = True):
+    """The strongest supported fused decode step at or below `mode`, else
+    `base` (the multi-kernel step). Each refused rung warns once by name
+    with its reason; `warn=False` callers warned when they planned."""
+    rung, refusals = plan_megakernel_rung(mode, cfg, b, p, kcs, vcs, tables)
+    if warn and refusals:
+        warn_refusals(refusals, rung)
+    if rung == "off":
+        return base
+    return _make_decode_step_megakernel(cfg, b, tables, mode=rung)
+
+
+def _make_decode_step_megakernel(cfg, b, tables, mode: str = "attn"):
+    """`_make_decode_step`'s paged twin at fusion rung `mode` (the JAX
+    function's single-device branch), over block table `tables` [b, W]
+    int32; the pools are updated in place:
+
+    - 'attn': ``decode_layer_megakernel`` once per layer; the MLP half
+      and the lm head keep ``_k_rms`` and ``_mm``;
+    - 'full': ``decode_layer_megakernel_full`` once per layer;
+    - 'scan': ``decode_layers_megakernel`` once per step over the stacked
+      weights (``stack_decode_layer_params``) and the layer-major pool.
+    The final rms_norm and the lm head follow in every rung."""
+    n_layers, eps = cfg.num_hidden_layers, cfg.rms_norm_eps
+    head_logits = _make_head_logits(cfg)
+    kw = dict(rope_base=cfg.rope_theta, eps=eps)
+
+    def embed_lens(p, tok, pos):
+        h = p["llama.embed_tokens.weight"][tok[:, 0]][:, None, :]
+        pos = torch.as_tensor(pos, device=tok.device).to(torch.int32)
+        return h, (pos if pos.ndim == 1 else pos.expand(b)).contiguous()
+
+    def pools(kc, vc):
+        """(pool operands, scale kwargs) of one pool entry."""
+        if isinstance(kc, tuple):
+            (kcp, ksc), (vcp, vsc) = kc, vc
+            return (kcp, vcp), dict(k_scale=ksc, v_scale=vsc)
+        return (kc, vc), {}
+
+    def finish(h, p, kcs, vcs):
+        h = _k_rms(h, p["llama.norm.weight"], eps)
+        return head_logits(h, p)[:, -1], kcs, vcs
+
+    if mode == "scan":
+        def decode_step(p, kcs, vcs, tok, pos):
+            h, lens = embed_lens(p, tok, pos)
+            pl, sc = pools(kcs[0], vcs[0])
+            h, _, _ = decode_layers_megakernel(
+                h, lens, tables,
+                *(p[STACKED_PREFIX + n] for n in STACKED_LAYER_NAMES), *pl,
+                n_layers=n_layers, **sc, **kw)
+            return finish(h, p, kcs, vcs)
+
+        return decode_step
+
+    if mode == "full":
+        def decode_step(p, kcs, vcs, tok, pos):
+            h, lens = embed_lens(p, tok, pos)
+            for i in range(n_layers):
+                pl, sc = pools(kcs[i], vcs[i])
+                h, _, _ = decode_layer_megakernel_full(
+                    h, lens, tables,
+                    *(_lw(p, i, n) for n in STACKED_LAYER_NAMES), *pl,
+                    **sc, **kw)
+            return finish(h, p, kcs, vcs)
+
+        return decode_step
+
+    def decode_step(p, kcs, vcs, tok, pos):
+        h, lens = embed_lens(p, tok, pos)
+        for i in range(n_layers):
+            pl, sc = pools(kcs[i], vcs[i])
+            h, _, _ = decode_layer_megakernel(
+                h, lens, tables, _lw(p, i, "input_layernorm.weight"),
+                *(_lw(p, i, f"self_attn.{n}_proj.weight") for n in "qkvo"),
+                *pl, **sc, **kw)
+            x2 = _k_rms(h, _lw(p, i, "post_attention_layernorm.weight"),
+                        eps)
+            gate = _mm(x2, _lw(p, i, "mlp.gate_proj.weight"))
+            up = _mm(x2, _lw(p, i, "mlp.up_proj.weight"))
+            h = h + _mm(F.silu(gate) * up, _lw(p, i, "mlp.down_proj.weight"))
+        return finish(h, p, kcs, vcs)
+
+    return decode_step
 
 
 def resolve_unified_step(unified_step=None) -> bool:

@@ -54,14 +54,17 @@ import torch
 from ..device import resolve_device
 from ..kernels import _build
 from ..kernels.flash_attention import KERNEL_HEAD_DIMS
-from ..models.llama import (PagedKVManager, _make_chunk_prefill,
-                            _make_head_logits, _make_prefill,
-                            _make_prefill_with_prefix, _sample_next,
-                            hash_prefix_blocks, make_paged_decode_step,
-                            make_paged_kv_helpers, make_paged_kv_q8_helpers,
+from ..models.llama import (STACKED_LAYER_NAMES, STACKED_PREFIX,
+                            PagedKVManager, _make_chunk_prefill,
+                            _make_decode_step_megakernel, _make_head_logits,
+                            _make_prefill, _make_prefill_with_prefix,
+                            _sample_next, hash_prefix_blocks,
+                            make_paged_decode_step, make_paged_kv_helpers,
+                            make_paged_kv_q8_helpers, plan_megakernel_rung,
                             resolve_decode_megakernel,
                             resolve_kv_cache_dtype, resolve_serving_cp,
-                            resolve_serving_mp, resolve_unified_step)
+                            resolve_serving_mp, resolve_unified_step,
+                            stack_decode_layer_params, warn_refusals)
 
 _ROADMAP = "ROADMAP.md, 'Engine options the port refuses'"
 
@@ -143,7 +146,15 @@ class ContinuousBatchingEngine:
     and prefix step streams, so a byte budget holds about twice the
     pages. `kv_pool_bytes` sizes the pool by a byte budget instead of
     `max_pages` (not both): at the same budget an int8 pool holds ~2x
-    `n_cacheable_pages`."""
+    `n_cacheable_pages`.
+
+    `decode_megakernel` ('off' | 'attn' | 'full' | 'scan'; default from
+    FLAGS_decode_megakernel) fuses the decode step into one kernel per
+    layer (attn: the attention block; full: the whole layer) or one per
+    step (scan: every layer, over stacked weights and one layer-major
+    pool). The rung is planned at build (`megakernel_rung`); a rung the
+    operands refuse (packed int4 weights, mixed weights, the card's
+    limits) steps down the ladder with one warning each."""
 
     def __init__(self, cfg, dec_params, *, slots: int = 8,
                  prompt_bucket: int = 64, max_prompt_len: int = 512,
@@ -175,8 +186,7 @@ class ContinuousBatchingEngine:
         if tracer not in (None, False) or metrics not in (None, False):
             raise _unported("tracer= / metrics= (observability)")
         self.kv_dtype = resolve_kv_cache_dtype(kv_cache_dtype)
-        if resolve_decode_megakernel(decode_megakernel) != "off":
-            raise _unported("decode_megakernel other than 'off'")
+        self.use_megakernel = resolve_decode_megakernel(decode_megakernel)
         if resolve_serving_mp(serving_mp) > 1:
             raise _unported("serving_mp > 1")
         if resolve_serving_cp(serving_cp) > 1:
@@ -257,18 +267,33 @@ class ContinuousBatchingEngine:
                                    num_kv_heads=nkv, head_dim=dh,
                                    kv_cache_dtype=self.kv_dtype)
         self.scratch_page = self.mgr.alloc_pages(1)[0]  # free rows' sink
-        shape = (max_pages, nkv, block_size, dh)
+        # the megakernel rung, planned once here over spec views of this
+        # engine's decode operands (one warning per refused rung). The
+        # scan rung lays the engine out anew: the per-layer weights stack
+        # along a leading layer axis and the n_layers pools become ONE
+        # layer-major pool (layer i owns rows [i*max_pages,
+        # (i+1)*max_pages)); tables keep per-layer page ids and every
+        # reader and writer adds the layer's offset
+        self.megakernel_rung = self._plan_megakernel(max_pages)
+        scan = self.megakernel_rung == "scan"
+        n_layers = cfg.num_hidden_layers
+        self._page_stride = max_pages if scan else 0
+        shape = (max_pages * n_layers if scan else max_pages, nkv,
+                 block_size, dh)
 
         def pool():
             if self.kv_dtype == "int8":
                 return (torch.zeros(shape, dtype=torch.int8,
                                     device=self.device),
-                        torch.zeros((max_pages, nkv), dtype=torch.float32,
+                        torch.zeros(shape[:2], dtype=torch.float32,
                                     device=self.device))
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        self.kcs = [pool() for _ in range(cfg.num_hidden_layers)]
-        self.vcs = [pool() for _ in range(cfg.num_hidden_layers)]
+        n_pools = 1 if scan else n_layers
+        self.kcs = [pool() for _ in range(n_pools)]
+        self.vcs = [pool() for _ in range(n_pools)]
+        if scan:
+            self.p = stack_decode_layer_params(self.p, n_layers)
         self._slots = [_Slot() for _ in range(slots)]
         self._tables = np.full((slots, cap), self.scratch_page, np.int32)
         self._tokens = np.zeros((slots,), np.int64)
@@ -327,6 +352,46 @@ class ContinuousBatchingEngine:
             return 0.0
         return self.prefix_hit_tokens / self.prompt_tokens
 
+    def _plan_megakernel(self, max_pages: int) -> str:
+        """The served megakernel rung, planned once per engine build over
+        meta-tensor views of this engine's decode operands: the slots-wide
+        batch, the full-width tables, the would-be stacked weights and the
+        layer-major pool. Warns once per refused rung (the JAX engine's
+        `_plan_megakernel`); the CUDA kernel's limits apply when the
+        engine runs on the card."""
+        if self.use_megakernel == "off":
+            return "off"
+        cfg = self.cfg
+        L = cfg.num_hidden_layers
+
+        def spec(w, lead=()):
+            if isinstance(w, tuple):
+                return tuple(spec(a, lead) for a in w)
+            return torch.empty(lead + tuple(w.shape), dtype=w.dtype,
+                               device="meta")
+
+        pview = {name: spec(w) for name, w in self.p.items()}
+        for name in STACKED_LAYER_NAMES:
+            pview[STACKED_PREFIX + name] = spec(
+                self.p[f"llama.layers.0.{name}"], (L,))
+        rows = max_pages * L
+        shape = (rows, cfg.num_key_value_heads, self.block_size,
+                 cfg.head_dim)
+        emb = self.p["llama.embed_tokens.weight"]
+        if self.kv_dtype == "int8":
+            pool = (torch.empty(shape, dtype=torch.int8, device="meta"),
+                    torch.empty(shape[:2], dtype=torch.float32,
+                                device="meta"))
+        else:
+            pool = torch.empty(shape, dtype=emb.dtype, device="meta")
+        tables = torch.empty((self.slots, self.table_width),
+                             dtype=torch.int32, device="meta")
+        rung, refusals = plan_megakernel_rung(
+            self.use_megakernel, cfg, self.slots, pview, [pool], [pool],
+            tables, on_card=self.device.type == "cuda")
+        warn_refusals(refusals, rung, "on this engine build")
+        return rung
+
     def metrics(self) -> dict:
         """Scheduling counters, prefix-cache effectiveness and each
         kernel's launch count (since the last
@@ -349,6 +414,8 @@ class ContinuousBatchingEngine:
             "n_available": self.mgr.n_available,
             "n_cached": self.mgr.n_cached,
             "kv_cache_dtype": self.kv_dtype,
+            "decode_megakernel": self.use_megakernel,
+            "megakernel_rung": self.megakernel_rung,
             "kv_pool_bytes": self.mgr.kv_pool_bytes(),
             "n_cacheable_pages": self.n_cacheable_pages,
             "decode_s": self.decode_s,
@@ -409,8 +476,7 @@ class ContinuousBatchingEngine:
 
         def run(p, kcs, vcs, ids, s0_vec, pages):
             h, kvs = base(p, ids)
-            for i, (k, v) in enumerate(kvs):
-                scatter(kcs[i], vcs[i], k, v, pages)
+            scatter(kcs, vcs, kvs, pages)
             # the first token reads row s0-1 (clamped like a JAX gather)
             last = torch.clamp(s0_vec - 1, 0, sb - 1)
             return self._first_token(h, last, p, head_logits)
@@ -431,17 +497,18 @@ class ContinuousBatchingEngine:
         def run(p, kcs, vcs, ids, s0_vec, pages, ptables, plens):
             h, kvs = base(p, kcs, vcs, ids, ptables, plens,
                           s0_vec.to(torch.int32))
-            for i, (k, v) in enumerate(kvs):
-                scatter(kcs[i], vcs[i], k, v, pages)
+            scatter(kcs, vcs, kvs, pages)
             last = torch.clamp(s0_vec - 1, 0, sb - 1)
             return self._first_token(h, last, p, head_logits)
 
         return run
 
     def _page_scatter(self, bsz: int, n_pre: int):
-        """Prefill K/V [bsz, n_pre*block_size, nkv, dh] -> whole pages, in
-        place. Pad positions land in pages above the decode watermark (or
-        in the scratch page, which no row attends); decode overwrites them
+        """scatter(kcs, vcs, kvs, pages): every layer's prefill K/V
+        [bsz, n_pre*block_size, nkv, dh] -> whole pages, in place (on the
+        scan rung's layer-major pool, layer i at pages + i * max_pages).
+        Pad positions land in pages above the decode watermark (or in
+        the scratch page, which no row attends); decode overwrites them
         before any row attends them. On int8 pools this is the
         quantize-on-scatter: each page's absmax (pad positions included,
         as in the JAX engine) becomes its scale, and the int8 page and its
@@ -452,26 +519,38 @@ class ContinuousBatchingEngine:
         if self.kv_dtype == "int8":
             to_pages_q8, _ = make_paged_kv_q8_helpers(*args)
 
-            def scatter_q8(kct, vct, k, v, pages):
+            def one(kct, vct, k, v, pages):
                 for (pool, sc), kv in ((kct, k), (vct, v)):
                     qkv, skv = to_pages_q8(kv)
                     pool[pages] = qkv
                     sc[pages] = skv
+        else:
+            to_pages, _ = make_paged_kv_helpers(*args)
 
-            return scatter_q8
-        to_pages, _ = make_paged_kv_helpers(*args)
+            def one(kc, vc, k, v, pages):
+                kc[pages] = to_pages(k).to(kc.dtype)
+                vc[pages] = to_pages(v).to(vc.dtype)
 
-        def scatter(kc, vc, k, v, pages):
-            kc[pages] = to_pages(k).to(kc.dtype)
-            vc[pages] = to_pages(v).to(vc.dtype)
+        stride = self._page_stride
+
+        def scatter(kcs, vcs, kvs, pages):
+            for i, (k, v) in enumerate(kvs):
+                j = 0 if stride else i
+                one(kcs[j], vcs[j], k, v, pages + i * stride)
 
         return scatter
 
     def _decode_step_maker(self):
-        """make_step(tables) -> the per-layer paged decode step."""
+        """make_step(tables) -> the decode step of the planned megakernel
+        rung, or the multi-kernel paged step at 'off'; shared by the
+        decode chunk and the unified step's decode lane. The layer-major
+        pool of 'scan' has no multi-kernel twin."""
         cfg, b, bs = self.cfg, self.slots, self.block_size
+        rung = self.megakernel_rung
 
         def make_step(tables):
+            if rung != "off":
+                return _make_decode_step_megakernel(cfg, b, tables, rung)
             return make_paged_decode_step(cfg, b, bs, tables,
                                           kv_cache_dtype=self.kv_dtype)
 
@@ -538,8 +617,7 @@ class ContinuousBatchingEngine:
                 lens_o, done = lens, torch.zeros_like(live)
             h, kvs = chunk_body(p, kcs, vcs, chunk_ids, chunk_table,
                                 chunk_cached, chunk_len)
-            for i, (k, v) in enumerate(kvs):
-                scatter(kcs[i], vcs[i], k, v, chunk_pages)
+            scatter(kcs, vcs, kvs, chunk_pages)
             # first-token logits at the window's true last position --
             # meaningful only when this window completes the prompt
             last = torch.clamp(chunk_len.to(torch.int64) - 1, 0, tn - 1)

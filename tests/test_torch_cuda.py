@@ -424,3 +424,183 @@ def test_contiguous_decode(dev, dtype, hq, hkv, max_seq):
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
     else:
         _within_one_bf16_step(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the decode megakernels
+# ---------------------------------------------------------------------------
+
+def _mk_case(dev, dtype, quant_w, int8_pools, n_layers, seed=0, b=6, H=256,
+             nh=8, nkv=2, dh=64, F=512, bs=16, w=5):
+    """Stacked weights [L, ...] (dense in `dtype`, or weight-only int8
+    pairs), a layer-major pool of L * (b * w + 1) pages, permuted tables,
+    and lens: 0 (a free row on the scratch page 0), mid-page, a page
+    boundary, a row frozen at its table's end (commits into its last
+    page), mid-cache."""
+    from paddle_tpu_torch.models.llama import quantize_kv_pages
+    from paddle_tpu_torch.nn.quant import weight_quantize
+
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(*shape, generator=g) * s
+
+    shapes = {"wq": (H, nh * dh), "wk": (H, nkv * dh), "wv": (H, nkv * dh),
+              "wo": (nh * dh, H), "wg": (H, F), "wu": (H, F), "wd": (F, H)}
+    ws = {}
+    for name, shp in shapes.items():
+        per = [rnd(*shp, s=0.05) for _ in range(n_layers)]
+        if quant_w:
+            pairs = [weight_quantize(x, algo="weight_only_int8") for x in per]
+            ws[name] = (torch.stack([p[0] for p in pairs]).to(dev),
+                        torch.stack([p[1] for p in pairs]).to(dev))
+        else:
+            ws[name] = torch.stack(per).to(dev, dtype)
+    norms = [(1 + 0.1 * rnd(n_layers, H)).to(dev, dtype) for _ in range(2)]
+    pages = b * w + 1
+    pools = [rnd(n_layers * pages, nkv, bs, dh) for _ in range(2)]
+    kw = {}
+    if int8_pools:
+        (kc, ks), (vc, vs) = (quantize_kv_pages(p) for p in pools)
+        pools = [kc.to(dev), vc.to(dev)]
+        kw = dict(k_scale=ks.to(dev), v_scale=vs.to(dev))
+    else:
+        pools = [p.to(dev, dtype) for p in pools]
+    perm = torch.randperm(pages - 1, generator=g) + 1
+    tables = perm[: b * w].reshape(b, w).to(torch.int32)
+    tables[0] = 0
+    lens = torch.tensor([0, 7, bs, w * bs, 3 * bs + 5, 2 * bs - 1],
+                        dtype=torch.int32)[:b]
+    h = rnd(b, 1, H, s=0.5).to(dev, dtype)
+    weights = [norms[0], norms[1]] + [ws[n] for n in
+                                      ("wq", "wk", "wv", "wo", "wg", "wu",
+                                       "wd")]
+    return h, lens.to(dev), tables.to(dev), weights, pools, kw
+
+
+def _mk_call(rung, fns, h, lens, tables, weights, pools, kw, n_layers):
+    """Call rung `rung` of `fns` (attn, full, scan callables) on clones
+    of the pools; returns (h_out, k pool, v pool, k scale, v scale)."""
+    pools = [p.clone() for p in pools]
+    kw = {k: v.clone() for k, v in kw.items()}
+    w_in, w_post, wq, wk, wv, wo, wg, wu, wd = weights
+
+    def one(w):
+        return (w[0][0], w[1][0]) if isinstance(w, tuple) else w[0]
+
+    if rung == "attn":
+        out = fns[0](h, lens, tables, *(one(w) for w in (w_in, wq, wk, wv,
+                                                          wo)),
+                     *pools, **kw)
+    elif rung == "full":
+        out = fns[1](h, lens, tables, *(one(w) for w in weights[:2]),
+                     *(one(w) for w in weights[2:]), *pools, **kw)
+    else:
+        out = fns[2](h, lens, tables, w_in, w_post, wq, wk, wv, wo, wg, wu,
+                     wd, *pools, n_layers=n_layers, **kw)
+    return out[0], pools[0], pools[1], kw.get("k_scale"), kw.get("v_scale")
+
+
+def _to_f32(x):
+    if isinstance(x, tuple):
+        return x
+    return x.float() if x.is_floating_point() else x
+
+
+@pytest.mark.parametrize("pools", ["float", "int8"])
+@pytest.mark.parametrize("weights", ["dense", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rung", ["attn", "full", "scan"])
+def test_decode_megakernel(dev, rung, dtype, weights, pools):
+    """The kernel against its plain version on the same operands. f32:
+    within 1e-4. bf16: h no further from the plain version run in f32
+    than the bf16 plain version is (x1.25 + 1e-3, relative RMS); both
+    versions commit the same pages, every other page byte-identical,
+    committed values within one bf16 step (int8: one integer step, scales
+    within 1e-2 relative)."""
+    from paddle_tpu_torch.kernels import decode_megakernel as mk
+
+    L = 2 if rung == "scan" else 1
+    h, lens, tables, ws, pl, kw = _mk_case(dev, dtype, weights == "int8",
+                                           pools == "int8", L)
+    kern = (mk.decode_layer_megakernel, mk.decode_layer_megakernel_full,
+            mk.decode_layers_megakernel)
+    plain = (mk.decode_layer_megakernel_reference,
+             mk.decode_layer_megakernel_full_reference,
+             mk.decode_layers_megakernel_reference)
+    name = {"attn": "decode_layer_megakernel",
+            "full": "decode_layer_megakernel_full",
+            "scan": "decode_layers_megakernel"}[rung]
+    if pools == "int8":
+        name += "_int8"
+    got = _launched(name, lambda: _mk_call(rung, kern, h, lens, tables, ws,
+                                           pl, kw, L))
+    ref = _mk_call(rung, plain, h, lens, tables, ws, pl, kw, L)
+    assert torch.isfinite(got[0].float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[0], ref[0], atol=1e-4, rtol=1e-4)
+    else:
+        ref32 = _mk_call(rung, plain, h.float(), lens, tables,
+                         [_to_f32(w) for w in ws],
+                         [_to_f32(p) for p in pl], kw, L)[0]
+
+        def rel(a):
+            return float((a.float() - ref32).pow(2).mean().sqrt()
+                         / ref32.pow(2).mean().sqrt())
+
+        assert rel(got[0]) <= 1.25 * rel(ref[0]) + 1e-3
+    for a, r in ((got[1], ref[1]), (got[2], ref[2])):
+        diff = (a != r).flatten(1).any(1)
+        assert diff.sum() <= L * lens.numel()       # commit pages only
+        err = (a[diff].float() - r[diff].float()).abs()
+        if pools == "int8":
+            assert (err <= 1).all()
+        else:
+            assert (err <= 2.0 ** -7 * r[diff].float().abs().clamp(min=1.0)
+                    ).all()
+    if pools == "int8":
+        torch.testing.assert_close(got[3], ref[3], rtol=1e-2, atol=1e-6)
+        torch.testing.assert_close(got[4], ref[4], rtol=1e-2, atol=1e-6)
+
+
+def test_decode_megakernel_refuses_the_tp_seam(dev):
+    from paddle_tpu_torch.kernels import decode_megakernel as mk
+
+    h, lens, tables, ws, pl, kw = _mk_case(dev, torch.bfloat16, False,
+                                           False, 1)
+    one = [w[0] for w in ws]
+    args = (h, lens, tables, one[0], *one[2:6], *pl)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mk.decode_layer_megakernel(*args, residual=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mk.decode_layer_megakernel(*args, residual=False, quantize_out=True)
+
+
+def test_megakernel_engine_int4_steps_down_and_scan_serves(dev):
+    """A packed-int4 engine asked for 'scan' warns once per rung and
+    serves 'off' (the int4 GEMV, no megakernel); an int8-weight engine
+    at 'scan' launches one decode_layers_megakernel per decode step."""
+    from paddle_tpu_torch.models import (LlamaConfig,
+                                         init_quant_serving_params)
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                           num_key_value_heads=1, intermediate_size=512)
+    kw = dict(slots=2, prompt_bucket=64, max_prompt_len=64,
+              max_new_tokens=9, block_size=64, steps_per_sync=4,
+              decode_megakernel="scan", device=dev)
+    p4 = init_quant_serving_params(cfg, "weight_only_int4", device=dev)
+    with pytest.warns(UserWarning, match="decode_megakernel rung") as rec:
+        eng = ContinuousBatchingEngine(cfg, p4, **kw)
+    assert eng.megakernel_rung == "off"
+    assert len([r for r in rec if "rung" in str(r.message)]) == 3
+    p8 = init_quant_serving_params(cfg, "weight_only_int8", device=dev)
+    for params, mega in ((p4, 0), (p8, 1)):
+        eng = ContinuousBatchingEngine(cfg, params, **kw)
+        _build.reset_launch_counts()
+        eng.add_request([3, 4, 5])
+        eng.run(max_iters=20)
+        torch.cuda.synchronize()
+        n = _build.launch_counts()
+        assert n["decode_layers_megakernel"] == mega * eng.device_steps * 4
+        assert len(eng.finished[0].tokens) == 9

@@ -196,7 +196,8 @@ def test_warm_metrics_and_cpu_launch_counts():
 @pytest.mark.parametrize("kwargs", [
     dict(double_buffer=True),
     dict(disaggregated=True), dict(config={"a": 1}),
-    dict(decode_megakernel="scan"), dict(decode_megakernel="attn"),
+    dict(decode_megakernel="scan", serving_mp=2),
+    dict(decode_megakernel="attn", serving_cp=2),
     dict(serving_mp=2), dict(serving_cp=2),
     dict(speculative="ngram"), dict(tracer=object()),
     dict(metrics=object())])
