@@ -36,9 +36,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    attention through gqa_decode_attention. 9b: the same program on a
    2-layer Llama-2-7B (equal heads) with int8 weights, through
    decode_attention.
-10. Print the kernel table as one JSON line (each kernel's launches from
-   the phase that drives it), the card's name and power limit, and the
-   closing {"ok": true, ...} line.
+10-12. The decode megakernel ladder: mega-scan, mega-full, mega-attn.
+13. train, the training slice's main path: bench.py main()'s step on
+   Llama-1B (16 layers, kv heads 4, bf16) with AdamW through
+   make_train_step(optimizer=), batch 4 x 2048, a warm-up and 10 timed
+   steps (tokens/s, ms per step, MFU against 989 TF/s, one profiled
+   step); the flash backward kernels on every layer.
+14. train-swiglu: Llama-3-8B's widths cut to 2 layers with
+   fused_swiglu=True and recompute on, batch 4 x 2048, three steps; the
+   SwiGLU kernels forward (twice, with recompute) and backward.
+Then the kernel table as one JSON line (each kernel's launches from the
+phase that drives it), the card's name and power limit, and the closing
+{"ok": true, ...} line.
 
 Every phase resets the kernel launch counters just before it serves and
 reads them just after: a bf16 phase must launch no int8 kernel, an int8
@@ -49,6 +58,7 @@ the paddle_tpu_torch package is not beside this script.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -56,6 +66,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace as dataclasses_replace
 from types import SimpleNamespace
 
 import numpy as np
@@ -466,6 +477,131 @@ def check_contiguous_decode(name: str, b: int, hq: int, hkv: int, d: int,
                 library_ms=lib_ms)
 
 
+def gate_rel_rms(name: str, kernel, plain, ref32):
+    """Phase 2's rule for a bf16 result: the kernel's relative RMS
+    distance from the f32 plain result is at most 1.25x the bf16 plain
+    version's, plus 1e-3 (the two round at other places). Returns the
+    kernel's max |diff| from the f32 result."""
+    e_k, e_p = rel_rms(kernel.float(), ref32), rel_rms(plain.float(), ref32)
+    if not torch.isfinite(kernel).all() or e_k > 1.25 * e_p + 1e-3:
+        raise AssertionError(f"{name}: rel. RMS vs f32 {e_k:.3e}, bf16 "
+                             f"plain {e_p:.3e}")
+    log(f"[kernel] {name}: rel. RMS vs f32: kernel {e_k:.3e}, bf16 plain "
+        f"{e_p:.3e}")
+    return float((kernel.float() - ref32).abs().max())
+
+
+def check_flash_bwd(b: int, s: int, hq: int, hkv: int, d: int):
+    """The backward pair (causal, Sq = Sk = s) on N(0, 1) bf16 inputs and
+    the kernel forward's out / lse: dq, dk and dv by gate_rel_rms against
+    the plain backward in f32 (f32 forward) beside the bf16 one. Bound:
+    the five products FA2 needs at this run's causal pairs -- dkv's four
+    (S, dP, dV, dK) on its row, dq's own product on its; the dq kernel's
+    recompute of S and dP is its choice, not work. Library: SDPA forward
+    plus backward minus forward, the whole backward, on both rows."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        _plain_bwd, flash_attention, flash_attention_bwd_dkv,
+        flash_attention_bwd_dq, flash_attention_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + hq)
+    q, do = (torch.randn(b, s, hq, d, generator=g, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    scale = d ** -0.5
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    args = (q, k, v, out, lse, do, True, scale)
+    dq = flash_attention_bwd_dq(*args)
+    dk, dv = flash_attention_bwd_dkv(*args)
+    plain = _plain_bwd(*args)
+    f32 = [t.float() for t in (q, k, v, do)]
+    out32, lse32 = flash_attention_reference(*f32[:3], True, scale, True)
+    ref32 = _plain_bwd(*f32[:3], out32, lse32, f32[3], True, scale)
+    del out32, lse32, f32
+    case = f"B{b} S{s} Hq{hq} Hkv{hkv} D{d} causal"
+    errs = [gate_rel_rms(f"flash bwd {n} {case}", got, p, r)
+            for n, got, p, r in zip(("dq", "dk", "dv"), (dq, dk, dv), plain,
+                                    ref32)]
+    del plain, ref32
+    dq_ms = time_ms(lambda: flash_attention_bwd_dq(*args), iters=10)
+    dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(*args), iters=10)
+    plain_ms = time_ms(lambda: _plain_bwd(*args), iters=3, warmup=1)
+    qt, kt, vt, dot = (t.transpose(1, 2).detach().requires_grad_()
+                       for t in (q, k, v, do))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    fwd_ms = time_ms(sdpa, iters=10)
+    both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                  dot), iters=10)
+    lib_ms = both_ms - fwd_ms
+    product = 2 * b * hq * d * s * (s + 1) // 2     # flops of one product
+    io = 2 * b * s * d * (3 * hq + 2 * hkv) + 4 * b * hq * s
+    dq_bound = bound_ms(io + 2 * b * s * hq * d, product)
+    dkv_bound = bound_ms(io + 2 * 2 * b * s * hkv * d, 4 * product)
+    return [dict(case=case, max_abs_err=errs[0], ms=dq_ms, plain_ms=plain_ms,
+                 bound_ms=dq_bound[0], bound_by=dq_bound[1],
+                 library_ms=lib_ms),
+            dict(case=case, max_abs_err=max(errs[1:]), ms=dkv_ms,
+                 plain_ms=plain_ms, bound_ms=dkv_bound[0],
+                 bound_by=dkv_bound[1], library_ms=lib_ms)]
+
+
+def check_swiglu(m: int, k: int, f: int):
+    """The SwiGLU pair on bf16 x ~ N(0, 1), weights ~ N(0, 1/K), dout ~
+    N(0, 1): the outputs by gate_rel_rms against the plain versions in
+    f32 beside the bf16 ones. Bound: 4*M*K*F flops; bytes x, Wg, Wu and
+    out (forward), plus dout and the second output (backward). Library:
+    F.silu(x @ wg) * (x @ wu) in bf16, and for the backward the same two
+    products plus the elementwise grads."""
+    from paddle_tpu_torch.kernels.swiglu import (swiglu_bwd,
+                                                 swiglu_bwd_reference,
+                                                 swiglu_fwd,
+                                                 swiglu_fwd_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + f)
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    wg, wu = ((torch.randn(k, f, generator=g, device="cuda") * k ** -0.5)
+              .to(torch.bfloat16) for _ in range(2))
+    dout = torch.randn(m, f, generator=g, device="cuda").to(torch.bfloat16)
+    x32, wg32, wu32 = x.float(), wg.float(), wu.float()
+    case = f"M{m} K{k} F{f}"
+    fwd_err = gate_rel_rms(f"swiglu_fwd {case}", swiglu_fwd(x, wg, wu),
+                           swiglu_fwd_reference(x, wg, wu),
+                           swiglu_fwd_reference(x32, wg32, wu32))
+    bwd_err = max(gate_rel_rms(f"swiglu_bwd {n} {case}", got, p, r)
+                  for n, got, p, r in zip(
+                      ("dh_g", "dh_u"), swiglu_bwd(x, wg, wu, dout),
+                      swiglu_bwd_reference(x, wg, wu, dout),
+                      swiglu_bwd_reference(x32, wg32, wu32, dout.float())))
+    del x32, wg32, wu32
+    fwd_ms = time_ms(lambda: swiglu_fwd(x, wg, wu), iters=10)
+    bwd_ms = time_ms(lambda: swiglu_bwd(x, wg, wu, dout), iters=10)
+    fwd_plain = time_ms(lambda: swiglu_fwd_reference(x, wg, wu), iters=3,
+                        warmup=1)
+    bwd_plain = time_ms(lambda: swiglu_bwd_reference(x, wg, wu, dout),
+                        iters=3, warmup=1)
+    fwd_lib = time_ms(lambda: F.silu(x @ wg) * (x @ wu), iters=10)
+
+    def lib_bwd():
+        gg, u = x @ wg, x @ wu
+        sig = torch.sigmoid(gg)
+        return dout * u * (sig * (1 + gg * (1 - sig))), dout * gg * sig
+
+    bwd_lib = time_ms(lib_bwd, iters=10)
+    flops = 4 * m * k * f
+    fb = bound_ms(2 * (m * k + 2 * k * f + m * f), flops)
+    bb = bound_ms(2 * (m * k + 2 * k * f + 3 * m * f), flops)
+    return ([dict(case=case, max_abs_err=fwd_err, ms=fwd_ms,
+                  plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
+                  library_ms=fwd_lib)],
+            [dict(case=case, max_abs_err=bwd_err, ms=bwd_ms,
+                  plain_ms=bwd_plain, bound_ms=bb[0], bound_by=bb[1],
+                  library_ms=bwd_lib)])
+
+
 # the megakernels at the shape of Llama-3-8B's decode step on the main
 # path: 8 slots, 17 table columns of 64-token pages (137 pages a layer,
 # as phase 10's engine), contexts like phase 3's (one row at a page
@@ -803,6 +939,14 @@ def phase_kernels():
         check_contiguous_decode("gqa_decode_attention", 8, 32, 8, 128, 1024)]
     res["decode_attention"] = [
         check_contiguous_decode("decode_attention", 8, 32, 32, 128, 1024)]
+    # the training kernels: the flash backward at phase 13's shape
+    # (bench.py's Llama-1B step) and at Llama-3-8B's heads (phase 14);
+    # SwiGLU at phase 14's MLP (M = 4 x 2048 tokens)
+    res["flash_attention_bwd_dq"], res["flash_attention_bwd_dkv"] = (
+        list(rows) for rows in zip(check_flash_bwd(4, 2048, 16, 4, 128),
+                                   check_flash_bwd(1, 2048, 32, 8, 128)))
+    res["swiglu_fwd"], res["swiglu_bwd"] = check_swiglu(8192, 4096, 14336)
+    _release()
     from paddle_tpu_torch.models import LlamaConfig
 
     res.update(megakernel_cases(LlamaConfig.llama3_8b()))
@@ -1714,6 +1858,197 @@ def phase_mega_attn(cfg, params, yardstick):
     return {"launches": launches, "worst_margin": worst}
 
 
+# ---------------------------------------------------------------------------
+# phases 13-14: the training step
+# ---------------------------------------------------------------------------
+
+def bench_decay(name: str) -> bool:
+    """bench.py's apply_decay_param_fun: every weight but the norms."""
+    return "norm" not in name and not name.endswith(".b_0")
+
+
+def build_train_step(model, strategy=None):
+    """bench.py main()'s step: AdamW(1e-4, weight decay 0.01, bench's
+    decay function) through make_train_step's optimizer= route."""
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import make_train_step
+
+    crit = LlamaPretrainingCriterion(model.config)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                apply_decay_param_fun=bench_decay,
+                parameters=model.parameters())
+    return make_train_step(model, lambda lg, lb: crit(lg, lb), None,
+                           optimizer=opt, strategy=strategy)
+
+
+def bench_batch(cfg, batch: int, seq: int):
+    """x and y as bench.py:1027-1029 draws them."""
+    rng = np.random.default_rng(SEED)
+    return tuple(torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              (batch, seq)), device="cuda")
+                 for _ in range(2))
+
+
+def run_steps(phase: str, step, p, s, x, y, n: int, per_step: dict):
+    """One warm-up step, then `n` timed steps on the same batch, with the
+    launch counters reset just before the warm-up and read just after the
+    last step. Gates: each kernel of `per_step` launched exactly that many
+    times per step; every loss finite; the last below the first. Returns
+    (params, state, launches, losses, ms per timed step)."""
+    from paddle_tpu_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    loss, p, s = step(p, s, x, y)
+    losses = [loss]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        loss, p, s = step(p, s, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / n
+    launches = _build.launch_counts()
+    losses = [float(v) for v in losses]
+    log(f"[{phase}] losses {[round(v, 4) for v in losses]}; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    for name, want in per_step.items():
+        _gate_exact(phase, launches, name, want * (n + 1))
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"{phase}: losses {losses}")
+    return p, s, launches, losses, step_ms
+
+
+def grads_kernel_vs_plain(phase: str, cfg, params, x, y):
+    """One forward and backward of `cfg` over `params` (detached tensors)
+    with the kernels, with use_kernels=False, and with
+    use_kernels=False in f32: every gradient of the kernel path passes
+    phase 2's rule against the f32 one (relative RMS at most 1.25x the
+    bf16 plain path's plus 1e-3). Returns the worst ratio."""
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+
+    def grads(use_kernels, dtype):
+        model = LlamaForCausalLM(cfg, use_kernels=use_kernels).load_params(
+            {k: v.to(dtype) for k, v in params.items()}, trainable=True)
+        LlamaPretrainingCriterion()(model(x), y).backward()
+        return {n: p.grad for n, p in model.named_parameters()}
+
+    ref = grads(False, torch.float32)
+    plain = grads(False, torch.bfloat16)
+    got = grads(True, torch.bfloat16)
+    worst, worst_name = 0.0, None
+    for name in ref:
+        e_k, e_p = rel_rms(got[name].float(), ref[name]), rel_rms(
+            plain[name].float(), ref[name])
+        if not torch.isfinite(got[name]).all() or e_k > 1.25 * e_p + 1e-3:
+            raise AssertionError(f"{phase}: grad {name} rel. RMS vs f32 "
+                                 f"{e_k:.3e}, bf16 plain {e_p:.3e}")
+        if e_k / max(e_p, 1e-12) > worst:
+            worst, worst_name = e_k / max(e_p, 1e-12), name
+    log(f"[{phase}] kernel vs plain gradients ({len(ref)} tensors, batch "
+        f"{x.shape[0]} x {x.shape[1]}): worst kernel/plain rel. RMS ratio "
+        f"vs f32 {worst:.3f} ({worst_name})")
+    del ref, plain, got
+    _release()
+    return worst
+
+
+def phase_train():
+    """Phase 13, the training slice's main path: bench.py main()'s step
+    on the card. Llama-1B (16 layers, kv heads 4, bf16, no recompute),
+    random weights from SEED drawn on the card, AdamW with bench's decay
+    function through make_train_step(optimizer=), bench's batch 4 x 2048,
+    one warm-up step and 10 timed steps. Gates: per step exactly 16
+    flash_attention_fwd, 16 of each backward kernel, 33 rms_norm and no
+    SwiGLU launches (FFN 5504 is not 512-aligned, and fused_swiglu is
+    off); losses finite and falling; a 2-layer copy at full width with the
+    trained weights passes the kernel-vs-plain gradient rule. Logs
+    tokens/s, ms per step, MFU against 989 TF/s (6 N per token, N counted
+    as bench.py counts it) and one profiled step."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         init_train_params)
+
+    phase, batch, seq, n = "train", 4, 2048, 10
+    cfg = LlamaConfig.llama_1b(dtype="bfloat16", recompute=False,
+                               num_key_value_heads=4,
+                               max_position_embeddings=2048)
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg).load_params(
+        init_train_params(cfg, seed=SEED, device="cuda"), trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    step, p, s = build_train_step(model)
+    x, y = bench_batch(cfg, batch, seq)
+    torch.cuda.reset_peak_memory_stats()
+    p, s, launches, losses, step_ms = run_steps(
+        phase, step, p, s, x, y, n,
+        {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+         "flash_attention_bwd_dkv": L, "rms_norm": 2 * L + 1,
+         "swiglu_fwd": 0, "swiglu_bwd": 0})
+    tok_s = batch * seq / (step_ms / 1e3)
+    mfu = tok_s * 6 * n_params / BF16_FLOPS_PER_S
+    log(f"[{phase}] Llama-1B ({n_params} params, bf16, AdamW) batch "
+        f"{batch} x {seq}: {step_ms:.2f} ms per step, {tok_s:.1f} tokens/s, "
+        f"MFU {100 * mfu:.2f}% of 989 TF/s (6 N per token); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    wall_ms, busy = profile_call(lambda: step(p, s, x, y),
+                                 f"{phase}: one Llama-1B train step")
+    two = dataclasses_replace(cfg, num_hidden_layers=2)
+    keep = {k: v.detach().clone() for k, v in p.items()
+            if not k.startswith("llama.layers.") or int(k.split(".")[2]) < 2}
+    del step, p, s, model
+    _release()
+    worst = grads_kernel_vs_plain(phase, two, keep, x, y)
+    del keep
+    _release()
+    return {"launches": launches, "losses": losses, "step_ms": step_ms,
+            "tok_s": tok_s, "mfu": mfu, "profile": (wall_ms, busy),
+            "grad_ratio": worst}
+
+
+def phase_train_swiglu():
+    """Phase 14: the fused SwiGLU route of the trainer. Llama-3-8B's
+    widths (K 4096, F 14336: 512-aligned) cut to 2 layers,
+    fused_swiglu=True, bf16, batch 4 x 2048, bench's AdamW and
+    strategy={"recompute": {"enable": True}}; three steps after a
+    warm-up. Gates: per step exactly 2 swiglu_fwd and 1 swiglu_bwd per
+    layer, 2 flash_attention_fwd per layer and 1 of each backward kernel
+    (recompute runs every forward kernel twice), rms_norm 4 per layer plus
+    the final norm; losses finite and falling; the kernel-vs-plain
+    gradient rule at batch 1 x 2048."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         init_train_params)
+
+    phase, batch, seq = "train-swiglu", 4, 2048
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=2, fused_swiglu=True,
+                                dtype="bfloat16",
+                                max_position_embeddings=2048)
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg).load_params(
+        init_train_params(cfg, seed=SEED, device="cuda"), trainable=True)
+    step, p, s = build_train_step(model, {"recompute": {"enable": True}})
+    x, y = bench_batch(cfg, batch, seq)
+    p, s, launches, losses, step_ms = run_steps(
+        phase, step, p, s, x, y, 3,
+        {"swiglu_fwd": 2 * L, "swiglu_bwd": L, "flash_attention_fwd": 2 * L,
+         "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+         "rms_norm": 4 * L + 1})
+    log(f"[{phase}] Llama-3-8B widths, {L} layers, fused SwiGLU, recompute: "
+        f"{step_ms:.2f} ms per step, {batch * seq / (step_ms / 1e3):.1f} "
+        f"tokens/s")
+    wall_ms, busy = profile_call(lambda: step(p, s, x, y),
+                                 f"{phase}: one step")
+    keep = {k: v.detach().clone() for k, v in p.items()}
+    del step, p, s, model
+    _release()
+    worst = grads_kernel_vs_plain(phase, dataclasses_replace(
+        cfg, recompute=False), keep, x[:1], y[:1])
+    del keep
+    _release()
+    return {"launches": launches, "losses": losses, "step_ms": step_ms,
+            "profile": (wall_ms, busy), "grad_ratio": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1751,6 +2086,19 @@ def main() -> int:
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")
+    # training after serving: the serving weights go first (the engines
+    # hold them in reference cycles, so collect before releasing)
+    params = None
+    phases["int4-split"].pop("params")
+    gc.collect()
+    _release()
+    log(f"[phase] serving state freed: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+    for name, fn in (("train", phase_train),
+                     ("train-swiglu", phase_train_swiglu)):
+        t0 = time.perf_counter()
+        phases[name] = fn()
+        log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")
     own_phase = {"rms_norm": "engine", "flash_attention_fwd": "engine",
                  "paged_decode_attention": "engine",
                  "prefix_prefill_attention": "prefix",
@@ -1765,7 +2113,10 @@ def main() -> int:
                  "decode_layers_megakernel": "mega-scan",
                  "decode_layer_megakernel_full": "mega-scan-full",
                  "decode_layer_megakernel_full_int8": "mega-full",
-                 "decode_layer_megakernel": "mega-attn"}
+                 "decode_layer_megakernel": "mega-attn",
+                 "flash_attention_bwd_dq": "train",
+                 "flash_attention_bwd_dkv": "train",
+                 "swiglu_fwd": "train-swiglu", "swiglu_bwd": "train-swiglu"}
     phases["mega-scan-full"] = {
         "launches": phases["mega-scan"]["full_launches"]}
 
@@ -1815,6 +2166,16 @@ def main() -> int:
         "decode_layer_megakernel": (
             "paddle_tpu_torch/csrc/decode_megakernel.cu",
             "paddle_tpu/kernels/decode_megakernel.py:239"),
+        "flash_attention_bwd_dq": (
+            "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "paddle_tpu/kernels/flash_attention.py:265"),
+        "flash_attention_bwd_dkv": (
+            "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "paddle_tpu/kernels/flash_attention.py:311"),
+        "swiglu_fwd": ("paddle_tpu_torch/csrc/swiglu.cu",
+                       "paddle_tpu/kernels/swiglu.py:92"),
+        "swiglu_bwd": ("paddle_tpu_torch/csrc/swiglu.cu",
+                       "paddle_tpu/kernels/swiglu.py:142"),
     }
     rows = []
     for name, cases in kernels.items():

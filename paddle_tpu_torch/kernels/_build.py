@@ -46,6 +46,23 @@ SIGNATURES = {
         "flash_attention_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _F, _I, _P),
     },
+    "flash_attention_bwd": {
+        # q, k, v, out, dO, lse, dq, B, Sq, Sk, Hq, Hkv, D, scale, causal,
+        # stream
+        "flash_attention_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, _I,
+                                          _I, _I, _I, _I, _I, _F, _I, _P),
+        # q, k, v, out, dO, lse, dk, dv, B, Sq, Sk, Hq, Hkv, D, scale,
+        # causal, stream
+        "flash_attention_bwd_dkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                           _I, _I, _I, _I, _I, _I, _F, _I,
+                                           _P),
+    },
+    "swiglu": {
+        # x, wg, wu, out, M, K, F, stream
+        "swiglu_fwd_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
+        # x, wg, wu, dout, dh_g, dh_u, M, K, F, stream
+        "swiglu_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
     "paged_decode_attention": {
         # q, k_cache, v_cache, tables, lens, out, B, Hq, Hkv, D,
         # block_size, table_width, max_pages, scale, dtype, stream
@@ -200,7 +217,9 @@ def stream_ptr(device) -> int:
 # dequantize-then-matmul form for M > 64, no kernel of this package) under
 # the function's name plus "_large_m"
 INT8_SUFFIX = "_int8"
-COUNTERS = ("rms_norm", "flash_attention_fwd", "paged_decode_attention",
+COUNTERS = ("rms_norm", "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv", "swiglu_fwd", "swiglu_bwd",
+            "paged_decode_attention",
             "prefix_prefill_attention", "ragged_paged_attention",
             "paged_decode_attention_int8", "prefix_prefill_attention_int8",
             "ragged_paged_attention_int8", "decode_attention",

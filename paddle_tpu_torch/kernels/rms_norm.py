@@ -4,7 +4,12 @@
 for CUDA tensors and runs ``rms_norm_reference`` for CPU tensors. Both
 keep the statistics in f32 and round once: ``(x32 * inv * w32)`` cast to
 x's dtype, the JAX kernel's order (its ``_rms_ref``), not the Hugging
-Face order that casts before multiplying by w. Forward only.
+Face order that casts before multiplying by w.
+
+Differentiable: when x or w requires grad, the forward runs inside a
+``torch.autograd.Function`` whose backward is ``rms_norm_bwd_reference``,
+the plain twin of the jnp ``_rms_bwd`` (the JAX package has no Pallas
+backward for it either), in f32 and cast to the dtypes of x and w.
 """
 from __future__ import annotations
 
@@ -21,9 +26,23 @@ def rms_norm_reference(x: torch.Tensor, w: torch.Tensor,
     return (x32 * inv * w.to(torch.float32)).to(x.dtype)
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """y = x / rms(x) * w over the last axis."""
+def rms_norm_bwd_reference(x: torch.Tensor, w: torch.Tensor,
+                           dy: torch.Tensor, eps: float = 1e-6):
+    """Twin of the jnp ``_rms_bwd``: (dx, dw) in f32, cast to x's and
+    w's dtypes."""
+    x32 = x.to(torch.float32)
+    dy32 = dy.to(torch.float32)
+    w32 = w.to(torch.float32)
+    inv = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    xhat = x32 * inv
+    dw = torch.sum(dy32 * xhat, dim=tuple(range(x.ndim - 1)))
+    g = dy32 * w32
+    dx = inv * (g - xhat * torch.mean(g * xhat, dim=-1, keepdim=True))
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def _rms_norm_fwd(x: torch.Tensor, w: torch.Tensor,
+                  eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return rms_norm_reference(x, w, eps)
     what = "rms_norm"
@@ -42,3 +61,25 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     _build.check(lib, code, what)
     _build.LAUNCHES[what] += 1
     return out
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rms_norm_fwd(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rms_norm_bwd_reference(x, w, dy, ctx.eps)
+        return dx, dw, None
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """y = x / rms(x) * w over the last axis."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNorm.apply(x, w, eps)
+    return _rms_norm_fwd(x, w, eps)

@@ -1,11 +1,16 @@
-"""Llama decoder family, serving path (counterpart of
+"""Llama decoder family, serving and training (counterpart of
 paddle_tpu/models/llama.py).
 
 What is here:
 
-- ``LlamaConfig`` with the JAX package's stock sizes;
-- the inference forward as ``nn.Module``s (``LlamaForCausalLM`` and its
-  parts), used as the plain oracle the serving path is checked against;
+- ``LlamaConfig`` with the JAX package's stock sizes and training knobs
+  (``dtype``, ``recompute``, ``recompute_skip``, ``remat_policy``,
+  ``remat_scope``, ``fused_swiglu``, with JAX's defaults);
+- the forward as ``nn.Module``s (``LlamaForCausalLM`` and its parts): the
+  plain oracle the serving path is checked against, and the training
+  forward under autograd once ``load_params(..., trainable=True)`` (or
+  ``init_train_params``) gives it trainable weights; per-layer recompute
+  through ``torch.utils.checkpoint``; ``LlamaPretrainingCriterion``;
 - the functional serving pieces over a decode-params dict
   (``_make_prefill``, ``_make_prefill_with_prefix``,
   ``_make_chunk_prefill``, ``_make_decode_step``,
@@ -31,7 +36,7 @@ in the modules alike, so JAX weights carry across without a transpose and
 the modules share storage with the dict. Keys are the JAX package's
 (``llama.layers.{i}.self_attn.q_proj.weight`` ...).
 
-The kernel wrappers (``rms_norm``, ``flash_attention``,
+The kernel wrappers (``rms_norm``, ``flash_attention``, ``swiglu_matmul``,
 ``paged_decode_attention``, ``prefix_prefill_attention``,
 ``ragged_paged_attention``, ``decode_attention``,
 ``gqa_decode_attention``, ``int4_matmul``, ``int8_weight_matmul``)
@@ -51,6 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..framework.flags import flag as _flag
@@ -71,6 +77,7 @@ from ..kernels.ragged_attention import ragged_paged_attention
 from ..kernels.rms_norm import rms_norm as _k_rms
 from ..kernels.rms_norm import rms_norm_reference
 from ..kernels.rope import apply_rotary_emb
+from ..kernels.swiglu import swiglu_matmul, swiglu_matmul_reference
 from ..nn.quant import weight_quantize
 
 WEIGHT_QUANTS = ("weight_only_int8", "weight_only_int4")
@@ -88,6 +95,20 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    # training knobs, with the JAX package's defaults (its llama.py:55-86):
+    # per-layer recompute, except the last `recompute_skip` layers;
+    # `remat_scope` "attn" / "mlp" checkpoints only that sub-block of each
+    # layer; a saving `remat_policy` (SAVING_REMAT_POLICIES) is refused
+    # on whole-layer recompute, any other name recomputes everything as
+    # in JAX (ROADMAP "Trainer options the port refuses"); `fused_swiglu`
+    # routes the MLP through the SwiGLU kernels on 512-aligned shapes;
+    # `dtype` is the dtype of the weights init_train_params makes
+    recompute: bool = False
+    recompute_skip: int = 0
+    remat_policy: str = "none"
+    remat_scope: str = "layer"
+    fused_swiglu: bool = False
+    dtype: str = "float32"
 
     def __post_init__(self):
         if self.num_key_value_heads is None:
@@ -250,6 +271,30 @@ def init_quant_serving_params(cfg: LlamaConfig, quant: str, seed: int = 0,
     return out
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    """LlamaConfig.dtype ("float32", "bfloat16", "float16") as a torch
+    dtype."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
+    if name not in dtypes:
+        raise ValueError(f"dtype must be one of {sorted(dtypes)}, got "
+                         f"{name!r}")
+    return dtypes[name]
+
+
+def init_train_params(cfg: LlamaConfig, seed: int = 0, device=None,
+                      dtype: Optional[torch.dtype] = None) -> dict:
+    """Random trainable weights (normal, std 0.02; norms at 1), each a
+    ``requires_grad`` ``nn.Parameter`` in `dtype` (default
+    ``cfg.dtype``), drawn weight by weight on `device` from a
+    ``torch.Generator`` seeded with `seed` (its stream differs from the
+    JAX initializers'). Load with ``load_params(params, trainable=True)``.
+    """
+    dtype = torch_dtype(cfg.dtype) if dtype is None else dtype
+    return {name: nn.Parameter(w) for name, w in init_serving_params(
+        cfg, seed=seed, device=device, dtype=dtype).items()}
+
+
 def init_serving_params(cfg: LlamaConfig, seed: int = 0, device=None,
                         dtype: torch.dtype = torch.bfloat16) -> dict:
     """Random serving weights (normal, std 0.02; norms at 1) made weight
@@ -271,10 +316,11 @@ def init_serving_params(cfg: LlamaConfig, seed: int = 0, device=None,
 # modules: the inference forward (the serving path's plain oracle)
 # ---------------------------------------------------------------------------
 
-# the two kernel-backed operations a forward needs, picked once per model
-_Ops = namedtuple("_Ops", "rms_norm flash_attention")
-KERNEL_OPS = _Ops(_k_rms, flash_attention)
-PLAIN_OPS = _Ops(rms_norm_reference, flash_attention_reference)
+# the kernel-backed operations a forward needs, picked once per model
+_Ops = namedtuple("_Ops", "rms_norm flash_attention swiglu")
+KERNEL_OPS = _Ops(_k_rms, flash_attention, swiglu_matmul)
+PLAIN_OPS = _Ops(rms_norm_reference, flash_attention_reference,
+                 swiglu_matmul_reference)
 
 
 def _meta(*shape) -> nn.Parameter:
@@ -338,13 +384,31 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
+        self._fused = config.fused_swiglu
         h, i = config.hidden_size, config.intermediate_size
         self.gate_proj = _Linear(h, i)
         self.up_proj = _Linear(h, i)
         self.down_proj = _Linear(i, h)
 
-    def forward(self, x):
+    def forward(self, x, ops=KERNEL_OPS):
+        if self._fused:
+            # the JAX route (its llama.py:308-316): the SwiGLU kernels when
+            # M, K and F are multiples of 512, the plain composition else
+            return self.down_proj(ops.swiglu(x, self.gate_proj.weight,
+                                             self.up_proj.weight, fused=True))
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+# the jax.checkpoint saving policies the JAX model maps remat_policy to
+# (its llama.py:403-410); any other name there recomputes everything
+SAVING_REMAT_POLICIES = ("save_attn", "dots_saveable",
+                         "dots_with_no_batch_dims_saveable")
+
+
+def _remat(fn, *args):
+    # recompute `fn`'s activations in the backward instead of keeping
+    # them (the counterpart of jax.checkpoint with no saving policy)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -355,10 +419,18 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = LlamaRMSNorm(config)
         self.post_attention_layernorm = LlamaRMSNorm(config)
 
-    def forward(self, hidden, position_ids, ops=KERNEL_OPS):
-        hidden = hidden + self.self_attn(
-            self.input_layernorm(hidden, ops), position_ids, ops)
-        return hidden + self.mlp(self.post_attention_layernorm(hidden, ops))
+    def forward(self, hidden, position_ids, ops=KERNEL_OPS, remat=None):
+        """remat: None, or "attn" / "mlp" -- checkpoint only that
+        sub-block (the JAX layer's sub-layer recompute)."""
+        h = self.input_layernorm(hidden, ops)
+        if remat == "attn":
+            attn = _remat(self.self_attn, h, position_ids, ops)
+        else:
+            attn = self.self_attn(h, position_ids, ops)
+        hidden = hidden + attn
+        h = self.post_attention_layernorm(hidden, ops)
+        mlp = _remat(self.mlp, h, ops) if remat == "mlp" else self.mlp(h, ops)
+        return hidden + mlp
 
 
 class _Embedding(nn.Module):
@@ -381,12 +453,28 @@ class LlamaModel(nn.Module):
         self.norm = LlamaRMSNorm(config)
 
     def forward(self, input_ids, position_offset: int = 0, ops=KERNEL_OPS):
+        cfg = self.config
         s = input_ids.shape[1]
         pos = torch.arange(position_offset, position_offset + s,
                            device=input_ids.device)
         hidden = self.embed_tokens(input_ids)
-        for layer in self.layers:
-            hidden = layer(hidden, pos, ops)
+        # recompute only where a backward will follow (JAX: under the
+        # functional train step), every layer but the last recompute_skip
+        use_ckpt = cfg.recompute and torch.is_grad_enabled()
+        if use_ckpt and cfg.remat_scope not in ("attn", "mlp") \
+                and cfg.remat_policy in SAVING_REMAT_POLICIES:
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r}: the port recomputes "
+                "whole layers or sub-blocks only (ROADMAP \"Trainer options "
+                "the port refuses\")")
+        n_ckpt = len(self.layers) - cfg.recompute_skip if use_ckpt else 0
+        for li, layer in enumerate(self.layers):
+            if li >= n_ckpt:
+                hidden = layer(hidden, pos, ops)
+            elif cfg.remat_scope in ("attn", "mlp"):
+                hidden = layer(hidden, pos, ops, remat=cfg.remat_scope)
+            else:
+                hidden = _remat(layer, hidden, pos, ops)
         return self.norm(hidden, ops)
 
 
@@ -413,18 +501,25 @@ class LlamaForCausalLM(nn.Module):
             return hidden @ self.llama.embed_tokens.weight.T
         return self.lm_head(hidden)
 
-    def load_params(self, params: dict) -> "LlamaForCausalLM":
+    def load_params(self, params: dict,
+                    trainable: bool = False) -> "LlamaForCausalLM":
         """Point every parameter at the tensor of the same key in a
         decode-params dict (no copy: the module and the dict share
-        storage)."""
+        storage). With `trainable` the parameters require grad, and a
+        value that is already a trainable ``nn.Parameter`` (as
+        ``init_train_params`` makes them) is held as it is, so its
+        ``.grad`` is the module's."""
         for name, p in list(self.named_parameters()):
             t = params[name]
             if tuple(t.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: expected {list(p.shape)}, got "
                                  f"{list(t.shape)}")
+            if not trainable:
+                t = nn.Parameter(t, requires_grad=False)
+            elif not (isinstance(t, nn.Parameter) and t.requires_grad):
+                t = nn.Parameter(t.detach())
             path, leaf = name.rsplit(".", 1)
-            setattr(self.get_submodule(path), leaf,
-                    nn.Parameter(t, requires_grad=False))
+            setattr(self.get_submodule(path), leaf, t)
         return self
 
     def load_jax_params(self, np_params: dict, device=None,
@@ -432,6 +527,22 @@ class LlamaForCausalLM(nn.Module):
                         ) -> "LlamaForCausalLM":
         """Fill the module from the JAX ``raw_state()`` dict (numpy)."""
         return self.load_params(params_from_jax(np_params, device, dtype))
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """The JAX criterion (its llama.py:2753-2768): the mean over every
+    position of logsumexp(logits) - logits[label] in f32. Labels are NOT
+    shifted against the logits, whatever the JAX docstring says; the
+    port reproduces the computation."""
+
+    def __init__(self, config: Optional[LlamaConfig] = None):
+        super().__init__()
+
+    def forward(self, logits, labels):
+        lg32 = logits.to(torch.float32)
+        lse = torch.logsumexp(lg32, dim=-1)
+        picked = torch.gather(lg32, -1, labels.long()[..., None])[..., 0]
+        return torch.mean(lse - picked)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,7 @@
+"""Optimizers of the port (counterpart of paddle_tpu.optimizer): Adam,
+AdamW and the LR schedulers."""
+from . import lr  # noqa: F401
+from .optimizer import Optimizer  # noqa: F401
+from .optimizers import Adam, AdamW  # noqa: F401
+
+__all__ = ["Optimizer", "Adam", "AdamW", "lr"]

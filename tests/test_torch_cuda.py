@@ -604,3 +604,168 @@ def test_megakernel_engine_int4_steps_down_and_scan_serves(dev):
         n = _build.launch_counts()
         assert n["decode_layers_megakernel"] == mega * eng.device_steps * 4
         assert len(eng.finished[0].tokens) == 9
+
+
+# ---------------------------------------------------------------------------
+# training: flash backward, SwiGLU, one train step
+# ---------------------------------------------------------------------------
+
+def _rel_rms(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+
+def _no_worse_than_plain(kernel, plain, ref32, what):
+    """The rule of chip_smoke.py's phases 2-3: the kernel's relative RMS
+    distance from the f32 plain result is at most 1.25x the bf16 plain
+    version's, plus 1e-3 (both round at other places)."""
+    e_k, e_p = _rel_rms(kernel, ref32), _rel_rms(plain, ref32)
+    assert torch.isfinite(kernel.float()).all(), what
+    assert e_k <= 1.25 * e_p + 1e-3, (what, e_k, e_p)
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", [
+    (2, 200, 333, 32, 8, 128, True),    # ragged tiles, Sq < Sk, D 128
+    (2, 256, 256, 16, 4, 128, True),    # bench.py's heads (opt-in smem)
+    (2, 64, 64, 8, 8, 64, True),        # group 1, D 64
+    (1, 77, 77, 4, 1, 128, False),      # MQA, not causal
+    (1, 100, 300, 8, 2, 64, False),     # not causal, Sq < Sk
+])
+def test_flash_attention_backward(dev, b, sq, sk, hq, hkv, d, causal):
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(b, sq, hq, d, generator=g, device=dev)
+    k = torch.randn(b, sk, hkv, d, generator=g, device=dev)
+    v = torch.randn(b, sk, hkv, d, generator=g, device=dev)
+    do = torch.randn(b, sq, hq, d, generator=g, device=dev)
+    bf = [t.to(torch.bfloat16) for t in (q, k, v, do)]
+    scale = d ** -0.5
+    out, lse = flash_attention(*bf[:3], causal=causal, return_lse=True)
+    dq = _launched("flash_attention_bwd_dq", lambda: flash_attention_bwd_dq(
+        *bf[:3], out, lse, bf[3], causal, scale))
+    dk, dv = _launched("flash_attention_bwd_dkv",
+                       lambda: flash_attention_bwd_dkv(
+                           *bf[:3], out, lse, bf[3], causal, scale))
+    # the plain backward in bf16 (same out / lse) and in f32 (f32 forward)
+    from paddle_tpu_torch.kernels.flash_attention import (
+        _plain_bwd, flash_attention_reference)
+    plain = _plain_bwd(*bf[:3], out, lse, bf[3], causal, scale)
+    f32 = [t.float() for t in bf]
+    out32, lse32 = flash_attention_reference(*f32[:3], causal, scale, True)
+    ref32 = _plain_bwd(*f32[:3], out32, lse32, f32[3], causal, scale)
+    for name, got, p, r in zip(("dq", "dk", "dv"), (dq, dk, dv), plain,
+                               ref32):
+        assert got.shape == p.shape and got.dtype == torch.bfloat16
+        _no_worse_than_plain(got, p, r, name)
+
+
+@pytest.mark.parametrize("m,k,f", [(512, 512, 512), (1024, 2048, 1536),
+                                   (512, 4096, 14336)])
+def test_swiglu_kernels(dev, m, k, f):
+    from paddle_tpu_torch.kernels.swiglu import (swiglu_bwd,
+                                                 swiglu_bwd_reference,
+                                                 swiglu_fwd,
+                                                 swiglu_fwd_reference)
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    wg, wu = ((torch.randn(k, f, generator=g, device=dev) * k ** -0.5).to(
+        torch.bfloat16) for _ in range(2))
+    dout = torch.randn(m, f, generator=g, device=dev).to(torch.bfloat16)
+    out = _launched("swiglu_fwd", lambda: swiglu_fwd(x, wg, wu))
+    _within_one_bf16_step(out, swiglu_fwd_reference(x, wg, wu))
+    dh = _launched("swiglu_bwd", lambda: swiglu_bwd(x, wg, wu, dout))
+    for got, ref in zip(dh, swiglu_bwd_reference(x, wg, wu, dout)):
+        _within_one_bf16_step(got, ref)
+
+
+def test_training_wrappers_refuse_what_they_do_not_take(dev):
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_dq)
+    from paddle_tpu_torch.kernels.swiglu import swiglu_bwd, swiglu_fwd
+
+    x = torch.randn(512, 512, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        swiglu_fwd(x, x, x)                                   # f32
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 512"):
+        swiglu_fwd(xb[:500], xb, xb)                          # misaligned
+    with pytest.raises(ValueError, match="CUDA device"):
+        swiglu_bwd(xb, xb, xb.cpu(), xb)                      # mixed
+    q = torch.randn(1, 64, 2, 128, device=dev, dtype=torch.bfloat16)
+    out, lse = flash_attention(q, q, q, causal=True, return_lse=True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_bwd_dq(q, q, q, out, lse.cpu(), q, True, 0.1)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_dq(q, q, q, out, lse[:1], q, True, 0.1)
+
+
+def _tiny_train_model(dev, recompute=False, use_kernels=True, dtype=None):
+    """Two layers, head_dim 128, FFN 1024 (512-aligned: fused SwiGLU)."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         init_train_params)
+
+    cfg = LlamaConfig.tiny(hidden_size=512, num_attention_heads=4,
+                           num_key_value_heads=2, intermediate_size=1024,
+                           vocab_size=256, max_position_embeddings=256,
+                           fused_swiglu=True, recompute=recompute,
+                           dtype="bfloat16")
+    params = init_train_params(cfg, seed=3, device=dev, dtype=dtype)
+    return LlamaForCausalLM(cfg, use_kernels=use_kernels).load_params(
+        params, trainable=True)
+
+
+def _grads(model, ids, labels):
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+
+    loss = LlamaPretrainingCriterion()(model(ids), labels)
+    loss.backward()
+    return loss, {n: p.grad for n, p in model.named_parameters()}
+
+
+def test_tiny_bf16_train_step_kernels_vs_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(13)
+    ids, labels = (torch.randint(0, 256, (2, 256), generator=g, device=dev)
+                   for _ in range(2))
+    _build.reset_launch_counts()
+    loss, got = _grads(_tiny_train_model(dev), ids, labels)
+    torch.cuda.synchronize()
+    assert all(_build.launch_counts()[n] for n in (
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "swiglu_fwd",
+        "swiglu_bwd"))
+    plain_loss, plain = _grads(_tiny_train_model(dev, use_kernels=False),
+                               ids, labels)
+    _, ref = _grads(_tiny_train_model(dev, use_kernels=False,
+                                      dtype=torch.float32), ids, labels)
+    assert abs(float(loss.detach()) - float(plain_loss.detach())) < 2e-2
+    for name in got:
+        _no_worse_than_plain(got[name], plain[name], ref[name], name)
+
+
+@pytest.mark.parametrize("recompute", [False, True])
+def test_train_step_launch_counts(dev, recompute):
+    """One make_train_step step of the 2-layer model: each forward kernel
+    once per layer (twice with recompute), each backward kernel once,
+    rms_norm twice per layer plus the final norm."""
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import make_train_step
+
+    model = _tiny_train_model(dev, recompute=recompute)
+    crit = LlamaPretrainingCriterion()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step, p, s = make_train_step(model, lambda lg, lb: crit(lg, lb), None,
+                                 optimizer=opt)
+    ids = torch.randint(0, 256, (2, 256), device=dev)
+    _build.reset_launch_counts()
+    loss, p, s = step(p, s, ids, ids)
+    torch.cuda.synchronize()
+    n = _build.launch_counts()
+    fwd = 2 * (2 if recompute else 1)
+    assert n["flash_attention_fwd"] == fwd and n["swiglu_fwd"] == fwd
+    assert n["flash_attention_bwd_dq"] == n["flash_attention_bwd_dkv"] == 2
+    assert n["swiglu_bwd"] == 2
+    assert n["rms_norm"] == 2 * fwd + 1
+    assert torch.isfinite(loss)
