@@ -95,6 +95,10 @@ GEMV_PER_STEP = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64,
 # weight-only matmuls per decode step: 7 per layer plus the lm_head
 MATMULS_PER_LAYER = 7
 L2_BYTES = 50e6
+# decode rows of Llama-3-8B's 8k context (max_seq 8192): lens from 0 to
+# 8191, on and beside the edges of the kernels' position splits (15 tiles
+# of 64 positions a split at B8 Hkv8: edges at multiples of 960)
+LENS_8K = [0, 959, 960, 1919, 4095, 5761, 8190, 8191]
 
 
 def log(msg: str) -> None:
@@ -169,6 +173,13 @@ def ulp_check(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
         raise AssertionError(f"{name}: {bad} elements beyond one bf16 ulp "
                              f"(max err {float(err.max()):.3e})")
     return float(err.max())
+
+
+def gate_deterministic(name: str, first: torch.Tensor,
+                       again: torch.Tensor) -> None:
+    """Two launches on the same inputs give bitwise-equal results."""
+    if not torch.equal(first, again):
+        raise AssertionError(f"{name}: two launches differ")
 
 
 # ---------------------------------------------------------------------------
@@ -252,18 +263,23 @@ def quantized(pools):
 
 
 def check_paged_decode(b: int, hq: int, hkv: int, d: int, bs: int,
-                       q8: bool = False):
+                       q8: bool = False, w: int = 9, lens_l=None):
     """Permuted tables, ragged lens including 0, a page boundary
     (lens = k*bs - 1 and k*bs) and a row past its table (lens >= W*bs).
     Both versions score and accumulate in f32 from the same bf16 inputs
-    and round once: one bf16 ulp apart at most (ulp_check). `q8`: the
-    same over int8 pools with their scales (the plain version dequantizes
-    in f32 first, the kernel folds the scales into its f32 sums)."""
+    and round once: one bf16 ulp apart at most (ulp_check), against the
+    plain version and against the plain twin of the kernel's
+    split-and-merge; two launches are bitwise equal. `q8`: the same over
+    int8 pools with their scales (the plain version dequantizes in f32
+    first, the kernel folds the scales into its f32 sums). `w` table
+    columns (9: 576 positions a row), `lens_l` the rows' lens. Kernel and
+    library timed cold, as a decode step reads each layer's pages once
+    (and without the wrapper's host time, which exceeds the kernel's)."""
     from paddle_tpu_torch.kernels.decode_attention import (
-        paged_decode_attention, paged_decode_attention_reference)
+        paged_decode_attention, paged_decode_attention_reference,
+        split_decode_reference)
 
     g = torch.Generator(device="cuda").manual_seed(SEED + hq)
-    w = 9                                  # 544 positions per row
     n_pages = b * w + 1
     pools = [torch.randn(n_pages, hkv, bs, d, generator=g, device="cuda",
                          dtype=torch.bfloat16) for _ in range(2)]
@@ -272,7 +288,8 @@ def check_paged_decode(b: int, hq: int, hkv: int, d: int, bs: int,
     perm = torch.randperm(n_pages - 1, generator=torch.Generator()
                           .manual_seed(SEED)) + 1
     tables = perm[: b * w].reshape(b, w).to(torch.int32).cuda()
-    lens_l = [0, bs - 1, bs, 3 * bs + 17, 500, w * bs - 1, w * bs + 5, 257]
+    lens_l = lens_l or [0, bs - 1, bs, 3 * bs + 17, 500, w * bs - 1,
+                        w * bs + 5, 257]
     lens = torch.tensor((lens_l * b)[:b], dtype=torch.int32, device="cuda")
     kw = {}
     if q8:
@@ -281,10 +298,18 @@ def check_paged_decode(b: int, hq: int, hkv: int, d: int, bs: int,
         kw = dict(k_scale=ksc, v_scale=vsc)
     else:
         args = (q, pools[0], pools[1], tables, lens)
-    err = ulp_check(f"paged_decode_attention Hq{hq}/Hkv{hkv} q8={q8}",
-                    paged_decode_attention(*args, **kw),
-                    paged_decode_attention_reference(*args, **kw))
-    ms = time_ms(lambda: paged_decode_attention(*args, **kw))
+    name = f"paged_decode_attention Hq{hq}/Hkv{hkv} W{w} q8={q8}"
+    got = paged_decode_attention(*args, **kw)
+    err = ulp_check(name, got, paged_decode_attention_reference(*args, **kw))
+    ulp_check(name + " (split twin)", got, split_decode_reference(
+        args[0], args[1], args[2], lens, block_tables=tables, **kw))
+    gate_deterministic(name, got, paged_decode_attention(*args, **kw))
+
+    def kernel(*ops):
+        sc = dict(zip(("k_scale", "v_scale"), ops[5:]))
+        return paged_decode_attention(*ops[:5], **sc)
+
+    ms = time_cold_ms(kernel, args + tuple(kw.values()))
     plain_ms = time_ms(lambda: paged_decode_attention_reference(*args, **kw))
     # library yardstick: SDPA over the cache gathered (and, for int8,
     # dequantized) beforehand
@@ -293,8 +318,10 @@ def check_paged_decode(b: int, hq: int, hkv: int, d: int, bs: int,
               for p in pools)
     mask = (torch.arange(w * bs, device="cuda")[None, :]
             <= lens.long()[:, None])[:, None, None, :]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kg, vg, attn_mask=mask, enable_gqa=True))
+    lib_ms = time_cold_ms(lambda q, kg, vg, mask: (
+        F.scaled_dot_product_attention(q[:, :, None, :], kg, vg,
+                                       attn_mask=mask, enable_gqa=True)),
+        (q, kg, vg, mask))
     # pages this run's lens name: min(W, len // bs + 1) per row; an int8
     # page is 1 byte per element plus its two f32 scales per kv head
     pages = sum(min(w, int(n) // bs + 1) for n in lens.tolist())
@@ -303,8 +330,8 @@ def check_paged_decode(b: int, hq: int, hkv: int, d: int, bs: int,
         else 2 * ctx * hkv * d * 2
     n_bytes = pool_bytes + 2 * b * hq * d * 2 + b * (w + 1) * 4
     b_ms, by = bound_ms(n_bytes, 4 * hq * d * ctx)
-    return dict(case=f"B{b} Hq{hq} Hkv{hkv} D{d} block{bs} pages{pages}"
-                     f"{' int8 pools' if q8 else ''}",
+    return dict(case=f"B{b} Hq{hq} Hkv{hkv} D{d} block{bs} W{w} "
+                     f"pages{pages}{' int8 pools' if q8 else ''}",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, library_ms=lib_ms)
 
@@ -437,14 +464,17 @@ def check_gemv(quant: str, m: int, k: int, n: int):
 
 
 def check_contiguous_decode(name: str, b: int, hq: int, hkv: int, d: int,
-                            max_seq: int):
+                            max_seq: int, lens_l=None):
     """decode_attention / gqa_decode_attention over contiguous caches
-    [B, Hkv, max_seq, D] against the plain version: ragged lens including
-    0 and max_seq - 1. Both score and accumulate in f32 from the same bf16
-    inputs and round once (ulp_check). Timed cold (each layer's cache is
-    read once per step). Library: SDPA (enable_gqa) with a length mask."""
+    [B, Hkv, max_seq, D] against the plain version and the plain twin of
+    the kernel's split-and-merge: ragged lens (`lens_l`; by default
+    including 0 and max_seq - 1). Both score and accumulate in f32 from
+    the same bf16 inputs and round once (ulp_check); two launches are
+    bitwise equal. Timed cold (each layer's cache is read once per step).
+    Library: SDPA (enable_gqa) with a length mask."""
     from paddle_tpu_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_reference, gqa_decode_attention)
+        decode_attention, decode_attention_reference, gqa_decode_attention,
+        split_decode_reference)
 
     fn = {"decode_attention": decode_attention,
           "gqa_decode_attention": gqa_decode_attention}[name]
@@ -453,11 +483,14 @@ def check_contiguous_decode(name: str, b: int, hq: int, hkv: int, d: int,
                     dtype=torch.bfloat16)
     kc, vc = (torch.randn(b, hkv, max_seq, d, generator=g, device="cuda",
                           dtype=torch.bfloat16) for _ in range(2))
-    lens_l = [0, 63, 64, 300, 447, 500, max_seq - 2, max_seq - 1]
+    lens_l = lens_l or [0, 63, 64, 300, 447, 500, max_seq - 2, max_seq - 1]
     lens = torch.tensor((lens_l * b)[:b], dtype=torch.int32, device="cuda")
     args = (q, kc, vc, lens)
-    err = ulp_check(f"{name} Hq{hq}/Hkv{hkv}", fn(*args),
-                    decode_attention_reference(*args))
+    what = f"{name} Hq{hq}/Hkv{hkv} max_seq{max_seq}"
+    got = fn(*args)
+    err = ulp_check(what, got, decode_attention_reference(*args))
+    ulp_check(what + " (split twin)", got, split_decode_reference(*args))
+    gate_deterministic(what, got, fn(*args))
     ms = time_cold_ms(fn, args)
     plain_ms = time_ms(lambda: decode_attention_reference(*args))
 
@@ -500,7 +533,8 @@ def check_flash_bwd(b: int, s: int, hq: int, hkv: int, d: int):
     recompute of S and dP is its choice, not work. Library: SDPA forward
     plus backward minus forward, the whole backward, on both rows."""
     from paddle_tpu_torch.kernels.flash_attention import (
-        _plain_bwd, flash_attention, flash_attention_bwd_dkv,
+        _plain_bwd, flash_attention, flash_attention_bwd_delta,
+        flash_attention_bwd_delta_reference, flash_attention_bwd_dkv,
         flash_attention_bwd_dq, flash_attention_reference)
 
     g = torch.Generator(device="cuda").manual_seed(SEED + hq)
@@ -513,18 +547,33 @@ def check_flash_bwd(b: int, s: int, hq: int, hkv: int, d: int):
     args = (q, k, v, out, lse, do, True, scale)
     dq = flash_attention_bwd_dq(*args)
     dk, dv = flash_attention_bwd_dkv(*args)
+    case = f"B{b} S{s} Hq{hq} Hkv{hkv} D{d} causal"
+    for n, got, again in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                             (flash_attention_bwd_dq(*args),
+                              *flash_attention_bwd_dkv(*args))):
+        gate_deterministic(f"flash bwd {n} {case}", got, again)
+    # the dkv kernel's delta pre-pass against its plain twin (f32: the
+    # same products summed in another order)
+    delta = flash_attention_bwd_delta(out, do)
+    delta_ref = flash_attention_bwd_delta_reference(out, do)
+    delta_err = float((delta - delta_ref).abs().max())
+    if delta_err > 1e-4 * max(1.0, float(delta_ref.abs().max())):
+        raise AssertionError(f"flash bwd delta {case}: max err "
+                             f"{delta_err:.3e}")
     plain = _plain_bwd(*args)
     f32 = [t.float() for t in (q, k, v, do)]
     out32, lse32 = flash_attention_reference(*f32[:3], True, scale, True)
     ref32 = _plain_bwd(*f32[:3], out32, lse32, f32[3], True, scale)
     del out32, lse32, f32
-    case = f"B{b} S{s} Hq{hq} Hkv{hkv} D{d} causal"
     errs = [gate_rel_rms(f"flash bwd {n} {case}", got, p, r)
             for n, got, p, r in zip(("dq", "dk", "dv"), (dq, dk, dv), plain,
                                     ref32)]
     del plain, ref32
     dq_ms = time_ms(lambda: flash_attention_bwd_dq(*args), iters=10)
     dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(*args), iters=10)
+    delta_ms = time_ms(lambda: flash_attention_bwd_delta(out, do), iters=10)
+    delta_plain = time_ms(lambda: flash_attention_bwd_delta_reference(
+        out, do), iters=10)
     plain_ms = time_ms(lambda: _plain_bwd(*args), iters=3, warmup=1)
     qt, kt, vt, dot = (t.transpose(1, 2).detach().requires_grad_()
                        for t in (q, k, v, do))
@@ -541,12 +590,18 @@ def check_flash_bwd(b: int, s: int, hq: int, hkv: int, d: int):
     io = 2 * b * s * d * (3 * hq + 2 * hkv) + 4 * b * hq * s
     dq_bound = bound_ms(io + 2 * b * s * hq * d, product)
     dkv_bound = bound_ms(io + 2 * 2 * b * s * hkv * d, 4 * product)
+    # delta: O and dO read once, delta written once; 2 flops an element
+    delta_bound = bound_ms(2 * 2 * b * s * hq * d + 4 * b * hq * s,
+                           2 * b * s * hq * d)
     return [dict(case=case, max_abs_err=errs[0], ms=dq_ms, plain_ms=plain_ms,
                  bound_ms=dq_bound[0], bound_by=dq_bound[1],
                  library_ms=lib_ms),
             dict(case=case, max_abs_err=max(errs[1:]), ms=dkv_ms,
                  plain_ms=plain_ms, bound_ms=dkv_bound[0],
-                 bound_by=dkv_bound[1], library_ms=lib_ms)]
+                 bound_by=dkv_bound[1], library_ms=lib_ms),
+            dict(case=case, max_abs_err=delta_err, ms=delta_ms,
+                 plain_ms=delta_plain, bound_ms=delta_bound[0],
+                 bound_by=delta_bound[1], library_ms=None)]
 
 
 def check_swiglu(m: int, k: int, f: int):
@@ -897,8 +952,10 @@ def phase_kernels():
         "flash_attention_fwd": [check_flash(4, 512, 512, 32, 8, 128),
                                 check_flash(1, 300, 300, 32, 8, 128),
                                 check_flash(2, 200, 333, 32, 8, 128)],
-        "paged_decode_attention": [check_paged_decode(8, 32, 8, 128, 64),
-                                   check_paged_decode(8, 32, 32, 128, 64)],
+        "paged_decode_attention": [
+            check_paged_decode(8, 32, 8, 128, 64),
+            check_paged_decode(8, 32, 32, 128, 64),
+            check_paged_decode(8, 32, 8, 128, 64, w=128, lens_l=LENS_8K)],
         "prefix_prefill_attention": [
             check_paged_prefill("prefix_prefill_attention", 4, 128,
                                 [0, 64, 256, 512], [128, 1, 77, 100], w=8)],
@@ -911,7 +968,9 @@ def phase_kernels():
         # the int8-pool variants at the same shapes
         "paged_decode_attention_int8": [
             check_paged_decode(8, 32, 8, 128, 64, q8=True),
-            check_paged_decode(8, 32, 32, 128, 64, q8=True)],
+            check_paged_decode(8, 32, 32, 128, 64, q8=True),
+            check_paged_decode(8, 32, 8, 128, 64, q8=True, w=128,
+                               lens_l=LENS_8K)],
         "prefix_prefill_attention_int8": [
             check_paged_prefill("prefix_prefill_attention", 4, 128,
                                 [0, 64, 256, 512], [128, 1, 77, 100], w=8,
@@ -936,13 +995,17 @@ def phase_kernels():
             f"({100 * step[1] / step[0]:.1f}% of bound), bf16 torch.matmul "
             f"{step[2]:.3f} ms")
     res["gqa_decode_attention"] = [
-        check_contiguous_decode("gqa_decode_attention", 8, 32, 8, 128, 1024)]
+        check_contiguous_decode("gqa_decode_attention", 8, 32, 8, 128, 1024),
+        check_contiguous_decode("gqa_decode_attention", 8, 32, 8, 128, 8192,
+                                LENS_8K)]
     res["decode_attention"] = [
         check_contiguous_decode("decode_attention", 8, 32, 32, 128, 1024)]
     # the training kernels: the flash backward at phase 13's shape
     # (bench.py's Llama-1B step) and at Llama-3-8B's heads (phase 14);
-    # SwiGLU at phase 14's MLP (M = 4 x 2048 tokens)
-    res["flash_attention_bwd_dq"], res["flash_attention_bwd_dkv"] = (
+    # SwiGLU at phase 14's MLP (M = 4 x 2048 tokens); the dkv row's time
+    # is its wrapper's, delta pre-pass included
+    (res["flash_attention_bwd_dq"], res["flash_attention_bwd_dkv"],
+     res["flash_attention_bwd_delta"]) = (
         list(rows) for rows in zip(check_flash_bwd(4, 2048, 16, 4, 128),
                                    check_flash_bwd(1, 2048, 32, 8, 128)))
     res["swiglu_fwd"], res["swiglu_bwd"] = check_swiglu(8192, 4096, 14336)
@@ -955,8 +1018,10 @@ def phase_kernels():
             log(f"[kernel] {name} {c['case']}: {c['ms']:.4f} ms, bound "
                 f"{c['bound_ms']:.4f} ms ({c['bound_by']}), "
                 f"{100 * c['bound_ms'] / c['ms']:.1f}% of bound; plain "
-                f"{c['plain_ms']:.4f} ms; library {c['library_ms']:.4f} "
-                f"ms; max_abs_err {c['max_abs_err']:.3e}")
+                f"{c['plain_ms']:.4f} ms; library "
+                + ("none" if c["library_ms"] is None
+                   else f"{c['library_ms']:.4f} ms")
+                + f"; max_abs_err {c['max_abs_err']:.3e}")
     return res
 
 
@@ -1960,7 +2025,8 @@ def phase_train():
     random weights from SEED drawn on the card, AdamW with bench's decay
     function through make_train_step(optimizer=), bench's batch 4 x 2048,
     one warm-up step and 10 timed steps. Gates: per step exactly 16
-    flash_attention_fwd, 16 of each backward kernel, 33 rms_norm and no
+    flash_attention_fwd, 16 of each backward kernel (dq, dkv and dkv's
+    delta pre-pass), 33 rms_norm and no
     SwiGLU launches (FFN 5504 is not 512-aligned, and fused_swiglu is
     off); losses finite and falling; a 2-layer copy at full width with the
     trained weights passes the kernel-vs-plain gradient rule. Logs
@@ -1983,7 +2049,8 @@ def phase_train():
     p, s, launches, losses, step_ms = run_steps(
         phase, step, p, s, x, y, n,
         {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
-         "flash_attention_bwd_dkv": L, "rms_norm": 2 * L + 1,
+         "flash_attention_bwd_dkv": L, "flash_attention_bwd_delta": L,
+         "rms_norm": 2 * L + 1,
          "swiglu_fwd": 0, "swiglu_bwd": 0})
     tok_s = batch * seq / (step_ms / 1e3)
     mfu = tok_s * 6 * n_params / BF16_FLOPS_PER_S
@@ -2013,7 +2080,8 @@ def phase_train_swiglu():
     strategy={"recompute": {"enable": True}}; three steps after a
     warm-up. Gates: per step exactly 2 swiglu_fwd and 1 swiglu_bwd per
     layer, 2 flash_attention_fwd per layer and 1 of each backward kernel
-    (recompute runs every forward kernel twice), rms_norm 4 per layer plus
+    (dq, dkv, delta; recompute runs every forward kernel twice), rms_norm
+    4 per layer plus
     the final norm; losses finite and falling; the kernel-vs-plain
     gradient rule at batch 1 x 2048."""
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
@@ -2032,7 +2100,7 @@ def phase_train_swiglu():
         phase, step, p, s, x, y, 3,
         {"swiglu_fwd": 2 * L, "swiglu_bwd": L, "flash_attention_fwd": 2 * L,
          "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
-         "rms_norm": 4 * L + 1})
+         "flash_attention_bwd_delta": L, "rms_norm": 4 * L + 1})
     log(f"[{phase}] Llama-3-8B widths, {L} layers, fused SwiGLU, recompute: "
         f"{step_ms:.2f} ms per step, {batch * seq / (step_ms / 1e3):.1f} "
         f"tokens/s")
@@ -2116,6 +2184,7 @@ def main() -> int:
                  "decode_layer_megakernel": "mega-attn",
                  "flash_attention_bwd_dq": "train",
                  "flash_attention_bwd_dkv": "train",
+                 "flash_attention_bwd_delta": "train",
                  "swiglu_fwd": "train-swiglu", "swiglu_bwd": "train-swiglu"}
     phases["mega-scan-full"] = {
         "launches": phases["mega-scan"]["full_launches"]}
@@ -2172,6 +2241,12 @@ def main() -> int:
         "flash_attention_bwd_dkv": (
             "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
             "paddle_tpu/kernels/flash_attention.py:311"),
+        # part of the dkv redesign: the delta that _bwd_dkv_kernel
+        # recomputes per tile, once per query row (no kernel of its own
+        # in the JAX package)
+        "flash_attention_bwd_delta": (
+            "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "paddle_tpu/kernels/flash_attention.py:352"),
         "swiglu_fwd": ("paddle_tpu_torch/csrc/swiglu.cu",
                        "paddle_tpu/kernels/swiglu.py:92"),
         "swiglu_bwd": ("paddle_tpu_torch/csrc/swiglu.cu",

@@ -4,8 +4,9 @@
 // Replaces the Pallas kernels paddle_tpu/kernels/decode_attention.py
 // `_decode_kernel` (equal heads, launched by `decode_attention`) and
 // `_gqa_contig_kernel` (grouped heads, launched by `gqa_decode_attention`
-// through `_gqa_grid_body`): one kernel, one block per (sequence, kv head)
-// scoring the whole query group against each tile of its kv head.
+// through `_gqa_grid_body`): one kernel, blocks per (split of a row's
+// positions, kv head, sequence) scoring the whole query group against each
+// tile of their kv head.
 //
 // Inputs: q [B, Hq, D]; caches [B, Hkv, max_seq, D] in q's type (strides
 // [Hkv*max_seq*D, max_seq*D, D], not a pool's); lens [B] int32 = tokens
@@ -14,49 +15,54 @@
 // type; scores, softmax and accumulation in f32.
 //
 // Bound on the H100: bytes. Each row reads (lens[b] + 1) cached positions
-// of K and V once for ~4 flops per element.
+// of K and V once for ~4 G flops per element.
 //
-// Design: the paged kernel's body (decode_attention_body.cuh) with a tile
-// policy that addresses 64-position tiles of the contiguous cache. The
-// TPU kernel takes the largest divisor of max_seq as its block; here
-// max_seq need not be a multiple of the tile (544 positions, or 96), so the
-// last tile is ragged: it copies only the rows that exist and masks the
-// rest without reading them. Tiles past lens[b] are never read, lens = 0
-// reads one tile, lens = max_seq - 1 reads all of them.
+// Design: the paged kernel's body (decode_attention_body.cuh: the position
+// loop split across blocks, a cp.async ring, a deterministic merge) with a
+// tile policy that addresses `st`-position tiles (64) of the contiguous
+// cache. The TPU kernel takes the largest divisor of max_seq as its block;
+// here max_seq need not be a multiple of the tile (544 positions, or 96),
+// so the last tile is ragged: it copies only the rows that exist and masks
+// the rest without reading them. Tiles past lens[b] are never read,
+// lens = 0 reads one tile, lens = max_seq - 1 reads all of them.
 #include "decode_attention_body.cuh"
 
 namespace {
 
-constexpr int TILE = 64;  // cached positions per tile
-
 template <typename T>
 int launch(const void* q, const void* kc, const void* vc, const int* lens,
-           void* out, int B, int Hq, int Hkv, int D, int max_seq, float scale,
+           void* out, float* part, int* counters, int B, int Hq, int Hkv,
+           int D, int max_seq, int st, int tps, int splits, float scale,
            cudaStream_t stream) {
-  const bool vec = aligned16(kc, vc) && (D * sizeof(T)) % 16 == 0;
-  return launch_decode<T, T>(q, kc, vc, nullptr, nullptr, lens, out, B, Hq,
-                             Hkv, D, scale, ContigTiles{max_seq, TILE}, vec,
-                             stream);
+  return launch_decode<T, T>(q, kc, vc, nullptr, nullptr, lens, out, part,
+                             counters, B, Hq, Hkv, D, scale,
+                             ContigTiles{max_seq, st}, tps, splits, stream);
 }
 
 }  // namespace
 
+// part: f32 scratch [B * Hkv * splits, G*D + 2G rounded up to 4] and
+// counters: int [B * Hkv], zero on entry (and left zero), both unused when
+// splits == 1
 extern "C" int contiguous_decode_attention_launch(
     const void* q, const void* kc, const void* vc, const void* lens,
-    void* out, int B, int Hq, int Hkv, int D, int max_seq, float scale,
-    int dtype, void* stream) {
+    void* out, void* part, void* counters, int B, int Hq, int Hkv, int D,
+    int max_seq, int st, int tps, int splits, float scale, int dtype,
+    void* stream) {
   const int* l = static_cast<const int*>(lens);
+  float* pt = static_cast<float*>(part);
+  int* ct = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case PTT_F32:
-      return launch<float>(q, kc, vc, l, out, B, Hq, Hkv, D, max_seq, scale,
-                           s);
+      return launch<float>(q, kc, vc, l, out, pt, ct, B, Hq, Hkv, D, max_seq,
+                           st, tps, splits, scale, s);
     case PTT_BF16:
-      return launch<__nv_bfloat16>(q, kc, vc, l, out, B, Hq, Hkv, D, max_seq,
-                                   scale, s);
+      return launch<__nv_bfloat16>(q, kc, vc, l, out, pt, ct, B, Hq, Hkv, D,
+                                   max_seq, st, tps, splits, scale, s);
     case PTT_F16:
-      return launch<__half>(q, kc, vc, l, out, B, Hq, Hkv, D, max_seq, scale,
-                            s);
+      return launch<__half>(q, kc, vc, l, out, pt, ct, B, Hq, Hkv, D,
+                            max_seq, st, tps, splits, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -19,23 +19,39 @@
 // Bound on the H100: operations. The five products (recomputed S, dP, dV,
 // dQ, dK) are 10*B*Hq*Sq*Sk*D flops (about half when causal) against
 // O(S*D) bytes per row; both kernels recompute S and dP, which is their
-// own choice and not work the function needs.
+// own choice and not work the function needs. The delta pre-pass is bound
+// by bytes (O and dO read once).
 //
-// Design (simple first, the forward kernel's shape): blocks of four warps,
-// each warp owning 16 rows of a 64-row tile end to end. Products run on the
-// tensor cores with bf16 WMMA tiles (mma.sync) and f32 accumulators; score
-// strips go through f32 shared memory for the elementwise phase (two
-// columns per lane). Warps touch only their own rows of the score strips,
-// so only the tile loads need block barriers.
-// - dq kernel: one block per (64 query rows, batch * q head). Q and dO stay
-//   in shared memory, K / V tiles of 64 keys stream through it; dq's
-//   accumulators stay in registers.
-// - dkv kernel: one block per (64 keys, batch * kv head). K and V stay in
-//   shared memory; for every q head of the group, the Q / dO tiles that
-//   see these keys stream through it; dk and dv accumulate in registers.
-// Both need about 111 KB of shared memory at D = 128 (two blocks per SM),
-// past the 48 KB default, so each launch opts in first; a refused launch
-// returns its error. wgmma + TMA pipelining is later work.
+// - dq kernel (the first design, kept): blocks of four warps, each warp
+//   owning 16 rows of a 64-row q tile end to end; products on the tensor
+//   cores with bf16 WMMA tiles and f32 accumulators; score strips through
+//   f32 shared memory for the elementwise phase (two columns per lane);
+//   one block per (64 query rows, batch * q head); Q and dO stay in shared
+//   memory, K / V tiles of 64 keys stream through it, dq's accumulators
+//   stay in registers. About 111 KB of shared memory at D = 128 (two
+//   blocks per SM), opted in past the 48 KB default.
+// - delta pre-pass: delta = rowsum(dO * O) in f32 once per query row, one
+//   warp per row, into [B * Hq, Sq] beside lse (the JAX kernels recompute
+//   it for every (key tile, q tile) pair).
+// - dkv kernel (redesigned): one block of four warps per (64 keys,
+//   batch * kv head), each warp owning 16 keys; K and V stay in shared
+//   memory. For every q head of the group and every q tile of 64 rows
+//   that sees these keys, Q, dO, lse and delta of the tile arrive by
+//   cp.async into one of two stage buffers while the previous tile
+//   computes (one block barrier per tile). Products are raw m16n8k16
+//   mma.sync with fragments of known layout, fed by ldmatrix (.trans for
+//   the [q, D] operands of the second products): S^T = K_w Q^T and
+//   dP^T = V_w dO^T accumulate in registers over 32 query rows at a time;
+//   the mask, p = exp(s * scale - lse) and dS = p (dP - delta) scale run on
+//   the accumulators, which are packed to bf16 straight into the A
+//   fragments of dV += P^T dO and dK += dS^T Q (no score goes through
+//   shared memory). The dk / dv sums stay in registers for the block's
+//   whole walk and are rounded once. Key tiles that see the most q rows
+//   (causal: the first) are dispatched first: grid (B * Hkv, Sk / 64).
+//   103 KB of shared memory (K, V and two stages) and 242 registers at
+//   D = 128 (170 at D = 64), no spills: two blocks, eight warps, per SM.
+//   q tiles of 64 rows measured faster than tiles of 32 (PERF.md).
+// A refused launch returns its error. wgmma + TMA is later work.
 #include <mma.h>
 
 #include "common.cuh"
@@ -275,126 +291,314 @@ __global__ void __launch_bounds__(NTHREADS, 2)
 }
 
 // ---------------------------------------------------------------------------
-// dkv: grid (ceil(Sk / 64), B * Hkv); each block walks the Hq / Hkv query
-// heads of its kv head and, for each, the q tiles that see its keys
+// delta = rowsum(dO * O) in f32, once per query row: [B * Hq, Sq], beside
+// lse. One warp per row of the [B, Sq, Hq, D] tensors.
 // ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(NTHREADS)
+    flash_bwd_delta_kernel(const bf16* __restrict__ o,
+                           const bf16* __restrict__ dO,
+                           float* __restrict__ delta, int64_t rows, int Sq,
+                           int Hq, int D) {
+  const int64_t r =
+      (static_cast<int64_t>(blockIdx.x) * NTHREADS + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const __nv_bfloat162* orow =
+      reinterpret_cast<const __nv_bfloat162*>(o + r * D);
+  const __nv_bfloat162* drow =
+      reinterpret_cast<const __nv_bfloat162*>(dO + r * D);
+  float acc = 0.f;
+  for (int c = lane; c < D / 2; c += 32) {
+    const float2 a = __bfloat1622float2(orow[c]);
+    const float2 d = __bfloat1622float2(drow[c]);
+    acc += d.x * a.x + d.y * a.y;
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    const int h = static_cast<int>(r % Hq);
+    const int64_t bs = r / Hq;
+    const int s = static_cast<int>(bs % Sq);
+    const int64_t b = bs / Sq;
+    delta[(b * Hq + h) * Sq + s] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dkv: grid (B * Hkv, ceil(Sk / 64)), the key tiles that see the most query
+// rows (causal: the first) dispatched first; each block walks the Hq / Hkv
+// query heads of its kv head and, for each, the q tiles that see its keys.
+// Raw m16n8k16 mma.sync with fragments of known layout: every score stays
+// in registers.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes, zero-filled when !valid (no byte is read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// c[16x8 f32] += a[16x16 bf16] b[16x8 bf16]
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// keys of a dkv block (16 per warp) and query rows of a stage; each stage
+// holds Q, dO, lse and delta of one q tile, in two buffers
+constexpr int DKV_QROWS = 64;
+constexpr int DKV_SUB = 32;     // query rows per register pass
 
 template <int D>
 struct DkvLayout {
-  using T = Tiles<D>;
+  static constexpr int LDH = D + 8;   // bf16 rows (padding: ldmatrix banks)
+  static constexpr size_t KV = size_t(BT) * LDH * sizeof(bf16);
+  static constexpr size_t QT = size_t(DKV_QROWS) * LDH * sizeof(bf16);
   static constexpr size_t k = 0;
-  static constexpr size_t v = k + T::H;
-  static constexpr size_t q = v + T::H;
-  static constexpr size_t dO = q + T::H;
-  static constexpr size_t s = dO + T::H;    // S^T, then p^T in place
-  static constexpr size_t dp = s + T::S;    // dP^T
-  static constexpr size_t p = dp + T::S;    // bf16 p^T, then bf16 dS^T
-  static constexpr size_t lse = p + T::P;
-  static constexpr size_t delta = lse + T::V64;
-  static constexpr size_t bytes = delta + T::V64;
-  // the finished dk and dv rows are staged from offset 0
-  static_assert(BT * T::LDO * sizeof(float) <= bytes, "dkv stage");
+  static constexpr size_t v = KV;
+  static constexpr size_t stage0 = 2 * KV;
+  static constexpr size_t q = 0, dO = QT, lse = 2 * QT,
+                          delta = 2 * QT + DKV_QROWS * sizeof(float);
+  static constexpr size_t STAGE = 2 * QT + 2 * DKV_QROWS * sizeof(float);
+  static constexpr size_t bytes = stage0 + 2 * STAGE;
 };
+
+// one [rows, D] tile of a [B, S, H, D] tensor at (b, h) into smem rows of
+// ldm LDH, rows past S zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void start_rows_copy(bf16* dst, const bf16* src,
+                                                int b, int h, int row0,
+                                                int S, int H) {
+  constexpr int VPR = D / 8;
+  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += NTHREADS) {
+    const int r = idx / VPR, c = idx - r * VPR;
+    const int s = row0 + r;
+    const bool ok = s < S;
+    const bf16* g =
+        ok ? src + ((static_cast<int64_t>(b) * S + s) * H + h) * D + c * 8
+           : src;
+    cp_async16(dst + r * DkvLayout<D>::LDH + c * 8, g, ok);
+  }
+}
+
+// stage: Q, dO, lse and delta of query rows [q0, q0 + 64) of head (b, h)
+template <int D>
+__device__ __forceinline__ void start_stage_copy(unsigned char* st,
+                                                 const bf16* q, const bf16* dO,
+                                                 const float* lse,
+                                                 const float* delta, int b,
+                                                 int h, int q0, int Sq,
+                                                 int Hq) {
+  using L = DkvLayout<D>;
+  start_rows_copy<D, DKV_QROWS>(reinterpret_cast<bf16*>(st + L::q), q, b, h,
+                                q0, Sq, Hq);
+  start_rows_copy<D, DKV_QROWS>(reinterpret_cast<bf16*>(st + L::dO), dO, b,
+                                h, q0, Sq, Hq);
+  const int t = threadIdx.x;
+  if (t < 2 * DKV_QROWS) {
+    const int i = t % DKV_QROWS;
+    const bool ok = q0 + i < Sq;
+    const float* src = (t < DKV_QROWS ? lse : delta) +
+                       (static_cast<int64_t>(b) * Hq + h) * Sq +
+                       (ok ? q0 + i : 0);
+    float* dst = reinterpret_cast<float*>(
+                     st + (t < DKV_QROWS ? L::lse : L::delta)) + i;
+    cp_async4(dst, src, ok);
+  }
+}
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 2)
     flash_bwd_dkv_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
-                         const bf16* __restrict__ o,
                          const bf16* __restrict__ dO,
                          const float* __restrict__ lse,
+                         const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
                          int Sk, int Hq, int Hkv, float scale, int causal) {
-  using T = Tiles<D>;
   using L = DkvLayout<D>;
+  constexpr int LDH = L::LDH;
+  constexpr int NT = D / 8;                 // n-tiles of a [16, D] sum
+  constexpr int ST = DKV_SUB / 8;           // n-tiles of a [16, 32] strip
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
   bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::dO);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  float* dPs = reinterpret_cast<float*>(smem + L::dp);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
 
-  const int k0 = blockIdx.x * BT;
-  const int bkv = blockIdx.y;
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * BT;
   const int b = bkv / Hkv, hk = bkv - b * Hkv;
   const int rep = Hq / Hkv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = warp * 16;    // this warp's keys in the tile
   const int q_offset = Sk - Sq;
-
-  load_tile<D>(Ks, k, b, hk, k0, Sk, Hkv);
-  load_tile<D>(Vs, v, b, hk, k0, Sk, Hkv);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[D / 16];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dv_acc[D / 16];
-#pragma unroll
-  for (int dj = 0; dj < D / 16; ++dj) {
-    wmma::fill_fragment(dk_acc[dj], 0.f);
-    wmma::fill_fragment(dv_acc[dj], 0.f);
-  }
 
   // causal: the first q tile with a row that sees key k0 (row i sees key j
   // when j <= i + q_offset); earlier tiles see none of these keys
   int qt0 = 0;
-  if (causal && k0 - q_offset > 0) qt0 = (k0 - q_offset) / BT;
-  const int n_qt = (Sq + BT - 1) / BT;
+  if (causal && k0 - q_offset > 0) qt0 = (k0 - q_offset) / DKV_QROWS;
+  const int n_qt = (Sq + DKV_QROWS - 1) / DKV_QROWS;
+  const int per_head = max(n_qt - qt0, 0);
+  const int n_it = rep * per_head;
 
-  for (int g = 0; g < rep; ++g) {
-    const int h = hk * rep + g;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BT;
-      __syncthreads();  // every warp is done with the last Q/dO tile
-      load_tile<D>(Qs, q, b, h, q0, Sq, Hq);
-      load_tile<D>(dOs, dO, b, h, q0, Sq, Hq);
-      __syncthreads();
-      row_stats<D>(lse_s, delta_s, dOs, o, lse, b, h, q0, Sq, Hq, row0);
-      __syncthreads();  // every warp reads all 64 rows' statistics
+  start_rows_copy<D, BT>(Ks, k, b, hk, k0, Sk, Hkv);
+  start_rows_copy<D, BT>(Vs, v, b, hk, k0, Sk, Hkv);
+  if (n_it > 0)
+    start_stage_copy<D>(smem + L::stage0, q, dO, lse, delta, b, hk * rep,
+                        qt0 * DKV_QROWS, Sq, Hq);
+  cp_async_commit();
 
-      strip_abt<D>(Ss + row0 * T::LDS, Ks + row0 * T::LDH, Qs);   // S^T
-      strip_abt<D>(dPs + row0 * T::LDS, Vs + row0 * T::LDH, dOs);  // dP^T
-      __syncwarp();
-
-      // p^T over this warp's keys, two query columns per lane: bf16 into
-      // Ps for dV, f32 back into Ss for dS
-      for (int r = 0; r < 16; ++r) {
-        const int key = k0 + row0 + r;
+  float dk_acc[NT][4], dv_acc[NT][4];
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int c = lane + 32 * half;
-          const int qi = q0 + c;
-          float s = Ss[(row0 + r) * T::LDS + c] * scale;
-          if (key >= Sk || (causal && key > qi + q_offset)) s = NEG;
-          const float p = qi < Sq ? expf(s - lse_s[c]) : 0.f;
-          Ss[(row0 + r) * T::LDS + c] = p;
-          Ps[(row0 + r) * T::LDP + c] = __float2bfloat16(p);
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  // this thread's two key rows of the warp's 16 and its ldmatrix offsets
+  const int key_r0 = k0 + warp * 16 + (lane >> 2);
+  const int a_row = warp * 16 + (lane & 15), a_col = (lane >> 4) * 8;
+  const int bn_row = (lane & 7) + ((lane >> 4) << 3);
+  const int bn_col = ((lane >> 3) & 1) * 8;
+  const int bt_row = lane & 15, bt_col = (lane >> 4) * 8;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int g = it / per_head;
+    const int q0 = (qt0 + it - g * per_head) * DKV_QROWS;
+    cp_async_wait_all();
+    // stage `it` is visible to every thread, and every warp is done with
+    // stage it - 1, whose buffer the next copy refills
+    __syncthreads();
+    if (it + 1 < n_it) {
+      const int g1 = (it + 1) / per_head;
+      start_stage_copy<D>(smem + L::stage0 + ((it + 1) & 1) * L::STAGE, q,
+                          dO, lse, delta, b, hk * rep + g1,
+                          (qt0 + it + 1 - g1 * per_head) * DKV_QROWS, Sq,
+                          Hq);
+    }
+    cp_async_commit();
+    const unsigned char* st = smem + L::stage0 + (it & 1) * L::STAGE;
+    const bf16* Qs = reinterpret_cast<const bf16*>(st + L::q);
+    const bf16* dOs = reinterpret_cast<const bf16*>(st + L::dO);
+    const float* lse_s = reinterpret_cast<const float*>(st + L::lse);
+    const float* delta_s = reinterpret_cast<const float*>(st + L::delta);
+
+#pragma unroll 1
+    for (int qs = 0; qs < DKV_QROWS; qs += DKV_SUB) {
+      // S^T = K_w Q^T and dP^T = V_w dO^T over this pass's 32 query rows
+      float sacc[ST][4], pacc[ST][4];
+#pragma unroll
+      for (int j = 0; j < ST; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[j][e] = pacc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 16) {
+        uint32_t ak[4], av[4];
+        ldsm_x4(ak, Ks + a_row * LDH + kk + a_col);
+        ldsm_x4(av, Vs + a_row * LDH + kk + a_col);
+#pragma unroll
+        for (int np = 0; np < ST / 2; ++np) {
+          uint32_t bq[4], bd[4];
+          const int row = qs + np * 16 + bn_row;
+          ldsm_x4(bq, Qs + row * LDH + kk + bn_col);
+          ldsm_x4(bd, dOs + row * LDH + kk + bn_col);
+          mma16816(sacc[2 * np], ak, bq[0], bq[1]);
+          mma16816(sacc[2 * np + 1], ak, bq[2], bq[3]);
+          mma16816(pacc[2 * np], av, bd[0], bd[1]);
+          mma16816(pacc[2 * np + 1], av, bd[2], bd[3]);
         }
       }
-      __syncwarp();
-      accumulate_pb<D>(dv_acc, Ps + row0 * T::LDP, dOs);   // dV += P^T dO
-      __syncwarp();
-      for (int r = 0; r < 16; ++r) {
+      // p and dS on the accumulators: element e of n-tile j is key row
+      // key_r0 (+8 for e >= 2), query column qs + 8j + 2(lane % 4) (+1
+      // for odd e); packed to bf16 as A fragments of the next products
+      uint32_t ap[ST / 2][4], ads[ST / 2][4];
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int c = lane + 32 * half;
-          const int e = (row0 + r) * T::LDS + c;
-          const float ds = Ss[e] * (dPs[e] - delta_s[c]) * scale;
-          Ps[(row0 + r) * T::LDP + c] = __float2bfloat16(ds);
+      for (int j = 0; j < ST; ++j) {
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key_r0 + (e >> 1) * 8;
+          const int col = qs + 8 * j + 2 * (lane & 3) + (e & 1);
+          const int qi = q0 + col;
+          float sv = sacc[j][e] * scale;
+          if (key >= Sk || (causal && key > qi + q_offset)) sv = NEG;
+          const float p = qi < Sq ? expf(sv - lse_s[col]) : 0.f;
+          pv[e] = p;
+          dsv[e] = p * (pacc[j][e] - delta_s[col]) * scale;
+        }
+        ap[j >> 1][(j & 1) * 2] = pack_bf16(pv[0], pv[1]);
+        ap[j >> 1][(j & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+        ads[j >> 1][(j & 1) * 2] = pack_bf16(dsv[0], dsv[1]);
+        ads[j >> 1][(j & 1) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+      }
+      // dV += P^T dO and dK += dS^T Q over the pass's rows
+#pragma unroll
+      for (int t = 0; t < ST / 2; ++t) {
+        const int row = qs + t * 16 + bt_row;
+#pragma unroll
+        for (int dn = 0; dn < NT / 2; ++dn) {
+          uint32_t bd[4], bq[4];
+          ldsm_x4_trans(bd, dOs + row * LDH + dn * 16 + bt_col);
+          ldsm_x4_trans(bq, Qs + row * LDH + dn * 16 + bt_col);
+          mma16816(dv_acc[2 * dn], ap[t], bd[0], bd[1]);
+          mma16816(dv_acc[2 * dn + 1], ap[t], bd[2], bd[3]);
+          mma16816(dk_acc[2 * dn], ads[t], bq[0], bq[1]);
+          mma16816(dk_acc[2 * dn + 1], ads[t], bq[2], bq[3]);
         }
       }
-      __syncwarp();
-      accumulate_pb<D>(dk_acc, Ps + row0 * T::LDP, Qs);    // dK += dS^T Q
     }
   }
-  __syncthreads();  // every region becomes the stage
-  float* stage = reinterpret_cast<float*>(smem);
-  store_rows<D>(dk_acc, stage, dk, b, hk, k0, Sk, Hkv);
-  __syncwarp();     // each warp restages only its own rows
-  store_rows<D>(dv_acc, stage, dv, b, hk, k0, Sk, Hkv);
+  cp_async_wait_all();
+
+  // the f32 sums, rounded once, straight from the accumulators
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_r0 + half * 8;
+    if (key >= Sk) continue;
+    const int64_t off = ((static_cast<int64_t>(b) * Sk + key) * Hkv + hk) * D;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      *reinterpret_cast<uint32_t*>(dk + off + col) =
+          pack_bf16(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + col) =
+          pack_bf16(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
+    }
+  }
 }
 
 template <typename K>
@@ -426,19 +630,19 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
 }
 
 template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* o,
-               const void* dO, const float* lse, void* dk, void* dv, int B,
-               int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
-               cudaStream_t stream) {
+int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
+               const float* lse, const float* delta, void* dk, void* dv,
+               int B, int Sq, int Sk, int Hq, int Hkv, float scale,
+               int causal, cudaStream_t stream) {
   constexpr size_t bytes = DkvLayout<D>::bytes;
   static bool attr_set = false;
   if (int e = opt_in(flash_bwd_dkv_kernel<D>, bytes, &attr_set)) return e;
-  dim3 grid((Sk + BT - 1) / BT, B * Hkv);
+  dim3 grid(B * Hkv, (Sk + BT - 1) / BT);
   flash_bwd_dkv_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dO), lse, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Sq, Sk, Hq, Hkv, scale, causal);
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dO), lse, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, Hq, Hkv, scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -463,19 +667,40 @@ extern "C" int flash_attention_bwd_dq_launch(
   }
 }
 
+// delta [B * Hq, Sq] f32 = rowsum(dO * O) of the forward's rounded output
+extern "C" int flash_attention_bwd_delta_launch(const void* o,
+                                                const void* dO, void* delta,
+                                                int B, int Sq, int Hq, int D,
+                                                void* stream) {
+  const int64_t rows = static_cast<int64_t>(B) * Sq * Hq;
+  if (rows == 0) return static_cast<int>(cudaGetLastError());
+  if (D % 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (rows + NTHREADS / 32 - 1) / (NTHREADS / 32);
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_delta_kernel<<<static_cast<unsigned>(blocks), NTHREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dO),
+      static_cast<float*>(delta), rows, Sq, Hq, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// delta from flash_attention_bwd_delta_launch
 extern "C" int flash_attention_bwd_dkv_launch(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dO, const void* lse, void* dk, void* dv, int B, int Sq,
+    const void* q, const void* k, const void* v, const void* dO,
+    const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
     int Sk, int Hq, int Hkv, int D, float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
   if (B == 0 || Sk == 0) return static_cast<int>(cudaGetLastError());
+  if ((Sk + BT - 1) / BT > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64:
-      return launch_dkv<64>(q, k, v, o, dO, l, dk, dv, B, Sq, Sk, Hq, Hkv,
+      return launch_dkv<64>(q, k, v, dO, l, dl, dk, dv, B, Sq, Sk, Hq, Hkv,
                             scale, causal, s);
     case 128:
-      return launch_dkv<128>(q, k, v, o, dO, l, dk, dv, B, Sq, Sk, Hq, Hkv,
+      return launch_dkv<128>(q, k, v, dO, l, dl, dk, dv, B, Sq, Sk, Hq, Hkv,
                              scale, causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

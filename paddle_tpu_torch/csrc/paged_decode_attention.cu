@@ -21,19 +21,17 @@
 // int8 pools) for ~4 flops per element, so the kernel can at best stream
 // the cache at memory rate; int8 pools halve the bytes.
 //
-// Design (simple first): one block of four warps per (sequence, KV head),
-// the TPU kernel's (B, Hkv) grid with its page loop moved inside the
-// block; the body (decode_attention_body.cuh, shared with the
-// contiguous-cache kernel) reads the block-table row, copies one page of K
-// and V for its KV head (each a contiguous block_size*D run of the pool, in
-// the pool's own type: 16 int8 or 8 bf16 elements per 16-byte load) into
-// shared memory, scores the whole query group against it, runs the online
-// softmax in f32 per query head, and accumulates P V in f32. On int8 pools
-// the page's two scales are applied where the JAX q8 body applies them
-// (decode_attention.py:386-412). Out-of-range page ids are clamped into the
-// pool so a bad table cannot read outside it. Splitting the page loop
-// across blocks (more blocks than B*Hkv when the batch is small) and
-// double-buffering the page copies are later work.
+// Design: the body shared with the contiguous-cache kernel
+// (decode_attention_body.cuh): the page loop split across blocks, grid
+// (splits, Hkv, B), each block walking a run of tiles of up to 64 rows
+// (a page, or a piece of a larger page), the group's query heads scored
+// together per read of K, K/V copied through a two-stage cp.async ring in
+// the pool's own type (16 int8 or 8 bf16 elements per 16-byte copy), the
+// online softmax in f32 per query head, and the splits' partials merged in
+// split order by the row's last block. On int8 pools the page's two scales
+// are applied where the JAX q8 body applies them
+// (decode_attention.py:386-412). Out-of-range page ids are clamped into
+// the pool so a bad table cannot read outside it.
 #include "decode_attention_body.cuh"
 
 namespace {
@@ -41,12 +39,13 @@ namespace {
 template <typename T, typename KT>
 int launch(const void* q, const void* kc, const void* vc, const float* ksc,
            const float* vsc, const int* tables, const int* lens, void* out,
-           int B, int Hq, int Hkv, int D, int bs, int W, int P, float scale,
+           float* part, int* counters, int B, int Hq, int Hkv, int D, int bs,
+           int W, int P, int st, int tps, int splits, float scale,
            cudaStream_t stream) {
-  const bool vec = aligned16(kc, vc) &&
-                   (static_cast<size_t>(bs) * D * sizeof(KT)) % 16 == 0;
-  return launch_decode<T, KT>(q, kc, vc, ksc, vsc, lens, out, B, Hq, Hkv, D,
-                              scale, PagedTiles{tables, W, P, bs}, vec,
+  if (st <= 0 || bs % st) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_decode<T, KT>(q, kc, vc, ksc, vsc, lens, out, part, counters,
+                              B, Hq, Hkv, D, scale,
+                              PagedTiles{tables, W, P, bs, st}, tps, splits,
                               stream);
 }
 
@@ -54,22 +53,25 @@ int launch(const void* q, const void* kc, const void* vc, const float* ksc,
 template <typename KT>
 int dispatch(int dtype, const void* q, const void* kc, const void* vc,
              const float* ksc, const float* vsc, const int* t, const int* l,
-             void* out, int B, int Hq, int Hkv, int D, int bs, int W, int P,
-             float scale, cudaStream_t s) {
+             void* out, float* pt, int* ct, int B, int Hq, int Hkv, int D,
+             int bs, int W, int P, int st, int tps, int splits, float scale,
+             cudaStream_t s) {
   constexpr bool Q8 = std::is_same<KT, int8_t>::value;
   using KF = typename std::conditional<Q8, int8_t, float>::type;
   using KB = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
   using KH = typename std::conditional<Q8, int8_t, __half>::type;
   switch (dtype) {
     case PTT_F32:
-      return launch<float, KF>(q, kc, vc, ksc, vsc, t, l, out, B, Hq, Hkv, D,
-                               bs, W, P, scale, s);
+      return launch<float, KF>(q, kc, vc, ksc, vsc, t, l, out, pt, ct, B, Hq,
+                               Hkv, D, bs, W, P, st, tps, splits, scale, s);
     case PTT_BF16:
-      return launch<__nv_bfloat16, KB>(q, kc, vc, ksc, vsc, t, l, out, B, Hq,
-                                       Hkv, D, bs, W, P, scale, s);
+      return launch<__nv_bfloat16, KB>(q, kc, vc, ksc, vsc, t, l, out, pt,
+                                       ct, B, Hq, Hkv, D, bs, W, P, st, tps,
+                                       splits, scale, s);
     case PTT_F16:
-      return launch<__half, KH>(q, kc, vc, ksc, vsc, t, l, out, B, Hq, Hkv, D,
-                                bs, W, P, scale, s);
+      return launch<__half, KH>(q, kc, vc, ksc, vsc, t, l, out, pt, ct, B,
+                                Hq, Hkv, D, bs, W, P, st, tps, splits, scale,
+                                s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -77,26 +79,38 @@ int dispatch(int dtype, const void* q, const void* kc, const void* vc,
 
 }  // namespace
 
+// part: f32 scratch [B * Hkv * splits, G*D + 2G rounded up to 4] and
+// counters: int [B * Hkv], zero on entry (and left zero), both unused when
+// splits == 1;
+// st: rows per tile (divides block_size); tps: tiles per split
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* kc, const void* vc, const void* tables,
-    const void* lens, void* out, int B, int Hq, int Hkv, int D, int bs, int W,
-    int P, float scale, int dtype, void* stream) {
+    const void* lens, void* out, void* part, void* counters, int B, int Hq,
+    int Hkv, int D, int bs, int W, int P, int st, int tps, int splits,
+    float scale, int dtype, void* stream) {
   return dispatch<void>(dtype, q, kc, vc, nullptr, nullptr,
                         static_cast<const int*>(tables),
-                        static_cast<const int*>(lens), out, B, Hq, Hkv, D, bs,
-                        W, P, scale, static_cast<cudaStream_t>(stream));
+                        static_cast<const int*>(lens), out,
+                        static_cast<float*>(part),
+                        static_cast<int*>(counters), B, Hq, Hkv, D, bs, W, P,
+                        st, tps, splits, scale,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // int8 pools with f32 scales [P, Hkv]; `dtype` is q's (and out's) type
 extern "C" int paged_decode_attention_q8_launch(
     const void* q, const void* kc, const void* vc, const void* k_scale,
     const void* v_scale, const void* tables, const void* lens, void* out,
-    int B, int Hq, int Hkv, int D, int bs, int W, int P, float scale,
-    int dtype, void* stream) {
+    void* part, void* counters, int B, int Hq, int Hkv, int D, int bs, int W,
+    int P, int st, int tps, int splits, float scale, int dtype,
+    void* stream) {
   return dispatch<int8_t>(dtype, q, kc, vc,
                           static_cast<const float*>(k_scale),
                           static_cast<const float*>(v_scale),
                           static_cast<const int*>(tables),
-                          static_cast<const int*>(lens), out, B, Hq, Hkv, D,
-                          bs, W, P, scale, static_cast<cudaStream_t>(stream));
+                          static_cast<const int*>(lens), out,
+                          static_cast<float*>(part),
+                          static_cast<int*>(counters), B, Hq, Hkv, D, bs, W,
+                          P, st, tps, splits, scale,
+                          static_cast<cudaStream_t>(stream));
 }

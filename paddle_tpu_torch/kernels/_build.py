@@ -51,7 +51,10 @@ SIGNATURES = {
         # stream
         "flash_attention_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, _I,
                                           _I, _I, _I, _I, _I, _F, _I, _P),
-        # q, k, v, out, dO, lse, dk, dv, B, Sq, Sk, Hq, Hkv, D, scale,
+        # out, dO, delta, B, Sq, Hq, D, stream
+        "flash_attention_bwd_delta_launch": (_P, _P, _P, _I, _I, _I, _I,
+                                             _P),
+        # q, k, v, dO, lse, delta, dk, dv, B, Sq, Sk, Hq, Hkv, D, scale,
         # causal, stream
         "flash_attention_bwd_dkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                            _I, _I, _I, _I, _I, _I, _F, _I,
@@ -64,16 +67,19 @@ SIGNATURES = {
         "swiglu_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "paged_decode_attention": {
-        # q, k_cache, v_cache, tables, lens, out, B, Hq, Hkv, D,
-        # block_size, table_width, max_pages, scale, dtype, stream
-        "paged_decode_attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I,
-                                          _I, _I, _I, _I, _I, _F, _I, _P),
+        # q, k_cache, v_cache, tables, lens, out, partials, counters, B,
+        # Hq, Hkv, D, block_size, table_width, max_pages, tile rows,
+        # tiles per split, splits, scale, dtype, stream
+        "paged_decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _I, _I, _I, _I,
+                                          _I, _I, _F, _I, _P),
         # int8 pools: q, k_cache, v_cache, k_scale, v_scale, tables, lens,
-        # out, B, Hq, Hkv, D, block_size, table_width, max_pages, scale,
-        # dtype (of q), stream
+        # out, partials, counters, B, Hq, Hkv, D, block_size, table_width,
+        # max_pages, tile rows, tiles per split, splits, scale, dtype (of
+        # q), stream
         "paged_decode_attention_q8_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                             _I, _I, _I, _I, _I, _I, _I, _F,
-                                             _I, _P),
+                                             _P, _P, _I, _I, _I, _I, _I, _I,
+                                             _I, _I, _I, _I, _F, _I, _P),
     },
     "paged_prefill_attention": {
         # q, k_new, v_new, k_cache, v_cache, tables, cached_lens, new_lens,
@@ -90,10 +96,12 @@ SIGNATURES = {
                                               _I, _I, _I, _I, _F, _I, _P),
     },
     "decode_attention": {
-        # contiguous caches: q, k_cache, v_cache, lens, out, B, Hq, Hkv, D,
-        # max_seq, scale, dtype, stream
-        "contiguous_decode_attention_launch": (_P, _P, _P, _P, _P, _I, _I,
-                                               _I, _I, _I, _F, _I, _P),
+        # contiguous caches: q, k_cache, v_cache, lens, out, partials,
+        # counters, B, Hq, Hkv, D, max_seq, tile rows, tiles per split,
+        # splits, scale, dtype, stream
+        "contiguous_decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P,
+                                               _I, _I, _I, _I, _I, _I, _I,
+                                               _I, _F, _I, _P),
     },
     "weight_only_gemv": {
         # x, w, scale, out, M, N, K, int4, dtype, stream
@@ -215,10 +223,12 @@ def stream_ptr(device) -> int:
 # int8 pools counts under the function's name plus "_int8". The
 # weight-only matmuls also count their large-M route (the JAX package's
 # dequantize-then-matmul form for M > 64, no kernel of this package) under
-# the function's name plus "_large_m"
+# the function's name plus "_large_m". The dkv kernel's delta pre-pass,
+# which has no JAX counterpart, counts under "flash_attention_bwd_delta"
 INT8_SUFFIX = "_int8"
 COUNTERS = ("rms_norm", "flash_attention_fwd", "flash_attention_bwd_dq",
-            "flash_attention_bwd_dkv", "swiglu_fwd", "swiglu_bwd",
+            "flash_attention_bwd_dkv", "flash_attention_bwd_delta",
+            "swiglu_fwd", "swiglu_bwd",
             "paged_decode_attention",
             "prefix_prefill_attention", "ragged_paged_attention",
             "paged_decode_attention_int8", "prefix_prefill_attention_int8",

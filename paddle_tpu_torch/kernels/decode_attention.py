@@ -27,6 +27,12 @@ every group size Hq/Hkv >= 1, i.e. both the JAX package's GQA grid and
 its equal-heads grid, with an int8-pool variant that applies the scales
 inside its f32 accumulation); CPU tensors run
 ``paged_decode_attention_reference``.
+
+Both CUDA kernels split each row's positions across blocks
+(flash-decoding, ``decode_split_plan``) and merge the splits' f32
+partials in split order inside the same launch; ``split_decode_reference``
+is the plain twin of that split-and-merge arithmetic (tests and the card
+check hold the kernels against it; the wrappers never call it).
 """
 from __future__ import annotations
 
@@ -38,6 +44,146 @@ import torch
 from . import _build
 
 _NEG_INF = -1e30
+# cached positions per tile of the contiguous kernel, and the most rows a
+# tile of the paged kernel takes (larger pages are walked in pieces)
+CONTIG_TILE = 64
+MAX_TILE_ROWS = 64
+# the split rule aims at this many blocks per SM of the H100's 132
+_SMS, _BLOCKS_PER_SM = 132, 4
+
+
+def decode_split_plan(n_tiles: int, b: int, hkv: int):
+    """(tiles per split, splits) for rows of `n_tiles` tiles: enough
+    splits that the grid (splits, Hkv, B) holds about four blocks per SM,
+    at most one split per tile, every split `tps` tiles but the last."""
+    want = -(-_SMS * _BLOCKS_PER_SM // max(1, b * hkv))
+    splits = max(1, min(n_tiles, want))
+    tps = -(-n_tiles // splits)
+    return tps, -(-n_tiles // tps)
+
+
+def decode_tile_rows(block_size: int) -> int:
+    """Rows per tile of the paged kernel: the page, or the largest divisor
+    of it up to MAX_TILE_ROWS."""
+    return next(r for r in range(min(block_size, MAX_TILE_ROWS), 0, -1)
+                if block_size % r == 0)
+
+
+def split_decode_reference(q, k_cache, v_cache, lens,
+                           scale: Optional[float] = None, *,
+                           block_tables=None, k_scale=None, v_scale=None,
+                           tiles_per_split: Optional[int] = None):
+    """The plain twin of the CUDA kernels' split-and-merge decode, in f32:
+    each row's positions in tiles (CONTIG_TILE rows of a contiguous
+    cache [B, Hkv, max_seq, D], or ``decode_tile_rows`` rows of a page of
+    the pools [P, Hkv, bs, D] that `block_tables` names, ids clamped),
+    `tiles_per_split` tiles a split (default ``decode_split_plan``'s).
+    Per split: m = max score, l = sum p, acc = sum over tiles of the
+    tile's p V (times its v scale on int8 pools; the k scale multiplies
+    the score after the softmax scale); then out = sum_s w_s acc_s /
+    sum_s w_s l_s with w_s = exp(m_s - max m). Splits past lens[b] weigh
+    0. Returns [B, Hq, D] in q's dtype."""
+    b, hq, d = q.shape
+    f32 = torch.float32
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    ks = vs = None
+    if block_tables is None:
+        hkv, t_max = k_cache.shape[1], k_cache.shape[2]
+        st = CONTIG_TILE
+        k, v = k_cache.to(f32), v_cache.to(f32)
+    else:
+        n_pages, hkv, bs, _ = k_cache.shape
+        w = block_tables.shape[1]
+        st, t_max = decode_tile_rows(bs), w * bs
+        tbl = block_tables.to(torch.int64).clamp(0, n_pages - 1)
+        k, v = (pool[tbl].to(f32).permute(0, 2, 1, 3, 4)
+                .reshape(b, hkv, t_max, d) for pool in (k_cache, v_cache))
+        if k_scale is not None:     # per position: its page's scale
+            ks, vs = (sc.to(f32)[tbl].permute(0, 2, 1)
+                      .repeat_interleave(bs, dim=2)
+                      for sc in (k_scale, v_scale))
+    g = hq // hkv
+    n_tiles = -(-t_max // st)
+    tps = tiles_per_split or decode_split_plan(n_tiles, b, hkv)[0]
+    n_split = -(-n_tiles // tps)
+    pad = n_split * tps * st - t_max
+    if pad:
+        k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (k, v))
+        if ks is not None:
+            ks, vs = (torch.nn.functional.pad(x, (0, pad)) for x in (ks, vs))
+    qg = q.reshape(b, hkv, g, d).to(f32)
+    s = torch.einsum("bhgd,bhtd->bhgt", qg, k) * scale
+    if ks is not None:
+        s = s * ks[:, :, None, :]
+    pos = torch.arange(s.shape[-1], device=q.device)
+    valid = (pos[None, :] <= lens.to(torch.int64)[:, None]) \
+        & (pos[None, :] < t_max)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, _NEG_INF))
+    s = s.reshape(b, hkv, g, n_split, tps * st)
+    m = torch.amax(s, dim=-1)                           # [B, Hkv, G, S]
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    pv = torch.einsum("bhgjt,bhjtd->bhgjd",
+                      p.reshape(b, hkv, g, n_split * tps, st),
+                      v.reshape(b, hkv, n_split * tps, st, d))
+    if vs is not None:
+        pv = pv * vs[:, :, ::st][:, :, None, :, None]
+    acc = pv.reshape(b, hkv, g, n_split, tps, d).sum(4)
+    # splits that start past lens[b] hold no attended position: weight 0
+    live_tiles = torch.clamp(lens.to(torch.int64) // st + 1, max=n_tiles)
+    live = torch.arange(n_split, device=q.device)[None, :] * tps \
+        < live_tiles[:, None]                            # [B, S]
+    m = torch.where(live[:, None, None, :], m, torch.full_like(m, _NEG_INF))
+    wgt = torch.exp(m - torch.amax(m, dim=-1, keepdim=True))
+    wgt = torch.where(live[:, None, None, :], wgt, torch.zeros_like(wgt))
+    out = (wgt[..., None] * acc).sum(3) / (wgt * l).sum(3)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+# per device: the split launches' scratch, reused launch after launch.
+# Launches on one stream run in order; launches of these kernels on two
+# streams of one device must not overlap (the port launches on the
+# current stream only; a CUDA graph captures on a stream of its own, and
+# its replays are not run beside eager launches)
+_SCRATCH = {}
+
+
+def _split_scratch(dev, rows: int, splits: int, g: int, d: int):
+    """Pointers (partials, counters) for a launch of `splits` splits over
+    `rows` = B*Hkv rows, or (None, None) for one split: f32 partials of
+    G*D + 2G words a split (acc, m, l, padded to 16-byte units), and
+    `rows` int counters that are zero between launches (each launch's last
+    split resets its row's). The tensors stay in _SCRATCH. The counters
+    are zeroed when they are made, so they must not first be made (or
+    grown) inside a CUDA graph capture, which would only record the
+    zeroing."""
+    if splits == 1:
+        return None, None
+    floats = rows * splits * (g * d + -(-2 * g // 4) * 4)
+    part, cnt = _SCRATCH.get(dev, (None, None))
+    if cnt is None or cnt.numel() < rows:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode attention: launch once at this batch size before "
+                "capturing a CUDA graph (its split counters are made then)")
+        cnt = torch.zeros(max(rows, 4096), dtype=torch.int32, device=dev)
+    if part is None or part.numel() < floats:
+        part = torch.empty(floats, dtype=torch.float32, device=dev)
+    _SCRATCH[dev] = (part, cnt)
+    return part.data_ptr(), cnt.data_ptr()
+
+
+def _require_rows(what, b, d, elem_size, *caches):
+    """The kernels' rules: batch within the grid, D a multiple of 8 up to
+    256, whole 16-byte rows, 16-byte aligned caches."""
+    if b > 65535:
+        raise ValueError(f"{what}: batch {b} exceeds the grid")
+    if d % 8 or d > 256 or (d * elem_size) % 16:
+        raise ValueError(f"{what}: head_dim {d} must be a multiple of 8 up "
+                         f"to 256 with rows of whole 16-byte units")
+    if any(c.data_ptr() % 16 for c in caches):
+        raise ValueError(f"{what}: caches must be 16-byte aligned")
 
 
 def paged_decode_attention_reference(q, key_cache, value_cache,
@@ -121,20 +267,28 @@ def paged_decode_attention(q: torch.Tensor, key_cache: torch.Tensor,
                          f"{list(lens.shape)}")
     if hkv > 65535:
         raise ValueError(f"{what}: {hkv} kv heads exceed the grid")
+    _require_rows(what, b, d, key_cache.element_size(), key_cache,
+                  value_cache)
+    w = block_tables.shape[1]
+    st = decode_tile_rows(bs)
+    tps, splits = decode_split_plan(w * (bs // st), b, hkv)
+    stream = _build.stream_ptr(dev)
     out = torch.empty_like(q)
     lib = _build.library(what)
-    dims = (b, hq, hkv, d, bs, block_tables.shape[1], n_pages, float(scale),
-            _build.dtype_code(q.dtype), _build.stream_ptr(dev))
+    ptrs = (out.data_ptr(),
+            *_split_scratch(dev, b * hkv, splits, hq // hkv, d))
+    dims = (b, hq, hkv, d, bs, w, n_pages, st, tps, splits, float(scale),
+            _build.dtype_code(q.dtype), stream)
     if quant:
         code = lib.paged_decode_attention_q8_launch(
             q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), *dims)
+            lens.data_ptr(), *ptrs, *dims)
         what += _build.INT8_SUFFIX
     else:
         code = lib.paged_decode_attention_launch(
             q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-            block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(), *dims)
+            block_tables.data_ptr(), lens.data_ptr(), *ptrs, *dims)
     _build.check(lib, code, what)
     _build.LAUNCHES[what] += 1
     return out
@@ -187,12 +341,16 @@ def _contiguous_decode(what: str, q, k_cache, v_cache, lens, scale):
                          f"{lens.dtype} {list(lens.shape)}")
     if hkv > 65535:
         raise ValueError(f"{what}: {hkv} kv heads exceed the grid")
+    _require_rows(what, b, d, k_cache.element_size(), k_cache, v_cache)
+    tps, splits = decode_split_plan(-(-max_seq // CONTIG_TILE), b, hkv)
+    stream = _build.stream_ptr(dev)
     out = torch.empty_like(q)
     lib = _build.library("decode_attention")
     code = lib.contiguous_decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), b, hq, hkv, d, max_seq, float(scale),
-        _build.dtype_code(q.dtype), _build.stream_ptr(dev))
+        out.data_ptr(), *_split_scratch(dev, b * hkv, splits, hq // hkv, d),
+        b, hq, hkv, d, max_seq, CONTIG_TILE, tps, splits, float(scale),
+        _build.dtype_code(q.dtype), stream)
     _build.check(lib, code, what)
     _build.LAUNCHES[what] += 1
     return out

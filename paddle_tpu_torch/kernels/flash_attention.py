@@ -14,7 +14,11 @@ query head to its KV head themselves.
   tensors, the twin of the kernel pair's arithmetic (not of the jnp
   recompute branch). The dkv kernel sums dk / dv over each GQA group in
   f32 and rounds once, where the JAX pair rounds each q head's dk / dv to
-  the input dtype and sums the group in that dtype.
+  the input dtype and sums the group in that dtype. It reads delta =
+  rowsum(dO * O) [B*Hq, Sq] f32 from a pre-pass in the same source
+  (``flash_attention_bwd_delta``, plain twin
+  ``flash_attention_bwd_delta_reference``), computed once per query row
+  where the JAX kernels recompute it per tile.
 
 ``flash_attention`` is differentiable whenever an input requires grad.
 """
@@ -209,24 +213,61 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, causal: bool,
     return dq
 
 
+def flash_attention_bwd_delta_reference(out, do):
+    """delta = rowsum(dO * O) in f32 from the forward's rounded `out`, as
+    [B*Hq, Sq] (lse's layout); out, do [B, Sq, Hq, D]."""
+    f32 = torch.float32
+    return _to_bh((do.to(f32) * out.to(f32)).sum(-1, keepdim=True))[..., 0]
+
+
+def flash_attention_bwd_delta(out, do) -> torch.Tensor:
+    """The dkv kernel's pre-pass: delta [B*Hq, Sq] f32 (the kernel on the
+    card, ``flash_attention_bwd_delta_reference`` on the CPU). `out` and
+    `do` are contiguous bf16 [B, Sq, Hq, D]."""
+    if out.device.type == "cpu":
+        return flash_attention_bwd_delta_reference(out, do)
+    what = "flash_attention_bwd_delta"
+    dev = _build.require_cuda(what, out, do)
+    _build.require_contiguous(what, out=out, do=do)
+    if out.dtype != torch.bfloat16 or do.dtype != torch.bfloat16 \
+            or out.shape != do.shape or out.shape[-1] % 2:
+        raise ValueError(f"{what}: out / dO must be bfloat16 of one shape "
+                         f"with an even head_dim, got {out.dtype} "
+                         f"{list(out.shape)} / {do.dtype} {list(do.shape)}")
+    b, sq, hq, dh = out.shape
+    delta = torch.empty((b * hq, sq), dtype=torch.float32, device=dev)
+    lib = _build.library("flash_attention_bwd")
+    code = lib.flash_attention_bwd_delta_launch(
+        out.data_ptr(), do.data_ptr(), delta.data_ptr(), b, sq, hq, dh,
+        _build.stream_ptr(dev))
+    _build.check(lib, code, what)
+    _build.LAUNCHES[what] += 1
+    return delta
+
+
 def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal: bool,
                             scale: float):
     """(dk, dv) [B, Sk, Hkv, D], summed over each kv head's group of
     query heads (the ``_bwd_dkv_kernel`` counterpart plus the caller's
-    group sum, flash_attention.py:436-440)."""
+    group sum, flash_attention.py:436-440). On the card two launches: the
+    delta pre-pass, then the dkv kernel."""
     if q.device.type == "cpu":
         return _plain_bwd(q, k, v, out, lse, do, causal, scale)[1:]
     what = "flash_attention_bwd_dkv"
     dev, do = _bwd_operands(what, q, k, v, out, lse, do, causal)
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    if -(-sk // 64) > 65535:
+        raise ValueError(f"{what}: Sk {sk} exceeds the grid")
+    delta = flash_attention_bwd_delta(out, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.library("flash_attention_bwd")
     code = lib.flash_attention_bwd_dkv_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
-        sk, hq, hkv, dh, float(scale), int(causal), _build.stream_ptr(dev))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+        sq, sk, hq, hkv, dh, float(scale), int(causal),
+        _build.stream_ptr(dev))
     _build.check(lib, code, what)
     _build.LAUNCHES[what] += 1
     return dk, dv

@@ -29,7 +29,8 @@ import torch
 
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels.decode_attention import (
-    paged_decode_attention, paged_decode_attention_reference)
+    CONTIG_TILE, decode_split_plan, decode_tile_rows, paged_decode_attention,
+    paged_decode_attention_reference, split_decode_reference)
 from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention, flash_attention_reference)
 from paddle_tpu_torch.kernels.rms_norm import rms_norm, rms_norm_reference
@@ -49,6 +50,14 @@ def _within_one_bf16_step(got, ref):
     g, r = got.float(), ref.float()
     assert ((g - r).abs() <= 2.0 ** -7 * r.abs().clamp(min=1.0)).all(), \
         float((g - r).abs().max())
+
+
+def _split_edges(n_tiles, b, hkv, st, last):
+    """lens on the kernels' split edges for rows of `n_tiles` tiles of
+    `st` positions: the last position of the first split and the first
+    position of the second, plus 0 and `last`."""
+    tps = decode_split_plan(n_tiles, b, hkv)[0]
+    return [0, tps * st - 1, tps * st, last]
 
 
 def _launched(name, fn):
@@ -111,6 +120,39 @@ def test_paged_decode(dev, dtype, hq, hkv):
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
     else:
         _within_one_bf16_step(got, ref)
+    _paged_long_rows(dev, dtype, hq, hkv, q8=False)
+
+
+def _paged_long_rows(dev, dtype, hq, hkv, q8):
+    """B1 (the most splits) over 128 pages (8192 positions), lens on the
+    split edges, against the plain version (f32 atol 1e-5, bf16 one
+    step) and the split twin, and bitwise equal across two launches."""
+    g = torch.Generator().manual_seed(9)
+    bs, w, d = 64, 128, 128
+    pools = [torch.randn(w + 1, hkv, bs, d, generator=g) for _ in range(2)]
+    if q8:
+        (kc, ksc), (vc, vsc) = (_q8_pool(p) for p in pools)
+        kw = dict(k_scale=ksc.to(dev), v_scale=vsc.to(dev))
+        kc, vc = kc.to(dev), vc.to(dev)
+    else:
+        kw = {}
+        kc, vc = (p.to(dev, dtype) for p in pools)
+    q = torch.randn(1, hq, d, generator=g).to(dev, dtype)
+    tables = (torch.randperm(w, generator=g) + 1).reshape(1, w).to(
+        torch.int32).to(dev)
+    for n in _split_edges(w * bs // decode_tile_rows(bs), 1, hkv,
+                          decode_tile_rows(bs), w * bs - 1):
+        lens = torch.tensor([n], dtype=torch.int32, device=dev)
+        args = (q, kc, vc, tables, lens)
+        got = paged_decode_attention(*args, **kw)
+        assert torch.equal(got, paged_decode_attention(*args, **kw))
+        for ref in (paged_decode_attention_reference(*args, **kw),
+                    split_decode_reference(q, kc, vc, lens,
+                                           block_tables=tables, **kw)):
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+            else:
+                _within_one_bf16_step(got, ref)
 
 
 def _q8_pool(pool):
@@ -145,6 +187,7 @@ def test_paged_decode_int8(dev, dtype, hq, hkv):
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
     else:
         _within_one_bf16_step(got, ref)
+    _paged_long_rows(dev, dtype, hq, hkv, q8=True)
 
 
 def test_paged_decode_refuses_int64_tables(dev):
@@ -402,10 +445,13 @@ def test_weight_only_gemv_refuses_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("hq,hkv,max_seq", [
-    (32, 8, 1024), (32, 32, 1024), (8, 1, 544), (32, 8, 96)])
+    (32, 8, 1024), (32, 32, 1024), (8, 1, 544), (32, 8, 96),
+    (32, 8, 8192)])
 def test_contiguous_decode(dev, dtype, hq, hkv, max_seq):
     """Ragged lens including 0 and max_seq - 1; max_seq not a multiple of
-    the kernel's 64-position tile (544 = 8.5 tiles, 96 = 1.5)."""
+    the kernel's 64-position tile (544 = 8.5 tiles, 96 = 1.5); then B1
+    (the most splits) with lens on the split edges, against the plain
+    version and the split twin, bitwise equal across two launches."""
     from paddle_tpu_torch.kernels.decode_attention import (
         decode_attention, decode_attention_reference, gqa_decode_attention)
 
@@ -424,6 +470,18 @@ def test_contiguous_decode(dev, dtype, hq, hkv, max_seq):
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
     else:
         _within_one_bf16_step(got, ref)
+    for n in _split_edges(-(-max_seq // CONTIG_TILE), 1, hkv, CONTIG_TILE,
+                          max_seq - 1):
+        one = [args[0][:1], args[1][:1], args[2][:1],
+               torch.tensor([n], dtype=torch.int32, device=dev)]
+        got = fn(*one)
+        assert torch.equal(got, fn(*one))
+        for ref in (decode_attention_reference(*one),
+                    split_decode_reference(*one)):
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+            else:
+                _within_one_bf16_step(got, ref)
 
 
 # ---------------------------------------------------------------------------
@@ -633,6 +691,7 @@ def _no_worse_than_plain(kernel, plain, ref32, what):
 ])
 def test_flash_attention_backward(dev, b, sq, sk, hq, hkv, d, causal):
     from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_delta, flash_attention_bwd_delta_reference,
         flash_attention_bwd_dkv, flash_attention_bwd_dq)
 
     g = torch.Generator(device=dev).manual_seed(11)
@@ -648,6 +707,19 @@ def test_flash_attention_backward(dev, b, sq, sk, hq, hkv, d, causal):
     dk, dv = _launched("flash_attention_bwd_dkv",
                        lambda: flash_attention_bwd_dkv(
                            *bf[:3], out, lse, bf[3], causal, scale))
+    # deterministic: two launches bitwise equal
+    dk2, dv2 = flash_attention_bwd_dkv(*bf[:3], out, lse, bf[3], causal,
+                                       scale)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, flash_attention_bwd_dq(*bf[:3], out, lse, bf[3],
+                                                  causal, scale))
+    # the dkv kernel's delta pre-pass against its plain twin (f32, the
+    # same products summed in another order)
+    delta = _launched("flash_attention_bwd_delta",
+                      lambda: flash_attention_bwd_delta(out, bf[3]))
+    torch.testing.assert_close(
+        delta, flash_attention_bwd_delta_reference(out, bf[3]), atol=1e-4,
+        rtol=1e-5)
     # the plain backward in bf16 (same out / lse) and in f32 (f32 forward)
     from paddle_tpu_torch.kernels.flash_attention import (
         _plain_bwd, flash_attention_reference)
@@ -747,8 +819,9 @@ def test_tiny_bf16_train_step_kernels_vs_plain(dev):
 @pytest.mark.parametrize("recompute", [False, True])
 def test_train_step_launch_counts(dev, recompute):
     """One make_train_step step of the 2-layer model: each forward kernel
-    once per layer (twice with recompute), each backward kernel once,
-    rms_norm twice per layer plus the final norm."""
+    once per layer (twice with recompute), each backward kernel once (dq,
+    dkv and dkv's delta pre-pass), rms_norm twice per layer plus the final
+    norm."""
     from paddle_tpu_torch.models import LlamaPretrainingCriterion
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import make_train_step
@@ -765,7 +838,8 @@ def test_train_step_launch_counts(dev, recompute):
     n = _build.launch_counts()
     fwd = 2 * (2 if recompute else 1)
     assert n["flash_attention_fwd"] == fwd and n["swiglu_fwd"] == fwd
-    assert n["flash_attention_bwd_dq"] == n["flash_attention_bwd_dkv"] == 2
+    assert n["flash_attention_bwd_dq"] == n["flash_attention_bwd_dkv"] \
+        == n["flash_attention_bwd_delta"] == 2
     assert n["swiglu_bwd"] == 2
     assert n["rms_norm"] == 2 * fwd + 1
     assert torch.isfinite(loss)
