@@ -224,6 +224,9 @@ def check_flash(b: int, sq: int, sk: int, hq: int, hkv: int, d: int):
 
     q, k, v = rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d)
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    again = flash_attention(q, k, v, causal=True, return_lse=True)
+    gate_deterministic("flash_attention O", out, again[0])
+    gate_deterministic("flash_attention lse", lse, again[1])
     ref, ref_lse = flash_attention_reference(q, k, v, causal=True,
                                              return_lse=True)
     err = float((out.float() - ref.float()).abs().max())
@@ -342,12 +345,15 @@ def check_paged_prefill(name: str, b: int, tn: int, cached, new,
     """One launch path of csrc/paged_prefill_attention.cu against its
     plain version: permuted tables, page ids past the cached tokens left
     as pad (page 0), pad query rows (>= new) checked for exact zeros and
-    nothing NaN. Both versions score and accumulate in f32 (P and V stay
-    f32, as in the JAX body) from the same bf16 inputs and round once:
-    one bf16 rounding step apart at most (ulp_check). `q8`: the same over
-    int8 pools with their scales."""
+    nothing NaN. Both versions score and accumulate in f32 from the same
+    bf16 inputs (the kernel carries P as two bf16 parts, about 16 bits)
+    and round once: one bf16 rounding step apart at most (ulp_check), also
+    against the plain twin of the kernel's split-and-merge
+    (split_prefill_reference); two launches bitwise equal. `q8`: the same
+    over int8 pools with their scales."""
     from paddle_tpu_torch.kernels.prefix_prefill import (
-        prefix_prefill_attention, prefix_prefill_reference)
+        prefix_prefill_attention, prefix_prefill_reference,
+        split_prefill_reference)
     from paddle_tpu_torch.kernels.ragged_attention import (
         ragged_paged_attention, ragged_paged_attention_reference)
 
@@ -388,8 +394,15 @@ def check_paged_prefill(name: str, b: int, tn: int, cached, new,
     for row, n in enumerate(new):
         if (out[row, n:] != 0).any():
             raise AssertionError(f"{name}: pad rows of row {row} not zero")
+    gate_deterministic(f"{name} q8={q8}", out, fn(*args, **kw))
     err = ulp_check(f"{name} q8={q8}", out, ref_fn(*args, **kw))
-    ms = time_ms(lambda: fn(*args, **kw))
+    ulp_check(f"{name} q8={q8} vs the split twin", out,
+              split_prefill_reference(*args, **kw))
+    # the kernel and its library yardstick timed cold (graph-replayed past
+    # the L2, as a window reads each layer's pages once; the kernel's own
+    # time, not the wrapper's host time between launches)
+    ms = time_cold_ms(lambda *ops: fn(*ops[:8], **dict(zip(kw, ops[8:]))),
+                      args + tuple(kw.values()))
     plain_ms = time_ms(lambda: ref_fn(*args, **kw), iters=5)
     # library yardstick: SDPA over the cache gathered (and, for int8,
     # dequantized) beforehand and concatenated with the window, under the
@@ -406,9 +419,10 @@ def check_paged_prefill(name: str, b: int, tn: int, cached, new,
         & (pos[None, None, :] < nl[:, None, None])
     mask = torch.cat([cache_ok[:, None, :].expand(b, tn, span), win_ok],
                      dim=-1)[:, None]
-    qt = q.transpose(1, 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, keys, vals, attn_mask=mask, enable_gqa=True))
+    lib_ms = time_cold_ms(
+        lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=m_, enable_gqa=True),
+        (q.transpose(1, 2), keys, vals, mask))
     # what this run's data needs: live query rows read, every output row
     # written, cached tokens' K/V and live window K/V read once (int8: one
     # byte per cached element plus two f32 scales per named page and kv
@@ -949,9 +963,11 @@ def phase_kernels():
         f"{time.perf_counter() - t0:.1f}s")
     res = {
         "rms_norm": [check_rms_norm(8 * 512, 4096), check_rms_norm(8, 4096)],
+        # the serving case first; bench.py's training shape last
         "flash_attention_fwd": [check_flash(4, 512, 512, 32, 8, 128),
                                 check_flash(1, 300, 300, 32, 8, 128),
-                                check_flash(2, 200, 333, 32, 8, 128)],
+                                check_flash(2, 200, 333, 32, 8, 128),
+                                check_flash(4, 2048, 2048, 16, 4, 128)],
         "paged_decode_attention": [
             check_paged_decode(8, 32, 8, 128, 64),
             check_paged_decode(8, 32, 32, 128, 64),
@@ -964,7 +980,11 @@ def phase_kernels():
                                 [0, 1344 + 37], [256, 100]),
             check_paged_prefill("ragged_paged_attention", 8, 64,
                                 [0, 37, 64, 200, 511, 700, 1381, 256],
-                                [1, 1, 1, 1, 1, 1, 1, 64])],
+                                [1, 1, 1, 1, 1, 1, 1, 64]),
+            # phase 4's window: one row, 1536 cached tokens, the engine's
+            # table width (33 pages)
+            check_paged_prefill("ragged_paged_attention", 1, 256, [1536],
+                                [256], w=33)],
         # the int8-pool variants at the same shapes
         "paged_decode_attention_int8": [
             check_paged_decode(8, 32, 8, 128, 64, q8=True),
@@ -980,7 +1000,9 @@ def phase_kernels():
                                 [0, 1344 + 37], [256, 100], q8=True),
             check_paged_prefill("ragged_paged_attention", 8, 64,
                                 [0, 37, 64, 200, 511, 700, 1381, 256],
-                                [1, 1, 1, 1, 1, 1, 1, 64], q8=True)],
+                                [1, 1, 1, 1, 1, 1, 1, 64], q8=True),
+            check_paged_prefill("ragged_paged_attention", 1, 256, [1536],
+                                [256], w=33, q8=True)],
     }
     # the weight-only GEMV at the decode matmuls' shapes (M = 8 slots),
     # plus the edges M = 1 and M = 64; contiguous decode at Llama-3-8B's

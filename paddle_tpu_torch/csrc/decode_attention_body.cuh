@@ -58,6 +58,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "fragments.cuh"
 
 namespace {
 
@@ -65,18 +66,6 @@ constexpr int DEC_THREADS = 256;
 constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int DEC_HEADS = 4;    // query heads scored per read of K
 constexpr float DEC_NEG = -1e30f;
-
-__device__ __forceinline__ void dec_cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-__device__ __forceinline__ void dec_cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void dec_cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 // The 8 elements lane slice c holds of a D-element row: elements
 // [8c, 8c + 8), except for f32 rows, whose slice is the two 16-byte
@@ -210,8 +199,8 @@ __device__ __forceinline__ void start_tile_copy(KT* ks, KT* vs,
   char* kd = reinterpret_cast<char*>(ks);
   char* vd = reinterpret_cast<char*>(vs);
   for (int i = threadIdx.x; i < n16; i += DEC_THREADS) {
-    dec_cp_async16(kd + 16 * i, kg + 16 * i);
-    dec_cp_async16(vd + 16 * i, vg + 16 * i);
+    cp_async16(kd + 16 * i, kg + 16 * i);
+    cp_async16(vd + 16 * i, vg + 16 * i);
   }
 }
 
@@ -264,7 +253,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
     int64_t sidx;
     const int64_t off = tiles.locate(b, h, j0, Hkv, D, &sidx);
     start_tile_copy(kv_s, kv_s + stage_elems, kc, vc, off, tiles.rows(j0), D);
-    dec_cp_async_commit();
+    cp_async_commit();
   }
   const T* qb = q + (static_cast<int64_t>(b) * Hq + h * G) * D;
   for (int i = tid; i < G * D; i += DEC_THREADS) q_s[i] = to_f32(qb[i]);
@@ -284,8 +273,8 @@ __global__ void __launch_bounds__(DEC_THREADS)
       KT* nk = kv_s + 2 * (buf ^ 1) * stage_elems;
       start_tile_copy(nk, nk + stage_elems, kc, vc, off, tiles.rows(j + 1), D);
     }
-    dec_cp_async_commit();
-    dec_cp_async_wait1();
+    cp_async_commit();
+    cp_async_wait<1>();
     int64_t sidx;
     tiles.locate(b, h, j, Hkv, D, &sidx);
     const int rows = tiles.rows(j);

@@ -55,6 +55,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "fragments.cuh"
 
 namespace {
 
@@ -328,57 +329,9 @@ __global__ void __launch_bounds__(NTHREADS)
 // dkv: grid (B * Hkv, ceil(Sk / 64)), the key tiles that see the most query
 // rows (causal: the first) dispatched first; each block walks the Hq / Hkv
 // query heads of its kv head and, for each, the q tiles that see its keys.
-// Raw m16n8k16 mma.sync with fragments of known layout: every score stays
-// in registers.
+// Raw m16n8k16 mma.sync with fragments of known layout (fragments.cuh):
+// every score stays in registers.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes, zero-filled when !valid (no byte is read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-// c[16x8 f32] += a[16x16 bf16] b[16x8 bf16]
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // keys of a dkv block (16 per warp) and query rows of a stage; each stage
 // holds Q, dO, lse and delta of one q tile, in two buffers
@@ -499,7 +452,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   for (int it = 0; it < n_it; ++it) {
     const int g = it / per_head;
     const int q0 = (qt0 + it - g * per_head) * DKV_QROWS;
-    cp_async_wait_all();
+    cp_async_wait<0>();
     // stage `it` is visible to every thread, and every warp is done with
     // stage it - 1, whose buffer the next copy refills
     __syncthreads();
@@ -560,10 +513,10 @@ __global__ void __launch_bounds__(NTHREADS, 2)
           pv[e] = p;
           dsv[e] = p * (pacc[j][e] - delta_s[col]) * scale;
         }
-        ap[j >> 1][(j & 1) * 2] = pack_bf16(pv[0], pv[1]);
-        ap[j >> 1][(j & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
-        ads[j >> 1][(j & 1) * 2] = pack_bf16(dsv[0], dsv[1]);
-        ads[j >> 1][(j & 1) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+        ap[j >> 1][(j & 1) * 2] = pack2(pv[0], pv[1]);
+        ap[j >> 1][(j & 1) * 2 + 1] = pack2(pv[2], pv[3]);
+        ads[j >> 1][(j & 1) * 2] = pack2(dsv[0], dsv[1]);
+        ads[j >> 1][(j & 1) * 2 + 1] = pack2(dsv[2], dsv[3]);
       }
       // dV += P^T dO and dK += dS^T Q over the pass's rows
 #pragma unroll
@@ -582,7 +535,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
       }
     }
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
 
   // the f32 sums, rounded once, straight from the accumulators
 #pragma unroll
@@ -594,9 +547,9 @@ __global__ void __launch_bounds__(NTHREADS, 2)
     for (int j = 0; j < NT; ++j) {
       const int col = 8 * j + 2 * (lane & 3);
       *reinterpret_cast<uint32_t*>(dk + off + col) =
-          pack_bf16(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
+          pack2(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
       *reinterpret_cast<uint32_t*>(dv + off + col) =
-          pack_bf16(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
+          pack2(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
     }
   }
 }

@@ -30,6 +30,7 @@
 // multiples of the tiles (M, F of 128, K of 32); the wrapper routes only
 // 512-aligned shapes here.
 #include "common.cuh"
+#include "fragments.cuh"
 
 namespace {
 
@@ -47,46 +48,6 @@ constexpr int A_ELEMS = BM * LDA;
 constexpr int B_ELEMS = BK * LDB;
 constexpr int STAGE_ELEMS = A_ELEMS + 2 * B_ELEMS;
 constexpr size_t SMEM_BYTES = size_t(STAGES) * STAGE_ELEMS * sizeof(bf16);
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // one K slice [k0, k0 + BK) of x's m-tile and of Wg's / Wu's n-tile into
 // a stage (16-byte cp.async; two chunks per thread per operand)
@@ -170,17 +131,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       uint32_t a[MI][4], bg[NI][2], bu[NI][2];
 #pragma unroll
       for (int i = 0; i < MI; ++i)
-        ldmatrix_x4(a[i], As + (wm + i * 16 + (lane & 15)) * LDA + kk +
+        ldsm_x4(a[i], As + (wm + i * 16 + (lane & 15)) * LDA + kk +
                               (lane >> 4) * 8);
 #pragma unroll
       for (int j = 0; j < NI; j += 2) {
         const int off = (kk + (lane & 15)) * LDB + wn + j * 8 +
                         (lane >> 4) * 8;
         uint32_t r[4];
-        ldmatrix_x4_trans(r, Bg + off);
+        ldsm_x4_trans(r, Bg + off);
         bg[j][0] = r[0]; bg[j][1] = r[1]; bg[j + 1][0] = r[2];
         bg[j + 1][1] = r[3];
-        ldmatrix_x4_trans(r, Bu + off);
+        ldsm_x4_trans(r, Bu + off);
         bu[j][0] = r[0]; bu[j][1] = r[1]; bu[j + 1][0] = r[2];
         bu[j + 1][1] = r[3];
       }
@@ -188,8 +149,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NI; ++j) {
-          mma_bf16(accg[i][j], a[i], bg[j][0], bg[j][1]);
-          mma_bf16(accu[i][j], a[i], bu[j][0], bu[j][1]);
+          mma16816(accg[i][j], a[i], bg[j][0], bg[j][1]);
+          mma16816(accu[i][j], a[i], bu[j][0], bu[j][1]);
         }
     }
   }

@@ -48,6 +48,7 @@
 //   32 (whole 16-byte loads of each thread), which the Python wrapper checks.
 // A deeper load pipeline (cp.async / TMA double buffering) is later work.
 #include "common.cuh"
+#include "fragments.cuh"
 
 namespace {
 
@@ -79,15 +80,6 @@ __device__ __forceinline__ uint32_t sub2(uint32_t a, uint32_t b,
 __device__ __forceinline__ uint32_t sub2(uint32_t a, uint32_t b, __half*) {
   __half2 r = __hsub2(*reinterpret_cast<__half2*>(&a),
                       *reinterpret_cast<__half2*>(&b));
-  return *reinterpret_cast<uint32_t*>(&r);
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi,
-                                          __nv_bfloat16*) {
-  __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&r);
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi, __half*) {
-  __half2 r = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
@@ -122,26 +114,8 @@ __device__ __forceinline__ void int8_pairs(const uint4& w0, const uint4& w1,
   for (int i = 0; i < 4; ++i)     // 2^23 + u as f32, less 2^23 + 128
     f[i] = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440u + i)) -
            8388736.f;
-  *lo = pack2(f[0], f[1], static_cast<T*>(nullptr));
-  *hi = pack2(f[2], f[3], static_cast<T*>(nullptr));
-}
-
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    uint32_t b0, uint32_t b1,
-                                    __nv_bfloat16*) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    uint32_t b0, uint32_t b1, __half*) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  *lo = pack2<T>(f[0], f[1]);
+  *hi = pack2<T>(f[2], f[3]);
 }
 
 template <typename T, bool INT4>
@@ -193,7 +167,7 @@ __global__ void __launch_bounds__(NTHREADS)
         int8_pairs<T>(a0, a1, s, &a[0], &a[2]);
         int8_pairs<T>(b0, b1, s, &a[1], &a[3]);
       }
-      mma(c, a, xw[2 * s], xw[2 * s + 1], static_cast<T*>(nullptr));
+      mma16816<T>(c, a, xw[2 * s], xw[2 * s + 1]);
     }
   }
 

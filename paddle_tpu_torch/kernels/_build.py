@@ -83,17 +83,19 @@ SIGNATURES = {
     },
     "paged_prefill_attention": {
         # q, k_new, v_new, k_cache, v_cache, tables, cached_lens, new_lens,
-        # out, B, TN, Hq, Hkv, D, page, table_width, max_pages, scale,
-        # dtype, stream
+        # out, partials, counters, B, TN, Hq, Hkv, D, page, table_width,
+        # max_pages, tiles per split, splits, scale, dtype, stream
         "paged_prefill_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                           _P, _I, _I, _I, _I, _I, _I, _I,
-                                           _I, _F, _I, _P),
+                                           _P, _P, _P, _I, _I, _I, _I, _I,
+                                           _I, _I, _I, _I, _I, _F, _I, _P),
         # int8 pools: q, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
-        # tables, cached_lens, new_lens, out, B, TN, Hq, Hkv, D, page,
-        # table_width, max_pages, scale, dtype (of q), stream
+        # tables, cached_lens, new_lens, out, partials, counters, B, TN,
+        # Hq, Hkv, D, page, table_width, max_pages, tiles per split,
+        # splits, scale, dtype (of q), stream
         "paged_prefill_attention_q8_launch": (_P, _P, _P, _P, _P, _P, _P,
-                                              _P, _P, _P, _P, _I, _I, _I, _I,
-                                              _I, _I, _I, _I, _F, _I, _P),
+                                              _P, _P, _P, _P, _P, _P, _I, _I,
+                                              _I, _I, _I, _I, _I, _I, _I, _I,
+                                              _F, _I, _P),
     },
     "decode_attention": {
         # contiguous caches: q, k_cache, v_cache, lens, out, partials,

@@ -50,6 +50,8 @@ CONTIG_TILE = 64
 MAX_TILE_ROWS = 64
 # the split rule aims at this many blocks per SM of the H100's 132
 _SMS, _BLOCKS_PER_SM = 132, 4
+# keys per tile, and rows per tile, of the paged prefill kernel
+PREFILL_TILE = 64
 
 
 def decode_split_plan(n_tiles: int, b: int, hkv: int):
@@ -60,6 +62,18 @@ def decode_split_plan(n_tiles: int, b: int, hkv: int):
     splits = max(1, min(n_tiles, want))
     tps = -(-n_tiles // splits)
     return tps, -(-n_tiles // tps)
+
+
+def prefill_split_plan(span: int, tn: int, group: int, b: int, hkv: int):
+    """(tiles per split, splits) of the paged prefill kernel's cached
+    phase (csrc/paged_prefill_attention.cu), from the shapes alone:
+    `span` = W * page positions the tables can name, in tiles of
+    PREFILL_TILE keys, over ceil(tn * group / PREFILL_TILE) row tiles per
+    (batch row, kv head). The decode rule on those rows: about four blocks
+    per SM in the grid (row tiles, splits, B * Hkv), at most one split per
+    tile."""
+    return decode_split_plan(-(-span // PREFILL_TILE),
+                             b * -(-tn * group // PREFILL_TILE), hkv)
 
 
 def decode_tile_rows(block_size: int) -> int:
@@ -141,17 +155,19 @@ def split_decode_reference(q, k_cache, v_cache, lens,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-# per device: the split launches' scratch, reused launch after launch.
-# Launches on one stream run in order; launches of these kernels on two
-# streams of one device must not overlap (the port launches on the
-# current stream only; a CUDA graph captures on a stream of its own, and
-# its replays are not run beside eager launches)
+# per device: the split launches' scratch (the decode kernels' and paged
+# prefill's), reused launch after launch. Launches on one stream run in
+# order; launches of these kernels on two streams of one device must not
+# overlap (the port launches on the current stream only; a CUDA graph
+# captures on a stream of its own, and its replays are not run beside
+# eager launches)
 _SCRATCH = {}
 
 
-def _split_scratch(dev, rows: int, splits: int, g: int, d: int):
+def split_scratch(dev, rows: int, splits: int, g: int, d: int):
     """Pointers (partials, counters) for a launch of `splits` splits over
-    `rows` = B*Hkv rows, or (None, None) for one split: f32 partials of
+    `rows` rows (decode: B*Hkv; paged prefill: B*Hkv*row tiles, G = 64
+    rows a tile), or (None, None) for one split: f32 partials of
     G*D + 2G words a split (acc, m, l, padded to 16-byte units), and
     `rows` int counters that are zero between launches (each launch's last
     split resets its row's). The tensors stay in _SCRATCH. The counters
@@ -165,8 +181,9 @@ def _split_scratch(dev, rows: int, splits: int, g: int, d: int):
     if cnt is None or cnt.numel() < rows:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
-                "decode attention: launch once at this batch size before "
-                "capturing a CUDA graph (its split counters are made then)")
+                "split attention kernels: launch once at this shape "
+                "before capturing a CUDA graph (their split counters are "
+                "made then)")
         cnt = torch.zeros(max(rows, 4096), dtype=torch.int32, device=dev)
     if part is None or part.numel() < floats:
         part = torch.empty(floats, dtype=torch.float32, device=dev)
@@ -276,7 +293,7 @@ def paged_decode_attention(q: torch.Tensor, key_cache: torch.Tensor,
     out = torch.empty_like(q)
     lib = _build.library(what)
     ptrs = (out.data_ptr(),
-            *_split_scratch(dev, b * hkv, splits, hq // hkv, d))
+            *split_scratch(dev, b * hkv, splits, hq // hkv, d))
     dims = (b, hq, hkv, d, bs, w, n_pages, st, tps, splits, float(scale),
             _build.dtype_code(q.dtype), stream)
     if quant:
@@ -348,7 +365,7 @@ def _contiguous_decode(what: str, q, k_cache, v_cache, lens, scale):
     lib = _build.library("decode_attention")
     code = lib.contiguous_decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), *_split_scratch(dev, b * hkv, splits, hq // hkv, d),
+        out.data_ptr(), *split_scratch(dev, b * hkv, splits, hq // hkv, d),
         b, hq, hkv, d, max_seq, CONTIG_TILE, tps, splits, float(scale),
         _build.dtype_code(q.dtype), stream)
     _build.check(lib, code, what)

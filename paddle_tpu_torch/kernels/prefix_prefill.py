@@ -17,7 +17,12 @@ stay in q's dtype.
 CUDA tensors launch ``csrc/paged_prefill_attention.cu``, the one kernel
 behind this function and ``ragged_attention.ragged_paged_attention`` (with
 an int8-pool variant that applies the scales inside its f32
-accumulation); CPU tensors run ``prefix_prefill_reference``.
+accumulation); CPU tensors run ``prefix_prefill_reference``. On bf16 /
+f16 operands the kernel splits the cached phase across blocks when the
+grid is small (``decode_attention.prefill_split_plan``) and merges the
+splits in the same launch; ``split_prefill_reference`` is the plain twin
+of that split-and-merge and of its P V arithmetic (tests and the card
+check hold the kernel against it; the wrappers never call it).
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from typing import Optional
 import torch
 
 from . import _build
+from .decode_attention import (PREFILL_TILE, prefill_split_plan,
+                               split_scratch)
 from .flash_attention import KERNEL_HEAD_DIMS
 
 _NEG_INF = -1e30
@@ -83,6 +90,99 @@ def paged_prefill_reference(q, k_new, v_new, key_cache, value_cache,
     return ctx.reshape(b, tn, nh, dh)
 
 
+def split_prefill_reference(q, k_new, v_new, key_cache, value_cache,
+                            block_tables, cached_lens, new_lens,
+                            scale: Optional[float] = None, *,
+                            k_scale=None, v_scale=None,
+                            tiles_per_split: Optional[int] = None):
+    """The plain twin of the CUDA kernel's arithmetic on 16-bit operands,
+    in f32: the W * page cached positions in tiles of PREFILL_TILE keys,
+    `tiles_per_split` tiles a split (default ``prefill_split_plan``'s),
+    split 0 also holding the window. Per split: m = max logit (scale,
+    then an int8 key's scale; masked as in ``paged_prefill_reference``),
+    p = exp(s - m), l = sum p, acc = P V where P is p times the value's
+    scale on int8 pools, carried as hi = T(P) plus lo = T(P - hi) (T q's
+    dtype; f32: P itself), and V is the pool's stored values. Splits that
+    start at or past cached_len weigh 0 (split 0 never does); then out =
+    sum_s w_s acc_s / sum_s w_s l_s with w_s = exp(m_s - max m). Pad rows
+    are exact zeros. Returns [b, tn, Hq, D] in q's dtype."""
+    b, tn, nh, dh = q.shape
+    n_pages, nkv, page, _ = key_cache.shape
+    w = block_tables.shape[1]
+    span, group = w * page, nh // nkv
+    f32, dev = torch.float32, q.device
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+    tbl = block_tables.to(torch.int64).clamp(0, n_pages - 1)
+    kc, vc = (pool[tbl].to(f32).permute(0, 1, 3, 2, 4)
+              .reshape(b, span, nkv, dh) for pool in (key_cache, value_cache))
+    ks = vs = torch.ones(b, span, nkv, dtype=f32, device=dev)
+    if k_scale is not None:     # per position: its page's scale
+        ks, vs = (sc.to(f32)[tbl].repeat_interleave(page, dim=1)
+                  for sc in (k_scale, v_scale))
+    tps = tiles_per_split or prefill_split_plan(span, tn, group, b, nkv)[0]
+    n_tiles = -(-span // PREFILL_TILE)
+    n_split = -(-n_tiles // tps)
+    width = tps * PREFILL_TILE
+    pad = n_split * width - span
+    kc, vc = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+              for x in (kc, vc))
+    ks, vs = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (ks, vs))
+    clen = cached_lens.to(torch.int64).clamp(0, span)
+    nlen = new_lens.to(torch.int64)
+    qg = q.reshape(b, tn, nkv, group, dh).to(f32)
+    s_c = torch.einsum("bsngd,btnd->bsngt", qg, kc) * scale \
+        * ks.permute(0, 2, 1)[:, None, :, None, :]
+    pos = torch.arange(n_split * width, device=dev)
+    s_c = torch.where((pos[None, :] < clen[:, None])[:, None, None, None],
+                      s_c, torch.full_like(s_c, _NEG_INF))
+    s_w = torch.einsum("bsngd,btnd->bsngt", qg, k_new.to(f32)) * scale
+    win = torch.arange(tn, device=dev)
+    win_ok = (win[None, :] <= win[:, None])[None] \
+        & (win[None, None, :] < nlen[:, None, None])       # [b, s, t]
+    s_w = torch.where(win_ok[:, :, None, None, :], s_w,
+                      torch.full_like(s_w, _NEG_INF))
+    vs_t = vs.permute(0, 2, 1)[:, None, :, None, :]       # [b, 1, n, 1, t]
+    lo_t = q.dtype if q.dtype != f32 else None
+
+    def part(s, v, vmul):
+        m = torch.amax(s, dim=-1)
+        p = torch.exp(s - m[..., None])
+        pv = p * vmul
+        hi = pv.to(lo_t).to(f32) if lo_t else pv
+        acc = torch.einsum("bsngt,btnd->bsngd", hi, v)
+        if lo_t:
+            acc = acc + torch.einsum("bsngt,btnd->bsngd",
+                                     (pv - hi).to(lo_t).to(f32), v)
+        return m, p.sum(-1), acc
+
+    ms, ls, accs = [], [], []
+    for sp in range(n_split):
+        cut = slice(sp * width, (sp + 1) * width)
+        s, v, vmul = s_c[..., cut], vc[:, cut], vs_t[..., cut]
+        if sp == 0:
+            s = torch.cat([s, s_w], dim=-1)
+            v = torch.cat([v, v_new.to(f32)], dim=1)
+            vmul = torch.cat([vmul.expand(*s_w.shape[:-1], width),
+                              torch.ones_like(s_w)], dim=-1)
+        m, l, acc = part(s, v, vmul)
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    live = (torch.arange(n_split, device=dev)[:, None] * width
+            < clen[None, :]) | (torch.arange(n_split, device=dev) == 0
+                                )[:, None]                  # [S, b]
+    live = live[:, :, None, None, None]
+    m = torch.where(live, m, torch.full_like(m, _NEG_INF))
+    wgt = torch.exp(m - torch.amax(m, dim=0, keepdim=True))
+    wgt = torch.where(live, wgt, torch.zeros_like(wgt))
+    out = (wgt[..., None] * acc).sum(0) / (wgt * l).sum(0)[..., None]
+    out = torch.where((win[None, :] < nlen[:, None])[:, :, None, None, None],
+                      out, torch.zeros_like(out))
+    return out.reshape(b, tn, nh, dh).to(q.dtype)
+
+
 def launch_paged_prefill(what: str, q, k_new, v_new, key_cache, value_cache,
                          block_tables, cached_lens, new_lens,
                          scale: float, k_scale=None,
@@ -136,11 +236,18 @@ def launch_paged_prefill(what: str, q, k_new, v_new, key_cache, value_cache,
         raise ValueError(f"{what}: q, window k/v and pools must be 16-byte "
                          "aligned")
     out = torch.empty_like(q)
+    w = block_tables.shape[1]
+    # f32 operands keep the unsplit CUDA-core body
+    tps, splits = (1, 1) if q.dtype == torch.float32 else \
+        prefill_split_plan(w * page, tn, nh // nkv, b, nkv)
+    row_tiles = -(-tn * (nh // nkv) // PREFILL_TILE)
+    scratch = split_scratch(dev, b * nkv * row_tiles, splits, PREFILL_TILE,
+                            dh)
     lib = _build.library("paged_prefill_attention")
     pools = (key_cache.data_ptr(), value_cache.data_ptr())
     rest = (block_tables.data_ptr(), cached_lens.data_ptr(),
-            new_lens.data_ptr(), out.data_ptr(), b, tn, nh, nkv, dh, page,
-            block_tables.shape[1], n_pages, float(scale), code,
+            new_lens.data_ptr(), out.data_ptr(), *scratch, b, tn, nh, nkv,
+            dh, page, w, n_pages, tps, splits, float(scale), code,
             _build.stream_ptr(dev))
     window = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr())
     if quant:

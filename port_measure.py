@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Same-card measurements of the port beside chip_smoke.py: one checkout's
 kernels against another's on fixed inputs, end-to-end phases, and
-variants of the decode and flash-backward kernels.
+variants of the decode, flash and paged prefill kernels.
 
     python3 port_measure.py kernels TREE LABEL OUT.json
     python3 port_measure.py e2e TREE LABEL
-    python3 port_measure.py variants
+    python3 port_measure.py variants [decode] [dkv] [fwd] [prefill]
 
 TREE is a directory holding `paddle_tpu_torch/` and `chip_smoke.py` (this
 checkout is `.`; an earlier commit unpacks with `git archive COMMIT
@@ -16,16 +16,23 @@ different hosts differ by more than the kernels do.
 - kernels: contiguous and paged decode attention at chip_smoke phase 1's
   cases and at Llama-3-8B's 8k context (B8 Hq32 Hkv8, lens 0..8191 on the
   split edges), bf16 and int8 pools, timed cold (operands past the L2) and
-  warm; the flash backward dq / dkv at bench.py's shape and at Llama-3's
-  heads. Appends {LABEL: [times]} to OUT.json.
+  warm; paged prefill attention (ragged windows and prefix prefill, bf16
+  and int8 pools) at phase 1's cases and at phase 4's window, cold and
+  warm; the flash forward at phase 1's serving case and bench.py's
+  training shape; the flash backward dq / dkv at bench.py's shape and at
+  Llama-3's heads. Appends {LABEL: [times]} to OUT.json.
 - e2e: the decode wrappers' host time per call, then chip_smoke phases 2
-  (the engine), 9 (build_quant_generate over int4 weights) and 13 (the
-  Llama-1B train step), with their own logs.
-- variants: this checkout's decode body rebuilt with four warps, and with
+  (the engine), 3 (the prefix cache), 4 (the unified step), 9
+  (build_quant_generate over int4 weights) and 13 (the Llama-1B train
+  step), with their own logs.
+- variants (all four groups unless some are named): this checkout's
+  decode body rebuilt with four warps, and with
   its P V partial sums capped to fit three blocks per SM, against the
   built eight warps, each at 4, 8 and 16 blocks per SM by the split rule
   (chip_smoke's gates apply); the dkv kernel rebuilt with q tiles of 32
-  rows against 64.
+  rows against 64; the flash forward rebuilt with 128-row q tiles (eight
+  warps) against 64; paged prefill with its cached phase unsplit against
+  the split plan.
 """
 from __future__ import annotations
 
@@ -54,6 +61,73 @@ def _import_tree(tree: str):
         raise RuntimeError(f"imported {_build.__file__}, not {tree}'s")
     _build.build_all()
     return chip_smoke, _build
+
+
+# phase 1's paged prefill cases (name, B, TN, cached, new, table width)
+# and phase 4's window (the engine's 33-page tables)
+PREFILL_CASES = [
+    ("ragged B2 tn256 (phase 1)", "ragged_paged_attention", 2, 256,
+     [0, 1344 + 37], [256, 100], 22),
+    ("ragged B8 tn64 decode-like (phase 1)", "ragged_paged_attention", 8, 64,
+     [0, 37, 64, 200, 511, 700, 1381, 256], [1, 1, 1, 1, 1, 1, 1, 64], 22),
+    ("prefix B4 tn128 (phase 1)", "prefix_prefill_attention", 4, 128,
+     [0, 64, 256, 512], [128, 1, 77, 100], 8),
+    ("ragged B1 tn256 cached 1536 (phase 4 window)",
+     "ragged_paged_attention", 1, 256, [1536], [256], 33),
+]
+# the flash forward (B, Sq, Sk, Hq, Hkv): phase 1's cases, the serving
+# case first and bench.py's training shape last
+FLASH_CASES = [(4, 512, 512, 32, 8), (1, 300, 300, 32, 8),
+               (2, 200, 333, 32, 8), (4, 2048, 2048, 16, 4)]
+
+
+def prefill_operands(b, tn, cached, new, w, q8, seed=0):
+    """chip_smoke.check_paged_prefill's operands (Hq32 Hkv8 D128, pages of
+    64, permuted tables): (q, k_new, v_new, pools, tables, cached, new)
+    plus the int8 scales when q8."""
+    from paddle_tpu_torch.models.llama import quantize_kv_pages
+
+    g = torch.Generator(device="cuda").manual_seed(seed + tn + b)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    n_pages = b * w + 1
+    kc, vc = rnd(n_pages, 8, 64, 128), rnd(n_pages, 8, 64, 128)
+    q, kn, vn = rnd(b, tn, 32, 128), rnd(b, tn, 8, 128), rnd(b, tn, 8, 128)
+    perm = torch.randperm(n_pages - 1,
+                          generator=torch.Generator().manual_seed(0)) + 1
+    tables = torch.zeros(b, w, dtype=torch.int32)
+    for row, c in enumerate(cached):
+        n = -(-c // 64)
+        tables[row, :n] = perm[row * w: row * w + n].to(torch.int32)
+    ops = [q, kn, vn, kc, vc, tables.cuda(),
+           torch.tensor(cached, dtype=torch.int32, device="cuda"),
+           torch.tensor(new, dtype=torch.int32, device="cuda")]
+    if q8:
+        (ops[3], ks), (ops[4], vs) = (quantize_kv_pages(p)
+                                      for p in (kc, vc))
+        ops += [ks, vs]
+    return tuple(ops)
+
+
+def prefill_call(name):
+    """fn(q, kn, vn, kc, vc, tables, cached, new[, ks, vs]) of the named
+    wrapper."""
+    from paddle_tpu_torch.kernels.prefix_prefill import (
+        prefix_prefill_attention)
+    from paddle_tpu_torch.kernels.ragged_attention import (
+        ragged_paged_attention)
+
+    fn = {"ragged_paged_attention": ragged_paged_attention,
+          "prefix_prefill_attention": prefix_prefill_attention}[name]
+
+    def call(*ops):
+        if len(ops) == 10:
+            return fn(*ops[:8], k_scale=ops[8], v_scale=ops[9])
+        return fn(*ops)
+    return call
 
 
 def kernels(tree: str, label: str, out_path: str) -> None:
@@ -115,6 +189,21 @@ def kernels(tree: str, label: str, out_path: str) -> None:
         paged("paged GQA W9 (phase 1)" + t, 32, 8, 9, pl, q8)
         paged("paged eq W9" + t, 32, 32, 9, pl, q8)
         paged("paged GQA W128 (8k)" + t, 32, 8, 128, LENS_8K, q8)
+    for case, name, b, tn, cached, new, w in PREFILL_CASES:
+        for q8 in (False, True):
+            ops = prefill_operands(b, tn, cached, new, w, q8)
+            fn = prefill_call(name)
+            t = case + (" int8" if q8 else " bf16")
+            res["prefill " + t + " warm"] = time_ms(lambda: fn(*ops))
+            res["prefill " + t + " cold"] = time_cold_ms(fn, ops)
+    for b, sq, sk, hq, hkv in FLASH_CASES:
+        g = torch.Generator(device="cuda").manual_seed(hq)
+        q = torch.randn(b, sq, hq, 128, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(b, sk, hkv, 128, generator=g, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        res[f"flash fwd B{b} Sq{sq} Sk{sk} Hq{hq} Hkv{hkv}"] = time_ms(
+            lambda: flash_attention(q, k, v, causal=True), iters=10)
     for b, s, hq, hkv in ((4, 2048, 16, 4), (1, 2048, 32, 8)):
         g = torch.Generator(device="cuda").manual_seed(hq)
         q, do = (torch.randn(b, s, hq, 128, generator=g, device="cuda",
@@ -174,6 +263,8 @@ def e2e(tree: str, label: str) -> None:
     del q, kc, vc, pools
     cfg, params = cs.build_model()
     cs.phase_engine(cfg, params)
+    cs.phase_prefix_cache(cfg, params)
+    cs.phase_unified(cfg, params)
     p4 = init_quant_serving_params(cfg, "weight_only_int4", seed=cs.SEED,
                                    device="cuda")
     cs.quant_generate(cfg, p4, "weight_only_int4", "quant-generate",
@@ -218,13 +309,19 @@ def _rebuilt(_build, tmp: str, tag: str, edits, names):
     return libs
 
 
-def variants() -> None:
+def variants(*groups: str) -> None:
+    groups = set(groups or ("decode", "dkv", "fwd", "prefill"))
     cs, _build = _import_tree(".")
-    from paddle_tpu_torch.kernels import decode_attention as da
-    from paddle_tpu_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd_delta, flash_attention_bwd_dkv)
-
     tmp = tempfile.mkdtemp()
+    g = torch.Generator(device="cuda").manual_seed(16)
+    for name in ("decode", "dkv", "fwd", "prefill"):
+        if name in groups:
+            globals()["_variants_" + name](cs, _build, tmp, g)
+
+
+def _variants_decode(cs, _build, tmp, g) -> None:
+    from paddle_tpu_torch.kernels import decode_attention as da
+
     dec = ("decode_attention", "paged_decode_attention")
     body = "decode_attention_body.cuh"
     built = {n: _build.library(n) for n in dec}
@@ -258,13 +355,17 @@ def variants() -> None:
     _build._LIBS.update(built)
     da._BLOCKS_PER_SM = 4
 
+
+def _variants_dkv(cs, _build, tmp, g) -> None:
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd_delta, flash_attention_bwd_dkv)
+
     dkv = {"q tiles of 64 rows (built)": _build.library("flash_attention_bwd"),
            "q tiles of 32 rows": _rebuilt(
                _build, tmp, "q32", [("flash_attention_bwd.cu",
                                      "constexpr int DKV_QROWS = 64;",
                                      "constexpr int DKV_QROWS = 32;")],
                ("flash_attention_bwd",))["flash_attention_bwd"]}
-    g = torch.Generator(device="cuda").manual_seed(16)
     for b, s, hq, hkv in ((4, 2048, 16, 4), (1, 2048, 32, 8)):
         q, do = (torch.randn(b, s, hq, 128, generator=g, device="cuda",
                              dtype=torch.bfloat16) for _ in range(2))
@@ -293,6 +394,87 @@ def variants() -> None:
             print(f"[variants] dkv kernel alone B{b} S{s} Hq{hq} Hkv{hkv}, "
                   f"{shape}: {ms:.4f} ms, bitwise equal to the built "
                   f"kernel: {same}", flush=True)
+
+
+def _variants_fwd(cs, _build, tmp, g) -> None:
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+
+    fwd = {"64-row q tiles, four warps (built)":
+               _build.library("flash_attention_fwd"),
+           "128-row q tiles, eight warps": _rebuilt(
+               _build, tmp, "fwd8", [("flash_attention_fwd.cu",
+                                      "constexpr int FWD_WARPS = 4;",
+                                      "constexpr int FWD_WARPS = 8;")],
+               ("flash_attention_fwd",))["flash_attention_fwd"]}
+    for b, sq, sk, hq, hkv in FLASH_CASES:
+        q = torch.randn(b, sq, hq, 128, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(b, sk, hkv, 128, generator=g, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        want = flash_attention(q, k, v, causal=True, return_lse=True)
+        for shape, lib in fwd.items():
+            o = torch.empty_like(q)
+            lse = torch.empty(b * hq, sq, device="cuda", dtype=torch.float32)
+
+            def run():
+                code = lib.flash_attention_fwd_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), b, sq, sk, hq, hkv, 128, 128 ** -0.5, 1,
+                    torch.cuda.current_stream().cuda_stream)
+                if code:
+                    raise RuntimeError(f"flash fwd {shape}: CUDA error "
+                                       f"{code}")
+
+            run()
+            torch.cuda.synchronize()
+            same = torch.equal(o, want[0]) and torch.equal(lse, want[1])
+            ms = cs.time_ms(run, iters=10)
+            print(f"[variants] flash fwd B{b} Sq{sq} Sk{sk} Hq{hq} Hkv{hkv}, "
+                  f"{shape}: "
+                  f"{ms:.4f} ms, bitwise equal to the built kernel: {same}",
+                  flush=True)
+
+
+def _variants_prefill(cs, _build, tmp, g) -> None:
+    from paddle_tpu_torch.kernels import prefix_prefill as pp
+    planned = pp.prefill_split_plan
+
+    def unsplit(span, *_):
+        return -(-span // pp.PREFILL_TILE), 1
+
+    for case, name, b, tn, cached, new, w in PREFILL_CASES:
+        for q8 in (False, True):
+            ops = prefill_operands(b, tn, cached, new, w, q8)
+            fn = prefill_call(name)
+            t = f"{case}{' int8' if q8 else ' bf16'}"
+            for shape, plan in (("split plan (built)", planned),
+                                ("cached phase unsplit", unsplit)):
+                pp.prefill_split_plan = plan
+                tps, splits = plan(w * 64, tn, 4, b, 8)
+                ms = cs.time_cold_ms(fn, ops)
+                print(f"[variants] prefill {t}, {shape} ({splits} splits of "
+                      f"{tps} tiles): {ms:.4f} ms cold, "
+                      f"{cs.time_ms(lambda: fn(*ops)):.4f} ms warm (events "
+                      f"around back-to-back calls), "
+                      f"{device_ms(lambda: fn(*ops), 'paged_prefill'):.4f} "
+                      f"ms warm (profiler, kernel alone)", flush=True)
+            pp.prefill_split_plan = planned
+
+
+def device_ms(fn, kernel: str, n: int = 20) -> float:
+    """Mean device time of the kernels whose name holds `kernel`, per
+    call of fn, from torch.profiler over n calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if kernel in e.key)
+    return us / n / 1e3
 
 
 if __name__ == "__main__":
