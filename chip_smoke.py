@@ -541,7 +541,9 @@ def gate_rel_rms(name: str, kernel, plain, ref32):
 def check_flash_bwd(b: int, s: int, hq: int, hkv: int, d: int):
     """The backward pair (causal, Sq = Sk = s) on N(0, 1) bf16 inputs and
     the kernel forward's out / lse: dq, dk and dv by gate_rel_rms against
-    the plain backward in f32 (f32 forward) beside the bf16 one. Bound:
+    the plain backward in f32 (f32 forward) beside the bf16 one, each
+    twice bitwise. The dq row times the kernel alone (the pre-pass's
+    delta handed in), the dkv row its wrapper, pre-pass included. Bound:
     the five products FA2 needs at this run's causal pairs -- dkv's four
     (S, dP, dV, dK) on its row, dq's own product on its; the dq kernel's
     recompute of S and dP is its choice, not work. Library: SDPA forward
@@ -559,16 +561,19 @@ def check_flash_bwd(b: int, s: int, hq: int, hkv: int, d: int):
     scale = d ** -0.5
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     args = (q, k, v, out, lse, do, True, scale)
-    dq = flash_attention_bwd_dq(*args)
+    # the pre-pass once, its delta handed to dq (as flash_attention_bwd
+    # does); dkv's wrapper launches its own
+    delta = flash_attention_bwd_delta(out, do)
+    dq = flash_attention_bwd_dq(*args, delta=delta)
     dk, dv = flash_attention_bwd_dkv(*args)
     case = f"B{b} S{s} Hq{hq} Hkv{hkv} D{d} causal"
+    # two launches bitwise equal (dq's second launches the pre-pass itself)
     for n, got, again in zip(("dq", "dk", "dv"), (dq, dk, dv),
                              (flash_attention_bwd_dq(*args),
                               *flash_attention_bwd_dkv(*args))):
         gate_deterministic(f"flash bwd {n} {case}", got, again)
-    # the dkv kernel's delta pre-pass against its plain twin (f32: the
-    # same products summed in another order)
-    delta = flash_attention_bwd_delta(out, do)
+    # the backward kernels' delta pre-pass against its plain twin (f32:
+    # the same products summed in another order)
     delta_ref = flash_attention_bwd_delta_reference(out, do)
     delta_err = float((delta - delta_ref).abs().max())
     if delta_err > 1e-4 * max(1.0, float(delta_ref.abs().max())):
@@ -583,7 +588,8 @@ def check_flash_bwd(b: int, s: int, hq: int, hkv: int, d: int):
             for n, got, p, r in zip(("dq", "dk", "dv"), (dq, dk, dv), plain,
                                     ref32)]
     del plain, ref32
-    dq_ms = time_ms(lambda: flash_attention_bwd_dq(*args), iters=10)
+    dq_ms = time_ms(lambda: flash_attention_bwd_dq(*args, delta=delta),
+                    iters=10)
     dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(*args), iters=10)
     delta_ms = time_ms(lambda: flash_attention_bwd_delta(out, do), iters=10)
     delta_plain = time_ms(lambda: flash_attention_bwd_delta_reference(
@@ -602,7 +608,11 @@ def check_flash_bwd(b: int, s: int, hq: int, hkv: int, d: int):
     lib_ms = both_ms - fwd_ms
     product = 2 * b * hq * d * s * (s + 1) // 2     # flops of one product
     io = 2 * b * s * d * (3 * hq + 2 * hkv) + 4 * b * hq * s
-    dq_bound = bound_ms(io + 2 * b * s * hq * d, product)
+    # dq (delta handed in, O not read): q, dO, k, v, lse and delta read
+    # once, dq written once
+    dq_bytes = (2 * b * s * d * (2 * hq + 2 * hkv) + 2 * 4 * b * hq * s
+                + 2 * b * s * hq * d)
+    dq_bound = bound_ms(dq_bytes, product)
     dkv_bound = bound_ms(io + 2 * 2 * b * s * hkv * d, 4 * product)
     # delta: O and dO read once, delta written once; 2 flops an element
     delta_bound = bound_ms(2 * 2 * b * s * hq * d + 4 * b * hq * s,
@@ -621,8 +631,9 @@ def check_flash_bwd(b: int, s: int, hq: int, hkv: int, d: int):
 def check_swiglu(m: int, k: int, f: int):
     """The SwiGLU pair on bf16 x ~ N(0, 1), weights ~ N(0, 1/K), dout ~
     N(0, 1): the outputs by gate_rel_rms against the plain versions in
-    f32 beside the bf16 ones. Bound: 4*M*K*F flops; bytes x, Wg, Wu and
-    out (forward), plus dout and the second output (backward). Library:
+    f32 beside the bf16 ones, each twice bitwise. Bound: 4*M*K*F flops;
+    bytes x, Wg, Wu and out (forward), plus dout and the second output
+    (backward). Library:
     F.silu(x @ wg) * (x @ wu) in bf16, and for the backward the same two
     products plus the elementwise grads."""
     from paddle_tpu_torch.kernels.swiglu import (swiglu_bwd,
@@ -637,14 +648,22 @@ def check_swiglu(m: int, k: int, f: int):
     dout = torch.randn(m, f, generator=g, device="cuda").to(torch.bfloat16)
     x32, wg32, wu32 = x.float(), wg.float(), wu.float()
     case = f"M{m} K{k} F{f}"
-    fwd_err = gate_rel_rms(f"swiglu_fwd {case}", swiglu_fwd(x, wg, wu),
+    out = swiglu_fwd(x, wg, wu)
+    gate_deterministic(f"swiglu_fwd {case}", out, swiglu_fwd(x, wg, wu))
+    fwd_err = gate_rel_rms(f"swiglu_fwd {case}", out,
                            swiglu_fwd_reference(x, wg, wu),
                            swiglu_fwd_reference(x32, wg32, wu32))
+    del out
+    dh = swiglu_bwd(x, wg, wu, dout)
+    for n, got, again in zip(("dh_g", "dh_u"), dh,
+                             swiglu_bwd(x, wg, wu, dout)):
+        gate_deterministic(f"swiglu_bwd {n} {case}", got, again)
     bwd_err = max(gate_rel_rms(f"swiglu_bwd {n} {case}", got, p, r)
                   for n, got, p, r in zip(
-                      ("dh_g", "dh_u"), swiglu_bwd(x, wg, wu, dout),
+                      ("dh_g", "dh_u"), dh,
                       swiglu_bwd_reference(x, wg, wu, dout),
                       swiglu_bwd_reference(x32, wg32, wu32, dout.float())))
+    del dh
     del x32, wg32, wu32
     fwd_ms = time_ms(lambda: swiglu_fwd(x, wg, wu), iters=10)
     bwd_ms = time_ms(lambda: swiglu_bwd(x, wg, wu, dout), iters=10)

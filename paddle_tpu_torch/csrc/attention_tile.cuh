@@ -1,6 +1,8 @@
 // The register-resident tile body of the port's many-query attention
 // kernels: the flash forward (csrc/flash_attention_fwd.cu) and paged
-// prefill attention (csrc/paged_prefill_attention.cu).
+// prefill attention (csrc/paged_prefill_attention.cu); the flash
+// backward's dq kernel (csrc/flash_attention_bwd.cu) takes its row copies
+// and Q fragments.
 //
 // A warp owns 16 query rows end to end. Their Q fragments stay in
 // registers; K and V tiles of 64 keys come from shared memory (16-bit
@@ -51,6 +53,25 @@ struct AttRows {
     }
   }
 };
+
+// rows [row0, row0 + ROWS) of a [B, S, H, D] tensor at (b, h) -> smem
+// rows of pitch D + 8 by cp.async from the block's NT threads, zero-filled
+// past S
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int b,
+                                          int h, int row0, int S, int H) {
+  constexpr int VPR = D / 8;
+  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += NT) {
+    const int r = idx / VPR, c = idx - r * VPR;
+    const int s = row0 + r;
+    const bool ok = s < S;
+    const __nv_bfloat16* g =
+        ok ? src + ((static_cast<int64_t>(b) * S + s) * H + h) * D + c * 8
+           : src;
+    cp_async16(dst + r * (D + 8) + c * 8, g, ok);
+  }
+}
 
 // A fragments of the warp's 16 rows of a Q tile in shared memory (`rows`:
 // its first row, pitch D + 8)

@@ -22,17 +22,26 @@
 // own choice and not work the function needs. The delta pre-pass is bound
 // by bytes (O and dO read once).
 //
-// - dq kernel (the first design, kept): blocks of four warps, each warp
-//   owning 16 rows of a 64-row q tile end to end; products on the tensor
-//   cores with bf16 WMMA tiles and f32 accumulators; score strips through
-//   f32 shared memory for the elementwise phase (two columns per lane);
-//   one block per (64 query rows, batch * q head); Q and dO stay in shared
-//   memory, K / V tiles of 64 keys stream through it, dq's accumulators
-//   stay in registers. About 111 KB of shared memory at D = 128 (two
-//   blocks per SM), opted in past the 48 KB default.
+// - dq kernel (redesigned on the register-resident tile body of the
+//   forward, csrc/attention_tile.cuh, and of dkv): blocks of DQ_WARPS
+//   warps, each warp owning 16 rows of the q tile end to end. Q and dO go
+//   to A fragments in registers once (their shared memory then becomes a
+//   K / V stage); K / V tiles of 64 keys arrive by cp.async into a ring of
+//   two stages, one block barrier a tile. Each tile runs as two strips of
+//   32 keys: S = Q K^T and dP = dO V^T on raw m16n8k16 mma.sync into C
+//   fragments, the mask, p = exp(s * scale - lse) and dS = p (dP - delta)
+//   scale on those accumulators, dS packed to bf16 straight into the A
+//   fragments of dq += dS K (K's B fragments by ldmatrix.trans); dq stays
+//   in registers for the whole walk and is rounded once. delta comes from
+//   the pre-pass below (the wrapper launches it once for dq and dkv).
+//   Causal: a warp skips the strips past its rows' reach and masks only
+//   strips that cross the diagonal or Sk; q tiles that see the most keys
+//   (the last) are dispatched first: grid (B * Hq, q tiles). 68 KB of
+//   shared memory at D = 128 with four warps. 64-row q tiles (four warps)
+//   against 128 (eight): PERF.md.
 // - delta pre-pass: delta = rowsum(dO * O) in f32 once per query row, one
 //   warp per row, into [B * Hq, Sq] beside lse (the JAX kernels recompute
-//   it for every (key tile, q tile) pair).
+//   it for every (key tile, q tile) pair); dq and dkv both read it.
 // - dkv kernel (redesigned): one block of four warps per (64 keys,
 //   batch * kv head), each warp owning 16 keys; K and V stay in shared
 //   memory. For every q head of the group and every q tile of 64 rows
@@ -52,243 +61,207 @@
 //   D = 128 (170 at D = 64), no spills: two blocks, eight warps, per SM.
 //   q tiles of 64 rows measured faster than tiles of 32 (PERF.md).
 // A refused launch returns its error. wgmma + TMA is later work.
-#include <mma.h>
-
-#include "common.cuh"
-#include "fragments.cuh"
+#include "attention_tile.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int BT = 64;          // rows of a q or k tile (16 per warp)
+constexpr int BT = 64;          // rows of a k tile (dkv: 16 per warp)
 constexpr int NTHREADS = 128;
-constexpr float NEG = -1e30f;   // the JAX kernels' finite mask value
-
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-template <int D>
-struct Tiles {
-  static constexpr int LDH = D + 8;   // bf16 q/k/v/dO rows (padding: banks)
-  static constexpr int LDS = BT + 4;  // f32 score rows
-  static constexpr int LDP = BT + 8;  // bf16 p / dS rows
-  static constexpr int LDO = D + 4;   // f32 rows of the finished sums
-  static constexpr size_t H = align128(BT * LDH * sizeof(bf16));
-  static constexpr size_t S = align128(BT * LDS * sizeof(float));
-  static constexpr size_t P = align128(BT * LDP * sizeof(bf16));
-  static constexpr size_t V64 = align128(BT * sizeof(float));
-};
-
-// rows [row0, row0 + 64) of a [B, S, H, D] tensor at (b, h) -> smem, zero
-// past `S` (16-byte vector copies; D % 8 == 0)
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int b,
-                                          int h, int row0, int S, int H) {
-  constexpr int VPR = D / 8;
-  for (int idx = threadIdx.x; idx < BT * VPR; idx += NTHREADS) {
-    const int r = idx / VPR, c = idx - r * VPR;
-    const int s = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S)
-      val = *reinterpret_cast<const uint4*>(
-          src + ((static_cast<int64_t>(b) * S + s) * H + h) * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * Tiles<D>::LDH + c * 8) = val;
-  }
-}
-
-// lse and delta = rowsum(dO * O) of query rows [q0, q0 + 64) of head (b, h)
-// into smem (0 past Sq); dO from its smem tile, O from global memory.
-// Each warp fills its own 16 rows.
-template <int D>
-__device__ __forceinline__ void row_stats(float* lse_s, float* delta_s,
-                                          const bf16* dOs, const bf16* o,
-                                          const float* lse, int b, int h,
-                                          int q0, int Sq, int Hq, int row0) {
-  const int lane = threadIdx.x & 31;
-  const int bh = b * Hq + h;
-  for (int r = 0; r < 16; ++r) {
-    const int i = row0 + r, s = q0 + i;
-    float acc = 0.f;
-    if (s < Sq) {
-      const bf16* orow = o + ((static_cast<int64_t>(b) * Sq + s) * Hq + h) * D;
-      for (int c = lane; c < D; c += 32)
-        acc += __bfloat162float(dOs[i * Tiles<D>::LDH + c]) *
-               __bfloat162float(orow[c]);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      delta_s[i] = acc;
-      lse_s[i] = s < Sq ? lse[static_cast<int64_t>(bh) * Sq + s] : 0.f;
-    }
-  }
-}
-
-// out strip [16, 64] (f32, ldm LDS) = A[16 rows of `a`] B^T over D, where
-// B's rows are the 64 rows of `b` (both bf16 tiles with ldm LDH)
-template <int D>
-__device__ __forceinline__ void strip_abt(float* out, const bf16* a,
-                                          const bf16* b) {
-  using T = Tiles<D>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BT / 16];
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, a + kk, T::LDH);
-#pragma unroll
-    for (int j = 0; j < BT / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, b + (j * 16) * T::LDH + kk, T::LDH);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j)
-    wmma::store_matrix_sync(out + j * 16, acc[j], T::LDS,
-                            wmma::mem_row_major);
-}
-
-// acc[dj] (the warp's [16, D] sum) += P[16, 64] (bf16, ldm LDP) @ B[64, D]
-// (bf16 tile, ldm LDH)
-template <int D>
-__device__ __forceinline__ void accumulate_pb(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc,
-    const bf16* p, const bf16* b) {
-  using T = Tiles<D>;
-#pragma unroll
-  for (int kk = 0; kk < BT; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, p + kk, T::LDP);
-#pragma unroll
-    for (int dj = 0; dj < D / 16; ++dj) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, b + kk * T::LDH + dj * 16, T::LDH);
-      wmma::mma_sync(acc[dj], fa, fb, acc[dj]);
-    }
-  }
-}
-
-// the warp's [16, D] f32 sums -> rows [row0 + 16w ...) of a [B, S, H, D]
-// bf16 tensor at (b, h), through `stage` (f32, ldm LDO), skipping rows
-// past S
-template <int D>
-__device__ __forceinline__ void store_rows(
-    const wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc,
-    float* stage, bf16* dst, int b, int h, int tile0, int S, int H) {
-  using T = Tiles<D>;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* mine = stage + warp * 16 * T::LDO;
-#pragma unroll
-  for (int dj = 0; dj < D / 16; ++dj)
-    wmma::store_matrix_sync(mine + dj * 16, acc[dj], T::LDO,
-                            wmma::mem_row_major);
-  __syncwarp();
-  for (int r = 0; r < 16; ++r) {
-    const int s = tile0 + warp * 16 + r;
-    if (s >= S) continue;
-    bf16* row = dst + ((static_cast<int64_t>(b) * S + s) * H + h) * D;
-    for (int c = lane; c < D; c += 32)
-      row[c] = __float2bfloat16(mine[r * T::LDO + c]);
-  }
-}
 
 // ---------------------------------------------------------------------------
-// dq: grid (ceil(Sq / 64), B * Hq)
+// dq: grid (B * Hq, q tiles of 16 * DQ_WARPS rows), the q tiles that see
+// the most keys (causal: the last) dispatched first. A warp owns 16 query
+// rows end to end: Q and dO as A fragments, lse and delta of its rows and
+// the [16, D] dq sum in registers. K / V tiles of 64 keys arrive by
+// cp.async into a ring of two stages (one block barrier a tile); each tile
+// runs as two strips of 32 keys: S = Q K^T and dP = dO V^T on m16n8k16
+// mma.sync (B fragments of K and V by ldmatrix), the mask, p and dS on the
+// C fragments, dS packed to bf16 straight into the A fragments of
+// dq += dS K (K's B fragments by ldmatrix.trans). No score goes through
+// shared memory.
 // ---------------------------------------------------------------------------
 
-template <int D>
+constexpr int DQ_WARPS = 4;
+constexpr int DQ_STRIP = 32;    // keys a register pass
+
+template <int D, int NW>
 struct DqLayout {
-  using T = Tiles<D>;
-  static constexpr size_t q = 0;
-  static constexpr size_t dO = q + T::H;
-  static constexpr size_t k = dO + T::H;
-  static constexpr size_t v = k + T::H;
-  static constexpr size_t s = v + T::H;
-  static constexpr size_t dp = s + T::S;
-  static constexpr size_t ds = dp + T::S;
-  static constexpr size_t lse = ds + T::P;
-  static constexpr size_t delta = lse + T::V64;
-  static constexpr size_t bytes = delta + T::V64;
-  // the finished dq rows are staged over the k..ds regions
-  static_assert(BT * T::LDO * sizeof(float) <= lse - k, "dq stage");
+  static constexpr int LDH = D + 8;   // bf16 rows (padding: ldmatrix banks)
+  static constexpr int BQ = 16 * NW;
+  static constexpr size_t QT = size_t(BQ) * LDH * sizeof(bf16);
+  static constexpr size_t KV = size_t(BT) * LDH * sizeof(bf16);
+  // Q and dO land in the first region and go to registers before its
+  // bytes become K / V stage 1; stage 0 follows
+  static constexpr size_t region0 = 2 * QT > 2 * KV ? 2 * QT : 2 * KV;
+  static constexpr size_t bytes = region0 + 2 * KV;
 };
 
+// over the strip's 32 keys (4 n-tiles of 8): s = Q K^T and dp = dO V^T,
+// the warp's 16 rows (A fragments qf, df) against 32 rows of K and of V
+// (pitch D + 8); the two products interleave, eight independent
+// accumulators a k16 step
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__device__ __forceinline__ void strip_scores(float (&s)[4][4],
+                                             float (&dp)[4][4],
+                                             const uint32_t (&qf)[D / 16][4],
+                                             const uint32_t (&df)[D / 16][4],
+                                             const bf16* Ks, const bf16* Vs) {
+  constexpr int LDH = D + 8;
+  const int lane = threadIdx.x & 31;
+  const int off = ((lane & 7) + ((lane >> 4) << 3)) * LDH +
+                  ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t bk[4], bv[4];
+      ldsm_x4(bk, Ks + off + np * 16 * LDH + kk * 16);
+      ldsm_x4(bv, Vs + off + np * 16 * LDH + kk * 16);
+      mma16816(s[2 * np], qf[kk], bk[0], bk[1]);
+      mma16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      mma16816(dp[2 * np], df[kk], bv[0], bv[1]);
+      mma16816(dp[2 * np + 1], df[kk], bv[2], bv[3]);
+    }
+}
+
+template <int D, int NW>
+__global__ void __launch_bounds__(NW * 32, 8 / NW)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
+                        const bf16* __restrict__ v,
+                        const float* __restrict__ delta,
                         const bf16* __restrict__ dO,
                         const float* __restrict__ lse, bf16* __restrict__ dq,
                         int Sq, int Sk, int Hq, int Hkv, float scale,
                         int causal) {
-  using T = Tiles<D>;
-  using L = DqLayout<D>;
+  using L = DqLayout<D, NW>;
+  constexpr int NT = NW * 32, LDH = L::LDH;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::dO);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  float* dPs = reinterpret_cast<float*>(smem + L::dp);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
+  auto stage = [&](int i) {
+    return reinterpret_cast<bf16*>(smem + ((i & 1) ? 0 : L::region0));
+  };
 
-  const int q0 = blockIdx.x * BT;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / Hq, h = bh - b * Hq;
   const int hk = h / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::BQ;  // longest first
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = warp * 16;
+  const int g = lane >> 2, t = lane & 3;
   const int q_offset = Sk - Sq;
-
-  load_tile<D>(Qs, q, b, h, q0, Sq, Hq);
-  load_tile<D>(dOs, dO, b, h, q0, Sq, Hq);
-  __syncthreads();
-  row_stats<D>(lse_s, delta_s, dOs, o, lse, b, h, q0, Sq, Hq, row0);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
-#pragma unroll
-  for (int dj = 0; dj < D / 16; ++dj) wmma::fill_fragment(acc[dj], 0.f);
-
   int kv_end = Sk;
-  if (causal) kv_end = min(Sk, min(q0 + BT, Sq) - 1 + q_offset + 1);
+  if (causal) kv_end = min(Sk, min(q0 + L::BQ, Sq) + q_offset);
   const int n_tiles = (kv_end + BT - 1) / BT;
+  // the warp's first row, and the last key any of its rows sees
+  const int w0 = q0 + warp * 16;
+  const int reach =
+      causal ? min(Sk, min(w0 + 16, Sq) + q_offset) - 1 : Sk - 1;
+  const int row = w0 + g;  // this lane's rows: row, row + 8
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();  // every warp is done with the last K/V tile
-    load_tile<D>(Ks, k, b, hk, kt * BT, Sk, Hkv);
-    load_tile<D>(Vs, v, b, hk, kt * BT, Sk, Hkv);
-    __syncthreads();
-
-    strip_abt<D>(Ss + row0 * T::LDS, Qs + row0 * T::LDH, Ks);
-    strip_abt<D>(dPs + row0 * T::LDS, dOs + row0 * T::LDH, Vs);
-    __syncwarp();
-
-    // dS = p (dp - delta) scale over this warp's rows, two keys per lane
-    for (int r = 0; r < 16; ++r) {
-      const int i = row0 + r;
-      const int qpos = q0 + i + q_offset;
-      const float li = lse_s[i], di = delta_s[i];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        const int key = kt * BT + c;
-        float s = Ss[i * T::LDS + c] * scale;
-        if (key >= Sk || (causal && key > qpos)) s = NEG;
-        const float p = expf(s - li);
-        const float ds = p * (dPs[i * T::LDS + c] - di) * scale;
-        dSs[i * T::LDP + c] = __float2bfloat16(ds);
-      }
-    }
-    __syncwarp();
-    accumulate_pb<D>(acc, dSs + row0 * T::LDP, Ks);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + L::QT);
+  copy_rows<D, L::BQ, NT>(Qs, q, b, h, q0, Sq, Hq);
+  copy_rows<D, L::BQ, NT>(dOs, dO, b, h, q0, Sq, Hq);
+  if (n_tiles > 0) {
+    copy_rows<D, BT, NT>(stage(0), k, b, hk, 0, Sk, Hkv);
+    copy_rows<D, BT, NT>(stage(0) + BT * LDH, v, b, hk, 0, Sk, Hkv);
   }
-  __syncthreads();  // the K/V..dS regions become the dq stage
-  store_rows<D>(acc, reinterpret_cast<float*>(smem + L::k), dq, b, h, q0, Sq,
-                Hq);
+  cp_async_commit();
+
+  // lse and delta of this lane's rows (0 past Sq: Q and dO are zero
+  // there, so dS is too)
+  float li[2], di[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int s = row + 8 * hh;
+    const int64_t at = static_cast<int64_t>(bh) * Sq + s;
+    li[hh] = s < Sq ? lse[at] : 0.f;
+    di[hh] = s < Sq ? delta[at] : 0.f;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  uint32_t qf[D / 16][4], df[D / 16][4];
+
+  cp_async_wait<0>();
+  __syncthreads();
+  att_load_q<bf16, D>(qf, Qs + warp * 16 * LDH);
+  att_load_q<bf16, D>(df, dOs + warp * 16 * LDH);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    // tile kt visible to every thread; every warp is done with tile
+    // kt - 1 (at kt = 0: with Q and dO), whose bytes the next copy refills
+    if (kt > 0) cp_async_wait<0>();
+    __syncthreads();
+    if (kt + 1 < n_tiles) {
+      copy_rows<D, BT, NT>(stage(kt + 1), k, b, hk, (kt + 1) * BT, Sk, Hkv);
+      copy_rows<D, BT, NT>(stage(kt + 1) + BT * LDH, v, b, hk,
+                           (kt + 1) * BT, Sk, Hkv);
+    }
+    cp_async_commit();
+    const bf16* Ks = stage(kt);
+    const bf16* Vs = Ks + BT * LDH;
+#pragma unroll 1
+    for (int ks = 0; ks < BT; ks += DQ_STRIP) {
+      const int k0 = kt * BT + ks;
+      if (w0 >= Sq || k0 > reach) break;  // no row of the warp sees it
+      float s[4][4], dp[4][4];
+      strip_scores<D>(s, dp, qf, df, Ks + ks * LDH, Vs + ks * LDH);
+      const bool edge = k0 + DQ_STRIP > Sk ||
+                        (causal && k0 + DQ_STRIP - 1 > w0 + q_offset);
+      // dS = p (dP - delta) scale on the C fragments: element e of n-tile
+      // j is row `row` (+8 for e >= 2), key k0 + 8 j + 2 t (+1 for odd e)
+      uint32_t af[2][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale;
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            if (key >= Sk ||
+                (causal && key > row + 8 * (e >> 1) + q_offset))
+              x = ATT_NEG;
+          }
+          const float p = expf(x - li[e >> 1]);
+          ds[e] = p * (dp[j][e] - di[e >> 1]) * scale;
+        }
+        af[j >> 1][(j & 1) * 2] = pack2(ds[0], ds[1]);
+        af[j >> 1][(j & 1) * 2 + 1] = pack2(ds[2], ds[3]);
+      }
+      // dq += dS K over the strip's keys
+      const bf16* kp = Ks + (ks + (lane & 15)) * LDH + (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < DQ_STRIP / 16; ++kk)
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          uint32_t bk[4];
+          ldsm_x4_trans(bk, kp + kk * 16 * LDH + dn * 16);
+          mma16816(acc[2 * dn], af[kk], bk[0], bk[1]);
+          mma16816(acc[2 * dn + 1], af[kk], bk[2], bk[3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the f32 sums, rounded once, straight from the accumulators
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int s = row + 8 * hh;
+    if (s >= Sq) continue;
+    bf16* out = dq + ((static_cast<int64_t>(b) * Sq + s) * Hq + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * t) =
+          pack2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -352,24 +325,6 @@ struct DkvLayout {
   static constexpr size_t bytes = stage0 + 2 * STAGE;
 };
 
-// one [rows, D] tile of a [B, S, H, D] tensor at (b, h) into smem rows of
-// ldm LDH, rows past S zero-filled
-template <int D, int ROWS>
-__device__ __forceinline__ void start_rows_copy(bf16* dst, const bf16* src,
-                                                int b, int h, int row0,
-                                                int S, int H) {
-  constexpr int VPR = D / 8;
-  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += NTHREADS) {
-    const int r = idx / VPR, c = idx - r * VPR;
-    const int s = row0 + r;
-    const bool ok = s < S;
-    const bf16* g =
-        ok ? src + ((static_cast<int64_t>(b) * S + s) * H + h) * D + c * 8
-           : src;
-    cp_async16(dst + r * DkvLayout<D>::LDH + c * 8, g, ok);
-  }
-}
-
 // stage: Q, dO, lse and delta of query rows [q0, q0 + 64) of head (b, h)
 template <int D>
 __device__ __forceinline__ void start_stage_copy(unsigned char* st,
@@ -379,10 +334,10 @@ __device__ __forceinline__ void start_stage_copy(unsigned char* st,
                                                  int h, int q0, int Sq,
                                                  int Hq) {
   using L = DkvLayout<D>;
-  start_rows_copy<D, DKV_QROWS>(reinterpret_cast<bf16*>(st + L::q), q, b, h,
-                                q0, Sq, Hq);
-  start_rows_copy<D, DKV_QROWS>(reinterpret_cast<bf16*>(st + L::dO), dO, b,
-                                h, q0, Sq, Hq);
+  copy_rows<D, DKV_QROWS, NTHREADS>(reinterpret_cast<bf16*>(st + L::q), q,
+                                    b, h, q0, Sq, Hq);
+  copy_rows<D, DKV_QROWS, NTHREADS>(reinterpret_cast<bf16*>(st + L::dO), dO,
+                                    b, h, q0, Sq, Hq);
   const int t = threadIdx.x;
   if (t < 2 * DKV_QROWS) {
     const int i = t % DKV_QROWS;
@@ -429,8 +384,8 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   const int per_head = max(n_qt - qt0, 0);
   const int n_it = rep * per_head;
 
-  start_rows_copy<D, BT>(Ks, k, b, hk, k0, Sk, Hkv);
-  start_rows_copy<D, BT>(Vs, v, b, hk, k0, Sk, Hkv);
+  copy_rows<D, BT, NTHREADS>(Ks, k, b, hk, k0, Sk, Hkv);
+  copy_rows<D, BT, NTHREADS>(Vs, v, b, hk, k0, Sk, Hkv);
   if (n_it > 0)
     start_stage_copy<D>(smem + L::stage0, q, dO, lse, delta, b, hk * rep,
                         qt0 * DKV_QROWS, Sq, Hq);
@@ -508,7 +463,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
           const int col = qs + 8 * j + 2 * (lane & 3) + (e & 1);
           const int qi = q0 + col;
           float sv = sacc[j][e] * scale;
-          if (key >= Sk || (causal && key > qi + q_offset)) sv = NEG;
+          if (key >= Sk || (causal && key > qi + q_offset)) sv = ATT_NEG;
           const float p = qi < Sq ? expf(sv - lse_s[col]) : 0.f;
           pv[e] = p;
           dsv[e] = p * (pacc[j][e] - delta_s[col]) * scale;
@@ -566,19 +521,22 @@ int opt_in(K kernel, size_t bytes, bool* done) {
 }
 
 template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* o,
-              const void* dO, const float* lse, void* dq, int B, int Sq,
-              int Sk, int Hq, int Hkv, float scale, int causal,
+int launch_dq(const void* q, const void* k, const void* v,
+              const float* delta, const void* dO, const float* lse, void* dq,
+              int B, int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
               cudaStream_t stream) {
-  constexpr size_t bytes = DqLayout<D>::bytes;
+  using L = DqLayout<D, DQ_WARPS>;
+  constexpr size_t bytes = L::bytes;
   static bool attr_set = false;
-  if (int e = opt_in(flash_bwd_dq_kernel<D>, bytes, &attr_set)) return e;
-  dim3 grid((Sq + BT - 1) / BT, B * Hq);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
+  if (int e = opt_in(flash_bwd_dq_kernel<D, DQ_WARPS>, bytes, &attr_set))
+    return e;
+  const int n_qt = (Sq + L::BQ - 1) / L::BQ;
+  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(B * Hq, n_qt);
+  flash_bwd_dq_kernel<D, DQ_WARPS><<<grid, DQ_WARPS * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dO), lse, static_cast<bf16*>(dq), Sq, Sk, Hq,
-      Hkv, scale, causal);
+      static_cast<const bf16*>(v), delta, static_cast<const bf16*>(dO), lse,
+      static_cast<bf16*>(dq), Sq, Sk, Hq, Hkv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -601,20 +559,22 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
 
 }  // namespace
 
+// delta from flash_attention_bwd_delta_launch
 extern "C" int flash_attention_bwd_dq_launch(
-    const void* q, const void* k, const void* v, const void* o,
+    const void* q, const void* k, const void* v, const void* delta,
     const void* dO, const void* lse, void* dq, int B, int Sq, int Sk, int Hq,
     int Hkv, int D, float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   switch (D) {
     case 64:
-      return launch_dq<64>(q, k, v, o, dO, l, dq, B, Sq, Sk, Hq, Hkv, scale,
+      return launch_dq<64>(q, k, v, dl, dO, l, dq, B, Sq, Sk, Hq, Hkv, scale,
                            causal, s);
     case 128:
-      return launch_dq<128>(q, k, v, o, dO, l, dq, B, Sq, Sk, Hq, Hkv, scale,
-                            causal, s);
+      return launch_dq<128>(q, k, v, dl, dO, l, dq, B, Sq, Sk, Hq, Hkv,
+                            scale, causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

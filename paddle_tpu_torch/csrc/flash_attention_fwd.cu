@@ -47,23 +47,6 @@ struct FwdLayout {
   static constexpr size_t bytes = stage0 + 4 * TILE;  // two stages of K, V
 };
 
-// rows [row0, row0 + ROWS) of a [B, S, H, D] tensor at (b, h) -> smem rows of
-// pitch D + 8 by cp.async, zero-filled past S
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, int b,
-                                          int h, int row0, int S, int H) {
-  constexpr int VPR = D / 8;
-  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += NT) {
-    const int r = idx / VPR, c = idx - r * VPR;
-    const int s = row0 + r;
-    const bool ok = s < S;
-    const bf16* g =
-        ok ? src + ((static_cast<int64_t>(b) * S + s) * H + h) * D + c * 8
-           : src;
-    cp_async16(dst + r * (D + 8) + c * 8, g, ok);
-  }
-}
-
 template <int D, int NW>
 __global__ void __launch_bounds__(NW * 32, 8 / NW)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,

@@ -47,8 +47,8 @@ SIGNATURES = {
                                        _I, _I, _F, _I, _P),
     },
     "flash_attention_bwd": {
-        # q, k, v, out, dO, lse, dq, B, Sq, Sk, Hq, Hkv, D, scale, causal,
-        # stream
+        # q, k, v, delta (f32 [B*Hq, Sq], the pre-pass's), dO, lse, dq, B,
+        # Sq, Sk, Hq, Hkv, D, scale, causal, stream
         "flash_attention_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, _I,
                                           _I, _I, _I, _I, _I, _F, _I, _P),
         # out, dO, delta, B, Sq, Hq, D, stream
@@ -61,10 +61,12 @@ SIGNATURES = {
                                            _P),
     },
     "swiglu": {
-        # x, wg, wu, out, M, K, F, stream
-        "swiglu_fwd_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
-        # x, wg, wu, dout, dh_g, dh_u, M, K, F, stream
-        "swiglu_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # x, wg, wu, out, M, K, F, grid (CTAs), stream
+        "swiglu_fwd_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # x, wg, wu, dout, dh_g, dh_u, M, K, F, grid (CTAs), stream
+        "swiglu_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # a [64, 64], b [64, 128] bf16, c [64, 128] f32, stream
+        "swiglu_wgmma_probe_launch": (_P, _P, _P, _P),
     },
     "paged_decode_attention": {
         # q, k_cache, v_cache, tables, lens, out, partials, counters, B,
@@ -225,7 +227,7 @@ def stream_ptr(device) -> int:
 # int8 pools counts under the function's name plus "_int8". The
 # weight-only matmuls also count their large-M route (the JAX package's
 # dequantize-then-matmul form for M > 64, no kernel of this package) under
-# the function's name plus "_large_m". The dkv kernel's delta pre-pass,
+# the function's name plus "_large_m". The backward kernels' delta pre-pass,
 # which has no JAX counterpart, counts under "flash_attention_bwd_delta"
 INT8_SUFFIX = "_int8"
 COUNTERS = ("rms_norm", "flash_attention_fwd", "flash_attention_bwd_dq",

@@ -18,7 +18,8 @@ query head to its KV head themselves.
   rowsum(dO * O) [B*Hq, Sq] f32 from a pre-pass in the same source
   (``flash_attention_bwd_delta``, plain twin
   ``flash_attention_bwd_delta_reference``), computed once per query row
-  where the JAX kernels recompute it per tile.
+  where the JAX kernels recompute it per tile. ``flash_attention_bwd``
+  launches the pre-pass once and hands its delta to both dq and dkv.
 
 ``flash_attention`` is differentiable whenever an input requires grad.
 """
@@ -85,13 +86,14 @@ def flash_attention_reference(q, k, v, causal: bool = False,
 
 
 def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool,
-                                  scale: float):
+                                  scale: float, delta=None):
     """The backward kernels' arithmetic on the gathered layout: q, out,
     do [BH, Sq, D], k, v [BKV, Sk, D], lse [BH, Sq] f32. s, p, dp, delta
     and dS in f32; p rounded to do's dtype before p^T dO, dS rounded to
     the input dtype before dS K and dS^T q (flash_attention.py:302-304,
-    345-356); delta from the forward's rounded `out`; sums in f32, each
-    gradient rounded once. dk / dv are summed over the GQA group in f32.
+    345-356); delta from the forward's rounded `out`, or the given
+    `delta` [BH, Sq] f32 (the pre-pass's); sums in f32, each gradient
+    rounded once. dk / dv are summed over the GQA group in f32.
     Returns (dq [BH, Sq, D], dk [BKV, Sk, D], dv [BKV, Sk, D])."""
     bh, sq, d = q.shape
     bkv, sk, _ = k.shape
@@ -106,7 +108,10 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool,
     p = torch.exp(s - lse[..., None])
     do32 = do.to(f32)
     dp = torch.einsum("bqd,bkd->bqk", do32, vr.to(f32))
-    delta = torch.sum(do32 * out.to(f32), dim=-1, keepdim=True)
+    if delta is None:
+        delta = torch.sum(do32 * out.to(f32), dim=-1, keepdim=True)
+    else:
+        delta = delta[..., None]
     ds = p * (dp - delta) * scale
     ds_r = ds.to(q.dtype).to(f32)
     dq = torch.einsum("bqk,bkd->bqd", ds_r, kr.to(f32))
@@ -183,29 +188,45 @@ def _bwd_operands(what, q, k, v, out, lse, do, causal):
     return dev, do
 
 
-def _plain_bwd(q, k, v, out, lse, do, causal, scale):
+def _plain_bwd(q, k, v, out, lse, do, causal, scale, delta=None):
     b = q.shape[0]
     dq, dk, dv = flash_attention_bwd_reference(
         _to_bh(q), _to_bh(k), _to_bh(v), _to_bh(out), lse, _to_bh(do),
-        causal, scale)
+        causal, scale, delta)
     return _from_bh(dq, b), _from_bh(dk, b), _from_bh(dv, b)
 
 
+def _given_delta(what, delta, q, dev):
+    """The pre-pass's delta handed to a backward kernel: f32 [B*Hq, Sq],
+    contiguous, on the kernels' device."""
+    b, sq, hq, _ = q.shape
+    if delta.device != dev or delta.dtype != torch.float32 \
+            or delta.shape != (b * hq, sq) or not delta.is_contiguous():
+        raise ValueError(f"{what}: delta must be contiguous float32 "
+                         f"[{b * hq}, {sq}] on {dev}, got {delta.dtype} "
+                         f"{list(delta.shape)} on {delta.device}")
+    return delta
+
+
 def flash_attention_bwd_dq(q, k, v, out, lse, do, causal: bool,
-                           scale: float) -> torch.Tensor:
+                           scale: float, delta=None) -> torch.Tensor:
     """dq [B, Sq, Hq, D] of attention in the [B, S, H, D] layout, from the
     forward's `out` and `lse` [B*Hq, Sq] f32 (the ``_bwd_dq_kernel``
-    counterpart)."""
+    counterpart). The kernel reads delta = rowsum(dO * O) [B*Hq, Sq] f32:
+    `delta` from ``flash_attention_bwd_delta``, or None to launch that
+    pre-pass here."""
     if q.device.type == "cpu":
-        return _plain_bwd(q, k, v, out, lse, do, causal, scale)[0]
+        return _plain_bwd(q, k, v, out, lse, do, causal, scale, delta)[0]
     what = "flash_attention_bwd_dq"
     dev, do = _bwd_operands(what, q, k, v, out, lse, do, causal)
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    delta = flash_attention_bwd_delta(out, do) if delta is None \
+        else _given_delta(what, delta, q, dev)
     dq = torch.empty_like(q)
     lib = _build.library("flash_attention_bwd")
     code = lib.flash_attention_bwd_dq_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), delta.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), b, sq, sk, hq, hkv,
         dh, float(scale), int(causal), _build.stream_ptr(dev))
     _build.check(lib, code, what)
@@ -221,9 +242,9 @@ def flash_attention_bwd_delta_reference(out, do):
 
 
 def flash_attention_bwd_delta(out, do) -> torch.Tensor:
-    """The dkv kernel's pre-pass: delta [B*Hq, Sq] f32 (the kernel on the
-    card, ``flash_attention_bwd_delta_reference`` on the CPU). `out` and
-    `do` are contiguous bf16 [B, Sq, Hq, D]."""
+    """The backward kernels' pre-pass: delta [B*Hq, Sq] f32 (the kernel
+    on the card, ``flash_attention_bwd_delta_reference`` on the CPU).
+    `out` and `do` are contiguous bf16 [B, Sq, Hq, D]."""
     if out.device.type == "cpu":
         return flash_attention_bwd_delta_reference(out, do)
     what = "flash_attention_bwd_delta"
@@ -246,20 +267,21 @@ def flash_attention_bwd_delta(out, do) -> torch.Tensor:
 
 
 def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal: bool,
-                            scale: float):
+                            scale: float, delta=None):
     """(dk, dv) [B, Sk, Hkv, D], summed over each kv head's group of
     query heads (the ``_bwd_dkv_kernel`` counterpart plus the caller's
-    group sum, flash_attention.py:436-440). On the card two launches: the
-    delta pre-pass, then the dkv kernel."""
+    group sum, flash_attention.py:436-440). The kernel reads the delta
+    pre-pass's result: `delta`, or None to launch the pre-pass here."""
     if q.device.type == "cpu":
-        return _plain_bwd(q, k, v, out, lse, do, causal, scale)[1:]
+        return _plain_bwd(q, k, v, out, lse, do, causal, scale, delta)[1:]
     what = "flash_attention_bwd_dkv"
     dev, do = _bwd_operands(what, q, k, v, out, lse, do, causal)
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if -(-sk // 64) > 65535:
         raise ValueError(f"{what}: Sk {sk} exceeds the grid")
-    delta = flash_attention_bwd_delta(out, do)
+    delta = flash_attention_bwd_delta(out, do) if delta is None \
+        else _given_delta(what, delta, q, dev)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.library("flash_attention_bwd")
@@ -274,13 +296,16 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal: bool,
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool, scale: float):
-    """(dq, dk, dv) in the [B, S, H, D] layout: the two backward kernels
-    on the card, ``flash_attention_bwd_reference`` on the CPU."""
+    """(dq, dk, dv) in the [B, S, H, D] layout: the delta pre-pass once,
+    then the two backward kernels on the card, both reading its delta;
+    the pre-pass's plain twin and ``flash_attention_bwd_reference`` on
+    the CPU."""
+    delta = flash_attention_bwd_delta(out, do.contiguous())
     if q.device.type == "cpu":
-        return _plain_bwd(q, k, v, out, lse, do, causal, scale)
-    dq = flash_attention_bwd_dq(q, k, v, out, lse, do, causal, scale)
+        return _plain_bwd(q, k, v, out, lse, do, causal, scale, delta)
+    dq = flash_attention_bwd_dq(q, k, v, out, lse, do, causal, scale, delta)
     return (dq,) + flash_attention_bwd_dkv(q, k, v, out, lse, do, causal,
-                                           scale)
+                                           scale, delta)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -1,9 +1,10 @@
 """Fused SwiGLU: silu(x @ Wg) * (x @ Wu) (counterpart of
 paddle_tpu/kernels/swiglu.py).
 
-- ``swiglu_fwd`` / ``swiglu_bwd`` launch the hand-written CUDA kernels of
-  ``csrc/swiglu.cu`` (the ``_swiglu_fwd_kernel`` / ``_swiglu_bwd_kernel``
-  counterparts) for CUDA tensors and run ``swiglu_fwd_reference`` /
+- ``swiglu_fwd`` / ``swiglu_bwd`` launch the hand-written CUDA kernel of
+  ``csrc/swiglu.cu`` (warpgroup MMA fed by TMA; the ``_swiglu_fwd_kernel``
+  / ``_swiglu_bwd_kernel`` counterparts, one template) on the grid of
+  ``swiglu_grid`` for CUDA tensors and run ``swiglu_fwd_reference`` /
   ``swiglu_bwd_reference`` for CPU tensors. The kernels take bf16 only
   and raise otherwise; a CUDA call never falls back to the plain version.
 - The custom vjp (JAX ``_swiglu_fused``) is a ``torch.autograd.Function``:
@@ -24,10 +25,24 @@ import torch.nn.functional as F
 from . import _build
 
 _BLOCK = 512  # the JAX kernels' tile edge, which the routing reads
+# csrc/swiglu.cu's output tile edge (BM = BN): a CTA owns 128 x 128 outputs
+SWIGLU_TILE = 128
 
 
 def _aligned(m: int, f: int, k: int) -> bool:
     return m % _BLOCK == 0 and f % _BLOCK == 0 and k % _BLOCK == 0
+
+
+def swiglu_grid(m: int, k: int, f: int, n_sms: int,
+                what: str = "swiglu") -> int:
+    """CTAs of the SwiGLU kernel's persistent grid for x [m, k], W [k, f]
+    on a card of `n_sms` SMs: one a SM, each walking output tiles, and no
+    more than there are tiles. Refuses shapes the routing does not send to
+    the kernel."""
+    if not _aligned(m, f, k):
+        raise ValueError(f"{what}: M, K and F must be multiples of "
+                         f"{_BLOCK}, got M {m}, K {k}, F {f}")
+    return min((m // SWIGLU_TILE) * (f // SWIGLU_TILE), n_sms)
 
 
 def _swiglu_ref(x, wg, wu):
@@ -69,12 +84,11 @@ def _check_cuda(what, x2d, wg, wu, *more):
     if wg.shape != (k, f) or wu.shape != (k, f):
         raise ValueError(f"{what}: wg / wu must be [{k}, F], got "
                          f"{list(wg.shape)} / {list(wu.shape)}")
-    if not _aligned(m, f, k):
-        raise ValueError(f"{what}: M, K and F must be multiples of "
-                         f"{_BLOCK}, got M {m}, K {k}, F {f}")
+    grid = swiglu_grid(m, k, f, torch.cuda.get_device_properties(
+        dev).multi_processor_count, what)
     if any(t.data_ptr() % 16 for t in (x2d, wg, wu, *more)):
         raise ValueError(f"{what}: operands must be 16-byte aligned")
-    return dev, m, k, f
+    return dev, m, k, f, grid
 
 
 def swiglu_fwd(x2d, wg, wu):
@@ -83,12 +97,12 @@ def swiglu_fwd(x2d, wg, wu):
     if x2d.device.type == "cpu":
         return swiglu_fwd_reference(x2d, wg, wu)
     what = "swiglu_fwd"
-    dev, m, k, f = _check_cuda(what, x2d, wg, wu)
+    dev, m, k, f, grid = _check_cuda(what, x2d, wg, wu)
     out = torch.empty((m, f), dtype=x2d.dtype, device=dev)
     lib = _build.library("swiglu")
     code = lib.swiglu_fwd_launch(x2d.data_ptr(), wg.data_ptr(),
                                  wu.data_ptr(), out.data_ptr(), m, k, f,
-                                 _build.stream_ptr(dev))
+                                 grid, _build.stream_ptr(dev))
     _build.check(lib, code, what)
     _build.LAUNCHES[what] += 1
     return out
@@ -101,7 +115,7 @@ def swiglu_bwd(x2d, wg, wu, dout):
         return swiglu_bwd_reference(x2d, wg, wu, dout)
     what = "swiglu_bwd"
     dout = dout.contiguous()
-    dev, m, k, f = _check_cuda(what, x2d, wg, wu, dout)
+    dev, m, k, f, grid = _check_cuda(what, x2d, wg, wu, dout)
     if dout.shape != (m, f):
         raise ValueError(f"{what}: dout must be [{m}, {f}], got "
                          f"{list(dout.shape)}")
@@ -111,7 +125,7 @@ def swiglu_bwd(x2d, wg, wu, dout):
     code = lib.swiglu_bwd_launch(x2d.data_ptr(), wg.data_ptr(),
                                  wu.data_ptr(), dout.data_ptr(),
                                  dh_g.data_ptr(), dh_u.data_ptr(), m, k, f,
-                                 _build.stream_ptr(dev))
+                                 grid, _build.stream_ptr(dev))
     _build.check(lib, code, what)
     _build.LAUNCHES[what] += 1
     return dh_g, dh_u

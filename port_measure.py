@@ -5,7 +5,8 @@ variants of the decode, flash and paged prefill kernels.
 
     python3 port_measure.py kernels TREE LABEL OUT.json
     python3 port_measure.py e2e TREE LABEL
-    python3 port_measure.py variants [decode] [dkv] [fwd] [prefill]
+    python3 port_measure.py variants [decode] [dkv] [fwd] [prefill] [swiglu]
+        [dq]
 
 TREE is a directory holding `paddle_tpu_torch/` and `chip_smoke.py` (this
 checkout is `.`; an earlier commit unpacks with `git archive COMMIT
@@ -20,23 +21,30 @@ different hosts differ by more than the kernels do.
   and int8 pools) at phase 1's cases and at phase 4's window, cold and
   warm; the flash forward at phase 1's serving case and bench.py's
   training shape; the flash backward dq / dkv at bench.py's shape and at
-  Llama-3's heads. Appends {LABEL: [times]} to OUT.json.
+  Llama-3's heads (dq as the kernel alone: a tree whose dq wrapper takes
+  the pre-pass's `delta` gets it handed in); the SwiGLU kernels forward
+  and backward at phase 14's M 8192, K 4096, F 14336. Appends {LABEL:
+  [times]} to OUT.json.
 - e2e: the decode wrappers' host time per call, then chip_smoke phases 2
   (the engine), 3 (the prefix cache), 4 (the unified step), 9
-  (build_quant_generate over int4 weights) and 13 (the Llama-1B train
-  step), with their own logs.
-- variants (all four groups unless some are named): this checkout's
+  (build_quant_generate over int4 weights), 13 (the Llama-1B train step)
+  and 14 (the fused SwiGLU route on Llama-3-8B widths), with their own
+  logs.
+- variants (all six groups unless some are named): this checkout's
   decode body rebuilt with four warps, and with
   its P V partial sums capped to fit three blocks per SM, against the
   built eight warps, each at 4, 8 and 16 blocks per SM by the split rule
   (chip_smoke's gates apply); the dkv kernel rebuilt with q tiles of 32
   rows against 64; the flash forward rebuilt with 128-row q tiles (eight
   warps) against 64; paged prefill with its cached phase unsplit against
-  the split plan.
+  the split plan; the SwiGLU kernel rebuilt with a ring of 3 stages
+  against 4, each on the persistent grid and on one CTA a tile; the dq
+  kernel rebuilt with 128-row q tiles (eight warps) against 64.
 """
 from __future__ import annotations
 
 import ctypes
+import inspect
 import json
 import os
 import re
@@ -79,6 +87,8 @@ PREFILL_CASES = [
 # case first and bench.py's training shape last
 FLASH_CASES = [(4, 512, 512, 32, 8), (1, 300, 300, 32, 8),
                (2, 200, 333, 32, 8), (4, 2048, 2048, 16, 4)]
+# SwiGLU (M, K, F): phase 14's MLP, Llama-3-8B at batch 4 x 2048
+SWIGLU_SHAPE = (8192, 4096, 14336)
 
 
 def prefill_operands(b, tn, cached, new, w, q8, seed=0):
@@ -136,7 +146,9 @@ def kernels(tree: str, label: str, out_path: str) -> None:
     from paddle_tpu_torch.kernels.decode_attention import (
         decode_attention, gqa_decode_attention, paged_decode_attention)
     from paddle_tpu_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+        flash_attention, flash_attention_bwd_delta, flash_attention_bwd_dkv,
+        flash_attention_bwd_dq)
+    from paddle_tpu_torch.kernels.swiglu import swiglu_bwd, swiglu_fwd
     from paddle_tpu_torch.models.llama import quantize_kv_pages
 
     res = {}
@@ -213,10 +225,23 @@ def kernels(tree: str, label: str, out_path: str) -> None:
         out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
         args = (q, k, v, out, lse, do, True, 128 ** -0.5)
         case = f"B{b} S{s} Hq{hq} Hkv{hkv}"
-        res["dq " + case] = time_ms(lambda: flash_attention_bwd_dq(*args),
-                                    iters=10)
+        kw = {}
+        if "delta" in inspect.signature(flash_attention_bwd_dq).parameters:
+            kw["delta"] = flash_attention_bwd_delta(out, do)
+        res["dq " + case] = time_ms(
+            lambda: flash_attention_bwd_dq(*args, **kw), iters=10)
         res["dkv " + case] = time_ms(lambda: flash_attention_bwd_dkv(*args),
                                      iters=10)
+    m, k, f = SWIGLU_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(f)
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    wg, wu = ((torch.randn(k, f, generator=g, device="cuda") * k ** -0.5)
+              .to(torch.bfloat16) for _ in range(2))
+    dout = torch.randn(m, f, generator=g, device="cuda").to(torch.bfloat16)
+    res[f"swiglu fwd M{m} K{k} F{f}"] = time_ms(
+        lambda: swiglu_fwd(x, wg, wu), iters=10)
+    res[f"swiglu bwd M{m} K{k} F{f}"] = time_ms(
+        lambda: swiglu_bwd(x, wg, wu, dout), iters=10)
     print(label, json.dumps(res, indent=1), flush=True)
     prev = json.load(open(out_path)) if os.path.exists(out_path) else {}
     prev.setdefault(label, []).append(res)
@@ -272,6 +297,8 @@ def e2e(tree: str, label: str) -> None:
     del p4, params
     cs._release()
     cs.phase_train()
+    cs._release()
+    cs.phase_train_swiglu()
     print(f"[{label}] done", flush=True)
 
 
@@ -310,11 +337,12 @@ def _rebuilt(_build, tmp: str, tag: str, edits, names):
 
 
 def variants(*groups: str) -> None:
-    groups = set(groups or ("decode", "dkv", "fwd", "prefill"))
+    names = ("decode", "dkv", "fwd", "prefill", "swiglu", "dq")
+    groups = set(groups or names)
     cs, _build = _import_tree(".")
     tmp = tempfile.mkdtemp()
     g = torch.Generator(device="cuda").manual_seed(16)
-    for name in ("decode", "dkv", "fwd", "prefill"):
+    for name in names:
         if name in groups:
             globals()["_variants_" + name](cs, _build, tmp, g)
 
@@ -459,6 +487,97 @@ def _variants_prefill(cs, _build, tmp, g) -> None:
                       f"{device_ms(lambda: fn(*ops), 'paged_prefill'):.4f} "
                       f"ms warm (profiler, kernel alone)", flush=True)
             pp.prefill_split_plan = planned
+
+
+def _variants_swiglu(cs, _build, tmp, g) -> None:
+    from paddle_tpu_torch.kernels.swiglu import (SWIGLU_TILE, swiglu_bwd,
+                                                 swiglu_fwd, swiglu_grid)
+
+    libs = {"4 stages (built)": _build.library("swiglu"),
+            "3 stages": _rebuilt(
+                _build, tmp, "swiglu3", [("swiglu.cu",
+                                          "constexpr int STAGES = 4;",
+                                          "constexpr int STAGES = 3;")],
+                ("swiglu",))["swiglu"]}
+    m, k, f = SWIGLU_SHAPE
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    wg, wu = ((torch.randn(k, f, generator=g, device="cuda") * k ** -0.5)
+              .to(torch.bfloat16) for _ in range(2))
+    dout = torch.randn(m, f, generator=g, device="cuda").to(torch.bfloat16)
+    want = (swiglu_fwd(x, wg, wu),) + swiglu_bwd(x, wg, wu, dout)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, lib in libs.items():
+        for persistent, grid in (
+                (True, swiglu_grid(m, k, f, n_sms)),
+                (False, (m // SWIGLU_TILE) * (f // SWIGLU_TILE))):
+            outs = [torch.empty_like(want[0]) for _ in range(3)]
+
+            def fwd():
+                code = lib.swiglu_fwd_launch(
+                    x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+                    outs[0].data_ptr(), m, k, f, grid, stream)
+                if code:
+                    raise RuntimeError(f"swiglu fwd {shape}: error {code}")
+
+            def bwd():
+                code = lib.swiglu_bwd_launch(
+                    x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+                    dout.data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+                    m, k, f, grid, stream)
+                if code:
+                    raise RuntimeError(f"swiglu bwd {shape}: error {code}")
+
+            fwd()
+            bwd()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in zip(outs, want))
+            print(f"[variants] swiglu M{m} K{k} F{f}, {shape}, grid {grid} "
+                  f"({'persistent' if persistent else 'a CTA a tile'}): "
+                  f"fwd {cs.time_ms(fwd, iters=10):.4f} ms, bwd "
+                  f"{cs.time_ms(bwd, iters=10):.4f} ms, bitwise equal to "
+                  f"the built kernel: {same}", flush=True)
+
+
+def _variants_dq(cs, _build, tmp, g) -> None:
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd_delta, flash_attention_bwd_dq)
+
+    dq = {"64-row q tiles, four warps (built)":
+              _build.library("flash_attention_bwd"),
+          "128-row q tiles, eight warps": _rebuilt(
+              _build, tmp, "dq8", [("flash_attention_bwd.cu",
+                                    "constexpr int DQ_WARPS = 4;",
+                                    "constexpr int DQ_WARPS = 8;")],
+              ("flash_attention_bwd",))["flash_attention_bwd"]}
+    for b, s, hq, hkv in ((4, 2048, 16, 4), (1, 2048, 32, 8)):
+        q, do = (torch.randn(b, s, hq, 128, generator=g, device="cuda",
+                             dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, s, hkv, 128, generator=g, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        delta = flash_attention_bwd_delta(out, do)
+        want = flash_attention_bwd_dq(q, k, v, out, lse, do, True,
+                                      128 ** -0.5, delta=delta)
+        for shape, lib in dq.items():
+            got = torch.empty_like(q)
+
+            def run():
+                code = lib.flash_attention_bwd_dq_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    delta.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    got.data_ptr(), b, s, s, hq, hkv, 128, 128 ** -0.5, 1,
+                    torch.cuda.current_stream().cuda_stream)
+                if code:
+                    raise RuntimeError(f"dq {shape}: CUDA error {code}")
+
+            run()
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            ms = cs.time_ms(run, iters=10)
+            print(f"[variants] dq kernel alone B{b} S{s} Hq{hq} Hkv{hkv}, "
+                  f"{shape}: {ms:.4f} ms, bitwise equal to the built kernel: "
+                  f"{same}", flush=True)
 
 
 def device_ms(fn, kernel: str, n: int = 20) -> float:

@@ -794,10 +794,17 @@ def test_flash_attention_backward(dev, b, sq, sk, hq, hkv, d, causal):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     assert torch.equal(dq, flash_attention_bwd_dq(*bf[:3], out, lse, bf[3],
                                                   causal, scale))
-    # the dkv kernel's delta pre-pass against its plain twin (f32, the
-    # same products summed in another order)
+    # the backward kernels' delta pre-pass against its plain twin (f32,
+    # the same products summed in another order)
     delta = _launched("flash_attention_bwd_delta",
                       lambda: flash_attention_bwd_delta(out, bf[3]))
+    # dq and dkv with the pre-pass's delta handed in equal the calls that
+    # launch it themselves, bitwise
+    assert torch.equal(dq, flash_attention_bwd_dq(
+        *bf[:3], out, lse, bf[3], causal, scale, delta=delta))
+    assert all(torch.equal(a, c) for a, c in zip(
+        (dk, dv), flash_attention_bwd_dkv(*bf[:3], out, lse, bf[3], causal,
+                                          scale, delta=delta)))
     torch.testing.assert_close(
         delta, flash_attention_bwd_delta_reference(out, bf[3]), atol=1e-4,
         rtol=1e-5)
@@ -814,24 +821,93 @@ def test_flash_attention_backward(dev, b, sq, sk, hq, hkv, d, causal):
         _no_worse_than_plain(got, p, r, name)
 
 
-@pytest.mark.parametrize("m,k,f", [(512, 512, 512), (1024, 2048, 1536),
-                                   (512, 4096, 14336)])
-def test_swiglu_kernels(dev, m, k, f):
+def _moved(got, ref):
+    """Where two [M, F] results differ beyond one bf16 step: the count and
+    the first rows and columns, to tell a swizzle or transpose fault from
+    noise."""
+    g, r = got.float(), ref.float()
+    bad = (g - r).abs() > 2.0 ** -7 * r.abs().clamp(min=1.0)
+    rows = bad.any(1).nonzero().flatten()[:8].tolist()
+    cols = bad.any(0).nonzero().flatten()[:8].tolist()
+    return int(bad.sum()), rows, cols
+
+
+@pytest.mark.parametrize("m,k,f,one_hot", [
+    pytest.param(512, 512, 512, False, id="512-512-512"),
+    pytest.param(1024, 2048, 1536, False, id="1024-2048-1536"),
+    pytest.param(512, 4096, 14336, False, id="512-4096-14336"),
+    pytest.param(512, 512, 512, True, id="one-hot-512-512-512"),
+    pytest.param(1024, 4096, 1536, True, id="one-hot-1024-4096-1536")])
+def test_swiglu_kernels(dev, m, k, f, one_hot):
+    """Both directions within one bf16 step of their plain versions, and
+    two launches bitwise equal. With `one_hot`, row i of x picks k = (7 i
+    + 3) mod K, so g and u of row i are rows of Wg and Wu and every output
+    has a known source: a fault in the swizzle, the MN-major descriptor or
+    the accumulator layout shows as the rows and columns it moved."""
     from paddle_tpu_torch.kernels.swiglu import (swiglu_bwd,
                                                  swiglu_bwd_reference,
                                                  swiglu_fwd,
                                                  swiglu_fwd_reference)
 
-    g = torch.Generator(device=dev).manual_seed(12)
-    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
-    wg, wu = ((torch.randn(k, f, generator=g, device=dev) * k ** -0.5).to(
+    g = torch.Generator(device=dev).manual_seed(14 if one_hot else 12)
+    if one_hot:
+        pick = (7 * torch.arange(m, device=dev) + 3) % k
+        x = torch.zeros(m, k, device=dev, dtype=torch.bfloat16)
+        x[torch.arange(m, device=dev), pick] = 1
+        scale = 1.0
+    else:
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        scale = k ** -0.5
+    wg, wu = ((torch.randn(k, f, generator=g, device=dev) * scale).to(
         torch.bfloat16) for _ in range(2))
     dout = torch.randn(m, f, generator=g, device=dev).to(torch.bfloat16)
     out = _launched("swiglu_fwd", lambda: swiglu_fwd(x, wg, wu))
-    _within_one_bf16_step(out, swiglu_fwd_reference(x, wg, wu))
+    ref = swiglu_fwd_reference(x, wg, wu)
+    assert _moved(out, ref)[0] == 0, _moved(out, ref)
     dh = _launched("swiglu_bwd", lambda: swiglu_bwd(x, wg, wu, dout))
     for got, ref in zip(dh, swiglu_bwd_reference(x, wg, wu, dout)):
-        _within_one_bf16_step(got, ref)
+        assert _moved(got, ref)[0] == 0, _moved(got, ref)
+    # deterministic: two launches bitwise equal, both directions
+    assert torch.equal(out, swiglu_fwd(x, wg, wu))
+    assert all(torch.equal(a, c) for a, c in zip(dh, swiglu_bwd(x, wg, wu,
+                                                                 dout)))
+
+
+def test_swiglu_wgmma_probe(dev):
+    """One 64 x 128 x 64 tile through the kernel's TMA boxes, descriptors
+    and wgmma products against torch.matmul (the test's oracle only; f32
+    sums of bf16 products)."""
+    lib = _build.library("swiglu")
+    g = torch.Generator(device=dev).manual_seed(15)
+    a = torch.randn(64, 64, generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn(64, 128, generator=g, device=dev).to(torch.bfloat16)
+    c = torch.empty(64, 128, device=dev)
+    code = lib.swiglu_wgmma_probe_launch(a.data_ptr(), b.data_ptr(),
+                                         c.data_ptr(), _build.stream_ptr(dev))
+    _build.check(lib, code, "swiglu_wgmma_probe")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(c, a.float() @ b.float(), atol=1e-3,
+                               rtol=1e-4)
+
+
+def test_swiglu_persistent_grid_equals_a_cta_a_tile(dev):
+    """The kernel on the wrapper's persistent grid (CTAs walking several
+    tiles), on one CTA a tile and on 7 CTAs gives bitwise-equal results."""
+    from paddle_tpu_torch.kernels.swiglu import swiglu_fwd
+
+    m, k, f = 2048, 512, 2048
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    wg, wu = ((torch.randn(k, f, generator=g, device=dev) * k ** -0.5).to(
+        torch.bfloat16) for _ in range(2))
+    want = swiglu_fwd(x, wg, wu)
+    lib = _build.library("swiglu")
+    for grid in ((m // 128) * (f // 128), 7):
+        out = torch.empty_like(want)
+        _build.check(lib, lib.swiglu_fwd_launch(
+            x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr(), m,
+            k, f, grid, _build.stream_ptr(dev)), "swiglu_fwd")
+        assert torch.equal(out, want), grid
 
 
 def test_training_wrappers_refuse_what_they_do_not_take(dev):
@@ -901,7 +977,7 @@ def test_tiny_bf16_train_step_kernels_vs_plain(dev):
 def test_train_step_launch_counts(dev, recompute):
     """One make_train_step step of the 2-layer model: each forward kernel
     once per layer (twice with recompute), each backward kernel once (dq,
-    dkv and dkv's delta pre-pass), rms_norm twice per layer plus the final
+    dkv and their delta pre-pass), rms_norm twice per layer plus the final
     norm."""
     from paddle_tpu_torch.models import LlamaPretrainingCriterion
     from paddle_tpu_torch.optimizer import AdamW
