@@ -90,6 +90,31 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
+// four int8 weights (one 32-bit word, k ascending from the low byte) ->
+// two packed pairs of T holding them exactly: lo = (byte 0, byte 1), hi =
+// (byte 2, byte 3). Each byte goes through the f32 form of the
+// magic-number trick (2^23 + (b ^ 128), less 2^23 + 128), exact since
+// |b| <= 128. An integer of at most 8 significant bits has zero low 16
+// bits in f32, so bf16 pairs are the f32 words' high halves (one byte
+// permute, no conversion); f16 pairs take one packing conversion.
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void int8_word_pairs(uint32_t w, uint32_t* lo,
+                                                uint32_t* hi) {
+  const uint32_t v = w ^ 0x80808080u;                // offset binary
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440u + i)) -
+           8388736.f;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    *lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632u);
+    *hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u);
+  } else {
+    *lo = pack2<T>(f[0], f[1]);
+    *hi = pack2<T>(f[2], f[3]);
+  }
+}
+
 // a packed pair of T -> its two values in f32
 template <typename T = __nv_bfloat16>
 __device__ __forceinline__ float2 unpack2(uint32_t v) {

@@ -108,14 +108,7 @@ __device__ __forceinline__ void int8_pairs(const uint4& w0, const uint4& w1,
                                            int s, uint32_t* lo,
                                            uint32_t* hi) {
   const uint32_t words[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-  const uint32_t v = words[s] ^ 0x80808080u;         // offset binary
-  float f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)     // 2^23 + u as f32, less 2^23 + 128
-    f[i] = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440u + i)) -
-           8388736.f;
-  *lo = pack2<T>(f[0], f[1]);
-  *hi = pack2<T>(f[2], f[3]);
+  int8_word_pairs<T>(words[s], lo, hi);
 }
 
 template <typename T, bool INT4>

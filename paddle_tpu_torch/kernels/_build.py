@@ -115,6 +115,9 @@ SIGNATURES = {
         # host arrays of the operand pointers and of the int dims (their
         # order is in csrc/decode_megakernel.cu), scale, eps, stream
         "decode_megakernel_launch": (_P, _P, _F, _F, _P),
+        # the launch's ints, out int64 [4]: grid (resident blocks), shared
+        # memory bytes, the partial floats and counters of its plan
+        "decode_megakernel_resident": (_P, _P),
     },
 }
 

@@ -42,13 +42,21 @@ CUDA tensors launch ``csrc/decode_megakernel.cu`` (one persistent
 kernel per call; counters ``decode_layer_megakernel``,
 ``decode_layer_megakernel_full`` and ``decode_layers_megakernel``, each
 with ``_int8`` for int8 pools); CPU tensors run the ``*_reference``
-plain versions. ``residual=False`` and ``quantize_out=True`` serve the
-JAX package's tensor-parallel decode and are not ported (ROADMAP.md
-section 1 item 5).
+plain versions. The kernel's shared memory (``smem_bytes``, exact, for
+the planner on meta tensors) is computed here from the shapes; the
+launch's grid, the GEMV phases' K splits and the scratch they need are
+the card's (``card_geometry``). ``megakernel_attention_pieces`` (the
+pieces phase 2 cuts from lens over the grid) and
+``split_attend_current_reference`` (its split-and-merge attention) are
+the plain twins of the kernel's phase 2: the CPU tests hold them against
+the unsplit plain attention and JAX; the wrappers never call them.
+``residual=False`` and ``quantize_out=True`` serve the JAX package's
+tensor-parallel decode and are not ported (ROADMAP.md section 1 item 5).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -57,15 +65,24 @@ import torch.nn.functional as F
 
 from . import _build
 from .rms_norm import rms_norm_reference
-from .rope import rope_freqs
 
 _NEG_INF = -1e30
 
-# the CUDA kernel's own limits (csrc/decode_megakernel.cu)
+# the CUDA kernel's own limits and layout (csrc/decode_megakernel.cu): the
+# planner sizes its shared memory on meta tensors, with no card
 CARD_MAX_ROWS = 16               # rows of h one launch takes (MAXB)
 CARD_SMEM_BYTES = 232448         # shared memory one block may use (H100)
-CARD_K_CHUNK = 1024              # input columns staged per GEMV step
 CARD_DTYPES = (torch.float32, torch.bfloat16)
+_THREADS = 256
+_RING_STAGES = 4                 # STAGES: the weight ring's depth
+_MISC_BYTES = 512
+# the GEMV tile of each weight kind (`Geo`), as far as shared memory
+# needs it: output channels a tile, k a ring stage, staged rows of a
+# stage and their bytes (each padded by 16), warps sharing a tile's
+# channels along k
+_GEO = {"int8": dict(tn=16, tk=1024, rows=16, row=1024, kg=8),
+        torch.bfloat16: dict(tn=64, tk=128, rows=128, row=128, kg=2),
+        torch.float32: dict(tn=64, tk=64, rows=64, row=256, kg=2)}
 
 _TP_ONLY = ("is the tensor-parallel decode seam, not ported yet "
             "(ROADMAP.md section 1 item 5)")
@@ -90,20 +107,27 @@ def _unpack_weight(w, n_out, n_in):
     return w, None, False
 
 
+@functools.lru_cache(maxsize=256)
 def _card_reason(b, H, F, nh, nkv, dh, bs, quant_w, quant_kv, dtype):
     """None when the CUDA kernel takes these shapes, else the card's
-    limit they exceed (the kernel's shared memory is sized per launch)."""
+    limit they exceed (the kernel's shared memory is sized per launch).
+    Kept per shape: the engine launches one shape again and again."""
     if dtype not in CARD_DTYPES:
         return (f"card limit: the CUDA megakernel takes float32 or "
                 f"bfloat16 activations, got {dtype}")
     if b > CARD_MAX_ROWS:
         return (f"card limit: the CUDA megakernel takes at most "
                 f"{CARD_MAX_ROWS} rows per launch, got {b}")
-    if quant_w and any(k % 4 for k in (H, nh * dh, F or 4)):
-        return ("card limit: int8 weights need every contraction width "
-                f"(H {H}, Hq*D {nh * dh}, F {F}) to be a multiple of 4 "
-                "(4-byte weight loads)")
-    smem = smem_bytes(b, nh // nkv, dh, bs, quant_kv, dtype)
+    unit = 16 if quant_w else 16 // dtype.itemsize
+    if any(k % unit for k in (H, nh * dh, F or unit)):
+        kind = "int8" if quant_w else str(dtype).replace("torch.", "")
+        return (f"card limit: {kind} weights need every contraction width "
+                f"(H {H}, Hq*D {nh * dh}, F {F}) to be a multiple of "
+                f"{unit} (16-byte weight and input copies)")
+    if dh % 16 or dh > 256:
+        return (f"card limit: the CUDA megakernel takes head_dim a "
+                f"multiple of 16 up to 256, got {dh}")
+    smem = smem_bytes(b, H, nh, nkv, dh, bs, quant_w, quant_kv, dtype)
     if smem > CARD_SMEM_BYTES:
         return (f"card limit: the CUDA megakernel needs {smem} bytes of "
                 f"shared memory per block, over the card's "
@@ -111,17 +135,68 @@ def _card_reason(b, H, F, nh, nkv, dh, bs, quant_w, quant_kv, dtype):
     return None
 
 
-def smem_bytes(b, group, dh, bs, quant_kv, dtype) -> int:
-    """Dynamic shared memory of one block: the larger of the GEMV phases'
-    (staged input chunk, warp partials, outputs) and the attention
-    phase's (f32 q / acc / scores / current k, v, two page tiles), plus
-    room for the block's static shared memory and alignment."""
-    it = torch.empty((), dtype=dtype).element_size()
-    kv_it = 1 if quant_kv else it
-    gemv = b * CARD_K_CHUNK * it + 8 * b * 32 * 4 + b * 32 * 4 + 64
-    attn = 4 * (2 * group * dh + group * bs + 4 * group + 2 * dh + 64) \
-        + 2 * bs * dh * kv_it
-    return int(max(gemv, attn) + 1024)
+def _geometry(quant_w, dtype):
+    return _GEO["int8" if quant_w else dtype]
+
+
+def _attn_bytes(group, dh, st, kv_itemsize) -> int:
+    """Phase 2's shared memory (`AttnLayout`): f32 q, acc per key split of
+    P V, scores, m / l / corr, the merge flag; a ring of four stages of
+    K and V tiles (two on f32 pools); the current token's k, v, weights
+    and a block reduction."""
+    lpr = 1
+    while lpr < dh // 8:
+        lpr *= 2
+    rows = _THREADS // lpr
+    key_splits = 1 if group >= rows else rows // group
+    stages = 2 if kv_itemsize == 4 else 4
+    f32 = 4 * (group * dh * (1 + key_splits) + group * st + 3 * group + 1)
+    ring = -(-f32 // 16) * 16 + 2 * stages * st * dh * kv_itemsize
+    return -(-(ring + 4 * (2 * dh + group + 8)) // 16) * 16
+
+
+@functools.lru_cache(maxsize=256)
+def smem_bytes(b, H, nh, nkv, dh, bs, quant_w, quant_kv, dtype) -> int:
+    """Dynamic shared memory of one block (`Layout`), exact: a misc area,
+    the weight ring, the k groups' partial tiles, and the larger of the
+    staged phase input (b rows of max(H, Hq*D) padded to a ring stage's k)
+    and phase 2's area."""
+    from .decode_attention import decode_tile_rows
+
+    geo = _geometry(quant_w, dtype)
+    it = dtype.itemsize
+    ring = _RING_STAGES * geo["rows"] * (geo["row"] + 16)
+    red = geo["kg"] * b * geo["tn"] * 4
+    kp = -(-max(H, nh * dh) // geo["tk"]) * geo["tk"]
+    xpad = 4 if dtype == torch.float32 else (16 if quant_w else 8)
+    x = b * (kp + xpad) * it
+    attn = _attn_bytes(nh // nkv, dh, decode_tile_rows(bs),
+                       1 if quant_kv else it)
+    return int(_MISC_BYTES + ring + red + max(x, attn))
+
+
+def megakernel_attention_pieces(lens, W, bs, nkv, blocks):
+    """Phase 2's pieces, as the kernel cuts them from lens over a grid of
+    `blocks`: every (row, kv head)'s tiles (decode_tile_rows(bs)
+    positions each, the row's ceil(lens / rows) capped at W pages) in one
+    list, row-major with a row's heads one after another; block i of the
+    first n = min(blocks, T) takes tiles [i T / n, (i + 1) T / n). Returns
+    {(row, head): [tile boundaries]}, 0 first and the row's tile count
+    last ([0, 0] for a row with no position)."""
+    from .decode_attention import decode_tile_rows
+
+    st = decode_tile_rows(bs)
+    rt = [min(W * (bs // st), -(-int(n) // st)) for n in lens]
+    total = sum(rt) * nkv
+    n = max(1, min(blocks, total))
+    cuts = {(i * total) // n for i in range(n + 1)}
+    out, start = {}, 0
+    for row, n in enumerate(rt):
+        for h in range(nkv):
+            inner = sorted(c - start for c in cuts if start < c < start + n)
+            out[(row, h)] = [0] + inner + [n]
+            start += n
+    return out
 
 
 def megakernel_supported(h, w_in, wq, wk, wv, wo, k_cache, v_cache,
@@ -300,6 +375,70 @@ def _attend_current(q, k_cur, v_cur, pool_k, pool_v, tables, lens, scale,
     return out.reshape(b, hq, d)
 
 
+def split_attend_current_reference(q, k_cur, v_cur, pool_k, pool_v, tables,
+                                   lens, scale, k_scale, v_scale, *,
+                                   tile_rows: int, pieces):
+    """The plain twin of the CUDA kernel's phase 2 split-and-merge (the
+    wrappers never call it; the CPU tests hold it against
+    `_attend_current` and, in the plain layer, against JAX's kernel; the
+    card tests hold the kernel against the plain layer).
+    `pieces[(row, head)]`: the tile boundaries (tiles of `tile_rows`
+    positions, a page or a piece of one) the row's positions strictly
+    below lens are cut at
+    (`megakernel_attention_pieces`). Per piece the f32 (m, l, acc) of its
+    positions (int8 pages: the k scale multiplies the score after the
+    softmax scale, the v scale the page's values); the pieces merged in
+    order (M = max m, L = sum exp(m - M) l, acc = sum exp(m - M) acc);
+    then the current token joins: s = q k_cur scale, M' = max(M, s), out
+    = (acc exp(M - M') + exp(s - M') v_cur) / (L exp(M - M') + exp(s -
+    M')). A row with no position has one empty piece. Same operands and
+    result as `_attend_current`: f32 [b, Hq, D]."""
+    b, hq, d = q.shape
+    n_pages, hkv, bs, _ = pool_k.shape
+    w = tables.shape[1]
+    g = hq // hkv
+    tbl = tables.to(torch.int64).clamp(0, n_pages - 1)
+    k, v = (p[tbl].float().permute(0, 2, 1, 3, 4).reshape(b, hkv, w * bs, d)
+            for p in (pool_k, pool_v))
+    qg = q.reshape(b, hkv, g, d).float()
+    s = torch.einsum("bhgd,bhtd->bhgt", qg, k) * scale
+    if k_scale is not None:
+        ks, vs = (sc.float()[tbl].permute(0, 2, 1).repeat_interleave(
+            bs, dim=2) for sc in (k_scale, v_scale))
+        s = s * ks[:, :, None, :]
+        v = v * vs[..., None]
+    pos = torch.arange(w * bs, device=q.device)
+    out = torch.empty(b, hkv, g, d, dtype=torch.float32, device=q.device)
+    for row in range(b):
+        for h in range(hkv):
+            cut = pieces[(row, h)]
+            parts = []
+            for j0, j1 in zip(cut[:-1], cut[1:]):
+                lo, hi = j0 * tile_rows, j1 * tile_rows
+                sv = s[row, h, :, lo:hi]
+                ok = pos[lo:hi] < int(lens[row])
+                sv = torch.where(ok, sv, torch.full_like(sv, _NEG_INF))
+                m = sv.amax(-1) if hi > lo else torch.full(
+                    (g,), _NEG_INF, device=q.device)
+                p = torch.where(ok, torch.exp(sv - m[:, None]),
+                                torch.zeros_like(sv))
+                parts.append((m, p.sum(-1), p @ v[row, h, lo:hi]))
+            big = torch.stack([m for m, _, _ in parts]).amax(0)
+            el = torch.zeros_like(big)
+            acc = torch.zeros(g, d, device=q.device)
+            for m, l, a in parts:                 # piece order
+                wgt = torch.exp(m - big)
+                el = el + wgt * l
+                acc = acc + wgt[:, None] * a
+            s_cur = (qg[row, h] * k_cur[row, h].float()).sum(-1) * scale
+            top = torch.maximum(big, s_cur)
+            corr, p_cur = torch.exp(big - top), torch.exp(s_cur - top)
+            out[row, h] = (acc * corr[:, None] + p_cur[:, None]
+                           * v_cur[row, h].float()) \
+                / (el * corr + p_cur)[:, None]
+    return out.reshape(b, hq, d)
+
+
 def _commit(kct, vct, k_cur, v_cur, tables, lens, bs):
     """The current token's K/V into its page, in place: the bf16 slot
     write, or the q8 helpers' read-modify-write (models/llama.py)."""
@@ -347,8 +486,17 @@ def _layer_reference(h, lens, tables, cos, sin, w_in, wq, wk, wv, wo,
 
 
 def _rope_tables(lens, dh, rope_base):
-    """f32 cos/sin [b, D/2] at the current positions (rope_freqs)."""
-    return rope_freqs(0, dh, rope_base, position_ids=lens)
+    """f32 cos/sin [b, D/2] at the current positions: rope_freqs's ops,
+    with its inverse frequencies kept per (D, base, device)."""
+    inv = _inv_freqs(dh, float(rope_base), lens.device)
+    freqs = lens.to(torch.float32)[..., None] * inv
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+@functools.lru_cache(maxsize=16)
+def _inv_freqs(dh, rope_base, device):
+    return 1.0 / (rope_base ** (torch.arange(0, dh, 2, dtype=torch.float32,
+                                             device=device) / dh))
 
 
 def _pools(k_cache, v_cache, k_scale, v_scale):
@@ -515,6 +663,39 @@ def decode_layer_megakernel_full(h, lens, tables, w_in, w_post, wq, wk,
         scale=scale, k_scale=k_scale, v_scale=v_scale)
 
 
+# (device, launch ints) -> the launch's geometry (one query per shape and
+# device)
+_GEOMETRY = {}
+
+
+def card_geometry(dev, *, L, b, H, F, nh, nkv, dh, bs, W, pages, mlp,
+                  quant_w, quant_kv, dtype):
+    """The card's plan of a launch at these shapes (pages: the pool's
+    pages per layer): {"grid": resident blocks, "smem": dynamic shared
+    memory bytes, "partial_floats" / "counters": the scratch of the GEMV
+    phases' K splits and phase 2's pieces}. Builds the kernel's library."""
+    from .decode_attention import decode_tile_rows
+
+    ints = (L, b, H, F, nh, nkv, dh, bs, W, pages, int(mlp), int(quant_w),
+            int(quant_kv), _build.dtype_code(dtype), decode_tile_rows(bs))
+    dev = torch.device(dev)
+    key = (dev.index, ints)
+    got = _GEOMETRY.get(key)
+    if got is None:
+        lib = _build.library("decode_megakernel")
+        arr = (ctypes.c_int * len(ints))(*ints)
+        out = (ctypes.c_int64 * 4)()
+        with torch.cuda.device(dev):
+            code = lib.decode_megakernel_resident(
+                ctypes.cast(arr, ctypes.c_void_p),
+                ctypes.cast(out, ctypes.c_void_p))
+        _build.check(lib, code, "decode_megakernel_resident")
+        grid, smem, part, cnt = (int(x) for x in out)
+        got = _GEOMETRY[key] = {"ints": ints, "grid": grid, "smem": smem,
+                                "partial_floats": part, "counters": cnt}
+    return got
+
+
 def _launch(what, h, lens, tables, weights, k_cache, v_cache, L, *, mlp,
             rope_base, eps, scale, k_scale, v_scale):
     """Check the operands and launch csrc/decode_megakernel.cu. `weights`
@@ -534,10 +715,10 @@ def _launch(what, h, lens, tables, weights, k_cache, v_cache, L, *, mlp,
                               *arrays, *norms, *scales)
     _build.require_contiguous(what, lens=lens, tables=tables,
                               k_cache=k_cache, v_cache=v_cache)
-    for i, a in enumerate(arrays + norms):
-        if not a.is_contiguous() or a.data_ptr() % 4:
-            raise ValueError(f"{what}: weight {i} must be contiguous and "
-                             "4-byte aligned")
+    for i, a in enumerate(arrays + norms + [k_cache, v_cache]):
+        if not a.is_contiguous() or a.data_ptr() % 16:
+            raise ValueError(f"{what}: weight and pool operand {i} must be "
+                             "contiguous and 16-byte aligned")
     if quant_kv:
         _build.require_q8_operands(what, k_cache, v_cache, k_scale, v_scale)
     elif not (h.dtype == k_cache.dtype == v_cache.dtype):
@@ -567,14 +748,26 @@ def _launch(what, h, lens, tables, weights, k_cache, v_cache, L, *, mlp,
         raise ValueError(f"{what}: {reason}")
     cdt = h.dtype
     hc = h.reshape(b, H).contiguous()
+    if hc.data_ptr() % 16:
+        hc = hc.clone()
     out = torch.empty_like(hc)
     cos, sin = (t.contiguous() for t in _rope_tables(lens, dh, rope_base))
-    ws = dict(q=torch.empty(b, nh * dh, dtype=cdt, device=dev),
-              k=torch.empty(b, nkv * dh, dtype=cdt, device=dev),
-              v=torch.empty(b, nkv * dh, dtype=cdt, device=dev),
-              ctx=torch.empty(b, nh * dh, dtype=cdt, device=dev),
-              y=torch.empty(b, max(F_, 1), dtype=cdt, device=dev))
-    barrier = torch.zeros(2, dtype=torch.int32, device=dev)
+    lib = _build.library("decode_megakernel")
+    geo = card_geometry(dev, L=L, b=b, H=H, F=F_, nh=nh, nkv=nkv, dh=dh,
+                        bs=bs, W=tables.shape[1], pages=n_pool // L,
+                        mlp=mlp, quant_w=quant_w, quant_kv=quant_kv,
+                        dtype=cdt)
+    # one workspace for q, k, v, ctx and y (each a multiple of 16 bytes),
+    # the split partials, and the zeroed counters (barrier first)
+    widths = (nh * dh, nkv * dh, nkv * dh, nh * dh, max(F_, 1))
+    ws = torch.empty(b * sum(widths), dtype=cdt, device=dev)
+    offs = [0]
+    for wdt in widths:
+        offs.append(offs[-1] + b * wdt)
+    part = torch.empty(max(geo["partial_floats"], 1), dtype=torch.float32,
+                       device=dev)
+    counters = torch.zeros(2 + geo["counters"], dtype=torch.int32,
+                           device=dev)
 
     def ptr(w, j=0):
         if w is None:
@@ -585,6 +778,7 @@ def _launch(what, h, lens, tables, weights, k_cache, v_cache, L, *, mlp,
         return w[1].data_ptr() if isinstance(w, tuple) else 0
 
     mats = (wq, wk, wv, wo, wg, wu, wd)
+    base, it = ws.data_ptr(), ws.element_size()
     ptrs = [hc.data_ptr(), out.data_ptr(), lens.data_ptr(),
             tables.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             ptr(w_in), ptr(w_post)] + [ptr(w) for w in mats] \
@@ -592,13 +786,11 @@ def _launch(what, h, lens, tables, weights, k_cache, v_cache, L, *, mlp,
         + [k_cache.data_ptr(), v_cache.data_ptr(),
            k_scale.data_ptr() if quant_kv else 0,
            v_scale.data_ptr() if quant_kv else 0] \
-        + [ws[n].data_ptr() for n in ("q", "k", "v", "ctx", "y")] \
-        + [barrier.data_ptr()]
-    ints = [L, b, H, F_, nh, nkv, dh, bs, tables.shape[1], n_pool // L,
-            int(mlp), int(quant_w), int(quant_kv), _build.dtype_code(cdt)]
+        + [base + o * it for o in offs[:5]] \
+        + [part.data_ptr(), counters.data_ptr()]
+    ints = [*geo["ints"], part.numel(), geo["counters"]]
     parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     iarr = (ctypes.c_int * len(ints))(*ints)
-    lib = _build.library("decode_megakernel")
     code = lib.decode_megakernel_launch(
         ctypes.cast(parr, ctypes.c_void_p), ctypes.cast(iarr, ctypes.c_void_p),
         float(scale), float(eps), _build.stream_ptr(dev))

@@ -3,10 +3,12 @@
 kernels against another's on fixed inputs, end-to-end phases, and
 variants of the decode, flash and paged prefill kernels.
 
-    python3 port_measure.py kernels TREE LABEL OUT.json
-    python3 port_measure.py e2e TREE LABEL
+    python3 port_measure.py kernels TREE LABEL OUT.json [mega]
+    python3 port_measure.py e2e TREE LABEL [mega]
+    python3 port_measure.py stamps TREE LABEL
+    python3 port_measure.py mega TREE LABEL OUT.json
     python3 port_measure.py variants [decode] [dkv] [fwd] [prefill] [swiglu]
-        [dq]
+        [dq] [mega]
 
 TREE is a directory holding `paddle_tpu_torch/` and `chip_smoke.py` (this
 checkout is `.`; an earlier commit unpacks with `git archive COMMIT
@@ -23,14 +25,30 @@ different hosts differ by more than the kernels do.
   training shape; the flash backward dq / dkv at bench.py's shape and at
   Llama-3's heads (dq as the kernel alone: a tree whose dq wrapper takes
   the pre-pass's `delta` gets it handed in); the SwiGLU kernels forward
-  and backward at phase 14's M 8192, K 4096, F 14336. Appends {LABEL:
-  [times]} to OUT.json.
-- e2e: the decode wrappers' host time per call, then chip_smoke phases 2
-  (the engine), 3 (the prefix cache), 4 (the unified step), 9
-  (build_quant_generate over int4 weights), 13 (the Llama-1B train step)
-  and 14 (the fused SwiGLU route on Llama-3-8B widths), with their own
-  logs.
-- variants (all six groups unless some are named): this checkout's
+  and backward at phase 14's M 8192, K 4096, F 14336; the decode
+  megakernel's four main rows (full over int8 weights with bf16 and with
+  int8 pools, attn over bf16 weights, scan at L 2) at phase 1's cases,
+  through the tree's own chip_smoke.mk_operands / mk_call (the card's
+  time a call, queued behind a spin, and back to back with the
+  wrapper); the weight-only GEMV at a decode step's shapes, cold. `mega`
+  times only the megakernel and GEMV rows. Appends {LABEL: [times]} to
+  OUT.json.
+- e2e: the decode wrappers' and the megakernel wrappers' host time per
+  call, then chip_smoke phases 2 (the engine), 3 (the prefix cache), 4
+  (the unified step), 9 (build_quant_generate over int4 weights), 13 (the
+  Llama-1B train step) and 14 (the fused SwiGLU route on Llama-3-8B
+  widths), and the megakernel phases 10, 11 and 12 (with phase 8, phase
+  11's yardstick), with their own logs; `mega` runs phases 2, 8 and
+  10-12 only.
+- stamps: the per-phase split of TREE's decode megakernel at the four
+  rows: a copy of its csrc in which block 0 stamps %globaltimer at the
+  launch's start and after every grid barrier, and every block stamps
+  its arrival (the latest wins), rebuilt apart (`_rebuilt`, the
+  production build is untouched). Phase time = last arrival minus the
+  previous barrier's release, barrier time = release minus last arrival.
+- mega: stamps, `kernels ... mega` and `e2e ... mega` of one tree in one
+  process (one build): the megakernel A/B.
+- variants (all seven groups unless some are named): this checkout's
   decode body rebuilt with four warps, and with
   its P V partial sums capped to fit three blocks per SM, against the
   built eight warps, each at 4, 8 and 16 blocks per SM by the split rule
@@ -39,11 +57,19 @@ different hosts differ by more than the kernels do.
   warps) against 64; paged prefill with its cached phase unsplit against
   the split plan; the SwiGLU kernel rebuilt with a ring of 3 stages
   against 4, each on the persistent grid and on one CTA a tile; the dq
-  kernel rebuilt with 128-row q tiles (eight warps) against 64.
+  kernel rebuilt with 128-row q tiles (eight warps) against 64; the
+  decode megakernel by its stamps (as `stamps`): its attention phase
+  spread over every block (as built) and, rebuilt, over half of them
+  (pieces about twice as long, half as many splits a row), its weight
+  ring rebuilt with 3 stages against 4, and its phases' parts alone (no
+  product step, no weight copies, no attention arithmetic, no K / V
+  copies: bounds, their outputs unchecked).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import importlib.util
 import inspect
 import json
 import os
@@ -140,8 +166,13 @@ def prefill_call(name):
     return call
 
 
-def kernels(tree: str, label: str, out_path: str) -> None:
+def kernels(tree: str, label: str, out_path: str, which: str = "all") -> None:
+    if which not in ("all", "mega"):
+        raise SystemExit(f"kernels: unknown selection {which!r}")
     cs, _ = _import_tree(tree)
+    if which == "mega":
+        _record(label, out_path, {**mk_rows(cs), **gemv_rows(cs)})
+        return
     time_ms, time_cold_ms = cs.time_ms, cs.time_cold_ms
     from paddle_tpu_torch.kernels.decode_attention import (
         decode_attention, gqa_decode_attention, paged_decode_attention)
@@ -242,6 +273,12 @@ def kernels(tree: str, label: str, out_path: str) -> None:
         lambda: swiglu_fwd(x, wg, wu), iters=10)
     res[f"swiglu bwd M{m} K{k} F{f}"] = time_ms(
         lambda: swiglu_bwd(x, wg, wu, dout), iters=10)
+    res.update(mk_rows(cs))
+    res.update(gemv_rows(cs))
+    _record(label, out_path, res)
+
+
+def _record(label, out_path, res):
     print(label, json.dumps(res, indent=1), flush=True)
     prev = json.load(open(out_path)) if os.path.exists(out_path) else {}
     prev.setdefault(label, []).append(res)
@@ -249,8 +286,112 @@ def kernels(tree: str, label: str, out_path: str) -> None:
         json.dump(prev, f, indent=1)
 
 
-def e2e(tree: str, label: str) -> None:
+def gemv_rows(cs):
+    """The weight-only GEMV (int8, int4) at a Llama-3-8B decode step's
+    shapes, M 8, cold (chip_smoke.check_gemv; its int8 widening is shared
+    with the megakernel)."""
+    res = {}
+    for quant in ("weight_only_int8", "weight_only_int4"):
+        for k, n in cs.GEMV_SHAPES:
+            c = cs.check_gemv(quant, 8, k, n)
+            res[f"gemv {quant[12:]} M8 K{k} N{n} cold"] = c["ms"]
+    return res
+
+
+# the decode megakernel's main rows (chip_smoke.megakernel_cases): (label,
+# rung, int8 weights, int8 pools); the operands of one (weights, pools)
+# pair serve every rung over them
+MK_ROWS = (("megakernel full, int8 weights, bf16 pools", "full", True, False),
+           ("megakernel scan L2, int8 weights, bf16 pools", "scan", True,
+            False),
+           ("megakernel full, int8 weights, int8 pools", "full", True, True),
+           ("megakernel attn, bf16 weights and pools", "attn", False, False))
+
+
+def _mk_own(cs, ops, rung):
+    """`ops` cut to the rung's layers, with pools of its own (the rung
+    commits in place)."""
+    h, lens, tables, weights, pools, kw = cs.mk_layers(
+        ops, 2 if rung == "scan" else 1)
+    return (h, lens, tables, weights, [p.clone() for p in pools],
+            {k: v.clone() for k, v in kw.items()})
+
+
+def _mk_operand_sets(cs):
+    """Yields (label, rung, own operands) for MK_ROWS, one operand set of
+    Llama-3-8B's two layers alive at a time."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b()
+    for quant, q8 in ((True, False), (True, True), (False, False)):
+        ops = cs.mk_operands(cfg, 2, quant, q8)
+        for label, rung, qw, qk in MK_ROWS:
+            if (qw, qk) == (quant, q8):
+                yield label, rung, _mk_own(cs, ops, rung)
+        del ops
+        cs._release()
+
+
+def mk_rows(cs):
+    """The megakernel rows: the card's time a call, 10 calls queued
+    behind a spin (this checkout's chip_smoke.queued_ms, whatever the
+    tree: each call streams its layers' weights past the L2), and CUDA
+    events around 10 calls back to back (the wrapper's host time
+    included)."""
+    queued_ms = _own_smoke().queued_ms
+    res = {}
+    for label, rung, own in _mk_operand_sets(cs):
+        def fn():
+            return cs.mk_call(rung, False, own, clone=False)
+        res[label] = queued_ms(fn)
+        res[label + ", back to back"] = cs.time_ms(fn, iters=10)
+    return res
+
+
+@functools.lru_cache(maxsize=1)
+def _own_smoke():
+    """This checkout's chip_smoke.py as a module of its own name (its
+    timing helpers time an earlier tree's calls as this tree's)."""
+    spec = importlib.util.spec_from_file_location(
+        "own_chip_smoke", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_us(label, name, fn, n=200):
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"[{label}] host {name}: {1e6 * (t1 - t0) / n:.1f} us per call "
+          f"enqueued, {1e6 * (t2 - t0) / n:.1f} us per call with the "
+          f"device", flush=True)
+
+
+def mega(tree: str, label: str, out_path: str) -> None:
+    """One tree's megakernel A/B in one process (one build): the stamps,
+    the megakernel and GEMV rows, and e2e's megakernel phases."""
     cs, _build = _import_tree(tree)
+    mk_stamps(cs, _build, tempfile.mkdtemp(), label, "stamps")
+    _record(label, out_path, {**mk_rows(cs), **gemv_rows(cs)})
+    _e2e(cs, label, "mega")
+
+
+def e2e(tree: str, label: str, which: str = "all") -> None:
+    if which not in ("all", "mega"):
+        raise SystemExit(f"e2e: unknown selection {which!r}")
+    cs, _build = _import_tree(tree)
+    _e2e(cs, label, which)
+
+
+def _e2e(cs, label, which):
     from paddle_tpu_torch.kernels.decode_attention import (
         gqa_decode_attention, paged_decode_attention)
     from paddle_tpu_torch.models import init_quant_serving_params
@@ -267,46 +408,214 @@ def e2e(tree: str, label: str) -> None:
                          dtype=torch.bfloat16) for _ in range(2)]
     tables = torch.arange(1, 73, device="cuda",
                           dtype=torch.int32).reshape(8, 9)
-    for name, fn in (
-            ("gqa_decode_attention",
-             lambda: gqa_decode_attention(q, kc, vc, lens)),
-            ("paged_decode_attention",
-             lambda: paged_decode_attention(q, pools[0], pools[1], tables,
-                                            lens))):
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(500):
-            fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        print(f"[{label}] host {name}: {1e6 * (t1 - t0) / 500:.1f} us per "
-              f"call enqueued, {1e6 * (t2 - t0) / 500:.1f} us per call with "
-              f"the device", flush=True)
+    host_us(label, "gqa_decode_attention",
+            lambda: gqa_decode_attention(q, kc, vc, lens), n=500)
+    host_us(label, "paged_decode_attention",
+            lambda: paged_decode_attention(q, pools[0], pools[1], tables,
+                                           lens), n=500)
     del q, kc, vc, pools
+    # the megakernel wrappers: host time per call beside the device's
+    for name, rung, own in _mk_operand_sets(cs):
+        host_us(label, name, lambda: cs.mk_call(rung, False, own,
+                                                clone=False), n=50)
     cfg, params = cs.build_model()
-    cs.phase_engine(cfg, params)
-    cs.phase_prefix_cache(cfg, params)
-    cs.phase_unified(cfg, params)
-    p4 = init_quant_serving_params(cfg, "weight_only_int4", seed=cs.SEED,
-                                   device="cuda")
-    cs.quant_generate(cfg, p4, "weight_only_int4", "quant-generate",
-                      "gqa_decode_attention")
-    del p4, params
+    engine = cs.phase_engine(cfg, params)
+    if which == "all":
+        cs.phase_prefix_cache(cfg, params)
+        cs.phase_unified(cfg, params)
+        p4 = init_quant_serving_params(cfg, "weight_only_int4",
+                                       seed=cs.SEED, device="cuda")
+        cs.quant_generate(cfg, p4, "weight_only_int4", "quant-generate",
+                          "gqa_decode_attention")
+        del p4
+        cs._release()
+    int8w = cs.phase_int8w_unified(cfg, params)
+    cs.phase_mega_scan(cfg, params)
+    cs.phase_mega_full(cfg, params, int8w)
+    cs.phase_mega_attn(cfg, params, engine)
+    del params
     cs._release()
-    cs.phase_train()
-    cs._release()
-    cs.phase_train_swiglu()
+    if which == "all":
+        cs.phase_train()
+        cs._release()
+        cs.phase_train_swiglu()
     print(f"[{label}] done", flush=True)
 
 
-def _rebuilt(_build, tmp: str, tag: str, edits, names):
-    """The libraries `names` built from a copy of csrc with `edits`
-    ((file, old, new) string replacements), loaded like _build's."""
-    d = os.path.join(tmp, tag)
+# the per-phase stamps: defines MK_STAMPS and the three stamp hooks the
+# megakernel source calls (csrc/decode_megakernel.cu keeps them empty
+# unless MK_STAMPS is defined), and a reader that copies the stamps out
+# and clears them
+STAMP_CODE = r"""#define MK_STAMPS 1
+__device__ unsigned long long mk_stamps[1 + 2 * 1024];
+__device__ unsigned mk_nbar;
+__device__ __forceinline__ unsigned long long mk_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define MK_STAMP_START() (mk_stamps[0] = mk_now())
+#define MK_STAMP_ARRIVE(i) \
+  atomicMax(&mk_stamps[1 + 2 * ((i) & 1023)], mk_now())
+#define MK_STAMP_LEAVE(i)                                  \
+  do {                                                     \
+    if (blockIdx.x == 0) {                                 \
+      mk_stamps[2 + 2 * ((i) & 1023)] = mk_now();          \
+      atomicMax(&mk_nbar, static_cast<unsigned>(i) + 1u); \
+    }                                                      \
+  } while (0)
+// phase 2's spans, summed over blocks in ns: piece start-up, tiles,
+// piece end, merge, finish (join, ctx, commit)
+__device__ unsigned long long mk_spans[8];
+#define MK_SPAN_BEGIN(v) const unsigned long long v = mk_now()
+#define MK_SPAN_END(kind, v) \
+  if (threadIdx.x == 0) atomicAdd(&mk_spans[kind], mk_now() - (v))
+extern "C" int decode_megakernel_stamps(unsigned long long* host, int n,
+                                        unsigned* nbar) {
+  static const unsigned long long zero[1 + 2 * 1024] = {};
+  const unsigned z = 0;
+  cudaDeviceSynchronize();
+  cudaMemcpyFromSymbol(host, mk_stamps, n * sizeof(unsigned long long));
+  cudaMemcpyFromSymbol(nbar, mk_nbar, sizeof(unsigned));
+  cudaMemcpyToSymbol(mk_stamps, zero, sizeof(zero));
+  cudaMemcpyToSymbol(mk_nbar, &z, sizeof(unsigned));
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int decode_megakernel_spans(unsigned long long* host) {
+  static const unsigned long long zero[8] = {};
+  cudaDeviceSynchronize();
+  cudaMemcpyFromSymbol(host, mk_spans, sizeof(zero));
+  cudaMemcpyToSymbol(mk_spans, zero, sizeof(zero));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+# a kernel without the stamp hooks (the first, scalar design): its grid
+# barrier and entry
+_UNHOOKED_EDITS = (
+    ("    const unsigned g = *gen;\n",
+     "    const unsigned g = *gen;\n    MK_STAMP_ARRIVE(g);\n"),
+    ("      while (*gen == g) __nanosleep(64);\n    }\n    __threadfence();\n",
+     "      while (*gen == g) __nanosleep(64);\n    }\n    __threadfence();\n"
+     "    MK_STAMP_LEAVE(g);\n"),
+    ("  const int tid = threadIdx.x;\n  T* out = static_cast<T*>(a.out);\n",
+     "  const int tid = threadIdx.x;\n  T* out = static_cast<T*>(a.out);\n"
+     "  if (blockIdx.x == 0 && tid == 0) MK_STAMP_START();\n"))
+
+
+def _stamp_edits(csrc: str):
+    """(file, old, new) edits that build `csrc`'s megakernel with stamps."""
+    fname = "decode_megakernel.cu"
+    text = open(os.path.join(csrc, fname)).read()
+    first = text.splitlines(keepends=True)[0]
+    edits = [(fname, first, STAMP_CODE + first)]
+    if "MK_STAMP_ARRIVE" not in text:
+        edits += [(fname, old, new) for old, new in _UNHOOKED_EDITS]
+    return edits
+
+
+def _phase_split(label, stamps, nbar, L, mlp):
+    """Sum the stamps' segments by phase over the layers; prints and
+    returns {phase: ms} with 'barriers' and 'total'."""
+    names = ["1 qkv", "2 attention", "3 o"] + (["4 gate/up", "5 down"]
+                                              if mlp else [])
+    per = len(names) * L
+    arrivals = nbar + (1 if nbar < 1024 and stamps[1 + 2 * nbar] else 0)
+    seq = (["copy-in"] if arrivals == per + 1 else []) + names * L
+    if arrivals != len(seq):
+        raise RuntimeError(f"{label}: {arrivals} barrier stamps, expected "
+                           f"{per} or {per + 1}")
+    out = {n: 0.0 for n in (["copy-in"] if seq[0] == "copy-in" else [])
+           + names + ["barriers"]}
+    prev = stamps[0]
+    for i, name in enumerate(seq):
+        arrive = stamps[1 + 2 * i]
+        out[name] += (arrive - prev) / 1e6
+        if i < nbar:
+            out["barriers"] += (stamps[2 + 2 * i] - arrive) / 1e6
+            prev = stamps[2 + 2 * i]
+        else:
+            prev = arrive
+    out["total"] = (prev - stamps[0]) / 1e6
+    return out
+
+
+def mk_stamps_lib(cs, _build, tmp, label, edits):
+    """mk_stamps of this tree's kernel with `edits` applied first."""
+    d = os.path.join(tempfile.mkdtemp(dir=tmp), "csrc")
     shutil.copytree(_build.CSRC, d)
+    for fname, old, new in edits:
+        path = os.path.join(d, fname)
+        text = open(path).read()
+        if old not in text:
+            raise RuntimeError(f"{label}: {old!r} not in {fname}")
+        open(path, "w").write(text.replace(old, new))
+    mk_stamps(cs, _build, tmp, label,
+              os.path.basename(os.path.dirname(d)) + "-stamped", csrc=d)
+
+
+def mk_stamps(cs, _build, tmp, label, tag, csrc=None, reps=5):
+    """The per-phase split (median of `reps` launches) of every MK_ROWS
+    row, through a stamped rebuild of `csrc` (default: the tree's)."""
+    import statistics
+
+    csrc = csrc or str(_build.CSRC)
+    built = _build._LIBS.get("decode_megakernel") or _build.library(
+        "decode_megakernel")
+    lib = _rebuilt(_build, tmp, tag, _stamp_edits(csrc),
+                   ("decode_megakernel",), csrc=csrc)["decode_megakernel"]
+    lib.decode_megakernel_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                             ctypes.c_void_p]
+    lib.decode_megakernel_stamps.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * 2049)()
+    nbar = ctypes.c_uint()
+    _build._LIBS["decode_megakernel"] = lib
+    try:
+        for name, rung, own in _mk_operand_sets(cs):
+            L, mlp = (2 if rung == "scan" else 1), rung != "attn"
+            runs = []
+            for i in range(reps + 1):
+                cs.mk_call(rung, False, own, clone=False)
+                code = lib.decode_megakernel_stamps(buf, 2049,
+                                                    ctypes.byref(nbar))
+                if code:
+                    raise RuntimeError(f"stamps: CUDA error {code}")
+                if i:       # the first launch warms up
+                    runs.append(_phase_split(name, list(buf), nbar.value, L,
+                                             mlp))
+            split = {k: statistics.median(r[k] for r in runs)
+                     for k in runs[0]}
+            print(f"[stamps] {label} {name}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in split.items()), flush=True)
+            if hasattr(lib, "decode_megakernel_spans"):
+                spans = (ctypes.c_ulonglong * 8)()
+                lib.decode_megakernel_spans(spans)
+                per = 1.0 / (reps + 1) / L / n_blocks()
+                print(f"[stamps] {label} {name}: phase 2 a block and layer "
+                      f"(us): " + ", ".join(
+                          f"{k} {spans[i] * per / 1e3:.2f}" for i, k in
+                          enumerate(("start-up", "tiles", "piece end",
+                                     "merge", "finish"))), flush=True)
+    finally:
+        _build._LIBS["decode_megakernel"] = built
+
+
+def n_blocks() -> int:
+    """The megakernel's grid at the rows' shared memory: one block an SM."""
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def stamps(tree: str, label: str) -> None:
+    cs, _build = _import_tree(tree)
+    mk_stamps(cs, _build, tempfile.mkdtemp(), label, "stamps")
+
+
+def _rebuilt(_build, tmp: str, tag: str, edits, names, csrc=None):
+    """The libraries `names` built from a copy of csrc (default: _build's)
+    with `edits` ((file, old, new) string replacements), loaded like
+    _build's."""
+    d = os.path.join(tmp, tag)
+    shutil.copytree(csrc or _build.CSRC, d)
     for fname, old, new in edits:
         path = os.path.join(d, fname)
         text = open(path).read()
@@ -337,7 +646,7 @@ def _rebuilt(_build, tmp: str, tag: str, edits, names):
 
 
 def variants(*groups: str) -> None:
-    names = ("decode", "dkv", "fwd", "prefill", "swiglu", "dq")
+    names = ("decode", "dkv", "fwd", "prefill", "swiglu", "dq", "mega")
     groups = set(groups or names)
     cs, _build = _import_tree(".")
     tmp = tempfile.mkdtemp()
@@ -580,6 +889,43 @@ def _variants_dq(cs, _build, tmp, g) -> None:
                   f"{same}", flush=True)
 
 
+def _variants_mega(cs, _build, tmp, g) -> None:
+    """By the stamps alone (the split by phase, taken inside the
+    kernel)."""
+    from paddle_tpu_torch.kernels import decode_megakernel as mk
+
+    mk_stamps(cs, _build, tmp, "phase 2 over every block", "every-block")
+    src = "decode_megakernel.cu"
+    variants = {
+        "phase 2 over half the blocks": [(
+            src, "      const int64_t nblk = min(static_cast<int64_t>("
+                 "gridDim.x), T_);",
+            "      const int64_t nblk = min(static_cast<int64_t>("
+            "(gridDim.x + 1) / 2), T_);")],
+        "ring of 3 stages": [(src, "constexpr int STAGES = 4;",
+                              "constexpr int STAGES = 3;")],
+        # bounds on the parts, not products: outputs wrong, unchecked
+        "no product step (streaming only)": [(
+            src, "  if constexpr (!std::is_same<T, float>::value && QW) {",
+            "  if constexpr (!std::is_same<T, float>::value && QW) {\n"
+            "    return;")],
+        "no weight copies (products only)": [
+            (src, "    if (lane == 0) mb_expect_tx(full, row * n);",
+             "    if (lane == 0) mb_expect_tx(full, 0);"),
+            (src, "        bulk_g2s(slot + lane * PITCH,",
+             "        if (false) bulk_g2s(slot + lane * PITCH,")],
+        "no attention arithmetic (K / V streaming only)": [(
+            src, "    // scores, masked strictly below len\n",
+            "    if (j1 > 0) continue;\n")],
+        "no K / V copies (attention arithmetic only)": [(
+            src, "    start_tile_copy(k, k + stage_elems, kc, vc, "
+                 "locate(j, &sidx), st, D);", "")]}
+    for shape, edits in variants.items():
+        mk._GEOMETRY.clear()
+        mk_stamps_lib(cs, _build, tmp, shape, edits)
+    mk._GEOMETRY.clear()
+
+
 def device_ms(fn, kernel: str, n: int = 20) -> float:
     """Mean device time of the kernels whose name holds `kernel`, per
     call of fn, from torch.profiler over n calls."""
@@ -600,4 +946,5 @@ if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("port_measure: needs a CUDA card")
     mode, args = sys.argv[1], sys.argv[2:]
-    {"kernels": kernels, "e2e": e2e, "variants": variants}[mode](*args)
+    {"kernels": kernels, "e2e": e2e, "stamps": stamps, "mega": mega,
+     "variants": variants}[mode](*args)
