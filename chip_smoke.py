@@ -479,26 +479,39 @@ def check_paged_prefill(name: str, b: int, tn: int, cached, new,
 
 def check_gemv(quant: str, m: int, k: int, n: int):
     """The weight-only GEMV (int4 or int8 weights) against its plain
-    version on the same bf16 x and quantized weight: both sum exact
-    integer weights times x in f32, scale in f32 and round once, so they
-    are one bf16 rounding step apart at most (ulp_check). Timed cold (each
-    launch streams the weights from device memory, as a decode step
-    does). Library yardstick: torch.matmul over the weight dequantized to
-    bf16 beforehand (the dequantization is not timed)."""
+    version and the plain twin of its K split under the card's own plan,
+    on the same bf16 x and quantized weight: all sum exact integer weights
+    times x in f32, scale in f32 and round once, so they are one bf16
+    rounding step apart at most (ulp_check); two launches must be bitwise
+    equal. The kernel's plan must be its Python twin's (gemv_plan on this
+    card's SM count). Timed cold (each launch streams the weights from
+    device memory, as a decode step does). Library yardstick: torch.matmul
+    over the weight dequantized to bf16 beforehand (the dequantization is
+    not timed)."""
     from paddle_tpu_torch.kernels.int4_matmul import (
-        int4_matmul, int4_matmul_reference, int8_weight_matmul,
-        int8_weight_matmul_reference)
+        card_plan, gemv_plan, int4_matmul, int4_matmul_reference,
+        int8_weight_matmul, int8_weight_matmul_reference,
+        weight_only_split_reference)
     from paddle_tpu_torch.nn.quant import weight_dequantize, weight_quantize
 
-    fn, ref_fn = ((int4_matmul, int4_matmul_reference)
-                  if quant == "weight_only_int4" else
+    int4 = quant == "weight_only_int4"
+    fn, ref_fn = ((int4_matmul, int4_matmul_reference) if int4 else
                   (int8_weight_matmul, int8_weight_matmul_reference))
+    name = f"{quant} M{m} K{k} N{n}"
     g = torch.Generator(device="cuda").manual_seed(SEED + k + n)
     wq, sc = weight_quantize(
         torch.randn(k, n, generator=g, device="cuda") * 0.02, algo=quant)
     x = torch.randn(m, k, generator=g, device="cuda", dtype=torch.bfloat16)
-    err = ulp_check(f"{quant} M{m} K{k} N{n}", fn(x, wq, sc),
-                    ref_fn(x, wq, sc))
+    plan = card_plan(x, wq, int4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if plan != gemv_plan(m, n, k, int4, sms):
+        raise AssertionError(f"{name}: the kernel's plan {plan} is not "
+                             f"gemv_plan's")
+    got = fn(x, wq, sc)
+    gate_deterministic(name, got, fn(x, wq, sc))
+    err = ulp_check(name, got, ref_fn(x, wq, sc))
+    err = max(err, ulp_check(name + " vs the split twin", got,
+                             weight_only_split_reference(x, wq, sc, plan)))
     ms = time_cold_ms(fn, (x, wq, sc))
     plain_ms = time_ms(lambda: ref_fn(x, wq, sc), iters=5)
     wd = weight_dequantize(wq, sc, algo=quant, out_dtype=torch.bfloat16)
@@ -506,9 +519,10 @@ def check_gemv(quant: str, m: int, k: int, n: int):
     del wd
     b_ms, by = bound_ms(wq.numel() + 4 * n + 2 * m * k + 2 * m * n,
                         2 * m * n * k)
-    return dict(case=f"M{m} K{k} N{n} {quant[12:]}", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=lib_ms, shape=(m, k, n))
+    return dict(case=f"M{m} K{k} N{n} {quant[12:]} (groups {plan.groups}, "
+                     f"cluster {plan.cluster})",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, library_ms=lib_ms, shape=(m, k, n))
 
 
 def check_contiguous_decode(name: str, b: int, hq: int, hkv: int, d: int,
@@ -1007,13 +1021,13 @@ def megakernel_cases(cfg):
     return res
 
 
-def gemv_step_totals(cases):
-    """One Llama-3-8B decode step's weight-only matmuls at M = 8, summed
+def gemv_step_totals(cases, m: int):
+    """One Llama-3-8B decode step's weight-only matmuls at M = m, summed
     from the per-shape cases: (kernel ms, bound ms, library ms)."""
     tot = [0.0, 0.0, 0.0]
     for c in cases:
-        m, k, n = c["shape"]
-        if m == 8:
+        mm, k, n = c["shape"]
+        if mm == m:
             for i, key in enumerate(("ms", "bound_ms", "library_ms")):
                 tot[i] += GEMV_PER_STEP[(k, n)] * c[key]
     return tot
@@ -1072,17 +1086,20 @@ def phase_kernels():
                                 [256], w=33, q8=True)],
     }
     # the weight-only GEMV at the decode matmuls' shapes (M = 8 slots),
-    # plus the edges M = 1 and M = 64; contiguous decode at Llama-3-8B's
-    # GQA shape and at equal heads
+    # the edge M = 1, and a 64-row decode step (M = 64, the top of the
+    # GEMV route); contiguous decode at Llama-3-8B's GQA shape and at
+    # equal heads
     for quant, name in (("weight_only_int4", "int4_matmul"),
                         ("weight_only_int8", "int8_weight_matmul")):
         res[name] = [check_gemv(quant, 8, k, n) for k, n in GEMV_SHAPES] \
-            + [check_gemv(quant, m, 4096, 14336) for m in (1, 64)]
-        step = gemv_step_totals(res[name])
-        log(f"[kernel] {name}: one Llama-3-8B decode step's matmuls (M=8, "
-            f"225 calls): {step[0]:.3f} ms, bound {step[1]:.3f} ms "
-            f"({100 * step[1] / step[0]:.1f}% of bound), bf16 torch.matmul "
-            f"{step[2]:.3f} ms")
+            + [check_gemv(quant, 1, 4096, 14336)] \
+            + [check_gemv(quant, 64, k, n) for k, n in GEMV_SHAPES]
+        for m in (8, 64):
+            step = gemv_step_totals(res[name], m)
+            log(f"[kernel] {name}: one Llama-3-8B decode step's matmuls "
+                f"(M={m}, 225 calls): {step[0]:.3f} ms, bound "
+                f"{step[1]:.3f} ms ({100 * step[1] / step[0]:.1f}% of "
+                f"bound), bf16 torch.matmul {step[2]:.3f} ms")
     res["gqa_decode_attention"] = [
         check_contiguous_decode("gqa_decode_attention", 8, 32, 8, 128, 1024),
         check_contiguous_decode("gqa_decode_attention", 8, 32, 8, 128, 8192,
@@ -1312,6 +1329,26 @@ def profile_decode(eng, prompts):
     prof = profile_step(eng, f"one decode chunk (8 steps x 8 slots, "
                              f"{eng.kv_dtype} pools, megakernel "
                              f"{eng.megakernel_rung})")
+    chunk = _build.launch_counts()
+    eng.run()
+    return chunk, prof
+
+
+def profile_decode_lane(eng, prompts):
+    """The unified step's decode lane alone: `prompts` prefill (a window
+    a step) beside the live slots' decode, then one step with no window
+    left, traced (a decode chunk of the slots still live). Its launches
+    are counted apart and returned with the chunk's (wall ms, busy ms)."""
+    from paddle_tpu_torch.kernels import _build
+
+    for p in prompts:
+        eng.add_request(p)
+    while eng.waiting or eng._prefilling is not None:
+        eng.step()
+    _build.reset_launch_counts()
+    prof = profile_step(eng, f"one decode chunk ({eng.n_active} live slots "
+                             f"x 8 steps, no window, {eng.kv_dtype} pools, "
+                             f"megakernel {eng.megakernel_rung})")
     chunk = _build.launch_counts()
     eng.run()
     return chunk, prof
@@ -1723,7 +1760,8 @@ def phase_int8w_unified(cfg, params):
     per layer and window), the int8 GEMV on decode and its large-M route
     on the windows, and served tokens within INT8_RANK_MARGIN of the plain
     forward over the int8 weights dequantized to bf16 (the plain forward
-    reads no quantized cache)."""
+    reads no quantized cache). Then one decode chunk of the decode lane
+    alone is traced (its launches apart)."""
     from paddle_tpu_torch.models import decode_params
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
 
@@ -1746,6 +1784,9 @@ def phase_int8w_unified(cfg, params):
         raise AssertionError(f"{phase}: {n} int8 ragged launches for "
                              f"{m['prefill_chunks']} windows")
     _quant_launch_gates(phase, launches, "int8_weight_matmul")
+    chunk, _ = profile_decode_lane(eng, unified_traffic(cfg)[-8:])
+    log(f"[{phase}] one decode chunk: {chunk['int8_weight_matmul']} int8 "
+        f"GEMV launches, {chunk['int8_weight_matmul_large_m']} large-M")
     del eng
     plain = plain_over(cfg, params8, quant)
     hit = next(r for r in reqs if r.cached_tokens)

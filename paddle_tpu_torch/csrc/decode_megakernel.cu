@@ -80,6 +80,7 @@
 #include "common.cuh"
 #include "decode_attention_body.cuh"
 #include "fragments.cuh"
+#include "weight_ring.cuh"
 
 #ifndef MK_STAMPS  // port_measure.py's per-phase build defines these
 #define MK_STAMP_START()
@@ -139,58 +140,6 @@ struct Ring {
 // the consumer warps' block barrier (the producer warp never joins one)
 __device__ __forceinline__ void csync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
-}
-
-__device__ __forceinline__ void mb_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mb_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void mb_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mb_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// an arrival on `bar` once this thread's earlier cp.async copies landed
-// (counted in the barrier's expected arrivals)
-__device__ __forceinline__ void mb_arrive_cp_async(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// `bytes` (a multiple of 16, 16-byte aligned ends) from global to shared
-// memory by the copy engine, completing on `bar`
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
 }
 
 struct Args {
@@ -1169,7 +1118,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) mega_kernel(Args a) {
       mb_init(full + s, QW ? 1 : 32);
       mb_init(empty + s, NWARP);     // one arrival a consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mb_init_fence();
   }
   if (blockIdx.x == 0 && tid == 0) MK_STAMP_START();
   __syncthreads();

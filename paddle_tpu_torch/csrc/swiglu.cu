@@ -52,6 +52,7 @@
 
 #include "common.cuh"
 #include "fragments.cuh"
+#include "weight_ring.cuh"
 
 namespace {
 
@@ -76,52 +77,7 @@ constexpr size_t SMEM_BYTES =
 static_assert(SMEM_BYTES <= 227 * 1024,
               "the ring must fit the shared memory a block may opt into");
 
-// ---- mbarriers, TMA, wgmma ------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// box of `map` at (inner c0, outer c1) -> dst, completing on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
+// ---- wgmma ---------------------------------------------------------------
 
 // shared-memory matrix descriptor, 128-byte swizzle
 __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
@@ -187,11 +143,6 @@ __device__ __forceinline__ void slice_products(float (&d)[64],
                      desc_sw128(ws + 16 * 128 * k, B_LBO, B_SBO));
 }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
 __device__ __forceinline__ float sigmoid_f32(float g) {
   return 1.f / (1.f + expf(-g));
 }
@@ -224,10 +175,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS * 4);   // one arrival a consumer warp
+      mb_init(&full[s], 1);
+      mb_init(&empty[s], CONSUMERS * 4);   // one arrival a consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mb_init_fence();
   }
   __syncthreads();
 
@@ -241,9 +192,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         int m0, n0;
         tile_origin(t, n_m, n_n, &m0, &n0);
         for (int kt = 0; kt < KT; ++kt) {
-          mbar_wait(&empty[stage], phase ^ 1);
+          mb_wait(&empty[stage], phase ^ 1);
           unsigned char* st = smem + stage * STAGE_BYTES;
-          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          mb_expect_tx(&full[stage], STAGE_BYTES);
           const int k0 = kt * BK;
           tma_load(st, &tx, &full[stage], k0, m0);
           tma_load(st + X_BYTES, &tg, &full[stage], n0, k0);
@@ -272,7 +223,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       for (int i = 0; i < 64; ++i) accg[i] = accu[i] = 0.f;
       int prev = -1;
       for (int kt = 0; kt < KT; ++kt) {
-        mbar_wait(&full[stage], phase);
+        mb_wait(&full[stage], phase);
         const unsigned char* st = smem + stage * STAGE_BYTES;
         const unsigned char* xs = st + wg * 64 * 128;
         acc_fence(accg);
@@ -285,7 +236,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         acc_fence(accu);
         // the previous stage's products are done: hand its buffers back
         wgmma_wait<1>();
-        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        if (prev >= 0 && lane == 0) mb_arrive(&empty[prev]);
         prev = stage;
         if (++stage == STAGES) {
           stage = 0;
@@ -295,7 +246,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       wgmma_wait<0>();
       acc_fence(accg);
       acc_fence(accu);
-      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      if (prev >= 0 && lane == 0) mb_arrive(&empty[prev]);
 
       // epilogue in f32 on the accumulators: element 4 j + e of this
       // thread is row 16 w + lane / 4 + 8 (e / 2), column 8 j + 2 (lane %
@@ -348,17 +299,17 @@ __global__ void __launch_bounds__(128)
   unsigned char* smem = align1024(smem_raw);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 64 * 128 + 2 * W_HALF);
   if (threadIdx.x == 0) {
-    mbar_init(bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mb_init(bar, 1);
+    mb_init_fence();
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_expect_tx(bar, 64 * 128 + 2 * W_HALF);
+    mb_expect_tx(bar, 64 * 128 + 2 * W_HALF);
     tma_load(smem, &ta, bar, 0, 0);
     tma_load(smem + 64 * 128, &tb, bar, 0, 0);
     tma_load(smem + 64 * 128 + W_HALF, &tb, bar, 64, 0);
   }
-  mbar_wait(bar, 0);
+  mb_wait(bar, 0);
   float d[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0.f;
@@ -378,31 +329,6 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---- host side ---------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
 
 // a row-major bf16 [rows, cols] matrix in boxes of [box_rows, 64] (64
 // bf16 = 128 bytes, the 128-byte swizzle's row)

@@ -110,6 +110,10 @@ SIGNATURES = {
     "weight_only_gemv": {
         # x, w, scale, out, M, N, K, int4, dtype, stream
         "weight_only_gemv_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # M, N, K, int4, SMs (0: the current device's), out int32 [7]: the
+        # launch's plan (groups, cluster, stages a rank, stages, A tiles,
+        # n8 row tiles, shared memory bytes)
+        "weight_only_gemv_plan": (_I, _I, _I, _I, _I, _P),
     },
     "decode_megakernel": {
         # host arrays of the operand pointers and of the int dims (their

@@ -4,11 +4,12 @@ kernels against another's on fixed inputs, end-to-end phases, and
 variants of the decode, flash and paged prefill kernels.
 
     python3 port_measure.py kernels TREE LABEL OUT.json [mega]
-    python3 port_measure.py e2e TREE LABEL [mega]
+    python3 port_measure.py e2e TREE LABEL [mega | quant]
     python3 port_measure.py stamps TREE LABEL
     python3 port_measure.py mega TREE LABEL OUT.json
+    python3 port_measure.py kernels TREE LABEL OUT.json gemv
     python3 port_measure.py variants [decode] [dkv] [fwd] [prefill] [swiglu]
-        [dq] [mega]
+        [dq] [mega] [gemv]
 
 TREE is a directory holding `paddle_tpu_torch/` and `chip_smoke.py` (this
 checkout is `.`; an earlier commit unpacks with `git archive COMMIT
@@ -30,8 +31,10 @@ different hosts differ by more than the kernels do.
   int8 pools, attn over bf16 weights, scan at L 2) at phase 1's cases,
   through the tree's own chip_smoke.mk_operands / mk_call (the card's
   time a call, queued behind a spin, and back to back with the
-  wrapper); the weight-only GEMV at a decode step's shapes, cold. `mega`
-  times only the megakernel and GEMV rows. Appends {LABEL: [times]} to
+  wrapper); the weight-only GEMV at a decode step's shapes and M 1, 8,
+  16, 32 and 64, cold. `mega` times only the megakernel and GEMV rows,
+  `gemv` the GEMV, megakernel and SwiGLU rows (the three kernels of the
+  shared weight ring, csrc/weight_ring.cuh). Appends {LABEL: [times]} to
   OUT.json.
 - e2e: the decode wrappers' and the megakernel wrappers' host time per
   call, then chip_smoke phases 2 (the engine), 3 (the prefix cache), 4
@@ -39,7 +42,7 @@ different hosts differ by more than the kernels do.
   Llama-1B train step) and 14 (the fused SwiGLU route on Llama-3-8B
   widths), and the megakernel phases 10, 11 and 12 (with phase 8, phase
   11's yardstick), with their own logs; `mega` runs phases 2, 8 and
-  10-12 only.
+  10-12 only, `quant` phases 7 and 8 (the weight-only GEMV's engines).
 - stamps: the per-phase split of TREE's decode megakernel at the four
   rows: a copy of its csrc in which block 0 stamps %globaltimer at the
   launch's start and after every grid barrier, and every block stamps
@@ -48,7 +51,7 @@ different hosts differ by more than the kernels do.
   previous barrier's release, barrier time = release minus last arrival.
 - mega: stamps, `kernels ... mega` and `e2e ... mega` of one tree in one
   process (one build): the megakernel A/B.
-- variants (all seven groups unless some are named): this checkout's
+- variants (all eight groups unless some are named): this checkout's
   decode body rebuilt with four warps, and with
   its P V partial sums capped to fit three blocks per SM, against the
   built eight warps, each at 4, 8 and 16 blocks per SM by the split rule
@@ -63,7 +66,11 @@ different hosts differ by more than the kernels do.
   (pieces about twice as long, half as many splits a row), its weight
   ring rebuilt with 3 stages against 4, and its phases' parts alone (no
   product step, no weight copies, no attention arithmetic, no K / V
-  copies: bounds, their outputs unchecked).
+  copies: bounds, their outputs unchecked); the weight-only GEMV rebuilt
+  with a ring of 2 or 3 stages against 4, its plan forced to clusters of
+  1 / 2 / 3 / 4 / 8 K ranks and to 64 / 128 channels a block, without the
+  programmatic dependent launch, padded to one block an SM, and its parts
+  alone, at the step shapes at M 8 and 64.
 """
 from __future__ import annotations
 
@@ -167,11 +174,15 @@ def prefill_call(name):
 
 
 def kernels(tree: str, label: str, out_path: str, which: str = "all") -> None:
-    if which not in ("all", "mega"):
+    if which not in ("all", "mega", "gemv"):
         raise SystemExit(f"kernels: unknown selection {which!r}")
     cs, _ = _import_tree(tree)
     if which == "mega":
         _record(label, out_path, {**mk_rows(cs), **gemv_rows(cs)})
+        return
+    if which == "gemv":
+        _record(label, out_path,
+                {**gemv_rows(cs), **mk_rows(cs), **swiglu_rows(cs)})
         return
     time_ms, time_cold_ms = cs.time_ms, cs.time_cold_ms
     from paddle_tpu_torch.kernels.decode_attention import (
@@ -179,7 +190,6 @@ def kernels(tree: str, label: str, out_path: str, which: str = "all") -> None:
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd_delta, flash_attention_bwd_dkv,
         flash_attention_bwd_dq)
-    from paddle_tpu_torch.kernels.swiglu import swiglu_bwd, swiglu_fwd
     from paddle_tpu_torch.models.llama import quantize_kv_pages
 
     res = {}
@@ -263,16 +273,7 @@ def kernels(tree: str, label: str, out_path: str, which: str = "all") -> None:
             lambda: flash_attention_bwd_dq(*args, **kw), iters=10)
         res["dkv " + case] = time_ms(lambda: flash_attention_bwd_dkv(*args),
                                      iters=10)
-    m, k, f = SWIGLU_SHAPE
-    g = torch.Generator(device="cuda").manual_seed(f)
-    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
-    wg, wu = ((torch.randn(k, f, generator=g, device="cuda") * k ** -0.5)
-              .to(torch.bfloat16) for _ in range(2))
-    dout = torch.randn(m, f, generator=g, device="cuda").to(torch.bfloat16)
-    res[f"swiglu fwd M{m} K{k} F{f}"] = time_ms(
-        lambda: swiglu_fwd(x, wg, wu), iters=10)
-    res[f"swiglu bwd M{m} K{k} F{f}"] = time_ms(
-        lambda: swiglu_bwd(x, wg, wu, dout), iters=10)
+    res.update(swiglu_rows(cs))
     res.update(mk_rows(cs))
     res.update(gemv_rows(cs))
     _record(label, out_path, res)
@@ -286,15 +287,54 @@ def _record(label, out_path, res):
         json.dump(prev, f, indent=1)
 
 
-def gemv_rows(cs):
+def swiglu_rows(cs):
+    """The SwiGLU kernels forward and backward at phase 14's MLP."""
+    from paddle_tpu_torch.kernels.swiglu import swiglu_bwd, swiglu_fwd
+
+    m, k, f = SWIGLU_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(f)
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    wg, wu = ((torch.randn(k, f, generator=g, device="cuda") * k ** -0.5)
+              .to(torch.bfloat16) for _ in range(2))
+    dout = torch.randn(m, f, generator=g, device="cuda").to(torch.bfloat16)
+    return {f"swiglu fwd M{m} K{k} F{f}": cs.time_ms(
+                lambda: swiglu_fwd(x, wg, wu), iters=10),
+            f"swiglu bwd M{m} K{k} F{f}": cs.time_ms(
+                lambda: swiglu_bwd(x, wg, wu, dout), iters=10)}
+
+
+# rows of x the GEMV rows take: the main path's 8 slots, the edge 1, and
+# servers of 16 to 64 slots (64 is the top of the GEMV route)
+GEMV_MS = (1, 8, 16, 32, 64)
+
+
+def _gemv_operands(quant, k, n):
+    from paddle_tpu_torch.nn.quant import weight_quantize
+
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    return weight_quantize(
+        torch.randn(k, n, generator=g, device="cuda") * 0.02, algo=quant)
+
+
+def gemv_rows(cs, ms=GEMV_MS, shapes=None):
     """The weight-only GEMV (int8, int4) at a Llama-3-8B decode step's
-    shapes, M 8, cold (chip_smoke.check_gemv; its int8 widening is shared
-    with the megakernel)."""
+    shapes and the rows `ms`, the tree's own wrapper, cold (its int8
+    widening is shared with the megakernel). Each row's kernel only: no
+    plain version, no yardstick."""
+    from paddle_tpu_torch.kernels.int4_matmul import (int4_matmul,
+                                                      int8_weight_matmul)
+
     res = {}
     for quant in ("weight_only_int8", "weight_only_int4"):
-        for k, n in cs.GEMV_SHAPES:
-            c = cs.check_gemv(quant, 8, k, n)
-            res[f"gemv {quant[12:]} M8 K{k} N{n} cold"] = c["ms"]
+        fn = (int4_matmul if quant == "weight_only_int4"
+              else int8_weight_matmul)
+        for k, n in shapes or cs.GEMV_SHAPES:
+            wq, sc = _gemv_operands(quant, k, n)
+            for m in ms:
+                x = torch.randn(m, k, device="cuda", dtype=torch.bfloat16)
+                res[f"gemv {quant[12:]} M{m} K{k} N{n} cold"] = \
+                    cs.time_cold_ms(fn, (x, wq, sc))
+            del wq, sc
     return res
 
 
@@ -385,10 +425,25 @@ def mega(tree: str, label: str, out_path: str) -> None:
 
 
 def e2e(tree: str, label: str, which: str = "all") -> None:
-    if which not in ("all", "mega"):
+    if which not in ("all", "mega", "quant"):
         raise SystemExit(f"e2e: unknown selection {which!r}")
     cs, _build = _import_tree(tree)
+    if which == "quant":
+        _e2e_quant(cs, label)
+        return
     _e2e(cs, label, which)
+
+
+def _e2e_quant(cs, label):
+    """chip_smoke phases 7 (int4 weights, split path, prefix cache) and 8
+    (int8 weights and pools, unified step), with their profiled decode
+    chunks (a tree whose phase 8 traces none prints none)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = cs.build_model()
+    cs.phase_int4_split(cfg).pop("params")
+    cs._release()
+    cs.phase_int8w_unified(cfg, params)
+    print(f"[{label}] done", flush=True)
 
 
 def _e2e(cs, label, which):
@@ -614,25 +669,35 @@ def _rebuilt(_build, tmp: str, tag: str, edits, names, csrc=None):
     """The libraries `names` built from a copy of csrc (default: _build's)
     with `edits` ((file, old, new) string replacements), loaded like
     _build's."""
-    d = os.path.join(tmp, tag)
-    shutil.copytree(csrc or _build.CSRC, d)
-    for fname, old, new in edits:
-        path = os.path.join(d, fname)
-        text = open(path).read()
-        if old not in text:
-            raise RuntimeError(f"{tag}: {old!r} not in {fname}")
-        open(path, "w").write(text.replace(old, new))
-    libs = {}
-    for name in names:
-        so = os.path.join(d, name + ".so")
-        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
-                            "-v", f"-I{d}", "-o", so,
-                            os.path.join(d, name + ".cu")],
-                           capture_output=True, text=True)
-        if r.returncode:
-            raise RuntimeError(f"{tag}: nvcc failed\n{r.stderr[-3000:]}")
+    return _rebuilt_many(_build, tmp, {tag: edits}, names, csrc)[tag]
+
+
+def _rebuilt_many(_build, tmp: str, variants, names, csrc=None):
+    """{tag: _rebuilt(..., tag, edits, names)} for {tag: edits}, every
+    nvcc started at once."""
+    procs = {}
+    for tag, edits in variants.items():
+        d = os.path.join(tmp, tag)
+        shutil.copytree(csrc or _build.CSRC, d)
+        for fname, old, new in edits:
+            path = os.path.join(d, fname)
+            text = open(path).read()
+            if old not in text:
+                raise RuntimeError(f"{tag}: {old!r} not in {fname}")
+            open(path, "w").write(text.replace(old, new))
+        for name in names:
+            so = os.path.join(d, name + ".so")
+            procs[tag, name] = (so, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                 f"-I{d}", "-o", so, os.path.join(d, name + ".cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    built = {tag: {} for tag in variants}
+    for (tag, name), (so, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{tag}: nvcc failed\n{err[-3000:]}")
         regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers",
-                                                   r.stderr)})
+                                                   err)})
         print(f"[variants] {tag} {name}: registers {regs}", flush=True)
         lib = ctypes.CDLL(so)
         for fn, argtypes in _build.SIGNATURES[name].items():
@@ -641,12 +706,13 @@ def _rebuilt(_build, tmp: str, tag: str, edits, names, csrc=None):
             f.restype = ctypes.c_int
         lib.ptt_error_string.argtypes = [ctypes.c_int]
         lib.ptt_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
-    return libs
+        built[tag][name] = lib
+    return built
 
 
 def variants(*groups: str) -> None:
-    names = ("decode", "dkv", "fwd", "prefill", "swiglu", "dq", "mega")
+    names = ("decode", "dkv", "fwd", "prefill", "swiglu", "dq", "mega",
+             "gemv")
     groups = set(groups or names)
     cs, _build = _import_tree(".")
     tmp = tempfile.mkdtemp()
@@ -924,6 +990,88 @@ def _variants_mega(cs, _build, tmp, g) -> None:
         mk._GEOMETRY.clear()
         mk_stamps_lib(cs, _build, tmp, shape, edits)
     mk._GEOMETRY.clear()
+
+
+def _variants_gemv(cs, _build, tmp, g) -> None:
+    """The weight-only GEMV rebuilt with a ring of 2 and 3 stages (4
+    built), with its plan forced to clusters of 1, 2, 3, 4 and 8 K ranks,
+    without the programmatic dependent launch, with its plan's groups in
+    two waves of the card (two blocks an SM) or of 4 and 8 A tiles (64 and
+    128 channels a block; the plan still picks the cluster size), with
+    its shared memory padded past half an SM's (one block an SM), and its
+    parts alone (no product step, no weight copies: bounds, their outputs
+    unchecked), each at the five step shapes at M 8 and M 64, int4 and
+    int8, cold; every other result within one bf16 step of the plain
+    version. A variant the card refuses prints its error."""
+    from paddle_tpu_torch.kernels import int4_matmul as im
+
+    src = "weight_only_gemv.cu"
+    loop = "  for (int c = 1; c <= MAX_CLUSTER; ++c) {"
+    groups = "  return std::min(tiles, w * sms / c);"
+    smem = ("  p.smem = smem_bytes(int4, (p.tiles + p.groups - 1) / "
+            "p.groups, p.ntl);")
+    sub_loop = ("      const int nv = min(per, (K - k0 + KSUB - 1) / KSUB - "
+                "sb0);")
+    no_subs = "      const int nv = 0;"
+    edits = {
+        "ring of 2 stages": [(src, "constexpr int STAGES = 4;",
+                              "constexpr int STAGES = 2;")],
+        "ring of 3 stages": [(src, "constexpr int STAGES = 4;",
+                              "constexpr int STAGES = 3;")],
+        **{f"cluster of {c}": [(src, loop, f"  for (int c = {c}; c <= {c}; "
+                                           "++c) {")]
+           for c in (1, 2, 3, 4, 8)},
+        "no programmatic launch": [(src, "constexpr bool PDL = true;",
+                                    "constexpr bool PDL = false;")],
+        "groups in two waves": [(src, "  int w = 1;\n  while (w * sms / c",
+                                 "  int w = 2;\n  while (w * sms / c")],
+        "64 channels a block": [(src, groups, "  return (tiles + 3) / 4;")],
+        "128 channels a block": [(src, groups, "  return (tiles + 7) / 8;")],
+        "one block an SM": [(src, smem, smem.replace(
+            "p.smem = smem_bytes(", "p.smem = std::max(116 * 1024, "
+            "smem_bytes(").replace("p.ntl);", "p.ntl));"))],
+        # bounds on the parts, not products: outputs wrong, unchecked
+        "no product step (streaming only)": [(src, sub_loop, no_subs)],
+        "no weight copies (products only)": [
+            (src, "mb_expect_tx(full + slot, ct * WBOX + nsub * xsub);",
+             "mb_expect_tx(full + slot, nsub * xsub);"),
+            (src, "      if (w)\n", "      if (false)\n")]}
+    unchecked = {tag for tag in edits if "only" in tag}
+    libs = {"built (ring of 4, planned)":
+                {"weight_only_gemv": _build.library("weight_only_gemv")},
+            **_rebuilt_many(_build, tmp, edits, ("weight_only_gemv",))}
+    built = libs["built (ring of 4, planned)"]
+    ops = {(q, k, n): _gemv_operands(q, k, n)
+           for q in ("weight_only_int4", "weight_only_int8")
+           for k, n in cs.GEMV_SHAPES}
+    xs = {(m, k): torch.randn(m, k, generator=g, device="cuda",
+                              dtype=torch.bfloat16)
+          for m in (8, 64) for k in (4096, 14336)}
+    for tag, lib in libs.items():
+        _build._LIBS.update(lib)
+        for (quant, k, n), (wq, sc) in ops.items():
+            int4 = quant == "weight_only_int4"
+            fn, ref = ((im.int4_matmul, im.int4_matmul_reference) if int4
+                       else (im.int8_weight_matmul,
+                             im.int8_weight_matmul_reference))
+            row = []
+            for m in (8, 64):
+                x = xs[m, k]
+                try:
+                    got = fn(x, wq, sc)
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    row.append(f"M{m} refused ({e})")
+                    continue
+                if tag not in unchecked:
+                    cs.ulp_check(f"{tag} {quant} M{m} K{k} N{n}", got,
+                                 ref(x, wq, sc))
+                p = im.card_plan(x, wq, int4)
+                row.append(f"M{m} {cs.time_cold_ms(fn, (x, wq, sc)):.4f} ms "
+                           f"(groups {p.groups}, cluster {p.cluster})")
+            print(f"[variants] gemv {tag}, {quant[12:]} K{k} N{n}: "
+                  + "; ".join(row), flush=True)
+    _build._LIBS.update(built)
 
 
 def device_ms(fn, kernel: str, n: int = 20) -> float:

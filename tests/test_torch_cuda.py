@@ -25,7 +25,9 @@ in f32 first.
 The weight-only GEMV (int4 and int8, bf16 or f16 x on the tensor cores)
 and the contiguous decode kernel compute in f32 from the same inputs and
 round once, so their results are within one rounding step of the plain
-version (bf16 2^-7, f16 2^-10 relative).
+version (bf16 2^-7, f16 2^-10 relative); the GEMV also of the plain twin
+of its K split (``weight_only_split_reference`` under the card's plan),
+and two of its launches are bitwise equal.
 """
 import numpy as np
 import pytest
@@ -442,27 +444,61 @@ def _quant_pair(dev, k, n, quant, seed):
     return weight_quantize(w, algo=quant)
 
 
+# (K, N) of a Llama-3-8B decode step: gate / up, q / o, k / v, down, lm_head
+GEMV_STEP_SHAPES = [(4096, 14336), (4096, 4096), (4096, 1024),
+                    (14336, 4096), (4096, 128256)]
+
+
 @pytest.mark.parametrize("quant", ["weight_only_int4", "weight_only_int8"])
 @pytest.mark.parametrize("m,k,n", [
-    (8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336), (8, 14336, 4096),
-    (8, 4096, 128256), (1, 4096, 4096), (64, 4096, 4096),
-    (5, 288, 1000),                 # ragged N and a partial k block
-])
+    (m, k, n) for m in (8, 1, 16, 33, 64) for k, n in GEMV_STEP_SHAPES] + [
+    # K on the split edges: ranks of unequal stage counts, a last stage
+    # of 32 k; ragged N and a partial k block; the smallest shape
+    (8, 4096 + 32, 4096), (33, 4096 - 32, 1024), (64, 14336 - 224, 4096),
+    (5, 288, 1000), (1, 32, 16)])
 def test_weight_only_gemv(dev, quant, m, k, n):
+    """The kernel within one bf16 step of the plain version and of the
+    plain twin of its order of sums under the card's own plan, and two
+    launches bitwise equal."""
     from paddle_tpu_torch.kernels.int4_matmul import (
-        int4_matmul, int4_matmul_reference, int8_weight_matmul,
-        int8_weight_matmul_reference)
+        card_plan, int4_matmul, int4_matmul_reference, int8_weight_matmul,
+        int8_weight_matmul_reference, weight_only_split_reference)
 
+    int4 = quant == "weight_only_int4"
     fn, ref_fn, name = (
-        (int4_matmul, int4_matmul_reference, "int4_matmul")
-        if quant == "weight_only_int4" else
+        (int4_matmul, int4_matmul_reference, "int4_matmul") if int4 else
         (int8_weight_matmul, int8_weight_matmul_reference,
          "int8_weight_matmul"))
     wq, sc = _quant_pair(dev, k, n, quant, seed=m + k + n)
-    x = torch.randn(m, k, device=dev, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(m * k + n)
+    x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
     got = _launched(name, lambda: fn(x, wq, sc))
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     _within_one_bf16_step(got, ref_fn(x, wq, sc))
+    _within_one_bf16_step(
+        got, weight_only_split_reference(x, wq, sc, card_plan(x, wq, int4)))
+    assert torch.equal(got, fn(x, wq, sc))
+
+
+def test_weight_only_gemv_plan_is_the_twins(dev):
+    """The kernel's host plan (read back through its C entry point) is
+    gemv_plan's, on this card's SM count and on an H100's."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels.int4_matmul import GemvPlan, gemv_plan
+
+    lib = _build.library("weight_only_gemv")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = (ctypes.c_int * 7)()
+    for card in (sms, 132, 7):
+        for m in (1, 5, 8, 9, 16, 33, 64):
+            for k, n in GEMV_STEP_SHAPES + [(288, 1000), (4128, 4096),
+                                            (32, 16), (544, 150)]:
+                for int4 in (True, False):
+                    lib.weight_only_gemv_plan(m, n, k, int(int4), card,
+                                              ctypes.addressof(out))
+                    assert GemvPlan(m, n, k, int4, *out) == \
+                        gemv_plan(m, n, k, int4, card), (card, m, k, n, int4)
 
 
 @pytest.mark.parametrize("quant", ["weight_only_int4", "weight_only_int8"])
