@@ -13,7 +13,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. Serve 16 requests through ContinuousBatchingEngine at Llama-3-8B full
    width (32 layers, random bf16 weights from a seed) on the cold split
    path (prefix_cache=False); then hold the served tokens against a
-   teacher-forced plain forward.
+   teacher-forced plain forward. Every engine captures its programs (the
+   decode chunk, the unified step's window) as CUDA graphs in warm() and
+   replays them; phases 2 and 10-12 serve their traffic a second time
+   with the programs run eagerly and must give the same tokens and launch
+   counts, and log both runs' decode-chunk ms (CUDA events) and busy
+   share.
+2b. engine-db: phase 2's engine and traffic with double_buffer=True:
+   phase 2's tokens; sync_wait_s, blocked_syncs and tokens/s beside the
+   synchronous run.
 3. The split path with the prefix cache (the JAX engine's default): 24
    requests sharing a 512-token system prompt; cache hits prefill their
    suffixes through prefix_prefill_attention.
@@ -1209,23 +1217,33 @@ def rel_rms(a, b) -> float:
     return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
 
 
+def engine_traffic(cfg):
+    """Phase 2's (and phase 12's) prompts: 16 of 16-500 tokens."""
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(16, 501, 16)]
+
+
+# phase 2's engine (the cold split path), shared by the double-buffered
+# phase 2b
+ENGINE_KW = dict(max_prompt_len=512, prefix_cache=False)
+
+
 def phase_engine(cfg, params):
+    """Phase 2: the cold split path, its programs replayed as CUDA graphs
+    and then run eagerly (serve_graph_and_eager), then the numerics of
+    the served tokens."""
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.models.llama import (_make_head_logits,
                                                _make_prefill)
-    from paddle_tpu_torch.serving import ContinuousBatchingEngine
 
-    eng = ContinuousBatchingEngine(
-        cfg, params, slots=8, prompt_bucket=128, max_prompt_len=512,
-        max_new_tokens=32, block_size=64, steps_per_sync=8,
-        prefix_cache=False, dtype=torch.bfloat16, device="cuda")
-    eng.warm()
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
-               for n in rng.integers(16, 501, 16)]
-    reqs, wall, launches, m = serve(eng, prompts, "engine")
+    prompts = engine_traffic(cfg)
+    g = serve_graph_and_eager(
+        "engine", cfg, params, prompts,
+        lambda eng: profile_decode(eng, prompts[:8]), **ENGINE_KW)[True]
+    reqs, wall, launches, m = g.reqs, g.wall, g.launches, g.m
     n_tok = sum(len(r.tokens) for r in reqs)
-    chunk_ms = 1e3 * m["decode_s"] / max(m["device_steps"], 1)
+    chunk_ms = g.chunk_ms
     log(f"[engine] {m['device_steps']} decode chunks of 8 steps x 8 slots, "
         f"{chunk_ms:.2f} ms per chunk")
 
@@ -1277,9 +1295,36 @@ def phase_engine(cfg, params):
             or worst["margin"] > 0.5:
         raise AssertionError(f"end-to-end numerics out of tolerance: "
                              f"{worst}")
-    profile_decode(eng, prompts[:8])
     return {"launches": launches, "tok_s": n_tok / wall,
-            "chunk_ms": chunk_ms, "worst": worst}
+            "chunk_ms": chunk_ms, "worst": worst, "m": m,
+            "tokens": [r.tokens for r in reqs]}
+
+
+def phase_double_buffer(cfg, params, sync):
+    """Phase 2b: phase 2's engine and traffic with double_buffer=True
+    (chunk N+1 dispatched before chunk N is read back). Gates: phase 2's
+    tokens exactly, compile_stats() unchanged by traffic. Logs sync_wait_s,
+    blocked_syncs and tokens/s beside phase 2's synchronous run."""
+    eng = build_engine(cfg, params, double_buffer=True, **ENGINE_KW)
+    stats = eng.compile_stats()
+    reqs, wall, launches, m = serve(eng, engine_traffic(cfg), "engine-db")
+    if [r.tokens for r in reqs] != sync["tokens"]:
+        raise AssertionError("engine-db: double-buffered tokens differ from "
+                             "phase 2's synchronous tokens")
+    if eng.compile_stats() != stats:
+        raise AssertionError(f"engine-db: compile_stats {stats} -> "
+                             f"{eng.compile_stats()}")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    s = sync["m"]
+    log(f"[engine-db] double-buffered vs synchronous (phase 2): "
+        f"{n_tok / wall:.1f} vs {sync['tok_s']:.1f} tok/s; sync wait "
+        f"{m['sync_wait_s']:.3f} "
+        f"vs {s['sync_wait_s']:.3f} s, blocked syncs {m['blocked_syncs']} "
+        f"vs {s['blocked_syncs']}, decode chunks {m['device_steps']} vs "
+        f"{s['device_steps']}; tokens identical")
+    del eng
+    _release()
+    return {"launches": launches, "tok_s": n_tok / wall, "m": m}
 
 
 def profile_step(eng, title: str):
@@ -1315,43 +1360,139 @@ def profile_call(fn, title: str):
     return wall_ms, busy
 
 
+def event_ms(fn) -> float:
+    """`fn()`'s time on the card's clock, without the profiler: CUDA
+    events on the current stream just before and just after it (from its
+    first enqueue to the end of its last kernel, host gaps between
+    kernels included)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def graph_tag(eng) -> str:
+    """How `eng`'s decode chunk runs: a replayed CUDA graph or eagerly."""
+    return "graph" if eng._programs["decode"].graph is not None else "eager"
+
+
 def profile_decode(eng, prompts):
-    """One short traced window (8 requests, 8 new tokens each) after the
-    counted run: one decode chunk. Its launches do not join the phase's;
-    they are counted apart (reset just before the chunk, read just after)
-    and returned with the chunk's (wall ms, busy ms)."""
+    """After the counted run: 8 requests of 17 new tokens each, two decode
+    chunks. The first is timed with CUDA events (`event_ms`: the chunk
+    ms), the second traced (busy share). The traced chunk's launches do
+    not join the phase's; they are counted apart (reset just before the
+    chunk, read just after) and returned with the chunk's (wall ms, busy
+    ms) and the first chunk's ms."""
     from paddle_tpu_torch.kernels import _build
 
     for p in prompts:
-        eng.add_request(p, max_new=9)
+        eng.add_request(p, max_new=17)
     eng._admit()
+    ms = event_ms(eng.step)
     _build.reset_launch_counts()
     prof = profile_step(eng, f"one decode chunk (8 steps x 8 slots, "
                              f"{eng.kv_dtype} pools, megakernel "
-                             f"{eng.megakernel_rung})")
+                             f"{eng.megakernel_rung}, {graph_tag(eng)})")
     chunk = _build.launch_counts()
     eng.run()
-    return chunk, prof
+    return chunk, prof, ms
 
 
 def profile_decode_lane(eng, prompts):
     """The unified step's decode lane alone: `prompts` prefill (a window
-    a step) beside the live slots' decode, then one step with no window
-    left, traced (a decode chunk of the slots still live). Its launches
-    are counted apart and returned with the chunk's (wall ms, busy ms)."""
+    a step) beside the live slots' decode, then two steps with no window
+    left (decode chunks of the slots still live): the first timed with
+    CUDA events, the second traced. The traced chunk's launches are
+    counted apart and returned with its (wall ms, busy ms) and the first
+    chunk's ms."""
     from paddle_tpu_torch.kernels import _build
 
     for p in prompts:
         eng.add_request(p)
     while eng.waiting or eng._prefilling is not None:
         eng.step()
+    ms = event_ms(eng.step)
     _build.reset_launch_counts()
     prof = profile_step(eng, f"one decode chunk ({eng.n_active} live slots "
                              f"x 8 steps, no window, {eng.kv_dtype} pools, "
-                             f"megakernel {eng.megakernel_rung})")
+                             f"megakernel {eng.megakernel_rung}, "
+                             f"{graph_tag(eng)})")
     chunk = _build.launch_counts()
     eng.run()
-    return chunk, prof
+    return chunk, prof, ms
+
+
+def build_engine(cfg, params, graphed: bool = True, **kw):
+    """A warmed engine at the serving phases' shared settings (8 slots,
+    128-token prompt buckets, 32 new tokens, 64-token pages, 8-step
+    chunks, bf16, on the card) overridden by `kw`. With `graphed=False`
+    its programs run their eager bodies on the card instead of replaying
+    CUDA graphs: the yardstick the graphs are held to, and nothing the
+    engine ever does on its own."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(cfg, params, **{**dict(
+        slots=8, prompt_bucket=128, max_new_tokens=32, block_size=64,
+        steps_per_sync=8, dtype=torch.bfloat16, device="cuda"), **kw})
+    if not graphed:
+        for prog in eng._programs.values():
+            prog.graphed = False
+    eng.warm()
+    if graph_tag(eng) != ("graph" if graphed else "eager"):
+        raise AssertionError(f"the decode chunk runs {graph_tag(eng)}")
+    return eng
+
+
+def serve_graph_and_eager(phase, cfg, params, traffic, profile, **kw):
+    """Serve `traffic` through `build_engine(cfg, params, **kw)` twice:
+    replaying its CUDA graphs, then eagerly. Gates: identical token
+    streams and launch counts (each replay adds its capture's launches).
+    `profile(eng)` after each run returns (launches, (wall ms, busy ms),
+    chunk ms). Logs both runs' tokens/s, chunk ms and busy share.
+    Returns {True: graphed run, False: eager run}, each a namespace of
+    reqs, wall, launches, m, chunk_ms (decode_s a chunk), chunk (the
+    traced chunk's launches), prof, ev_ms."""
+    runs = {}
+    for graphed in (True, False):
+        eng = build_engine(cfg, params, graphed, **kw)
+        stats = eng.compile_stats()
+        reqs, wall, launches, m = serve(eng, traffic, f"{phase}/"
+                                        f"{graph_tag(eng)}")
+        if eng.compile_stats() != stats:
+            raise AssertionError(f"{phase}: traffic grew compile_stats "
+                                 f"{stats} -> {eng.compile_stats()}")
+        chunk, prof, ev = profile(eng)
+        runs[graphed] = SimpleNamespace(
+            reqs=reqs, wall=wall, launches=launches, m=m,
+            chunk_ms=1e3 * m["decode_s"] / max(m["device_steps"], 1),
+            chunk=chunk, prof=prof, ev_ms=ev)
+        del eng
+        _release()
+    g, e = runs[True], runs[False]
+    eager_tokens = [r.tokens for r in e.reqs]
+    if [r.tokens for r in g.reqs] != eager_tokens:
+        raise AssertionError(f"{phase}: the graph-replayed engine's tokens "
+                             f"differ from the eager engine's (match "
+                             f"{_token_match(g.reqs, eager_tokens):.4f})")
+    if g.launches != e.launches or g.chunk != e.chunk:
+        raise AssertionError(f"{phase}: graph launches {g.launches} / "
+                             f"chunk {g.chunk}, eager {e.launches} / "
+                             f"{e.chunk}")
+    n_tok = sum(len(r.tokens) for r in g.reqs)
+    for tag, r in (("graph", g), ("eager", e)):
+        wall_ms, busy = r.prof
+        log(f"[{phase}] {tag}: {n_tok / r.wall:.1f} tok/s, decode chunk "
+            f"{r.ev_ms:.2f} ms (CUDA events; {r.chunk_ms:.2f} ms dispatch "
+            f"to readback over the run), traced chunk busy {busy:.2f} of "
+            f"{wall_ms:.2f} ms ({100 * busy / wall_ms:.1f}%), sync wait "
+            f"{r.m['sync_wait_s']:.3f} s ({r.m['blocked_syncs']} blocked)")
+    log(f"[{phase}] graph vs eager: tokens identical, launches equal; "
+        f"chunk {e.ev_ms / g.ev_ms:.2f}x faster replayed")
+    return runs
 
 
 def profile_mixed(eng, short, long):
@@ -1732,7 +1873,7 @@ def phase_int4_split(cfg):
         raise AssertionError("int4-split: no prompt token was served from "
                              "the prefix cache")
     _quant_launch_gates("int4-split", launches, "int4_matmul")
-    chunk, _ = profile_decode(eng, prefix_traffic(cfg)[:8])
+    chunk, _, ev_ms = profile_decode(eng, prefix_traffic(cfg)[:8])
     per_step = MATMULS_PER_LAYER * cfg.num_hidden_layers + 1
     if chunk["int4_matmul"] != per_step * eng.steps \
             or chunk["int4_matmul_large_m"]:
@@ -1742,7 +1883,8 @@ def phase_int4_split(cfg):
                              f"{chunk['int4_matmul_large_m']} large-M "
                              "matmuls (expected 0)")
     log(f"[int4-split] one decode chunk: {chunk['int4_matmul']} int4 GEMV "
-        f"launches ({per_step} per step), 0 large-M")
+        f"launches ({per_step} per step), 0 large-M; {ev_ms:.2f} ms by CUDA "
+        f"events ({graph_tag(eng)})")
     del eng
     plain = plain_over(cfg, params, quant)
     hits = [r for r in reqs if r.cached_tokens]
@@ -1784,9 +1926,10 @@ def phase_int8w_unified(cfg, params):
         raise AssertionError(f"{phase}: {n} int8 ragged launches for "
                              f"{m['prefill_chunks']} windows")
     _quant_launch_gates(phase, launches, "int8_weight_matmul")
-    chunk, _ = profile_decode_lane(eng, unified_traffic(cfg)[-8:])
+    chunk, _, ev_ms = profile_decode_lane(eng, unified_traffic(cfg)[-8:])
     log(f"[{phase}] one decode chunk: {chunk['int8_weight_matmul']} int8 "
-        f"GEMV launches, {chunk['int8_weight_matmul_large_m']} large-M")
+        f"GEMV launches, {chunk['int8_weight_matmul_large_m']} large-M; "
+        f"{ev_ms:.2f} ms by CUDA events ({graph_tag(eng)})")
     del eng
     plain = plain_over(cfg, params8, quant)
     hit = next(r for r in reqs if r.cached_tokens)
@@ -1914,25 +2057,17 @@ def _token_match(reqs, theirs) -> float:
 
 
 def _serve_rung(cfg, params, rung: str, phase: str, traffic, **kw):
-    """One engine at megakernel rung `rung` over `traffic`: (requests,
-    launches, metrics, decode-chunk ms, one profiled chunk's launches and
-    (wall ms, busy ms))."""
-    from paddle_tpu_torch.serving import ContinuousBatchingEngine
-
-    eng = ContinuousBatchingEngine(
-        cfg, params, slots=8, prompt_bucket=128, max_new_tokens=32,
-        block_size=64, steps_per_sync=8, dtype=torch.bfloat16,
-        device="cuda", decode_megakernel=rung, **kw)
-    if eng.megakernel_rung != rung:
-        raise AssertionError(f"{phase}: planned rung {eng.megakernel_rung}, "
-                             f"asked for {rung}")
-    eng.warm()
-    reqs, wall, launches, m = serve(eng, traffic, f"{phase}/{rung}")
-    chunk_ms = 1e3 * m["decode_s"] / max(m["device_steps"], 1)
-    chunk, prof = profile_decode(eng, traffic[:8])
-    del eng
-    _release()
-    return reqs, launches, m, chunk_ms, chunk, prof
+    """The engine at megakernel rung `rung` over `traffic`, replayed and
+    eager (serve_graph_and_eager): the graphed run (reqs, launches, m,
+    chunk_ms, chunk, prof, ev_ms)."""
+    g = serve_graph_and_eager(
+        f"{phase}/{rung}", cfg, params, traffic,
+        lambda eng: profile_decode(eng, traffic[:8]),
+        decode_megakernel=rung, **kw)[True]
+    if g.m["megakernel_rung"] != rung:
+        raise AssertionError(f"{phase}: planned rung "
+                             f"{g.m['megakernel_rung']}, asked for {rung}")
+    return g
 
 
 def phase_mega_scan(cfg, params):
@@ -1946,8 +2081,9 @@ def phase_mega_scan(cfg, params):
     prefix_prefill_attention over the layer-major pool's offset tables;
     served tokens rank within 0.5 logit of the plain forward over the
     dequantized weights. Full: 32 decode_layer_megakernel_full launches
-    per decode step. Logs each rung's decode-chunk wall, busy share and
-    token match against off."""
+    per decode step. Every rung also serves eagerly, to the same tokens
+    and launches (serve_graph_and_eager). Logs each rung's decode-chunk
+    wall, busy share and token match against off."""
     from paddle_tpu_torch.models import decode_params
 
     quant, phase = "weight_only_int8", "mega-scan"
@@ -1957,7 +2093,8 @@ def phase_mega_scan(cfg, params):
     L, out = cfg.num_hidden_layers, {}
     for rung in ("off", "scan", "full"):
         out[rung] = _serve_rung(cfg, params8, rung, phase, traffic, **kw)
-    reqs, launches, m, chunk_ms, chunk, prof = out["scan"]
+    g = out["scan"]
+    reqs, launches, m, chunk = g.reqs, g.launches, g.m, g.chunk
     steps = m["device_steps"] * 8
     _gate_exact(phase, launches, "decode_layers_megakernel", steps)
     _gate_exact(phase, chunk, "decode_layers_megakernel", 8)
@@ -1967,16 +2104,19 @@ def phase_mega_scan(cfg, params):
     if m["prefix_hit_tokens"] <= 0:
         raise AssertionError(f"{phase}: no cache hit")
     _gate_multiple(phase, launches, "prefix_prefill_attention", L)
-    f_reqs, f_launches, f_m, _, f_chunk, _ = out["full"]
+    f = out["full"]
+    f_reqs, f_launches = f.reqs, f.launches
     _gate_exact(phase, f_launches, "decode_layer_megakernel_full",
-                f_m["device_steps"] * 8 * L)
-    _gate_exact(phase, f_chunk, "decode_layer_megakernel_full", 8 * L)
-    off_tokens = [r.tokens for r in out["off"][0]]
-    for rung, (rq, _, mm, cms, _, (wall_ms, busy)) in out.items():
-        log(f"[{phase}] rung {rung}: decode chunks {mm['device_steps']} at "
-            f"{cms:.2f} ms each; profiled chunk wall {wall_ms:.2f} ms, busy "
-            f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%); token match vs "
-            f"off {_token_match(rq, off_tokens):.4f}")
+                f.m["device_steps"] * 8 * L)
+    _gate_exact(phase, f.chunk, "decode_layer_megakernel_full", 8 * L)
+    off_tokens = [r.tokens for r in out["off"].reqs]
+    for rung, o in out.items():
+        wall_ms, busy = o.prof
+        log(f"[{phase}] rung {rung}: decode chunks {o.m['device_steps']} at "
+            f"{o.chunk_ms:.2f} ms each ({o.ev_ms:.2f} ms by CUDA events); "
+            f"profiled chunk wall {wall_ms:.2f} ms, busy {busy:.2f} ms "
+            f"({100 * busy / wall_ms:.1f}%); token match vs off "
+            f"{_token_match(o.reqs, off_tokens):.4f}")
     plain = plain_over(cfg, params8, quant)
     hits = [r for r in reqs if r.cached_tokens]
     worst = _gate_ranks(phase, plain, [hits[0], hits[-1]])
@@ -1985,7 +2125,7 @@ def phase_mega_scan(cfg, params):
     _release()
     return {"launches": launches, "full_launches": f_launches,
             "worst_margin": max(worst, worst_full),
-            "rungs": {rung: {"chunk_ms": o[3], "profile": o[5]}
+            "rungs": {rung: {"chunk_ms": o.chunk_ms, "profile": o.prof}
                       for rung, o in out.items()}}
 
 
@@ -1995,16 +2135,19 @@ def phase_mega_full(cfg, params, yardstick):
     the int8 full kernel 32 times per decode step (exactly 256 in one
     profiled chunk), no multi-kernel int8 decode, windows through the int8
     ragged kernel; served tokens within INT8_RANK_MARGIN of the plain
-    forward over the dequantized weights. Phase 8 is the yardstick."""
+    forward over the dequantized weights; the eager engine's tokens and
+    launches. Phase 8 is the yardstick."""
     from paddle_tpu_torch.models import decode_params
 
     quant, phase = "weight_only_int8", "mega-full"
     params8 = decode_params(params, quant)
     L = cfg.num_hidden_layers
-    reqs, launches, m, chunk_ms, chunk, (wall_ms, busy) = _serve_rung(
-        cfg, params8, "full", phase, unified_traffic(cfg),
-        max_prompt_len=2048, prefix_cache=True, unified_step=True,
-        token_budget=256, kv_cache_dtype="int8")
+    g = _serve_rung(cfg, params8, "full", phase, unified_traffic(cfg),
+                    max_prompt_len=2048, prefix_cache=True,
+                    unified_step=True, token_budget=256,
+                    kv_cache_dtype="int8")
+    reqs, launches, chunk_ms, chunk = g.reqs, g.launches, g.chunk_ms, g.chunk
+    wall_ms, busy = g.prof
     n = _gate_multiple(phase, launches, "decode_layer_megakernel_full_int8",
                        8 * L)
     _gate_exact(phase, chunk, "decode_layer_megakernel_full_int8", 8 * L)
@@ -2030,17 +2173,16 @@ def phase_mega_attn(cfg, params, yardstick):
     rung the JAX package refuses at this width for its TPU VMEM budget).
     Gates: 32 decode_layer_megakernel launches per decode step (exactly
     256 in one profiled chunk), no paged_decode_attention; served tokens
-    within 0.5 logit of the bf16 plain forward. Phase 2 is the
-    yardstick."""
+    within 0.5 logit of the bf16 plain forward; the eager engine's tokens
+    and launches. Phase 2 is the yardstick."""
     from paddle_tpu_torch.models import LlamaForCausalLM
 
     phase, L = "mega-attn", cfg.num_hidden_layers
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
-               for n in rng.integers(16, 501, 16)]
-    reqs, launches, m, chunk_ms, chunk, (wall_ms, busy) = _serve_rung(
-        cfg, params, "attn", phase, prompts, max_prompt_len=512,
-        prefix_cache=False)
+    g = _serve_rung(cfg, params, "attn", phase, engine_traffic(cfg),
+                    **ENGINE_KW)
+    reqs, launches, m, chunk_ms, chunk = (g.reqs, g.launches, g.m,
+                                          g.chunk_ms, g.chunk)
+    wall_ms, busy = g.prof
     _gate_exact(phase, launches, "decode_layer_megakernel",
                 m["device_steps"] * 8 * L)
     _gate_exact(phase, chunk, "decode_layer_megakernel", 8 * L)
@@ -2267,6 +2409,8 @@ def main() -> int:
     phases = {}
     for name, fn in (
             ("engine", lambda: phase_engine(cfg, params)),
+            ("engine-db",
+             lambda: phase_double_buffer(cfg, params, phases["engine"])),
             ("prefix", lambda: phase_prefix_cache(cfg, params)),
             ("unified", lambda: phase_unified(cfg, params)),
             ("int8-split",

@@ -191,6 +191,14 @@ def split_scratch(dev, rows: int, splits: int, g: int, d: int):
     return part.data_ptr(), cnt.data_ptr()
 
 
+def split_scratch_tensors(dev) -> tuple:
+    """The split launches' scratch on `dev` as it stands (empty before the
+    first split launch). A CUDA graph that captured split launches names
+    these buffers, so its owner holds them: a later launch that grows the
+    scratch then cannot free memory the graph's replays still write."""
+    return tuple(t for t in _SCRATCH.get(dev, ()) if t is not None)
+
+
 def _require_rows(what, b, d, elem_size, *caches):
     """The kernels' rules: batch within the grid, D a multiple of 8 up to
     256, whole 16-byte rows, 16-byte aligned caches."""

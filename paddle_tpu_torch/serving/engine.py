@@ -40,9 +40,20 @@ A per-row budget (prompt + max_new) freezes rows on the device, so a
 chunk never writes past a request's reserved pages. Options of the JAX
 engine that this port does not serve yet raise NotImplementedError naming
 their ROADMAP.md item.
+
+The engine's programs (the decode chunk and, on the unified path, the
+prefill window) are the port's counterpart of the JAX engine's jitted
+programs: on the card each is captured once as a CUDA graph in `warm()`
+and replayed for every dispatch, over static input tensors fed from
+pinned host buffers; the prefill calls of the split path stay eager.
+With ``double_buffer`` the next chunk is dispatched before the previous
+one is read back: its tokens and lengths ride the previous chunk's device
+outputs wherever the host changed no slot, and the readback skips rows
+whose slot changed owner in between (the JAX engine's pipeline).
 """
 from __future__ import annotations
 
+import gc
 import time
 from collections import namedtuple
 from dataclasses import dataclass, field
@@ -53,6 +64,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import _build
+from ..kernels.decode_attention import split_scratch_tensors
 from ..kernels.flash_attention import KERNEL_HEAD_DIMS
 from ..models.llama import (STACKED_LAYER_NAMES, STACKED_PREFIX,
                             PagedKVManager, _make_chunk_prefill,
@@ -114,6 +126,130 @@ class _Slot:
 # on acquire), private pages to reserve, true suffix length
 _Plan = namedtuple("_Plan", "sb_suf n_cached n_lru need suffix_len")
 
+# one set of a program's host buffers (see _HostSets)
+_HostSet = namedtuple("_HostSet", "inputs outputs event")
+
+
+class _Program:
+    """One engine program: `body(*inputs)` over static input tensors on
+    the engine's device, returning a tuple of output tensors.
+
+    On the card `capture` runs the body once eagerly (which makes what its
+    kernels create at their first launch, such as the split attention
+    kernels' scratch) and then records it as a CUDA graph; every call
+    replays the graph, which reads `inputs` and writes `outputs` in place.
+    A replay calls no wrapper, so the launches the wrappers counted while
+    the body was recorded are kept (`launches`) and added to the counters
+    on every replay; the recording itself counts none. On the CPU there is
+    no graph and every call runs the body eagerly over the same inputs. A
+    failed capture or replay raises with the program's name: nothing runs
+    eagerly in its place on the card."""
+
+    def __init__(self, name: str, body, inputs, generator=None):
+        self.name = name
+        self.body = body
+        self.inputs = tuple(inputs)
+        self.generator = generator      # the sampling generator, if any
+        self.graphed = self.inputs[0].device.type == "cuda"
+        self.graph = None
+        self.outputs = None
+        self.launches = {}              # kernel -> launches in one replay
+        self.captures = 0
+        self._held = ()
+
+    def capture(self, pool=None, stream=None):
+        """Warm the body up eagerly, then (on the card) record it on
+        `stream` into the memory pool `pool`."""
+        if not self.graphed:
+            self.outputs = self.body(*self.inputs)
+            self.captures += 1
+            return
+        self._warm_up(stream)
+        before = _build.launch_counts()
+        try:
+            graph, outputs = self._record(pool, stream)
+        except RuntimeError as e:
+            raise RuntimeError(f"capturing the engine's {self.name} "
+                               f"program as a CUDA graph failed: {e}") from e
+        finally:
+            counted = _build.launch_counts()
+            _build.LAUNCHES.update(before)
+        self.launches = {k: n - before[k] for k, n in counted.items()
+                         if n != before[k]}
+        self.graph, self.outputs = graph, outputs
+        self._held = split_scratch_tensors(self.inputs[0].device)
+        self.captures += 1
+
+    def _warm_up(self, stream):
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            self.body(*self.inputs)
+
+    def _record(self, pool, stream):
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            # replays advance the generator's offset, so every chunk draws
+            # fresh numbers
+            graph.register_generator_state(self.generator)
+        # a graph the cyclic collector frees mid-capture (an engine dropped
+        # earlier) would be destroyed inside this capture and invalidate
+        # it: collect first, and hold the collector off until the end
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                outputs = self.body(*self.inputs)
+        finally:
+            if was_enabled:
+                gc.enable()
+        return graph, outputs
+
+    def __call__(self):
+        if not self.captures:
+            raise RuntimeError(f"the engine's {self.name} program was never "
+                               "captured (warm() captures it)")
+        if not self.graphed:
+            self.outputs = self.body(*self.inputs)
+            return self.outputs
+        try:
+            self.graph.replay()
+        except RuntimeError as e:
+            raise RuntimeError(f"replaying the engine's {self.name} "
+                               f"program failed: {e}") from e
+        for name, n in self.launches.items():
+            _build.LAUNCHES[name] += n
+        return self.outputs
+
+
+class _HostSets:
+    """Host buffers of one program: two sets used in turn, each a mirror
+    of `targets` (the device tensors dispatch copies into: the program's
+    static inputs, plus any the engine adds) and of the program's outputs,
+    pinned on the card and guarded by the event recorded after the set's
+    copies. `take` waits for that event before handing a set out again, so
+    the host never rewrites a buffer whose copy is still queued."""
+
+    def __init__(self, targets, outputs):
+        self.targets = tuple(targets)
+        pin = self.targets[0].device.type == "cuda"
+
+        def host(t):
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+
+        self.sets = [_HostSet([host(t) for t in self.targets],
+                              [host(t) for t in outputs],
+                              torch.cuda.Event() if pin else None)
+                     for _ in range(2)]
+        self._turn = 0
+
+    def take(self):
+        hs = self.sets[self._turn]
+        self._turn ^= 1
+        if hs.event is not None:
+            hs.event.synchronize()
+        return hs
+
 
 class ContinuousBatchingEngine:
     """Continuous batching over `PagedKVManager`, on one device.
@@ -154,7 +290,20 @@ class ContinuousBatchingEngine:
     step (scan: every layer, over stacked weights and one layer-major
     pool). The rung is planned at build (`megakernel_rung`); a rung the
     operands refuse (packed int4 weights, mixed weights, the card's
-    limits) steps down the ladder with one warning each."""
+    limits) steps down the ladder with one warning each.
+
+    `double_buffer` makes `run()` dispatch chunk N+1 before chunk N is
+    read back (`run(double_buffer=)` overrides it per call); admissions
+    and retirements then take effect one chunk later.
+
+    On the card `warm()` captures the decode chunk (and the unified
+    step's prefill window) as CUDA graphs that every dispatch replays
+    (`compile_stats()`); the first dispatch warms an engine that was not
+    warmed."""
+
+    # a readback that waits longer than this counts as a blocked sync (the
+    # host sat idle on the device): the stat double buffering shrinks
+    stall_threshold_s = 1e-3
 
     def __init__(self, cfg, dec_params, *, slots: int = 8,
                  prompt_bucket: int = 64, max_prompt_len: int = 512,
@@ -177,8 +326,6 @@ class ContinuousBatchingEngine:
                  token_budget: Optional[int] = None,
                  speculative: Optional[str] = None,
                  config=None, tracer=None, metrics=None, device=None):
-        if double_buffer:
-            raise _unported("double_buffer=True")
         if disaggregated:
             raise _unported("disaggregated=True")
         if config not in (None, False):
@@ -236,6 +383,7 @@ class ContinuousBatchingEngine:
         self.temperature = temperature
         self.top_p = top_p
         self.prefix_cache = bool(prefix_cache)
+        self.double_buffer = bool(double_buffer)
         # pool capacity: every slot full-length at the engine budget, plus
         # the scratch page. Per-request reservations are never larger:
         # _plan trims a cached prefix until cached blocks + the bucketed
@@ -303,12 +451,25 @@ class ContinuousBatchingEngine:
         self.finished: list[ServeRequest] = []
         self._next_id = 0
         self._prefill_cache = {}
+        # the eager bodies: the decode chunk, and the unified step's
+        # prefill window (unified path only)
         self._decode = self._build_decode_chunk()
-        # the mixed prefill-window + decode program, unified path only
         self._unified = self._build_unified_step() if self.unified else None
+        self._programs = self._make_programs()
+        self._host = None        # {program: _HostSets}, made by warm()
         # the request streaming prefill windows through the unified step:
         # {"req": ServeRequest, "done": prompt tokens committed}
         self._prefilling = None
+        # double-buffer pipeline state: the uncommitted in-flight chunk,
+        # the device-side tokens / lengths chunk N+1 chains from, and the
+        # per-slot mask saying "host state changed since the last dispatch:
+        # take the host's value"
+        self._inflight = None
+        self._chain_tok = None
+        self._chain_lens = None
+        self._override = np.ones((slots,), bool)
+        self._override_dev = torch.ones((slots,), dtype=torch.bool,
+                                        device=self.device)
         self.device_steps = 0    # decode-chunk (and mixed-step) dispatches
         self.prefill_calls = 0   # batched-admission device calls
         self.prefill_chunks = 0  # unified prefill windows dispatched
@@ -318,6 +479,8 @@ class ContinuousBatchingEngine:
         self.prefix_inserts = 0      # blocks registered into the cache
         self.decode_s = 0.0      # host wall time of decode chunks, synced
         self.prefill_s = 0.0     # host wall time of prefill calls, synced
+        self.sync_wait_s = 0.0   # host time blocked on program readbacks
+        self.blocked_syncs = 0   # readbacks that waited > stall threshold
 
     # ---- host-side accounting -------------------------------------------
 
@@ -392,10 +555,16 @@ class ContinuousBatchingEngine:
         warn_refusals(refusals, rung, "on this engine build")
         return rung
 
+    def compile_stats(self) -> dict:
+        """Captures of each engine program (a CUDA graph each on the card):
+        the steady-state guard, as the JAX engine's jit cache sizes. After
+        warm(), serving traffic must not grow any entry."""
+        return {name: prog.captures for name, prog in self._programs.items()}
+
     def metrics(self) -> dict:
-        """Scheduling counters, prefix-cache effectiveness and each
-        kernel's launch count (since the last
-        ``kernels.reset_launch_counts()``)."""
+        """Scheduling counters, prefix-cache effectiveness, sync-wait
+        telemetry, compile stats and each kernel's launch count (since the
+        last ``kernels.reset_launch_counts()``)."""
         return {
             "requests_finished": len(self.finished),
             "requests_waiting": len(self.waiting),
@@ -420,6 +589,9 @@ class ContinuousBatchingEngine:
             "n_cacheable_pages": self.n_cacheable_pages,
             "decode_s": self.decode_s,
             "prefill_s": self.prefill_s,
+            "sync_wait_s": self.sync_wait_s,
+            "blocked_syncs": self.blocked_syncs,
+            "compile_stats": self.compile_stats(),
             "kernel_launches": _build.launch_counts(),
         }
 
@@ -589,40 +761,28 @@ class ContinuousBatchingEngine:
         return run
 
     def _build_unified_step(self):
-        """The mixed step: every live slot's decode chunk (the split
-        engine's, unchanged) composed with ONE ragged prefill window of
-        `token_budget` tokens for the request currently prefilling. The
-        lanes touch disjoint pages (the window's pages belong to a request
-        no decode slot maps), so they run one after the other on the same
-        pools. A decode lane with no live slot would only compute frozen
-        rows, so it is skipped; its outputs are then all frozen."""
-        cfg, b, bs = self.cfg, self.slots, self.block_size
+        """The prefill-window lane of the mixed step: ONE ragged prefill
+        window of `token_budget` tokens for the request currently
+        prefilling, its page scatter and its first token. A mixed step
+        runs every live slot's decode chunk (the split engine's, unchanged)
+        and then this window; the lanes touch disjoint pages (the window's
+        pages belong to a request no decode slot maps), so they run one
+        after the other on the same pools."""
+        cfg, bs = self.cfg, self.block_size
         tn = self.token_budget
-        eos = self.eos
-        decode_chunk = self._decode
         chunk_body = _make_chunk_prefill(cfg, tn)
         head_logits = _make_head_logits(cfg)
         scatter = self._page_scatter(1, tn // bs)
 
-        def run(p, kcs, vcs, toks, lens, budgets, tables, live, any_live,
-                chunk_ids, chunk_table, chunk_cached, chunk_len,
+        def run(p, kcs, vcs, chunk_ids, chunk_table, chunk_cached, chunk_len,
                 chunk_pages):
-            if any_live:
-                out, lens_o, done = decode_chunk(p, kcs, vcs, toks, lens,
-                                                 budgets, tables, live)
-            else:
-                out = torch.full((b, self.steps),
-                                 eos if eos is not None else 0,
-                                 dtype=torch.int64, device=toks.device)
-                lens_o, done = lens, torch.zeros_like(live)
             h, kvs = chunk_body(p, kcs, vcs, chunk_ids, chunk_table,
                                 chunk_cached, chunk_len)
             scatter(kcs, vcs, kvs, chunk_pages)
             # first-token logits at the window's true last position --
             # meaningful only when this window completes the prompt
             last = torch.clamp(chunk_len.to(torch.int64) - 1, 0, tn - 1)
-            first = self._first_token(h, last, p, head_logits)
-            return out, lens_o, done, first
+            return (self._first_token(h, last, p, head_logits),)
 
         return run
 
@@ -661,22 +821,93 @@ class ContinuousBatchingEngine:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _make_programs(self) -> dict:
+        """The engine's programs over static inputs of its fixed shapes,
+        holding scratch rows until the first dispatch (every table names
+        the scratch page, no slot is live, the window is empty): "decode"
+        (toks, lens, budgets, tables, live -> out, lens, done) and, on the
+        unified path, "unified" (window ids, table, cached, length, pages
+        -> first token)."""
+        b, w, dev = self.slots, self.table_width, self.device
+        gen = self._gen if self.do_sample else None
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def scratch(*shape, dtype=torch.int32):
+            return torch.full(shape, self.scratch_page, dtype=dtype,
+                              device=dev)
+
+        progs = {"decode": _Program(
+            "decode",
+            lambda *ins: self._decode(self.p, self.kcs, self.vcs, *ins),
+            (zeros(b, dtype=torch.int64), zeros(b), zeros(b),
+             scratch(b, w), zeros(b, dtype=torch.bool)), gen)}
+        if self.unified:
+            tn = self.token_budget
+            progs["unified"] = _Program(
+                "unified",
+                lambda *ins: self._unified(self.p, self.kcs, self.vcs, *ins),
+                (zeros(1, tn, dtype=torch.int64), scratch(1, w), zeros(1),
+                 zeros(1), scratch(1, tn // self.block_size,
+                                   dtype=torch.int64)), gen)
+        return progs
+
     def warm(self):
-        """Build the kernels (on a CUDA device) and run one decode chunk
-        on scratch rows, so the first request pays no build."""
+        """Build the kernels (on the card) and capture the engine's
+        programs: each body runs once eagerly on its scratch rows, then is
+        recorded as a CUDA graph (in one memory pool, on a capture stream
+        of its own) that every later dispatch replays. On the CPU the
+        programs stay eager. Once warm, serving never captures again."""
+        if self._host is not None:
+            return
+        pool = stream = None
         if self.device.type == "cuda":
             for name in _build.SIGNATURES:
                 _build.library(name)
-        b = self.slots
-        zeros = np.zeros((b,), np.int32)
-        self._decode(self.p, self.kcs, self.vcs,
-                     self._to_dev(np.zeros((b,), np.int64)),
-                     self._to_dev(zeros), self._to_dev(zeros),
-                     self._to_dev(np.full((b, self.table_width),
-                                          self.scratch_page, np.int32)),
-                     self._to_dev(np.zeros((b,), bool)))
+            pool = torch.cuda.graph_pool_handle()
+            stream = torch.cuda.Stream(self.device)
+        for prog in self._programs.values():
+            prog.capture(pool, stream)
+        if stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+        # the chain mask rides the decode program's host sets
+        extra = {"decode": (self._override_dev,)}
+        self._host = {name: _HostSets(prog.inputs + extra.get(name, ()),
+                                      prog.outputs)
+                      for name, prog in self._programs.items()}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _stage_in(self, name: str, arrays):
+        """Write `arrays` into program `name`'s next host set and queue
+        their copies into its device targets. Returns the set."""
+        self.warm()
+        hs = self._host[name].take()
+        for buf, a, dst in zip(hs.inputs, arrays, self._host[name].targets):
+            buf.numpy()[...] = a
+            dst.copy_(buf, non_blocking=True)
+        return hs
+
+    def _stage_out(self, name: str, hs):
+        """Queue the copies of program `name`'s outputs into host set `hs`
+        and record its event."""
+        for dst, src in zip(hs.outputs, self._programs[name].outputs):
+            dst.copy_(src, non_blocking=True)
+        if hs.event is not None:
+            hs.event.record()
+
+    def _read(self, hs) -> list:
+        """Wait for host set `hs`'s copies (timed into sync_wait_s /
+        blocked_syncs) and return its outputs as numpy arrays."""
+        t0 = time.perf_counter()
+        if hs.event is not None:
+            hs.event.synchronize()
+        wait = time.perf_counter() - t0
+        self.sync_wait_s += wait
+        if wait > self.stall_threshold_s:
+            self.blocked_syncs += 1
+        return [t.numpy() for t in hs.outputs]
 
     # ---- split scheduling -----------------------------------------------
 
@@ -830,6 +1061,7 @@ class ContinuousBatchingEngine:
             (self.table_width - len(req.pages))
         self._tokens[slot_id] = first
         self._budgets[slot_id] = len(req.prompt) + req.max_new
+        self._override[slot_id] = True
         if slot.done or req.max_new == 1:
             self._retire(slot_id)
 
@@ -847,35 +1079,62 @@ class ContinuousBatchingEngine:
         self._tables[slot_id] = self.scratch_page
         self._tokens[slot_id] = 0
         self._budgets[slot_id] = 0
+        self._override[slot_id] = True
 
     def _live(self) -> np.ndarray:
         return np.asarray([s.req is not None for s in self._slots])
 
-    def _decode_inputs(self, live):
+    def _launch_decode(self, live, chain: bool):
+        """Enqueue one decode chunk from host state without waiting: copy
+        the slots' tokens, lengths, budgets, tables and live flags into the
+        decode program's static inputs, replay it, and queue its outputs'
+        copies out. With `chain`, the tokens and lengths of every slot the
+        host left unchanged since the last dispatch are taken from that
+        chunk's device outputs instead (a where on the device, in stream
+        order before this replay overwrites them); without it the chain is
+        invalidated. Returns the host set the outputs land in."""
+        prog = self._programs["decode"]
         lens = np.asarray([s.length for s in self._slots], np.int32)
-        return (self._to_dev(self._tokens), self._to_dev(lens),
-                self._to_dev(self._budgets), self._to_dev(self._tables),
-                self._to_dev(live))
+        chained = chain and self._chain_tok is not None \
+            and not self._override.all()
+        hs = self._stage_in("decode", (self._tokens, lens, self._budgets,
+                                       self._tables, live, self._override))
+        if chained:
+            toks_in, lens_in = prog.inputs[:2]
+            ov = self._override_dev
+            torch.where(ov, toks_in, self._chain_tok, out=toks_in)
+            torch.where(ov, lens_in, self._chain_lens, out=lens_in)
+        out, new_lens, _ = prog()
+        if chain:
+            self._chain_tok, self._chain_lens = out[:, -1], new_lens
+            self._override[:] = False
+        else:
+            # host state is authoritative after a synchronous step; a
+            # later pipelined dispatch must not chain a stale chunk
+            self._chain_tok = self._chain_lens = None
+            self._override[:] = True
+        self._stage_out("decode", hs)
+        return hs
 
-    def _dispatch_chunk(self):
+    def _dispatch_chunk(self, chain: bool = False):
         """Enqueue one decode chunk; returns its record (None if no slot
         is live)."""
         live = self._live()
         if not live.any():
             return None
         t0 = time.perf_counter()
-        out, new_lens, done = self._decode(self.p, self.kcs, self.vcs,
-                                           *self._decode_inputs(live))
+        hs = self._launch_decode(live, chain)
         self.device_steps += 1
-        return {"out": out, "lens": new_lens, "done": done,
-                "reqs": [s.req for s in self._slots], "t0": t0}
+        return {"host": hs, "reqs": [s.req for s in self._slots], "t0": t0}
 
     def _commit_chunk(self, rec) -> int:
         """Read a chunk back and commit it: extend token lists, advance
-        lengths, retire EOS / finished rows. Returns tokens produced."""
-        out = rec["out"].cpu().numpy()            # the blocking host sync
-        new_lens = rec["lens"].cpu().numpy()
-        done = rec["done"].cpu().numpy()
+        lengths, retire EOS / finished rows. Rows whose slot changed hands
+        since the chunk was dispatched (double buffering: retired, then
+        re-admitted) are skipped: their device work was speculative, and
+        its writes land in pages that are overwritten before any new owner
+        reads them. Returns tokens produced."""
+        out, new_lens, done = self._read(rec["host"])  # the host sync
         self.decode_s += time.perf_counter() - rec["t0"]
         produced = 0
         for slot_id, slot in enumerate(self._slots):
@@ -963,18 +1222,25 @@ class ContinuousBatchingEngine:
         tbl[0, :len(req.pages)] = req.pages
         live = self._live()
         t0 = time.perf_counter()
-        out, new_lens, dn, first = self._unified(
-            self.p, self.kcs, self.vcs, *self._decode_inputs(live),
-            bool(live.any()), self._to_dev(ids), self._to_dev(tbl),
-            self._to_dev(np.asarray([done], np.int32)),
-            self._to_dev(np.asarray([this_chunk], np.int32)),
-            self._to_dev(np.asarray([win_pages], np.int64)))
+        # the decode lane only when a slot is live (a lane of frozen rows
+        # would commit nothing), then the window; a mixed step is
+        # authoritative host state, so no pipelined chunk chains across it
+        dec = self._launch_decode(live, chain=False) if live.any() else None
+        self._chain_tok = self._chain_lens = None
+        self._override[:] = True
+        win = self._stage_in("unified", (ids, tbl, [done], [this_chunk],
+                                         [win_pages]))
+        self._programs["unified"]()
+        self._stage_out("unified", win)
         self.device_steps += 1
         self.prefill_chunks += 1
-        rec = {"out": out, "lens": new_lens, "done": dn,
-               "reqs": [s.req for s in self._slots], "t0": t0}
-        produced = self._commit_chunk(rec)
-        first = int(first.cpu()[0])
+        # the window is the step's last work: one wait covers both lanes
+        first = int(self._read(win)[0][0])
+        produced = 0
+        if dec is not None:
+            produced = self._commit_chunk(
+                {"host": dec, "reqs": [s.req for s in self._slots],
+                 "t0": t0})
         st["done"] = done + this_chunk
         self.chunk_tokens += this_chunk
         if st["done"] >= L:
@@ -996,37 +1262,76 @@ class ContinuousBatchingEngine:
                 "_admit_unified guarantees one")
         self._bind_slot(free[0], req)
 
-    def _step_unified(self) -> int:
+    def _step_unified(self, pipeline: bool) -> int:
+        """One unified-path iteration. Pure-decode phases dispatch the
+        plain decode chunk, synchronous or double-buffered exactly like the
+        split engine (the same program). While a request is prefilling the
+        step is a mixed dispatch; a pipelined chunk in flight commits
+        first (its device-side chain cannot span a step that rewrites host
+        state)."""
         self._admit_unified()
         if self._prefilling is not None:
-            return self._dispatch_commit_unified()
-        rec = self._dispatch_chunk()
+            return self._drain_inflight() + self._dispatch_commit_unified()
+        rec = self._dispatch_chunk(chain=pipeline)
+        if pipeline:
+            prev, self._inflight = self._inflight, rec
+            return self._commit_chunk(prev) if prev is not None else 0
         if rec is None:
             return 0
         return self._commit_chunk(rec)
 
+    def _drain_inflight(self) -> int:
+        """Commit (and clear) the pipelined chunk in flight, if any."""
+        prev, self._inflight = self._inflight, None
+        return self._commit_chunk(prev) if prev is not None else 0
+
     # ---- the loop -------------------------------------------------------
 
     def step(self) -> int:
-        """One scheduling iteration: admit -> decode chunk (with a
-        prefill window on the unified path) -> read back -> retire.
-        Returns the number of tokens produced."""
+        """One synchronous scheduling iteration: admit -> decode chunk
+        (with a prefill window on the unified path) -> read back ->
+        retire. Returns the number of tokens produced."""
         if self.unified:
-            return self._step_unified()
+            return self._step_unified(pipeline=False)
         self._admit()
         rec = self._dispatch_chunk()
         if rec is None:
             return 0
         return self._commit_chunk(rec)
 
+    def _pipeline_step(self) -> int:
+        """One double-buffered iteration: admit, dispatch chunk N+1, THEN
+        block on chunk N, so the host's commit work (readback, retirement,
+        the next admission's planning) overlaps chunk N+1's device time.
+        Admissions and retirements take effect one chunk later than in
+        synchronous mode; budgets and the slot-ownership snapshot keep the
+        speculative chunk harmless."""
+        if self.unified:
+            return self._step_unified(pipeline=True)
+        self._admit()
+        rec = self._dispatch_chunk(chain=True)
+        prev, self._inflight = self._inflight, rec
+        return self._commit_chunk(prev) if prev is not None else 0
+
     def run(self, max_iters: int = 100000,
-            watchdog_timeout: Optional[float] = None):
-        """Drain the queues; returns the finished requests."""
+            watchdog_timeout: Optional[float] = None,
+            double_buffer: Optional[bool] = None):
+        """Drain the queues; returns the finished requests.
+        `double_buffer` (default: the engine's) pipelines the chunks; a
+        drained pipeline may end with one uncommitted chunk whose rows all
+        retired, which is dropped."""
         if watchdog_timeout:
             raise _unported("watchdog_timeout > 0")
-        while self.has_work and max_iters:
-            self.step()
-            max_iters -= 1
+        db = self.double_buffer if double_buffer is None else double_buffer
+        step_fn = self._pipeline_step if db else self.step
+        try:
+            while self.has_work and max_iters:
+                step_fn()
+                max_iters -= 1
+        finally:
+            self._inflight = None
+            self._chain_tok = self._chain_lens = None
+            self._override[:] = True
         if self.has_work:
             raise RuntimeError("engine did not drain within max_iters")
         return self.finished

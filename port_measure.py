@@ -4,7 +4,7 @@ kernels against another's on fixed inputs, end-to-end phases, and
 variants of the decode, flash and paged prefill kernels.
 
     python3 port_measure.py kernels TREE LABEL OUT.json [mega]
-    python3 port_measure.py e2e TREE LABEL [mega | quant]
+    python3 port_measure.py e2e TREE LABEL [mega | quant | graph]
     python3 port_measure.py stamps TREE LABEL
     python3 port_measure.py mega TREE LABEL OUT.json
     python3 port_measure.py kernels TREE LABEL OUT.json gemv
@@ -42,7 +42,10 @@ different hosts differ by more than the kernels do.
   Llama-1B train step) and 14 (the fused SwiGLU route on Llama-3-8B
   widths), and the megakernel phases 10, 11 and 12 (with phase 8, phase
   11's yardstick), with their own logs; `mega` runs phases 2, 8 and
-  10-12 only, `quant` phases 7 and 8 (the weight-only GEMV's engines).
+  10-12 only, `quant` phases 7 and 8 (the weight-only GEMV's engines),
+  `graph` phases 2, 7, 8 and 10-12 and, where the tree has it, the
+  double-buffered phase 2b (the engine's CUDA graphs: a tree whose
+  engine replays them logs its graphed and eager runs).
 - stamps: the per-phase split of TREE's decode megakernel at the four
   rows: a copy of its csrc in which block 0 stamps %globaltimer at the
   launch's start and after every grid barrier, and every block stamps
@@ -425,13 +428,34 @@ def mega(tree: str, label: str, out_path: str) -> None:
 
 
 def e2e(tree: str, label: str, which: str = "all") -> None:
-    if which not in ("all", "mega", "quant"):
+    if which not in ("all", "mega", "quant", "graph"):
         raise SystemExit(f"e2e: unknown selection {which!r}")
     cs, _build = _import_tree(tree)
     if which == "quant":
         _e2e_quant(cs, label)
         return
+    if which == "graph":
+        _e2e_graph(cs, label)
+        return
     _e2e(cs, label, which)
+
+
+def _e2e_graph(cs, label):
+    """chip_smoke phases 2, 2b (where the tree has it), 7, 8 and 10-12:
+    every serving phase whose decode chunk the engine's CUDA graphs
+    change, with their own logs (tokens/s, decode-chunk ms, busy share)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = cs.build_model()
+    engine = cs.phase_engine(cfg, params)
+    if hasattr(cs, "phase_double_buffer"):
+        cs.phase_double_buffer(cfg, params, engine)
+    cs.phase_int4_split(cfg).pop("params")
+    cs._release()
+    int8w = cs.phase_int8w_unified(cfg, params)
+    cs.phase_mega_scan(cfg, params)
+    cs.phase_mega_full(cfg, params, int8w)
+    cs.phase_mega_attn(cfg, params, engine)
+    print(f"[{label}] done", flush=True)
 
 
 def _e2e_quant(cs, label):

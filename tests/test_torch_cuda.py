@@ -28,6 +28,12 @@ round once, so their results are within one rounding step of the plain
 version (bf16 2^-7, f16 2^-10 relative); the GEMV also of the plain twin
 of its K split (``weight_only_split_reference`` under the card's plan),
 and two of its launches are bitwise equal.
+
+The engine's programs (the decode chunk, the unified step's window) are
+CUDA graphs on the card: the same engine and traffic, replayed and run
+eagerly (its programs' `graphed` turned off), must give identical greedy
+streams, bitwise-equal pool pages (the scratch page aside) and equal
+launch counts, on every rung, both pool dtypes and every weight kind.
 """
 import numpy as np
 import pytest
@@ -916,6 +922,7 @@ def test_megakernel_engine_int4_steps_down_and_scan_serves(dev):
     p8 = init_quant_serving_params(cfg, "weight_only_int8", device=dev)
     for params, mega in ((p4, 0), (p8, 1)):
         eng = ContinuousBatchingEngine(cfg, params, **kw)
+        eng.warm()      # its eager warm-up launches count apart
         _build.reset_launch_counts()
         eng.add_request([3, 4, 5])
         eng.run(max_iters=20)
@@ -923,6 +930,191 @@ def test_megakernel_engine_int4_steps_down_and_scan_serves(dev):
         n = _build.launch_counts()
         assert n["decode_layers_megakernel"] == mega * eng.device_steps * 4
         assert len(eng.finished[0].tokens) == 9
+
+
+# ---------------------------------------------------------------------------
+# the engine's programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _graph_model(dev, weights):
+    """A small model the kernels take (head_dim 128, widths the
+    megakernel takes), bf16 weights from a seed, optionally weight-only."""
+    from paddle_tpu_torch.models import (LlamaConfig, decode_params,
+                                         init_serving_params)
+
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                           num_key_value_heads=1, intermediate_size=512,
+                           max_position_embeddings=512)
+    params = init_serving_params(cfg, seed=0, device=dev)
+    if weights != "dense":
+        params = decode_params(params, weights)
+    return cfg, params
+
+
+def _graph_engine(dev, cfg, params, graphed=True, **kw):
+    """The engine, warmed; with `graphed=False` its programs run their
+    eager bodies on the card (the yardstick the graphs are held to)."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(cfg, params, **{**dict(
+        slots=4, prompt_bucket=64, max_prompt_len=192, max_new_tokens=16,
+        block_size=64, steps_per_sync=4, token_budget=64,
+        dtype=torch.bfloat16, device=dev), **kw})
+    if not graphed:
+        for prog in eng._programs.values():
+            prog.graphed = False
+    eng.warm()
+    return eng
+
+
+def _graph_prompts(vocab):
+    """Two prompts sharing a 64-token head (a cache hit), four cold ones,
+    one wider than a 64-token window."""
+    rng = np.random.default_rng(17)
+    shared = rng.integers(1, vocab, 64).tolist()
+    return ([shared + rng.integers(1, vocab, n).tolist() for n in (20, 70)]
+            + [rng.integers(1, vocab, n).tolist() for n in (5, 150, 33, 64)])
+
+
+def _graph_serve(eng, prompts, **run):
+    reqs = [eng.add_request(p, max_new=3 + 4 * (i % 4))
+            for i, p in enumerate(prompts)]
+    eng.run(**run)
+    torch.cuda.synchronize()
+    assert all(r.done for r in reqs)
+    return [list(r.tokens) for r in reqs]
+
+
+def _pool_pages(eng):
+    """Every pool tensor without the scratch page (free rows and window
+    pad scatter there with repeated ids, in no defined order; nothing
+    attends it)."""
+    out = []
+    for pool in eng.kcs + eng.vcs:
+        for t in (pool if isinstance(pool, tuple) else (pool,)):
+            rows = torch.arange(t.shape[0], device=t.device)
+            keep = rows % eng.mgr.max_pages != eng.scratch_page
+            out.append(t[keep])
+    return out
+
+
+GRAPH_CASES = [
+    ("dense", "off", "bf16", False),
+    ("dense", "off", "int8", False),
+    ("dense", "off", "bf16", True),
+    ("dense", "attn", "bf16", False),
+    ("weight_only_int8", "full", "bf16", False),
+    ("weight_only_int8", "full", "int8", True),
+    ("weight_only_int8", "scan", "bf16", False),
+    ("weight_only_int4", "off", "bf16", False),
+    ("weight_only_int8", "off", "int8", True),
+]
+
+
+@pytest.mark.parametrize("weights,rung,kv,unified", GRAPH_CASES,
+                         ids=["-".join(map(str, c)) for c in GRAPH_CASES])
+def test_engine_graphs_replay_the_eager_bodies(dev, weights, rung, kv,
+                                               unified):
+    """The same engine and traffic with its programs replayed as CUDA
+    graphs and run eagerly: identical greedy streams, bitwise-equal pool
+    pages, equal launch counts (each replay adds its capture's launches),
+    and compile_stats() unchanged by traffic after warm()."""
+    cfg, params = _graph_model(dev, weights)
+    prompts = _graph_prompts(cfg.vocab_size)
+    runs = {}
+    for graphed in (True, False):
+        eng = _graph_engine(dev, cfg, params, graphed, kv_cache_dtype=kv,
+                            decode_megakernel=rung, unified_step=unified)
+        assert eng.megakernel_rung == rung
+        stats = eng.compile_stats()
+        assert stats == ({"decode": 1, "unified": 1} if unified
+                         else {"decode": 1})
+        _build.reset_launch_counts()
+        toks = _graph_serve(eng, prompts)
+        runs[graphed] = (toks, _build.launch_counts(), _pool_pages(eng))
+        assert eng.compile_stats() == stats
+        assert eng.prefix_hit_tokens > 0
+        assert (eng._programs["decode"].graph is not None) == graphed
+    (g_toks, g_n, g_pools), (e_toks, e_n, e_pools) = runs[True], runs[False]
+    assert g_toks == e_toks
+    assert g_n == e_n and any(g_n.values())
+    for a, b in zip(g_pools, e_pools):
+        assert torch.equal(a, b)
+    _build.reset_launch_counts()
+
+
+def test_sampled_engine_replays(dev):
+    """Sampling inside the graphs: top_k=1 leaves one candidate, so the
+    sampled stream equals greedy; and each replay advances the engine's
+    generator (it is registered with the graphs), so one prompt served
+    twice in turn, at temperature 1 over the whole vocabulary, draws two
+    different streams of in-vocabulary tokens."""
+    cfg, params = _graph_model(dev, "dense")
+    prompts = _graph_prompts(cfg.vocab_size)
+    greedy = _graph_serve(_graph_engine(dev, cfg, params), prompts)
+    top1 = _graph_serve(_graph_engine(dev, cfg, params, do_sample=True,
+                                      top_k=1, temperature=0.7, seed=3),
+                        prompts)
+    assert top1 == greedy
+    eng = _graph_engine(dev, cfg, params, do_sample=True, temperature=1.0,
+                        seed=5)
+    a = _graph_serve(eng, prompts[2:3])[0]
+    b = _graph_serve(eng, prompts[2:3])[0]
+    assert len(a) == len(b) == 3 and a != b
+    assert all(0 <= t < cfg.vocab_size for t in a + b)
+    assert eng._programs["decode"].graph is not None
+
+
+@pytest.mark.parametrize("unified", [False, True], ids=["split", "unified"])
+def test_double_buffer_equals_sync(dev, unified):
+    """double_buffer=True on the card: the synchronous engine's tokens,
+    no fewer chunks, the sync-wait counters in metrics()."""
+    cfg, params = _graph_model(dev, "dense")
+    prompts = _graph_prompts(cfg.vocab_size)
+    sync = _graph_engine(dev, cfg, params, unified_step=unified)
+    db = _graph_engine(dev, cfg, params, unified_step=unified,
+                       double_buffer=True)
+    assert _graph_serve(db, prompts) == _graph_serve(sync, prompts)
+    assert db.device_steps >= sync.device_steps
+    m = db.metrics()
+    assert m["sync_wait_s"] >= 0.0 and m["blocked_syncs"] >= 0
+    assert m["compile_stats"] == sync.compile_stats()
+
+
+def test_failed_capture_raises_with_the_program_name(dev):
+    """A body that syncs with the host cannot be captured: capture raises
+    naming the program, and the program never runs eagerly in its place.
+    In a process of its own: a capture that fails leaves PyTorch's default
+    CUDA generator mid-capture, so no later random draw of that process
+    works."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = """if True:
+        import torch
+        from paddle_tpu_torch.serving.engine import _Program
+        prog = _Program("probe", lambda x: (x + float(x.sum()),),
+                        (torch.zeros(4, device="cuda"),))
+        try:
+            prog.capture(torch.cuda.graph_pool_handle(), torch.cuda.Stream())
+        except RuntimeError as e:
+            assert "capturing the engine's probe" in str(e), e
+        else:
+            raise AssertionError("capture did not raise")
+        assert prog.graph is None and prog.captures == 0
+        try:
+            prog()
+        except RuntimeError as e:
+            assert "never captured" in str(e), e
+        else:
+            raise AssertionError("an uncaptured program ran")
+        print("refused")
+        """
+    res = subprocess.run([sys.executable, "-c", code],
+                         cwd=Path(__file__).resolve().parent.parent,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "refused" in res.stdout, res.stderr
 
 
 # ---------------------------------------------------------------------------

@@ -194,7 +194,6 @@ def test_warm_metrics_and_cpu_launch_counts():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(double_buffer=True),
     dict(disaggregated=True), dict(config={"a": 1}),
     dict(decode_megakernel="scan", serving_mp=2),
     dict(decode_megakernel="attn", serving_cp=2),
