@@ -45,6 +45,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    2-layer Llama-2-7B (equal heads) with int8 weights, through
    decode_attention.
 10-12. The decode megakernel ladder: mega-scan, mega-full, mega-attn.
+15. spec-ngram: speculative decoding with the n-gram drafter (spec_k 4)
+   on the split path with the prefix cache, bf16 weights and pools, 16
+   repetitive prompts of 256-448 tokens: spec-off as the yardstick, then
+   speculating, replayed and eagerly (the verify window a CUDA graph);
+   ragged launches exactly 32 a verify step; tok/s, acceptance, the
+   verify window's ms beside the decode step's.
+16. spec-self: DraftModelDrafter on the target itself (its decode step's
+   argmax as the draft; the draft program a CUDA graph), int8 pools, the
+   split path; acceptance at least 0.2.
+17. spec-scan-unified: int8 weights on the scan rung's unified step over
+   phase 4's traffic, double-buffered, adaptive depth, a 2-layer draft
+   model of Llama-3-8B's widths on its own random weights; replayed and
+   eagerly; ragged launches exactly 32 x (windows + verify steps).
+18. disagg: disaggregated=True over phase 3's and phase 4's traffic: their
+   tokens exactly, every request handed off once.
 13. train, the training slice's main path: bench.py main()'s step on
    Llama-1B (16 layers, kv heads 4, bf16) with AdamW through
    make_train_step(optimizer=), batch 4 x 2048, a warm-up and 10 timed
@@ -57,8 +72,9 @@ Then the kernel table as one JSON line (each kernel's launches from the
 phase that drives it), the card's name and power limit, and the closing
 {"ok": true, ...} line.
 
-Every phase resets the kernel launch counters just before it serves and
-reads them just after: a bf16 phase must launch no int8 kernel, an int8
+Phases 15-18 run after phase 12 and before training. Every phase resets
+the kernel launch counters just before it serves and reads them just
+after: a bf16 phase must launch no int8 kernel, an int8
 phase no bf16 paged-attention kernel.
 
 Exits non-zero (and prints no result) without a CUDA device, or when
@@ -107,6 +123,11 @@ L2_BYTES = 50e6
 # 8191, on and beside the edges of the kernels' position splits (15 tiles
 # of 64 positions a split at B8 Hkv8: edges at multiples of 960)
 LENS_8K = [0, 959, 960, 1919, 4095, 5761, 8190, 8191]
+# the speculative verify window's rows (spec_k 4, 8 slots): cached lengths
+# with 0, a page edge (64), windows straddling two pages (62: positions
+# 62-66; 127), and new lengths 1-5
+VERIFY_CASE = ([0, 64, 62, 127, 300, 511, 700, 1381],
+               [1, 5, 5, 3, 2, 4, 5, 1])
 
 
 def log(msg: str) -> None:
@@ -1073,7 +1094,9 @@ def phase_kernels():
             # phase 4's window: one row, 1536 cached tokens, the engine's
             # table width (33 pages)
             check_paged_prefill("ragged_paged_attention", 1, 256, [1536],
-                                [256], w=33)],
+                                [256], w=33),
+            # the speculative verify window (spec_k 4): 8 slots of 5 rows
+            check_paged_prefill("ragged_paged_attention", 8, 5, *VERIFY_CASE)],
         # the int8-pool variants at the same shapes
         "paged_decode_attention_int8": [
             check_paged_decode(8, 32, 8, 128, 64, q8=True),
@@ -1091,7 +1114,9 @@ def phase_kernels():
                                 [0, 37, 64, 200, 511, 700, 1381, 256],
                                 [1, 1, 1, 1, 1, 1, 1, 64], q8=True),
             check_paged_prefill("ragged_paged_attention", 1, 256, [1536],
-                                [256], w=33, q8=True)],
+                                [256], w=33, q8=True),
+            check_paged_prefill("ragged_paged_attention", 8, 5, *VERIFY_CASE,
+                                q8=True)],
     }
     # the weight-only GEMV at the decode matmuls' shapes (M = 8 slots),
     # the edge M = 1, and a 64-row decode step (M = 64, the top of the
@@ -1184,7 +1209,10 @@ def serve(eng, prompts, phase: str):
     m = eng.metrics()
     n_tok = sum(len(r.tokens) for r in reqs)
     int8 = sum(n for k, n in launches.items() if k.endswith("_int8"))
-    bf16 = sum(launches[k] for k in PAGED_ATTENTION)
+    # a draft model decodes over its own bf16 pools
+    drafts = getattr(eng._drafter, "kcs", None) is not None
+    bf16 = sum(launches[k] for k in PAGED_ATTENTION
+               if not (drafts and k == "paged_decode_attention"))
     if (eng.kv_dtype == "int8" and bf16) or (eng.kv_dtype != "int8"
                                              and int8):
         raise AssertionError(f"{phase}: {eng.kv_dtype} pools launched "
@@ -1439,7 +1467,10 @@ def build_engine(cfg, params, graphed: bool = True, **kw):
         slots=8, prompt_bucket=128, max_new_tokens=32, block_size=64,
         steps_per_sync=8, dtype=torch.bfloat16, device="cuda"), **kw})
     if not graphed:
-        for prog in eng._programs.values():
+        progs = list(eng._programs.values())
+        if getattr(eng._drafter, "_prog", None) is not None:
+            progs.append(eng._drafter._prog)    # a draft model's program
+        for prog in progs:
             prog.graphed = False
     eng.warm()
     if graph_tag(eng) != ("graph" if graphed else "eager"):
@@ -1690,7 +1721,7 @@ def phase_unified(cfg, params):
     plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
     hit = next(r for r in reqs if r.cached_tokens)
     _gate_ranks("unified", plain, [reqs[0], hit])
-    return {"launches": launches}
+    return {"launches": launches, "tokens": [r.tokens for r in reqs]}
 
 
 def phase_int8_split(cfg, params, bf16):
@@ -2199,6 +2230,298 @@ def phase_mega_attn(cfg, params, yardstick):
 
 
 # ---------------------------------------------------------------------------
+# phases 15-18: speculative decoding and disaggregation
+# ---------------------------------------------------------------------------
+
+def spec_traffic(cfg):
+    """The speculative phases' prompts (the JAX smoke's `_smoke_prompts`
+    shape at Llama-3's vocabulary): 16 prompts, each a random head of 2-4
+    tokens and one random 8-token phrase repeated to 256-448 tokens."""
+    rng = np.random.default_rng(SEED + 15)
+    phrase = rng.integers(1, cfg.vocab_size, 8).tolist()
+    out = []
+    for i in range(16):
+        head = rng.integers(1, cfg.vocab_size, 2 + i % 3).tolist()
+        n = int(rng.integers(256, 449))
+        out.append(head + (phrase * (n // 8 + 1))[:n - len(head)])
+    return out
+
+
+def profile_spec(eng, prompts):
+    """After the counted run: `prompts` (17 new tokens each) admitted and
+    one speculative step taken; then the verify window of that step timed
+    by CUDA events (its program replayed, or its body run eagerly, on the
+    step's inputs: the same K/V rewritten in place) and the next step
+    traced. The traced step's launches are counted apart and returned with
+    its (wall ms, busy ms) and the window's ms."""
+    from paddle_tpu_torch.kernels import _build
+
+    for p in prompts:
+        eng.add_request(p, max_new=17)
+    eng.step()
+    ms = event_ms(eng._programs["verify"])
+    _build.reset_launch_counts()
+    prof = profile_step(eng, f"one speculative step ({eng.n_active} live "
+                             f"slots, spec_k {eng.spec_k}, {eng.kv_dtype} "
+                             f"pools, {graph_tag(eng)})")
+    step = _build.launch_counts()
+    eng.run()
+    return step, prof, ms
+
+
+def _spec_log(phase, reqs, wall, m, off=None):
+    """One line of a speculative run's numbers: tok/s, acceptance, tokens
+    a verify step (decode tokens over verify dispatches; on the split
+    path only, where every token after the first comes from a verify
+    step: the unified step's mixed steps decode too), sync wait; with
+    `off`, the spec-off yardstick's beside them. Returns (tok/s, tokens a
+    verify step or None)."""
+    n_tok = sum(len(r.tokens) for r in reqs)
+    line = (f"[{phase}] {n_tok / wall:.1f} tok/s; {m['spec_steps']} verify "
+            f"steps, acceptance {m['acceptance_rate']:.4f} "
+            f"({m['spec_accepted']} of {m['spec_drafted']} drafts), ")
+    per = None
+    if not m["unified_step"]:
+        dec = n_tok - len(reqs)          # every token after the first
+        per = dec / max(m["spec_steps"], 1)
+        # a slot's window commits its accepted drafts plus one token
+        line += (f"{per:.3f} tokens a verify step "
+                 f"({dec / max(dec - m['spec_accepted'], 1):.3f} a slot's "
+                 f"window), ")
+    line += (f"spec_k_effective {m['spec_k_effective']}; sync wait "
+             f"{m['sync_wait_s']:.3f} s ({m['blocked_syncs']} blocked); "
+             f"decode {m['decode_s']:.3f} s, prefill {m['prefill_s']:.3f} s")
+    if off is not None:
+        line += (f"; spec-off {off['tok_s']:.1f} tok/s, sync wait "
+                 f"{off['m']['sync_wait_s']:.3f} s, decode "
+                 f"{off['m']['decode_s']:.3f} s")
+    log(line)
+    return n_tok / wall, per
+
+
+def _gate_spec_launches(phase, launches, m, name, L, windows=0):
+    """The verify window runs the ragged kernel once a layer: exactly
+    L x (verify steps + unified prefill windows) launches of `name`."""
+    _gate_exact(phase, launches, name, L * (m["spec_steps"] + windows))
+
+
+def phase_spec_ngram(cfg, params):
+    """Phase 15: speculative decoding with the n-gram drafter. Dense bf16
+    weights, bf16 pools, the split path with the prefix cache, spec_k 4,
+    16 repetitive prompts (spec_traffic), 32 new tokens each. The same
+    traffic first with speculation off (the yardstick), then speculating,
+    replayed and again eagerly (serve_graph_and_eager: identical tokens and
+    launches, compile_stats() unchanged by traffic). Gates: ragged
+    launches exactly 32 a verify step, served tokens within 0.5 logit of
+    the bf16 plain forward. Logs tok/s on and off, acceptance, tokens a
+    verify, the verify window's ms beside the spec-off decode step's (a
+    chunk's CUDA-event ms / 8), sync wait."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    phase, L = "spec-ngram", cfg.num_hidden_layers
+    traffic = spec_traffic(cfg)
+    kw = dict(max_prompt_len=512, prefix_cache=True)
+    eng = build_engine(cfg, params, **kw)
+    reqs, wall, _, m = serve(eng, traffic, f"{phase}/off")
+    _, _, off_chunk_ms = profile_decode(eng, traffic[:8])
+    off = {"tok_s": sum(len(r.tokens) for r in reqs) / wall, "m": m,
+           "tokens": [r.tokens for r in reqs]}
+    del eng
+    _release()
+    runs = serve_graph_and_eager(
+        phase, cfg, params, traffic, lambda e: profile_spec(e, traffic[:8]),
+        speculative="ngram", spec_k=4, **kw)
+    g = runs[True]
+    reqs, launches, m = g.reqs, g.launches, g.m
+    if m["compile_stats"] != {"decode": 1, "verify": 1}:
+        raise AssertionError(f"{phase}: compile_stats {m['compile_stats']}")
+    # no acceptance floor: on random weights the served tokens rarely
+    # recur in a prompt, so the n-gram drafter rarely proposes anything
+    if m["spec_steps"] <= 0:
+        raise AssertionError(f"{phase}: no verify step")
+    _gate_spec_launches(phase, launches, m, "ragged_paged_attention", L)
+    _gate_exact(phase, g.chunk, "ragged_paged_attention", L)
+    tok_s, per = _spec_log(phase, reqs, g.wall, m, off)
+    log(f"[{phase}] verify window {g.ev_ms:.3f} ms (CUDA events; eager "
+        f"{runs[False].ev_ms:.3f} ms) vs the spec-off decode step "
+        f"{off_chunk_ms / 8:.3f} ms (a chunk {off_chunk_ms:.2f} ms / 8); "
+        f"token match vs spec-off {_token_match(reqs, off['tokens']):.4f}")
+    plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
+    worst = _gate_ranks(phase, plain, [reqs[0], reqs[-1]])
+    del plain
+    _release()
+    return {"launches": launches, "tok_s": tok_s, "off_tok_s": off["tok_s"],
+            "acceptance": m["acceptance_rate"], "per_verify": per,
+            "verify_ms": g.ev_ms, "step_ms": off_chunk_ms / 8,
+            "worst_margin": worst}
+
+
+def phase_spec_self(cfg, params):
+    """Phase 16: the draft-model drafter on the target itself. bf16
+    weights, int8 pools, the split path with the prefix cache, spec_k 4;
+    DraftModelDrafter over the target's own config and params (bf16 draft
+    pools), so a draft is the decode step's argmax and acceptance measures
+    how often the verify window agrees with it. 8 of phase 15's prompts.
+    Gates: served tokens within INT8_RANK_MARGIN of the bf16 plain forward,
+    acceptance_rate >= 0.2 (a wrong window position or scatter gives
+    about 0), compile_stats() {decode, verify, draft} unchanged by
+    traffic, ragged int8 launches exactly 32 a verify step. Logs
+    acceptance, tok/s and the draft program's ms (its last dispatch
+    replayed, CUDA events)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import DraftModelDrafter
+
+    phase, L = "spec-self", cfg.num_hidden_layers
+    eng = build_engine(cfg, params, max_prompt_len=512, prefix_cache=True,
+                       kv_cache_dtype="int8", speculative="draft", spec_k=4,
+                       drafter=DraftModelDrafter(cfg, params))
+    stats = eng.compile_stats()
+    if stats != {"decode": 1, "verify": 1, "draft": 1}:
+        raise AssertionError(f"{phase}: compile_stats {stats}")
+    reqs, wall, launches, m = serve(eng, spec_traffic(cfg)[:8], phase)
+    if eng.compile_stats() != stats:
+        raise AssertionError(f"{phase}: traffic grew compile_stats {stats} "
+                             f"-> {eng.compile_stats()}")
+    _gate_spec_launches(phase, launches, m, "ragged_paged_attention_int8", L)
+    tok_s, per = _spec_log(phase, reqs, wall, m)
+    if m["acceptance_rate"] < 0.2:
+        raise AssertionError(f"{phase}: acceptance {m['acceptance_rate']} "
+                             "below 0.2")
+    draft_ms = event_ms(eng._drafter._prog)
+    verify_ms = event_ms(eng._programs["verify"])
+    log(f"[{phase}] draft program ({eng._drafter.m} decode steps x 8 rows) "
+        f"{draft_ms:.3f} ms, verify window {verify_ms:.3f} ms (CUDA events, "
+        f"last dispatches replayed; {graph_tag(eng)})")
+    del eng
+    _release()
+    plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
+    worst = _gate_ranks(phase, plain, [reqs[0], reqs[-1]], INT8_RANK_MARGIN)
+    del plain
+    _release()
+    return {"launches": launches, "tok_s": tok_s,
+            "acceptance": m["acceptance_rate"], "per_verify": per,
+            "draft_ms": draft_ms, "verify_ms": verify_ms,
+            "worst_margin": worst}
+
+
+def phase_spec_scan_unified(cfg, params):
+    """Phase 17: speculation on the scan rung's unified step. int8 weights
+    (decode_params), decode_megakernel="scan", unified_step over phase 4's
+    traffic, double_buffer=True, spec_adaptive=True, spec_k 4; the drafter
+    a DraftModelDrafter of Llama-3-8B's widths cut to 2 layers on its own
+    random weights (seed 1). Replayed and eagerly (identical tokens and
+    launches). Gates: served tokens within 0.5 logit of the plain forward
+    over the dequantized weights; ragged launches exactly 32 x (prefill
+    windows + verify steps); spec_k_effective reported in metrics()."""
+    from paddle_tpu_torch.models import (LlamaConfig, decode_params,
+                                         init_serving_params)
+    from paddle_tpu_torch.serving import DraftModelDrafter
+
+    quant, phase, L = "weight_only_int8", "spec-scan-unified", \
+        cfg.num_hidden_layers
+    params8 = decode_params(params, quant)
+    dcfg = LlamaConfig.llama3_8b(num_hidden_layers=2)
+    dparams = init_serving_params(dcfg, seed=SEED + 1, device="cuda",
+                                  dtype=torch.bfloat16)
+    traffic = unified_traffic(cfg)
+    drafters = []
+
+    def drafter():
+        drafters.append(DraftModelDrafter(dcfg, dparams))
+        return drafters[-1]
+
+    runs = {}
+    for graphed in (True, False):
+        eng = build_engine(cfg, params8, graphed, max_prompt_len=2048,
+                           prefix_cache=True, unified_step=True,
+                           token_budget=256, decode_megakernel="scan",
+                           double_buffer=True, speculative="draft",
+                           spec_k=4, spec_adaptive=True, drafter=drafter())
+        if eng.megakernel_rung != "scan":
+            raise AssertionError(f"{phase}: planned rung "
+                                 f"{eng.megakernel_rung}")
+        stats = eng.compile_stats()
+        reqs, wall, launches, m = serve(eng, traffic, f"{phase}/"
+                                        f"{graph_tag(eng)}")
+        if eng.compile_stats() != stats:
+            raise AssertionError(f"{phase}: traffic grew compile_stats "
+                                 f"{stats} -> {eng.compile_stats()}")
+        runs[graphed] = SimpleNamespace(reqs=reqs, wall=wall,
+                                        launches=launches, m=m)
+        del eng
+        _release()
+    g, e = runs[True], runs[False]
+    if [r.tokens for r in g.reqs] != [r.tokens for r in e.reqs] \
+            or g.launches != e.launches:
+        raise AssertionError(f"{phase}: the graphed run's tokens or "
+                             f"launches differ from the eager run's "
+                             f"({g.launches} vs {e.launches})")
+    m = g.m
+    if "spec_k_effective" not in m or not 1 <= m["spec_k_effective"] <= 4:
+        raise AssertionError(f"{phase}: spec_k_effective "
+                             f"{m.get('spec_k_effective')}")
+    if m["compile_stats"] != {"decode": 1, "unified": 1, "verify": 1,
+                              "draft": 1}:
+        raise AssertionError(f"{phase}: compile_stats {m['compile_stats']}")
+    if m["spec_steps"] <= 0 or m["prefill_chunks"] <= 16:
+        raise AssertionError(f"{phase}: {m['spec_steps']} verify steps, "
+                             f"{m['prefill_chunks']} windows")
+    _gate_spec_launches(phase, g.launches, m, "ragged_paged_attention", L,
+                        m["prefill_chunks"])
+    tok_s, per = _spec_log(phase, g.reqs, g.wall, m)
+    log(f"[{phase}] graph vs eager: tokens identical, launches equal; eager "
+        f"{sum(len(r.tokens) for r in e.reqs) / e.wall:.1f} tok/s; scan "
+        f"megakernel launches {g.launches['decode_layers_megakernel']} "
+        "(the mixed steps' decode lane)")
+    plain = plain_over(cfg, params8, quant)
+    hit = next(r for r in g.reqs if r.cached_tokens)
+    worst = _gate_ranks(phase, plain, [g.reqs[0], hit])
+    del plain, params8, dparams, drafters
+    _release()
+    return {"launches": g.launches, "tok_s": tok_s,
+            "acceptance": m["acceptance_rate"], "per_verify": per,
+            "spec_k_effective": m["spec_k_effective"], "worst_margin": worst}
+
+
+def phase_disagg(cfg, params, prefix, unified):
+    """Phase 18: disaggregated=True on phase 3's traffic (the split path
+    with the prefix cache) and on phase 4's (the unified step). Gates:
+    tokens identical to phases 3 and 4; prefill_handoffs equal to the
+    requests, all of which take a decode slot."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    out = {}
+    for name, traffic, yard, kw in (
+            ("split", prefix_traffic(cfg), prefix,
+             dict(max_prompt_len=1024)),
+            ("unified", unified_traffic(cfg), unified,
+             dict(max_prompt_len=2048, unified_step=True,
+                  token_budget=256))):
+        phase = f"disagg/{name}"
+        eng = ContinuousBatchingEngine(
+            cfg, params, slots=8, prompt_bucket=128, max_new_tokens=32,
+            block_size=64, steps_per_sync=8, prefix_cache=True,
+            disaggregated=True, dtype=torch.bfloat16, device="cuda", **kw)
+        eng.warm()
+        reqs, wall, launches, m = serve(eng, traffic, phase)
+        if [r.tokens for r in reqs] != yard["tokens"]:
+            raise AssertionError(
+                f"{phase}: tokens differ from the non-disaggregated run's "
+                f"(match {_token_match(reqs, yard['tokens']):.4f})")
+        if m["prefill_handoffs"] != len(reqs) \
+                or any(r.slot is None for r in reqs):
+            raise AssertionError(f"{phase}: {m['prefill_handoffs']} handoffs "
+                                 f"for {len(reqs)} requests")
+        n_tok = sum(len(r.tokens) for r in reqs)
+        log(f"[{phase}] tokens identical to the non-disaggregated run; "
+            f"{m['prefill_handoffs']} handoffs; {n_tok / wall:.1f} tok/s")
+        out[name] = launches
+        del eng
+        _release()
+    return {"launches": out["split"]}
+
+
+# ---------------------------------------------------------------------------
 # phases 13-14: the training step
 # ---------------------------------------------------------------------------
 
@@ -2427,7 +2750,13 @@ def main() -> int:
             ("mega-full", lambda: phase_mega_full(
                 cfg, params, phases["int8w-int8kv-unified"])),
             ("mega-attn", lambda: phase_mega_attn(cfg, params,
-                                                  phases["engine"]))):
+                                                  phases["engine"])),
+            ("spec-ngram", lambda: phase_spec_ngram(cfg, params)),
+            ("spec-self", lambda: phase_spec_self(cfg, params)),
+            ("spec-scan-unified",
+             lambda: phase_spec_scan_unified(cfg, params)),
+            ("disagg", lambda: phase_disagg(cfg, params, phases["prefix"],
+                                            phases["unified"]))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")

@@ -103,6 +103,20 @@ define_flag("serving_cp", 1,
             "(default) = one device (also: PADDLE_TPU_SERVING_CP)",
             env_aliases=("PADDLE_TPU_SERVING_CP",))
 define_flag("speculative", "off",
-            "speculative decoding policy: 'off' (default) | 'ngram' | "
-            "'draft' (not ported yet) (also: PADDLE_TPU_SPECULATIVE)",
+            "speculative decoding policy of the serving engine "
+            "(serving/speculative.py): 'off' (default) | 'ngram' | "
+            "'draft'. Read when an engine is BUILT "
+            "(also: PADDLE_TPU_SPECULATIVE)",
             env_aliases=("PADDLE_TPU_SPECULATIVE",))
+define_flag("spec_k", 4,
+            "tokens drafted per slot per speculative step (the verify "
+            "window is spec_k+1 rows). Read when an engine is BUILT "
+            "(also: PADDLE_TPU_SPEC_K)",
+            env_aliases=("PADDLE_TPU_SPEC_K",))
+define_flag("spec_adaptive", False,
+            "acceptance-adaptive speculative draft depth: a host policy "
+            "(serving/speculative.py AdaptiveSpecPolicy) that shrinks the "
+            "depth the drafter is asked for while drafts miss and grows "
+            "it back toward spec_k; the verify window keeps spec_k+1 rows "
+            "(also: PADDLE_TPU_SPEC_ADAPTIVE)",
+            env_aliases=("PADDLE_TPU_SPEC_ADAPTIVE",))

@@ -791,6 +791,23 @@ def _make_chunk_prefill(cfg, tn):
     return _make_window_prefill(cfg, tn, ragged_paged_attention)
 
 
+def _make_verify_window(cfg, b, w):
+    """Speculative-verify body (the JAX function's single-device branch):
+    the chunk lane of `_make_chunk_prefill` batched over `b` slots at a
+    fixed window of `w` = spec_k + 1 tokens, the slot's pending token and
+    its drafts, through ``ragged_paged_attention``. `tables` [b, W] are
+    the slots' block tables, `cached_lens` [b] their committed token
+    counts (token-granular), `new_lens` [b] the true window lengths (1 =
+    no drafts; rows past it are pad rows, zeroed by the attention).
+
+    Returns verify(p, kcs, vcs, ids, tables, cached_lens, new_lens) ->
+    (h_final [b, w, hidden], [(k_i, v_i)]) with rotary-applied window K/V
+    [b, w, nkv, dh] per layer; the caller owns the per-column page
+    scatter and the head, whose row j scores the token after window
+    token j."""
+    return _make_window_prefill(cfg, w, ragged_paged_attention)
+
+
 def make_paged_kv_helpers(b, n_pre, nkv, dh, block_size, tables):
     """The prefill page transpose and the per-token page/slot write,
     over block table `tables` [b, W] (int32). The write updates the

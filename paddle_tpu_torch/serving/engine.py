@@ -50,6 +50,24 @@ With ``double_buffer`` the next chunk is dispatched before the previous
 one is read back: its tokens and lengths ride the previous chunk's device
 outputs wherever the host changed no slot, and the readback skips rows
 whose slot changed owner in between (the JAX engine's pipeline).
+
+**Speculative decoding** (``speculative="ngram" | "draft"``, default from
+FLAGS_speculative; serving/speculative.py): each decode step drafts up to
+`spec_k` tokens per live slot (host-side n-gram lookup, or a draft model
+on its own pools) and the "verify" program scores every slot's pending
+token and drafts as ONE ragged window of spec_k + 1 rows, scattering the
+window's K/V column by column into the slot's pages. Greedy acceptance
+commits the longest matching draft prefix plus the target's corrected
+token, so the output is what sequential greedy decode gives. The verify
+program (and a draft model's program) is a CUDA graph on the card; on the
+unified path, steps with a prompt prefilling stay mixed steps.
+
+**Prefill/decode disaggregation** (``disaggregated=True``): admission
+(the prefill worker) prefills up to `slots` requests ahead into a handoff
+queue without waiting for a free decode slot, and the decode worker maps
+handed-off requests into slots as they free. The pools are shared, so
+the handoff is block-table bookkeeping; a request whose first token is
+EOS, or whose max_new is 1, retires at the handoff.
 """
 from __future__ import annotations
 
@@ -70,13 +88,17 @@ from ..models.llama import (STACKED_LAYER_NAMES, STACKED_PREFIX,
                             PagedKVManager, _make_chunk_prefill,
                             _make_decode_step_megakernel, _make_head_logits,
                             _make_prefill, _make_prefill_with_prefix,
-                            _sample_next, hash_prefix_blocks,
+                            _make_verify_window, _sample_next,
+                            hash_prefix_blocks,
                             make_paged_decode_step, make_paged_kv_helpers,
                             make_paged_kv_q8_helpers, plan_megakernel_rung,
                             resolve_decode_megakernel,
                             resolve_kv_cache_dtype, resolve_serving_cp,
                             resolve_serving_mp, resolve_unified_step,
                             stack_decode_layer_params, warn_refusals)
+from .speculative import (AdaptiveSpecPolicy, NGramDrafter,
+                          resolve_spec_adaptive, resolve_spec_k,
+                          resolve_speculative)
 
 _ROADMAP = "ROADMAP.md, 'Engine options the port refuses'"
 
@@ -250,6 +272,24 @@ class _HostSets:
             hs.event.synchronize()
         return hs
 
+    def stage_in(self, arrays):
+        """Write `arrays` into the next set and queue their copies into
+        the targets. Returns the set."""
+        hs = self.take()
+        for buf, a, dst in zip(hs.inputs, arrays, self.targets):
+            buf.numpy()[...] = a
+            dst.copy_(buf, non_blocking=True)
+        return hs
+
+    @staticmethod
+    def stage_out(hs, outputs):
+        """Queue the copies of `outputs` into set `hs` and record its
+        event."""
+        for dst, src in zip(hs.outputs, outputs):
+            dst.copy_(src, non_blocking=True)
+        if hs.event is not None:
+            hs.event.record()
+
 
 class ContinuousBatchingEngine:
     """Continuous batching over `PagedKVManager`, on one device.
@@ -296,10 +336,18 @@ class ContinuousBatchingEngine:
     read back (`run(double_buffer=)` overrides it per call); admissions
     and retirements then take effect one chunk later.
 
+    `speculative` ('off' | 'ngram' | 'draft'; default from
+    FLAGS_speculative), `spec_k` (FLAGS_spec_k), `drafter` (a `Drafter`;
+    'ngram' defaults to `NGramDrafter()`, 'draft' needs a
+    `DraftModelDrafter`) and `spec_adaptive` (FLAGS_spec_adaptive) turn
+    each decode step into a verify window of spec_k + 1 rows a slot
+    (greedy only). `disaggregated` lets admission prefill up to `slots`
+    requests ahead into a handoff queue that decode slots take from.
+
     On the card `warm()` captures the decode chunk (and the unified
-    step's prefill window) as CUDA graphs that every dispatch replays
-    (`compile_stats()`); the first dispatch warms an engine that was not
-    warmed."""
+    step's prefill window, the verify window and a draft model's program)
+    as CUDA graphs that every dispatch replays (`compile_stats()`); the
+    first dispatch warms an engine that was not warmed."""
 
     # a readback that waits longer than this counts as a blocked sync (the
     # host sat idle on the device): the stat double buffering shrinks
@@ -325,9 +373,9 @@ class ContinuousBatchingEngine:
                  disaggregated: bool = False, unified_step=None,
                  token_budget: Optional[int] = None,
                  speculative: Optional[str] = None,
+                 spec_k: Optional[int] = None, drafter=None,
+                 spec_adaptive: Optional[bool] = None,
                  config=None, tracer=None, metrics=None, device=None):
-        if disaggregated:
-            raise _unported("disaggregated=True")
         if config not in (None, False):
             raise _unported("config= (tuned-config artifacts)")
         if tracer not in (None, False) or metrics not in (None, False):
@@ -338,8 +386,39 @@ class ContinuousBatchingEngine:
             raise _unported("serving_mp > 1")
         if resolve_serving_cp(serving_cp) > 1:
             raise _unported("serving_cp > 1")
-        if speculative not in (None, "off"):
-            raise _unported("speculative decoding")
+        # speculative decoding, resolved at build time like every serving
+        # flag: "off" builds exactly the engine without it (no verify
+        # program, no drafter)
+        self.speculative = resolve_speculative(speculative)
+        self.spec_k = resolve_spec_k(spec_k or None) \
+            if self.speculative != "off" else 0
+        # the depth the drafter is asked for may adapt; the verify window
+        # keeps spec_k + 1 rows
+        self.spec_adaptive = resolve_spec_adaptive(spec_adaptive) \
+            if self.spec_k else False
+        self._spec_policy = AdaptiveSpecPolicy(self.spec_k) \
+            if self.spec_adaptive else None
+        self._drafter = None
+        if self.speculative != "off":
+            if do_sample:
+                raise ValueError(
+                    "speculative decoding is greedy-only: acceptance "
+                    "compares drafts against the target's argmax; build "
+                    "with do_sample=False or speculative='off'")
+            if self.speculative == "draft":
+                if drafter is None:
+                    raise ValueError(
+                        "speculative='draft' needs a DraftModelDrafter "
+                        "(its config + params) via drafter=")
+                self._drafter = drafter
+            else:
+                self._drafter = drafter if drafter is not None \
+                    else NGramDrafter()
+        # prefill/decode disaggregation: prefilled requests not yet in a
+        # slot wait here with their pages committed
+        self.disaggregated = bool(disaggregated)
+        self._handoff: list[ServeRequest] = []
+        self.prefill_handoffs = 0   # requests that crossed the handoff
         if block_size is None:
             block_size = 64
         block_size = int(block_size)
@@ -451,10 +530,12 @@ class ContinuousBatchingEngine:
         self.finished: list[ServeRequest] = []
         self._next_id = 0
         self._prefill_cache = {}
-        # the eager bodies: the decode chunk, and the unified step's
-        # prefill window (unified path only)
+        # the eager bodies: the decode chunk, the unified step's prefill
+        # window (unified path only) and the verify window (speculation
+        # only)
         self._decode = self._build_decode_chunk()
         self._unified = self._build_unified_step() if self.unified else None
+        self._verify = self._build_verify_chunk() if self.spec_k else None
         self._programs = self._make_programs()
         self._host = None        # {program: _HostSets}, made by warm()
         # the request streaming prefill windows through the unified step:
@@ -470,17 +551,26 @@ class ContinuousBatchingEngine:
         self._override = np.ones((slots,), bool)
         self._override_dev = torch.ones((slots,), dtype=torch.bool,
                                         device=self.device)
-        self.device_steps = 0    # decode-chunk (and mixed-step) dispatches
+        self.device_steps = 0    # decode-chunk, mixed-step and verify
+        #                          dispatches
         self.prefill_calls = 0   # batched-admission device calls
+        self.spec_steps = 0      # speculative verify dispatches
+        self.spec_drafted = 0    # draft tokens offered for verification
+        self.spec_accepted = 0   # draft tokens the target agreed with
         self.prefill_chunks = 0  # unified prefill windows dispatched
         self.chunk_tokens = 0    # prompt tokens prefilled via windows
         self.prompt_tokens = 0       # prompt tokens admitted in total
         self.prefix_hit_tokens = 0   # prompt tokens served from the cache
         self.prefix_inserts = 0      # blocks registered into the cache
-        self.decode_s = 0.0      # host wall time of decode chunks, synced
+        self.decode_s = 0.0      # host wall time of decode chunks and
+        #                          verify steps, synced
         self.prefill_s = 0.0     # host wall time of prefill calls, synced
         self.sync_wait_s = 0.0   # host time blocked on program readbacks
         self.blocked_syncs = 0   # readbacks that waited > stall threshold
+        # last: a draft model sizes its pools off the manager, the block
+        # size and spec_k
+        if self._drafter is not None:
+            self._drafter.attach(self)
 
     # ---- host-side accounting -------------------------------------------
 
@@ -504,8 +594,8 @@ class ContinuousBatchingEngine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.waiting) or self._prefilling is not None \
-            or self.n_active > 0
+        return bool(self.waiting) or bool(self._handoff) \
+            or self._prefilling is not None or self.n_active > 0
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -559,7 +649,11 @@ class ContinuousBatchingEngine:
         """Captures of each engine program (a CUDA graph each on the card):
         the steady-state guard, as the JAX engine's jit cache sizes. After
         warm(), serving traffic must not grow any entry."""
-        return {name: prog.captures for name, prog in self._programs.items()}
+        stats = {name: prog.captures
+                 for name, prog in self._programs.items()}
+        if self._drafter is not None:
+            stats.update(self._drafter.compile_stats())
+        return stats
 
     def metrics(self) -> dict:
         """Scheduling counters, prefix-cache effectiveness, sync-wait
@@ -571,10 +665,25 @@ class ContinuousBatchingEngine:
             "requests_active": self.n_active,
             "prefill_calls": self.prefill_calls,
             "device_steps": self.device_steps,
+            "prefill_handoffs": self.prefill_handoffs,
             "unified_step": self.unified,
             "token_budget": self.token_budget,
             "prefill_chunks": self.prefill_chunks,
             "chunk_tokens": self.chunk_tokens,
+            # acceptance_rate: the share of OFFERED draft tokens the
+            # target's argmax agreed with (a window's corrected token is
+            # not counted)
+            "speculative": self.speculative,
+            "spec_k": self.spec_k,
+            "spec_adaptive": self.spec_adaptive,
+            "spec_k_effective": (
+                self._spec_policy.spec_k_effective
+                if self._spec_policy is not None else self.spec_k),
+            "spec_steps": self.spec_steps,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "acceptance_rate": (self.spec_accepted / self.spec_drafted
+                                if self.spec_drafted else 0.0),
             "prefix_hit_rate": self.prefix_hit_rate,
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "prompt_tokens": self.prompt_tokens,
@@ -786,6 +895,70 @@ class ContinuousBatchingEngine:
 
         return run
 
+    def _verify_scatter(self, w: int):
+        """scatter(kc, vc, k, v, tables, cached_lens, new_lens): the
+        token-granular K/V commit of one layer's verify window [b, w, nkv,
+        dh], in place. Column j of every slot writes at position
+        cached_len + j of the slot's own pages; pad columns (j >= new_len)
+        and dead slots go to the scratch page. Columns commit in order:
+        adjacent window positions share a page, and on int8 pools each
+        column's absmax rescale must see the previous column's."""
+        b, bs, W = self.slots, self.block_size, self.table_width
+        nkv, dh = self.cfg.num_key_value_heads, self.cfg.head_dim
+        quant = self.kv_dtype == "int8"
+        scratch = self.scratch_page
+
+        def scatter(kc, vc, k, v, tables, cached_lens, new_lens):
+            rows = torch.arange(b, device=k.device)
+            cached = cached_lens.to(torch.int64)
+            for j in range(w):
+                pos = cached + j
+                col = torch.clamp(pos // bs, max=W - 1)
+                page = torch.where(j < new_lens,
+                                   tables[rows, col].to(torch.int64),
+                                   scratch)
+                if quant:
+                    # the q8 commit owns the absmax rescale; a width-1
+                    # table of the redirected page makes its page lookup
+                    # land on exactly that page
+                    _, w8 = make_paged_kv_q8_helpers(b, 0, nkv, dh, bs,
+                                                     page[:, None])
+                    w8(kc, vc, k[:, j:j + 1], v[:, j:j + 1], pos)
+                else:
+                    slot = pos % bs
+                    kc[page, :, slot, :] = k[:, j].to(kc.dtype)
+                    vc[page, :, slot, :] = v[:, j].to(vc.dtype)
+
+        return scatter
+
+    def _build_verify_chunk(self):
+        """The speculative verify window: ONE ragged window of spec_k + 1
+        rows a slot, row j holding [pending, d1..dk][j] at position
+        cached_len + j (`_make_verify_window`); every layer's window K/V
+        scatters into the slot's pages; returns the argmax of every row's
+        logits [b, spec_k + 1] (row j: the token after window token j).
+        Rejected rows' K/V past the committed length is never attended
+        and a later commit overwrites it."""
+        b, w = self.slots, self.spec_k + 1
+        body = _make_verify_window(self.cfg, b, w)
+        head_logits = _make_head_logits(self.cfg)
+        scatter = self._verify_scatter(w)
+        stride = self._page_stride
+
+        def run(p, kcs, vcs, ids, tables, cached_lens, new_lens):
+            h, kvs = body(p, kcs, vcs, ids, tables, cached_lens, new_lens)
+            for i, (k, v) in enumerate(kvs):
+                # the scan rung's layer-major pool: the table moves by the
+                # layer's offset, the scratch redirect stays at the
+                # layer-0 scratch row (a sink nothing attends)
+                j = 0 if stride else i
+                tbl = tables + i * stride if stride else tables
+                scatter(kcs[j], vcs[j], k, v, tbl, cached_lens, new_lens)
+            logits = head_logits(h, p)                    # [b, w, vocab]
+            return (torch.argmax(logits.to(torch.float32), dim=-1),)
+
+        return run
+
     def _get_prefill(self, sb: int, bsz: int):
         key = ("cold", sb, bsz)
         if key not in self._prefill_cache:
@@ -825,9 +998,11 @@ class ContinuousBatchingEngine:
         """The engine's programs over static inputs of its fixed shapes,
         holding scratch rows until the first dispatch (every table names
         the scratch page, no slot is live, the window is empty): "decode"
-        (toks, lens, budgets, tables, live -> out, lens, done) and, on the
+        (toks, lens, budgets, tables, live -> out, lens, done); on the
         unified path, "unified" (window ids, table, cached, length, pages
-        -> first token)."""
+        -> first token); with speculation, "verify" (ids, tables, cached
+        lens, new lens -> argmax [b, spec_k + 1]; its scratch rows have
+        new_len 1)."""
         b, w, dev = self.slots, self.table_width, self.device
         gen = self._gen if self.do_sample else None
 
@@ -851,6 +1026,13 @@ class ContinuousBatchingEngine:
                 (zeros(1, tn, dtype=torch.int64), scratch(1, w), zeros(1),
                  zeros(1), scratch(1, tn // self.block_size,
                                    dtype=torch.int64)), gen)
+        if self.spec_k:
+            progs["verify"] = _Program(
+                "verify",
+                lambda *ins: self._verify(self.p, self.kcs, self.vcs, *ins),
+                (zeros(b, self.spec_k + 1, dtype=torch.int64),
+                 scratch(b, w), zeros(b),
+                 torch.ones((b,), dtype=torch.int32, device=dev)))
         return progs
 
     def warm(self):
@@ -871,6 +1053,8 @@ class ContinuousBatchingEngine:
             prog.capture(pool, stream)
         if stream is not None:
             torch.cuda.current_stream(self.device).wait_stream(stream)
+        if self._drafter is not None:
+            self._drafter.warm()
         # the chain mask rides the decode program's host sets
         extra = {"decode": (self._override_dev,)}
         self._host = {name: _HostSets(prog.inputs + extra.get(name, ()),
@@ -883,19 +1067,12 @@ class ContinuousBatchingEngine:
         """Write `arrays` into program `name`'s next host set and queue
         their copies into its device targets. Returns the set."""
         self.warm()
-        hs = self._host[name].take()
-        for buf, a, dst in zip(hs.inputs, arrays, self._host[name].targets):
-            buf.numpy()[...] = a
-            dst.copy_(buf, non_blocking=True)
-        return hs
+        return self._host[name].stage_in(arrays)
 
     def _stage_out(self, name: str, hs):
         """Queue the copies of program `name`'s outputs into host set `hs`
         and record its event."""
-        for dst, src in zip(hs.outputs, self._programs[name].outputs):
-            dst.copy_(src, non_blocking=True)
-        if hs.event is not None:
-            hs.event.record()
+        _HostSets.stage_out(hs, self._programs[name].outputs)
 
     def _read(self, hs) -> list:
         """Wait for host set `hs`'s copies (timed into sync_wait_s /
@@ -946,17 +1123,25 @@ class ContinuousBatchingEngine:
     def _admit(self):
         """FIFO admission, batched: the head run of waiting requests
         sharing a (suffix bucket, cached-vs-cold) key -- bounded by free
-        slots, available pages and prefill_batch -- prefills in ONE call,
-        padded to a power of two with rows aimed at the scratch page.
-        After the call, every freshly computed full prompt block enters
-        the prefix cache."""
+        slots (disaggregated: by handoff headroom), available pages and
+        prefill_batch -- prefills in ONE call, padded to a power of two
+        with rows aimed at the scratch page. After the call, every freshly
+        computed full prompt block enters the prefix cache."""
         bs = self.block_size
         while self.waiting:
-            free_slots = [i for i, s in enumerate(self._slots)
-                          if s.req is None]
-            if not free_slots:
-                return
-            limit = min(len(free_slots), self.prefill_batch)
+            if self.disaggregated:
+                # the prefill worker: at most `slots` prefilled requests
+                # parked at the handoff, never bounded by decode slots
+                room = self.slots - len(self._handoff)
+                if room <= 0:
+                    return
+                limit = min(room, self.prefill_batch)
+            else:
+                free_slots = [i for i, s in enumerate(self._slots)
+                              if s.req is None]
+                if not free_slots:
+                    return
+                limit = min(len(free_slots), self.prefill_batch)
             head = self._plan(self.waiting[0])
             key = (head.sb_suf, head.n_cached > 0)
             batch, plans = [], []
@@ -1000,7 +1185,8 @@ class ContinuousBatchingEngine:
                 cached = acquired[row]
                 priv = self.mgr.alloc_pages(plan.need)
                 req.bucket = sb_suf
-                req.slot = free_slots[row]
+                if not self.disaggregated:
+                    req.slot = free_slots[row]
                 req.pages = cached + priv
                 req.n_prefix = len(cached)
                 req.cached_tokens = len(cached) * bs
@@ -1030,7 +1216,10 @@ class ContinuousBatchingEngine:
                 req.tokens.append(int(firsts[row]))
                 req.prefill_time = now
                 self._account_prefill(req)
-                self._bind_slot(req.slot, req)
+                if self.disaggregated:
+                    self._hand_off(req)
+                else:
+                    self._bind_slot(req.slot, req)
 
     def _account_prefill(self, req: ServeRequest):
         """A request's prefill committed: count its prompt and cache hits
@@ -1065,6 +1254,34 @@ class ContinuousBatchingEngine:
         if slot.done or req.max_new == 1:
             self._retire(slot_id)
 
+    def _hand_off(self, req: ServeRequest):
+        """The prefill worker's end of a disaggregated admission: the
+        request's pages are already resident, so it parks in the handoff
+        queue for a decode slot. A request its prefill fully served (EOS
+        first, or max_new == 1) retires here without ever taking a slot."""
+        self.prefill_handoffs += 1
+        if (self.eos is not None and req.tokens[0] == self.eos) \
+                or req.max_new == 1:
+            self._finish_prefilled(req)
+        else:
+            self._handoff.append(req)
+
+    def _finish_prefilled(self, req: ServeRequest):
+        req.finish_time = time.perf_counter()
+        self.finished.append(req)
+        self.mgr.free(req.pages)
+        req.pages = None
+
+    def _install_handoffs(self):
+        """The decode worker's half: map handed-off requests (FIFO) into
+        free decode slots. Host bookkeeping only: the table row and the
+        chunk seeds."""
+        for slot_id, slot in enumerate(self._slots):
+            if not self._handoff:
+                break
+            if slot.req is None:
+                self._bind_slot(slot_id, self._handoff.pop(0))
+
     def _retire(self, slot_id: int):
         slot = self._slots[slot_id]
         req = slot.req
@@ -1080,6 +1297,8 @@ class ContinuousBatchingEngine:
         self._tokens[slot_id] = 0
         self._budgets[slot_id] = 0
         self._override[slot_id] = True
+        if self._drafter is not None:
+            self._drafter.release(slot_id)
 
     def _live(self) -> np.ndarray:
         return np.asarray([s.req is not None for s in self._slots])
@@ -1184,9 +1403,14 @@ class ContinuousBatchingEngine:
             return
         req = self.waiting[0]
         plan = self._plan_unified(req)
-        # one free slot now guarantees one at completion: only completion
-        # binds slots in unified mode, retirements only add free ones
-        if not any(s.req is None for s in self._slots):
+        if self.disaggregated:
+            # handoff headroom, not decode occupancy
+            if len(self._handoff) >= self.slots:
+                return
+        elif not any(s.req is None for s in self._slots):
+            # one free slot now guarantees one at completion: only
+            # completion binds slots in unified mode, retirements only add
+            # free ones
             return
         if plan.need + plan.n_lru > self.mgr.n_available:
             return
@@ -1251,10 +1475,13 @@ class ContinuousBatchingEngine:
     def _finish_unified_prefill(self, req: ServeRequest, first: int):
         """The final window of a prompt committed: account the admission,
         register its fresh full blocks in the prefix cache, and bind it to
-        a decode slot."""
+        a decode slot (disaggregated: hand it off)."""
         req.tokens.append(first)
         req.prefill_time = time.perf_counter()
         self._account_prefill(req)
+        if self.disaggregated:
+            self._hand_off(req)
+            return
         free = [i for i, s in enumerate(self._slots) if s.req is None]
         if not free:
             raise RuntimeError(
@@ -1265,13 +1492,19 @@ class ContinuousBatchingEngine:
     def _step_unified(self, pipeline: bool) -> int:
         """One unified-path iteration. Pure-decode phases dispatch the
         plain decode chunk, synchronous or double-buffered exactly like the
-        split engine (the same program). While a request is prefilling the
-        step is a mixed dispatch; a pipelined chunk in flight commits
-        first (its device-side chain cannot span a step that rewrites host
-        state)."""
+        split engine (the same program), or with speculation a verify
+        step. While a request is prefilling the step is a mixed dispatch;
+        a pipelined chunk in flight commits first (its device-side chain
+        cannot span a step that rewrites host state)."""
         self._admit_unified()
+        if self.disaggregated:
+            self._install_handoffs()
         if self._prefilling is not None:
             return self._drain_inflight() + self._dispatch_commit_unified()
+        if self.spec_k:
+            # drafting against a half-prefilled prompt has nothing to
+            # verify: only pure-decode steps speculate
+            return self._drain_inflight() + self._step_spec()
         rec = self._dispatch_chunk(chain=pipeline)
         if pipeline:
             prev, self._inflight = self._inflight, rec
@@ -1285,6 +1518,94 @@ class ContinuousBatchingEngine:
         prev, self._inflight = self._inflight, None
         return self._commit_chunk(prev) if prev is not None else 0
 
+    # ---- speculative decoding -------------------------------------------
+
+    def _step_spec(self) -> int:
+        """One speculative iteration: draft up to spec_k tokens per live
+        slot, verify every slot's pending token and drafts as ONE window
+        of spec_k + 1 rows, then commit the longest matching draft prefix
+        plus the target's corrected token, clipped to max_new and then to
+        EOS. A slot with no drafts rides the window at new_len 1: one
+        verified token, a plain decode step's math. Synchronous (the
+        committed lengths are a host decision), so the double-buffer
+        chain is invalidated."""
+        live = self._live()
+        if not live.any():
+            return 0
+        self.warm()
+        b, k = self.slots, self.spec_k
+        # the adaptive depth caps what the drafter is ASKED for; the
+        # window stays k + 1 rows and unproposed depth is pad
+        k_eff = self._spec_policy.spec_k_effective \
+            if self._spec_policy is not None else k
+        t0 = time.perf_counter()
+        ids = np.zeros((b, k + 1), np.int64)
+        new_lens = np.ones((b,), np.int32)
+        lens = np.asarray([s.length for s in self._slots], np.int32)
+        drafts = [None] * b
+        reqs = [s.req for s in self._slots]
+        for slot_id, slot in enumerate(self._slots):
+            req = slot.req
+            if req is None:
+                continue    # dead rows ride along on the scratch page
+            ids[slot_id, 0] = self._tokens[slot_id]
+            # never draft past the row budget (window position L + j
+            # writes K/V there) nor past max_new; the corrected token
+            # needs its own headroom
+            want = min(k_eff,
+                       int(self._budgets[slot_id]) - slot.length - 1,
+                       req.max_new - slot.emitted - 1)
+            d = []
+            if want > 0 and self._drafter is not None:
+                d = list(self._drafter.draft(
+                    slot_id, req.req_id, req.prompt + req.tokens, want,
+                    table_row=self._tables[slot_id],
+                    budget=int(self._budgets[slot_id])))[:want]
+            drafts[slot_id] = d
+            ids[slot_id, 1:1 + len(d)] = d
+            new_lens[slot_id] = 1 + len(d)
+        hs = self._stage_in("verify", (ids, self._tables, lens, new_lens))
+        self._programs["verify"]()
+        self._stage_out("verify", hs)
+        self.device_steps += 1
+        self.spec_steps += 1
+        # acceptance rewrites host tokens and lengths per slot: a later
+        # pipelined dispatch must not chain stale device state
+        self._chain_tok = self._chain_lens = None
+        self._override[:] = True
+        preds = self._read(hs)[0]
+        self.decode_s += time.perf_counter() - t0
+        produced = 0
+        for slot_id, slot in enumerate(self._slots):
+            req = reqs[slot_id]
+            if req is None or slot.req is not req or req.done:
+                continue
+            d, row = drafts[slot_id], preds[slot_id]
+            n_acc = 0
+            while n_acc < len(d) and d[n_acc] == int(row[n_acc]):
+                n_acc += 1
+            toks = d[:n_acc] + [int(row[n_acc])]
+            toks = toks[:max(req.max_new - slot.emitted, 0)]
+            if self.eos is not None and self.eos in toks:
+                toks = toks[:toks.index(self.eos) + 1]
+            self.spec_drafted += len(d)
+            self.spec_accepted += min(n_acc, len(toks))
+            if d and self._spec_policy is not None:
+                self._spec_policy.observe(len(d), n_acc)
+            req.tokens.extend(toks)
+            produced += len(toks)
+            slot.emitted += len(toks)
+            # the window wrote positions L .. L + new_len - 1; everything
+            # before the new pending token (toks[-1]) is committed cache
+            slot.length += len(toks)
+            self._tokens[slot_id] = toks[-1] if toks else 0
+            if self._drafter is not None:
+                self._drafter.note_commit(slot_id, slot.length)
+            if (self.eos is not None and toks and toks[-1] == self.eos) \
+                    or slot.emitted >= req.max_new:
+                self._retire(slot_id)
+        return produced
+
     # ---- the loop -------------------------------------------------------
 
     def step(self) -> int:
@@ -1294,6 +1615,10 @@ class ContinuousBatchingEngine:
         if self.unified:
             return self._step_unified(pipeline=False)
         self._admit()
+        if self.disaggregated:
+            self._install_handoffs()
+        if self.spec_k:
+            return self._drain_inflight() + self._step_spec()
         rec = self._dispatch_chunk()
         if rec is None:
             return 0
@@ -1309,6 +1634,12 @@ class ContinuousBatchingEngine:
         if self.unified:
             return self._step_unified(pipeline=True)
         self._admit()
+        if self.disaggregated:
+            self._install_handoffs()
+        if self.spec_k:
+            # speculative steps are synchronous (acceptance is a host
+            # decision): drain the chunk in flight, then verify
+            return self._drain_inflight() + self._step_spec()
         rec = self._dispatch_chunk(chain=True)
         prev, self._inflight = self._inflight, rec
         return self._commit_chunk(prev) if prev is not None else 0

@@ -29,11 +29,14 @@ version (bf16 2^-7, f16 2^-10 relative); the GEMV also of the plain twin
 of its K split (``weight_only_split_reference`` under the card's plan),
 and two of its launches are bitwise equal.
 
-The engine's programs (the decode chunk, the unified step's window) are
-CUDA graphs on the card: the same engine and traffic, replayed and run
-eagerly (its programs' `graphed` turned off), must give identical greedy
-streams, bitwise-equal pool pages (the scratch page aside) and equal
-launch counts, on every rung, both pool dtypes and every weight kind.
+The engine's programs (the decode chunk, the unified step's window, the
+verify window and a draft model's program) are CUDA graphs on the card:
+the same engine and traffic, replayed and run eagerly (its programs'
+`graphed` turned off), must give identical greedy streams, bitwise-equal
+pool pages (the scratch page aside) and equal launch counts, on every
+rung, both pool dtypes and every weight kind. A draft model over the
+target's own weights must see at least a fifth of its drafts accepted,
+and a disaggregated engine must give the colocated engine's tokens.
 """
 import numpy as np
 import pytest
@@ -1115,6 +1118,160 @@ def test_failed_capture_raises_with_the_program_name(dev):
                          cwd=Path(__file__).resolve().parent.parent,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and "refused" in res.stdout, res.stderr
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding and disaggregation
+# ---------------------------------------------------------------------------
+
+# the verify window of 8 slots at spec_k 4: cached lengths with 0, a page
+# edge and windows straddling two pages, new lengths 1-5
+VERIFY_CACHED = [0, 64, 62, 127, 300, 511, 700, 1381]
+VERIFY_NEW = [1, 5, 5, 3, 2, 4, 5, 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q8", [False, True], ids=["pools", "int8"])
+def test_ragged_verify_window(dev, dtype, q8):
+    """The ragged kernel at the verify window's shape (b 8, Hq 32, Hkv 8,
+    D 128, tn 5): within one bf16 step (1e-5 in f32) of the plain version
+    and, on bf16 operands, of the plain twin of its split and merge; pad
+    rows exact zeros; two launches bitwise equal."""
+    from paddle_tpu_torch.kernels import prefix_prefill as pp
+    from paddle_tpu_torch.kernels.ragged_attention import (
+        ragged_paged_attention, ragged_paged_attention_reference)
+
+    args = _prefill_inputs(dev, dtype, 8, 5, 32, 8, 128, 64, VERIFY_CACHED,
+                           VERIFY_NEW, seed=5)
+    kw, name = {}, "ragged_paged_attention"
+    if q8:
+        (args, kw), name = _q8_args(args), name + "_int8"
+    got = _launched(name, lambda: ragged_paged_attention(*args, **kw))
+    assert torch.equal(got, ragged_paged_attention(*args, **kw))
+    _check_paged_prefill(got, ragged_paged_attention_reference(*args, **kw),
+                         VERIFY_NEW, dtype)
+    if dtype == torch.bfloat16:
+        _within_one_bf16_step(got, pp.split_prefill_reference(*args, **kw))
+
+
+def _spec_engine(dev, cfg, params, graphed=True, drafter=None, **kw):
+    """`_graph_engine` with speculation: the n-gram drafter, or a draft
+    model over the target's own weights; `graphed=False` runs the draft
+    program eagerly too."""
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          DraftModelDrafter)
+
+    d = DraftModelDrafter(cfg, params) if drafter == "draft" else None
+    eng = ContinuousBatchingEngine(cfg, params, **{**dict(
+        slots=4, prompt_bucket=64, max_prompt_len=192, max_new_tokens=16,
+        block_size=64, steps_per_sync=4, token_budget=64,
+        dtype=torch.bfloat16, device=dev,
+        speculative="draft" if d is not None else "ngram", spec_k=4,
+        drafter=d), **kw})
+    if not graphed:
+        for prog in list(eng._programs.values()) \
+                + ([d._prog] if d is not None else []):
+            prog.graphed = False
+    eng.warm()
+    return eng
+
+
+def _spec_prompts(vocab):
+    """`_graph_prompts` plus two prompts of a repeated phrase (n-gram
+    drafts)."""
+    rng = np.random.default_rng(23)
+    phrase = rng.integers(1, vocab, 6).tolist()
+    return _graph_prompts(vocab) + [[3] + phrase * 12, [5, 7] + phrase * 20]
+
+
+SPEC_CASES = [
+    ("dense", "off", "bf16", False, "ngram"),
+    ("weight_only_int8", "scan", "int8", True, "ngram"),
+    ("dense", "off", "int8", False, "draft"),
+    ("dense", "attn", "bf16", True, "draft"),
+]
+
+
+@pytest.mark.parametrize("weights,rung,kv,unified,drafter", SPEC_CASES,
+                         ids=["-".join(map(str, c)) for c in SPEC_CASES])
+def test_spec_graphs_replay_the_eager_bodies(dev, weights, rung, kv, unified,
+                                             drafter):
+    """The verify window (and a draft model's program) replayed as CUDA
+    graphs and run eagerly: identical greedy streams, bitwise-equal pool
+    pages, equal launch counts, compile_stats() unchanged by traffic."""
+    cfg, params = _graph_model(dev, weights)
+    prompts = _spec_prompts(cfg.vocab_size)
+    runs = {}
+    for graphed in (True, False):
+        eng = _spec_engine(dev, cfg, params, graphed, drafter,
+                           kv_cache_dtype=kv, decode_megakernel=rung,
+                           unified_step=unified)
+        stats = eng.compile_stats()
+        want = {"decode": 1, "verify": 1}
+        want.update({"unified": 1} if unified else {})
+        want.update({"draft": 1} if drafter == "draft" else {})
+        assert stats == want
+        _build.reset_launch_counts()
+        toks = _graph_serve(eng, prompts)
+        runs[graphed] = (toks, _build.launch_counts(), _pool_pages(eng))
+        assert eng.compile_stats() == stats
+        assert eng.spec_steps > 0 and eng.spec_drafted > 0
+        assert (eng._programs["verify"].graph is not None) == graphed
+        if drafter == "draft":
+            assert (eng._drafter._prog.graph is not None) == graphed
+    (g_toks, g_n, g_pools), (e_toks, e_n, e_pools) = runs[True], runs[False]
+    assert g_toks == e_toks
+    assert g_n == e_n
+    ragged = "ragged_paged_attention" + ("_int8" if kv == "int8" else "")
+    assert g_n[ragged] > 0
+    for a, b in zip(g_pools, e_pools):
+        assert torch.equal(a, b)
+    _build.reset_launch_counts()
+
+
+def test_spec_self_acceptance_floor(dev):
+    """DraftModelDrafter over the target's own weights, int8 pools: its
+    drafts are the decode step's argmax, so a verify window that scores
+    the right positions accepts most of them (a wrong window position or
+    scatter gives about 0)."""
+    cfg, params = _graph_model(dev, "dense")
+    eng = _spec_engine(dev, cfg, params, drafter="draft",
+                       kv_cache_dtype="int8")
+    _graph_serve(eng, _spec_prompts(cfg.vocab_size))
+    m = eng.metrics()
+    assert m["spec_drafted"] > 0 and m["acceptance_rate"] >= 0.2, m
+
+
+@pytest.mark.parametrize("unified", [False, True], ids=["split", "unified"])
+@pytest.mark.parametrize("spec", ["off", "ngram"])
+def test_disaggregated_equals_colocated(dev, unified, spec):
+    """disaggregated=True on the card: the same tokens as the engine
+    without it, every request handed off once."""
+    cfg, params = _graph_model(dev, "dense")
+    prompts = _graph_prompts(cfg.vocab_size)
+    kw = dict(unified_step=unified, speculative=spec)
+    base = _graph_serve(_graph_engine(dev, cfg, params, **kw), prompts)
+    eng = _graph_engine(dev, cfg, params, disaggregated=True, **kw)
+    assert _graph_serve(eng, prompts) == base
+    assert eng.metrics()["prefill_handoffs"] == len(prompts)
+
+
+def test_speculative_smoke_module(dev):
+    """`python -m paddle_tpu_torch.serving.speculative` on the card: exit
+    0 with token_match 1.0 and accepted drafts."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    res = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.speculative"],
+        cwd=Path(__file__).resolve().parent.parent, capture_output=True,
+        text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:] + res.stdout
+    row = json.loads(res.stdout.strip().splitlines()[-1])
+    assert row["token_match"] == 1.0 and row["spec_accepted"] > 0
+    assert row["compile_stats"] == {"decode": 1, "unified": 1, "verify": 1}
 
 
 # ---------------------------------------------------------------------------

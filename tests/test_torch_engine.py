@@ -194,12 +194,11 @@ def test_warm_metrics_and_cpu_launch_counts():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(disaggregated=True), dict(config={"a": 1}),
+    dict(config={"a": 1}),
     dict(decode_megakernel="scan", serving_mp=2),
     dict(decode_megakernel="attn", serving_cp=2),
     dict(serving_mp=2), dict(serving_cp=2),
-    dict(speculative="ngram"), dict(tracer=object()),
-    dict(metrics=object())])
+    dict(tracer=object()), dict(metrics=object())])
 def test_unported_options_raise(kwargs):
     _, _, _, cfg, p = _setup()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -191,7 +191,7 @@ def test_flags_mirror_the_jax_registry():
 
     names = ["kv_cache_dtype", "decode_megakernel", "unified_step",
              "prefix_prefill_kernel", "serving_mp", "serving_cp",
-             "speculative"]
+             "speculative", "spec_k", "spec_adaptive"]
     assert port_flags.get_flags(names) == jax_flags.get_flags(names)
     port_flags.set_flags({"serving_mp": 2})
     try:
