@@ -14,11 +14,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    width (32 layers, random bf16 weights from a seed) on the cold split
    path (prefix_cache=False); then hold the served tokens against a
    teacher-forced plain forward. Every engine captures its programs (the
-   decode chunk, the unified step's window) as CUDA graphs in warm() and
-   replays them; phases 2 and 10-12 serve their traffic a second time
-   with the programs run eagerly and must give the same tokens and launch
-   counts, and log both runs' decode-chunk ms (CUDA events) and busy
-   share.
+   decode chunk, the unified step's window, and on the split path one
+   prefill program per bucket, batch and prefix width) as CUDA graphs in
+   warm(buckets=, prefix_widths=), warmed for its traffic's cold and
+   suffix buckets (warm_for), and replays them; compile_stats() must not
+   grow under the traffic. Phases 2, 3, 7 and 10-12 serve their traffic a
+   second time with every program run eagerly and must give the same
+   tokens and launch counts, and log both runs' prefill_s, decode-chunk
+   ms (CUDA events) and busy share.
 2b. engine-db: phase 2's engine and traffic with double_buffer=True:
    phase 2's tokens; sync_wait_s, blocked_syncs and tokens/s beside the
    synchronous run.
@@ -60,6 +63,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    eagerly; ragged launches exactly 32 x (windows + verify steps).
 18. disagg: disaggregated=True over phase 3's and phase 4's traffic: their
    tokens exactly, every request handed off once.
+19. generate: LlamaForCausalLM.jit_generate on Llama-3-8B (8 rows, 32 new
+   tokens) in six layouts (contiguous, int8 weights, int4 quant-only,
+   paged over bf16 and int8 pools with ragged seq_lens, paged full
+   megakernel on int8 weights), each signature's program a CUDA graph
+   held to its eager body (tokens, launches), one capture a signature,
+   exact launches a call, rank gates; then generate (eager, concat
+   caches) for 8 tokens.
 13. train, the training slice's main path: bench.py main()'s step on
    Llama-1B (16 layers, kv heads 4, bf16) with AdamW through
    make_train_step(optimizer=), batch 4 x 2048, a warm-up and 10 timed
@@ -72,7 +82,7 @@ Then the kernel table as one JSON line (each kernel's launches from the
 phase that drives it), the card's name and power limit, and the closing
 {"ok": true, ...} line.
 
-Phases 15-18 run after phase 12 and before training. Every phase resets
+Phases 15-19 run after phase 12 and before training. Every phase resets
 the kernel launch counters just before it serves and reads them just
 after: a bf16 phase must launch no int8 kernel, an int8
 phase no bf16 paged-attention kernel.
@@ -1241,6 +1251,30 @@ def rank_margin(plain, r) -> float:
                   - rows.gather(1, gen[:, None])[:, 0]).max())
 
 
+def rank_margin_split(prefill_plain, decode_plain, r) -> float:
+    """rank_margin for a generation whose prompt and decode steps read
+    different weights (jit_generate with quant= and a dense prefill):
+    the prompt's forward through `prefill_plain` with concat caches, then
+    each served token but the last through `decode_plain` over those
+    caches, teacher-forced; the worst gap between a served token's logit
+    and its row's argmax."""
+    n = len(r.prompt)
+    L = prefill_plain.config.num_hidden_layers
+    with torch.no_grad():
+        logits, caches = prefill_plain(torch.tensor([r.prompt], device="cuda"),
+                                       caches=[(None, None)] * L)
+        rows = [logits[0, -1]]
+        for i, t in enumerate(r.tokens[:-1]):
+            logits, caches = decode_plain(
+                torch.tensor([[t]], device="cuda"), caches=caches,
+                position_offset=n + i)
+            rows.append(logits[0, -1])
+    rows = torch.stack(rows).float()
+    gen = torch.tensor(r.tokens, device="cuda")
+    return float((rows.max(-1).values
+                  - rows.gather(1, gen[:, None])[:, 0]).max())
+
+
 def rel_rms(a, b) -> float:
     return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
 
@@ -1333,7 +1367,8 @@ def phase_double_buffer(cfg, params, sync):
     (chunk N+1 dispatched before chunk N is read back). Gates: phase 2's
     tokens exactly, compile_stats() unchanged by traffic. Logs sync_wait_s,
     blocked_syncs and tokens/s beside phase 2's synchronous run."""
-    eng = build_engine(cfg, params, double_buffer=True, **ENGINE_KW)
+    eng = build_engine(cfg, params, engine_traffic(cfg), double_buffer=True,
+                       **ENGINE_KW)
     stats = eng.compile_stats()
     reqs, wall, launches, m = serve(eng, engine_traffic(cfg), "engine-db")
     if [r.tokens for r in reqs] != sync["tokens"]:
@@ -1454,12 +1489,51 @@ def profile_decode_lane(eng, prompts):
     return chunk, prof, ms
 
 
-def build_engine(cfg, params, graphed: bool = True, **kw):
-    """A warmed engine at the serving phases' shared settings (8 slots,
+def warm_for(eng, traffic, shared: int = 0, tag: str = ""):
+    """eng.warm(buckets=, prefix_widths=) for `traffic` (the JAX engine's
+    rule: the buckets must cover the SUFFIX buckets cache hits prefill
+    at): every prompt's cold bucket and, with the prefix cache and a
+    `shared`-token common head, every suffix bucket past it at the ladder
+    rung of the shared pages. On the unified path warm() ignores the
+    buckets. Logs the prefill programs captured and the growth of the
+    card's reserved memory across them."""
+    pb, bs = eng.prompt_bucket, eng.block_size
+    buckets = {-(-len(p) // pb) * pb for p in traffic}
+    widths = []
+    if eng.prefix_cache and shared:
+        buckets |= {-(-(len(p) - shared) // pb) * pb for p in traffic}
+        widths = [eng._prefix_width_for(shared // bs)]
+    # engines dropped earlier sit in reference cycles: free their graphs
+    # first, so the growth is this engine's
+    gc.collect()
+    _release()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    eng.warm(buckets=sorted(buckets), prefix_widths=widths)
+    n = sum(1 for k in eng.compile_stats() if k.startswith("prefill:"))
+    if n and tag:
+        log(f"[{tag}] warm(buckets={sorted(buckets)}, prefix_widths="
+            f"{widths}): {n} prefill programs "
+            f"({'graphs' if eng.graphed else 'eager'}) and the engine's "
+            f"other programs in {time.perf_counter() - t0:.2f}s, reserved "
+            f"memory +{(torch.cuda.memory_reserved() - reserved) / 2**20:.0f}"
+            " MiB")
+    return n
+
+
+def programs(stats: dict) -> dict:
+    """compile_stats() without the prefill programs' entries."""
+    return {k: n for k, n in stats.items() if not k.startswith("prefill:")}
+
+
+def build_engine(cfg, params, traffic, graphed: bool = True, shared: int = 0,
+                 tag: str = "", **kw):
+    """An engine at the serving phases' shared settings (8 slots,
     128-token prompt buckets, 32 new tokens, 64-token pages, 8-step
-    chunks, bf16, on the card) overridden by `kw`. With `graphed=False`
-    its programs run their eager bodies on the card instead of replaying
-    CUDA graphs: the yardstick the graphs are held to, and nothing the
+    chunks, bf16, on the card) overridden by `kw`, warmed for `traffic`
+    (warm_for). With `graphed=False` every program, prefill programs
+    included, runs its eager body on the card instead of replaying a
+    CUDA graph: the yardstick the graphs are held to, and nothing the
     engine ever does on its own."""
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
 
@@ -1467,29 +1541,30 @@ def build_engine(cfg, params, graphed: bool = True, **kw):
         slots=8, prompt_bucket=128, max_new_tokens=32, block_size=64,
         steps_per_sync=8, dtype=torch.bfloat16, device="cuda"), **kw})
     if not graphed:
-        progs = list(eng._programs.values())
-        if getattr(eng._drafter, "_prog", None) is not None:
-            progs.append(eng._drafter._prog)    # a draft model's program
-        for prog in progs:
-            prog.graphed = False
-    eng.warm()
+        eng.graphed = False
+    warm_for(eng, traffic, shared, tag)
     if graph_tag(eng) != ("graph" if graphed else "eager"):
         raise AssertionError(f"the decode chunk runs {graph_tag(eng)}")
     return eng
 
 
-def serve_graph_and_eager(phase, cfg, params, traffic, profile, **kw):
-    """Serve `traffic` through `build_engine(cfg, params, **kw)` twice:
-    replaying its CUDA graphs, then eagerly. Gates: identical token
-    streams and launch counts (each replay adds its capture's launches).
-    `profile(eng)` after each run returns (launches, (wall ms, busy ms),
-    chunk ms). Logs both runs' tokens/s, chunk ms and busy share.
-    Returns {True: graphed run, False: eager run}, each a namespace of
-    reqs, wall, launches, m, chunk_ms (decode_s a chunk), chunk (the
-    traced chunk's launches), prof, ev_ms."""
+def serve_graph_and_eager(phase, cfg, params, traffic, profile,
+                          shared: int = 0, **kw):
+    """Serve `traffic` through `build_engine(cfg, params, traffic,
+    shared=shared, **kw)` twice: replaying its CUDA graphs (the prefill
+    programs' too), then eagerly. Gates: identical token streams and
+    launch counts (each replay adds its capture's launches), and
+    compile_stats() unchanged by the traffic. `profile(eng)` after each
+    run returns (launches, (wall ms, busy ms), chunk ms). Logs both
+    runs' tokens/s, prefill_s, chunk ms and busy share. Returns {True:
+    graphed run, False: eager run}, each a namespace of reqs, wall,
+    launches, m, chunk_ms (decode_s a chunk), chunk (the traced chunk's
+    launches), prof, ev_ms."""
     runs = {}
     for graphed in (True, False):
-        eng = build_engine(cfg, params, graphed, **kw)
+        eng = build_engine(cfg, params, traffic, graphed, shared,
+                           f"{phase}/{'graph' if graphed else 'eager'}",
+                           **kw)
         stats = eng.compile_stats()
         reqs, wall, launches, m = serve(eng, traffic, f"{phase}/"
                                         f"{graph_tag(eng)}")
@@ -1516,13 +1591,18 @@ def serve_graph_and_eager(phase, cfg, params, traffic, profile, **kw):
     n_tok = sum(len(r.tokens) for r in g.reqs)
     for tag, r in (("graph", g), ("eager", e)):
         wall_ms, busy = r.prof
-        log(f"[{phase}] {tag}: {n_tok / r.wall:.1f} tok/s, decode chunk "
+        log(f"[{phase}] {tag}: {n_tok / r.wall:.1f} tok/s, prefill_s "
+            f"{r.m['prefill_s']:.3f} s ({r.m['prefill_calls']} calls), "
+            f"decode chunk "
             f"{r.ev_ms:.2f} ms (CUDA events; {r.chunk_ms:.2f} ms dispatch "
             f"to readback over the run), traced chunk busy {busy:.2f} of "
             f"{wall_ms:.2f} ms ({100 * busy / wall_ms:.1f}%), sync wait "
             f"{r.m['sync_wait_s']:.3f} s ({r.m['blocked_syncs']} blocked)")
+    prefill = f"{e.m['prefill_s'] / g.m['prefill_s']:.2f}x" \
+        if g.m["prefill_calls"] else "none (unified)"
     log(f"[{phase}] graph vs eager: tokens identical, launches equal; "
-        f"chunk {e.ev_ms / g.ev_ms:.2f}x faster replayed")
+        f"chunk {e.ev_ms / g.ev_ms:.2f}x faster replayed, prefill "
+        f"{prefill}")
     return runs
 
 
@@ -1543,13 +1623,15 @@ def profile_mixed(eng, short, long):
     eng.run()
 
 
-def _gate_ranks(phase: str, plain, reqs, limit: float = 0.5) -> float:
+def _gate_ranks(phase: str, plain, reqs, limit: float = 0.5,
+                margin_fn=rank_margin) -> float:
     """Every served token of `reqs` ranks within `limit` logit of the bf16
     plain forward's argmax (phase 2's rule: random bf16 weights make
-    near-ties, so token identity is not the test). Returns the worst."""
+    near-ties, so token identity is not the test): `margin_fn(plain, r)`
+    per request. Returns the worst."""
     worst = 0.0
     for r in reqs:
-        margin = rank_margin(plain, r)
+        margin = margin_fn(plain, r)
         log(f"[{phase}] request {r.req_id} (prompt {len(r.prompt)}, cached "
             f"{r.cached_tokens}): served tokens' worst gap to the bf16 "
             f"plain argmax {margin:.3f}")
@@ -1568,11 +1650,15 @@ def _gate_multiple(phase: str, launches, name: str, per: int) -> int:
     return n
 
 
+# the system prompt prefix_traffic's prompts share (8 pages)
+SHARED = 512
+
+
 def prefix_traffic(cfg):
     """Phase 3's (and phase 5's) prompts: one shared 512-token system
     prompt (8 pages) plus 24 suffixes of 16-200 tokens."""
     rng = np.random.default_rng(SEED + 3)
-    system = rng.integers(1, cfg.vocab_size, 512).tolist()
+    system = rng.integers(1, cfg.vocab_size, SHARED).tolist()
     return [system + rng.integers(1, cfg.vocab_size, int(n)).tolist()
             for n in rng.integers(16, 201, 24)]
 
@@ -1623,16 +1709,30 @@ def phase_prefix_cache(cfg, params):
     default configuration). 24 requests, each one shared 512-token system
     prompt (8 pages) plus its own suffix of 16-200 tokens, all submitted at
     once: the first batch prefills cold and inserts the shared pages, later
-    batches prefill only their suffixes through prefix_prefill_attention."""
+    batches prefill only their suffixes through prefix_prefill_attention.
+    Every prefill is a program warmed for the traffic's buckets; the
+    traffic is served replayed and eagerly (serve_graph_and_eager:
+    identical tokens and launches, compile_stats() steady)."""
     from paddle_tpu_torch.models import LlamaForCausalLM
-    from paddle_tpu_torch.serving import ContinuousBatchingEngine
 
-    eng = ContinuousBatchingEngine(
-        cfg, params, slots=8, prompt_bucket=128, max_prompt_len=1024,
-        max_new_tokens=32, block_size=64, steps_per_sync=8,
-        prefix_cache=True, dtype=torch.bfloat16, device="cuda")
-    eng.warm()
-    reqs, wall, launches, m = serve(eng, prefix_traffic(cfg), "prefix")
+    traffic = prefix_traffic(cfg)
+    oracle = {}
+
+    def profile(eng):
+        if eng.graphed:
+            # the prefix path's logits over the cached pages the replayed
+            # engine kept: every suffix row of its first hit
+            r = min((r for r in eng.finished if r.cached_tokens),
+                    key=lambda r: r.req_id)
+            oracle["r"], oracle["got"] = r, prefix_path_logits(eng, r,
+                                                               "prefix")
+        # phase 5 profiles the same chunk over int8 pools
+        return profile_decode(eng, traffic[:8])
+
+    g = serve_graph_and_eager("prefix", cfg, params, traffic, profile,
+                              shared=SHARED, max_prompt_len=1024,
+                              prefix_cache=True)[True]
+    reqs, launches, m = g.reqs, g.launches, g.m
     if m["prefix_hit_tokens"] <= 0:
         raise AssertionError("prefix: no prompt token was served from the "
                              "prefix cache")
@@ -1648,15 +1748,11 @@ def phase_prefix_cache(cfg, params):
     # engine kept) against an f32 plain forward, beside the bf16 plain
     # forward's error: every suffix position, the last of which picked
     # the first token
-    r = hits[0]
+    r, got = oracle["r"], oracle["got"]
     nc = r.cached_tokens
-    got = prefix_path_logits(eng, r, "prefix")
     full = torch.tensor([r.prompt], device="cuda")
     with torch.no_grad():
         ref = plain(full)[0, nc:].float()
-    # phase 5 profiles the same chunk over int8 pools
-    profile_decode(eng, prefix_traffic(cfg)[:8])
-    del eng
     params32 = {k: v.float() for k, v in params.items()}
     with torch.no_grad():
         ref32 = LlamaForCausalLM(cfg, use_kernels=False).load_params(
@@ -1742,7 +1838,7 @@ def phase_int8_split(cfg, params, bf16):
         prefix_cache=True, kv_cache_dtype="int8",
         kv_pool_bytes=bf16["kv_pool_bytes"], dtype=torch.bfloat16,
         device="cuda")
-    eng.warm()
+    warm_for(eng, prefix_traffic(cfg), SHARED, "int8-split")
     reqs, wall, launches, m = serve(eng, prefix_traffic(cfg), "int8-split")
     if m["prefix_hit_tokens"] <= 0:
         raise AssertionError("int8-split: no prompt token was served from "
@@ -1876,9 +1972,10 @@ def phase_int4_split(cfg):
     decode chunk profiled alone launches the GEMV exactly 225 times per
     step (7 x 32 layers + lm_head) and the large-M route never; served
     tokens rank within 0.5 logit of the plain forward over the same
-    weights dequantized to bf16."""
+    weights dequantized to bf16. The prefills are programs warmed for the
+    traffic's buckets, and the traffic is served replayed and eagerly
+    (serve_graph_and_eager)."""
     from paddle_tpu_torch.models import init_quant_serving_params
-    from paddle_tpu_torch.serving import ContinuousBatchingEngine
 
     quant = "weight_only_int4"
     t0 = time.perf_counter()
@@ -1894,29 +1991,29 @@ def phase_int4_split(cfg):
         f"{time.perf_counter() - t0:.1f}s: {n_bytes / 1e9:.3f} GB "
         f"(projections and lm_head packed int4 + f32 scales, embedding and "
         f"norms bf16)")
-    eng = ContinuousBatchingEngine(
-        cfg, params, slots=8, prompt_bucket=128, max_prompt_len=1024,
-        max_new_tokens=32, block_size=64, steps_per_sync=8,
-        prefix_cache=True, dtype=torch.bfloat16, device="cuda")
-    eng.warm()
-    reqs, wall, launches, m = serve(eng, prefix_traffic(cfg), "int4-split")
+    traffic = prefix_traffic(cfg)
+    g = serve_graph_and_eager(
+        "int4-split", cfg, params, traffic,
+        lambda eng: profile_decode(eng, traffic[:8]), shared=SHARED,
+        max_prompt_len=1024, prefix_cache=True)[True]
+    reqs, launches, m, chunk, ev_ms = g.reqs, g.launches, g.m, g.chunk, \
+        g.ev_ms
     if m["prefix_hit_tokens"] <= 0:
         raise AssertionError("int4-split: no prompt token was served from "
                              "the prefix cache")
     _quant_launch_gates("int4-split", launches, "int4_matmul")
-    chunk, _, ev_ms = profile_decode(eng, prefix_traffic(cfg)[:8])
     per_step = MATMULS_PER_LAYER * cfg.num_hidden_layers + 1
-    if chunk["int4_matmul"] != per_step * eng.steps \
+    steps = 8       # build_engine's steps_per_sync
+    if chunk["int4_matmul"] != per_step * steps \
             or chunk["int4_matmul_large_m"]:
-        raise AssertionError(f"int4-split: one decode chunk of {eng.steps} "
+        raise AssertionError(f"int4-split: one decode chunk of {steps} "
                              f"steps launched {chunk['int4_matmul']} int4 "
-                             f"GEMVs (expected {per_step * eng.steps}) and "
+                             f"GEMVs (expected {per_step * steps}) and "
                              f"{chunk['int4_matmul_large_m']} large-M "
                              "matmuls (expected 0)")
     log(f"[int4-split] one decode chunk: {chunk['int4_matmul']} int4 GEMV "
         f"launches ({per_step} per step), 0 large-M; {ev_ms:.2f} ms by CUDA "
-        f"events ({graph_tag(eng)})")
-    del eng
+        f"events (graph)")
     plain = plain_over(cfg, params, quant)
     hits = [r for r in reqs if r.cached_tokens]
     worst = _gate_ranks("int4-split", plain, [hits[0], hits[-1]])
@@ -2120,7 +2217,7 @@ def phase_mega_scan(cfg, params):
     quant, phase = "weight_only_int8", "mega-scan"
     params8 = decode_params(params, quant)
     traffic = prefix_traffic(cfg)
-    kw = dict(max_prompt_len=1024, prefix_cache=True)
+    kw = dict(max_prompt_len=1024, prefix_cache=True, shared=SHARED)
     L, out = cfg.num_hidden_layers, {}
     for rung in ("off", "scan", "full"):
         out[rung] = _serve_rung(cfg, params8, rung, phase, traffic, **kw)
@@ -2321,7 +2418,7 @@ def phase_spec_ngram(cfg, params):
     phase, L = "spec-ngram", cfg.num_hidden_layers
     traffic = spec_traffic(cfg)
     kw = dict(max_prompt_len=512, prefix_cache=True)
-    eng = build_engine(cfg, params, **kw)
+    eng = build_engine(cfg, params, traffic, **kw)
     reqs, wall, _, m = serve(eng, traffic, f"{phase}/off")
     _, _, off_chunk_ms = profile_decode(eng, traffic[:8])
     off = {"tok_s": sum(len(r.tokens) for r in reqs) / wall, "m": m,
@@ -2333,7 +2430,7 @@ def phase_spec_ngram(cfg, params):
         speculative="ngram", spec_k=4, **kw)
     g = runs[True]
     reqs, launches, m = g.reqs, g.launches, g.m
-    if m["compile_stats"] != {"decode": 1, "verify": 1}:
+    if programs(m["compile_stats"]) != {"decode": 1, "verify": 1}:
         raise AssertionError(f"{phase}: compile_stats {m['compile_stats']}")
     # no acceptance floor: on random weights the served tokens rarely
     # recur in a prompt, so the n-gram drafter rarely proposes anything
@@ -2372,11 +2469,12 @@ def phase_spec_self(cfg, params):
     from paddle_tpu_torch.serving import DraftModelDrafter
 
     phase, L = "spec-self", cfg.num_hidden_layers
-    eng = build_engine(cfg, params, max_prompt_len=512, prefix_cache=True,
+    eng = build_engine(cfg, params, spec_traffic(cfg)[:8],
+                       max_prompt_len=512, prefix_cache=True,
                        kv_cache_dtype="int8", speculative="draft", spec_k=4,
                        drafter=DraftModelDrafter(cfg, params))
     stats = eng.compile_stats()
-    if stats != {"decode": 1, "verify": 1, "draft": 1}:
+    if programs(stats) != {"decode": 1, "verify": 1, "draft": 1}:
         raise AssertionError(f"{phase}: compile_stats {stats}")
     reqs, wall, launches, m = serve(eng, spec_traffic(cfg)[:8], phase)
     if eng.compile_stats() != stats:
@@ -2432,7 +2530,8 @@ def phase_spec_scan_unified(cfg, params):
 
     runs = {}
     for graphed in (True, False):
-        eng = build_engine(cfg, params8, graphed, max_prompt_len=2048,
+        eng = build_engine(cfg, params8, traffic, graphed,
+                           max_prompt_len=2048,
                            prefix_cache=True, unified_step=True,
                            token_budget=256, decode_megakernel="scan",
                            double_buffer=True, speculative="draft",
@@ -2502,7 +2601,7 @@ def phase_disagg(cfg, params, prefix, unified):
             cfg, params, slots=8, prompt_bucket=128, max_new_tokens=32,
             block_size=64, steps_per_sync=8, prefix_cache=True,
             disaggregated=True, dtype=torch.bfloat16, device="cuda", **kw)
-        eng.warm()
+        warm_for(eng, traffic, SHARED, phase)
         reqs, wall, launches, m = serve(eng, traffic, phase)
         if [r.tokens for r in reqs] != yard["tokens"]:
             raise AssertionError(
@@ -2519,6 +2618,221 @@ def phase_disagg(cfg, params, prefix, unified):
         del eng
         _release()
     return {"launches": out["split"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the generation entry points
+# ---------------------------------------------------------------------------
+
+class _flags:
+    """Set serving flags of the port for one block."""
+
+    def __init__(self, **flags):
+        self.flags = flags
+
+    def __enter__(self):
+        from paddle_tpu_torch.framework import get_flags, set_flags
+
+        self.old = {k: v for k, v in get_flags(list(self.flags)).items()}
+        set_flags(self.flags)
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.framework import set_flags
+
+        set_flags(self.old)
+
+
+def _timed(fn):
+    """(fn()'s result, its wall seconds with the card synced before and
+    after, its kernel launches)."""
+    from paddle_tpu_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _build.launch_counts()
+
+
+def phase_generate(cfg, params):
+    """Phase 19: LlamaForCausalLM.jit_generate and generate, the
+    generation entry points, on Llama-3-8B at full depth over phase 2's
+    random bf16 weights: 8 rows, 32 new tokens, prompts of 100-500
+    tokens (a 500-token rectangle for the contiguous layouts, ragged
+    seq_lens of 100-500 for the paged ones). jit_generate in six modes:
+    contiguous bf16; quant="weight_only_int8"; weight_only_int4 with
+    prefill_with_quant (build_quant_generate); cache_layout="paged" over
+    bf16 and (FLAGS_kv_cache_dtype=int8) int8 pools; paged with
+    FLAGS_decode_megakernel=full over int8 weights. Each mode's program is
+    a CUDA graph captured by its first call; a second call replays it and
+    the same program's eager body runs a third. The six programs stay
+    alive together, all captured through the model's one graph site, and
+    the two int8-weight modes read one quantized set. Gates: the replay's
+    tokens and launches equal the eager body's; a signature's program is
+    captured once (the later calls capture nothing) and kept beside the
+    earlier ones; every program of a quant mode holds the model's one set
+    of that mode; exact launches per call (the
+    flash forward once a layer for the prefill; per decode step 32 GQA
+    decodes, 32 paged decodes or one full megakernel a layer, and the
+    weight-only GEMV 225 times, or once for the lm_head beside the
+    megakernel); every row's tokens in-vocabulary and within 0.5 logit
+    (1.0 over int8 pools) of the bf16 plain forward over the weights the
+    decode read. Then generate (eager, concat caches) for 8 new tokens:
+    one flash forward a layer per forward, the rank gate. Logs ms per call
+    and tok/s, replayed and eager."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    phase, L = "generate", cfg.num_hidden_layers
+    b, max_new, width = 8, 32, 500
+    steps, per_step = max_new - 1, MATMULS_PER_LAYER * L + 1
+    rng = np.random.default_rng(SEED + 19)
+    rect = torch.tensor(rng.integers(1, cfg.vocab_size, (b, width)),
+                        device="cuda")
+    seq_lens = rng.integers(100, width + 1, b)
+    seq_lens[0] = width
+    ragged = rect.clone()
+    for i, n in enumerate(seq_lens):
+        ragged[i, n:] = 0
+    model = LlamaForCausalLM(cfg).load_params(params)
+    paged = dict(cache_layout="paged", seq_lens=seq_lens.tolist())
+    flash = {"flash_attention_fwd": L}
+    modes = [
+        ("contiguous", {}, {}, {**flash, "gqa_decode_attention": L * steps}),
+        ("int8", dict(quant="weight_only_int8"), {},
+         {**flash, "gqa_decode_attention": L * steps,
+          "int8_weight_matmul": per_step * steps,
+          "int8_weight_matmul_large_m": 0}),
+        ("int4-quant-only", dict(quant="weight_only_int4",
+                                 prefill_with_quant=True), {},
+         {**flash, "gqa_decode_attention": L * steps,
+          "int4_matmul": per_step * steps + 1,
+          "int4_matmul_large_m": MATMULS_PER_LAYER * L}),
+        ("paged", paged, {},
+         {**flash, "paged_decode_attention": L * steps}),
+        ("paged-int8-pools", paged, dict(kv_cache_dtype="int8"),
+         {**flash, "paged_decode_attention_int8": L * steps,
+          "paged_decode_attention": 0}),
+        ("paged-full-int8-weights", {**paged, "quant": "weight_only_int8"},
+         dict(decode_megakernel="full"),
+         {**flash, "decode_layer_megakernel_full": L * steps,
+          "paged_decode_attention": 0, "int8_weight_matmul": steps + 1,
+          "int8_weight_matmul_large_m": MATMULS_PER_LAYER * L}),
+    ]
+    out, quant_sets = {}, {}
+    for name, kw, flags, want in modes:
+        tag = f"{phase}/{name}"
+        ids = ragged if "seq_lens" in kw else rect
+        with _flags(**flags):
+            def call():
+                return model.jit_generate(ids, max_new_tokens=max_new,
+                                          bucket_size=128, **kw)
+
+            gc.collect()
+            _release()
+            reserved = torch.cuda.memory_reserved()
+            _, first_s, _ = _timed(call)
+            entry = list(model._jit_gen_cache.values())[-1]
+            grew = torch.cuda.memory_reserved() - reserved
+            toks, g_s, g_n = _timed(call)
+            model._gen_site.graphed = False
+            e_toks, e_s, e_n = _timed(call)
+            model._gen_site.graphed = True
+        # every mode's program stays alive beside the earlier ones: one
+        # capture each, all through the model's one graph site
+        n_prog = len(model._jit_gen_cache)
+        if entry.captures != 1 or n_prog != len(out) + 1 \
+                or model._gen_site.captures != n_prog \
+                or entry.prog.graph is None:
+            raise AssertionError(f"{tag}: {entry.captures} captures, "
+                                 f"{n_prog} programs, "
+                                 f"{model._gen_site.captures} site captures")
+        if not torch.equal(toks, e_toks) or g_n != e_n:
+            raise AssertionError(f"{tag}: the replayed program's tokens or "
+                                 f"launches {g_n} differ from its eager "
+                                 f"body's {e_n}")
+        bad = {k: (g_n[k], v) for k, v in want.items() if g_n[k] != v}
+        new = toks[:, width:]
+        if bad or tuple(toks.shape) != (b, width + max_new) \
+                or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+            raise AssertionError(f"{tag}: tokens {tuple(toks.shape)}, "
+                                 f"launches (got, want) {bad}")
+        quant = kw.get("quant")
+        quant_s = _timed(lambda: model._quant_set(params, quant))[1] \
+            if quant else 0.0
+        weights = entry._weights[-1]    # what the decode read
+        if quant and weights is not quant_sets.setdefault(quant, weights):
+            raise AssertionError(f"{tag}: the program holds a {quant} set "
+                                 "of its own, not the model's shared one")
+        dense = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
+        plain = plain_over(cfg, weights, quant) if quant else dense
+        margin_fn = rank_margin
+        if quant and len(entry._weights) == 2:
+            # the prompt prefilled over the dense weights, the steps over
+            # the pairs: each part's own plain forward
+            def margin_fn(plain, r):
+                return rank_margin_split(dense, plain, r)
+        reqs = [SimpleNamespace(
+            req_id=i, prompt=ids[i, :seq_lens[i] if "seq_lens" in kw
+                                else width].tolist(),
+            tokens=new[i].tolist(), cached_tokens=0) for i in (0, b - 1)]
+        limit = INT8_RANK_MARGIN if flags.get("kv_cache_dtype") == "int8" \
+            else 0.5
+        worst = _gate_ranks(tag, plain, reqs, limit, margin_fn)
+        del plain, dense, weights
+        n_tok = b * max_new
+        log(f"[{tag}] {b} x {max_new} tokens: replayed {1e3 * g_s:.1f} ms "
+            f"a call ({n_tok / g_s:.1f} tok/s; re-quantizing the weights, "
+            f"which every call with quant= does, {1e3 * quant_s:.1f} ms "
+            f"of it), eager body "
+            f"{1e3 * e_s:.1f} ms ({n_tok / e_s:.1f} tok/s), first call "
+            f"(capture) {1e3 * first_s:.1f} ms, reserved memory "
+            f"+{grew / 2**20:.0f} MiB ({n_prog} programs kept, the site's "
+            f"captures +{model._gen_site.reserved_bytes / 2**20:.0f} MiB in "
+            f"all); tokens and launches identical; "
+            f"worst gap {worst:.3f}; launches {json.dumps(g_n)}")
+        out[name] = {"graph_ms": 1e3 * g_s, "eager_ms": 1e3 * e_s,
+                     "quantize_ms": 1e3 * quant_s, "launches": g_n,
+                     "tokens": toks, "reserved_mib": grew / 2**20}
+    shared = {q: sum(t.numel() * t.element_size() for v in w.values()
+                     if isinstance(v, tuple) for t in v) / 2**20
+              for q, w in quant_sets.items()}
+    log(f"[{phase}] {len(model._jit_gen_cache)} programs kept at once "
+        f"through one graph site: its captures grew the reserved memory "
+        f"{model._gen_site.reserved_bytes / 2**20:.0f} MiB; one quantized "
+        f"set per quant mode, shared by its signatures ("
+        + ", ".join(f"{q} {mib:.0f} MiB" for q, mib in shared.items())
+        + f"); reserved now {torch.cuda.memory_reserved() / 2**20:.0f} MiB")
+    model._jit_gen_cache.clear()
+    quant_sets.clear()
+    _release()
+
+    # generate: eager, a forward per token over the concat caches
+    n_gen = 8
+    toks, s, n = _timed(lambda: model.generate(rect, max_new_tokens=n_gen))
+    new = toks[:, width:]
+    if tuple(toks.shape) != (b, width + n_gen) \
+            or n["flash_attention_fwd"] != L * n_gen:
+        raise AssertionError(f"{phase}/generate: tokens "
+                             f"{tuple(toks.shape)}, launches {n}")
+    plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
+    reqs = [SimpleNamespace(req_id=i, prompt=rect[i].tolist(),
+                            tokens=new[i].tolist(), cached_tokens=0)
+            for i in (0, b - 1)]
+    worst = _gate_ranks(f"{phase}/generate", plain, reqs)
+    same = float((new == out["contiguous"]["tokens"][:, width:width + n_gen])
+                 .float().mean())
+    log(f"[{phase}/generate] {b} x {n_gen} tokens eagerly in "
+        f"{1e3 * s:.1f} ms ({b * n_gen / s:.1f} tok/s); "
+        f"{n['flash_attention_fwd']} flash forwards (one a layer per "
+        f"forward, Sq 1 over the concat cache after the prompt); worst gap "
+        f"{worst:.3f}; token match with jit_generate's contiguous stream "
+        f"{same:.4f}")
+    del plain, model
+    _release()
+    return {"launches": out["contiguous"]["launches"], "modes": {
+        k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+        for k, v in out.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -2756,7 +3070,8 @@ def main() -> int:
             ("spec-scan-unified",
              lambda: phase_spec_scan_unified(cfg, params)),
             ("disagg", lambda: phase_disagg(cfg, params, phases["prefix"],
-                                            phases["unified"]))):
+                                            phases["unified"])),
+            ("generate", lambda: phase_generate(cfg, params))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")

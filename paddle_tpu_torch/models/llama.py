@@ -59,6 +59,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..framework.cuda_graph import GenerateProgram, GraphSite
 from ..framework.flags import flag as _flag
 from ..kernels.decode_attention import (decode_attention,
                                         gqa_decode_attention,
@@ -227,6 +228,15 @@ def _check_quant(quant) -> None:
                          f"'weight_only_int4', got {quant!r}")
 
 
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether `b` reads what the held tensor `a` reads: the same bytes
+    (address, shape, strides, dtype, device). A tensor that wraps the
+    same storage anew (a load_params of the same dict) is the same."""
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride() and a.dtype == b.dtype
+                      and a.device == b.device)
+
+
 def decode_params(params: dict, quant: Optional[str]) -> dict:
     """The JAX ``LlamaForCausalLM._decode_params`` layout: with `quant`
     ('weight_only_int8' | 'weight_only_int4') every ``*_proj.weight`` and
@@ -352,9 +362,14 @@ class LlamaRMSNorm(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    """Causal self-attention (the JAX module's non-mesh, no-cache
-    branch): q/k/v projections, rope at `position_ids`, flash attention,
-    o projection."""
+    """Self-attention (the JAX module's non-mesh branches): q/k/v
+    projections, rope at `position_ids`, flash attention, o projection.
+
+    With `cache` (pk, pv) -- the concat cache of ``generate``: (None,
+    None) before the prompt, else the K/V [b, S_cached, nkv, dh] so far --
+    the new K/V are appended on the sequence axis, attention is causal
+    only where keys and queries are the same positions (Sk == Sq: the
+    prompt), and the call returns (out, (k, v))."""
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
@@ -368,7 +383,7 @@ class LlamaAttention(nn.Module):
         self.v_proj = _Linear(h, nkv * dh)
         self.o_proj = _Linear(nh * dh, h)
 
-    def forward(self, hidden, position_ids, ops=KERNEL_OPS):
+    def forward(self, hidden, position_ids, ops=KERNEL_OPS, cache=None):
         b, s, _ = hidden.shape
         q = self.q_proj(hidden).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(hidden).reshape(b, s, self.num_kv_heads,
@@ -377,8 +392,15 @@ class LlamaAttention(nn.Module):
                                         self.head_dim)
         q, k = apply_rotary_emb(q, k, position_ids=position_ids,
                                 base=self.config.rope_theta)
-        out = ops.flash_attention(q, k, v, causal=True)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        if cache is not None:
+            pk, pv = cache
+            if pk is not None:
+                k = torch.cat([pk, k], dim=1)
+                v = torch.cat([pv, v], dim=1)
+        causal = cache is None or k.shape[1] == s
+        out = ops.flash_attention(q, k, v, causal=causal)
+        out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return out if cache is None else (out, (k, v))
 
 
 class LlamaMLP(nn.Module):
@@ -419,18 +441,25 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = LlamaRMSNorm(config)
         self.post_attention_layernorm = LlamaRMSNorm(config)
 
-    def forward(self, hidden, position_ids, ops=KERNEL_OPS, remat=None):
+    def forward(self, hidden, position_ids, ops=KERNEL_OPS, remat=None,
+                cache=None):
         """remat: None, or "attn" / "mlp" -- checkpoint only that
-        sub-block (the JAX layer's sub-layer recompute)."""
+        sub-block (the JAX layer's sub-layer recompute). With `cache` (see
+        LlamaAttention) returns (hidden, new cache)."""
         h = self.input_layernorm(hidden, ops)
-        if remat == "attn":
+        new_cache = None
+        if cache is not None:
+            attn, new_cache = self.self_attn(h, position_ids, ops,
+                                             cache=cache)
+        elif remat == "attn":
             attn = _remat(self.self_attn, h, position_ids, ops)
         else:
             attn = self.self_attn(h, position_ids, ops)
         hidden = hidden + attn
         h = self.post_attention_layernorm(hidden, ops)
         mlp = _remat(self.mlp, h, ops) if remat == "mlp" else self.mlp(h, ops)
-        return hidden + mlp
+        hidden = hidden + mlp
+        return hidden if cache is None else (hidden, new_cache)
 
 
 class _Embedding(nn.Module):
@@ -452,12 +481,22 @@ class LlamaModel(nn.Module):
              for _ in range(config.num_hidden_layers)])
         self.norm = LlamaRMSNorm(config)
 
-    def forward(self, input_ids, position_offset: int = 0, ops=KERNEL_OPS):
+    def forward(self, input_ids, caches=None, position_offset: int = 0,
+                ops=KERNEL_OPS):
+        """Hidden states [B, S, hidden] after the final norm; with
+        `caches` (one (pk, pv) a layer, see LlamaAttention) returns
+        (hidden, new caches)."""
         cfg = self.config
         s = input_ids.shape[1]
         pos = torch.arange(position_offset, position_offset + s,
                            device=input_ids.device)
         hidden = self.embed_tokens(input_ids)
+        if caches is not None:
+            new_caches = []
+            for layer, cache in zip(self.layers, caches):
+                hidden, c = layer(hidden, pos, ops, cache=cache)
+                new_caches.append(c)
+            return self.norm(hidden, ops), new_caches
         # recompute only where a backward will follow (JAX: under the
         # functional train step), every layer but the last recompute_skip
         use_ckpt = cfg.recompute and torch.is_grad_enabled()
@@ -494,12 +533,19 @@ class LlamaForCausalLM(nn.Module):
         if not config.tie_word_embeddings:
             self.lm_head = _Linear(config.hidden_size, config.vocab_size)
 
-    def forward(self, input_ids, position_offset: int = 0):
+    def forward(self, input_ids, caches=None, position_offset: int = 0):
+        """Logits [B, S, vocab]; with `caches` (one (pk, pv) a layer:
+        (None, None) before the prompt) returns (logits, new caches), the
+        JAX model's concat-cache call."""
         ops = KERNEL_OPS if self.use_kernels else PLAIN_OPS
-        hidden = self.llama(input_ids, position_offset, ops)
+        out = self.llama(input_ids, caches=caches,
+                         position_offset=position_offset, ops=ops)
+        hidden = out[0] if caches is not None else out
         if self.config.tie_word_embeddings:
-            return hidden @ self.llama.embed_tokens.weight.T
-        return self.lm_head(hidden)
+            logits = hidden @ self.llama.embed_tokens.weight.T
+        else:
+            logits = self.lm_head(hidden)
+        return (logits, out[1]) if caches is not None else logits
 
     def load_params(self, params: dict,
                     trainable: bool = False) -> "LlamaForCausalLM":
@@ -527,6 +573,228 @@ class LlamaForCausalLM(nn.Module):
                         ) -> "LlamaForCausalLM":
         """Fill the module from the JAX ``raw_state()`` dict (numpy)."""
         return self.load_params(params_from_jax(np_params, device, dtype))
+
+    # ---- generation ---------------------------------------------------
+
+    def _params(self) -> dict:
+        """The model's weights by decode-params key (the JAX
+        ``raw_state()``), shared with the module."""
+        params = dict(self.named_parameters())
+        emb = params["llama.embed_tokens.weight"]
+        if emb.device.type == "meta":
+            raise RuntimeError("the model has no weights yet: load_params() "
+                               "or load_jax_params() first")
+        return params
+
+    def _decode_params(self, params: dict, quant: Optional[str]) -> dict:
+        """The decode-path parameter dict (the JAX method): `params`
+        itself, or with `quant` every projection and the lm_head as a
+        (w_q, scale) pair (``decode_params``). Nothing is cached: a weight
+        updated in place keeps its identity, so every call quantizes."""
+        if quant is None:
+            return params
+        _check_quant(quant)
+        with torch.no_grad():
+            return decode_params(params, quant)
+
+    def _generation(self, params: dict) -> dict:
+        """The generation programs' cache (`_jit_gen_cache`, one
+        `GenerateProgram` per JAX signature), made or kept for `params`.
+        Every program captures through the model's one graph site
+        (`_gen_site`): generation calls replay one at a time on one
+        stream and copy their tokens out, so the programs share its pool.
+        The weights a program reads stay the model's own tensors: when
+        `params` is not the memory the programs were captured over (a
+        reload), every program and quantized set is dropped, so the old
+        weights are freed and the next call captures over the new ones."""
+        held = self.__dict__.get("_gen_params")
+        if held is None or not all(_same_memory(held[k], params[k])
+                                   for k in params):
+            dev = params["llama.embed_tokens.weight"].device
+            self.__dict__.update(_gen_params=params, _jit_gen_cache={},
+                                 _gen_quant={}, _gen_site=GraphSite(dev))
+        return self._jit_gen_cache
+
+    def _quant_set(self, params: dict, quant: str) -> dict:
+        """The one quantized set of `quant` that every generation program
+        reads (made at its first call, then re-quantized in place from
+        `params` at every call, one weight at a time, so a weight updated
+        in place reaches the programs). The set is the model's own: its
+        pairs are written, never a caller's tensor."""
+        owned = self._gen_quant.get(quant)
+        if owned is None:
+            owned = self._gen_quant[quant] = self._decode_params(params,
+                                                                 quant)
+            return owned
+        with torch.no_grad():
+            for name, pair in owned.items():
+                if isinstance(pair, tuple):
+                    for dst, src in zip(pair, weight_quantize(
+                            params[name], algo=quant)):
+                        dst.copy_(src)
+        return owned
+
+    def jit_generate(self, input_ids, max_new_tokens: int = 32,
+                     eos_token_id: Optional[int] = None,
+                     do_sample: bool = False, temperature: float = 1.0,
+                     top_k: int = 0, top_p: float = 1.0,
+                     seed: Optional[int] = None, bucket_size: int = 128,
+                     quant: Optional[str] = None,
+                     prefill_with_quant: bool = False,
+                     cache_layout: str = "contiguous",
+                     kv_block_size: int = 64, seq_lens=None):
+        """Generate as ONE program (the JAX ``jit_generate``): the prompt's
+        prefill and every decode step, captured as a CUDA graph per
+        signature on the card (`GenerateProgram`; the eager body on the
+        CPU) and replayed by later calls. Runs where the model's weights
+        live. Returns [b, s0 + max_new_tokens] (prompt, then new tokens),
+        trimmed on the host after the last row's first EOS once every row
+        has hit `eos_token_id`.
+
+        - prompts are right-padded to a multiple of `bucket_size`; the
+          true length is a program input, so every length of a bucket
+          shares one program;
+        - `do_sample` draws temperature / top-k / top-p from a
+          ``torch.Generator`` seeded with `seed` (its stream differs from
+          jax.random's: only greedy streams compare across packages);
+          temperature and top_p are program inputs, top_k is static;
+        - `quant` ('weight_only_int8' | 'weight_only_int4') decodes over
+          weight-only pairs; `prefill_with_quant` prefills over them too
+          (``build_quant_generate``: no full-precision weight is read);
+        - `cache_layout="paged"` decodes over paged pools
+          (``build_paged_generate``; FLAGS_kv_cache_dtype and
+          FLAGS_decode_megakernel are read when its program is built and
+          join the cache key), and `seq_lens` serves a ragged batch of
+          right-padded rows."""
+        cfg = self.config
+        params = self._params()
+        dev = params["llama.embed_tokens.weight"].device
+        ids = torch.as_tensor(np.asarray(input_ids) if not isinstance(
+            input_ids, torch.Tensor) else input_ids).to(dev, torch.int64)
+        if max_new_tokens <= 0:
+            return ids
+        b, s0 = ids.shape
+        sb = -(-s0 // bucket_size) * bucket_size   # bucketed prompt length
+        padded = F.pad(ids, (0, sb - s0))
+        max_seq = _generate_max_seq(sb, max_new_tokens)
+        if prefill_with_quant and quant is None:
+            raise ValueError("prefill_with_quant=True requires quant=")
+        if cache_layout not in ("contiguous", "paged"):
+            raise ValueError(f"cache_layout must be 'contiguous' or "
+                             f"'paged', got {cache_layout!r}")
+        if seq_lens is not None and cache_layout != "paged":
+            raise ValueError("per-row seq_lens (ragged batch) requires "
+                             "cache_layout='paged'")
+        if quant is not None:
+            _check_quant(quant)
+        cache = self._generation(params)
+        dec_params = params if quant is None \
+            else self._quant_set(params, quant)
+        # the paged program bakes the pool dtype and the megakernel rung
+        # in at build time, so both flags join the cache key
+        paged = cache_layout == "paged"
+        kv_dtype = resolve_kv_cache_dtype() if paged else None
+        megakernel = resolve_decode_megakernel() if paged else None
+        serving_mp = resolve_serving_mp() if paged else None
+        qcoll = False if paged else None       # no collectives on one GPU
+        sig = (b, sb, max_new_tokens, eos_token_id, do_sample, int(top_k),
+               quant, prefill_with_quant, cache_layout, kv_block_size,
+               kv_dtype, megakernel, qcoll, serving_mp)
+        if sig not in cache:    # one program per signature, kept
+            if paged:
+                fn = build_paged_generate(cfg, b, sb, max_new_tokens,
+                                          kv_block_size, eos_token_id,
+                                          do_sample, int(top_k),
+                                          serving_mp=serving_mp)
+                name = "jit_generate(paged)"
+            elif prefill_with_quant:
+                fn = build_quant_generate(cfg, b, sb, max_new_tokens,
+                                          max_seq, eos_token_id, do_sample,
+                                          int(top_k))
+                name = "jit_generate(quant-only)"
+            else:
+                fn = _build_jit_generate(self, cfg, b, sb, max_new_tokens,
+                                         max_seq, eos_token_id, do_sample,
+                                         int(top_k))
+                name = "jit_generate(contiguous)"
+            cache[sig] = GenerateProgram(name, fn, self._gen_site,
+                                         do_sample)
+        if seed is None:
+            seed = int(torch.randint(2 ** 62, (1,)))
+        if paged:
+            if seq_lens is None:
+                lens = np.full((b,), s0, np.int64)
+            else:
+                lens = np.asarray(seq_lens, np.int64).reshape(-1)
+                if lens.shape[0] != b:
+                    raise ValueError(f"seq_lens has {lens.shape[0]} "
+                                     f"entries for a batch of {b}")
+                if (lens < 1).any() or (lens > s0).any():
+                    raise ValueError(
+                        f"seq_lens must lie in [1, {s0}] (the input "
+                        f"rectangle width); got {lens.tolist()}")
+            total = sb + max_new_tokens
+            mgr = PagedKVManager(b * -(-total // kv_block_size),
+                                 kv_block_size)
+            tables, _ = mgr.tables_for_batch([total] * b)
+            new_tokens = cache[sig](
+                (dec_params,), (padded, torch.from_numpy(lens).to(dev),
+                                tables.to(dev)),
+                seed, temperature, top_p)
+        else:
+            s0_t = torch.tensor(s0, dtype=torch.int64, device=dev)
+            weights = (dec_params,) if prefill_with_quant \
+                else (params, dec_params)
+            new_tokens = cache[sig](weights, (padded, s0_t), seed,
+                                    temperature, top_p)
+        out = torch.cat([ids, new_tokens], dim=1)
+        if eos_token_id is not None:
+            # host-side trim: cut after every row has hit EOS
+            hit = (new_tokens == eos_token_id).cpu().numpy()
+            if hit.any(axis=1).all():
+                last = int(hit.argmax(axis=1).max())
+                out = out[:, :s0 + last + 1]
+        return out
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 eos_token_id: Optional[int] = None, do_sample: bool = False,
+                 temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+                 seed: Optional[int] = None):
+        """Eager decode over the concat caches of ``forward(caches=)``
+        (the JAX ``generate``: not one program, a forward per token). The
+        first token reads the prompt's last logits; generation stops early
+        once every row's last token is `eos_token_id`. Returns [b, s0 +
+        the tokens made]."""
+        params = self._params()
+        dev = params["llama.embed_tokens.weight"].device
+        ids = torch.as_tensor(np.asarray(input_ids) if not isinstance(
+            input_ids, torch.Tensor) else input_ids).to(dev, torch.int64)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(torch.randint(2 ** 62, (1,))) if seed is None
+                        else int(seed))
+
+        def pick(logits):
+            return _sample_next(logits.to(torch.float32), gen, do_sample,
+                                temperature, int(top_k), top_p)[:, None]
+
+        with torch.no_grad():
+            logits, caches = self(
+                ids, caches=[(None, None)] * self.config.num_hidden_layers)
+            out = [ids]
+            last = pick(logits[:, -1])
+            offset = ids.shape[1]
+            for step in range(max_new_tokens):
+                out.append(last)
+                if eos_token_id is not None \
+                        and bool((last == eos_token_id).all()):
+                    break
+                if step == max_new_tokens - 1:
+                    break   # the last token needs no further forward
+                logits, caches = self(last, caches=caches,
+                                      position_offset=offset)
+                offset += 1
+                last = pick(logits[:, -1])
+        return torch.cat(out, dim=1)
 
 
 class LlamaPretrainingCriterion(nn.Module):
@@ -572,10 +840,17 @@ def _sample_next(logits, generator: Optional[torch.Generator], do_sample,
                  temperature, top_k, top_p):
     """Next token from [B, V] logits: greedy argmax (first index on
     ties, like jnp.argmax), or top-k / nucleus sampling drawn with the
-    caller's generator (its stream differs from jax.random's)."""
+    caller's generator (its stream differs from jax.random's).
+    `temperature` and `top_p` may be floats or 0-d tensors on the logits'
+    device (the generation programs' inputs: a graph reads them without
+    a host sync, so changing them needs no new capture)."""
     if not do_sample:
         return torch.argmax(logits, dim=-1)
-    logits = logits.to(torch.float32) / max(float(temperature), 1e-6)
+    if isinstance(temperature, torch.Tensor):
+        temperature = torch.clamp(temperature, min=1e-6)
+    else:
+        temperature = max(float(temperature), 1e-6)
+    logits = logits.to(torch.float32) / temperature
     if top_k > 0:
         kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
         logits = torch.where(logits < kth, torch.full_like(logits, -1e30),
@@ -993,8 +1268,11 @@ def _decode_tail(decode_step, p_dec, kcs, vcs, last_logits, s0, generator,
                  do_sample, top_k, b):
     """The shared post-prefill decode loop: the first token from the
     prompt's last logits, then `max_new - 1` single-token decode steps (a
-    Python loop; the JAX package scans). With `eos_token_id`, a row that
-    emitted it keeps emitting it. Returns [b, max_new] in `ids_dtype`."""
+    Python loop, unrolled into the generation program's graph; the JAX
+    package scans). `s0` (a scalar, or one length a row) lives on the
+    device and nothing is read back inside the loop. With `eos_token_id`,
+    a row that emitted it keeps emitting it. Returns [b, max_new] in
+    `ids_dtype`."""
     def sample(logits):
         return _sample_next(logits.to(torch.float32), generator, do_sample,
                             temperature, top_k, top_p)
@@ -1002,7 +1280,7 @@ def _decode_tail(decode_step, p_dec, kcs, vcs, last_logits, s0, generator,
     tok = sample(last_logits)
     done = tok == eos_token_id if eos_token_id is not None \
         else torch.zeros((b,), dtype=torch.bool, device=tok.device)
-    pos = torch.as_tensor(s0, dtype=torch.int32, device=tok.device)
+    pos = torch.as_tensor(s0, device=tok.device).to(torch.int32)
     out = [tok]
     for _ in range(max_new - 1):
         logits, kcs, vcs = decode_step(p_dec, kcs, vcs, tok[:, None], pos)
@@ -1015,6 +1293,36 @@ def _decode_tail(decode_step, p_dec, kcs, vcs, last_logits, s0, generator,
     return torch.stack(out, dim=1).to(ids_dtype)
 
 
+def _generate_max_seq(sb: int, max_new: int) -> int:
+    """The contiguous caches' length: sb + max_new below 512, else that
+    rounded up to a multiple of 512 (the JAX jit_generate's)."""
+    total = sb + max_new
+    return total if total < 512 else ((total + 511) // 512) * 512
+
+
+def _last_row(x, s0, sb: int):
+    """x[:, s0 - 1] ([b, sb, ...] -> [b, ...]) for a prompt length `s0`
+    on the device, clamped into [0, sb) like JAX's dynamic index: a gather
+    on the card, no host read."""
+    last = torch.clamp(torch.as_tensor(s0, device=x.device).to(torch.int64)
+                       - 1, 0, sb - 1)
+    return x.index_select(1, last.reshape(1))[:, 0]
+
+
+def _contiguous_caches(kvs, b, nkv, max_seq, dh, dtype):
+    """The prompt's per-layer K/V [b, sb, nkv, dh] copied into zeroed
+    contiguous caches [b, nkv, max_seq, dh] of `dtype` (positions from
+    sb on are written by the decode steps). Returns (kcs, vcs)."""
+    kcs, vcs = [], []
+    for k, v in kvs:
+        for caches, x in ((kcs, k), (vcs, v)):
+            c = torch.zeros((b, nkv, max_seq, dh), dtype=dtype,
+                            device=x.device)
+            c[:, :, :x.shape[1]] = x.transpose(1, 2)
+            caches.append(c)
+    return kcs, vcs
+
+
 def build_quant_generate(cfg, b, sb, max_new, max_seq=None,
                          eos_token_id=None, do_sample=False, top_k=0):
     """The quant-only generation program (the JAX ``build_quant_generate``):
@@ -1023,18 +1331,19 @@ def build_quant_generate(cfg, b, sb, max_new, max_seq=None,
     parameter set exists on the device.
 
     Returns ``run(dec_params, ids_padded, s0, generator, temperature,
-    top_p) -> new_tokens [b, max_new]``: ids_padded [b, sb]; `s0` is the
-    true prompt length, one for every row. The prompt prefills through
-    ``_make_prefill`` (flash attention; the weight-only matmuls at M =
-    b * sb rows); its K/V fills contiguous caches [b, nkv, max_seq, dh] in
-    the activation dtype, with max_seq = sb + max_new below 512, else
-    rounded up to a multiple of 512; the first token comes from the logits
-    at position s0 - 1, then ``_decode_tail``'s decode steps write at s0,
-    s0 + 1, ... ."""
+    top_p) -> new_tokens [b, max_new]``, the eager body (``jit_generate``
+    runs it as one `GenerateProgram`, a CUDA graph on the card):
+    ids_padded [b, sb]; `s0` is the true prompt length, one for every
+    row, an int or a tensor on the device (read there, never on the
+    host). The prompt prefills through ``_make_prefill`` (flash
+    attention; the weight-only matmuls at M = b * sb rows); its K/V fills
+    contiguous caches [b, nkv, max_seq, dh] in the activation dtype, with
+    max_seq = sb + max_new below 512, else rounded up to a multiple of
+    512; the first token comes from the logits at position s0 - 1, then
+    ``_decode_tail``'s decode steps write at s0, s0 + 1, ... ."""
     nkv, dh = cfg.num_key_value_heads, cfg.head_dim
     if max_seq is None:
-        total = sb + max_new
-        max_seq = total if total < 512 else ((total + 511) // 512) * 512
+        max_seq = _generate_max_seq(sb, max_new)
     if max_seq < sb:
         raise ValueError(f"max_seq {max_seq} is shorter than the prompt "
                          f"bucket {sb}")
@@ -1044,22 +1353,137 @@ def build_quant_generate(cfg, b, sb, max_new, max_seq=None,
 
     def run(p_dec, ids, s0, generator=None, temperature=1.0, top_p=1.0):
         h, kvs = prefill(p_dec, ids)
-        kcs, vcs = [], []
-        for k, v in kvs:
-            for caches, x in ((kcs, k), (vcs, v)):
-                c = torch.zeros((b, nkv, max_seq, dh), dtype=h.dtype,
-                                device=h.device)
-                c[:, :, :sb] = x.transpose(1, 2)
-                caches.append(c)
+        kcs, vcs = _contiguous_caches(kvs, b, nkv, max_seq, dh, h.dtype)
         del kvs
-        # logits at the TRUE last prompt position (clamped like JAX's
-        # dynamic index)
-        last = min(max(int(s0) - 1, 0), sb - 1)
-        last_logits = head_logits(h[:, last:last + 1], p_dec)[:, -1]
-        return _decode_tail(decode_step, p_dec, kcs, vcs, last_logits,
-                            int(s0), generator, temperature, top_p,
-                            ids.dtype, max_new, eos_token_id, do_sample,
-                            top_k, b)
+        # logits at the TRUE last prompt position
+        last_logits = head_logits(_last_row(h, s0, sb)[:, None], p_dec)[:, -1]
+        return _decode_tail(decode_step, p_dec, kcs, vcs, last_logits, s0,
+                            generator, temperature, top_p, ids.dtype,
+                            max_new, eos_token_id, do_sample, top_k, b)
+
+    return run
+
+
+def _build_jit_generate(model, cfg, b, sb, max_new, max_seq, eos_token_id,
+                        do_sample, top_k):
+    """The JAX ``_build_jit_generate``: run(params, dec_params, ids, s0,
+    generator, temperature, top_p) -> new_tokens [b, max_new]. The prompt
+    prefills through the model's own forward (``params`` by name, through
+    ``torch.func.functional_call``; flash attention) with concat caches
+    ``[(None, None)] * L``; its K/V fill contiguous caches [b, nkv,
+    max_seq, dh]; the first token reads the logits at s0 - 1; then
+    ``_decode_tail`` runs the contiguous GQA decode step over
+    ``dec_params`` (dense, or weight-only pairs). Pad K/V slots at [s0,
+    sb) sit above the decode watermark until overwritten."""
+    nkv, dh = cfg.num_key_value_heads, cfg.head_dim
+    n_layers = cfg.num_hidden_layers
+    decode_step = _make_decode_step(cfg, b, max_seq)
+
+    def run(p, p_dec, ids, s0, generator=None, temperature=1.0, top_p=1.0):
+        with torch.no_grad():
+            logits, kvs = torch.func.functional_call(
+                model, p, (ids,), {"caches": [(None, None)] * n_layers})
+        kcs, vcs = _contiguous_caches(kvs, b, nkv, max_seq, dh,
+                                      kvs[0][0].dtype)
+        del kvs
+        last_logits = _last_row(logits, s0, sb)
+        return _decode_tail(decode_step, p_dec, kcs, vcs, last_logits, s0,
+                            generator, temperature, top_p, ids.dtype,
+                            max_new, eos_token_id, do_sample, top_k, b)
+
+    return run
+
+
+def build_paged_generate(cfg, b, sb, max_new, block_size: int = 64,
+                         eos_token_id=None, do_sample=False, top_k=0,
+                         serving_mp=None):
+    """Generation over a paged KV cache with block tables (the JAX
+    ``build_paged_generate``, single-device branch). Returns
+    run(dec_params, ids, s0_vec, tables, generator, temperature, top_p)
+    -> new_tokens [b, max_new], the eager body (``jit_generate`` runs it
+    as one `GenerateProgram`).
+
+    Per layer, K/V pools [b * pages_per_seq, nkv, block_size, dh] are made
+    inside `run` (zeroed), bf16 / the activation dtype, or, when
+    ``resolve_kv_cache_dtype()`` says "int8" at BUILD time, (int8 pool,
+    f32 scale [pages, nkv]) pairs. `tables` [b, pages_per_seq] int32 map
+    each row's logical blocks to pool pages. The prompt prefills over the
+    padded rectangle (``_make_prefill``) and its K/V scatter into the
+    rows' first sb / block_size pages (quantize-on-scatter on int8 pools);
+    each row's first token reads its own position s0_vec[row] - 1; decode
+    steps through ``make_paged_decode_step`` or, when
+    ``resolve_decode_megakernel()`` asks for a rung at build time,
+    ``_megakernel_or_fallback_step`` (scan steps down to full here: this
+    program keeps per-layer params and pools). ``serving_mp > 1`` is not
+    ported (ROADMAP section 1 item 5)."""
+    nkv, dh = cfg.num_key_value_heads, cfg.head_dim
+    n_layers = cfg.num_hidden_layers
+    if sb % block_size:
+        raise ValueError(f"bucketed prompt length {sb} must be a multiple "
+                         f"of block_size {block_size}")
+    if resolve_serving_mp(serving_mp) > 1:
+        raise NotImplementedError(
+            "build_paged_generate with serving_mp > 1 is not ported yet "
+            "(ROADMAP.md section 1 item 5)")
+    total = sb + max_new
+    pages_per_seq = -(-total // block_size)
+    n_pre = sb // block_size
+    kv_dtype = resolve_kv_cache_dtype()
+    use_mega = resolve_decode_megakernel()
+    if use_mega == "scan":
+        import warnings
+
+        warnings.warn(
+            "decode_megakernel='scan' requested, but jit_generate keeps "
+            "per-layer params and pools (the stacked re-layout is the "
+            "serving engine's \u2014 stack_decode_layer_params at engine "
+            "build); serving the 'full' rung", stacklevel=2)
+        use_mega = "full"
+    head_logits = _make_head_logits(cfg)
+    base_prefill = _make_prefill(cfg, b, sb)
+    helpers = make_paged_kv_q8_helpers if kv_dtype == "int8" \
+        else make_paged_kv_helpers
+    to_pages, _ = helpers(b, n_pre, nkv, dh, block_size, None)
+
+    def pool(dtype, dev):
+        shape = (b * pages_per_seq, nkv, block_size, dh)
+        if kv_dtype == "int8":
+            return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.zeros(shape[:2], dtype=torch.float32, device=dev))
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def scatter(kc, vc, k, v, pages):
+        for entry, x in ((kc, k), (vc, v)):
+            if kv_dtype == "int8":
+                q, sc = to_pages(x)
+                entry[0][pages] = q
+                entry[1][pages] = sc
+            else:
+                entry[pages] = to_pages(x).to(entry.dtype)
+
+    def run(p_dec, ids, s0_vec, tables, generator=None, temperature=1.0,
+            top_p=1.0):
+        dtype = p_dec["llama.embed_tokens.weight"].dtype
+        dev = ids.device
+        kcs = [pool(dtype, dev) for _ in range(n_layers)]
+        vcs = [pool(dtype, dev) for _ in range(n_layers)]
+        h, kvs = base_prefill(p_dec, ids)
+        pages = tables[:, :n_pre].to(torch.int64)
+        for i, (k, v) in enumerate(kvs):
+            scatter(kcs[i], vcs[i], k, v, pages)
+        del kvs
+        # each row's own last-position logits (ragged batch)
+        rows = torch.arange(b, device=dev)
+        h_last = h[rows, s0_vec.to(torch.int64) - 1][:, None, :]
+        last_logits = head_logits(h_last, p_dec)[:, -1]
+        step = make_paged_decode_step(cfg, b, block_size, tables,
+                                      kv_cache_dtype=kv_dtype)
+        if use_mega != "off":
+            step = _megakernel_or_fallback_step(cfg, b, tables, p_dec, kcs,
+                                                vcs, step, mode=use_mega)
+        return _decode_tail(step, p_dec, kcs, vcs, last_logits, s0_vec,
+                            generator, temperature, top_p, ids.dtype,
+                            max_new, eos_token_id, do_sample, top_k, b)
 
     return run
 

@@ -41,11 +41,14 @@ chunk never writes past a request's reserved pages. Options of the JAX
 engine that this port does not serve yet raise NotImplementedError naming
 their ROADMAP.md item.
 
-The engine's programs (the decode chunk and, on the unified path, the
-prefill window) are the port's counterpart of the JAX engine's jitted
-programs: on the card each is captured once as a CUDA graph in `warm()`
-and replayed for every dispatch, over static input tensors fed from
-pinned host buffers; the prefill calls of the split path stay eager.
+The engine's programs (the decode chunk; on the unified path the
+prefill window; on the split path one prefill program per (bucket,
+batch, prefix width) key) are the port's counterpart of the JAX
+engine's jitted programs: on the card each is captured once as a CUDA
+graph, in `warm()` or at its first use, and replayed for every dispatch,
+over static input tensors fed from pinned host buffers.
+`warm(buckets=, prefix_widths=)` captures the prefill programs the
+given prompt buckets need, as the JAX engine's warm() compiles them.
 With ``double_buffer`` the next chunk is dispatched before the previous
 one is read back: its tokens and lengths ride the previous chunk's device
 outputs wherever the host changed no slot, and the readback skips rows
@@ -71,7 +74,6 @@ EOS, or whose max_new is 1, retires at the handoff.
 """
 from __future__ import annotations
 
-import gc
 import time
 from collections import namedtuple
 from dataclasses import dataclass, field
@@ -81,8 +83,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+# the drafters and tests take _Program and _HostSets from here
+from ..framework.cuda_graph import GraphSite, _HostSets, _Program
 from ..kernels import _build
-from ..kernels.decode_attention import split_scratch_tensors
 from ..kernels.flash_attention import KERNEL_HEAD_DIMS
 from ..models.llama import (STACKED_LAYER_NAMES, STACKED_PREFIX,
                             PagedKVManager, _make_chunk_prefill,
@@ -148,149 +151,6 @@ class _Slot:
 # on acquire), private pages to reserve, true suffix length
 _Plan = namedtuple("_Plan", "sb_suf n_cached n_lru need suffix_len")
 
-# one set of a program's host buffers (see _HostSets)
-_HostSet = namedtuple("_HostSet", "inputs outputs event")
-
-
-class _Program:
-    """One engine program: `body(*inputs)` over static input tensors on
-    the engine's device, returning a tuple of output tensors.
-
-    On the card `capture` runs the body once eagerly (which makes what its
-    kernels create at their first launch, such as the split attention
-    kernels' scratch) and then records it as a CUDA graph; every call
-    replays the graph, which reads `inputs` and writes `outputs` in place.
-    A replay calls no wrapper, so the launches the wrappers counted while
-    the body was recorded are kept (`launches`) and added to the counters
-    on every replay; the recording itself counts none. On the CPU there is
-    no graph and every call runs the body eagerly over the same inputs. A
-    failed capture or replay raises with the program's name: nothing runs
-    eagerly in its place on the card."""
-
-    def __init__(self, name: str, body, inputs, generator=None):
-        self.name = name
-        self.body = body
-        self.inputs = tuple(inputs)
-        self.generator = generator      # the sampling generator, if any
-        self.graphed = self.inputs[0].device.type == "cuda"
-        self.graph = None
-        self.outputs = None
-        self.launches = {}              # kernel -> launches in one replay
-        self.captures = 0
-        self._held = ()
-
-    def capture(self, pool=None, stream=None):
-        """Warm the body up eagerly, then (on the card) record it on
-        `stream` into the memory pool `pool`."""
-        if not self.graphed:
-            self.outputs = self.body(*self.inputs)
-            self.captures += 1
-            return
-        self._warm_up(stream)
-        before = _build.launch_counts()
-        try:
-            graph, outputs = self._record(pool, stream)
-        except RuntimeError as e:
-            raise RuntimeError(f"capturing the engine's {self.name} "
-                               f"program as a CUDA graph failed: {e}") from e
-        finally:
-            counted = _build.launch_counts()
-            _build.LAUNCHES.update(before)
-        self.launches = {k: n - before[k] for k, n in counted.items()
-                         if n != before[k]}
-        self.graph, self.outputs = graph, outputs
-        self._held = split_scratch_tensors(self.inputs[0].device)
-        self.captures += 1
-
-    def _warm_up(self, stream):
-        stream.wait_stream(torch.cuda.current_stream(stream.device))
-        with torch.cuda.stream(stream):
-            self.body(*self.inputs)
-
-    def _record(self, pool, stream):
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            # replays advance the generator's offset, so every chunk draws
-            # fresh numbers
-            graph.register_generator_state(self.generator)
-        # a graph the cyclic collector frees mid-capture (an engine dropped
-        # earlier) would be destroyed inside this capture and invalidate
-        # it: collect first, and hold the collector off until the end
-        gc.collect()
-        was_enabled = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=pool, stream=stream):
-                outputs = self.body(*self.inputs)
-        finally:
-            if was_enabled:
-                gc.enable()
-        return graph, outputs
-
-    def __call__(self):
-        if not self.captures:
-            raise RuntimeError(f"the engine's {self.name} program was never "
-                               "captured (warm() captures it)")
-        if not self.graphed:
-            self.outputs = self.body(*self.inputs)
-            return self.outputs
-        try:
-            self.graph.replay()
-        except RuntimeError as e:
-            raise RuntimeError(f"replaying the engine's {self.name} "
-                               f"program failed: {e}") from e
-        for name, n in self.launches.items():
-            _build.LAUNCHES[name] += n
-        return self.outputs
-
-
-class _HostSets:
-    """Host buffers of one program: two sets used in turn, each a mirror
-    of `targets` (the device tensors dispatch copies into: the program's
-    static inputs, plus any the engine adds) and of the program's outputs,
-    pinned on the card and guarded by the event recorded after the set's
-    copies. `take` waits for that event before handing a set out again, so
-    the host never rewrites a buffer whose copy is still queued."""
-
-    def __init__(self, targets, outputs):
-        self.targets = tuple(targets)
-        pin = self.targets[0].device.type == "cuda"
-
-        def host(t):
-            return torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
-
-        self.sets = [_HostSet([host(t) for t in self.targets],
-                              [host(t) for t in outputs],
-                              torch.cuda.Event() if pin else None)
-                     for _ in range(2)]
-        self._turn = 0
-
-    def take(self):
-        hs = self.sets[self._turn]
-        self._turn ^= 1
-        if hs.event is not None:
-            hs.event.synchronize()
-        return hs
-
-    def stage_in(self, arrays):
-        """Write `arrays` into the next set and queue their copies into
-        the targets. Returns the set."""
-        hs = self.take()
-        for buf, a, dst in zip(hs.inputs, arrays, self.targets):
-            buf.numpy()[...] = a
-            dst.copy_(buf, non_blocking=True)
-        return hs
-
-    @staticmethod
-    def stage_out(hs, outputs):
-        """Queue the copies of `outputs` into set `hs` and record its
-        event."""
-        for dst, src in zip(hs.outputs, outputs):
-            dst.copy_(src, non_blocking=True)
-        if hs.event is not None:
-            hs.event.record()
-
-
 class ContinuousBatchingEngine:
     """Continuous batching over `PagedKVManager`, on one device.
 
@@ -347,7 +207,10 @@ class ContinuousBatchingEngine:
     On the card `warm()` captures the decode chunk (and the unified
     step's prefill window, the verify window and a draft model's program)
     as CUDA graphs that every dispatch replays (`compile_stats()`); the
-    first dispatch warms an engine that was not warmed."""
+    first dispatch warms an engine that was not warmed. `warm(buckets=,
+    prefix_widths=)` also captures the split path's prefill programs for
+    those prompt buckets (default: max_prompt_len); a key traffic reaches
+    unwarmed is captured at its first admission."""
 
     # a readback that waits longer than this counts as a blocked sync (the
     # host sat idle on the device): the stat double buffering shrinks
@@ -529,7 +392,21 @@ class ContinuousBatchingEngine:
         self.waiting: list[ServeRequest] = []
         self.finished: list[ServeRequest] = []
         self._next_id = 0
+        # the split path's prefill programs, one per JAX program key
+        # (_prefill_key), and their host sets; captured by warm() or at
+        # their first admission. Three graph sites, each one pool and one
+        # capture stream kept for the engine's life: the step programs'
+        # (decode, unified, verify), the prefill programs' and a draft
+        # model's. A prefill replay's first tokens are read back before
+        # any other prefill replays, so the prefills share their pool; a
+        # decode chunk's outputs stay live across prefill replays (the
+        # double-buffer chain feeds them to the next chunk), so a prefill
+        # graph must never take a block of their pool
         self._prefill_cache = {}
+        self._prefill_host = {}
+        self._site = GraphSite(self.device)
+        self._prefill_site = GraphSite(self.device)
+        self._draft_site = GraphSite(self.device)
         # the eager bodies: the decode chunk, the unified step's prefill
         # window (unified path only) and the verify window (speculation
         # only)
@@ -653,6 +530,9 @@ class ContinuousBatchingEngine:
                  for name, prog in self._programs.items()}
         if self._drafter is not None:
             stats.update(self._drafter.compile_stats())
+        for key, prog in self._prefill_cache.items():
+            stats["prefill:" + ":".join(str(k) for k in key)] = \
+                prog.captures
         return stats
 
     def metrics(self) -> dict:
@@ -959,18 +839,61 @@ class ContinuousBatchingEngine:
 
         return run
 
-    def _get_prefill(self, sb: int, bsz: int):
-        key = ("cold", sb, bsz)
+    def _prefill_key(self, kind: str, *shape) -> tuple:
+        """The JAX engine's prefill program key, field for field: the
+        kind and shape (bucket, batch[, prefix width]), then the pool
+        dtype, the requested megakernel mode, spec_k, cp, quantized
+        collectives and mp (1, 0 and 1 on one device)."""
+        return (kind, *shape, self.kv_dtype, self.use_megakernel,
+                self.spec_k, 1, 0, 1)
+
+    def _get_prefill(self, sb: int, bsz: int) -> _Program:
+        """The cold prefill program of (bucket, batch): ids [bsz, sb],
+        prompt lengths [bsz], pages [bsz, sb / block_size] -> first
+        tokens [bsz]; made and captured at its first use."""
+        key = self._prefill_key("cold", sb, bsz)
         if key not in self._prefill_cache:
-            self._prefill_cache[key] = self._build_prefill(sb, bsz)
+            self._add_prefill(key, self._build_prefill(sb, bsz),
+                              self._prefill_inputs(sb, bsz))
         return self._prefill_cache[key]
 
-    def _get_prefix_prefill(self, sb: int, bsz: int, w_pre: int):
-        key = ("prefix", sb, bsz, w_pre)
+    def _get_prefix_prefill(self, sb: int, bsz: int, w_pre: int) -> _Program:
+        """The cached-prefix prefill program of (suffix bucket, batch,
+        prefix width): the cold program's inputs plus the prefix tables
+        [bsz, w_pre] and prefix lengths [bsz]."""
+        key = self._prefill_key("prefix", sb, bsz, w_pre)
         if key not in self._prefill_cache:
-            self._prefill_cache[key] = self._build_prefix_prefill(
-                sb, bsz, w_pre)
+            self._add_prefill(key, self._build_prefix_prefill(sb, bsz, w_pre),
+                              self._prefill_inputs(sb, bsz, w_pre))
         return self._prefill_cache[key]
+
+    def _prefill_inputs(self, sb: int, bsz: int, w_pre: int = 0) -> list:
+        """A prefill program's static inputs, holding scratch rows (the
+        JAX warm()'s): zero ids of length 1 aimed at the scratch page,
+        prefix tables on the scratch page with length 0. Capturing over
+        them touches only the scratch page, whatever is in flight."""
+        dev, page = self.device, self.scratch_page
+        ins = [torch.zeros((bsz, sb), dtype=torch.int64, device=dev),
+               torch.ones((bsz,), dtype=torch.int64, device=dev),
+               torch.full((bsz, sb // self.block_size), page,
+                          dtype=torch.int64, device=dev)]
+        if w_pre:
+            ins += [torch.full((bsz, w_pre), page, dtype=torch.int32,
+                               device=dev),
+                    torch.zeros((bsz,), dtype=torch.int32, device=dev)]
+        return ins
+
+    def _add_prefill(self, key: tuple, body, inputs) -> None:
+        """Make, capture and cache the prefill program `key` (through the
+        prefill programs' graph site) with its host sets."""
+        prog = _Program("prefill:" + ":".join(str(k) for k in key),
+                        lambda *ins: (body(self.p, self.kcs, self.vcs,
+                                           *ins),),
+                        inputs, self._gen if self.do_sample else None,
+                        site=self._prefill_site)
+        self._prefill_site.capture(prog)
+        self._prefill_cache[key] = prog
+        self._prefill_host[prog.name] = _HostSets(prog.inputs, prog.outputs)
 
     def _prefix_width_ladder(self) -> list:
         """The prefix-table widths (in pages) prefix prefills run at:
@@ -990,9 +913,6 @@ class ContinuousBatchingEngine:
             if w >= n_blocks:
                 return w
         return self._prefix_width
-
-    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
 
     def _make_programs(self) -> dict:
         """The engine's programs over static inputs of its fixed shapes,
@@ -1017,7 +937,8 @@ class ContinuousBatchingEngine:
             "decode",
             lambda *ins: self._decode(self.p, self.kcs, self.vcs, *ins),
             (zeros(b, dtype=torch.int64), zeros(b), zeros(b),
-             scratch(b, w), zeros(b, dtype=torch.bool)), gen)}
+             scratch(b, w), zeros(b, dtype=torch.bool)), gen,
+            site=self._site)}
         if self.unified:
             tn = self.token_budget
             progs["unified"] = _Program(
@@ -1025,34 +946,92 @@ class ContinuousBatchingEngine:
                 lambda *ins: self._unified(self.p, self.kcs, self.vcs, *ins),
                 (zeros(1, tn, dtype=torch.int64), scratch(1, w), zeros(1),
                  zeros(1), scratch(1, tn // self.block_size,
-                                   dtype=torch.int64)), gen)
+                                   dtype=torch.int64)), gen,
+                site=self._site)
         if self.spec_k:
             progs["verify"] = _Program(
                 "verify",
                 lambda *ins: self._verify(self.p, self.kcs, self.vcs, *ins),
                 (zeros(b, self.spec_k + 1, dtype=torch.int64),
                  scratch(b, w), zeros(b),
-                 torch.ones((b,), dtype=torch.int32, device=dev)))
+                 torch.ones((b,), dtype=torch.int32, device=dev)),
+                site=self._site)
         return progs
 
-    def warm(self):
-        """Build the kernels (on the card) and capture the engine's
-        programs: each body runs once eagerly on its scratch rows, then is
-        recorded as a CUDA graph (in one memory pool, on a capture stream
-        of its own) that every later dispatch replays. On the CPU the
-        programs stay eager. Once warm, serving never captures again."""
+    @property
+    def graphed(self) -> bool:
+        """Whether the programs replay CUDA graphs (always False on the
+        CPU). Set to False before warm(), every program, prefill ones
+        included, runs its eager body on the card instead: the yardstick
+        the graphs are held to, never a choice the engine makes."""
+        return self._site.graphed
+
+    @graphed.setter
+    def graphed(self, on: bool) -> None:
+        on = bool(on) and self.device.type == "cuda"
+        for site in (self._site, self._prefill_site, self._draft_site):
+            site.graphed = on
+
+    def _max_prefill_bsz(self) -> int:
+        """_admit never batches beyond min(prefill_batch, slots): the
+        largest power-of-two batch a prefill program is made for."""
+        bsz = 1
+        while bsz < min(self.prefill_batch, self.slots):
+            bsz *= 2
+        return bsz
+
+    def warm(self, buckets=None, prefix_widths=None):
+        """Build the kernels (on the card) and capture every program the
+        engine can need for the given prompt buckets (the JAX engine's
+        warm()): each power-of-two prefill batch up to
+        `_max_prefill_bsz()`, cold and, with the prefix cache, at each
+        prefix width of `prefix_widths` (default: the whole ladder), plus
+        the decode chunk, the unified window, the verify window and a
+        draft model's program. `buckets` defaults to [max_prompt_len]; it
+        must cover the SUFFIX buckets cache hits prefill at. On the
+        unified path there is no prefill ladder and `buckets` is ignored.
+        Each program runs once eagerly on scratch rows, then is recorded
+        as a CUDA graph (the step programs in one memory pool, the
+        prefill programs in another) that every later dispatch replays;
+        on the CPU the programs stay eager. Once
+        warm for the traffic's buckets, serving never captures again."""
+        buckets = [self.max_prompt_len] if buckets is None else list(buckets)
+        if self.unified:
+            buckets = []
+        ladder = self._prefix_width_ladder()
+        if prefix_widths is None:
+            prefix_widths = ladder
+        elif not self.unified:
+            bad = [w for w in prefix_widths if w not in ladder]
+            if bad:
+                raise ValueError(
+                    f"prefix widths {bad} are not on the ladder {ladder}; "
+                    "_admit only ever uses ladder rungs, so warming others "
+                    "is dead")
+        cap = self._max_prefill_bsz()
+        for sb in buckets:
+            if sb % self.prompt_bucket:
+                raise ValueError(f"bucket {sb} is not a multiple of "
+                                 f"prompt_bucket {self.prompt_bucket}")
+            bsz = 1
+            while True:
+                self._get_prefill(sb, bsz)
+                if self.prefix_cache:
+                    for w in prefix_widths:
+                        self._get_prefix_prefill(sb, bsz, w)
+                if bsz >= cap:
+                    break
+                bsz *= 2
+        self._warm_programs()
+
+    def _warm_programs(self):
+        """Capture the decode chunk and, where the engine has them, the
+        unified window, the verify window and a draft model's program,
+        and make their host sets (once; the first dispatch calls it)."""
         if self._host is not None:
             return
-        pool = stream = None
-        if self.device.type == "cuda":
-            for name in _build.SIGNATURES:
-                _build.library(name)
-            pool = torch.cuda.graph_pool_handle()
-            stream = torch.cuda.Stream(self.device)
         for prog in self._programs.values():
-            prog.capture(pool, stream)
-        if stream is not None:
-            torch.cuda.current_stream(self.device).wait_stream(stream)
+            self._site.capture(prog)
         if self._drafter is not None:
             self._drafter.warm()
         # the chain mask rides the decode program's host sets
@@ -1066,7 +1045,7 @@ class ContinuousBatchingEngine:
     def _stage_in(self, name: str, arrays):
         """Write `arrays` into program `name`'s next host set and queue
         their copies into its device targets. Returns the set."""
-        self.warm()
+        self._warm_programs()
         return self._host[name].stage_in(arrays)
 
     def _stage_out(self, name: str, hs):
@@ -1198,17 +1177,19 @@ class ContinuousBatchingEngine:
                     ptbl[row, :len(cached)] = cached
                     plens[row] = req.cached_tokens
             self.prefill_calls += 1
-            t0 = time.perf_counter()
+            # the batch's program (captured here if no warm() covered its
+            # key, as JAX compiles at first use), fed through its host
+            # sets; the first tokens come back through _read
             if has_prefix:
-                fn = self._get_prefix_prefill(sb_suf, bsz, w_call)
-                firsts = fn(self.p, self.kcs, self.vcs, self._to_dev(ids),
-                            self._to_dev(s0s), self._to_dev(pages),
-                            self._to_dev(ptbl), self._to_dev(plens))
+                prog = self._get_prefix_prefill(sb_suf, bsz, w_call)
+                arrays = (ids, s0s, pages, ptbl, plens)
             else:
-                fn = self._get_prefill(sb_suf, bsz)
-                firsts = fn(self.p, self.kcs, self.vcs, self._to_dev(ids),
-                            self._to_dev(s0s), self._to_dev(pages))
-            firsts = firsts.cpu().numpy()
+                prog = self._get_prefill(sb_suf, bsz)
+                arrays = (ids, s0s, pages)
+            t0 = time.perf_counter()
+            hs = self._prefill_host[prog.name].stage_in(arrays)
+            _HostSets.stage_out(hs, prog())
+            firsts = self._read(hs)[0]
             self.prefill_s += time.perf_counter() - t0
             del self.waiting[:len(batch)]
             now = time.perf_counter()
@@ -1532,7 +1513,7 @@ class ContinuousBatchingEngine:
         live = self._live()
         if not live.any():
             return 0
-        self.warm()
+        self._warm_programs()
         b, k = self.slots, self.spec_k
         # the adaptive depth caps what the drafter is ASKED for; the
         # window stays k + 1 rows and unproposed depth is pad

@@ -257,7 +257,7 @@ class DraftModelDrafter(Drafter):
              zeros(b), zeros(b),
              torch.full((b, engine.table_width), engine.scratch_page,
                         dtype=torch.int32, device=dev),
-             zeros(b, dtype=torch.bool)))
+             zeros(b, dtype=torch.bool)), site=engine._draft_site)
         self._host = None
         self._len = np.zeros((b,), np.int64)
         self._bound = [None] * b
@@ -290,13 +290,8 @@ class DraftModelDrafter(Drafter):
         from .engine import _HostSets
 
         dev = self._eng.device
-        pool = stream = None
+        self._prog.site.capture(self._prog)
         if dev.type == "cuda":
-            pool = torch.cuda.graph_pool_handle()
-            stream = torch.cuda.Stream(dev)
-        self._prog.capture(pool, stream)
-        if stream is not None:
-            torch.cuda.current_stream(dev).wait_stream(stream)
             torch.cuda.synchronize(dev)
         self._host = _HostSets(self._prog.inputs, self._prog.outputs)
 
@@ -426,7 +421,11 @@ def _smoke(argv=None) -> int:
             speculative=speculative,
             spec_k=args.spec_k if speculative != "off" else None,
             dtype=torch.float32, device=dev, **geometry)
-        eng.warm()
+        # the traffic's prompt buckets, cold only (its heads differ: no
+        # prompt hits the prefix cache)
+        pb = eng.prompt_bucket
+        eng.warm(buckets=sorted({-(-len(pr) // pb) * pb for pr in prompts}),
+                 prefix_widths=[])
         stats = eng.compile_stats()
         for pr in prompts:
             eng.add_request(pr, max_new=args.max_new)

@@ -37,6 +37,10 @@ pool pages (the scratch page aside) and equal launch counts, on every
 rung, both pool dtypes and every weight kind. A draft model over the
 target's own weights must see at least a fifth of its drafts accepted,
 and a disaggregated engine must give the colocated engine's tokens.
+The split path's prefill programs are held the same way (cold and
+prefix, both pool dtypes, the scan stride), and so is each layout of
+``jit_generate``'s program (contiguous, weight-only, quant-only, paged
+over bf16 and int8 pools, the full megakernel), with exact launches.
 """
 import numpy as np
 import pytest
@@ -954,8 +958,15 @@ def _graph_model(dev, weights):
     return cfg, params
 
 
+# every prompt bucket up to max_prompt_len 192, and the prefix width of
+# the one cached page `_graph_prompts` share: the prefill programs the
+# test traffic reaches
+WARM = dict(buckets=[64, 128, 192], prefix_widths=[1])
+
+
 def _graph_engine(dev, cfg, params, graphed=True, **kw):
-    """The engine, warmed; with `graphed=False` its programs run their
+    """The engine, warmed for the test traffic's buckets; with
+    `graphed=False` its programs, prefill programs included, run their
     eager bodies on the card (the yardstick the graphs are held to)."""
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
 
@@ -964,10 +975,14 @@ def _graph_engine(dev, cfg, params, graphed=True, **kw):
         block_size=64, steps_per_sync=4, token_budget=64,
         dtype=torch.bfloat16, device=dev), **kw})
     if not graphed:
-        for prog in eng._programs.values():
-            prog.graphed = False
-    eng.warm()
+        eng.graphed = False
+    eng.warm(**WARM)
     return eng
+
+
+def _programs(stats):
+    """compile_stats() without the prefill programs' entries."""
+    return {k: n for k, n in stats.items() if not k.startswith("prefill:")}
 
 
 def _graph_prompts(vocab):
@@ -1018,10 +1033,12 @@ GRAPH_CASES = [
                          ids=["-".join(map(str, c)) for c in GRAPH_CASES])
 def test_engine_graphs_replay_the_eager_bodies(dev, weights, rung, kv,
                                                unified):
-    """The same engine and traffic with its programs replayed as CUDA
-    graphs and run eagerly: identical greedy streams, bitwise-equal pool
-    pages, equal launch counts (each replay adds its capture's launches),
-    and compile_stats() unchanged by traffic after warm()."""
+    """The same engine and traffic with its programs (the split path's
+    cold and prefix prefill programs included: bf16 and int8 pools, the
+    scan rung's layer-major stride) replayed as CUDA graphs and run
+    eagerly: identical greedy streams, bitwise-equal pool pages, equal
+    launch counts (each replay adds its capture's launches), and
+    compile_stats() unchanged by traffic after warm()."""
     cfg, params = _graph_model(dev, weights)
     prompts = _graph_prompts(cfg.vocab_size)
     runs = {}
@@ -1030,14 +1047,17 @@ def test_engine_graphs_replay_the_eager_bodies(dev, weights, rung, kv,
                             decode_megakernel=rung, unified_step=unified)
         assert eng.megakernel_rung == rung
         stats = eng.compile_stats()
-        assert stats == ({"decode": 1, "unified": 1} if unified
-                         else {"decode": 1})
+        assert _programs(stats) == ({"decode": 1, "unified": 1} if unified
+                                    else {"decode": 1})
+        prefill = eng._prefill_cache.values()
+        assert len(prefill) == (0 if unified else 18)   # 3 x 3 x 2
         _build.reset_launch_counts()
         toks = _graph_serve(eng, prompts)
         runs[graphed] = (toks, _build.launch_counts(), _pool_pages(eng))
         assert eng.compile_stats() == stats
         assert eng.prefix_hit_tokens > 0
         assert (eng._programs["decode"].graph is not None) == graphed
+        assert all((p.graph is not None) == graphed for p in prefill)
     (g_toks, g_n, g_pools), (e_toks, e_n, e_pools) = runs[True], runs[False]
     assert g_toks == e_toks
     assert g_n == e_n and any(g_n.values())
@@ -1169,10 +1189,8 @@ def _spec_engine(dev, cfg, params, graphed=True, drafter=None, **kw):
         speculative="draft" if d is not None else "ngram", spec_k=4,
         drafter=d), **kw})
     if not graphed:
-        for prog in list(eng._programs.values()) \
-                + ([d._prog] if d is not None else []):
-            prog.graphed = False
-    eng.warm()
+        eng.graphed = False
+    eng.warm(**WARM)
     return eng
 
 
@@ -1210,7 +1228,7 @@ def test_spec_graphs_replay_the_eager_bodies(dev, weights, rung, kv, unified,
         want = {"decode": 1, "verify": 1}
         want.update({"unified": 1} if unified else {})
         want.update({"draft": 1} if drafter == "draft" else {})
-        assert stats == want
+        assert _programs(stats) == want
         _build.reset_launch_counts()
         toks = _graph_serve(eng, prompts)
         runs[graphed] = (toks, _build.launch_counts(), _pool_pages(eng))
@@ -1272,6 +1290,174 @@ def test_speculative_smoke_module(dev):
     row = json.loads(res.stdout.strip().splitlines()[-1])
     assert row["token_match"] == 1.0 and row["spec_accepted"] > 0
     assert row["compile_stats"] == {"decode": 1, "unified": 1, "verify": 1}
+
+
+# ---------------------------------------------------------------------------
+# the generation entry points: jit_generate's programs, generate
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,sk,hq,hkv,d", [
+    (8, 1, 32, 8, 128), (8, 77, 32, 8, 128), (2, 600, 8, 8, 64),
+    (4, 333, 4, 1, 128)])
+def test_flash_attention_single_query(dev, b, sk, hq, hkv, d):
+    """A decode step of generate(): one query row against the Sk keys of
+    the concat cache, not causal. The kernel launches (no fallback to the
+    plain path), meets the plain twin's bars, and two launches are
+    bitwise equal."""
+    q, k, v = _flash_inputs(dev, b, 1, sk, hq, hkv, d, seed=sk + d)
+    got, lse = _launched("flash_attention_fwd", lambda: flash_attention(
+        q, k, v, causal=False, return_lse=True))
+    ref, ref_lse = flash_attention_reference(q, k, v, causal=False,
+                                             return_lse=True)
+    assert (got.float() - ref.float()).abs().max() <= 3e-2
+    assert (lse - ref_lse).abs().max() <= 1e-2
+    assert torch.equal(got, flash_attention(q, k, v, causal=False))
+
+
+RAGGED = dict(cache_layout="paged", seq_lens=[100, 37, 64, 99])
+# (kwargs, flags, the decode attention kernel launched once a layer a step)
+GEN_MODES = [
+    ("contiguous", {}, {}, "gqa_decode_attention"),
+    ("int8", dict(quant="weight_only_int8"), {}, "gqa_decode_attention"),
+    ("int4-quant-only", dict(quant="weight_only_int4",
+                             prefill_with_quant=True), {},
+     "gqa_decode_attention"),
+    ("paged", RAGGED, {}, "paged_decode_attention"),
+    ("paged-int8-pools", RAGGED, dict(kv_cache_dtype="int8"),
+     "paged_decode_attention_int8"),
+    ("paged-full-int8-weights", {**RAGGED, "quant": "weight_only_int8"},
+     dict(decode_megakernel="full"), "decode_layer_megakernel_full"),
+    ("paged-scan", dict(cache_layout="paged"),
+     dict(decode_megakernel="scan"), "decode_layer_megakernel_full"),
+]
+
+
+@pytest.mark.parametrize("kw,flags,attention", [m[1:] for m in GEN_MODES],
+                         ids=[m[0] for m in GEN_MODES])
+def test_generate_programs_replay_the_eager_bodies(dev, kw, flags, attention):
+    """jit_generate's program of each layout, replayed as a CUDA graph and
+    run as its eager body: identical tokens and launches; one capture for
+    the signature; the flash forward once a layer (the prefill) and the
+    decode attention once a layer a step."""
+    import warnings
+
+    from paddle_tpu_torch.framework import get_flags, set_flags
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cfg, params = _graph_model(dev, "dense")
+    model = LlamaForCausalLM(cfg).load_params(params)
+    ids = torch.tensor(np.random.default_rng(31).integers(
+        1, cfg.vocab_size, (4, 100)), device=dev)
+    L, max_new = cfg.num_hidden_layers, 12
+    old = get_flags(list(flags))
+    set_flags(flags)
+    try:
+        def call():
+            return model.jit_generate(ids, max_new_tokens=max_new,
+                                      bucket_size=64, **kw)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # scan steps down to full
+            call()
+            (entry,) = model._jit_gen_cache.values()
+            runs = {}
+            for graphed in (True, False):
+                model._gen_site.graphed = graphed
+                _build.reset_launch_counts()
+                toks = call()
+                torch.cuda.synchronize()
+                runs[graphed] = (toks, _build.launch_counts())
+    finally:
+        set_flags(old)
+    (g, g_n), (e, e_n) = runs[True], runs[False]
+    assert torch.equal(g, e) and g_n == e_n
+    assert entry.captures == 1 and entry.prog.graph is not None
+    assert len(model._jit_gen_cache) == 1
+    assert g.shape == (4, 100 + max_new)
+    assert int(g.max()) < cfg.vocab_size and int(g.min()) >= 0
+    assert g_n["flash_attention_fwd"] == L
+    assert g_n[attention] == L * (max_new - 1)
+    _build.reset_launch_counts()
+
+
+def test_generate_programs_share_one_site(dev):
+    """Four signatures kept alive at once in the model's one graph pool,
+    replayed in turn (contiguous, int8, paged, paged int8 weights, then
+    again in reverse): every replay gives the tokens of its first call and
+    of its eager body, the two int8 signatures hold one quantized set, and
+    nothing is captured twice."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cfg, params = _graph_model(dev, "dense")
+    model = LlamaForCausalLM(cfg).load_params(params)
+    ids = torch.tensor(np.random.default_rng(37).integers(
+        1, cfg.vocab_size, (4, 100)), device=dev)
+    kws = [dict(), dict(quant="weight_only_int8"), RAGGED,
+           {**RAGGED, "quant": "weight_only_int8"}]
+
+    def call(kw):
+        return model.jit_generate(ids, max_new_tokens=8, bucket_size=64,
+                                  **kw)
+
+    first = [call(kw) for kw in kws]
+    again = [call(kw) for kw in reversed(kws)][::-1]
+    model._gen_site.graphed = False
+    eager = [call(kw) for kw in kws]
+    model._gen_site.graphed = True
+    for f, a, e in zip(first, again, eager):
+        assert torch.equal(f, a) and torch.equal(f, e)
+    progs = list(model._jit_gen_cache.values())
+    assert len(progs) == len(kws) == model._gen_site.captures
+    assert all(p.captures == 1 and p.prog.graph is not None for p in progs)
+    assert progs[1]._weights[-1] is progs[3]._weights[-1]
+
+
+def test_generate_program_samples_on_the_card(dev):
+    """Sampling inside a generation graph: the program's generator is
+    registered with the graph and reseeded every call, so one seed gives
+    one stream, draw for draw the program's eager body's for that seed,
+    and another seed another, with no new capture. (top_k=1 against
+    greedy is the CPU test's: bf16 logits tie often enough at the top
+    that the two may pick different tied tokens.)"""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cfg, params = _graph_model(dev, "dense")
+    model = LlamaForCausalLM(cfg).load_params(params)
+    ids = torch.tensor(np.random.default_rng(35).integers(
+        1, cfg.vocab_size, (4, 64)), device=dev)
+    kw = dict(max_new_tokens=10, bucket_size=64, do_sample=True, top_k=5,
+              temperature=1.0)
+    a, b, c = (model.jit_generate(ids, seed=s, **kw) for s in (9, 9, 10))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert int(a.max()) < cfg.vocab_size
+    (entry,) = model._jit_gen_cache.values()
+    model._gen_site.graphed = False
+    assert torch.equal(model.jit_generate(ids, seed=9, **kw), a)
+    model._gen_site.graphed = True
+    assert entry.captures == 1 and entry.prog.graph is not None
+
+
+def test_generate_on_the_card(dev):
+    """generate(): a forward a token over the concat caches (the flash
+    forward once a layer each: the prompt, then Sq 1 non-causal steps);
+    its first token is jit_generate's (the same prompt forward when the
+    prompt fills its bucket)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cfg, params = _graph_model(dev, "dense")
+    model = LlamaForCausalLM(cfg).load_params(params)
+    ids = torch.tensor(np.random.default_rng(33).integers(
+        1, cfg.vocab_size, (2, 128)), device=dev)
+    _build.reset_launch_counts()
+    out = model.generate(ids, max_new_tokens=6)
+    torch.cuda.synchronize()
+    n = _build.launch_counts()
+    assert out.shape == (2, 134)
+    assert n["flash_attention_fwd"] == cfg.num_hidden_layers * 6
+    assert torch.equal(out[:, :128], ids)
+    jit = model.jit_generate(ids, max_new_tokens=6, bucket_size=64)
+    assert torch.equal(out[:, 128], jit[:, 128])
+    _build.reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------

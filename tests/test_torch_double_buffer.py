@@ -352,13 +352,19 @@ def test_host_sets_alternate(model):
 @pytest.mark.parametrize("unified", [False, True], ids=["split", "unified"])
 def test_compile_stats_and_sync_wait(model, unified):
     """compile_stats() counts each program's captures: none before
-    warm(), one after, unchanged by traffic; sync_wait_s / blocked_syncs
-    count every readback (a negative stall threshold marks each one
-    blocked)."""
+    warm(), one after (on the split path also one per prefill program
+    warm() makes for its default bucket, max_prompt_len: batches 1 and 2,
+    cold and at the one prefix width), unchanged by traffic;
+    sync_wait_s / blocked_syncs count every readback (a negative stall
+    threshold marks each one blocked)."""
     _, _, _, cfg, p = model
     eng = _small(cfg, p, unified_step=unified)
     want = {"decode": 1, "unified": 1} if unified else {"decode": 1}
     assert eng.compile_stats() == {k: 0 for k in want}
+    if not unified:
+        want.update({"prefill:" + ":".join(map(str, eng._prefill_key(*k))): 1
+                     for k in (("cold", 8, 1), ("prefix", 8, 1, 1),
+                               ("cold", 8, 2), ("prefix", 8, 2, 1))})
     eng.warm()
     eng.warm()
     assert eng.compile_stats() == want
@@ -369,8 +375,9 @@ def test_compile_stats_and_sync_wait(model, unified):
     m = eng.metrics()
     assert m["compile_stats"] == want
     assert m["sync_wait_s"] == eng.sync_wait_s >= 0.0
-    # one readback per committed chunk, plus one per unified window
-    reads = eng.prefill_chunks if unified else 0
+    # one readback per committed chunk, plus one per unified window or
+    # split prefill call (its first tokens come back the same way)
+    reads = eng.prefill_chunks if unified else eng.prefill_calls
     assert m["blocked_syncs"] == eng.blocked_syncs >= reads + 1
     assert m["blocked_syncs"] <= m["device_steps"] + reads
 
@@ -392,7 +399,7 @@ class _FakeProgram(_Program):
 
     def __init__(self, body, inputs, fail=None):
         super().__init__("decode", body, inputs)
-        self.graphed = True
+        self.site.graphed = True
         self.fail = fail
 
     def _warm_up(self, stream):

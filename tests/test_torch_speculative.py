@@ -453,6 +453,10 @@ def test_spec_engines_match_jax(model, run):
         want["unified"] = 1
     if drafter == "draft":
         want["draft"] = 1
+    # the split path's prefill programs, captured at their first use: the
+    # JAX engine's program keys, one capture each
+    want.update({k: 1 for k in jeng.compile_stats()
+                 if k.startswith("prefill:")})
     assert eng.compile_stats() == want
 
 
@@ -558,4 +562,11 @@ def test_module_smoke_on_the_cpu(capsys):
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["bench"] == "speculative_smoke" and row["ok"]
     assert row["token_match"] == 1.0 and row["spec_accepted"] > 0
-    assert row["compile_stats"] == {"decode": 1, "verify": 1}
+    # on the CPU the smoke serves the split path: one cold prefill
+    # program per warmed (bucket, batch), none captured by traffic
+    stats = row["compile_stats"]
+    assert {k: n for k, n in stats.items() if not k.startswith("prefill:")} \
+        == {"decode": 1, "verify": 1}
+    prefill = [k for k in stats if k.startswith("prefill:")]
+    assert prefill and all(k.startswith("prefill:cold:") and stats[k] == 1
+                           for k in prefill)
