@@ -70,6 +70,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    held to its eager body (tokens, launches), one capture a signature,
    exact launches a call, rank gates; then generate (eager, concat
    caches) for 8 tokens.
+20. checkpoint: the bf16 weights written as an HF sharded checkpoint (4
+   shards + index, a writer of this script's own) and streamed back by
+   load_quant_serving_params: int8 byte-identical to decode_params, the
+   load's transient card peak at most 4x the lm_head's f32 bytes, phase
+   8's tokens and launches served from it; 2-layer reads (bf16, int4,
+   and int4 under injected shard-read faults).
+21. observe: phase 3's traffic with a Tracer and a MetricsRegistry and
+   with both off (identical tokens, launches and captures; TTFT / TPOT
+   logged; the Perfetto export; the decode.dispatch profiler range);
+   then hang:decode under a watchdog deadline, synchronous,
+   double-buffered and requeueing: one victim, the others' tokens
+   unchanged, nothing launched by the abandoned thread.
 13. train, the training slice's main path: bench.py main()'s step on
    Llama-1B (16 layers, kv heads 4, bf16) with AdamW through
    make_train_step(optimizer=), batch 4 x 2048, a warm-up and 10 timed
@@ -82,7 +94,7 @@ Then the kernel table as one JSON line (each kernel's launches from the
 phase that drives it), the card's name and power limit, and the closing
 {"ok": true, ...} line.
 
-Phases 15-19 run after phase 12 and before training. Every phase resets
+Phases 15-21 run after phase 12 and before training. Every phase resets
 the kernel launch counters just before it serves and reads them just
 after: a bf16 phase must launch no int8 kernel, an int8
 phase no bf16 paged-attention kernel.
@@ -97,8 +109,11 @@ import itertools
 import json
 import math
 import os
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace as dataclasses_replace
 from types import SimpleNamespace
@@ -681,6 +696,10 @@ def check_flash_bwd(b: int, s: int, hq: int, hkv: int, d: int):
     delta_ms = time_ms(lambda: flash_attention_bwd_delta(out, do), iters=10)
     delta_plain = time_ms(lambda: flash_attention_bwd_delta_reference(
         out, do), iters=10)
+    # the library yardstick of the pre-pass: one call of the same row sums
+    # (bf16 in, its own [B, S, Hq] layout out)
+    delta_lib = time_ms(lambda: torch.linalg.vecdot(do, out, dim=-1),
+                        iters=10)
     plain_ms = time_ms(lambda: _plain_bwd(*args), iters=3, warmup=1)
     qt, kt, vt, dot = (t.transpose(1, 2).detach().requires_grad_()
                        for t in (q, k, v, do))
@@ -712,7 +731,7 @@ def check_flash_bwd(b: int, s: int, hq: int, hkv: int, d: int):
                  bound_by=dkv_bound[1], library_ms=lib_ms),
             dict(case=case, max_abs_err=delta_err, ms=delta_ms,
                  plain_ms=delta_plain, bound_ms=delta_bound[0],
-                 bound_by=delta_bound[1], library_ms=None)]
+                 bound_by=delta_bound[1], library_ms=delta_lib)]
 
 
 def check_swiglu(m: int, k: int, f: int):
@@ -1501,7 +1520,8 @@ def warm_for(eng, traffic, shared: int = 0, tag: str = ""):
     buckets = {-(-len(p) // pb) * pb for p in traffic}
     widths = []
     if eng.prefix_cache and shared:
-        buckets |= {-(-(len(p) - shared) // pb) * pb for p in traffic}
+        buckets |= {-(-(len(p) - shared) // pb) * pb for p in traffic
+                    if len(p) > shared}
         widths = [eng._prefix_width_for(shared // bs)]
     # engines dropped earlier sit in reference cycles: free their graphs
     # first, so the growth is this engine's
@@ -2023,6 +2043,21 @@ def phase_int4_split(cfg):
             "chunk": chunk}
 
 
+def int8w_unified_engine(cfg, params8):
+    """Phase 8's engine (int8 KV pools, the unified step, 256-token
+    windows) over the weight-only int8 params `params8`, warmed; phase 20
+    serves the loaded checkpoint through the same one."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(
+        cfg, params8, slots=8, prompt_bucket=128, max_prompt_len=2048,
+        max_new_tokens=32, block_size=64, steps_per_sync=8,
+        prefix_cache=True, unified_step=True, token_budget=256,
+        kv_cache_dtype="int8", dtype=torch.bfloat16, device="cuda")
+    eng.warm()
+    return eng
+
+
 def phase_int8w_unified(cfg, params):
     """Phase 8: weight-only int8 params from decode_params over the bf16
     params, int8 KV pools, the unified step over phase 4's traffic.
@@ -2033,16 +2068,10 @@ def phase_int8w_unified(cfg, params):
     reads no quantized cache). Then one decode chunk of the decode lane
     alone is traced (its launches apart)."""
     from paddle_tpu_torch.models import decode_params
-    from paddle_tpu_torch.serving import ContinuousBatchingEngine
 
     quant, phase = "weight_only_int8", "int8w-int8kv-unified"
     params8 = decode_params(params, quant)
-    eng = ContinuousBatchingEngine(
-        cfg, params8, slots=8, prompt_bucket=128, max_prompt_len=2048,
-        max_new_tokens=32, block_size=64, steps_per_sync=8,
-        prefix_cache=True, unified_step=True, token_budget=256,
-        kv_cache_dtype="int8", dtype=torch.bfloat16, device="cuda")
-    eng.warm()
+    eng = int8w_unified_engine(cfg, params8)
     reqs, wall, launches, m = serve(eng, unified_traffic(cfg), phase)
     L = cfg.num_hidden_layers
     if m["prefill_chunks"] <= 16 or m["prefix_hit_tokens"] <= 0:
@@ -2836,6 +2865,420 @@ def phase_generate(cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: a safetensors checkpoint streamed into the serving layout
+# ---------------------------------------------------------------------------
+
+CKPT_SHARDS = 4
+# the safetensors dtype tags of the dtypes the writer stores
+ST_TAGS = {torch.bfloat16: "BF16", torch.float16: "F16",
+           torch.float32: "F32"}
+
+
+def write_hf_checkpoint(params, d: str, shards: int = CKPT_SHARDS) -> int:
+    """Write the decode-params dict `params` under `d` as an HF sharded
+    safetensors checkpoint: `shards` files of about equal bytes plus
+    model.safetensors.index.json, HF names (``model.`` for ``llama.``)
+    and torch's [out, in] projections. The format's own writer (the
+    card's machine needs no safetensors package): an 8-byte
+    little-endian header length, the space-padded JSON header, then the
+    tensors' bytes, one tensor on the host at a time. Returns the bytes
+    of tensor data written."""
+    layout = []
+    for name, t in params.items():
+        hf = "model." + name[len("llama."):] if name.startswith("llama.") \
+            else name
+        layout.append((hf, name, t.ndim == 2 and "embed_tokens" not in name,
+                       t.numel() * t.element_size()))
+    total = sum(n for *_, n in layout)
+    groups, acc = [[] for _ in range(shards)], 0
+    for item in layout:
+        groups[min(shards - 1, acc * shards // total)].append(item)
+        acc += item[3]
+    weight_map = {}
+    for i, group in enumerate(groups):
+        fname = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        header, off = {"__metadata__": {"format": "pt"}}, 0
+        for hf, name, transpose, n in group:
+            t = params[name]
+            header[hf] = {"dtype": ST_TAGS[t.dtype],
+                          "shape": list(t.shape[::-1] if transpose
+                                        else t.shape),
+                          "data_offsets": [off, off + n]}
+            weight_map[hf] = fname
+            off += n
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(d, fname), "wb") as f:
+            f.write(struct.pack("<Q", len(raw)) + raw)
+            for hf, name, transpose, n in group:
+                t = params[name]
+                host = (t.t() if transpose else t).contiguous().cpu()
+                f.write(host.reshape(-1).view(torch.uint8).numpy().data)
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    return total
+
+
+def same_params(a: dict, b: dict) -> bool:
+    """Whether two decode-params dicts hold the same names, dtypes,
+    shapes and bytes (weight-only pairs element by element)."""
+    if set(a) != set(b):
+        return False
+    for k in a:
+        xs = a[k] if isinstance(a[k], tuple) else (a[k],)
+        ys = b[k] if isinstance(b[k], tuple) else (b[k],)
+        if len(xs) != len(ys):
+            return False
+        for x, y in zip(xs, ys):
+            if x.dtype != y.dtype or x.shape != y.shape \
+                    or not torch.equal(
+                        x.contiguous().reshape(-1).view(torch.uint8),
+                        y.contiguous().reshape(-1).view(torch.uint8)):
+                return False
+    return True
+
+
+def nbytes(params: dict) -> int:
+    return sum(t.numel() * t.element_size() for v in params.values()
+               for t in (v if isinstance(v, tuple) else (v,)))
+
+
+def phase_checkpoint(cfg, params, int8w):
+    """Phase 20: Llama-3-8B at full width and depth through a checkpoint.
+    build_model()'s bf16 params are written as an HF sharded checkpoint
+    (4 shards + index, about 16.1 GB, in a temporary directory removed at
+    the end), then streamed back by load_quant_serving_params:
+    "weight_only_int8" must be byte-identical to decode_params(params,
+    "weight_only_int8"), with the transient device peak over the load
+    (max allocated minus what was allocated before minus the loaded set)
+    at most 4x the largest weight's f32 bytes (the lm_head: never a second
+    copy of the model); the loaded set, served through phase 8's engine
+    and traffic, must give phase 8's tokens and launches. Then a 2-layer
+    cfg reads the first layers of the same files: None bitwise equal to
+    the params, "weight_only_int4" byte-identical to decode_params of
+    them, and again under PADDLE_TPU_CHAOS=io_error:0.3:shard_read with a
+    fixed seed, the retries counted by the reader's RetryStats. Logs the
+    write's and the load's seconds and GB/s (the files are read back
+    from the host's page cache)."""
+    from paddle_tpu_torch.models import (decode_params,
+                                         load_quant_serving_params)
+    from paddle_tpu_torch.models.checkpoint import _SafetensorsSource
+    from paddle_tpu_torch.resilience import RetryPolicy, chaos
+
+    phase, quant = "checkpoint", "weight_only_int8"
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        written = write_hf_checkpoint(params, d)
+        secs = time.perf_counter() - t0
+        log(f"[{phase}] wrote {written / 1e9:.3f} GB of bf16 weights in "
+            f"{secs:.2f} s ({written / 1e9 / secs:.2f} GB/s): "
+            f"{sorted(os.listdir(d))}")
+        gc.collect()
+        _release()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loaded = load_quant_serving_params(cfg, d, quant, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        transient = torch.cuda.max_memory_allocated() - base - nbytes(loaded)
+        f32_max = 4 * max(t.numel() for t in params.values())
+        log(f"[{phase}] loaded {quant} from the files in {load_s:.2f} s "
+            f"({written / 1e9 / load_s:.2f} GB/s read and uploaded at bf16, "
+            f"quantized on the card; {nbytes(loaded) / 1e9:.3f} GB held); "
+            f"transient device peak {transient / 1e9:.3f} GB = "
+            f"{transient / f32_max:.2f}x the largest weight's f32 bytes "
+            f"({f32_max / 1e9:.3f} GB)")
+        if transient > 4 * f32_max:
+            raise AssertionError(f"{phase}: the load's transient peak "
+                                 f"{transient} B exceeds 4 x {f32_max} B")
+        if not same_params(loaded, decode_params(params, quant)):
+            raise AssertionError(f"{phase}: the loaded {quant} params differ "
+                                 "from decode_params of the same weights")
+        _release()
+        eng = int8w_unified_engine(cfg, loaded)
+        reqs, wall, launches, m = serve(eng, unified_traffic(cfg), phase)
+        if [r.tokens for r in reqs] != int8w["tokens"] \
+                or launches != int8w["launches"]:
+            raise AssertionError(
+                f"{phase}: the loaded set served other tokens (match "
+                f"{_token_match(reqs, int8w['tokens']):.4f}) or launches "
+                f"({launches} vs {int8w['launches']}) than phase 8's")
+        log(f"[{phase}] the loaded set served phase 8's traffic: tokens and "
+            "launches identical to phase 8's")
+        del eng, loaded
+        gc.collect()
+        _release()
+
+        cfg2 = dataclasses_replace(cfg, num_hidden_layers=2)
+        first2 = {k: v for k, v in params.items()
+                  if ".layers." not in k
+                  or k.startswith(("llama.layers.0.", "llama.layers.1."))}
+        dense = load_quant_serving_params(cfg2, d, None, device="cuda")
+        if not same_params(dense, first2):
+            raise AssertionError(f"{phase}: the 2-layer bf16 read differs "
+                                 "from the params")
+        int4 = load_quant_serving_params(cfg2, d, "weight_only_int4",
+                                         device="cuda")
+        if not same_params(int4, decode_params(first2, "weight_only_int4")):
+            raise AssertionError(f"{phase}: the 2-layer int4 read differs "
+                                 "from decode_params of the params")
+        policy = RetryPolicy(max_attempts=20, base_delay=0.001, seed=SEED)
+        old = {k: os.environ.get(k)
+               for k in ("PADDLE_TPU_CHAOS", "PADDLE_TPU_CHAOS_SEED")}
+        os.environ["PADDLE_TPU_CHAOS"] = "io_error:0.3:shard_read"
+        os.environ["PADDLE_TPU_CHAOS_SEED"] = str(SEED)
+        try:
+            flaky = load_quant_serving_params(
+                cfg2, _SafetensorsSource(d, retry=policy),
+                "weight_only_int4", names="hf", device="cuda")
+            fired = chaos.counters().get("io_error", 0)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            chaos.uninstall()
+        stats = policy.stats.as_dict()
+        log(f"[{phase}] 2-layer reads: bf16 bitwise the params, int4 "
+            f"byte-identical to decode_params; under io_error:0.3:shard_read "
+            f"(seed {SEED}) {fired} injected faults, RetryStats {stats}")
+        if not same_params(flaky, int4) or stats["giveups"] \
+                or stats["retries"] != fired or not fired:
+            raise AssertionError(f"{phase}: the chaos read gave other params "
+                                 f"or gave up: {stats}, {fired} faults")
+        del dense, int4, flaky
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    _release()
+    return {"launches": launches, "load_s": load_s, "write_s": secs,
+            "bytes": written, "transient": transient, "retries": stats}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: observability and the watchdog
+# ---------------------------------------------------------------------------
+
+# phase 21b's deadline and injected hang, seconds
+WATCHDOG_S, HANG_S = 2.0, 5.0
+
+
+def watchdog_traffic(cfg):
+    """Phase 21b's prompts: a 40-token cold prompt first (under one page:
+    it never maps a cached block, so a requeued run prefills it exactly
+    as its first admission did), then phase 3's first 7 prompts."""
+    rng = np.random.default_rng(SEED + 21)
+    return [rng.integers(1, cfg.vocab_size, 40).tolist()] \
+        + prefix_traffic(cfg)[:7]
+
+
+def empty_prefix_cache(eng):
+    """Drop every cached prefix block of a drained engine: allocating all
+    available pages evicts the cached ones (refcount 0), and freeing them
+    returns them uncached, the free list in a fresh engine's order."""
+    mgr = eng.mgr
+    mgr.free(mgr.alloc_pages(mgr.n_available))
+    if mgr.n_cached or mgr.n_free != mgr.max_pages - 1:
+        raise AssertionError("the prefix cache did not empty")
+
+
+def _ms(h, q):
+    v = h.get(f"p{q}")
+    return float("nan") if v is None else 1e3 * v
+
+
+def phase_observe(cfg, params):
+    """Phase 21: (a) phase 3's traffic (the split path, the prefix cache,
+    bf16 pools; warmed engines) with a Tracer and a MetricsRegistry, and
+    again with both off: identical tokens, launches and compile_stats();
+    req.enqueue, req.admit and req.retire cover every request; the TTFT,
+    queue-wait and TPOT histograms count every request; the Perfetto
+    export parses back with X / i / C events. Logs TTFT and TPOT p50 / p99
+    and tok/s traced and untraced, and shows the decode.dispatch range in
+    a torch.profiler trace of one chunk. (b) the watchdog: `hang:decode`
+    for HANG_S under a WATCHDOG_S deadline on warmed engines over
+    watchdog_traffic (one warmed engine, its prefix cache emptied before
+    each run), synchronous, double-buffered, and with
+    requeue_hung: one victim (the lowest live slot) failed, or requeued
+    and served in full, every other request's tokens those of an
+    undisturbed run, chaos.hang / watchdog.timeout / the retirement once
+    each in the event log; once the hang has elapsed the abandoned thread
+    has launched nothing and the pools hold the same bytes."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.observability import (MetricsRegistry, Tracer,
+                                                metrics as obs_metrics)
+    from paddle_tpu_torch.resilience import chaos
+
+    phase, traffic = "observe", prefix_traffic(cfg)
+    kw = dict(shared=SHARED, max_prompt_len=1024, prefix_cache=True)
+    runs = {}
+    for traced in (False, True):
+        tr, mt = (Tracer(), MetricsRegistry()) if traced else (False, False)
+        tag = f"{phase}/{'traced' if traced else 'off'}"
+        eng = build_engine(cfg, params, traffic, tag=tag, tracer=tr,
+                           metrics=mt, **kw)
+        stats = eng.compile_stats()
+        reqs, wall, launches, m = serve(eng, traffic, tag)
+        if eng.compile_stats() != stats:
+            raise AssertionError(f"{tag}: traffic grew compile_stats")
+        runs[traced] = SimpleNamespace(reqs=reqs, wall=wall,
+                                       launches=launches, stats=stats,
+                                       tr=tr, mt=mt, eng=eng)
+    on, off = runs[True], runs[False]
+    del off.eng
+    if [r.tokens for r in on.reqs] != [r.tokens for r in off.reqs] \
+            or on.launches != off.launches or on.stats != off.stats:
+        raise AssertionError(f"{phase}: tracing changed tokens, launches "
+                             f"({on.launches} vs {off.launches}) or "
+                             f"captures ({on.stats} vs {off.stats})")
+    n = len(traffic)
+    evs = on.tr.events()
+    ids = sorted(r.req_id for r in on.reqs)
+    for stage in ("req.enqueue", "req.admit", "req.retire"):
+        got = sorted(e["args"]["req_id"] for e in evs if e["name"] == stage)
+        if got != ids:
+            raise AssertionError(f"{phase}: {stage} covers {got}, not {ids}")
+    snap = on.mt.snapshot()
+    hist = snap["histograms"]
+    counts = {k: hist[k]["count"] for k in ("ttft_s", "queue_wait_s",
+                                            "tpot_s")}
+    if set(counts.values()) != {n}:
+        raise AssertionError(f"{phase}: histogram counts {counts} for {n} "
+                             "requests")
+    n_tok = sum(len(r.tokens) for r in on.reqs)
+    on.tr.counter("output_tok_s", n_tok / on.wall)
+    with tempfile.TemporaryDirectory() as d:
+        with open(on.tr.export(os.path.join(d, "trace.json"))) as f:
+            doc = json.load(f)
+    phs = {e["ph"] for e in doc["traceEvents"]}
+    if not {"X", "i", "C"} <= phs:
+        raise AssertionError(f"{phase}: the Perfetto export holds {phs}")
+    names = {}
+    for e in evs:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    log(f"[{phase}] traced vs off: tokens, launches and compile_stats "
+        f"identical; {on.tr.n_recorded} trace events {names}; counters "
+        f"{snap['counters']}")
+    def exact(h):
+        return (f"min {1e3 * h['min']:.2f} / mean {1e3 * h['mean']:.2f} / "
+                f"max {1e3 * h['max']:.2f} ms")
+
+    log(f"[{phase}] TTFT p50 {_ms(hist['ttft_s'], 50):.1f} ms, p99 "
+        f"{_ms(hist['ttft_s'], 99):.1f} ms ({exact(hist['ttft_s'])}); TPOT "
+        f"p50 {_ms(hist['tpot_s'], 50):.2f} ms, p99 "
+        f"{_ms(hist['tpot_s'], 99):.2f} ms ({exact(hist['tpot_s'])}); queue "
+        f"wait p50 {_ms(hist['queue_wait_s'], 50):.1f} ms; decode chunk "
+        f"p50 {_ms(hist['decode_chunk_s'], 50):.2f} ms (dispatch to "
+        f"readback; percentiles interpolate inside the registry's x2 "
+        f"buckets); {n} requests submitted at once; tok/s traced "
+        f"{n_tok / on.wall:.1f}, off {n_tok / off.wall:.1f}")
+    # one decode chunk under torch.profiler: the engine's dispatch range
+    # sits beside the kernels it launched
+    eng = on.eng
+    for p in traffic[:8]:
+        eng.add_request(p, max_new=17)
+    eng._admit()
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    ranges = {e.key: e.count for e in prof.key_averages()
+              if e.key in ("decode.dispatch", "prefill.dispatch")}
+    if ranges.get("decode.dispatch") != 1:
+        raise AssertionError(f"{phase}: the profiled chunk shows ranges "
+                             f"{ranges}, not one decode.dispatch")
+    eng.run()
+    log(f"[{phase}] torch.profiler of one chunk: ranges {ranges}")
+    del eng, on.eng
+    _release()
+
+    # (b) the watchdog, on one warmed engine whose prefix cache is
+    # emptied before each run (every run then batches and prefills as
+    # the undisturbed one did)
+    wtraffic = watchdog_traffic(cfg)
+    # the chaos and watchdog seams report to the global registry; the
+    # engine (metrics=None) takes it too
+    reg = obs_metrics.enable()
+    out = {}
+    try:
+        eng = build_engine(cfg, params, wtraffic, tag=f"{phase}/watchdog",
+                           **kw)
+        stats = eng.compile_stats()
+        want = [r.tokens for r in serve(eng, wtraffic,
+                                        f"{phase}/undisturbed")[0]]
+        for db, requeue in ((False, False), (True, False), (False, True)):
+            tag = f"{phase}/watchdog-{'db' if db else 'sync'}" \
+                f"{'-requeue' if requeue else ''}"
+            empty_prefix_cache(eng)
+            hung = (eng.hung_retired, eng.hung_requeued)
+            n_ev = len(reg.events())
+            reqs = [eng.add_request(p) for p in wtraffic]
+            _build.reset_launch_counts()
+            chaos.install(f"hang:decode:{HANG_S}")
+            t0 = time.perf_counter()
+            eng.run(watchdog_timeout=WATCHDOG_S, double_buffer=db,
+                    requeue_hung=requeue)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            events = [e["event"] for e in reg.events()[n_ev:]]
+            failed = [r.req_id for r in reqs if r.failed]
+            retired = eng.hung_retired - hung[0]
+            requeued = eng.hung_requeued - hung[1]
+            last = "watchdog.requeue_hung_slot" if requeue \
+                else "watchdog.retire_hung_slot"
+            if events != ["chaos.hang", "watchdog.timeout", last]:
+                raise AssertionError(f"{tag}: event log {events}")
+            if requeue:
+                ok = requeued == 1 and retired == 0 \
+                    and not failed and reqs[0].requeued \
+                    and [r.tokens for r in reqs] == want
+            else:
+                ok = retired == 1 and requeued == 0 \
+                    and failed == [reqs[0].req_id] \
+                    and reqs[0].slot == 0 \
+                    and [r.tokens for r in reqs[1:]] == want[1:]
+            if not ok or eng.compile_stats() != stats:
+                raise AssertionError(
+                    f"{tag}: hung_retired +{retired}, requeued "
+                    f"+{requeued}, failed {failed}, token match "
+                    f"{_token_match(reqs, want):.4f}, captures "
+                    f"{stats} -> {eng.compile_stats()}")
+            # wait out the hang: the abandoned thread then unwinds and
+            # must launch nothing and write no pool
+            launches = _build.launch_counts()
+            pools = [t.clone() for t in eng.kcs + eng.vcs]
+            time.sleep(max(0.0, HANG_S + 0.5 - (time.perf_counter() - t0)))
+            torch.cuda.synchronize()
+            if _build.launch_counts() != launches or not all(
+                    torch.equal(a, b) for a, b in zip(pools,
+                                                      eng.kcs + eng.vcs)):
+                raise AssertionError(f"{tag}: the abandoned step touched "
+                                     "the card after the deadline")
+            log(f"[{tag}] hang {HANG_S} s under a {WATCHDOG_S} s deadline: "
+                f"run() returned in {wall:.2f} s, "
+                f"{'requeued' if requeue else 'failed'} request "
+                f"{reqs[0].req_id} (slot 0), the other {len(reqs) - 1} "
+                f"{'and the victim ' if requeue else ''}token-identical to "
+                f"the undisturbed run; events {events}; after the hang: "
+                "no launch, pools unchanged")
+            out[tag] = wall
+            del pools
+    finally:
+        obs_metrics.disable()
+        chaos.uninstall()
+    del eng
+    _release()
+    return {"launches": on.launches, "ttft": hist["ttft_s"],
+            "tpot": hist["tpot_s"], "watchdog": out}
+
+
+# ---------------------------------------------------------------------------
 # phases 13-14: the training step
 # ---------------------------------------------------------------------------
 
@@ -3071,7 +3514,10 @@ def main() -> int:
              lambda: phase_spec_scan_unified(cfg, params)),
             ("disagg", lambda: phase_disagg(cfg, params, phases["prefix"],
                                             phases["unified"])),
-            ("generate", lambda: phase_generate(cfg, params))):
+            ("generate", lambda: phase_generate(cfg, params)),
+            ("checkpoint", lambda: phase_checkpoint(
+                cfg, params, phases["int8w-int8kv-unified"])),
+            ("observe", lambda: phase_observe(cfg, params))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")

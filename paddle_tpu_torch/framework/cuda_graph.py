@@ -130,7 +130,12 @@ class _Program:
         torch.cuda.synchronize(stream.device)
         try:
             with torch.cuda.stream(stream):
-                graph.capture_begin(pool=pool)
+                # "thread_local": only this thread's potentially unsafe
+                # CUDA calls break the capture, so another thread of the
+                # process (a watchdog-abandoned serving step blocked in a
+                # readback wait) cannot invalidate it
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
                 try:
                     outputs = self.body(*self.inputs)
                 finally:

@@ -4,8 +4,9 @@ Same contract as the JAX package's registry (``paddle_tpu/framework/
 flags.py``): flags are plain Python values registered with a default,
 overridable from the environment (``FLAGS_<name>``, or the first set
 environment alias) and via ``set_flags``. The port keeps its own copy so
-it never imports the JAX package. Only the serving flags this slice reads
-are registered, with the JAX package's names and defaults.
+it never imports the JAX package. Only the flags the port reads are
+registered, with the JAX package's names, defaults and environment
+aliases.
 """
 from __future__ import annotations
 
@@ -120,3 +121,42 @@ define_flag("spec_adaptive", False,
             "it back toward spec_k; the verify window keeps spec_k+1 rows "
             "(also: PADDLE_TPU_SPEC_ADAPTIVE)",
             env_aliases=("PADDLE_TPU_SPEC_ADAPTIVE",))
+
+# --- observability (paddle_tpu_torch.observability) ---
+define_flag("trace", "",
+            "host span tracing: a non-empty value arms the global "
+            "observability tracer and is the chrome-trace/Perfetto "
+            "JSON export path (written at exit, or via "
+            "observability.trace.export_global()). Empty (default) = "
+            "off with a no-allocation fast path "
+            "(also: PADDLE_TPU_TRACE)",
+            env_aliases=("PADDLE_TPU_TRACE",))
+define_flag("metrics", False,
+            "arm the global observability metrics registry (TTFT / "
+            "TPOT / queue-wait / chunk-time histograms, resilience "
+            "event log; snapshot()/emit_jsonl()/prometheus_text()). "
+            "Off (default) = a single is-None check per site "
+            "(also: PADDLE_TPU_METRICS)",
+            env_aliases=("PADDLE_TPU_METRICS",))
+
+# --- resilience (paddle_tpu_torch.resilience) ---
+define_flag("tpu_chaos", "",
+            "fault-injection spec, e.g. 'io_error:0.1,preempt_at:200,"
+            "hang:decode' (also: PADDLE_TPU_CHAOS; see resilience/chaos.py)",
+            env_aliases=("PADDLE_TPU_CHAOS",))
+define_flag("tpu_chaos_seed", 0,
+            "seed of the deterministic chaos schedule "
+            "(also: PADDLE_TPU_CHAOS_SEED)",
+            env_aliases=("PADDLE_TPU_CHAOS_SEED",))
+define_flag("io_retry_attempts", 3,
+            "attempts for transient-IOError retry at the io seams "
+            "(shard reads); 1 disables retrying "
+            "(also: PADDLE_TPU_IO_RETRIES)",
+            env_aliases=("PADDLE_TPU_IO_RETRIES",))
+define_flag("io_retry_base_delay_s", 0.05,
+            "first backoff delay of the io RetryPolicy (doubles per "
+            "retry, jittered)")
+define_flag("step_timeout_s", 0.0,
+            "default wall-clock watchdog deadline per serving-engine "
+            "step; 0 disables (also: PADDLE_TPU_STEP_TIMEOUT_S)",
+            env_aliases=("PADDLE_TPU_STEP_TIMEOUT_S",))

@@ -1,4 +1,5 @@
-"""Model zoo of the port: Llama serving and training."""
+"""Model zoo of the port: Llama serving and training, and the streaming
+checkpoint loader."""
 from .llama import (  # noqa: F401
     LlamaConfig, LlamaForCausalLM, LlamaModel, LlamaPretrainingCriterion,
     PagedKVManager, build_paged_generate, build_quant_generate,
@@ -8,3 +9,4 @@ from .llama import (  # noqa: F401
     quantize_kv_pages, resolve_decode_megakernel, resolve_kv_cache_dtype,
     stack_decode_layer_params,
 )
+from .checkpoint import load_quant_serving_params  # noqa: F401

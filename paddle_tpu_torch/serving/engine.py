@@ -41,6 +41,24 @@ chunk never writes past a request's reserved pages. Options of the JAX
 engine that this port does not serve yet raise NotImplementedError naming
 their ROADMAP.md item.
 
+**Observability** (``tracer=`` / ``metrics=``, default the globals that
+FLAGS_trace / FLAGS_metrics arm): the JAX engine's spans, instants,
+counters and histograms at its sites, with its names and fields (the
+request lifecycle req.enqueue -> req.admit -> prefill.dispatch ->
+req.handoff -> decode.dispatch / spec.verify -> decode.sync_wait ->
+req.retire, prefix.evict, and the watchdog's retirements and requeues;
+TTFT, TPOT, queue wait, chunk and sync-wait histograms). Every site sits
+on the host, between dispatches, outside every program body: a span
+recorded inside a graph capture raises TraceUnderJitError.
+
+**Watchdog** (``run(watchdog_timeout=, requeue_hung=)``): each scheduling
+step runs on a worker thread under a wall-clock deadline. A step that
+blows it is abandoned: the live loop bumps the step epoch under the
+commit lock and retires (or requeues once) ONE victim slot, and the
+abandoned thread, which checks its owner token under the same lock
+before every host-set write, replay and commit, unwinds without touching
+the card again.
+
 The engine's programs (the decode chunk; on the unified path the
 prefill window; on the split path one prefill program per (bucket,
 batch, prefix width) key) are the port's counterpart of the JAX
@@ -74,6 +92,7 @@ EOS, or whose max_new is 1, retires at the handoff.
 """
 from __future__ import annotations
 
+import threading
 import time
 from collections import namedtuple
 from dataclasses import dataclass, field
@@ -85,6 +104,7 @@ import torch
 from ..device import resolve_device
 # the drafters and tests take _Program and _HostSets from here
 from ..framework.cuda_graph import GraphSite, _HostSets, _Program
+from ..framework.flags import flag
 from ..kernels import _build
 from ..kernels.flash_attention import KERNEL_HEAD_DIMS
 from ..models.llama import (STACKED_LAYER_NAMES, STACKED_PREFIX,
@@ -99,6 +119,9 @@ from ..models.llama import (STACKED_LAYER_NAMES, STACKED_PREFIX,
                             resolve_kv_cache_dtype, resolve_serving_cp,
                             resolve_serving_mp, resolve_unified_step,
                             stack_decode_layer_params, warn_refusals)
+from ..observability import metrics as obs_metrics
+from ..observability import trace as obs_trace
+from ..resilience import chaos
 from .speculative import (AdaptiveSpecPolicy, NGramDrafter,
                           resolve_spec_adaptive, resolve_spec_k,
                           resolve_speculative)
@@ -121,6 +144,10 @@ class ServeRequest:
     tokens: list = field(default_factory=list)
     prefill_time: Optional[float] = None   # when the first token was ready
     finish_time: Optional[float] = None
+    failed: bool = False                   # retired by the watchdog
+    error: Optional[str] = None
+    requeued: bool = False                 # already got its one retry
+    #                                        (run(requeue_hung=True))
     # host-side scheduling state (None until admitted)
     slot: Optional[int] = None
     pages: Optional[list] = None
@@ -130,10 +157,20 @@ class ServeRequest:
     # chained block hashes, computed once at add_request (planning runs
     # for every waiting request on every scheduling step)
     block_hashes: Optional[list] = None
+    # SLO metadata: set by the caller, carried through handoff untouched,
+    # surfaced in the req.enqueue / req.retire instants; the engine never
+    # reorders or sheds on them
+    priority: str = "normal"
+    deadline_s: Optional[float] = None
 
     @property
     def done(self) -> bool:
         return self.finish_time is not None
+
+
+class _AbandonedStep(RuntimeError):
+    """Raised inside a watchdog-abandoned step thread at its next owner
+    check: the live loop moved on, this thread must not commit."""
 
 
 class _Slot:
@@ -210,7 +247,20 @@ class ContinuousBatchingEngine:
     first dispatch warms an engine that was not warmed. `warm(buckets=,
     prefix_widths=)` also captures the split path's prefill programs for
     those prompt buckets (default: max_prompt_len); a key traffic reaches
-    unwarmed is captured at its first admission."""
+    unwarmed is captured at its first admission.
+
+    `tracer` / `metrics` (observability): an `observability.Tracer`
+    records the request lifecycle as Perfetto-exportable spans and
+    instants, a `MetricsRegistry` the TTFT / TPOT / queue-wait /
+    chunk-time / sync-wait histograms, counters and the structured
+    event log. None (default) takes the globals FLAGS_trace /
+    FLAGS_metrics arm (off unless the operator opted in: every site is
+    then one `is None` check); False forces OFF even when the globals
+    are armed; an object is used as given."""
+
+    # class-level default: the watchdog's no-live-slot path reads this on
+    # engines built without the unified-path state
+    _prefilling = None
 
     # a readback that waits longer than this counts as a blocked sync (the
     # host sat idle on the device): the stat double buffering shrinks
@@ -241,8 +291,6 @@ class ContinuousBatchingEngine:
                  config=None, tracer=None, metrics=None, device=None):
         if config not in (None, False):
             raise _unported("config= (tuned-config artifacts)")
-        if tracer not in (None, False) or metrics not in (None, False):
-            raise _unported("tracer= / metrics= (observability)")
         self.kv_dtype = resolve_kv_cache_dtype(kv_cache_dtype)
         self.use_megakernel = resolve_decode_megakernel(decode_megakernel)
         if resolve_serving_mp(serving_mp) > 1:
@@ -444,6 +492,25 @@ class ContinuousBatchingEngine:
         self.prefill_s = 0.0     # host wall time of prefill calls, synced
         self.sync_wait_s = 0.0   # host time blocked on program readbacks
         self.blocked_syncs = 0   # readbacks that waited > stall threshold
+        self.hung_retired = 0    # slots retired by the watchdog
+        self.hung_requeued = 0   # hung slots requeued (requeue_hung=)
+        self._requeue_hung = False  # armed per run()
+        self._watchdog = None    # armed by run(watchdog_timeout=...)
+        self._step_epoch = 0     # bumped on timeout; abandoned steps abort
+        # observability: None defers to the flag-armed globals, False
+        # forces OFF regardless of flags, an instance wins outright. The
+        # sites hold the attribute and branch once per event
+        self._tracer = obs_trace.get_tracer() if tracer is None \
+            else (tracer or None)
+        self._metrics = obs_metrics.get_metrics() if metrics is None \
+            else (metrics or None)
+        self._evictions_seen = 0  # mgr.prefix_evictions already reported
+        # makes owner check + host-set writes + replay + host-state commit
+        # atomic against the timeout path's epoch bump + victim retire: a
+        # step finishing right at the deadline either fully commits before
+        # the bump or fully aborts after it, and an abandoned thread never
+        # writes a host set or replays a program the live loop now owns
+        self._commit_lock = threading.Lock()
         # last: a draft model sizes its pools off the manager, the block
         # size and spec_k
         if self._drafter is not None:
@@ -550,6 +617,8 @@ class ContinuousBatchingEngine:
             "token_budget": self.token_budget,
             "prefill_chunks": self.prefill_chunks,
             "chunk_tokens": self.chunk_tokens,
+            "hung_retired": self.hung_retired,
+            "hung_requeued": self.hung_requeued,
             # acceptance_rate: the share of OFFERED draft tokens the
             # target's argmax agreed with (a window's corrected token is
             # not counted)
@@ -585,9 +654,12 @@ class ContinuousBatchingEngine:
         }
 
     def add_request(self, prompt, max_new: Optional[int] = None,
-                    arrival_time: Optional[float] = None) -> ServeRequest:
+                    arrival_time: Optional[float] = None,
+                    priority: Optional[str] = None,
+                    deadline_s: Optional[float] = None) -> ServeRequest:
         """Validate + enqueue; every reject happens here, before the
-        request owns a slot or pages."""
+        request owns a slot or pages. `priority` / `deadline_s` are
+        metadata the req.enqueue / req.retire instants carry."""
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not 1 <= len(prompt) <= self.max_prompt_len:
             raise ValueError(f"prompt length {len(prompt)} outside "
@@ -613,8 +685,19 @@ class ContinuousBatchingEngine:
                 f"{self.mgr.max_pages - 1}")
         if self.prefix_cache:
             req.block_hashes = hash_prefix_blocks(prompt, self.block_size)
+        if priority is not None:
+            req.priority = str(priority)
+        if deadline_s is not None:
+            req.deadline_s = float(deadline_s)
         self._next_id += 1
         self.waiting.append(req)
+        tr, mt = self._tracer, self._metrics
+        if tr is not None:
+            tr.instant("req.enqueue", req_id=req.req_id,
+                       prompt_len=len(prompt), max_new=req.max_new,
+                       priority=req.priority, deadline_s=req.deadline_s)
+        if mt is not None:
+            mt.counter("requests_enqueued").inc()
         return req
 
     # ---- device programs ------------------------------------------------
@@ -1009,20 +1092,23 @@ class ContinuousBatchingEngine:
                     "_admit only ever uses ladder rungs, so warming others "
                     "is dead")
         cap = self._max_prefill_bsz()
-        for sb in buckets:
-            if sb % self.prompt_bucket:
-                raise ValueError(f"bucket {sb} is not a multiple of "
-                                 f"prompt_bucket {self.prompt_bucket}")
-            bsz = 1
-            while True:
-                self._get_prefill(sb, bsz)
-                if self.prefix_cache:
-                    for w in prefix_widths:
-                        self._get_prefix_prefill(sb, bsz, w)
-                if bsz >= cap:
-                    break
-                bsz *= 2
-        self._warm_programs()
+        # under the commit lock, like every capture at a first dispatch:
+        # a watchdog-abandoned step can never dispatch beside a capture
+        with self._commit_lock:
+            for sb in buckets:
+                if sb % self.prompt_bucket:
+                    raise ValueError(f"bucket {sb} is not a multiple of "
+                                     f"prompt_bucket {self.prompt_bucket}")
+                bsz = 1
+                while True:
+                    self._get_prefill(sb, bsz)
+                    if self.prefix_cache:
+                        for w in prefix_widths:
+                            self._get_prefix_prefill(sb, bsz, w)
+                    if bsz >= cap:
+                        break
+                    bsz *= 2
+            self._warm_programs()
 
     def _warm_programs(self):
         """Capture the decode chunk and, where the engine has them, the
@@ -1054,16 +1140,30 @@ class ContinuousBatchingEngine:
         _HostSets.stage_out(hs, self._programs[name].outputs)
 
     def _read(self, hs) -> list:
-        """Wait for host set `hs`'s copies (timed into sync_wait_s /
-        blocked_syncs) and return its outputs as numpy arrays."""
-        t0 = time.perf_counter()
+        """Wait for host set `hs`'s copies and return its outputs as numpy
+        arrays. The caller times the wait and folds it into sync_wait_s /
+        blocked_syncs under the commit lock."""
         if hs.event is not None:
             hs.event.synchronize()
-        wait = time.perf_counter() - t0
+        return [t.numpy() for t in hs.outputs]
+
+    def _count_wait(self, wait: float) -> None:
         self.sync_wait_s += wait
         if wait > self.stall_threshold_s:
             self.blocked_syncs += 1
-        return [t.numpy() for t in hs.outputs]
+
+    def _device_range(self, name: str):
+        """A torch.profiler range around a dispatch while tracing is on
+        and a profiler is live (the host span is recorded apart)."""
+        return obs_trace.device_range(name, self._tracer is not None)
+
+    def _check_owner(self, token: Optional[int]):
+        """A watchdog-abandoned step thread must stop mutating shared
+        state (host sets, programs, pools, slots) the moment the live
+        loop reclaims it (see run()). Called under the commit lock."""
+        if token is not None and token != self._step_epoch:
+            raise _AbandonedStep(
+                "step abandoned by the watchdog; discarding its work")
 
     # ---- split scheduling -----------------------------------------------
 
@@ -1099,7 +1199,7 @@ class ContinuousBatchingEngine:
                                            hashes=req.block_hashes)[1]
         return _Plan(sb_suf, n_cached, n_lru, need, suffix_len)
 
-    def _admit(self):
+    def _admit(self, token: Optional[int] = None):
         """FIFO admission, batched: the head run of waiting requests
         sharing a (suffix bucket, cached-vs-cold) key -- bounded by free
         slots (disaggregated: by handoff headroom), available pages and
@@ -1108,6 +1208,7 @@ class ContinuousBatchingEngine:
         computed full prompt block enters the prefix cache."""
         bs = self.block_size
         while self.waiting:
+            self._check_owner(token)
             if self.disaggregated:
                 # the prefill worker: at most `slots` prefilled requests
                 # parked at the handoff, never bounded by decode slots
@@ -1154,61 +1255,127 @@ class ContinuousBatchingEngine:
                 max(plan.n_cached for plan in plans)) if has_prefix else 1
             ptbl = np.full((bsz, w_call), self.scratch_page, np.int32)
             plens = np.zeros((bsz,), np.int32)
-            # pin every row's cached prefix BEFORE any alloc: alloc_pages
-            # evicts refcount-0 cached pages, and a pinned page never is
-            acquired = [self.mgr.acquire_prefix(req.prompt, plan.n_cached,
-                                                hashes=req.block_hashes)
-                        if plan.n_cached else []
-                        for req, plan in zip(batch, plans)]
-            for row, (req, plan) in enumerate(zip(batch, plans)):
-                cached = acquired[row]
-                priv = self.mgr.alloc_pages(plan.need)
-                req.bucket = sb_suf
-                if not self.disaggregated:
-                    req.slot = free_slots[row]
-                req.pages = cached + priv
-                req.n_prefix = len(cached)
-                req.cached_tokens = len(cached) * bs
-                suffix = req.prompt[req.cached_tokens:]
-                ids[row, :len(suffix)] = suffix
-                s0s[row] = len(suffix)
-                pages[row] = priv[:n_pre]
-                if cached:
-                    ptbl[row, :len(cached)] = cached
-                    plens[row] = req.cached_tokens
-            self.prefill_calls += 1
-            # the batch's program (captured here if no warm() covered its
-            # key, as JAX compiles at first use), fed through its host
-            # sets; the first tokens come back through _read
-            if has_prefix:
-                prog = self._get_prefix_prefill(sb_suf, bsz, w_call)
-                arrays = (ids, s0s, pages, ptbl, plens)
-            else:
-                prog = self._get_prefill(sb_suf, bsz)
-                arrays = (ids, s0s, pages)
-            t0 = time.perf_counter()
-            hs = self._prefill_host[prog.name].stage_in(arrays)
-            _HostSets.stage_out(hs, prog())
-            firsts = self._read(hs)[0]
-            self.prefill_s += time.perf_counter() - t0
-            del self.waiting[:len(batch)]
-            now = time.perf_counter()
-            for row, req in enumerate(batch):
-                req.tokens.append(int(firsts[row]))
-                req.prefill_time = now
-                self._account_prefill(req)
-                if self.disaggregated:
-                    self._hand_off(req)
+            tr, mt = self._tracer, self._metrics
+            t_disp0 = time.perf_counter()
+            with self._commit_lock:
+                self._check_owner(token)
+                # pin every row's cached prefix BEFORE any alloc:
+                # alloc_pages evicts refcount-0 cached pages, and a pinned
+                # page never is
+                acquired = [self.mgr.acquire_prefix(
+                                req.prompt, plan.n_cached,
+                                hashes=req.block_hashes)
+                            if plan.n_cached else []
+                            for req, plan in zip(batch, plans)]
+                for row, (req, plan) in enumerate(zip(batch, plans)):
+                    cached = acquired[row]
+                    priv = self.mgr.alloc_pages(plan.need)
+                    req.bucket = sb_suf
+                    if not self.disaggregated:
+                        req.slot = free_slots[row]
+                    req.pages = cached + priv
+                    req.n_prefix = len(cached)
+                    req.cached_tokens = len(cached) * bs
+                    suffix = req.prompt[req.cached_tokens:]
+                    ids[row, :len(suffix)] = suffix
+                    s0s[row] = len(suffix)
+                    pages[row] = priv[:n_pre]
+                    if cached:
+                        ptbl[row, :len(cached)] = cached
+                        plens[row] = req.cached_tokens
+                self.prefill_calls += 1
+                # the batch's program (captured here if no warm() covered
+                # its key, as JAX compiles at first use), fed through its
+                # host sets
+                if has_prefix:
+                    prog = self._get_prefix_prefill(sb_suf, bsz, w_call)
+                    arrays = (ids, s0s, pages, ptbl, plens)
                 else:
-                    self._bind_slot(req.slot, req)
+                    prog = self._get_prefill(sb_suf, bsz)
+                    arrays = (ids, s0s, pages)
+                t_stage = time.perf_counter()
+                with self._device_range("prefill.dispatch"):
+                    hs = self._prefill_host[prog.name].stage_in(arrays)
+                    _HostSets.stage_out(hs, prog())
+            # the readback waits OUTSIDE the lock: a hung device wait must
+            # never hold the lock the timeout path needs
+            t0 = time.perf_counter()
+            (firsts,) = self._read(hs)
+            wait = time.perf_counter() - t0
+            if tr is not None:
+                # dispatch + readback as ONE span: the prefill program's
+                # host-visible cost for this admission batch
+                tr.complete("prefill.dispatch", int(t_disp0 * 1e9),
+                            time.perf_counter_ns(), bucket=sb_suf,
+                            batch=len(batch), cached_prefix=has_prefix,
+                            req_ids=[r.req_id for r in batch])
+            if mt is not None:
+                mt.histogram(
+                    "prefill_chunk_s",
+                    "prefill dispatch + first-token readback").observe(
+                        time.perf_counter() - t_disp0)
+            # abandoned mid-prefill: commit NOTHING. The batch is still in
+            # `waiting` (popped only below), so the live loop re-admits it
+            # with fresh pages; this thread's pages (and prefix
+            # references) leak, which beats racing the live thread for
+            # the free list
+            with self._commit_lock:
+                self._check_owner(token)
+                # prefill_s: staging to readback (a first-use capture
+                # excluded)
+                self.prefill_s += time.perf_counter() - t_stage
+                self._count_wait(wait)
+                del self.waiting[:len(batch)]
+                now = time.perf_counter()
+                for row, req in enumerate(batch):
+                    req.tokens.append(int(firsts[row]))
+                    req.prefill_time = now
+                    self._account_prefill(req, sb_suf, t_disp0)
+                    if self.disaggregated:
+                        self._hand_off(req)
+                    else:
+                        self._bind_slot(req.slot, req)
+            self._report_evictions()
 
-    def _account_prefill(self, req: ServeRequest):
-        """A request's prefill committed: count its prompt and cache hits
+    def _report_evictions(self):
+        """LRU prefix evictions since the last report (alloc_pages evicts
+        under pool pressure; surfacing the delta here keeps the manager
+        free of observability)."""
+        ev_delta = self.mgr.prefix_evictions - self._evictions_seen
+        if ev_delta:
+            self._evictions_seen = self.mgr.prefix_evictions
+            if self._tracer is not None:
+                self._tracer.instant("prefix.evict", n=ev_delta)
+            if self._metrics is not None:
+                self._metrics.counter("prefix_evictions").inc(ev_delta)
+
+    def _account_prefill(self, req: ServeRequest, bucket: int,
+                         t_disp0: float):
+        """A request's prefill committed (its first token at
+        `req.prefill_time`): count its prompt and cache hits, emit
+        req.admit and the TTFT / queue-wait observations (queue wait runs
+        to `t_disp0`, the dispatch or, on the unified path, the admission),
         and register its freshly computed full prompt blocks (their K/V
         depends on the prefix alone; decode writes start at len(prompt),
-        never inside them). First writer wins on a hash race."""
+        never inside them). First writer wins on a hash race. Called under
+        the commit lock."""
         self.prompt_tokens += len(req.prompt)
         self.prefix_hit_tokens += req.cached_tokens
+        tr, mt = self._tracer, self._metrics
+        if tr is not None:
+            tr.instant("req.admit", req_id=req.req_id,
+                       cached_tokens=req.cached_tokens, suffix_bucket=bucket)
+        if mt is not None:
+            # TTFT = arrival -> first token committed; queue wait =
+            # arrival -> prefill dispatch
+            mt.histogram("ttft_s", "arrival to first token").observe(
+                req.prefill_time - req.arrival_time)
+            mt.histogram("queue_wait_s",
+                         "arrival to prefill dispatch").observe(
+                             max(t_disp0 - req.arrival_time, 0.0))
+            mt.counter("requests_admitted").inc()
+            mt.counter("prompt_tokens").inc(len(req.prompt))
+            mt.counter("prefix_hit_tokens").inc(req.cached_tokens)
         if self.prefix_cache:
             full = len(req.prompt) // self.block_size
             if full > req.n_prefix:
@@ -1241,6 +1408,10 @@ class ContinuousBatchingEngine:
         queue for a decode slot. A request its prefill fully served (EOS
         first, or max_new == 1) retires here without ever taking a slot."""
         self.prefill_handoffs += 1
+        if self._tracer is not None:
+            self._tracer.instant("req.handoff", req_id=req.req_id)
+        if self._metrics is not None:
+            self._metrics.counter("prefill_handoffs").inc()
         if (self.eos is not None and req.tokens[0] == self.eos) \
                 or req.max_new == 1:
             self._finish_prefilled(req)
@@ -1250,24 +1421,57 @@ class ContinuousBatchingEngine:
     def _finish_prefilled(self, req: ServeRequest):
         req.finish_time = time.perf_counter()
         self.finished.append(req)
+        if self._tracer is not None:
+            # the same lifecycle terminator as _retire: span-coverage
+            # checks must see every request retire, slotless or not
+            self._tracer.instant("req.retire", req_id=req.req_id, slot=None,
+                                 tokens=len(req.tokens), failed=False)
+        if self._metrics is not None:
+            self._metrics.counter("requests_finished").inc()
         self.mgr.free(req.pages)
         req.pages = None
 
-    def _install_handoffs(self):
+    def _install_handoffs(self, token: Optional[int] = None):
         """The decode worker's half: map handed-off requests (FIFO) into
         free decode slots. Host bookkeeping only: the table row and the
         chunk seeds."""
-        for slot_id, slot in enumerate(self._slots):
-            if not self._handoff:
-                break
-            if slot.req is None:
-                self._bind_slot(slot_id, self._handoff.pop(0))
+        if not self._handoff:
+            return
+        with self._commit_lock:
+            self._check_owner(token)
+            for slot_id, slot in enumerate(self._slots):
+                if not self._handoff:
+                    break
+                if slot.req is None:
+                    self._bind_slot(slot_id, self._handoff.pop(0))
 
-    def _retire(self, slot_id: int):
+    def _retire(self, slot_id: int, failed: bool = False,
+                error: Optional[str] = None):
         slot = self._slots[slot_id]
         req = slot.req
         req.finish_time = time.perf_counter()
+        req.failed = failed
+        req.error = error
         self.finished.append(req)
+        tr, mt = self._tracer, self._metrics
+        if tr is not None:
+            tr.instant("req.retire", req_id=req.req_id, slot=slot_id,
+                       tokens=len(req.tokens), failed=failed,
+                       priority=req.priority, deadline_s=req.deadline_s,
+                       deadline_miss=(
+                           req.deadline_s is not None
+                           and req.finish_time - req.arrival_time
+                           > req.deadline_s))
+        if mt is not None:
+            mt.counter("requests_failed" if failed
+                       else "requests_finished").inc()
+            if not failed and req.prefill_time is not None \
+                    and len(req.tokens) > 1:
+                # time per OUTPUT token, the first (prefill) token excluded
+                mt.histogram(
+                    "tpot_s", "decode seconds per output token").observe(
+                        (req.finish_time - req.prefill_time)
+                        / (len(req.tokens) - 1))
         # refcount-aware: private pages recycle now; shared prefix pages
         # only once no live slot maps them (then LRU, evicted on pressure)
         self.mgr.free(req.pages)
@@ -1316,44 +1520,96 @@ class ContinuousBatchingEngine:
         self._stage_out("decode", hs)
         return hs
 
-    def _dispatch_chunk(self, chain: bool = False):
+    def _dispatch_chunk(self, token: Optional[int] = None,
+                        chain: bool = False):
         """Enqueue one decode chunk; returns its record (None if no slot
-        is live)."""
+        is live). The dispatch start time rides the record: _commit_chunk
+        turns (dispatch start -> readback done) into decode_chunk_s."""
         live = self._live()
         if not live.any():
             return None
-        t0 = time.perf_counter()
-        hs = self._launch_decode(live, chain)
-        self.device_steps += 1
-        return {"host": hs, "reqs": [s.req for s in self._slots], "t0": t0}
+        if self._watchdog is not None:
+            self._watchdog.phase = "decode"
+        # the chaos hang seam sits BEFORE the dispatch and BEFORE the
+        # lock: an abandoned step unwinds (ChaosHang) or aborts at the
+        # owner check without ever touching the card from a dead thread
+        chaos.maybe_hang("decode")
+        tr, mt = self._tracer, self._metrics
+        t_disp0 = time.perf_counter()
+        with self._commit_lock:
+            self._check_owner(token)
+            with self._device_range("decode.dispatch"):
+                hs = self._launch_decode(live, chain)
+            self.device_steps += 1
+            if tr is not None:
+                tr.complete("decode.dispatch", int(t_disp0 * 1e9),
+                            time.perf_counter_ns(), chunk=self.device_steps,
+                            live=int(live.sum()))
+            if mt is not None:
+                mt.gauge("live_slots", "slots decoding").set(int(live.sum()))
+                mt.gauge("kv_pages_available",
+                         "free + evictable pool pages").set(
+                             self.mgr.n_available)
+            return {"host": hs, "reqs": [s.req for s in self._slots],
+                    "t_disp0": t_disp0}
 
-    def _commit_chunk(self, rec) -> int:
+    def _commit_chunk(self, rec, token: Optional[int] = None) -> int:
         """Read a chunk back and commit it: extend token lists, advance
         lengths, retire EOS / finished rows. Rows whose slot changed hands
         since the chunk was dispatched (double buffering: retired, then
         re-admitted) are skipped: their device work was speculative, and
         its writes land in pages that are overwritten before any new owner
-        reads them. Returns tokens produced."""
-        out, new_lens, done = self._read(rec["host"])  # the host sync
-        self.decode_s += time.perf_counter() - rec["t0"]
-        produced = 0
-        for slot_id, slot in enumerate(self._slots):
-            req = rec["reqs"][slot_id]
-            if req is None or slot.req is not req or req.done:
-                continue
-            take = min(self.steps, req.max_new - slot.emitted)
-            toks = out[slot_id, :take].tolist()
-            if self.eos is not None and self.eos in toks:
-                toks = toks[:toks.index(self.eos) + 1]
-            req.tokens.extend(toks)
-            produced += len(toks)
-            slot.emitted += len(toks)
-            slot.length = int(new_lens[slot_id])
-            slot.done = bool(done[slot_id])
-            self._tokens[slot_id] = toks[-1] if toks else 0
-            if slot.done or slot.emitted >= req.max_new:
-                self._retire(slot_id)
-        return produced
+        reads them. A mixed step's record waits on its window (`host`, the
+        step's last work) and commits its decode lane (`lane`, None when
+        no slot was live). Returns tokens produced."""
+        tr, mt = self._tracer, self._metrics
+        t0 = time.perf_counter()
+        outs = self._read(rec["host"])           # the host sync
+        t1 = time.perf_counter()
+        wait = t1 - t0
+        stalled = wait > self.stall_threshold_s
+        if tr is not None:
+            # the sync wait was timed anyway: record it retroactively (a
+            # `stalled` span is the stall double buffering exists to hide)
+            tr.complete("decode.sync_wait", int(t0 * 1e9), int(t1 * 1e9),
+                        stalled=stalled)
+        if mt is not None:
+            mt.histogram("sync_wait_s",
+                         "host blocked on decode readback").observe(wait)
+            mt.histogram("decode_chunk_s",
+                         "decode-chunk dispatch to readback").observe(
+                             t1 - rec["t_disp0"])
+            if stalled:
+                mt.counter("blocked_syncs").inc()
+        lane = rec.get("lane", rec["host"])
+        with self._commit_lock:
+            self._check_owner(token)  # abandoned mid-wait: discard
+            self.decode_s += t1 - rec["t_disp0"]
+            self._count_wait(wait)
+            produced = 0
+            if lane is not None:
+                # a mixed step's decode lane finished before its window
+                out, new_lens, done = outs if lane is rec["host"] \
+                    else self._read(lane)
+                for slot_id, slot in enumerate(self._slots):
+                    req = rec["reqs"][slot_id]
+                    if req is None or slot.req is not req or req.done:
+                        continue
+                    take = min(self.steps, req.max_new - slot.emitted)
+                    toks = out[slot_id, :take].tolist()
+                    if self.eos is not None and self.eos in toks:
+                        toks = toks[:toks.index(self.eos) + 1]
+                    req.tokens.extend(toks)
+                    produced += len(toks)
+                    slot.emitted += len(toks)
+                    slot.length = int(new_lens[slot_id])
+                    slot.done = bool(done[slot_id])
+                    self._tokens[slot_id] = toks[-1] if toks else 0
+                    if slot.done or slot.emitted >= req.max_new:
+                        self._retire(slot_id)
+            if mt is not None:
+                mt.counter("output_tokens").inc(produced)
+            return produced
 
     # ---- unified scheduling ---------------------------------------------
 
@@ -1375,7 +1631,7 @@ class ContinuousBatchingEngine:
         need = -(-(suffix + req.max_new) // bs)
         return _Plan(None, n_cached, n_lru, need, suffix)
 
-    def _admit_unified(self):
+    def _admit_unified(self, token: Optional[int] = None):
         """Start prefilling the FIFO head when the chunk lane is free, its
         pages fit, and a decode slot will exist at completion. Its whole
         reservation (cached prefix pinned + private pages) commits here;
@@ -1395,18 +1651,27 @@ class ContinuousBatchingEngine:
             return
         if plan.need + plan.n_lru > self.mgr.n_available:
             return
-        cached = self.mgr.acquire_prefix(
-            req.prompt, plan.n_cached,
-            hashes=req.block_hashes) if plan.n_cached else []
-        priv = self.mgr.alloc_pages(plan.need)
-        self.waiting.pop(0)
-        req.pages = cached + priv
-        req.n_prefix = len(cached)
-        req.cached_tokens = len(cached) * self.block_size
-        req.bucket = self.token_budget
-        self._prefilling = {"req": req, "done": req.cached_tokens}
+        with self._commit_lock:
+            self._check_owner(token)
+            cached = self.mgr.acquire_prefix(
+                req.prompt, plan.n_cached,
+                hashes=req.block_hashes) if plan.n_cached else []
+            priv = self.mgr.alloc_pages(plan.need)
+            self.waiting.pop(0)
+            req.pages = cached + priv
+            req.n_prefix = len(cached)
+            req.cached_tokens = len(cached) * self.block_size
+            req.bucket = self.token_budget
+            # "dispatched" flips once a window of this request has ridden
+            # a dispatch: only then does the watchdog blame it (a timeout
+            # draining a pure-decode chunk dispatched before this
+            # admission is the decode program's fault)
+            self._prefilling = {"req": req, "done": req.cached_tokens,
+                                "t0": time.perf_counter(),
+                                "dispatched": False}
+        self._report_evictions()
 
-    def _dispatch_commit_unified(self) -> int:
+    def _dispatch_commit_unified(self, token: Optional[int] = None) -> int:
         """One mixed step: every live slot's decode chunk plus the next
         prefill window of the prefilling request; commit both lanes."""
         st = self._prefilling
@@ -1425,41 +1690,75 @@ class ContinuousBatchingEngine:
         ids[0, :this_chunk] = req.prompt[done:done + this_chunk]
         tbl = np.full((1, self.table_width), self.scratch_page, np.int32)
         tbl[0, :len(req.pages)] = req.pages
-        live = self._live()
-        t0 = time.perf_counter()
-        # the decode lane only when a slot is live (a lane of frozen rows
-        # would commit nothing), then the window; a mixed step is
-        # authoritative host state, so no pipelined chunk chains across it
-        dec = self._launch_decode(live, chain=False) if live.any() else None
-        self._chain_tok = self._chain_lens = None
-        self._override[:] = True
-        win = self._stage_in("unified", (ids, tbl, [done], [this_chunk],
-                                         [win_pages]))
-        self._programs["unified"]()
-        self._stage_out("unified", win)
-        self.device_steps += 1
-        self.prefill_chunks += 1
-        # the window is the step's last work: one wait covers both lanes
-        first = int(self._read(win)[0][0])
-        produced = 0
-        if dec is not None:
-            produced = self._commit_chunk(
-                {"host": dec, "reqs": [s.req for s in self._slots],
-                 "t0": t0})
-        st["done"] = done + this_chunk
-        self.chunk_tokens += this_chunk
-        if st["done"] >= L:
-            self._prefilling = None
-            self._finish_unified_prefill(req, first)
+        if self._watchdog is not None:
+            self._watchdog.phase = "decode"
+        chaos.maybe_hang("decode")
+        tr, mt = self._tracer, self._metrics
+        t_disp0 = time.perf_counter()
+        with self._commit_lock:
+            self._check_owner(token)
+            st["dispatched"] = True
+            live = self._live()
+            with self._device_range("decode.dispatch"):
+                # the decode lane only when a slot is live (a lane of
+                # frozen rows would commit nothing), then the window; a
+                # mixed step is authoritative host state, so no pipelined
+                # chunk chains across it
+                dec = self._launch_decode(live, chain=False) \
+                    if live.any() else None
+                self._chain_tok = self._chain_lens = None
+                self._override[:] = True
+                win = self._stage_in("unified", (ids, tbl, [done],
+                                                 [this_chunk], [win_pages]))
+                self._programs["unified"]()
+                self._stage_out("unified", win)
+            self.device_steps += 1
+            self.prefill_chunks += 1
+            if tr is not None:
+                tr.complete("decode.dispatch", int(t_disp0 * 1e9),
+                            time.perf_counter_ns(), chunk=self.device_steps,
+                            live=int(live.sum()), prefill_window=True,
+                            req_id=req.req_id)
+            if mt is not None:
+                mt.gauge("live_slots", "slots decoding").set(int(live.sum()))
+                mt.gauge("kv_pages_available",
+                         "free + evictable pool pages").set(
+                             self.mgr.n_available)
+            # the window is the step's last work: one wait covers both
+            # lanes
+            rec = {"host": win, "lane": dec,
+                   "reqs": [s.req for s in self._slots], "t_disp0": t_disp0}
+        produced = self._commit_chunk(rec, token)
+        first = int(win.outputs[0].numpy()[0])
+        if tr is not None:
+            # the window is this request's prefill work for the step: the
+            # same prefill.dispatch lifecycle event the split path emits
+            tr.complete("prefill.dispatch", int(t_disp0 * 1e9),
+                        time.perf_counter_ns(), bucket=self.token_budget,
+                        batch=1, cached_prefix=req.n_prefix > 0,
+                        chunk_tokens=this_chunk, req_ids=[req.req_id])
+        if mt is not None:
+            mt.histogram("prefill_chunk_s",
+                         "prefill dispatch + first-token readback").observe(
+                             time.perf_counter() - t_disp0)
+        with self._commit_lock:
+            self._check_owner(token)
+            st["done"] = done + this_chunk
+            self.chunk_tokens += this_chunk
+            if st["done"] >= L:
+                self._prefilling = None
+                self._finish_unified_prefill(req, first, st["t0"])
         return produced
 
-    def _finish_unified_prefill(self, req: ServeRequest, first: int):
-        """The final window of a prompt committed: account the admission,
-        register its fresh full blocks in the prefix cache, and bind it to
-        a decode slot (disaggregated: hand it off)."""
+    def _finish_unified_prefill(self, req: ServeRequest, first: int,
+                                t_admit: float):
+        """The final window of a prompt committed: account the admission
+        (queue wait up to `t_admit`), register its fresh full blocks in the
+        prefix cache, and bind it to a decode slot (disaggregated: hand it
+        off). Called under the commit lock."""
         req.tokens.append(first)
         req.prefill_time = time.perf_counter()
-        self._account_prefill(req)
+        self._account_prefill(req, self.token_budget, t_admit)
         if self.disaggregated:
             self._hand_off(req)
             return
@@ -1470,38 +1769,63 @@ class ContinuousBatchingEngine:
                 "_admit_unified guarantees one")
         self._bind_slot(free[0], req)
 
-    def _step_unified(self, pipeline: bool) -> int:
+    def _step_unified(self, token: Optional[int], pipeline: bool) -> int:
         """One unified-path iteration. Pure-decode phases dispatch the
         plain decode chunk, synchronous or double-buffered exactly like the
         split engine (the same program), or with speculation a verify
         step. While a request is prefilling the step is a mixed dispatch;
         a pipelined chunk in flight commits first (its device-side chain
         cannot span a step that rewrites host state)."""
-        self._admit_unified()
+        wd = self._watchdog
+        if wd is not None:
+            wd.phase = "admit"
+        self._admit_unified(token)
         if self.disaggregated:
-            self._install_handoffs()
+            self._install_handoffs(token)
         if self._prefilling is not None:
-            return self._drain_inflight() + self._dispatch_commit_unified()
+            with self._commit_lock:
+                self._check_owner(token)
+                prev, self._inflight = self._inflight, None
+            n = 0
+            if prev is not None:
+                if wd is not None:
+                    wd.phase = "commit"
+                n = self._commit_chunk(prev, token)
+                if wd is not None:
+                    wd.phase = "admit"
+            return n + self._dispatch_commit_unified(token)
         if self.spec_k:
             # drafting against a half-prefilled prompt has nothing to
             # verify: only pure-decode steps speculate
-            return self._drain_inflight() + self._step_spec()
-        rec = self._dispatch_chunk(chain=pipeline)
+            return self._drain_inflight(token) + self._step_spec(token)
+        rec = self._dispatch_chunk(token, chain=pipeline)
         if pipeline:
-            prev, self._inflight = self._inflight, rec
-            return self._commit_chunk(prev) if prev is not None else 0
+            with self._commit_lock:
+                self._check_owner(token)
+                prev, self._inflight = self._inflight, rec
+            if prev is not None:
+                if wd is not None:
+                    wd.phase = "commit"
+                return self._commit_chunk(prev, token)
+            return 0
         if rec is None:
             return 0
-        return self._commit_chunk(rec)
+        return self._commit_chunk(rec, token)
 
-    def _drain_inflight(self) -> int:
+    def _drain_inflight(self, token: Optional[int] = None) -> int:
         """Commit (and clear) the pipelined chunk in flight, if any."""
-        prev, self._inflight = self._inflight, None
-        return self._commit_chunk(prev) if prev is not None else 0
+        with self._commit_lock:
+            self._check_owner(token)
+            prev, self._inflight = self._inflight, None
+        if prev is None:
+            return 0
+        if self._watchdog is not None:
+            self._watchdog.phase = "commit"
+        return self._commit_chunk(prev, token)
 
     # ---- speculative decoding -------------------------------------------
 
-    def _step_spec(self) -> int:
+    def _step_spec(self, token: Optional[int] = None) -> int:
         """One speculative iteration: draft up to spec_k tokens per live
         slot, verify every slot's pending token and drafts as ONE window
         of spec_k + 1 rows, then commit the longest matching draft prefix
@@ -1513,79 +1837,128 @@ class ContinuousBatchingEngine:
         live = self._live()
         if not live.any():
             return 0
-        self._warm_programs()
+        wd = self._watchdog
+        if wd is not None:
+            wd.phase = "decode"
+        # the chaos hang seam BEFORE the dispatch and BEFORE the lock,
+        # exactly like _dispatch_chunk
+        chaos.maybe_hang("decode")
+        tr, mt = self._tracer, self._metrics
         b, k = self.slots, self.spec_k
         # the adaptive depth caps what the drafter is ASKED for; the
         # window stays k + 1 rows and unproposed depth is pad
         k_eff = self._spec_policy.spec_k_effective \
             if self._spec_policy is not None else k
+        t_disp0 = time.perf_counter()
+        with self._commit_lock:
+            self._check_owner(token)
+            self._warm_programs()
+            ids = np.zeros((b, k + 1), np.int64)
+            new_lens = np.ones((b,), np.int32)
+            lens = np.asarray([s.length for s in self._slots], np.int32)
+            drafts = [None] * b
+            reqs = [s.req for s in self._slots]
+            for slot_id, slot in enumerate(self._slots):
+                req = slot.req
+                if req is None:
+                    continue    # dead rows ride along on the scratch page
+                ids[slot_id, 0] = self._tokens[slot_id]
+                # never draft past the row budget (window position L + j
+                # writes K/V there) nor past max_new; the corrected token
+                # needs its own headroom
+                want = min(k_eff,
+                           int(self._budgets[slot_id]) - slot.length - 1,
+                           req.max_new - slot.emitted - 1)
+                d = []
+                if want > 0 and self._drafter is not None:
+                    d = list(self._drafter.draft(
+                        slot_id, req.req_id, req.prompt + req.tokens, want,
+                        table_row=self._tables[slot_id],
+                        budget=int(self._budgets[slot_id])))[:want]
+                drafts[slot_id] = d
+                ids[slot_id, 1:1 + len(d)] = d
+                new_lens[slot_id] = 1 + len(d)
+            with self._device_range("spec.verify"):
+                hs = self._stage_in("verify", (ids, self._tables, lens,
+                                               new_lens))
+                self._programs["verify"]()
+                self._stage_out("verify", hs)
+            self.device_steps += 1
+            self.spec_steps += 1
+            # acceptance rewrites host tokens and lengths per slot: a
+            # later pipelined dispatch must not chain stale device state
+            self._chain_tok = self._chain_lens = None
+            self._override[:] = True
+            if tr is not None:
+                tr.complete("spec.verify", int(t_disp0 * 1e9),
+                            time.perf_counter_ns(), chunk=self.device_steps,
+                            live=int(live.sum()),
+                            drafted=int(sum(len(d) for d in drafts if d)))
+            if mt is not None:
+                mt.gauge("live_slots", "slots decoding").set(int(live.sum()))
+        # the readback waits outside the lock, with _commit_chunk's
+        # sync-wait telemetry
         t0 = time.perf_counter()
-        ids = np.zeros((b, k + 1), np.int64)
-        new_lens = np.ones((b,), np.int32)
-        lens = np.asarray([s.length for s in self._slots], np.int32)
-        drafts = [None] * b
-        reqs = [s.req for s in self._slots]
-        for slot_id, slot in enumerate(self._slots):
-            req = slot.req
-            if req is None:
-                continue    # dead rows ride along on the scratch page
-            ids[slot_id, 0] = self._tokens[slot_id]
-            # never draft past the row budget (window position L + j
-            # writes K/V there) nor past max_new; the corrected token
-            # needs its own headroom
-            want = min(k_eff,
-                       int(self._budgets[slot_id]) - slot.length - 1,
-                       req.max_new - slot.emitted - 1)
-            d = []
-            if want > 0 and self._drafter is not None:
-                d = list(self._drafter.draft(
-                    slot_id, req.req_id, req.prompt + req.tokens, want,
-                    table_row=self._tables[slot_id],
-                    budget=int(self._budgets[slot_id])))[:want]
-            drafts[slot_id] = d
-            ids[slot_id, 1:1 + len(d)] = d
-            new_lens[slot_id] = 1 + len(d)
-        hs = self._stage_in("verify", (ids, self._tables, lens, new_lens))
-        self._programs["verify"]()
-        self._stage_out("verify", hs)
-        self.device_steps += 1
-        self.spec_steps += 1
-        # acceptance rewrites host tokens and lengths per slot: a later
-        # pipelined dispatch must not chain stale device state
-        self._chain_tok = self._chain_lens = None
-        self._override[:] = True
-        preds = self._read(hs)[0]
-        self.decode_s += time.perf_counter() - t0
-        produced = 0
-        for slot_id, slot in enumerate(self._slots):
-            req = reqs[slot_id]
-            if req is None or slot.req is not req or req.done:
-                continue
-            d, row = drafts[slot_id], preds[slot_id]
-            n_acc = 0
-            while n_acc < len(d) and d[n_acc] == int(row[n_acc]):
-                n_acc += 1
-            toks = d[:n_acc] + [int(row[n_acc])]
-            toks = toks[:max(req.max_new - slot.emitted, 0)]
-            if self.eos is not None and self.eos in toks:
-                toks = toks[:toks.index(self.eos) + 1]
-            self.spec_drafted += len(d)
-            self.spec_accepted += min(n_acc, len(toks))
-            if d and self._spec_policy is not None:
-                self._spec_policy.observe(len(d), n_acc)
-            req.tokens.extend(toks)
-            produced += len(toks)
-            slot.emitted += len(toks)
-            # the window wrote positions L .. L + new_len - 1; everything
-            # before the new pending token (toks[-1]) is committed cache
-            slot.length += len(toks)
-            self._tokens[slot_id] = toks[-1] if toks else 0
-            if self._drafter is not None:
-                self._drafter.note_commit(slot_id, slot.length)
-            if (self.eos is not None and toks and toks[-1] == self.eos) \
-                    or slot.emitted >= req.max_new:
-                self._retire(slot_id)
-        return produced
+        (preds,) = self._read(hs)
+        t1 = time.perf_counter()
+        wait = t1 - t0
+        stalled = wait > self.stall_threshold_s
+        if tr is not None:
+            tr.complete("decode.sync_wait", int(t0 * 1e9), int(t1 * 1e9),
+                        stalled=stalled)
+        if mt is not None:
+            mt.histogram("sync_wait_s",
+                         "host blocked on decode readback").observe(wait)
+            mt.histogram("decode_chunk_s",
+                         "decode-chunk dispatch to readback").observe(
+                             t1 - t_disp0)
+            if stalled:
+                mt.counter("blocked_syncs").inc()
+        if wd is not None:
+            wd.phase = "commit"
+        with self._commit_lock:
+            self._check_owner(token)  # abandoned mid-wait: discard
+            self.decode_s += t1 - t_disp0
+            self._count_wait(wait)
+            produced = 0
+            for slot_id, slot in enumerate(self._slots):
+                req = reqs[slot_id]
+                if req is None or slot.req is not req or req.done:
+                    continue
+                d, row = drafts[slot_id], preds[slot_id]
+                n_acc = 0
+                while n_acc < len(d) and d[n_acc] == int(row[n_acc]):
+                    n_acc += 1
+                toks = d[:n_acc] + [int(row[n_acc])]
+                toks = toks[:max(req.max_new - slot.emitted, 0)]
+                if self.eos is not None and self.eos in toks:
+                    toks = toks[:toks.index(self.eos) + 1]
+                self.spec_drafted += len(d)
+                self.spec_accepted += min(n_acc, len(toks))
+                if d and self._spec_policy is not None:
+                    self._spec_policy.observe(len(d), n_acc)
+                if d and mt is not None:
+                    mt.histogram(
+                        "spec_acceptance",
+                        "accepted draft fraction per window").observe(
+                            n_acc / len(d))
+                req.tokens.extend(toks)
+                produced += len(toks)
+                slot.emitted += len(toks)
+                # the window wrote positions L .. L + new_len - 1;
+                # everything before the new pending token (toks[-1]) is
+                # committed cache
+                slot.length += len(toks)
+                self._tokens[slot_id] = toks[-1] if toks else 0
+                if self._drafter is not None:
+                    self._drafter.note_commit(slot_id, slot.length)
+                if (self.eos is not None and toks
+                        and toks[-1] == self.eos) \
+                        or slot.emitted >= req.max_new:
+                    self._retire(slot_id)
+            if mt is not None:
+                mt.counter("output_tokens").inc(produced)
+            return produced
 
     # ---- the loop -------------------------------------------------------
 
@@ -1593,17 +1966,24 @@ class ContinuousBatchingEngine:
         """One synchronous scheduling iteration: admit -> decode chunk
         (with a prefill window on the unified path) -> read back ->
         retire. Returns the number of tokens produced."""
+        wd = self._watchdog
+        # the ownership token: if the watchdog abandons this step, run()
+        # bumps _step_epoch and every later owner check in THIS thread
+        # raises _AbandonedStep instead of racing the live loop
+        token = self._step_epoch if wd is not None else None
         if self.unified:
-            return self._step_unified(pipeline=False)
-        self._admit()
+            return self._step_unified(token, pipeline=False)
+        if wd is not None:
+            wd.phase = "admit"
+        self._admit(token)
         if self.disaggregated:
-            self._install_handoffs()
+            self._install_handoffs(token)
         if self.spec_k:
-            return self._drain_inflight() + self._step_spec()
-        rec = self._dispatch_chunk()
+            return self._drain_inflight(token) + self._step_spec(token)
+        rec = self._dispatch_chunk(token)
         if rec is None:
             return 0
-        return self._commit_chunk(rec)
+        return self._commit_chunk(rec, token)
 
     def _pipeline_step(self) -> int:
         """One double-buffered iteration: admit, dispatch chunk N+1, THEN
@@ -1612,38 +1992,250 @@ class ContinuousBatchingEngine:
         Admissions and retirements take effect one chunk later than in
         synchronous mode; budgets and the slot-ownership snapshot keep the
         speculative chunk harmless."""
+        wd = self._watchdog
+        token = self._step_epoch if wd is not None else None
         if self.unified:
-            return self._step_unified(pipeline=True)
-        self._admit()
+            return self._step_unified(token, pipeline=True)
+        if wd is not None:
+            wd.phase = "admit"
+        self._admit(token)
         if self.disaggregated:
-            self._install_handoffs()
+            self._install_handoffs(token)
         if self.spec_k:
             # speculative steps are synchronous (acceptance is a host
             # decision): drain the chunk in flight, then verify
-            return self._drain_inflight() + self._step_spec()
-        rec = self._dispatch_chunk(chain=True)
-        prev, self._inflight = self._inflight, rec
-        return self._commit_chunk(prev) if prev is not None else 0
+            return self._drain_inflight(token) + self._step_spec(token)
+        rec = self._dispatch_chunk(token, chain=True)
+        with self._commit_lock:
+            self._check_owner(token)
+            prev, self._inflight = self._inflight, rec
+        if prev is not None:
+            if wd is not None:
+                wd.phase = "commit"
+            return self._commit_chunk(prev, token)
+        return 0
 
     def run(self, max_iters: int = 100000,
             watchdog_timeout: Optional[float] = None,
-            double_buffer: Optional[bool] = None):
+            double_buffer: Optional[bool] = None,
+            requeue_hung: bool = False):
         """Drain the queues; returns the finished requests.
         `double_buffer` (default: the engine's) pipelines the chunks; a
         drained pipeline may end with one uncommitted chunk whose rows all
-        retired, which is dropped."""
-        if watchdog_timeout:
-            raise _unported("watchdog_timeout > 0")
+        retired, which is dropped.
+
+        `watchdog_timeout` (seconds; default FLAGS_step_timeout_s /
+        PADDLE_TPU_STEP_TIMEOUT_S, 0 = off) bounds every scheduling step
+        with a wall-clock deadline: each step runs on a worker thread (on
+        this engine's device and the caller's current stream), and a step
+        that blows the deadline retires ONE victim slot (the lowest live
+        one, marked `failed`; on the unified path the prefilling request
+        first, once its window has been dispatched). Its pages go back
+        through the refcounted pool, so a cached prefix page another live
+        slot maps stays pinned. The engine keeps serving the others. A
+        timeout with no live slot to blame re-raises. In double-buffered
+        mode a timeout also DROPS the uncommitted chunk in flight: the
+        surviving rows regenerate its tokens from the last committed host
+        state (its host set is reused only after its copies complete).
+        Call `warm()` before arming a tight deadline: a first-use capture
+        inside a watchdogged step eats the budget, and the timeout path
+        waits for it (captures run under the commit lock).
+
+        `requeue_hung`: instead of failing the victim, give it ONE retry:
+        the request re-enters `waiting` at the head with its slot freed and
+        its pages released through the pool; generation restarts from the
+        prompt. The second timeout of the same request fails it. Counted
+        by `metrics()['hung_requeued']`."""
+        if watchdog_timeout is None:
+            watchdog_timeout = float(flag("step_timeout_s"))
+        self._requeue_hung = bool(requeue_hung)
         db = self.double_buffer if double_buffer is None else double_buffer
         step_fn = self._pipeline_step if db else self.step
+        wd = None
+        if watchdog_timeout and watchdog_timeout > 0:
+            from ..resilience.watchdog import StepTimeout, Watchdog
+
+            wd = Watchdog(watchdog_timeout, name="engine.step")
+            step_fn = self._on_this_thread_state(step_fn)
+        self._watchdog = wd
         try:
             while self.has_work and max_iters:
-                step_fn()
+                if wd is None:
+                    step_fn()
+                else:
+                    try:
+                        wd.call(step_fn)
+                    except StepTimeout as e:
+                        # reclaim ownership FIRST: the abandoned thread
+                        # aborts at its next owner check instead of
+                        # committing stale results or writing host sets
+                        # and replaying programs the live loop now owns;
+                        # the lock serializes this against a commit right
+                        # at the deadline (it lands fully before the bump,
+                        # or aborts fully after it)
+                        with self._commit_lock:
+                            self._step_epoch += 1
+                            self._inflight = None
+                            self._chain_tok = self._chain_lens = None
+                            self._override[:] = True
+                            retired = self._retire_hung_slot(e)
+                        if not retired:
+                            raise
                 max_iters -= 1
         finally:
-            self._inflight = None
-            self._chain_tok = self._chain_lens = None
-            self._override[:] = True
+            self._watchdog = None
+            with self._commit_lock:
+                self._inflight = None
+                self._chain_tok = self._chain_lens = None
+                self._override[:] = True
         if self.has_work:
             raise RuntimeError("engine did not drain within max_iters")
         return self.finished
+
+    def _on_this_thread_state(self, fn):
+        """`fn` wrapped to run on a watchdog worker thread with the
+        calling thread's torch state: grad mode and, on the card, this
+        engine's device and the current stream (replays, host-set copies
+        and their events must share the stream the programs and
+        `_HostSets` were made for; a new thread starts on device 0's
+        default stream)."""
+        grad = torch.is_grad_enabled()
+        stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
+
+        def on_state():
+            with torch.set_grad_enabled(grad):
+                if stream is None:
+                    return fn()
+                with torch.cuda.device(self.device), \
+                        torch.cuda.stream(stream):
+                    return fn()
+
+        return on_state
+
+    def _retire_hung_slot(self, exc) -> bool:
+        """Degrade gracefully after a StepTimeout: fail the victim slot
+        (the lowest-id live slot: deterministic, and FIFO admission makes
+        it the longest-running row), recycle its pages, keep the rest.
+        With `requeue_hung` armed, a first-time victim is REQUEUED instead
+        (see `run`). Returns False when no slot is live (nothing to
+        blame). Always called under the commit lock AFTER the epoch bump,
+        so the abandoned step thread can never commit tokens into (or
+        dispatch against the pages of) the request reset here."""
+        # unified path: a timeout once the prefilling request's window
+        # has ridden a dispatch blames THAT request first (the same
+        # window re-dispatches every step: blaming decode would fail up
+        # to `slots` innocent rows against a hanging window)
+        if self._prefilling is not None \
+                and self._prefilling.get("dispatched"):
+            self._fail_prefilling(exc)
+            return True
+        live = [i for i, s in enumerate(self._slots) if s.req is not None]
+        if not live:
+            if self._prefilling is not None:
+                # nothing else to blame: the undispatched-window edge
+                # collapses back onto the prefilling request
+                self._fail_prefilling(exc)
+                return True
+            return False
+        victim = live[0]
+        if self._requeue_hung and not self._slots[victim].req.requeued:
+            self._requeue_slot(victim)
+            return True
+        self.hung_retired += 1
+        self._emit_hung_retire(victim, exc)
+        self._retire(victim, failed=True, error=str(exc))
+        return True
+
+    def _emit_hung_retire(self, slot, exc):
+        """The watchdog.retire_hung_slot emission shared by the slot and
+        the prefilling victim (slot None)."""
+        tr, mt = self._tracer, self._metrics
+        if tr is not None:
+            tr.instant("watchdog.retire_hung_slot", slot=slot,
+                       phase=getattr(exc, "phase", None),
+                       elapsed_s=getattr(exc, "elapsed_s", None))
+        if mt is not None:
+            mt.counter("hung_slots_retired").inc()
+            mt.event("watchdog.retire_hung_slot", slot=slot,
+                     phase=getattr(exc, "phase", None),
+                     timeout_s=getattr(exc, "timeout_s", None))
+
+    def _emit_hung_requeue(self, slot, req):
+        """The watchdog.requeue_hung_slot emission shared by both requeue
+        paths."""
+        tr, mt = self._tracer, self._metrics
+        if tr is not None:
+            tr.instant("watchdog.requeue_hung_slot", slot=slot,
+                       req_id=req.req_id)
+        if mt is not None:
+            mt.counter("hung_slots_requeued").inc()
+            mt.event("watchdog.requeue_hung_slot", slot=slot,
+                     req_id=req.req_id)
+
+    def _fail_prefilling(self, exc):
+        """Watchdog victim = the request mid-chunked-prefill (unified path):
+        release its reservation through the refcount-aware pool (shared
+        prefix pages another slot maps stay pinned) and fail it, or, under
+        `requeue_hung`, give it its one retry from the head of `waiting`
+        (prefill restarts at the prompt). Called under the commit lock
+        after the epoch bump, like `_retire_hung_slot`."""
+        st, self._prefilling = self._prefilling, None
+        req = st["req"]
+        self.mgr.free(req.pages)
+        req.pages = None
+        req.n_prefix = 0
+        req.cached_tokens = 0
+        req.bucket = None
+        if self._requeue_hung and not req.requeued:
+            req.requeued = True
+            self.hung_requeued += 1
+            self.waiting.insert(0, req)
+            self._emit_hung_requeue(None, req)
+            return
+        self.hung_retired += 1
+        req.finish_time = time.perf_counter()
+        # every finished request carries a prefill_time: a mid-prefill
+        # failure pins it to finish_time
+        if req.prefill_time is None:
+            req.prefill_time = req.finish_time
+        req.failed = True
+        req.error = str(exc)
+        self.finished.append(req)
+        self._emit_hung_retire(None, exc)
+        if self._tracer is not None:
+            self._tracer.instant("req.retire", req_id=req.req_id, slot=None,
+                                 tokens=len(req.tokens), failed=True)
+        if self._metrics is not None:
+            self._metrics.counter("requests_failed").inc()
+
+    def _requeue_slot(self, slot_id: int):
+        """Put a hung slot's request back at the head of `waiting` for
+        exactly one retry: release its pages through the refcount-aware
+        pool (a shared prefix page a live peer maps stays pinned; pages
+        are never recycled in place), reset the request to its
+        pre-admission state (tokens regenerate from the prompt; the block
+        hashes survive), and free the slot row."""
+        slot = self._slots[slot_id]
+        req = slot.req
+        req.requeued = True
+        self.hung_requeued += 1
+        self.mgr.free(req.pages)
+        req.pages = None
+        req.slot = None
+        req.bucket = None
+        req.tokens = []
+        req.prefill_time = None
+        req.n_prefix = 0
+        req.cached_tokens = 0
+        slot.req, slot.length, slot.emitted, slot.done = None, 0, 0, False
+        # the row must stop pointing at released pages before they are
+        # handed to another request
+        self._tables[slot_id] = self.scratch_page
+        self._tokens[slot_id] = 0
+        self._budgets[slot_id] = 0
+        self._override[slot_id] = True
+        if self._drafter is not None:
+            self._drafter.release(slot_id)
+        self.waiting.insert(0, req)
+        self._emit_hung_requeue(slot_id, req)

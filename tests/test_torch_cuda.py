@@ -1715,3 +1715,166 @@ def test_train_step_launch_counts(dev, recompute):
     assert n["swiglu_bwd"] == 2
     assert n["rms_norm"] == 2 * fwd + 1
     assert torch.isfinite(loss)
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint loader, observability and the watchdog on the card
+# ---------------------------------------------------------------------------
+
+def _write_safetensors(path, tensors):
+    """A safetensors file of `tensors` (name -> tensor, any device), by
+    the format's own layout (the card's machine needs no safetensors
+    package): u64 header length, JSON header, the bytes."""
+    import json
+    import struct
+
+    tags = {torch.bfloat16: "BF16", torch.float16: "F16",
+            torch.float32: "F32", torch.int8: "I8", torch.uint8: "U8"}
+    header, off, blobs = {}, 0, []
+    for name, t in tensors.items():
+        host = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+        header[name] = {"dtype": tags[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + host.numel()]}
+        off += host.numel()
+        blobs.append(host.numpy().tobytes())
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw + b"".join(blobs))
+
+
+@pytest.mark.parametrize("quant", [None, "weight_only_int8",
+                                   "weight_only_int4"])
+def test_checkpoint_loader_on_the_card(dev, tmp_path, quant):
+    """load_quant_serving_params from an HF-layout file onto the card:
+    byte-identical to decode_params of the same bf16 weights, and its
+    transient device peak (max allocated over the load, less what was
+    allocated before and the loaded set) at most 4x the largest weight's
+    f32 bytes."""
+    from paddle_tpu_torch.models import (decode_params,
+                                         load_quant_serving_params)
+
+    from paddle_tpu_torch.models import LlamaConfig, init_serving_params
+
+    # the lm_head spans four of weight_quantize's 4096-channel blocks, as
+    # Llama-3-8B's 128256 do, so the peak is a block's, not the weight's
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                           num_key_value_heads=1, intermediate_size=512,
+                           vocab_size=16384)
+    params = init_serving_params(cfg, seed=0, device=dev)
+    hf = {("model." + k[len("llama."):] if k.startswith("llama.") else k):
+          (v.t() if v.ndim == 2 and "embed_tokens" not in k else v)
+          for k, v in params.items()}
+    path = str(tmp_path / "model.safetensors")
+    _write_safetensors(path, hf)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = load_quant_serving_params(cfg, path, quant, device=dev)
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for v in got.values()
+               for t in (v if isinstance(v, tuple) else (v,)))
+    transient = torch.cuda.max_memory_allocated() - base - held
+    assert transient <= 4 * 4 * max(t.numel() for t in params.values())
+    want = decode_params(params, quant)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        for a, b in zip(got[k], w) if isinstance(w, tuple) \
+                else [(got[k], w)]:
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), k
+
+
+def test_trace_during_graph_capture_raises(dev):
+    """A span, instant, counter or complete emitted while the current
+    stream captures a CUDA graph raises TraceUnderJitError before any
+    CUDA call, so the capture stays valid and replays."""
+    from paddle_tpu_torch.observability import Tracer, TraceUnderJitError
+
+    tr = Tracer()
+    x = torch.ones(8, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            for emit in (lambda: tr.span("s").__enter__(),
+                         lambda: tr.instant("i"),
+                         lambda: tr.counter("c", 1),
+                         lambda: tr.complete("x", 0, 1)):
+                with pytest.raises(TraceUnderJitError):
+                    emit()
+            y = x * 2
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.full_like(x, 2)) and tr.events() == []
+    tr.instant("after")
+    assert [e["name"] for e in tr.events()] == ["after"]
+
+
+@pytest.mark.parametrize("unified", [False, True], ids=["split", "unified"])
+def test_traced_engine_on_the_card(dev, unified):
+    """warm() with a tracer and a registry armed raises nothing and
+    records no span (no site sits in a captured body); the traced
+    engine's tokens, launches and captures equal an untraced engine's."""
+    from paddle_tpu_torch.observability import MetricsRegistry, Tracer
+
+    cfg, params = _graph_model(dev, "dense")
+    prompts = _graph_prompts(cfg.vocab_size)
+    tr, mt = Tracer(), MetricsRegistry()
+    traced = _graph_engine(dev, cfg, params, unified_step=unified,
+                           tracer=tr, metrics=mt)
+    assert tr.events() == [] and mt.snapshot()["counters"] == {}
+    plain = _graph_engine(dev, cfg, params, unified_step=unified,
+                          tracer=False, metrics=False)
+    runs = []
+    for eng in (traced, plain):
+        _build.reset_launch_counts()
+        runs.append((_graph_serve(eng, prompts), _build.launch_counts(),
+                     eng.compile_stats()))
+    assert runs[0] == runs[1]
+    names = {e["name"] for e in tr.events()}
+    assert {"req.enqueue", "req.admit", "prefill.dispatch",
+            "decode.dispatch", "decode.sync_wait", "req.retire"} <= names
+    assert mt.snapshot()["histograms"]["ttft_s"]["count"] == len(prompts)
+
+
+@pytest.mark.parametrize("db", [False, True], ids=["sync", "db"])
+def test_watchdog_on_a_graphed_engine(dev, db):
+    """hang:decode under a deadline on a graphed engine: one victim (the
+    lowest live slot) fails, the others' tokens equal an undisturbed
+    engine's, and once the hang has elapsed the abandoned thread has
+    launched nothing and written no pool."""
+    import time
+
+    from paddle_tpu_torch.resilience import chaos
+
+    cfg, params = _graph_model(dev, "dense")
+    prompts = _graph_prompts(cfg.vocab_size)
+    # every request takes a slot in the first step, so no later admission
+    # batches rows differently from the undisturbed run
+    want = _graph_serve(_graph_engine(dev, cfg, params, slots=8), prompts)
+    eng = _graph_engine(dev, cfg, params, slots=8)
+    reqs = [eng.add_request(p, max_new=3 + 4 * (i % 4))
+            for i, p in enumerate(prompts)]
+    chaos.install("hang:decode:3")
+    try:
+        t0 = time.perf_counter()
+        eng.run(watchdog_timeout=1.0, double_buffer=db)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        pools = [t.clone() for t in eng.kcs + eng.vcs]
+        time.sleep(max(0.0, 3.5 - (time.perf_counter() - t0)))
+        torch.cuda.synchronize()
+    finally:
+        chaos.uninstall()
+    assert eng.hung_retired == 1
+    assert [r.failed for r in reqs] == [True] + [False] * (len(reqs) - 1)
+    assert reqs[0].slot == 0
+    assert [r.tokens for r in reqs[1:]] == want[1:]
+    assert _build.launch_counts() == launches
+    assert all(torch.equal(a, b) for a, b in zip(pools, eng.kcs + eng.vcs))

@@ -197,23 +197,20 @@ def test_warm_metrics_and_cpu_launch_counts():
     dict(config={"a": 1}),
     dict(decode_megakernel="scan", serving_mp=2),
     dict(decode_megakernel="attn", serving_cp=2),
-    dict(serving_mp=2), dict(serving_cp=2),
-    dict(tracer=object()), dict(metrics=object())])
+    dict(serving_mp=2), dict(serving_cp=2)])
 def test_unported_options_raise(kwargs):
     _, _, _, cfg, p = _setup()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _engine(cfg, p, **kwargs)
 
 
-def test_unported_runtime_options_raise():
-    """watchdog_timeout raises at run(); weight-only quantized params no
-    longer raise (they are served since the weight-only slice)."""
+def test_weight_only_params_build():
+    """Weight-only quantized params build an engine (they are served
+    since the weight-only slice)."""
     _, _, _, cfg, p = _setup()
     from paddle_tpu_torch.models import decode_params
-    _engine(cfg, decode_params(p, "weight_only_int4"))
-    eng = _engine(cfg, p, prompt_bucket=8, block_size=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.run(watchdog_timeout=1.0)
+    eng = _engine(cfg, decode_params(p, "weight_only_int4"))
+    assert isinstance(eng.p["lm_head.weight"], tuple)
 
 
 def test_sampled_engine_with_top_k_one_is_greedy():
