@@ -82,6 +82,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    then hang:decode under a watchdog deadline, synchronous,
    double-buffered and requeueing: one victim, the others' tokens
    unchanged, nothing launched by the abandoned thread.
+22. fleet: phase 3's configuration and traffic through a Router (three
+   priority classes) over in-process fleet workers that share the
+   weights, each warmed before it joins: two workers undisturbed, then a
+   kill_worker chaos kill of one mid-request (recovery: re-prefill of
+   prompt + delivered tokens on the survivor), then a drain of one
+   beside a newly joined third, then a FileStore serve_worker subprocess
+   on the card (Llama-3-8B from the same seed). Every stream within the
+   rank gate of a plain forward, compile_stats() steady, the kernels
+   launched; tok/s beside a lone engine's, router TTFT per class.
 13. train, the training slice's main path: bench.py main()'s step on
    Llama-1B (16 layers, kv heads 4, bf16) with AdamW through
    make_train_step(optimizer=), batch 4 x 2048, a warm-up and 10 timed
@@ -94,7 +103,7 @@ Then the kernel table as one JSON line (each kernel's launches from the
 phase that drives it), the card's name and power limit, and the closing
 {"ok": true, ...} line.
 
-Phases 15-21 run after phase 12 and before training. Every phase resets
+Phases 15-22 run after phase 12 and before training. Every phase resets
 the kernel launch counters just before it serves and reads them just
 after: a bf16 phase must launch no int8 kernel, an int8
 phase no bf16 paged-attention kernel.
@@ -114,6 +123,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import replace as dataclasses_replace
 from types import SimpleNamespace
@@ -1508,6 +1518,23 @@ def profile_decode_lane(eng, prompts):
     return chunk, prof, ms
 
 
+def warm_args(eng, traffic, shared: int = 0, grow: int = 0):
+    """warm(buckets=, prefix_widths=) for `traffic` on `eng`'s geometry:
+    every prompt's cold bucket and, with the prefix cache and a
+    `shared`-token common head, every suffix bucket past it at the ladder
+    rung of the shared pages; with `grow`, also the buckets of each prompt
+    grown by up to `grow` tokens (a recovered request re-prefills its
+    prompt and the tokens it was delivered)."""
+    pb, bs = eng.prompt_bucket, eng.block_size
+    lens = {len(p) + g for p in traffic for g in range(grow + 1)}
+    buckets = {-(-n // pb) * pb for n in lens}
+    widths = []
+    if eng.prefix_cache and shared:
+        buckets |= {-(-(n - shared) // pb) * pb for n in lens if n > shared}
+        widths = [eng._prefix_width_for(shared // bs)]
+    return sorted(buckets), widths
+
+
 def warm_for(eng, traffic, shared: int = 0, tag: str = ""):
     """eng.warm(buckets=, prefix_widths=) for `traffic` (the JAX engine's
     rule: the buckets must cover the SUFFIX buckets cache hits prefill
@@ -1516,23 +1543,17 @@ def warm_for(eng, traffic, shared: int = 0, tag: str = ""):
     rung of the shared pages. On the unified path warm() ignores the
     buckets. Logs the prefill programs captured and the growth of the
     card's reserved memory across them."""
-    pb, bs = eng.prompt_bucket, eng.block_size
-    buckets = {-(-len(p) // pb) * pb for p in traffic}
-    widths = []
-    if eng.prefix_cache and shared:
-        buckets |= {-(-(len(p) - shared) // pb) * pb for p in traffic
-                    if len(p) > shared}
-        widths = [eng._prefix_width_for(shared // bs)]
+    buckets, widths = warm_args(eng, traffic, shared)
     # engines dropped earlier sit in reference cycles: free their graphs
     # first, so the growth is this engine's
     gc.collect()
     _release()
     reserved = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
-    eng.warm(buckets=sorted(buckets), prefix_widths=widths)
+    eng.warm(buckets=buckets, prefix_widths=widths)
     n = sum(1 for k in eng.compile_stats() if k.startswith("prefill:"))
     if n and tag:
-        log(f"[{tag}] warm(buckets={sorted(buckets)}, prefix_widths="
+        log(f"[{tag}] warm(buckets={buckets}, prefix_widths="
             f"{widths}): {n} prefill programs "
             f"({'graphs' if eng.graphed else 'eager'}) and the engine's "
             f"other programs in {time.perf_counter() - t0:.2f}s, reserved "
@@ -1546,6 +1567,11 @@ def programs(stats: dict) -> dict:
     return {k: n for k, n in stats.items() if not k.startswith("prefill:")}
 
 
+# the serving phases' shared engine settings
+SERVE_KW = dict(slots=8, prompt_bucket=128, max_new_tokens=32, block_size=64,
+                steps_per_sync=8, dtype=torch.bfloat16, device="cuda")
+
+
 def build_engine(cfg, params, traffic, graphed: bool = True, shared: int = 0,
                  tag: str = "", **kw):
     """An engine at the serving phases' shared settings (8 slots,
@@ -1557,9 +1583,7 @@ def build_engine(cfg, params, traffic, graphed: bool = True, shared: int = 0,
     engine ever does on its own."""
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
 
-    eng = ContinuousBatchingEngine(cfg, params, **{**dict(
-        slots=8, prompt_bucket=128, max_new_tokens=32, block_size=64,
-        steps_per_sync=8, dtype=torch.bfloat16, device="cuda"), **kw})
+    eng = ContinuousBatchingEngine(cfg, params, **{**SERVE_KW, **kw})
     if not graphed:
         eng.graphed = False
     warm_for(eng, traffic, shared, tag)
@@ -3279,6 +3303,345 @@ def phase_observe(cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 22: the SLO router over a fault-tolerant decode fleet
+# ---------------------------------------------------------------------------
+
+PRIORITIES = ("high", "normal", "low")
+
+
+def _gate_fleet_ranks(phase: str, plain, reqs, limit: float = 0.5) -> float:
+    """Every finished stream of `reqs` (router requests) within `limit`
+    logit of the teacher-forced bf16 plain forward's argmax (phase 2's
+    rule), logged as one line. Returns the worst gap."""
+    margins = [rank_margin(plain, r) for r in reqs]
+    worst = max(margins)
+    log(f"[{phase}] {len(reqs)} streams held to the bf16 plain forward: "
+        f"worst gap to its argmax {worst:.3f} (limit {limit})")
+    if worst > limit:
+        raise AssertionError(f"{phase}: a served token ranks {worst:.3f} "
+                             f"below the plain argmax (limit {limit})")
+    return worst
+
+
+def _fleet_submit(phase, router, traffic):
+    """Submit `traffic` to `router` at once, priority classes in turn
+    (32 new tokens each). Gate: nothing shed."""
+    from paddle_tpu_torch.serving import Rejected
+
+    reqs = [router.submit(p, 32, priority=PRIORITIES[i % 3])
+            for i, p in enumerate(traffic)]
+    shed = [r for r in reqs if isinstance(r, Rejected)]
+    if shed:
+        raise AssertionError(f"{phase}: the router shed {shed}")
+    return reqs
+
+
+def _wait_inflight(phase, reqs, wid, timeout: float = 120.0):
+    """Block until worker `wid` holds a request with delivered tokens
+    that is not done."""
+    deadline = time.monotonic() + timeout
+    while not any(r.worker_id == wid and r.tokens and not r.done
+                  for r in reqs):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{phase}: no progress on {wid}")
+        time.sleep(0.002)
+
+
+def _fleet_finish(phase, router, reqs, timeout: float = 300.0):
+    """Drive `router` until every request is terminal. Gate: every request
+    finished with 32 tokens."""
+    router.join(timeout=timeout)
+    torch.cuda.synchronize()
+    bad = [(r.req_id, r.state, len(r.tokens), r.worker_id, r.error)
+           for r in reqs if r.state != "finished" or len(r.tokens) != 32]
+    if bad:
+        raise AssertionError(f"{phase}: requests not finished in full: {bad}")
+
+
+def _fleet_serve(phase, router, traffic):
+    """`traffic` through `router` to the end (the gates of _fleet_submit
+    and _fleet_finish); returns the requests and the wall time."""
+    t0 = time.perf_counter()
+    reqs = _fleet_submit(phase, router, traffic)
+    _fleet_finish(phase, router, reqs)
+    return reqs, time.perf_counter() - t0
+
+
+def _log_fleet(phase, router, reqs, wall, lone_tps, undisturbed):
+    """The part's wall, tok/s beside the lone engine's, router TTFT p50 /
+    p99 per class beside the exact max, and the share of streams
+    identical to the lone engine's (logged, not gated)."""
+    n_tok = sum(len(r.tokens) for r in reqs)
+    ttft = []
+    for p in PRIORITIES:
+        h = router.mt.histogram(f"router_ttft_s_{p}").summary()
+        ttft.append(f"{p} p50 {_ms(h, 50):.1f} / p99 {_ms(h, 99):.1f} ms "
+                    f"(exact max {1e3 * h['max']:.1f}, n {h['count']})")
+    same = sum(r.tokens == t for r, t in zip(reqs, undisturbed))
+    log(f"[{phase}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
+        f"fleet {n_tok / wall:.1f} tok/s vs the lone engine's "
+        f"{lone_tps:.1f}; router TTFT {'; '.join(ttft)}; streams identical "
+        f"to the lone engine's {same}/{len(reqs)}")
+
+
+def phase_fleet(cfg, params, prefix):
+    """Phase 22: the SLO router over a fault-tolerant decode fleet, at
+    Llama-3-8B full width, on phase 3's configuration (the split path, the
+    prefix cache, bf16 pools sized by kv_pool_bytes= at phase 3's pool
+    bytes) and traffic (24 requests sharing a 512-token system prompt,
+    priority classes high / normal / low in turn). Every in-process
+    worker's engine shares the one params dict and is warmed as it joins
+    (`add_worker(warm=True)`), for the traffic's buckets and those of a
+    recovered request (prompt + up to 31 delivered tokens) at the system
+    prompt's prefix width. The workers keep their prefix caches from part
+    to part, so a later part's hits can reach deeper, unwarmed prefix
+    widths: those programs are captured at first use while the other
+    worker serves, each worker's step holding the card's device gate.
+    (1) two workers, undisturbed: all finished, no death, rank gates,
+    compile_stats() steady, rms_norm, flash forward, paged decode and
+    prefix prefill launched. (2) kill_worker on w1 once it holds
+    in-flight work with delivered tokens: one death, requeued >= 1, no
+    poison, w1 fenced, every request finished with a recovered one's
+    delivered prefix intact, prefix prefill launched during the recovery,
+    the merged trace naming only w0's lane. (3) once w0 holds in-flight
+    work, it drains on a thread of its own while a third worker joins
+    and warms: w0's slots finish there, its queue finishes on the
+    newcomer (whose compile_stats() stays steady), the epoch rises by one
+    per join and leave. (4) after the
+    in-process engines are released, a FileStore serve_worker subprocess
+    on the card (Llama-3-8B from the same seed) serves 8 requests with
+    the rank gate and drains to exit code 0. Each part logs its wall,
+    tok/s beside a lone engine's, and router TTFT per class."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.resilience.store import FileStore
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine, Fleet,
+                                          Router)
+
+    phase, traffic = "fleet", prefix_traffic(cfg)
+    kw = dict(max_prompt_len=1024, prefix_cache=True,
+              kv_pool_bytes=prefix["kv_pool_bytes"])
+    plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
+
+    # the yardstick: one engine alone on the same traffic
+    lone = build_engine(cfg, params, traffic, shared=SHARED,
+                        tag=f"{phase}/lone", **kw)
+    buckets, widths = warm_args(lone, traffic, SHARED, grow=31)
+    lone_reqs, lone_wall, _, _ = serve(lone, traffic, f"{phase}/lone")
+    undisturbed = [list(r.tokens) for r in lone_reqs]
+    lone_tps = sum(len(t) for t in undisturbed) / lone_wall
+    # part 4's yardstick: its 8 requests alone, from an empty cache
+    empty_prefix_cache(lone)
+    lone8, lone8_wall, _, _ = serve(lone, traffic[:8], f"{phase}/lone-8")
+    lone8_tps = sum(len(r.tokens) for r in lone8) / lone8_wall
+    undisturbed8 = [list(r.tokens) for r in lone8]
+    del lone, lone_reqs, lone8
+    gc.collect()
+    _release()
+
+    def factory(*, metrics, tracer):
+        return ContinuousBatchingEngine(cfg, params, **{
+            **SERVE_KW, **kw, "metrics": metrics, "tracer": tracer})
+
+    warm_kw = {"buckets": buckets, "prefix_widths": widths}
+    out = {}
+    fleet = Fleet(factory, trace=True)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fleet.add_worker(warm=True, warm_kwargs=warm_kw)
+        workers = fleet.live()
+        if any(w.engine.p is not params for w in workers.values()):
+            raise AssertionError(f"{phase}: a worker copied the weights")
+        stats = {wid: w.engine.compile_stats() for wid, w in workers.items()}
+        log(f"[{phase}] two workers joined (epoch {fleet.epoch}), each "
+            f"warmed for buckets {buckets} and prefix widths {widths} in "
+            f"{time.perf_counter() - t0:.2f} s: "
+            f"{len(stats['w0'])} programs each; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+        # (1) undisturbed
+        tag = f"{phase}/undisturbed"
+        router = Router(fleet)
+        _build.reset_launch_counts()
+        reqs, wall = _fleet_serve(tag, router, traffic)
+        launches = _build.launch_counts()
+        m = router.metrics()
+        if m["worker_deaths"] or {wid: w.engine.compile_stats()
+                                  for wid, w in workers.items()} != stats:
+            raise AssertionError(f"{tag}: deaths {m['worker_deaths']}, "
+                                 "or compile_stats grew")
+        for name in ("rms_norm", "flash_attention_fwd",
+                     "paged_decode_attention", "prefix_prefill_attention"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{tag}: {name} was never launched")
+        served = {wid: sum(r.worker_id == wid for r in reqs)
+                  for wid in workers}
+        _log_fleet(tag, router, reqs, wall, lone_tps, undisturbed)
+        log(f"[{tag}] requests a worker {served}; launches "
+            f"{json.dumps({k: n for k, n in launches.items() if n})}")
+        _gate_fleet_ranks(tag, plain, reqs)
+        out["undisturbed"] = {"wall": wall, "launches": launches}
+
+        # (2) a chaos kill of w1 mid-request
+        tag = f"{phase}/kill"
+        router = Router(fleet)
+        target = workers["w1"]
+        t0 = time.perf_counter()
+        try:
+            reqs = _fleet_submit(tag, router, traffic)
+            _wait_inflight(tag, reqs, "w1")
+            chaos.install(f"kill_worker:1@{target.steps + 2}")
+            target.join(60)
+            if not target.killed:
+                raise AssertionError(f"{tag}: the chaos kill did not fire")
+            t_kill = time.perf_counter()
+            with router._lock:
+                kept = {r.req_id: list(r.tokens)
+                        for r in router._dispatched.get("w1", {}).values()}
+            _build.reset_launch_counts()
+            _fleet_finish(tag, router, reqs)
+        finally:
+            chaos.uninstall()
+        recovery = time.perf_counter() - t_kill
+        wall = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        m = router.metrics()
+        recovered = [r for r in reqs if r.kills]
+        broken = [r.req_id for r in recovered
+                  if r.tokens[:len(kept[r.req_id])] != kept[r.req_id]]
+        if (m["worker_deaths"], m["poison_failed"]) != (1, 0) \
+                or m["requeued"] < 1 or "w1" not in fleet.fenced \
+                or fleet.deaths[-1]["reason"] != "chaos_kill" \
+                or broken or not any(kept.values()):
+            raise AssertionError(
+                f"{tag}: metrics {m}, deaths {fleet.deaths}, fenced "
+                f"{fleet.fenced}, broken prefixes {broken}, delivered at "
+                f"the kill {kept}")
+        if launches["prefix_prefill_attention"] <= 0:
+            raise AssertionError(f"{tag}: no prefix prefill during the "
+                                 "recovery")
+        grown = len(workers["w0"].engine.compile_stats()) - len(stats["w0"])
+        with tempfile.TemporaryDirectory() as d:
+            path = fleet.export_merged_trace(os.path.join(d, "fleet.json"))
+            with open(path) as f:
+                lanes = {e["args"]["name"] for e in json.load(f)["traceEvents"]
+                         if e["name"] == "process_name"}
+        if lanes != {"worker:w0"}:
+            raise AssertionError(f"{tag}: the merged trace names {lanes}")
+        _log_fleet(tag, router, reqs, wall, lone_tps, undisturbed)
+        log(f"[{tag}] w1 killed at its loop step {target.steps}: "
+            f"{len(recovered)} requests requeued ({m['requeued']:.0f}), "
+            f"{sum(bool(t) for t in kept.values())} with delivered tokens "
+            f"kept ({sum(len(t) for t in kept.values())} tokens); recovery "
+            f"wall from the kill to the last request {recovery:.3f} s; "
+            f"prefix prefill launches during it "
+            f"{launches['prefix_prefill_attention']}; w0 captured {grown} "
+            f"programs at first use (prefix hits kept from part 1); merged "
+            f"trace lanes {sorted(lanes)}")
+        _gate_fleet_ranks(tag, plain, reqs)
+        out["kill"] = {"wall": wall, "recovery": recovery}
+        # the killed worker unwound with no cleanup: drop its engine
+        del target
+        workers.pop("w1")
+        gc.collect()
+        _release()
+
+        # (3) once w0 holds in-flight work, it drains on a thread of its
+        # own (its slots finish there, its queue goes back to the router)
+        # while a third worker joins and warms, holding the device gate
+        tag = f"{phase}/drain"
+        w0 = workers["w0"]
+        router = Router(fleet)
+        epoch0 = fleet.epoch
+        t0 = time.perf_counter()
+        reqs = _fleet_submit(tag, router, traffic)
+        _wait_inflight(tag, reqs, "w0")
+        with router._lock:
+            assigned = len(router._dispatched.get("w0", {}))
+        drain = threading.Thread(target=fleet.remove_worker, args=("w0",),
+                                 kwargs={"drain": True, "timeout": 300})
+        drain.start()
+        steps0, t_join = w0.steps, time.perf_counter()
+        w2 = fleet.add_worker(warm=True, warm_kwargs=warm_kw)
+        log(f"[{tag}] {w2} joined at epoch {fleet.workers[w2].lease_epoch} "
+            f"while w0 served its slots, warmed in "
+            f"{time.perf_counter() - t_join:.2f} s (w0 took "
+            f"{w0.steps - steps0} loop steps meanwhile)")
+        stats2 = fleet.workers[w2].engine.compile_stats()
+        drain.join(330)
+        _fleet_finish(tag, router, reqs)
+        wall = time.perf_counter() - t0
+        m = router.metrics()
+        bad = [(r.req_id, r.worker_id) for r in reqs
+               if r.requeues and r.worker_id != w2]
+        epochs = (epoch0, fleet.workers[w2].lease_epoch, fleet.epoch)
+        if bad or drain.is_alive() or "w0" in fleet.workers \
+                or "w0" not in fleet.fenced or fleet.epoch != epoch0 + 2 \
+                or epochs[1] not in (epoch0 + 1, epoch0 + 2) \
+                or (assigned > w0.slots and m["drain_requeued"] < 1) \
+                or m["worker_deaths"] \
+                or fleet.workers[w2].engine.compile_stats() != stats2:
+            raise AssertionError(
+                f"{tag}: requeued requests finished off {w2}: {bad}, epochs "
+                f"(before, join, after) {epochs}, w0 held {assigned}, "
+                f"metrics {m}, or the drain hung, or {w2}'s compile_stats "
+                "grew")
+        _log_fleet(tag, router, reqs, wall, lone_tps, undisturbed)
+        log(f"[{tag}] w0 held {assigned} requests at the drain: "
+            f"{sum(r.worker_id == 'w0' for r in reqs)} finished there, "
+            f"{m['drain_requeued']:.0f} requeued to {w2}; epochs (before, "
+            f"join, after) {epochs}")
+        _gate_fleet_ranks(tag, plain, reqs)
+        out["drain"] = {"wall": wall}
+    finally:
+        fleet.stop()
+    # (4) a subprocess worker, after the in-process engines are released
+    del fleet, workers, w0, router
+    gc.collect()
+    _release()
+    tag = f"{phase}/subprocess"
+    root = tempfile.mkdtemp(prefix="fleet-store-")
+    sfleet = Fleet(lambda **_: None, store=FileStore(root), job_id=phase)
+    try:
+        router = Router(sfleet)
+        args = ["--model", "llama3_8b", "--device", "cuda", "--seed",
+                str(SEED), "--slots", str(SERVE_KW["slots"]),
+                "--prompt-bucket", str(SERVE_KW["prompt_bucket"]),
+                "--max-prompt-len", str(kw["max_prompt_len"]),
+                "--max-new", str(SERVE_KW["max_new_tokens"]),
+                "--block-size", str(SERVE_KW["block_size"]),
+                "--steps-per-sync", str(SERVE_KW["steps_per_sync"]),
+                "--kv-pool-bytes", str(kw["kv_pool_bytes"]),
+                "--warm-buckets", *map(str, buckets),
+                "--prefix-widths", *map(str, widths)]
+        t0 = time.perf_counter()
+        wid = sfleet.add_subprocess_worker(
+            extra_args=args, ready_timeout_s=300,
+            env={"PYTHONPATH": os.path.dirname(os.path.abspath(__file__))})
+        ready = time.perf_counter() - t0
+        proc = sfleet.workers[wid].proc
+        reqs, wall = _fleet_serve(tag, router, traffic[:8])
+        sfleet.remove_worker(wid, drain=True, timeout=120)
+        if proc.returncode != 0 or wid in sfleet.workers:
+            raise AssertionError(f"{tag}: the worker exited "
+                                 f"{proc.returncode} after its drain")
+        _log_fleet(tag, router, reqs, wall, lone8_tps, undisturbed8)
+        log(f"[{tag}] serve_worker ready (Llama-3-8B from seed {SEED}, "
+            f"warmed) {ready:.2f} s after launch; drained to exit code 0")
+        _gate_fleet_ranks(tag, plain, reqs)
+        out["subprocess"] = {"wall": wall, "ready": ready}
+    finally:
+        for w in sfleet.workers.values():
+            if w.proc.poll() is None:
+                w.proc.kill()
+                w.proc.wait(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 13-14: the training step
 # ---------------------------------------------------------------------------
 
@@ -3517,7 +3880,8 @@ def main() -> int:
             ("generate", lambda: phase_generate(cfg, params)),
             ("checkpoint", lambda: phase_checkpoint(
                 cfg, params, phases["int8w-int8kv-unified"])),
-            ("observe", lambda: phase_observe(cfg, params))):
+            ("observe", lambda: phase_observe(cfg, params)),
+            ("fleet", lambda: phase_fleet(cfg, params, phases["prefix"]))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")

@@ -84,10 +84,22 @@ define_flag("kv_cache_dtype", "bf16",
             "(also: PADDLE_TPU_KV_CACHE_DTYPE)",
             env_aliases=("PADDLE_TPU_KV_CACHE_DTYPE",))
 define_flag("decode_megakernel", "off",
-            "fusion rung of the paged decode step: 'off' (default, the "
-            "multi-kernel path) | 'attn' | 'full' | 'scan' (the fused "
-            "rungs are not ported yet). Legacy booleans map onto the "
-            "ladder (also: PADDLE_TPU_DECODE_MEGAKERNEL)",
+            "fusion rung of the paged decode step "
+            "(kernels/decode_megakernel.py), a ladder: 'off' (default) "
+            "= the multi-kernel oracle path; 'attn' = rms + QKV + "
+            "rotary + paged attention + in-kernel KV commit + o-proj "
+            "in ONE kernel launch per layer; 'full' = 'attn' plus the "
+            "MLP half (post-attention rms + gate/up + silu*mul + down "
+            "+ residual) fused into the same per-layer launch; 'scan' = "
+            "the whole decode step as ONE kernel launch that walks "
+            "every layer over stacked weights and "
+            "stacked K/V pools. Legacy booleans map onto the ladder "
+            "(False/'0' -> off, True/'1' -> attn). Unsupported shapes "
+            "fall back one rung at a time with a build-time warning. "
+            "Read when a paged program / engine is BUILT (the rung "
+            "joins every program key), so flip it before constructing "
+            "(or warming) an engine "
+            "(also: PADDLE_TPU_DECODE_MEGAKERNEL)",
             env_aliases=("PADDLE_TPU_DECODE_MEGAKERNEL",))
 define_flag("unified_step", "auto",
             "serve mixed prefill+decode through the unified ragged step; "
@@ -121,6 +133,23 @@ define_flag("spec_adaptive", False,
             "it back toward spec_k; the verify window keeps spec_k+1 rows "
             "(also: PADDLE_TPU_SPEC_ADAPTIVE)",
             env_aliases=("PADDLE_TPU_SPEC_ADAPTIVE",))
+
+define_flag("fleet_heartbeat_s", 0.25,
+            "decode-fleet worker heartbeat interval in seconds "
+            "(serving/fleet.py): each worker renews a TTL lease in the "
+            "fleet store every interval; a lease older than 4x the "
+            "interval marks the worker dead and triggers fencing + "
+            "in-flight request recovery "
+            "(also: PADDLE_TPU_FLEET_HEARTBEAT_S)",
+            env_aliases=("PADDLE_TPU_FLEET_HEARTBEAT_S",))
+define_flag("router_max_queue", 64,
+            "SLO router queue-depth bound (serving/router.py): the "
+            "admission cap for LOW-priority requests; normal gets 2x, "
+            "high 4x. Beyond its class cap a request is shed with a "
+            "structured Rejected(reason='overloaded', retry_after_s) "
+            "instead of growing an unbounded backlog "
+            "(also: PADDLE_TPU_ROUTER_MAX_QUEUE)",
+            env_aliases=("PADDLE_TPU_ROUTER_MAX_QUEUE",))
 
 # --- observability (paddle_tpu_torch.observability) ---
 define_flag("trace", "",

@@ -9,21 +9,24 @@ Ported so far:
 - `retry`    — the jittered-exponential-backoff `RetryPolicy` the I/O
   seams share (the streaming checkpoint reader);
 - `watchdog` — wall-clock deadlines around step callables, raising a
-  structured `StepTimeout` with the last-known phase.
+  structured `StepTimeout` with the last-known phase;
+- `store`    — the `DictStore` / `FileStore` key-value stores (TTL,
+  prefix scans, atomic file writes) the decode fleet's leases and its
+  subprocess workers' mailboxes ride on.
 
 Still to port (ROADMAP.md section 1 item 4, with the trainer's hapi
-layer and the fleet): `checkpoint`, `coordination`, `store` and
-`preemption`.
+layer): `checkpoint`, `coordination` and `preemption`.
 
 Integration points: `serving.ContinuousBatchingEngine.run(
-watchdog_timeout=..., requeue_hung=...)` and `models.checkpoint` shard
-reads.
+watchdog_timeout=..., requeue_hung=...)`, `models.checkpoint` shard
+reads, and `serving.fleet` (the `kill_worker` seam and the stores).
 """
 from . import chaos  # noqa: F401
 from .chaos import ChaosError, ChaosHang, ChaosKilled, ChaosMonkey  # noqa: F401
 from .retry import RetryPolicy, RetryStats, retry  # noqa: F401
+from .store import DictStore, FileStore  # noqa: F401
 from .watchdog import StepTimeout, Watchdog  # noqa: F401
 
 __all__ = ["ChaosError", "ChaosHang", "ChaosKilled", "ChaosMonkey",
-           "RetryPolicy", "RetryStats", "StepTimeout", "Watchdog", "chaos",
-           "retry"]
+           "DictStore", "FileStore", "RetryPolicy", "RetryStats",
+           "StepTimeout", "Watchdog", "chaos", "retry"]

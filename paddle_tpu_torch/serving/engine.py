@@ -89,6 +89,11 @@ queue without waiting for a free decode slot, and the decode worker maps
 handed-off requests into slots as they free. The pools are shared, so
 the handoff is block-table bookkeeping; a request whose first token is
 EOS, or whose max_new is 1, retires at the handoff.
+
+**Fleet hooks** (serving/fleet.py): `pause_admission` stops admission
+from `waiting` while in-flight work finishes, `take_waiting` hands the
+unadmitted queue back, `export_progress` snapshots every owned request's
+tokens, and `drain` combines them for an elastic scale-in.
 """
 from __future__ import annotations
 
@@ -490,11 +495,12 @@ class ContinuousBatchingEngine:
         self.decode_s = 0.0      # host wall time of decode chunks and
         #                          verify steps, synced
         self.prefill_s = 0.0     # host wall time of prefill calls, synced
-        self.sync_wait_s = 0.0   # host time blocked on program readbacks
+        self.sync_wait_s = 0.0   # host time blocked on decode readbacks
         self.blocked_syncs = 0   # readbacks that waited > stall threshold
         self.hung_retired = 0    # slots retired by the watchdog
         self.hung_requeued = 0   # hung slots requeued (requeue_hung=)
         self._requeue_hung = False  # armed per run()
+        self._admission_paused = False  # pause_admission() / drain()
         self._watchdog = None    # armed by run(watchdog_timeout=...)
         self._step_epoch = 0     # bumped on timeout; abandoned steps abort
         # observability: None defers to the flag-armed globals, False
@@ -604,8 +610,12 @@ class ContinuousBatchingEngine:
 
     def metrics(self) -> dict:
         """Scheduling counters, prefix-cache effectiveness, sync-wait
-        telemetry, compile stats and each kernel's launch count (since the
-        last ``kernels.reset_launch_counts()``)."""
+        telemetry, pool occupancy, compile stats and each kernel's launch
+        count (since the last ``kernels.reset_launch_counts()``). Pure host
+        bookkeeping: safe to call mid-serve from another thread."""
+        mgr = self.mgr
+        # pages not reclaimable right now (live, pinned or the scratch page)
+        in_use = mgr.max_pages - mgr.n_available
         return {
             "requests_finished": len(self.finished),
             "requests_waiting": len(self.waiting),
@@ -637,13 +647,20 @@ class ContinuousBatchingEngine:
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "prompt_tokens": self.prompt_tokens,
             "prefix_inserts": self.prefix_inserts,
-            "prefix_evictions": self.mgr.prefix_evictions,
-            "n_available": self.mgr.n_available,
-            "n_cached": self.mgr.n_cached,
+            "prefix_evictions": mgr.prefix_evictions,
+            "n_available": mgr.n_available,
+            "n_cached": mgr.n_cached,
+            "pages_in_use": in_use,
+            "pool_occupancy": in_use / max(mgr.max_pages, 1),
             "kv_cache_dtype": self.kv_dtype,
             "decode_megakernel": self.use_megakernel,
             "megakernel_rung": self.megakernel_rung,
-            "kv_pool_bytes": self.mgr.kv_pool_bytes(),
+            # one device until ROADMAP.md section 1 item 5 (kv-head and
+            # page-axis sharding, int8 collectives)
+            "serving_mp": 1,
+            "serving_cp": 1,
+            "quantized_collectives": False,
+            "kv_pool_bytes": mgr.kv_pool_bytes(),
             "n_cacheable_pages": self.n_cacheable_pages,
             "decode_s": self.decode_s,
             "prefill_s": self.prefill_s,
@@ -699,6 +716,67 @@ class ContinuousBatchingEngine:
         if mt is not None:
             mt.counter("requests_enqueued").inc()
         return req
+
+    # ---- fleet hooks: drain and progress export -------------------------
+
+    def pause_admission(self, paused: bool = True) -> None:
+        """Stop (or resume) pulling from `waiting`. In-flight slots, the
+        streaming unified prefill and parked handoffs run to completion;
+        only NEW admissions stop. The building block of an elastic drain:
+        a worker being scaled in finishes what it owns while its queued
+        requests move elsewhere."""
+        self._admission_paused = bool(paused)
+
+    def take_waiting(self) -> list:
+        """Remove and return every request not yet admitted. They own no
+        slot and no pages (admission is where reservations happen), so
+        they re-enqueue on any engine as if freshly added."""
+        taken, self.waiting = self.waiting, []
+        return taken
+
+    def export_progress(self) -> list:
+        """A progress row for every request the engine still owns (state
+        ``waiting`` / ``prefilling`` / ``handoff`` / ``active``): what a
+        fleet streams so that a worker death keeps the tokens already
+        delivered. Host bookkeeping only (safe from another thread); the
+        lists are copies."""
+        out = []
+
+        def row(req, state):
+            out.append({
+                "req_id": req.req_id, "state": state,
+                "prompt": list(req.prompt), "tokens": list(req.tokens),
+                "max_new": req.max_new,
+                "remaining": max(req.max_new - len(req.tokens), 0),
+                "priority": req.priority, "deadline_s": req.deadline_s,
+            })
+
+        for req in self.waiting:
+            row(req, "waiting")
+        if self._prefilling is not None:
+            row(self._prefilling["req"], "prefilling")
+        for req in self._handoff:
+            row(req, "handoff")
+        for slot in self._slots:
+            if slot.req is not None:
+                row(slot.req, "active")
+        return out
+
+    def drain(self, max_iters: int = 100000) -> list:
+        """Graceful drain: pause admission, run the in-flight work (live
+        slots, the streaming prefill, parked handoffs) to completion and
+        return the untouched `waiting` requests for re-admission
+        elsewhere. Admission stays paused: `pause_admission(False)` serves
+        again."""
+        self.pause_admission(True)
+        while (self.n_active > 0 or self._prefilling is not None
+               or self._handoff) and max_iters:
+            self.step()
+            max_iters -= 1
+        if self.n_active > 0 or self._prefilling is not None \
+                or self._handoff:
+            raise RuntimeError("engine did not drain within max_iters")
+        return self.take_waiting()
 
     # ---- device programs ------------------------------------------------
 
@@ -1141,8 +1219,8 @@ class ContinuousBatchingEngine:
 
     def _read(self, hs) -> list:
         """Wait for host set `hs`'s copies and return its outputs as numpy
-        arrays. The caller times the wait and folds it into sync_wait_s /
-        blocked_syncs under the commit lock."""
+        arrays. A decode or verify caller times the wait and folds it into
+        sync_wait_s / blocked_syncs under the commit lock."""
         if hs.event is not None:
             hs.event.synchronize()
         return [t.numpy() for t in hs.outputs]
@@ -1206,6 +1284,8 @@ class ContinuousBatchingEngine:
         prefill_batch -- prefills in ONE call, padded to a power of two
         with rows aimed at the scratch page. After the call, every freshly
         computed full prompt block enters the prefix cache."""
+        if self._admission_paused:
+            return
         bs = self.block_size
         while self.waiting:
             self._check_owner(token)
@@ -1299,9 +1379,7 @@ class ContinuousBatchingEngine:
                     _HostSets.stage_out(hs, prog())
             # the readback waits OUTSIDE the lock: a hung device wait must
             # never hold the lock the timeout path needs
-            t0 = time.perf_counter()
             (firsts,) = self._read(hs)
-            wait = time.perf_counter() - t0
             if tr is not None:
                 # dispatch + readback as ONE span: the prefill program's
                 # host-visible cost for this admission batch
@@ -1322,9 +1400,10 @@ class ContinuousBatchingEngine:
             with self._commit_lock:
                 self._check_owner(token)
                 # prefill_s: staging to readback (a first-use capture
-                # excluded)
+                # excluded). The readback wait is not a sync wait:
+                # sync_wait_s / blocked_syncs count decode and verify
+                # readbacks only, as in the JAX engine
                 self.prefill_s += time.perf_counter() - t_stage
-                self._count_wait(wait)
                 del self.waiting[:len(batch)]
                 now = time.perf_counter()
                 for row, req in enumerate(batch):
@@ -1636,6 +1715,8 @@ class ContinuousBatchingEngine:
         pages fit, and a decode slot will exist at completion. Its whole
         reservation (cached prefix pinned + private pages) commits here;
         the prompt then streams through `token_budget` windows."""
+        if self._admission_paused:
+            return
         if self._prefilling is not None or not self.waiting:
             return
         req = self.waiting[0]

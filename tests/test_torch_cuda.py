@@ -41,6 +41,18 @@ The split path's prefill programs are held the same way (cold and
 prefix, both pool dtypes, the scan stride), and so is each layout of
 ``jit_generate``'s program (contiguous, weight-only, quant-only, paged
 over bf16 and int8 pools, the full megakernel), with exact launches.
+
+The decode fleet: an engine's programs replayed from a thread that did
+not capture them (as a fleet worker's serve loop runs them) give the
+building thread's streams, launches and pool pages; a two-worker fleet
+over one params dict, with one-request prefills, serves the lone
+engine's streams with compile_stats() steady, and so do first-use
+captures and a warm()ing joiner beside the other worker's replays (the
+card's device gate); a chaos kill's recovered
+requests keep their delivered tokens and pass a plain forward's rank
+gate (0.5 logit: the re-prefill rounds differently from the decode steps
+that made those tokens); a FileStore serve_worker on the card serves the
+in-process engine's streams, and the fleet smoke CLI runs under a kill.
 """
 import numpy as np
 import pytest
@@ -1878,3 +1890,237 @@ def test_watchdog_on_a_graphed_engine(dev, db):
     assert [r.tokens for r in reqs[1:]] == want[1:]
     assert _build.launch_counts() == launches
     assert all(torch.equal(a, b) for a, b in zip(pools, eng.kcs + eng.vcs))
+
+
+# ---------------------------------------------------------------------------
+# the decode fleet: worker threads, a chaos kill, a subprocess worker
+# ---------------------------------------------------------------------------
+
+# one-request prefills: a stream's math then does not depend on which
+# requests share its worker (the decode chunk's rows are independent)
+FLEET_KW = dict(prefill_batch=1, prefix_cache=False)
+
+
+def _fleet(dev, cfg, params, n_workers, **kw):
+    """A fleet of `n_workers` in-process workers over `_graph_engine`'s
+    geometry (one shared params dict), each warmed for the test traffic
+    before it joins, and its router."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine, Fleet, \
+        Router
+
+    def factory(*, metrics, tracer):
+        return ContinuousBatchingEngine(cfg, params, **{**dict(
+            slots=4, prompt_bucket=64, max_prompt_len=192,
+            max_new_tokens=16, block_size=64, steps_per_sync=4,
+            dtype=torch.bfloat16, device=dev, metrics=metrics,
+            tracer=tracer), **FLEET_KW, **kw})
+
+    fleet = Fleet(factory, heartbeat_s=0.5)
+    router = Router(fleet)
+    for _ in range(n_workers):
+        fleet.add_worker(warm=True, warm_kwargs=WARM)
+    return fleet, router
+
+
+def _gate_ranks(cfg, params, reqs, dev, limit=0.5):
+    """Every served token within `limit` logit of the teacher-forced
+    bf16 plain forward's argmax."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
+    for r in reqs:
+        ids = torch.tensor([r.prompt + r.tokens[:-1]], device=dev)
+        with torch.no_grad():
+            rows = plain(ids)[0, len(r.prompt) - 1:].float()
+        gen = torch.tensor(r.tokens, device=dev)
+        gap = rows.max(-1).values - rows.gather(1, gen[:, None])[:, 0]
+        assert float(gap.max()) <= limit, (r.req_id, float(gap.max()))
+
+
+def test_fleet_worker_threads_replay_the_building_threads_programs(dev):
+    """An engine's programs replayed from a thread that did not capture
+    them (under the building thread's device, stream and grad mode, as a
+    fleet worker runs) give the building thread's streams, launches and pool
+    pages; a two-worker fleet over one params dict serves the lone
+    engine's streams with compile_stats() steady."""
+    import threading
+
+    cfg, params = _graph_model(dev, "dense")
+    prompts = _graph_prompts(cfg.vocab_size)
+    runs = []
+    for threaded in (False, True):
+        eng = _graph_engine(dev, cfg, params, **FLEET_KW)
+        stats = eng.compile_stats()
+        _build.reset_launch_counts()
+        if threaded:
+            reqs = [eng.add_request(p, max_new=3 + 4 * (i % 4))
+                    for i, p in enumerate(prompts)]
+            t = threading.Thread(target=eng._on_this_thread_state(eng.run))
+            t.start()
+            t.join(120)
+            assert not t.is_alive()
+            torch.cuda.synchronize()
+            toks = [list(r.tokens) for r in reqs]
+        else:
+            toks = _graph_serve(eng, prompts)
+        runs.append((toks, _build.launch_counts(), _pool_pages(eng)))
+        assert eng.compile_stats() == stats
+    (toks, n, pages), (t_toks, t_n, t_pages) = runs
+    assert t_toks == toks and t_n == n
+    assert all(torch.equal(a, b) for a, b in zip(pages, t_pages))
+
+    fleet, router = _fleet(dev, cfg, params, 2)
+    try:
+        workers = fleet.live()
+        assert all(w.engine.p is params for w in workers.values())
+        stats = {wid: w.engine.compile_stats() for wid, w in workers.items()}
+        reqs = [router.submit(p, 3 + 4 * (i % 4))
+                for i, p in enumerate(prompts)]
+        router.join(timeout=120)
+    finally:
+        fleet.stop()
+    assert [r.tokens for r in reqs] == toks
+    assert {r.worker_id for r in reqs} == {"w0", "w1"}
+    assert {wid: w.engine.compile_stats()
+            for wid, w in workers.items()} == stats
+
+
+def test_fleet_chaos_kill_recovers_on_the_card(dev):
+    """kill_worker on one of two graphed workers mid-request: one death,
+    the victim's requests requeued with their delivered tokens kept and
+    finished on the survivor (re-prefilled, so within the rank gate of a
+    plain forward), the others' streams the lone engine's."""
+    import time
+
+    from paddle_tpu_torch.resilience import chaos
+
+    cfg, params = _graph_model(dev, "dense")
+    prompts = _graph_prompts(cfg.vocab_size)
+    # one token a loop step and 64 of them: a step of this model takes a
+    # few ms, so the kill one step after w1's first token lands while its
+    # requests are in flight
+    kw = dict(max_new_tokens=64, steps_per_sync=1)
+    eng = _graph_engine(dev, cfg, params, **FLEET_KW, **kw)
+    reqs = [eng.add_request(p, max_new=64) for p in prompts]
+    eng.run()
+    want = [list(r.tokens) for r in reqs]
+    fleet, router = _fleet(dev, cfg, params, 2, **kw)
+    try:
+        reqs = [router.submit(p, 64) for p in prompts]
+        target = fleet.workers["w1"]
+        deadline = time.monotonic() + 60
+        while not any(r.worker_id == "w1" and r.tokens and not r.done
+                      for r in reqs):
+            assert time.monotonic() < deadline, "no progress on w1"
+            time.sleep(0.002)
+        chaos.install(f"kill_worker:1@{target.steps + 1}")
+        target.join(60)
+        assert target.killed
+        with router._lock:
+            kept = {r.req_id: list(r.tokens)
+                    for r in router._dispatched.get("w1", {}).values()}
+        router.join(timeout=120)
+    finally:
+        chaos.uninstall()
+        fleet.stop()
+    m = router.metrics()
+    assert (m["worker_deaths"], m["poison_failed"]) == (1.0, 0.0)
+    assert m["requeued"] >= 1 and "w1" in fleet.fenced
+    assert fleet.deaths[0]["reason"] == "chaos_kill"
+    assert any(kept.values())
+    for r, w in zip(reqs, want):
+        assert r.state == "finished" and len(r.tokens) == 64
+        if r.kills:
+            assert r.tokens[:len(kept[r.req_id])] == kept[r.req_id]
+        else:
+            assert r.tokens == w
+    _gate_ranks(cfg, params, [r for r in reqs if r.kills], dev)
+
+
+def test_fleet_captures_beside_replays_keep_the_streams(dev):
+    """Captures while another worker serves: w0 is warmed for the 64-token
+    bucket only, so its first 128- and 192-token prompts capture their
+    prefill graphs at first use, and w1 joins with warm=True once w0
+    holds in-flight work. Both hold the card's device gate, so every
+    stream is the lone engine's (one-request prefills)."""
+    import time
+
+    cfg, params = _graph_model(dev, "dense")
+    prompts = _graph_prompts(cfg.vocab_size)
+    kw = dict(max_new_tokens=64, steps_per_sync=1)
+    eng = _graph_engine(dev, cfg, params, **FLEET_KW, **kw)
+    reqs = [eng.add_request(p, max_new=64) for p in prompts]
+    eng.run()
+    want = [list(r.tokens) for r in reqs]
+    fleet, router = _fleet(dev, cfg, params, 0, **kw)
+    try:
+        w0 = fleet.workers[fleet.add_worker(
+            warm=True, warm_kwargs=dict(WARM, buckets=[64]))]
+        stats = w0.engine.compile_stats()
+        reqs = [router.submit(p, 64) for p in prompts]
+        deadline = time.monotonic() + 60
+        while not any(r.tokens and not r.done for r in reqs):
+            assert time.monotonic() < deadline, "no progress on w0"
+            time.sleep(0.002)
+        w1 = fleet.add_worker(warm=True, warm_kwargs=WARM)
+        router.join(timeout=120)
+        torch.cuda.synchronize()
+    finally:
+        fleet.stop()
+    assert len(w0.engine.compile_stats()) > len(stats)
+    assert fleet.workers[w1].gate is w0.gate
+    assert [r.tokens for r in reqs] == want
+
+
+def test_subprocess_serve_worker_on_the_card(dev, tmp_path):
+    """A FileStore serve_worker on --device cuda (weights from the same
+    seed, the same geometry) serves every request within the rank gate
+    of a plain forward over the same weights and drains to exit code 0;
+    the fleet smoke CLI runs on the card under a kill_worker fault."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from paddle_tpu_torch.resilience.store import FileStore
+    from paddle_tpu_torch.serving import Fleet, Router
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {"PYTHONPATH": repo}
+    cfg, params = _graph_model(dev, "dense")
+    prompts = _graph_prompts(cfg.vocab_size)
+    over = dict(hidden_size=256, num_attention_heads=2,
+                num_key_value_heads=1, intermediate_size=512,
+                max_position_embeddings=512)
+    args = ["--model", "tiny", "--config", json.dumps(over), "--device",
+            "cuda", "--seed", "0", "--slots", "4", "--prompt-bucket", "64",
+            "--max-prompt-len", "192", "--max-new", "16", "--block-size",
+            "64", "--steps-per-sync", "4", "--warm-buckets", "64", "128",
+            "192", "--prefix-widths", "1"]
+    fleet = Fleet(lambda **kw: None, store=FileStore(str(tmp_path)),
+                  job_id="card", heartbeat_s=0.5)
+    router = Router(fleet)
+    wid = fleet.add_subprocess_worker(extra_args=args, env=env,
+                                      ready_timeout_s=300)
+    w = fleet.workers[wid]
+    try:
+        reqs = [router.submit(p, 3 + 4 * (i % 4))
+                for i, p in enumerate(prompts)]
+        router.join(timeout=120)
+        assert [len(r.tokens) for r in reqs] == \
+            [3 + 4 * (i % 4) for i in range(len(prompts))]
+        _gate_ranks(cfg, params, reqs, dev)
+        fleet.remove_worker(wid, drain=True, timeout=120)
+        assert w.proc.returncode == 0
+    finally:
+        if w.proc.poll() is None:
+            w.proc.kill()
+            w.proc.wait(timeout=60)
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.fleet",
+         "--workers", "2", "--requests", "6"], capture_output=True,
+        text=True, cwd=repo, timeout=600,
+        env={**os.environ, **env, "PADDLE_TPU_CHAOS": "kill_worker:1@6"})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert row["ok"] and row["worker_deaths"] == 1.0

@@ -354,11 +354,20 @@ def test_compile_stats_and_sync_wait(model, unified):
     """compile_stats() counts each program's captures: none before
     warm(), one after (on the split path also one per prefill program
     warm() makes for its default bucket, max_prompt_len: batches 1 and 2,
-    cold and at the one prefix width), unchanged by traffic;
-    sync_wait_s / blocked_syncs count every readback (a negative stall
-    threshold marks each one blocked)."""
-    _, _, _, cfg, p = model
-    eng = _small(cfg, p, unified_step=unified)
+    cold and at the one prefix width), unchanged by traffic.
+    sync_wait_s / blocked_syncs take the JAX engine's rule: they count
+    decode and verify readbacks only, never a prefill's first-token
+    readback. With a negative stall threshold every counted readback is
+    blocked, so the port's blocked_syncs must equal the JAX engine's on
+    the same traffic, and the metrics registry's blocked_syncs counter
+    must agree with metrics()."""
+    from paddle_tpu_torch.observability import MetricsRegistry
+
+    jcfg, _, raw, cfg, p = model
+    kw = dict(slots=2, prompt_bucket=8, max_prompt_len=8, max_new_tokens=5,
+              block_size=8, steps_per_sync=2, unified_step=unified)
+    reg = MetricsRegistry()
+    eng = _port(cfg, p, metrics=reg, **kw)
     want = {"decode": 1, "unified": 1} if unified else {"decode": 1}
     assert eng.compile_stats() == {k: 0 for k in want}
     if not unified:
@@ -368,18 +377,24 @@ def test_compile_stats_and_sync_wait(model, unified):
     eng.warm()
     eng.warm()
     assert eng.compile_stats() == want
-    eng.stall_threshold_s = -1.0
-    for pr in ([5, 6, 7], [8, 9, 10, 11], [3, 4]):
-        eng.add_request(pr)
+    jeng = JaxEngine(jcfg, raw, dtype=jnp.float32, double_buffer=True, **kw)
+    prompts = ([5, 6, 7], [8, 9, 10, 11], [3, 4])
+    for e in (eng, jeng):
+        e.stall_threshold_s = -1.0
+        for pr in prompts:
+            e.add_request(pr)
     eng.run(max_iters=50, double_buffer=True)
-    m = eng.metrics()
+    jeng.run(max_iters=50)
+    m, jm = eng.metrics(), jeng.metrics()
     assert m["compile_stats"] == want
     assert m["sync_wait_s"] == eng.sync_wait_s >= 0.0
-    # one readback per committed chunk, plus one per unified window or
-    # split prefill call (its first tokens come back the same way)
-    reads = eng.prefill_chunks if unified else eng.prefill_calls
-    assert m["blocked_syncs"] == eng.blocked_syncs >= reads + 1
-    assert m["blocked_syncs"] <= m["device_steps"] + reads
+    assert (m["sync_wait_s"] > 0.0) == (jm["sync_wait_s"] > 0.0)
+    assert m["blocked_syncs"] == jm["blocked_syncs"] == eng.blocked_syncs
+    assert m["blocked_syncs"] == reg.counter("blocked_syncs").value
+    # one counted readback per committed chunk (a mixed step's window and
+    # decode lane are one), none for the prefills
+    assert m["device_steps"] == jm["device_steps"]
+    assert 1 <= m["blocked_syncs"] <= m["device_steps"]
 
 
 class _FakeGraph:

@@ -11,7 +11,9 @@ test asserts that margin at every divergence it accepts.
 The scheduling cases of tests/test_serving_engine.py (page recycling,
 EOS retirement, mid-stream admission, batched admission) are mirrored
 against the port's own solo greedy decode, and every option the port
-does not serve yet must raise NotImplementedError.
+does not serve yet must raise NotImplementedError. Every metrics() key
+both engines report holds the JAX engine's value on the same traffic
+(the exceptions are named at the test).
 """
 import dataclasses
 
@@ -233,3 +235,66 @@ def test_sampled_engine_with_top_k_one_is_greedy():
 
     assert serve(do_sample=True, top_k=1, temperature=0.8, seed=3) \
         == serve()
+
+
+# metrics() keys the port does not hold equal to the JAX engine's: the
+# host-time total of sync waits, and what waits for ROADMAP.md section 1
+# item 6 (the audits, the tuned-config artifact, the compile-cache
+# statistics)
+METRICS_NOT_COMPARED = {"sync_wait_s"}
+# mid-serve only: the port captures every step program at its first
+# dispatch, the JAX engine compiles each at its first call
+METRICS_NOT_COMPARED_MID_SERVE = {"compile_stats"}
+METRICS_ITEM_6 = {"memory_audit", "comms_audit", "roofline_audit",
+                  "tuned_config", "warm_compile_stats"}
+# reported by the port only: host timings and the kernel launch counts
+METRICS_PORT_ONLY = {"decode_s", "prefill_s", "kernel_launches"}
+
+
+@pytest.mark.parametrize("unified", [False, True], ids=["split", "unified"])
+def test_metrics_keys_and_values_match_jax(unified):
+    """Both engines serve the same traffic (the prefix cache on, a pool
+    small enough to evict): every metrics() key both report holds the
+    same value, pool occupancy (`pages_in_use`, `pool_occupancy`) and the
+    parallelism fields (`serving_mp` 1, `serving_cp` 1,
+    `quantized_collectives` False) included, mid-serve and drained. The
+    JAX engine's keys the port lacks are exactly the item-6 ones."""
+    jcfg, _, raw, cfg, p = _setup()
+    rng = np.random.default_rng(5)
+    shared = rng.integers(1, cfg.vocab_size, (8,)).tolist()
+    prompts = [shared + rng.integers(1, cfg.vocab_size, (n,)).tolist()
+               for n in (3, 6, 2, 7)] \
+        + [rng.integers(1, cfg.vocab_size, (n,)).tolist()
+           for n in (5, 9, 12, 16, 10)]
+    kw = dict(slots=2, prompt_bucket=8, max_prompt_len=16,
+              max_new_tokens=5, block_size=8, steps_per_sync=2,
+              max_pages=7, unified_step=unified)
+    jeng = JaxEngine(jcfg, raw, dtype=jnp.float32, **kw)
+    teng = _engine(cfg, p, **kw)
+    for e in (jeng, teng):
+        # every counted readback blocked: blocked_syncs is a count
+        e.stall_threshold_s = -1.0
+        for pr in prompts:
+            e.add_request(pr)
+
+    def compare(skip=frozenset()):
+        mj, mt = jeng.metrics(), teng.metrics()
+        assert set(mj) - set(mt) == METRICS_ITEM_6
+        assert set(mt) - set(mj) == METRICS_PORT_ONLY
+        both = set(mj) & set(mt) - METRICS_NOT_COMPARED - skip
+        assert {k: mt[k] for k in both} == {k: mj[k] for k in both}
+        return mt
+
+    for _ in range(3):
+        jeng.step()
+        teng.step()
+        mid = compare(METRICS_NOT_COMPARED_MID_SERVE)
+    assert mid["pages_in_use"] > 1 and 0 < mid["pool_occupancy"] < 1
+    jeng.run(max_iters=200)
+    teng.run(max_iters=200)
+    end = compare()
+    assert (end["serving_mp"], end["serving_cp"],
+            end["quantized_collectives"]) == (1, 1, False)
+    assert end["prefix_evictions"] > 0 and end["blocked_syncs"] > 0
+    # drained: the scratch page is the one page not reclaimable
+    assert end["pages_in_use"] == 1

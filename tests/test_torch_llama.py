@@ -203,6 +203,45 @@ def test_flags_mirror_the_jax_registry():
         port_flags.set_flags({"no_such_flag": 1})
 
 
+def _flag_help(path, name):
+    """The help text a `define_flag(name, ...)` call in `path` registers
+    (neither registry keeps it at run time)."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) \
+                and getattr(node.func, "id", None) == "define_flag" \
+                and ast.literal_eval(node.args[0]) == name:
+            return ast.literal_eval(node.args[2])
+    raise KeyError(name)
+
+
+def test_decode_megakernel_flag_help_is_the_jax_help():
+    """FLAGS_decode_megakernel's help is the JAX registry's, with the
+    Pallas wording in kernel terms (the stale "not ported yet" is gone),
+    and the fleet flags carry the JAX names, defaults and help."""
+    import paddle_tpu.framework.flags as jf
+    import paddle_tpu_torch.framework.flags as pf
+
+    jax_help = _flag_help(jf.__file__, "decode_megakernel")
+    port_help = _flag_help(pf.__file__, "decode_megakernel")
+    for pallas, kernel in (
+            ("in ONE Pallas call per layer", "in ONE kernel launch per layer"),
+            ("into the same per-layer call", "into the same per-layer launch"),
+            ("as ONE Pallas call whose outermost grid axis walks every "
+             "layer", "as ONE kernel launch that walks every layer")):
+        assert pallas in jax_help
+        jax_help = jax_help.replace(pallas, kernel)
+    assert port_help == jax_help
+    assert "not ported" not in port_help and "Pallas" not in port_help
+    for name in ("fleet_heartbeat_s", "router_max_queue"):
+        assert _flag_help(pf.__file__, name) == _flag_help(jf.__file__, name)
+    assert port_flags.get_flags(["fleet_heartbeat_s", "router_max_queue"]) \
+        == jf.get_flags(["fleet_heartbeat_s", "router_max_queue"])
+
+
 def test_flag_env_alias(monkeypatch):
     monkeypatch.setenv("PADDLE_TPU_TEST_ALIAS", "on")
     assert port_flags.define_flag("test_alias_flag", False,
@@ -229,7 +268,11 @@ def test_resolve_decode_megakernel_matches_jax(value, expected):
 
 def test_port_imports_neither_jax_nor_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.models, paddle_tpu_torch.kernels; "
+            "paddle_tpu_torch.models, paddle_tpu_torch.kernels, "
+            "paddle_tpu_torch.serving.router, "
+            "paddle_tpu_torch.serving.fleet, "
+            "paddle_tpu_torch.resilience.store, "
+            "paddle_tpu_torch.parallel.launch.serve_worker; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')]; print(bad); "
