@@ -99,11 +99,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 14. train-swiglu: Llama-3-8B's widths cut to 2 layers with
    fused_swiglu=True and recompute on, batch 4 x 2048, three steps; the
    SwiGLU kernels forward (twice, with recompute) and backward.
+23. hapi, the trainer API over the resilience runtime: hapi.Model.fit on
+   phase 13's Llama-1B (full depth, bf16, AdamW) over bench_batch's
+   batch eight times, with async checkpoint generations at steps 4 and
+   8 (8.4 GB each), then evaluate (2 batches) and predict (1 x 2048);
+   exact launches per train step and per eval / predict batch, falling
+   losses, both generations verified, a fresh model and optimizer
+   resumed byte-identical, and one more step on each equal within 1e-3.
+   Then chaos preempt_at:5 on 2 layers (an emergency generation, a
+   resume to step 16 within 1e-3 of an uninterrupted oracle), and a
+   2-rank GangSupervisor gang on the card with preempt_host:1@5 on its
+   first attempt (one relaunch, one agreed generation, each rank's
+   losses within 1e-3 of its in-process oracle).
 Then the kernel table as one JSON line (each kernel's launches from the
 phase that drives it), the card's name and power limit, and the closing
 {"ok": true, ...} line.
 
-Phases 15-22 run after phase 12 and before training. Every phase resets
+Phases 15-22 run after phase 12 and before training; phase 23 runs after
+phase 14. Every phase resets
 the kernel launch counters just before it serves and reads them just
 after: a bf16 phase must launch no int8 kernel, an int8
 phase no bf16 paged-attention kernel.
@@ -114,6 +127,7 @@ the paddle_tpu_torch package is not beside this script.
 from __future__ import annotations
 
 import gc
+import glob
 import itertools
 import json
 import math
@@ -3835,6 +3849,451 @@ def phase_train_swiglu():
             "profile": (wall_ms, busy), "grad_ratio": worst}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the hapi trainer over the resilience runtime
+# ---------------------------------------------------------------------------
+
+HAPI_PER_TRAIN_STEP = {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                       "flash_attention_bwd_dkv": 1,
+                       "flash_attention_bwd_delta": 1, "rms_norm": 2}
+HAPI_PER_EVAL_BATCH = {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 0,
+                       "flash_attention_bwd_dkv": 0,
+                       "flash_attention_bwd_delta": 0, "rms_norm": 2}
+
+
+def hapi_config(layers: int = 16):
+    """Phase 13's Llama-1B (kv heads 4, bf16, no recompute), `layers`
+    deep."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig.llama_1b(dtype="bfloat16", recompute=False,
+                                num_key_value_heads=4,
+                                max_position_embeddings=2048,
+                                num_hidden_layers=layers)
+
+
+def hapi_model(cfg, seed: int):
+    """hapi.Model over a Llama of random trainable weights drawn on the
+    card from `seed`, prepared with bench's AdamW (1e-4, weight decay
+    0.01, bench_decay over the structural names) and the criterion."""
+    from paddle_tpu_torch import hapi
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion,
+                                         init_train_params)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    net = LlamaForCausalLM(cfg).load_params(
+        init_train_params(cfg, seed=seed, device="cuda"), trainable=True)
+    model = hapi.Model(net)
+    model.prepare(optimizer=AdamW(1e-4, weight_decay=0.01,
+                                  apply_decay_param_fun=bench_decay,
+                                  parameters=net.named_parameters()),
+                  loss=LlamaPretrainingCriterion(cfg))
+    return model
+
+
+def hapi_loader(x, y, batch: int):
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+
+    return DataLoader(TensorDataset([x, y]), batch_size=batch,
+                      shuffle=False)
+
+
+def hapi_tokens(cfg, rows: int, seq: int, seed: int):
+    """`rows` x `seq` token ids and labels on the host, from `seed`."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              (rows, seq)))
+                 for _ in range(2))
+
+
+def loss_tape():
+    """A callback recording every train step's loss."""
+    from paddle_tpu_torch.hapi import Callback
+
+    class Tape(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+            self.t_end = None
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"][0]))
+
+        def on_train_end(self, logs=None):
+            self.t_end = time.perf_counter()
+
+    return Tape()
+
+
+def _gate_launches(phase: str, launches, per: dict, n: int, L: int) -> None:
+    for name, k in per.items():
+        _gate_exact(phase, launches, name, k * L * n + (
+            n if name == "rms_norm" and k else 0))
+
+
+def same_state(a, b) -> bool:
+    """Parameters and optimizer moments of two hapi Models byte-equal."""
+    oa, ob = a._optimizer, b._optimizer
+    if oa._global_step != ob._global_step:
+        return False
+    for (na, pa), (nb, pb) in zip(a.network.named_parameters(),
+                                  b.network.named_parameters()):
+        if na != nb or not torch.equal(pa, pb):
+            return False
+        sa, sb = oa._accumulators[id(pa)], ob._accumulators[id(pb)]
+        if sorted(sa) != sorted(sb) or not all(
+                torch.equal(sa[k], sb[k]) for k in sa):
+            return False
+    return True
+
+
+def hapi_main_path(phase: str, step_ms_13: float):
+    """Part 1: fit on Llama-1B at full width and depth (8 steps over
+    bench_batch's batch, async generations at steps 4 and 8), evaluate
+    on 2 batches, predict on 1 x 2048, then resume a fresh model and
+    optimizer from the newest generation."""
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.observability import trace as obs_trace
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    cfg = hapi_config()
+    L = cfg.num_hidden_layers
+    model = hapi_model(cfg, SEED)
+    x, y = (t.cpu() for t in bench_batch(cfg, 4, 2048))
+    xs, ys = x.repeat(8, 1), y.repeat(8, 1)
+    loader = hapi_loader(xs, ys, 4)
+    root = tempfile.mkdtemp(prefix="hapi-")
+    out = {}
+    try:
+        out["free_disk_gb"] = shutil.disk_usage(root).free / 1e9
+        tape = loss_tape()
+        tr = obs_trace.enable()
+        _build.reset_launch_counts()
+        try:
+            model.fit(loader, epochs=1, checkpoint_dir=root,
+                      checkpoint_freq=4, verbose=0, callbacks=[tape])
+            # fit's finally waits for the last background write
+            wait_ms = 1e3 * (time.perf_counter() - tape.t_end)
+        finally:
+            obs_trace.disable()
+        launches = _build.launch_counts()
+        _gate_launches(phase, launches, HAPI_PER_TRAIN_STEP, 8, L)
+        losses = tape.losses
+        if len(losses) != 8 or not all(math.isfinite(v) for v in losses) \
+                or losses[-1] >= losses[0]:
+            raise AssertionError(f"{phase}: fit losses {losses}")
+        spans = {}
+        for ev in tr.events():
+            if ev.get("ph") == "X":
+                spans.setdefault(ev["name"], []).append(ev)
+        step_ms = [ev["dur"] / 1e3 for ev in spans["fit.step"]]
+        saves = [ev["dur"] / 1e3 for ev in spans["fit.checkpoint_save"]]
+        writes = [ev["dur"] / 1e3 for ev in spans["ckpt.write"]]
+        nbytes = spans["ckpt.write"][-1]["args"]["nbytes"]
+        # steps 2-4 run with no write in flight, 5-8 beside generation
+        # 1's background write
+        mean_ms = sum(step_ms[1:4]) / 3
+        busy_ms = sum(step_ms[4:]) / len(step_ms[4:])
+        log(f"[{phase}] fit: losses {[round(v, 4) for v in losses]}; "
+            f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        log(f"[{phase}] fit step {mean_ms:.2f} ms (mean of steps 2-4; step "
+            f"1 {step_ms[0]:.2f} ms; steps 5-8 beside a background write "
+            f"{busy_ms:.2f} ms; each {[round(v, 2) for v in step_ms]}) "
+            f"vs phase 13's make_train_step {step_ms_13:.2f} ms: "
+            f"{mean_ms / step_ms_13:.3f}x ({busy_ms / step_ms_13:.3f}x)")
+        log(f"[{phase}] async saves: snapshot stall on the step "
+            f"{[round(v, 1) for v in saves]} ms; background write "
+            f"{[round(v, 1) for v in writes]} ms for {nbytes / 1e9:.3f} GB "
+            f"each ({nbytes / 1e9 / (sum(writes) / len(writes) / 1e3):.3f} "
+            f"GB/s); wait() remainder after the last step "
+            f"{wait_ms:.1f} ms; free disk before "
+            f"{out['free_disk_gb']:.1f} GB")
+        mgr = CheckpointManager(root)
+        gens = mgr.generations()
+        if gens != [1, 2]:
+            raise AssertionError(f"{phase}: generations {gens}")
+        t0 = time.perf_counter()
+        ok1 = mgr.verify_generation(1)
+        verify_s = time.perf_counter() - t0
+        if not ok1:
+            raise AssertionError(f"{phase}: generation 1 fails to verify")
+        # the resume: a fresh model and optimizer from another seed
+        fresh = hapi_model(cfg, SEED + 1)
+        t0 = time.perf_counter()
+        fresh.fit(loader, epochs=1, checkpoint_dir=root, resume=True,
+                  verbose=0)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        if fresh.restored_generation != 2:
+            raise AssertionError(f"{phase}: resumed generation "
+                                 f"{fresh.restored_generation}")
+        if not same_state(model, fresh):
+            raise AssertionError(f"{phase}: the resumed model and optimizer "
+                                 "differ from the live ones")
+        log(f"[{phase}] generations {gens} committed; generation 1 verified "
+            f"in {verify_s:.2f} s ({nbytes / 1e9 / verify_s:.3f} GB/s, read "
+            f"+ crc32, warm page cache possible); resume of generation 2 "
+            f"into a fresh model on the card {resume_s:.2f} s "
+            f"({nbytes / 1e9 / resume_s:.3f} GB/s); parameters and moments "
+            "byte-identical")
+        a = model.train_batch([x], [y])[0]
+        b = fresh.train_batch([x], [y])[0]
+        if not abs(a - b) <= 1e-3:
+            raise AssertionError(f"{phase}: next step {a} vs resumed {b}")
+        log(f"[{phase}] one more step: live {a!r}, resumed {b!r} "
+            f"(bitwise {'equal' if a == b else 'different'})")
+        del fresh
+        _release()
+        # evaluate on 2 batches, predict on 1 x 2048: forward kernels only
+        _build.reset_launch_counts()
+        ev_logs = model.evaluate(hapi_loader(xs[:8], ys[:8], 4), verbose=0)
+        ev_launch = _build.launch_counts()
+        _gate_launches(phase, ev_launch, HAPI_PER_EVAL_BATCH, 2, L)
+        _build.reset_launch_counts()
+        pred = model.predict(DataLoader(TensorDataset([xs[:1]]),
+                                        batch_size=1))
+        pr_launch = _build.launch_counts()
+        _gate_launches(phase, pr_launch, HAPI_PER_EVAL_BATCH, 1, L)
+        logits = pred[0][0]
+        if logits.shape != (1, 2048, cfg.vocab_size) \
+                or logits.dtype != np.float32 \
+                or not np.isfinite(logits).all() \
+                or not math.isfinite(ev_logs["loss"][0]):
+            raise AssertionError(f"{phase}: evaluate {ev_logs}, predict "
+                                 f"{logits.shape} {logits.dtype}")
+        log(f"[{phase}] evaluate loss {ev_logs['loss'][0]:.4f}; predict "
+            f"{logits.shape} {logits.dtype}; eval and predict launches "
+            f"{json.dumps({k: v for k, v in ev_launch.items() if v})}, "
+            f"{json.dumps({k: v for k, v in pr_launch.items() if v})}")
+        out.update(launches=launches, losses=losses, step_ms=mean_ms,
+                   step_ms_writing=busy_ms,
+                   saves_ms=saves, writes_ms=writes, wait_ms=wait_ms,
+                   gen_bytes=nbytes, verify_gbps=nbytes / 1e9 / verify_s,
+                   resume_gbps=nbytes / 1e9 / resume_s, next_step=(a, b))
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def hapi_preemption(phase: str):
+    """Part 2: in-process preemption on 2 layers at full width. An
+    uninterrupted oracle fit (8 batches of 2 x 2048, 2 epochs), then the
+    same run under chaos preempt_at:5 with checkpoint_freq=2 (an
+    emergency generation at step 5), then a fresh Model resuming it to
+    step 16: the merged trajectory within 1e-3 of the oracle's."""
+    from paddle_tpu_torch.resilience import CheckpointManager, chaos
+
+    cfg = hapi_config(2)
+    x, y = hapi_tokens(cfg, 16, 2048, SEED + 1)
+    loader = hapi_loader(x, y, 2)
+    oracle = loss_tape()
+    hapi_model(cfg, SEED).fit(loader, epochs=2, verbose=0,
+                              callbacks=[oracle])
+    _release()
+    root = tempfile.mkdtemp(prefix="hapi-preempt-")
+    try:
+        first = loss_tape()
+        model = hapi_model(cfg, SEED)
+        chaos.install("preempt_at:5")
+        try:
+            model.fit(loader, epochs=2, verbose=0, callbacks=[first],
+                      checkpoint_dir=root, checkpoint_freq=2)
+        finally:
+            chaos.uninstall()
+        # the emergency generation's position (the resume below
+        # verifies its shards)
+        mgr = CheckpointManager(root)
+        with open(os.path.join(mgr._gen_path(mgr.latest_generation()),
+                               "manifest.json")) as f:
+            meta = json.load(f)["meta"]
+        if not model.preempted or len(first.losses) != 5 \
+                or meta["global_step"] != 5:
+            raise AssertionError(f"{phase}: preempted {model.preempted} "
+                                 f"after {len(first.losses)} steps, "
+                                 f"emergency generation meta {meta}")
+        del model
+        _release()
+        second = loss_tape()
+        resumed = hapi_model(cfg, SEED + 7)
+        t0 = time.perf_counter()
+        resumed.fit(loader, epochs=2, verbose=0, callbacks=[second],
+                    checkpoint_dir=root, resume=True)
+        resume_fit_s = time.perf_counter() - t0
+        merged = first.losses + second.losses
+        diff = max(abs(a - b) for a, b in zip(merged, oracle.losses))
+        if resumed.restored_generation is None or len(merged) != 16 \
+                or diff > 1e-3:
+            raise AssertionError(
+                f"{phase}: restored {resumed.restored_generation}, merged "
+                f"{merged} vs oracle {oracle.losses}")
+        log(f"[{phase}] preempt_at:5 -> emergency generation at global "
+            f"step 5; resumed generation {resumed.restored_generation} to "
+            f"step 16 in {resume_fit_s:.2f} s; merged trajectory vs oracle "
+            f"max |diff| {diff:.3e} (bitwise "
+            f"{'equal' if merged == oracle.losses else 'different'})")
+        del resumed
+        _release()
+        return {"diff": diff, "bitwise": merged == oracle.losses}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+GANG_STEPS, GANG_FREQ = 8, 2
+
+
+def gang_setup(rank: int):
+    """One gang rank's run: Llama-1B widths at 1 layer from its own
+    seed, 8 batches of 1 x 2048 of its own."""
+    cfg = hapi_config(1)
+    x, y = hapi_tokens(cfg, GANG_STEPS, 2048, SEED + 10 + rank)
+    return hapi_model(cfg, SEED + 10 + rank), hapi_loader(x, y, 1)
+
+
+def gang_worker(ckpt_dir: str, out_dir: str, t_start: float) -> None:
+    """The body of a gang rank's process (GangSupervisor starts it
+    through the script hapi_gang writes): fit with the gang coordinator
+    from the environment, each step's loss flushed to a trail as it
+    lands (a SIGKILLed rank leaves its partial trajectory)."""
+    from paddle_tpu_torch.hapi import Callback
+    from paddle_tpu_torch.resilience import coordination
+
+    coord = coordination.from_env()
+    model, loader = gang_setup(coord.rank)
+    trail = open(os.path.join(
+        out_dir, f"rank{coord.rank}-a{coord.attempt}.jsonl"), "w")
+
+    class Trail(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            trail.write(json.dumps({"step": step + 1,
+                                    "loss": float(logs["loss"][0]),
+                                    "t": time.time() - t_start}) + "\n")
+            trail.flush()
+
+    model.fit(loader, epochs=1, verbose=0, callbacks=[Trail()],
+              checkpoint_dir=ckpt_dir, resume=True,
+              checkpoint_freq=GANG_FREQ, coordinator=coord)
+    with open(os.path.join(out_dir, f"rank{coord.rank}-a{coord.attempt}"
+                           "-done.json"), "w") as f:
+        json.dump({"restored": model.restored_generation,
+                   "preempted": bool(model.preempted)}, f)
+
+
+GANG_SCRIPT = """import sys, time
+t_start = time.time()
+sys.path.insert(0, sys.argv[3])
+import chip_smoke
+chip_smoke.gang_worker(sys.argv[1], sys.argv[2], t_start)
+"""
+
+
+def hapi_gang(phase: str):
+    """Part 3: GangSupervisor runs 2 subprocess ranks on the card over a
+    FileStore; PADDLE_TPU_CHAOS=preempt_host:1@5 on attempt 0 only
+    SIGKILLs rank 1 after its step 5. Gates: 2 attempts with (1, 0, -9)
+    among the restarts, both ranks restoring one agreed generation, each
+    rank's merged trajectory within 1e-3 of its in-process oracle, the
+    agreed floor kept in the group directory, every exit code of the
+    last attempt 0."""
+    from paddle_tpu_torch.parallel.launch import GangSupervisor
+
+    oracles = {}
+    for rank in range(2):
+        model, loader = gang_setup(rank)
+        tape = loss_tape()
+        model.fit(loader, epochs=1, verbose=0, callbacks=[tape])
+        oracles[rank] = tape.losses
+        del model
+    _release()
+    root = tempfile.mkdtemp(prefix="hapi-gang-")
+    try:
+        ck, out, store = (os.path.join(root, n)
+                          for n in ("ck", "out", "store"))
+        for p in (ck, out, store):
+            os.makedirs(p)
+        script = os.path.join(root, "worker.py")
+        with open(script, "w") as f:
+            f.write(GANG_SCRIPT)
+        repo = os.path.dirname(os.path.abspath(__file__))
+
+        def env(rank, attempt):
+            # the preemption is a one-shot external event: armed on
+            # attempt 0 only, or the relaunched rank would be re-killed
+            return {"PYTHONPATH": repo, "PADDLE_TPU_BARRIER_TIMEOUT_S": "30",
+                    "PADDLE_TPU_CHAOS": "preempt_host:1@5" if attempt == 0
+                    else ""}
+
+        sup = GangSupervisor([sys.executable, script, ck, out, repo], 2,
+                             store_dir=store, max_restarts=2, env=env,
+                             terminate_grace_s=3.0)
+        res = sup.run(timeout=300)
+        logs = {os.path.basename(p): open(p).read()[-2000:]
+                for p in sorted(glob.glob(os.path.join(store, "logs",
+                                                       "*")))}
+        if not res.success or res.attempts != 2 \
+                or (1, 0, -9) not in res.restarts \
+                or res.exit_codes != [0, 0]:
+            raise AssertionError(f"{phase}: gang {res.as_dict()}; logs "
+                                 f"{json.dumps(logs)[-6000:]}")
+        restored, worst, first_step = set(), 0.0, {}
+        for rank in range(2):
+            merged = {}
+            for a in range(2):
+                path = os.path.join(out, f"rank{rank}-a{a}.jsonl")
+                recs = [json.loads(line) for line in open(path)]
+                first_step[(rank, a)] = recs[0]["t"] if recs else None
+                for rec in recs:
+                    if rec["step"] in merged and abs(
+                            merged[rec["step"]] - rec["loss"]) > 1e-3:
+                        raise AssertionError(
+                            f"{phase}: rank {rank} step {rec['step']} "
+                            "differs between attempts")
+                    merged[rec["step"]] = rec["loss"]
+            if sorted(merged) != list(range(1, GANG_STEPS + 1)):
+                raise AssertionError(f"{phase}: rank {rank} trail {merged}")
+            got = [merged[s] for s in range(1, GANG_STEPS + 1)]
+            worst = max(worst, max(abs(a - b)
+                                   for a, b in zip(got, oracles[rank])))
+            with open(os.path.join(out, f"rank{rank}-a1-done.json")) as f:
+                restored.add(json.load(f)["restored"])
+        group = sorted(os.listdir(os.path.join(ck, "group")))
+        if len(restored) != 1 or None in restored or worst > 1e-3 \
+                or f"gen-{min(restored):08d}.json" not in group:
+            raise AssertionError(f"{phase}: restored {restored}, worst "
+                                 f"{worst}, group {group}")
+        log(f"[{phase}] gang of 2 on one card: attempts {res.attempts}, "
+            f"restarts {res.restarts}, both ranks restored generation "
+            f"{min(restored)}, group {group}; merged trajectories vs the "
+            f"in-process oracles max |diff| {worst:.3e}; recovery_wall_s "
+            f"{res.recovery_wall_s:.3f}, wall {res.wall_s:.1f} s; time to "
+            f"first step (s since process start) "
+            f"{ {f'r{r}a{a}': round(t, 2) for (r, a), t in first_step.items() if t is not None} }")
+        return {"result": res.as_dict(), "worst": worst,
+                "first_step_s": {f"r{r}a{a}": t for (r, a), t
+                                 in first_step.items()}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_hapi(step_ms_13: float):
+    """Phase 23, "hapi": the trainer API over the resilience runtime on
+    the card (parts 1-3 above). Its launches gate exactly: per train step
+    16 flash_attention_fwd, 16 of each flash backward kernel and 33
+    rms_norm; per eval or predict batch 16 flash_attention_fwd, 33
+    rms_norm and no backward launch."""
+    phase, out = "hapi", {}
+    for part, fn in (("main", lambda: hapi_main_path(phase, step_ms_13)),
+                     ("preempt", lambda: hapi_preemption(phase)),
+                     ("gang", lambda: hapi_gang(phase))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        _release()
+        log(f"[{phase}] part {part} done in {time.perf_counter() - t0:.1f}s")
+    out["launches"] = out["main"]["launches"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3894,7 +4353,8 @@ def main() -> int:
     log(f"[phase] serving state freed: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
     for name, fn in (("train", phase_train),
-                     ("train-swiglu", phase_train_swiglu)):
+                     ("train-swiglu", phase_train_swiglu),
+                     ("hapi", lambda: phase_hapi(phases["train"]["step_ms"]))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")

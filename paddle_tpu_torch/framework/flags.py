@@ -189,3 +189,57 @@ define_flag("step_timeout_s", 0.0,
             "default wall-clock watchdog deadline per serving-engine "
             "step; 0 disables (also: PADDLE_TPU_STEP_TIMEOUT_S)",
             env_aliases=("PADDLE_TPU_STEP_TIMEOUT_S",))
+define_flag("barrier_timeout_s", 60.0,
+            "default deadline of a gang coordination barrier "
+            "(resilience/coordination.py): how long a host waits for "
+            "its peers at a checkpoint stage/commit or generation "
+            "agreement before raising a structured BarrierTimeout "
+            "naming the missing ranks (also: "
+            "PADDLE_TPU_BARRIER_TIMEOUT_S)",
+            env_aliases=("PADDLE_TPU_BARRIER_TIMEOUT_S",))
+
+# --- trainer options hapi.Model.fit resolves (and the port refuses) ---
+define_flag("quantized_collectives", False,
+            "ship the hot cross-chip payloads as absmax-scaled int8 "
+            "with an f32 scale sidecar (parallel/collectives.py, "
+            "EQuARX-style — the int8 KV pools' proven scheme): the "
+            "per-layer o-proj activation all-gather at serving_mp > 1 "
+            "(and the megakernel path's partial-sum psum), and the dp "
+            "gradient psum in Model.fit (reduce-scatter on int8 "
+            "shards + f32 dequant-accumulate + all-gather). ~0.5x the "
+            "bf16 wire bytes, ~0.25x f32. Off (default) = every wire "
+            "byte-identical to today. Read at program-BUILD time like "
+            "every serving flag (it joins the jit program keys; "
+            "warm() covers it), so flip it before constructing (or "
+            "warming) an engine or calling fit "
+            "(also: PADDLE_TPU_QUANTIZED_COLLECTIVES)",
+            env_aliases=("PADDLE_TPU_QUANTIZED_COLLECTIVES",))
+define_flag("tpu_lint", False,
+            "run the jaxpr lint pipeline on every to_static trace "
+            "(also: PADDLE_TPU_LINT=1)", env_aliases=("PADDLE_TPU_LINT",))
+define_flag("audit_memory", False,
+            "run the static memory auditor (analysis/memory.py: jaxpr "
+            "liveness peak-HBM estimate + donation analysis) at the "
+            "audit hooks — ContinuousBatchingEngine.warm() over every "
+            "cached program and Model.fit over the forward pass. "
+            "PADDLE_TPU_LINT=1 implies it (the hooks compose with the "
+            "lint switch) (also: PADDLE_TPU_AUDIT_MEMORY)",
+            env_aliases=("PADDLE_TPU_AUDIT_MEMORY",))
+define_flag("audit_comms", False,
+            "run the static communication auditor (analysis/comms.py: "
+            "jaxpr bytes-on-wire pass + per-chip collective cost "
+            "model) at the audit hooks — "
+            "ContinuousBatchingEngine.warm() over every cached program "
+            "and Model.fit over the training step. PADDLE_TPU_LINT=1 "
+            "implies it (the hooks compose with the lint switch) "
+            "(also: PADDLE_TPU_AUDIT_COMMS)",
+            env_aliases=("PADDLE_TPU_AUDIT_COMMS",))
+define_flag("audit_roofline", False,
+            "run the static roofline auditor (analysis/roofline.py: "
+            "jaxpr FLOPs/bytes pass against the device-spec table -> "
+            "predicted step latency, bound class, MFU) at the audit "
+            "hooks — ContinuousBatchingEngine.warm() over every cached "
+            "program and Model.fit over the training step. "
+            "PADDLE_TPU_LINT=1 implies it (the hooks compose with the "
+            "lint switch) (also: PADDLE_TPU_AUDIT_ROOFLINE)",
+            env_aliases=("PADDLE_TPU_AUDIT_ROOFLINE",))

@@ -8,14 +8,26 @@ back in place (the JAX package jits the same rule; ``FusedOptimizer``
 drives it over a params dict). Parameters may be given as tensors, as
 ``(name, tensor)`` pairs (``model.named_parameters()``: the names feed
 ``apply_decay_param_fun``), or as group dicts with a ``"params"`` list.
+
+``state_dict()`` / ``set_state_dict()`` use the JAX package's keys:
+``global_step``, ``LR_Scheduler`` (a scheduler's state) and one
+positional ``param_{i}_{k}`` entry per state tensor (the i-th parameter
+in group order, k its state name: ``moment1``, ``moment2``, ``master``),
+so a checkpoint of either package restores the other's optimizer.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from .lr import LRScheduler
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(
+        np.asarray(v))
 
 
 class Optimizer:
@@ -108,3 +120,54 @@ class Optimizer:
                 p.grad.zero_()
             else:
                 p.grad = None
+
+    clear_gradients = clear_grad
+
+    # ------------------------------------------------------------------
+    def state_dict(self) -> dict:
+        """``global_step``, the LR scheduler's state and every state
+        tensor under its positional key. The tensors are the optimizer's
+        own (a checkpoint save snapshots them)."""
+        out = {"global_step": self._global_step}
+        if isinstance(self._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
+        i = 0
+        for group in self._param_groups:
+            for p in group["params"]:
+                for k, v in self._accumulators.get(id(p), {}).items():
+                    # positional key: stable for the same architecture,
+                    # whatever the parameters are called
+                    out[f"param_{i}_{k}"] = v
+                i += 1
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state_dict: dict) -> None:
+        """Load a `state_dict()` (tensors or numpy arrays, any device).
+        Every parameter gets its state (zeros where the dict has no
+        entry); each tensor is copied onto its parameter's device in the
+        state's own dtype (f32 moments stay f32 beside bf16 params).
+        Entries keyed ``{name}_{k}`` by a parameter's name (the JAX
+        package's legacy layout) load too."""
+        self._global_step = int(state_dict.get("global_step", 0))
+        if "LR_Scheduler" in state_dict \
+                and isinstance(self._learning_rate, LRScheduler):
+            self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
+        i = 0
+        for group in self._param_groups:
+            for p in group["params"]:
+                st = self._accumulators.get(id(p))
+                if not st:
+                    st = self._accumulators[id(p)] = \
+                        self._create_accumulators(p)
+                for k in list(st):
+                    for key in (f"param_{i}_{k}", (self._names.get(id(p))
+                                                   or f"param_{i}") + "_" + k):
+                        if key in state_dict:
+                            st[k] = _as_tensor(state_dict[key]).to(
+                                device=p.device, dtype=st[k].dtype,
+                                copy=True)
+                            break
+                i += 1
+
+    load_state_dict = set_state_dict

@@ -2124,3 +2124,119 @@ def test_subprocess_serve_worker_on_the_card(dev, tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     row = json.loads(proc.stdout.strip().splitlines()[-1])
     assert row["ok"] and row["worker_deaths"] == 1.0
+
+
+# ---------------------------------------------------------------------------
+# the hapi trainer over the resilience runtime on the card
+# ---------------------------------------------------------------------------
+
+def test_async_checkpoint_of_card_tensors_snapshots_before_mutation(
+        dev, tmp_path):
+    """An async save of CUDA tensors mutated in place right after save()
+    returns restores the values from before (the device-to-host snapshot
+    is taken inside save())."""
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    w = torch.randn(1024, 1024, generator=g, device=dev)
+    m = torch.randn(4096, generator=g, device=dev, dtype=torch.bfloat16)
+    before = {"w": w.cpu().clone(), "m": m.cpu().clone()}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save({"w": w, "m": m}, step=1, blocking=False)
+    w.add_(1.0)
+    m.mul_(3.0)
+    mgr.wait()
+    ck = mgr.restore()
+    assert torch.equal(ck.value["w"], before["w"])
+    assert torch.equal(ck.value["m"], before["m"])
+
+
+def test_bf16_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    state = {"bf16": torch.randn(257, 33, generator=g, device=dev,
+                                 dtype=torch.bfloat16),
+             "i64": torch.arange(7, device=dev),
+             "f32": torch.randn(5, generator=g, device=dev)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(state, step=3)
+    got = mgr.restore().value
+    for k, t in state.items():
+        assert got[k].dtype == t.dtype and got[k].device.type == "cpu"
+        assert torch.equal(got[k].to(dev), t), k
+
+
+def _hapi_tiny(dev, seed=3):
+    """A 2-layer Llama of head_dim 128 on the card through hapi.Model,
+    with AdamW over the structural names."""
+    from paddle_tpu_torch import hapi
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaPretrainingCriterion,
+                                         init_train_params)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig.tiny(hidden_size=512, num_attention_heads=4,
+                           num_key_value_heads=2, intermediate_size=1024,
+                           vocab_size=256, max_position_embeddings=256,
+                           dtype="bfloat16")
+    net = LlamaForCausalLM(cfg).load_params(
+        init_train_params(cfg, seed=seed, device=dev), trainable=True)
+    model = hapi.Model(net)
+    model.prepare(optimizer=AdamW(1e-3, parameters=net.named_parameters()),
+                  loss=LlamaPretrainingCriterion())
+    return model
+
+
+def _hapi_batches(n, seed=19):
+    g = torch.Generator().manual_seed(seed)
+    return [tuple(torch.randint(0, 256, (2, 256), generator=g)
+                  for _ in range(2)) for _ in range(n)]
+
+
+def test_hapi_fit_launches_the_training_kernels_exactly(dev):
+    """fit on the card: per train step one flash forward and one of each
+    backward kernel per layer, rms_norm twice a layer plus the final
+    norm; per eval / predict batch the forward kernels only."""
+    model = _hapi_tiny(dev)
+    batches = _hapi_batches(3)
+    _build.reset_launch_counts()
+    model.fit(batches, epochs=1, verbose=0)
+    torch.cuda.synchronize()
+    n = _build.launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_delta"):
+        assert n[name] == 2 * 3, (name, n)
+    assert n["rms_norm"] == 5 * 3 and n["swiglu_fwd"] == 0, n
+    _build.reset_launch_counts()
+    logs = model.evaluate(batches[:2], verbose=0)
+    out = model.predict([(batches[0][0],)])
+    n = _build.launch_counts()
+    assert n["flash_attention_fwd"] == 2 * 3 and n["rms_norm"] == 5 * 3, n
+    assert n["flash_attention_bwd_dq"] == 0 and n["flash_attention_bwd_dkv"] \
+        == 0 and n["flash_attention_bwd_delta"] == 0, n
+    assert np.isfinite(logs["loss"][0])
+    assert out[0][0].dtype == np.float32 and out[0][0].shape == (2, 256, 256)
+
+
+def test_hapi_resumed_step_is_bitwise_the_live_one(dev, tmp_path):
+    """A fresh model and optimizer resumed from fit's generation hold the
+    live ones' bytes, and the next step gives the live step's loss and
+    parameters bitwise."""
+    batches = _hapi_batches(4)
+    live = _hapi_tiny(dev)
+    live.fit(batches, epochs=1, verbose=0, checkpoint_dir=str(tmp_path),
+             checkpoint_freq=4)
+    fresh = _hapi_tiny(dev, seed=4)
+    ids = [id(p) for p in fresh.network.parameters()]
+    fresh.fit(batches, epochs=1, verbose=0, checkpoint_dir=str(tmp_path),
+              resume=True)
+    assert fresh.restored_generation == 1
+    assert ids == [id(p) for p in fresh.network.parameters()]
+    x, y = batches[0]
+    a = live.train_batch([x], [y])[0]
+    b = fresh.train_batch([x], [y])[0]
+    assert a == b
+    for (n, p), (_, q) in zip(live.network.named_parameters(),
+                              fresh.network.named_parameters()):
+        assert torch.equal(p, q), n
