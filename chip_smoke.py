@@ -111,12 +111,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    2-rank GangSupervisor gang on the card with preempt_host:1@5 on its
    first attempt (one relaunch, one agreed generation, each rank's
    losses within 1e-3 of its in-process oracle).
+24. loader, the shared-memory DataLoader: phase 23's fit for 8 steps over
+   one seeded token dataset, fed by 4 worker threads and then by 4
+   spawned worker processes over the shm ring; losses bitwise equal,
+   exact launches per step, no ring segment or worker left; ms a step,
+   the parent's wait for a batch, the ring's host rate on 64 MiB.
+25. audit, the static audits: phase 2's engine (Llama-3-8B, bf16) runs
+   warm(audit_memory=True, audit_roofline=True) (after phase 22), then
+   fit's audit of phase 24's step and one fit(audit_memory=True,
+   audit_roofline=True) step (after phase 24): nothing allocated or
+   launched by the audits, TPU701 silent, kernel nodes equal each
+   program's launches; each program's predicted time and peak beside
+   its measured replay and the allocator's peak, the audits' wall time,
+   and the card's launch cost (replayed and eager).
 Then the kernel table as one JSON line (each kernel's launches from the
 phase that drives it), the card's name and power limit, and the closing
 {"ok": true, ...} line.
 
-Phases 15-22 run after phase 12 and before training; phase 23 runs after
-phase 14. Every phase resets
+Phases 15-22 and phase 25's engine part run after phase 12 and before
+training; phase 23 runs after phase 14, then phase 24 and phase 25's
+training part. Every phase resets
 the kernel launch counters just before it serves and reads them just
 after: a bf16 phase must launch no int8 kernel, an int8
 phase no bf16 paged-attention kernel.
@@ -4276,6 +4290,312 @@ def hapi_gang(phase: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the shared-memory loader; phase 25: the static audits
+# ---------------------------------------------------------------------------
+
+LOADER_STEPS = 8
+
+
+def ring_segments():
+    """This process's DataLoader rings in /dev/shm (each
+    MultiprocessIter's)."""
+    return sorted(f for f in os.listdir("/dev/shm")
+                  if f.startswith(f"ptt_ring_{os.getpid()}_"))
+
+
+def ring_rate(nbytes: int = 64 << 20, reps: int = 5):
+    """One process through the ring: encode a batch of one `nbytes` uint8
+    tensor, push, pop, decode. Returns (GB/s, ms a round trip); the bytes
+    come back equal."""
+    from paddle_tpu_torch.io._native import ShmRing
+    from paddle_tpu_torch.io.multiprocess import decode_batch, encode_batch
+
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randint(0, 256, (nbytes,), generator=g, dtype=torch.uint8)
+    ring = ShmRing.create(f"/ptt_rate_{os.getpid()}", nbytes + (1 << 20), 2)
+    try:
+        out = None
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            if ring.push(encode_batch(0, (x,))) != 0:
+                raise AssertionError("loader: the ring refused a batch")
+            out = decode_batch(ring.pop())[1][0]
+        dt = (time.perf_counter() - t0) / reps
+    finally:
+        ring.close()
+    if not torch.equal(out, x):
+        raise AssertionError("loader: the ring changed the batch's bytes")
+    return nbytes / dt / 1e9, 1e3 * dt
+
+
+def phase_loader(step_ms_13: float):
+    """Phase 24, "loader": phase 23's fit on Llama-1B (bf16, batch 4 x
+    2048) for LOADER_STEPS steps over one seeded token dataset, fed by
+    DataLoader(num_workers=4, use_shared_memory=False) (threads) and then
+    by use_shared_memory=True (four spawned workers over the ring). Gates:
+    the two runs' losses bitwise equal, exact launches per step, and no
+    ring segment or worker left. Logs ms a step for both loaders, the parent's wait for a
+    batch (fit.data_fetch) and the ring's host rate on a 64 MiB batch."""
+    import multiprocessing as mp
+
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.observability import trace as obs_trace
+
+    phase = "loader"
+    cfg = hapi_config()
+    L = cfg.num_hidden_layers
+    x, y = hapi_tokens(cfg, 4 * LOADER_STEPS, 2048, SEED + 24)
+    segments = ring_segments()
+    runs = {}
+    for shm in (False, True):
+        model = hapi_model(cfg, SEED)
+        loader = DataLoader(TensorDataset([x, y]), batch_size=4,
+                            num_workers=4, use_shared_memory=shm)
+        tape = loss_tape()
+        tr = obs_trace.enable()
+        _build.reset_launch_counts()
+        try:
+            model.fit(loader, epochs=1, verbose=0, callbacks=[tape])
+        finally:
+            obs_trace.disable()
+        launches = _build.launch_counts()
+        _gate_launches(phase, launches, HAPI_PER_TRAIN_STEP, LOADER_STEPS, L)
+        spans = {}
+        for ev in tr.events():
+            if ev.get("ph") == "X":
+                spans.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+        step = spans["fit.step"]
+        fetch = spans["fit.data_fetch"]
+        # steps 2-4 overlap the other workers' start (each spawned worker
+        # imports torch); steps 5-8 run beside idle workers
+        runs[shm] = dict(losses=tape.losses, launches=launches,
+                         early_ms=sum(step[1:4]) / 3,
+                         step_ms=sum(step[4:]) / len(step[4:]),
+                         fetch_ms=fetch)
+        if shm:
+            runs[shm]["model"] = model
+        else:
+            del model
+            _release()
+    t, p = runs[False], runs[True]
+    if len(p["losses"]) != LOADER_STEPS or p["losses"] != t["losses"]:
+        raise AssertionError(f"{phase}: losses over threads {t['losses']} "
+                             f"and over the ring {p['losses']} differ")
+    if ring_segments() != segments or mp.active_children():
+        raise AssertionError(f"{phase}: left {ring_segments()} in /dev/shm "
+                             f"and {mp.active_children()} alive")
+    gbps, rt_ms = ring_rate()
+    log(f"[{phase}] {LOADER_STEPS} fit steps each way, losses bitwise "
+        f"equal {[round(v, 4) for v in p['losses']]}; ms a step, steps "
+        f"5-{LOADER_STEPS}: threads {t['step_ms']:.2f}, ring "
+        f"{p['step_ms']:.2f} ({p['step_ms'] / t['step_ms']:.3f}x; phase "
+        f"13's make_train_step {step_ms_13:.2f}); steps 2-4 (the other "
+        f"workers still starting): threads {t['early_ms']:.2f}, ring "
+        f"{p['early_ms']:.2f} ({p['early_ms'] / t['early_ms']:.3f}x); "
+        f"the parent's wait for a "
+        f"batch: threads {[round(v, 2) for v in t['fetch_ms']]} ms, ring "
+        f"{[round(v, 2) for v in p['fetch_ms']]} ms (the first includes "
+        f"the workers' start); the ring's host rate on a 64 MiB batch "
+        f"(encode, push, pop, decode in one process) {gbps:.2f} GB/s, "
+        f"{rt_ms:.2f} ms; no segment or worker left")
+    return {"launches": p["launches"], "model": p["model"], "x": x, "y": y,
+            "step_ms": p["step_ms"], "thread_step_ms": t["step_ms"],
+            "ring_gbps": gbps}
+
+
+def _tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in torch.utils._pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _gate_audit_reports(phase, mem_diags, kernels, launches, what):
+    if any(d["rule"] == "TPU701" for d in mem_diags):
+        raise AssertionError(f"{phase}: TPU701 on {what}: {mem_diags}")
+    if kernels != launches:
+        raise AssertionError(f"{phase}: {what}'s kernel nodes {kernels} vs "
+                             f"its launches {launches}")
+
+
+def phase_audit(cfg, params):
+    """Phase 25, "audit" (engine part): phase 2's engine (Llama-3-8B,
+    bf16, megakernel off) warmed for phase 2's traffic, then
+    warm(audit_memory=True, audit_roofline=True). Gates: the audits
+    allocate nothing on the card and launch nothing, TPU701 is silent,
+    and each program's kernel nodes equal the launches of one eager run
+    of its body. Logs each program's predicted_step_ms beside its
+    measured replay (CUDA events) and its predicted peak beside the
+    allocator's peak over that eager run, the audits' wall time, and the
+    H100 row's launch cost: one launch replayed from a CUDA graph and one
+    eager."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm
+
+    phase = "audit"
+    traffic = engine_traffic(cfg)
+    eng = build_engine(cfg, params, traffic, **ENGINE_KW)
+    buckets, widths = warm_args(eng, traffic)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.warm(buckets=buckets, prefix_widths=widths, audit_memory=True,
+             audit_roofline=True)
+    torch.cuda.synchronize()
+    audit_s = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    if after != before or any(_build.launch_counts().values()):
+        raise AssertionError(f"{phase}: the audits allocated {after - before}"
+                             f" bytes or launched {_build.launch_counts()}")
+    m = eng.metrics()
+    mem, roof = m["memory_audit"], m["roofline_audit"]
+    if not mem["donation_clean"]:
+        raise AssertionError(f"{phase}: donation misses {mem}")
+    log(f"[{phase}] warm(audit_memory=True, audit_roofline=True) on a warm "
+        f"engine: {audit_s:.2f} s for {mem['programs_audited']} programs "
+        f"(one trace each), allocated bytes unchanged, no launch; engine "
+        f"peak {mem['fleet_peak_hbm_bytes'] / 2**30:.3f} GiB against the "
+        f"{mem['hbm_budget_bytes'] / 2**30:.1f} GiB budget")
+    base_bytes = _tensor_bytes((eng.p, eng.kcs, eng.vcs))
+    rows = {}
+    for name, fn, ins in eng._program_inventory():
+        prog = eng._programs.get(name) or next(
+            pg for pg in eng._prefill_cache.values() if pg.name == name)
+        replay_ms = min(event_ms(prog) for _ in range(3))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            fn(eng.p, eng.kcs, eng.vcs, *ins)
+        torch.cuda.synchronize()
+        eager = {k: n for k, n in _build.launch_counts().items() if n}
+        peak = base_bytes + _tensor_bytes(ins) \
+            + torch.cuda.max_memory_allocated() - start
+        r, mp_ = roof["programs"][name], mem["programs"][name]
+        _gate_audit_reports(phase, mp_["diagnostics"], r["kernels"], eager,
+                            name)
+        rows[name] = dict(predicted_ms=r["predicted_step_ms"],
+                          replay_ms=replay_ms,
+                          predicted_peak=mp_["peak_hbm_bytes"],
+                          measured_peak=peak, kernels=r["kernels"])
+        log(f"[{phase}] {name}: predicted {r['predicted_step_ms']:.3f} ms "
+            f"({r['bound']}-bound: compute {r['compute_ms']:.3f}, HBM "
+            f"{r['bandwidth_ms']:.3f}, launches {r['kernel_launches']} x "
+            f"the row's cost {r['launch_overhead_ms']:.3f}) vs replayed "
+            f"{replay_ms:.3f} ms: {r['predicted_step_ms'] / replay_ms:.3f}"
+            f"; peak predicted {mp_['peak_hbm_bytes'] / 2**30:.3f} GiB vs "
+            f"allocator {peak / 2**30:.3f} GiB over one eager run: "
+            f"{mp_['peak_hbm_bytes'] / peak:.3f}; kernel nodes = launches "
+            f"{json.dumps(eager)}")
+    # the row's launch cost: a small kernel launched 2000 times, eagerly
+    # and replayed from one CUDA graph
+    x = torch.ones(1, 128, device="cuda", dtype=torch.bfloat16)
+    w = torch.ones(128, device="cuda", dtype=torch.bfloat16)
+    n = 2000
+
+    def launches():
+        for _ in range(n):
+            rms_norm(x, w)
+
+    eager_us = min(event_ms(launches) for _ in range(3)) * 1e3 / n
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        launches()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launches()
+    replay_us = min(event_ms(graph.replay) for _ in range(3)) * 1e3 / n
+    log(f"[{phase}] launch cost: {replay_us:.3f} us a launch replayed from "
+        f"a CUDA graph (the h100-sxm row's launch_overhead_s), "
+        f"{eager_us:.3f} us eager (rms_norm [1, 128] bf16, {n} launches)")
+    del graph, eng
+    _release()
+    return {"audit_s": audit_s, "rows": rows, "replay_us": replay_us,
+            "eager_us": eager_us}
+
+
+def phase_audit_fit(out24):
+    """Phase 25, "audit" (training part): fit's audit of phase 24's
+    Llama-1B step, traced once on fakes on the card (the hook
+    fit(audit_memory=True, audit_roofline=True) calls at its first
+    batch), then one fit step with both audits on. Gates: the audit
+    allocates and launches nothing, TPU701 is silent, the step's kernel
+    nodes equal phase 24's launches a step, and the fit hook leaves both
+    reports. Logs predicted vs measured step time and peak (the
+    allocator's over one train step)."""
+    from paddle_tpu_torch.kernels import _build
+
+    phase = "audit"
+    model = out24.pop("model")
+    ins, labs = [out24["x"][:4]], [out24["y"][:4]]
+
+    def steps_ms(n=3):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.train_batch(ins, labs)
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    # the steps beside the audit: a trace leaves large graphs to collect
+    pre = steps_ms()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    model._audit_step(ins, labs, True, True)
+    audit_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != before \
+            or any(_build.launch_counts().values()):
+        raise AssertionError(f"{phase}: fit's audit allocated or launched")
+    post = steps_ms()
+    step_ms = sum(pre) / len(pre)
+    mem, roof = model.memory_audit, model.roofline_audit
+    if mem is None or roof is None:
+        raise AssertionError(f"{phase}: fit's audit made no report")
+    per_step = {k: n // LOADER_STEPS for k, n in out24["launches"].items()
+                if n}
+    _gate_audit_reports(phase, mem["diagnostics"], roof["kernels"], per_step,
+                        "fit's step")
+    opt = model._optimizer
+    held = _tensor_bytes([list(model.network.parameters()),
+                          list(opt._accumulators.values())])
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    model.train_batch(ins, labs)
+    torch.cuda.synchronize()
+    peak = held + torch.cuda.max_memory_allocated() - start
+    model.memory_audit = model.roofline_audit = None
+    model.fit([(ins[0], labs[0])], epochs=1, verbose=0, audit_memory=True,
+              audit_roofline=True)
+    if model.memory_audit is None or model.roofline_audit is None:
+        raise AssertionError(f"{phase}: fit(audit_*=True) left no report")
+    log(f"[{phase}] fit's step (Llama-1B, batch 4 x 2048): audit {audit_s:.2f}"
+        f" s, nothing allocated or launched; predicted "
+        f"{roof['predicted_step_ms']:.2f} ms ({roof['bound']}-bound: compute "
+        f"{roof['compute_ms']:.2f}, HBM {roof['bandwidth_ms']:.2f}, "
+        f"{roof['kernel_launches']} launches) vs measured "
+        f"{step_ms:.2f} ms: {roof['predicted_step_ms'] / step_ms:.3f} (steps "
+        f"just before the audit {[round(v, 2) for v in pre]} ms, just "
+        f"after {[round(v, 2) for v in post]}); peak predicted "
+        f"{mem['peak_hbm_bytes'] / 2**30:.3f} GiB vs allocator "
+        f"{peak / 2**30:.3f} GiB over one step: "
+        f"{mem['peak_hbm_bytes'] / peak:.3f}; kernel nodes = launches a step "
+        f"{json.dumps(per_step)}")
+    del model
+    _release()
+    return {"audit_s": audit_s, "predicted_ms": roof["predicted_step_ms"],
+            "peak": mem["peak_hbm_bytes"]}
+
+
 def phase_hapi(step_ms_13: float):
     """Phase 23, "hapi": the trainer API over the resilience runtime on
     the card (parts 1-3 above). Its launches gate exactly: per train step
@@ -4340,7 +4660,8 @@ def main() -> int:
             ("checkpoint", lambda: phase_checkpoint(
                 cfg, params, phases["int8w-int8kv-unified"])),
             ("observe", lambda: phase_observe(cfg, params)),
-            ("fleet", lambda: phase_fleet(cfg, params, phases["prefix"]))):
+            ("fleet", lambda: phase_fleet(cfg, params, phases["prefix"])),
+            ("audit", lambda: phase_audit(cfg, params))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")
@@ -4354,7 +4675,10 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
     for name, fn in (("train", phase_train),
                      ("train-swiglu", phase_train_swiglu),
-                     ("hapi", lambda: phase_hapi(phases["train"]["step_ms"]))):
+                     ("hapi", lambda: phase_hapi(phases["train"]["step_ms"])),
+                     ("loader",
+                      lambda: phase_loader(phases["train"]["step_ms"])),
+                     ("audit-fit", lambda: phase_audit_fit(phases["loader"]))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")

@@ -215,31 +215,32 @@ define_flag("quantized_collectives", False,
             "(also: PADDLE_TPU_QUANTIZED_COLLECTIVES)",
             env_aliases=("PADDLE_TPU_QUANTIZED_COLLECTIVES",))
 define_flag("tpu_lint", False,
-            "run the jaxpr lint pipeline on every to_static trace "
+            "run the lint pipeline (analysis/: rules over the torch.fx "
+            "graph of a program, traced on fake tensors) at the audit "
+            "hooks; it implies the memory and roofline audits "
             "(also: PADDLE_TPU_LINT=1)", env_aliases=("PADDLE_TPU_LINT",))
 define_flag("audit_memory", False,
-            "run the static memory auditor (analysis/memory.py: jaxpr "
-            "liveness peak-HBM estimate + donation analysis) at the "
-            "audit hooks — ContinuousBatchingEngine.warm() over every "
-            "cached program and Model.fit over the forward pass. "
-            "PADDLE_TPU_LINT=1 implies it (the hooks compose with the "
-            "lint switch) (also: PADDLE_TPU_AUDIT_MEMORY)",
+            "run the static memory auditor (analysis/memory.py: "
+            "liveness over the program's torch.fx graph -> peak device "
+            "memory + in-place analysis) at the audit hooks — "
+            "ContinuousBatchingEngine.warm() over every program and "
+            "Model.fit over the training step. PADDLE_TPU_LINT=1 "
+            "implies it (the hooks compose with the lint switch) "
+            "(also: PADDLE_TPU_AUDIT_MEMORY)",
             env_aliases=("PADDLE_TPU_AUDIT_MEMORY",))
 define_flag("audit_comms", False,
-            "run the static communication auditor (analysis/comms.py: "
-            "jaxpr bytes-on-wire pass + per-chip collective cost "
-            "model) at the audit hooks — "
-            "ContinuousBatchingEngine.warm() over every cached program "
-            "and Model.fit over the training step. PADDLE_TPU_LINT=1 "
-            "implies it (the hooks compose with the lint switch) "
+            "run the static communication auditor at the audit hooks; "
+            "the port has no collective yet, so an audit that resolves "
+            "on raises (ROADMAP.md section 1 item 5) "
             "(also: PADDLE_TPU_AUDIT_COMMS)",
             env_aliases=("PADDLE_TPU_AUDIT_COMMS",))
 define_flag("audit_roofline", False,
             "run the static roofline auditor (analysis/roofline.py: "
-            "jaxpr FLOPs/bytes pass against the device-spec table -> "
-            "predicted step latency, bound class, MFU) at the audit "
-            "hooks — ContinuousBatchingEngine.warm() over every cached "
-            "program and Model.fit over the training step. "
-            "PADDLE_TPU_LINT=1 implies it (the hooks compose with the "
-            "lint switch) (also: PADDLE_TPU_AUDIT_ROOFLINE)",
+            "FLOPs / HBM bytes of the program's torch.fx graph against "
+            "the device-spec table -> predicted step latency, bound "
+            "class, MFU) at the audit hooks — "
+            "ContinuousBatchingEngine.warm() over every program and "
+            "Model.fit over the training step. PADDLE_TPU_LINT=1 "
+            "implies it (the hooks compose with the lint switch) "
+            "(also: PADDLE_TPU_AUDIT_ROOFLINE)",
             env_aliases=("PADDLE_TPU_AUDIT_ROOFLINE",))

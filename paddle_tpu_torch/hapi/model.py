@@ -18,14 +18,17 @@ Differences from the JAX package's trainer, by design:
 - resume and `load` copy the saved state into the live parameters
   (``network.load_state_dict``), so every parameter keeps its identity
   and the optimizer's state, keyed by parameter, stays attached.
-- The static audits (``audit_memory`` / ``audit_comms`` /
-  ``audit_roofline``, or ``PADDLE_TPU_LINT=1``) and
-  ``quantized_collectives`` trace JAX programs or need a mesh; the port
-  has neither, so `fit` raises NotImplementedError when one resolves on
-  (ROADMAP.md section 1 items 6 and 5) instead of ignoring it.
+- The static audits (``audit_memory`` / ``audit_roofline``, or
+  ``PADDLE_TPU_LINT=1``) trace the whole training step once (forward,
+  backward and the optimizer's update) on fake tensors; the JAX package
+  traces the forward for its memory audit. ``audit_comms`` and
+  ``quantized_collectives`` need a device mesh, which the port does not
+  have: `fit` raises NotImplementedError when one resolves on (ROADMAP.md
+  section 1 item 5) instead of ignoring it.
 """
 from __future__ import annotations
 
+import gc
 import time
 import warnings
 from typing import List
@@ -92,6 +95,10 @@ class Model:
         # AGREED generation — every rank reports the same number), or
         # None when the run started fresh
         self.restored_generation = None
+        # static audits of the training step: dicts via
+        # fit(audit_memory=True) / fit(audit_roofline=True), else None
+        self.memory_audit = None
+        self.roofline_audit = None
 
     # ------------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -201,20 +208,29 @@ class Model:
         `fit_*_s` histograms and the `fit_steps` counter. Off (default):
         nothing is recorded.
 
-        Refused (NotImplementedError, nothing ignored): audit_memory /
-        audit_comms / audit_roofline resolving on (argument,
-        PADDLE_TPU_AUDIT_*, or PADDLE_TPU_LINT=1), and
-        quantized_collectives resolving on (argument or
-        PADDLE_TPU_QUANTIZED_COLLECTIVES).
+        Static audits: `audit_memory=True` / `audit_roofline=True`
+        (default: FLAGS_audit_memory / FLAGS_audit_roofline, both implied
+        by PADDLE_TPU_LINT=1) trace the training step once at the first
+        batch's shapes, on fake tensors (forward, backward and the
+        optimizer's update; nothing runs, no parameter or state moves),
+        and keep the liveness report (`analysis/memory.py`, TPU701-703)
+        on `self.memory_audit` and the roofline report
+        (`analysis/roofline.py`, TPU901-903) on `self.roofline_audit`,
+        each with its observability event. A failed audit warns and
+        training goes on.
+
+        Refused (NotImplementedError, nothing ignored): audit_comms and
+        quantized_collectives resolving on (the argument, or
+        PADDLE_TPU_AUDIT_COMMS / PADDLE_TPU_QUANTIZED_COLLECTIVES).
         """
-        for name, value in (("audit_memory", audit_memory),
-                            ("audit_comms", audit_comms),
-                            ("audit_roofline", audit_roofline)):
-            if _resolve_refused(value, name, "tpu_lint"):
-                raise NotImplementedError(
-                    f"fit({name}=True) (or PADDLE_TPU_LINT=1): the static "
-                    "audits trace JAX programs, which the port does not "
-                    "have (ROADMAP.md section 1 item 6)")
+        from ..analysis import resolve_audit_comms
+        from ..analysis.memory import resolve_audit_memory
+        from ..analysis.roofline import resolve_audit_roofline
+
+        resolve_audit_comms(audit_comms)
+        audits = (resolve_audit_memory(audit_memory),
+                  resolve_audit_roofline(audit_roofline))
+        audit_pending = any(audits)
         if _resolve_refused(quantized_collectives, "quantized_collectives"):
             raise NotImplementedError(
                 "fit(quantized_collectives=True): the quantized dp "
@@ -285,6 +301,9 @@ class Model:
                         continue  # replayed batches of a resumed epoch
                     cbks.on_train_batch_begin(step)
                     ins, labs = self._split_batch(batch)
+                    if audit_pending:
+                        audit_pending = False
+                        self._audit_step(ins, labs, *audits)
                     update = (step + 1) % accumulate_grad_batches == 0
                     if tr is None and mt is None:
                         res = self.train_batch(ins, labs, update=update)
@@ -463,6 +482,98 @@ class Model:
         return outputs
 
     # ------------------------------------------------------------------
+    def _step_program(self, n_ins):
+        """step(params, states, *inputs, *labels) -> loss: the training
+        step `train_batch` runs (forward, backward, the optimizer's
+        per-parameter update), as a function of its tensors for the
+        static audits. An optimizer without state yet makes its
+        accumulators inside the step."""
+        from torch.nn.utils.stateless import _reparametrize_module
+
+        net, opt = self.network, self._optimizer
+        real = dict(net.named_parameters())
+
+        def step(params, states, *batch):
+            ins, labs = batch[:n_ins], batch[n_ins:]
+            with _reparametrize_module(net, params):
+                loss = self._compute_loss(net(*ins), list(labs))
+            ps = list(params.values())
+            grads = torch.autograd.grad(loss, ps, allow_unused=True)
+            if opt is None or not hasattr(opt, "_update_rule_arr"):
+                return loss
+            if opt._grad_clip is not None:
+                grads = opt._grad_clip.apply(list(grads))
+            lr = opt.get_lr()
+            with torch.no_grad():
+                for name, p, g, st in zip(params, ps, grads, states):
+                    if g is None:
+                        continue
+                    if st is None:
+                        st = opt._create_accumulators(p)
+                    wd = opt._weight_decay_value(
+                        next(gr for gr in opt._param_groups
+                             if any(q is real[name] for q in gr["params"])))
+                    decay = opt._apply_decay(
+                        opt._names.get(id(real[name]), ""))
+                    new_p, _ = opt._update_rule_arr(
+                        p, g, st, lr, wd if decay else 0.0,
+                        opt._global_step + 1)
+                    p.copy_(new_p)
+            return loss
+
+        return step
+
+    def _audit_step(self, ins, labs, do_memory, do_roofline):
+        """Trace the training step once at this batch's shapes (fakes on
+        the model's device: no device memory, no launch) and run the
+        asked audits over the one graph."""
+        try:
+            from ..analysis import memory as _mem
+            from ..analysis import roofline as _roof
+            from ..analysis.graph import fakes_on, trace_graph
+            from ..analysis.pipeline import analyze as _analyze
+
+            batch = fakes_on(self.device, [torch.as_tensor(x) for x in
+                                           _to_list(ins) + _to_list(labs)])
+            params = {n: p for n, p in self.network.named_parameters()
+                      if p.requires_grad}
+            opt = self._optimizer
+            states = [getattr(opt, "_accumulators", {}).get(id(p))
+                      for p in params.values()]
+            g = trace_graph(self._step_program(len(_to_list(ins))), params,
+                            states, *batch, name="fit.step", grad=True)
+            if do_memory:
+                rep = _mem.audit_graph(g)
+                lint = _analyze(None, graph=g,
+                                rules=["TPU701", "TPU702", "TPU703"])
+                self.memory_audit = {
+                    **rep.to_dict(),
+                    "diagnostics": lint.to_dict()["diagnostics"]}
+                record_event("memory.audit", target="fit.step",
+                             peak_hbm_bytes=rep.peak_bytes, mp=rep.mp)
+            if do_roofline:
+                rep = _roof.audit_graph(g)
+                lint = _analyze(None, graph=g,
+                                rules=["TPU901", "TPU902", "TPU903"],
+                                rule_config={
+                                    f"{r}.device": rep.spec.name
+                                    for r in ("TPU901", "TPU902",
+                                              "TPU903")})
+                self.roofline_audit = {
+                    **rep.to_dict(),
+                    "diagnostics": lint.to_dict()["diagnostics"]}
+                record_event("roofline.audit", target="fit.step",
+                             device=rep.spec.name,
+                             predicted_step_ms=rep.predicted_step_ms,
+                             predicted_mfu=rep.predicted_mfu,
+                             bound=rep.bound, mp=rep.mp)
+        except Exception as e:
+            warnings.warn(f"fit's static audit failed: "
+                          f"{type(e).__name__}: {e}")
+        # the trace's graph and fakes are reference cycles: collect them
+        # here, not in the collector's passes during the next steps
+        gc.collect()
+
     def _split_batch(self, batch, labeled=True):
         if isinstance(batch, (list, tuple)):
             batch = list(batch)

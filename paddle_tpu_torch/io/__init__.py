@@ -4,11 +4,12 @@ paddle_tpu/io; reference: python/paddle/io/reader.py:266).
 The host input pipeline yields CPU torch tensors: `default_collate_fn`
 stacks samples with ``torch.stack`` (numpy samples through
 ``np.stack``), and the trainer moves each batch onto its device.
-`DataLoader(num_workers=N)` with ``use_shared_memory=False`` runs a
-thread prefetch pool (sample decode in numpy or torch releases the
-GIL); the shared-memory worker processes of the JAX package are not
-ported, and asking for them raises (ROADMAP.md section 1 item 4, "the
-shared-memory loader").
+`DataLoader(num_workers=N)` runs N spawned worker processes that hand
+batches back through the port's shared-memory ring
+(``use_shared_memory=True``, the default; `multiprocess.py`), or a thread
+prefetch pool with ``use_shared_memory=False`` (sample decode in numpy
+or torch releases the GIL). A ring that cannot be built or opened
+raises: there is no thread fallback.
 
 Shuffling draws from a ``torch.Generator`` (`RandomSampler`,
 `SubsetRandomSampler`, `WeightedRandomSampler`, `random_split`, and
@@ -343,17 +344,36 @@ def default_collate_fn(batch):
     return batch
 
 
+def _fetch(dataset, collate_fn, retry_policy, indices):
+    """Read and collate one batch: each sample through `retry_policy` and
+    the ``dataloader.fetch`` chaos seam (the loader's threads and worker
+    processes alike)."""
+    from ..resilience import chaos
+
+    injector = chaos.get_chaos()  # resolved once per batch, not per sample
+
+    def read_one(i):
+        if injector is not None:
+            injector.maybe_io_error("dataloader.fetch")
+        return dataset[i]
+
+    # per-sample retry: one flaky read must not re-run the whole
+    # batch's (potentially expensive) decode/augment work
+    samples = [retry_policy.call(read_one, i) for i in indices]
+    return collate_fn(samples)
+
+
 class DataLoader:
     """paddle.io.DataLoader (reference: python/paddle/io/reader.py:266).
 
-    num_workers=0 fetches on the calling thread; num_workers>0 with
-    ``use_shared_memory=False`` prefetches batches on a thread pool,
-    in order, at most ``num_workers * prefetch_factor`` ahead. The JAX
-    package's shared-memory worker processes (``use_shared_memory=True``,
-    its default) are not ported: iterating such a loader raises
-    NotImplementedError rather than falling back quietly. Every sample
-    read goes through `retry_policy` (transient IOErrors) and the
-    ``dataloader.fetch`` chaos seam.
+    num_workers=0 fetches on the calling thread; num_workers>0 prefetches
+    batches in order, at most ``num_workers * prefetch_factor`` ahead:
+    from spawned worker processes over the shared-memory ring with
+    ``use_shared_memory=True`` (the default; the dataset, collate_fn and
+    worker_init_fn must pickle), or on a thread pool with
+    ``use_shared_memory=False``. Every sample read goes through
+    `retry_policy` (transient IOErrors) and the ``dataloader.fetch``
+    chaos seam.
     """
 
     def __init__(self, dataset, feed_list=None, places=None,
@@ -396,19 +416,8 @@ class DataLoader:
         return len(self.batch_sampler)
 
     def _fetch(self, indices):
-        from ..resilience import chaos
-
-        injector = chaos.get_chaos()  # resolved once per batch, not per sample
-
-        def read_one(i):
-            if injector is not None:
-                injector.maybe_io_error("dataloader.fetch")
-            return self.dataset[i]
-
-        # per-sample retry: one flaky read must not re-run the whole
-        # batch's (potentially expensive) decode/augment work
-        samples = [self.retry_policy.call(read_one, i) for i in indices]
-        return self.collate_fn(samples)
+        return _fetch(self.dataset, self.collate_fn, self.retry_policy,
+                      indices)
 
     def _iter_single(self):
         if self._iterable_mode:
@@ -462,11 +471,8 @@ class DataLoader:
         if self.num_workers > 0 and not self._iterable_mode \
                 and self.batch_sampler is not None:
             if self.use_shared_memory:
-                raise NotImplementedError(
-                    "DataLoader(num_workers>0, use_shared_memory=True): "
-                    "the shared-memory worker processes are not ported "
-                    "(ROADMAP.md section 1 item 4, the shared-memory "
-                    "loader); pass use_shared_memory=False for the "
-                    "thread prefetch pool")
+                from .multiprocess import MultiprocessIter
+
+                return MultiprocessIter(self)
             return self._iter_workers()
         return self._iter_single()

@@ -11,6 +11,14 @@ keeps two processes from building into the same directory at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception.
+
+Every kernel is one operator ``paddle_tpu::<name>`` (`kernel_op`): its
+CUDA implementation checks the operands, launches the kernel through
+ctypes and counts the launch; its CPU implementation is the kernel's
+plain version; its fake implementation gives the output's shapes. So a
+trace of a program (``torch.fx`` over fake tensors, ``analysis/``) holds
+one node per launch, on the CPU as on the card, and a CUDA graph capture
+records the launch as before.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from pathlib import Path
 from typing import Dict
 
 import torch
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -124,6 +133,43 @@ SIGNATURES = {
         "decode_megakernel_resident": (_P, _P),
     },
 }
+
+# the operators of the hand-written kernels (the lower-level Library route:
+# `torch.library.custom_op` costs several times its dispatch)
+OPS = torch.library.Library("paddle_tpu", "DEF")
+OP_NAMESPACE = "paddle_tpu"
+
+
+def kernel_op(name: str, schema: str, *, cuda, cpu, fake):
+    """Define ``paddle_tpu::<name><schema>`` with its CUDA (the launch),
+    CPU (the plain version) and fake (output shapes) implementations;
+    returns the operator."""
+    OPS.define(name + schema)
+    OPS.impl(name, cuda, "CUDA")
+    OPS.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"{OP_NAMESPACE}::{name}", fake, lib=OPS)
+    return getattr(getattr(torch.ops, OP_NAMESPACE), name).default
+
+
+# a host call made inside a program (a checkpoint save, a trace event)
+# runs once, when the program is recorded, and never on a replay; under
+# an analysis trace it leaves this node (lint rules TPU501 / 601 / 602)
+OPS.define("host_callback(str name) -> ()")
+OPS.impl("host_callback", lambda name: None, "CompositeExplicitAutograd")
+
+
+def tracing() -> bool:
+    """Whether a program is being traced (``torch.fx``, as ``analysis/``
+    does on fake tensors)."""
+    return get_proxy_mode() is not None
+
+
+def mark_host_call(name: str) -> None:
+    """Leave a ``paddle_tpu::host_callback(name)`` node in the program
+    being traced, if any."""
+    if tracing():
+        torch.ops.paddle_tpu.host_callback(name)
+
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

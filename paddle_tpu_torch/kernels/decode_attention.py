@@ -262,10 +262,15 @@ def paged_decode_attention(q: torch.Tensor, key_cache: torch.Tensor,
         raise ValueError(f"Hq {hq} not a multiple of Hkv {hkv}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return paged_decode_attention_reference(
-            q, key_cache, value_cache, block_tables, lens, scale,
-            k_scale=k_scale, v_scale=v_scale)
+    return _paged_decode_op(q, key_cache, value_cache, block_tables, lens,
+                            float(scale), k_scale, v_scale)
+
+
+def _paged_decode_cuda(q, key_cache, value_cache, block_tables, lens, scale,
+                       k_scale, v_scale):
+    quant = k_scale is not None
+    b, hq, d = q.shape
+    n_pages, hkv, bs, _ = key_cache.shape
     what = "paged_decode_attention"
     scales = (k_scale, v_scale) if quant else ()
     dev = _build.require_cuda(what, q, key_cache, value_cache,
@@ -319,6 +324,17 @@ def paged_decode_attention(q: torch.Tensor, key_cache: torch.Tensor,
     return out
 
 
+_paged_decode_op = _build.kernel_op(
+    "paged_decode_attention",
+    "(Tensor q, Tensor key_cache, Tensor value_cache, Tensor block_tables, "
+    "Tensor lens, float scale, Tensor? k_scale, Tensor? v_scale) -> Tensor",
+    cuda=_paged_decode_cuda,
+    cpu=lambda q, kc, vc, t, lens, scale, ks, vs:
+        paged_decode_attention_reference(q, kc, vc, t, lens, scale,
+                                         k_scale=ks, v_scale=vs),
+    fake=lambda q, *a: torch.empty_like(q))
+
+
 def decode_attention_reference(q, k_cache, v_cache, lens,
                                scale: Optional[float] = None):
     """Plain PyTorch decode over contiguous caches [B, Hkv, max_seq, D]:
@@ -353,8 +369,13 @@ def _contiguous_decode(what: str, q, k_cache, v_cache, lens, scale):
         raise ValueError(f"Hq {hq} not a multiple of Hkv {hkv}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return decode_attention_reference(q, k_cache, v_cache, lens, scale)
+    return _contiguous_decode_op(what, q, k_cache, v_cache, lens,
+                                 float(scale))
+
+
+def _contiguous_decode_cuda(what, q, k_cache, v_cache, lens, scale):
+    b, hq, d = q.shape
+    hkv, max_seq = k_cache.shape[1], k_cache.shape[2]
     dev = _build.require_cuda(what, q, k_cache, v_cache, lens)
     _build.require_contiguous(what, q=q, k_cache=k_cache, v_cache=v_cache,
                               lens=lens)
@@ -379,6 +400,18 @@ def _contiguous_decode(what: str, q, k_cache, v_cache, lens, scale):
     _build.check(lib, code, what)
     _build.LAUNCHES[what] += 1
     return out
+
+
+# one operator for the two JAX functions the kernel serves (`what` names
+# the launch counter: decode_attention or gqa_decode_attention)
+_contiguous_decode_op = _build.kernel_op(
+    "contiguous_decode_attention",
+    "(str what, Tensor q, Tensor k_cache, Tensor v_cache, Tensor lens, "
+    "float scale) -> Tensor",
+    cuda=_contiguous_decode_cuda,
+    cpu=lambda what, q, kc, vc, lens, scale: decode_attention_reference(
+        q, kc, vc, lens, scale),
+    fake=lambda what, q, *a: torch.empty_like(q))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

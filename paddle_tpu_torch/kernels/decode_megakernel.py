@@ -601,14 +601,10 @@ def decode_layer_megakernel(h, lens, tables, w_in, wq, wk, wv, wo,
                                   v_scale=v_scale)
     if reason is not None:
         raise ValueError(f"decode megakernel unsupported here: {reason}")
-    kw = dict(rope_base=rope_base, eps=eps, scale=scale, k_scale=k_scale,
-              v_scale=v_scale)
-    if h.device.type == "cpu":
-        return decode_layer_megakernel_reference(
-            h, lens, tables, w_in, wq, wk, wv, wo, k_cache, v_cache, **kw)
-    return _launch("decode_layer_megakernel", h, lens, tables,
-                   [_stack_one(w) for w in (w_in, wq, wk, wv, wo)],
-                   k_cache, v_cache, 1, mlp=False, **kw)
+    return _megakernel("decode_layer_megakernel", h, lens, tables,
+                       [_stack_one(w) for w in (w_in, wq, wk, wv, wo)],
+                       k_cache, v_cache, 1, False, rope_base, eps, scale,
+                       k_scale, v_scale)
 
 
 def decode_layers_megakernel(h, lens, tables, w_in, w_post, wq, wk, wv,
@@ -634,15 +630,64 @@ def _layers_megakernel(what, h, lens, tables, w_in, w_post, wq, wk, wv,
     if reason is not None:
         raise ValueError(f"decode scan megakernel unsupported here: "
                          f"{reason}")
+    weights = [w_in, wq, wk, wv, wo, w_post, wg, wu, wd]
+    return _megakernel(what, h, lens, tables, weights, k_cache, v_cache,
+                       int(n_layers), True, rope_base, eps, scale, k_scale,
+                       v_scale)
+
+
+def _megakernel(what, h, lens, tables, weights, k_cache, v_cache, L, mlp,
+                rope_base, eps, scale, k_scale, v_scale):
+    """The operator's call: `weights` stacked [L, ...] (w_in, wq, wk, wv,
+    wo, then w_post, wg, wu, wd with the MLP), a weight-only pair split
+    into the weight list and the scale list. Returns (h_out, pools)."""
+    b, _, H = h.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(k_cache.shape[3])
+    ws = [w[0] if isinstance(w, tuple) else w for w in weights]
+    ss = [w[1] if isinstance(w, tuple) else None for w in weights]
+    h_out = _megakernel_op(what, h, lens, tables, ws, ss, k_cache, v_cache,
+                           k_scale, v_scale, int(L), bool(mlp),
+                           float(rope_base), float(eps), float(scale))
+    return _returns(h_out, b, H, k_cache, v_cache, k_scale, v_scale)
+
+
+def _weights_of(ws, ss):
+    return [w if s is None else (w, s) for w, s in zip(ws, ss)]
+
+
+def _megakernel_cuda(what, h, lens, tables, ws, ss, k_cache, v_cache,
+                     k_scale, v_scale, L, mlp, rope_base, eps, scale):
+    return _launch(what, h, lens, tables, _weights_of(ws, ss), k_cache,
+                   v_cache, L, mlp=mlp, rope_base=rope_base, eps=eps,
+                   scale=scale, k_scale=k_scale, v_scale=v_scale)[0]
+
+
+def _megakernel_cpu(what, h, lens, tables, ws, ss, k_cache, v_cache,
+                    k_scale, v_scale, L, mlp, rope_base, eps, scale):
     kw = dict(rope_base=rope_base, eps=eps, scale=scale, k_scale=k_scale,
               v_scale=v_scale)
-    if h.device.type == "cpu":
-        return decode_layers_megakernel_reference(
-            h, lens, tables, w_in, w_post, wq, wk, wv, wo, wg, wu, wd,
-            k_cache, v_cache, n_layers=n_layers, **kw)
-    weights = [w_in, wq, wk, wv, wo, w_post, wg, wu, wd]
-    return _launch(what, h, lens, tables, weights, k_cache, v_cache,
-                   int(n_layers), mlp=True, **kw)
+    w = _weights_of(ws, ss)
+    if not mlp:
+        return decode_layer_megakernel_reference(
+            h, lens, tables, *(_layer_of(x, 0) for x in w), k_cache,
+            v_cache, **kw)[0]
+    w_in, wq, wk, wv, wo, w_post, wg, wu, wd = w
+    return decode_layers_megakernel_reference(
+        h, lens, tables, w_in, w_post, wq, wk, wv, wo, wg, wu, wd, k_cache,
+        v_cache, n_layers=L, **kw)[0]
+
+
+# one operator for the three rungs (`what` names the launch counter);
+# it writes the current token's K/V into the pools in place
+_megakernel_op = _build.kernel_op(
+    "decode_megakernel",
+    "(str what, Tensor h, Tensor lens, Tensor tables, Tensor[] weights, "
+    "Tensor?[] weight_scales, Tensor(a!) k_cache, Tensor(b!) v_cache, "
+    "Tensor(c!)? k_scale, Tensor(d!)? v_scale, int n_layers, bool mlp, "
+    "float rope_base, float eps, float scale) -> Tensor",
+    cuda=_megakernel_cuda, cpu=_megakernel_cpu,
+    fake=lambda what, h, *a: torch.empty_like(h))
 
 
 def decode_layer_megakernel_full(h, lens, tables, w_in, w_post, wq, wk,

@@ -149,11 +149,7 @@ def _check_cuda(what, q, k, v, causal, *more):
     return dev
 
 
-def _flash_fwd(q, k, v, causal: bool, scale: float):
-    """(out, lse [B*Hq, Sq] f32): the kernel on the card, the plain twin
-    of ``_fwd_ref`` on the CPU."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, scale, True)
+def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     what = "flash_attention"
     dev = _check_cuda(what, q, k, v, causal)
     b, sq, hq, dh = q.shape
@@ -168,6 +164,28 @@ def _flash_fwd(q, k, v, causal: bool, scale: float):
     _build.check(lib, code, what)
     _build.LAUNCHES["flash_attention_fwd"] += 1
     return out, lse
+
+
+def _flash_fwd_fake(q, k, v, causal, scale):
+    b, sq, hq, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b * hq, sq), dtype=torch.float32))
+
+
+_flash_fwd_op = _build.kernel_op(
+    "flash_attention_fwd",
+    "(Tensor q, Tensor k, Tensor v, bool causal, float scale) "
+    "-> (Tensor, Tensor)",
+    cuda=_flash_fwd_cuda,
+    cpu=lambda q, k, v, causal, scale: flash_attention_reference(
+        q, k, v, causal, scale, True),
+    fake=_flash_fwd_fake)
+
+
+def _flash_fwd(q, k, v, causal: bool, scale: float):
+    """(out, lse [B*Hq, Sq] f32): the kernel on the card, the plain twin
+    of ``_fwd_ref`` on the CPU."""
+    return _flash_fwd_op(q, k, v, bool(causal), float(scale))
 
 
 def _bwd_operands(what, q, k, v, out, lse, do, causal):
@@ -208,21 +226,12 @@ def _given_delta(what, delta, q, dev):
     return delta
 
 
-def flash_attention_bwd_dq(q, k, v, out, lse, do, causal: bool,
-                           scale: float, delta=None) -> torch.Tensor:
-    """dq [B, Sq, Hq, D] of attention in the [B, S, H, D] layout, from the
-    forward's `out` and `lse` [B*Hq, Sq] f32 (the ``_bwd_dq_kernel``
-    counterpart). The kernel reads delta = rowsum(dO * O) [B*Hq, Sq] f32:
-    `delta` from ``flash_attention_bwd_delta``, or None to launch that
-    pre-pass here."""
-    if q.device.type == "cpu":
-        return _plain_bwd(q, k, v, out, lse, do, causal, scale, delta)[0]
+def _dq_cuda(q, k, v, out, lse, do, causal, scale, delta):
     what = "flash_attention_bwd_dq"
     dev, do = _bwd_operands(what, q, k, v, out, lse, do, causal)
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    delta = flash_attention_bwd_delta(out, do) if delta is None \
-        else _given_delta(what, delta, q, dev)
+    delta = _given_delta(what, delta, q, dev)
     dq = torch.empty_like(q)
     lib = _build.library("flash_attention_bwd")
     code = lib.flash_attention_bwd_dq_launch(
@@ -234,6 +243,27 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, causal: bool,
     return dq
 
 
+_BWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+               "Tensor do, bool causal, float scale, Tensor delta)")
+
+_dq_op = _build.kernel_op(
+    "flash_attention_bwd_dq", _BWD_SCHEMA + " -> Tensor", cuda=_dq_cuda,
+    cpu=lambda *a: _plain_bwd(*a)[0],
+    fake=lambda q, *a: torch.empty_like(q))
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, do, causal: bool,
+                           scale: float, delta=None) -> torch.Tensor:
+    """dq [B, Sq, Hq, D] of attention in the [B, S, H, D] layout, from the
+    forward's `out` and `lse` [B*Hq, Sq] f32 (the ``_bwd_dq_kernel``
+    counterpart). The kernel reads delta = rowsum(dO * O) [B*Hq, Sq] f32:
+    `delta` from ``flash_attention_bwd_delta``, or None to launch that
+    pre-pass here."""
+    if delta is None:
+        delta = flash_attention_bwd_delta(out, do.contiguous())
+    return _dq_op(q, k, v, out, lse, do, bool(causal), float(scale), delta)
+
+
 def flash_attention_bwd_delta_reference(out, do):
     """delta = rowsum(dO * O) in f32 from the forward's rounded `out`, as
     [B*Hq, Sq] (lse's layout); out, do [B, Sq, Hq, D]."""
@@ -241,12 +271,7 @@ def flash_attention_bwd_delta_reference(out, do):
     return _to_bh((do.to(f32) * out.to(f32)).sum(-1, keepdim=True))[..., 0]
 
 
-def flash_attention_bwd_delta(out, do) -> torch.Tensor:
-    """The backward kernels' pre-pass: delta [B*Hq, Sq] f32 (the kernel
-    on the card, ``flash_attention_bwd_delta_reference`` on the CPU).
-    `out` and `do` are contiguous bf16 [B, Sq, Hq, D]."""
-    if out.device.type == "cpu":
-        return flash_attention_bwd_delta_reference(out, do)
+def _delta_cuda(out, do):
     what = "flash_attention_bwd_delta"
     dev = _build.require_cuda(what, out, do)
     _build.require_contiguous(what, out=out, do=do)
@@ -266,22 +291,35 @@ def flash_attention_bwd_delta(out, do) -> torch.Tensor:
     return delta
 
 
-def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal: bool,
-                            scale: float, delta=None):
-    """(dk, dv) [B, Sk, Hkv, D], summed over each kv head's group of
-    query heads (the ``_bwd_dkv_kernel`` counterpart plus the caller's
-    group sum, flash_attention.py:436-440). The kernel reads the delta
-    pre-pass's result: `delta`, or None to launch the pre-pass here."""
-    if q.device.type == "cpu":
-        return _plain_bwd(q, k, v, out, lse, do, causal, scale, delta)[1:]
+def _delta_fake(out, do):
+    b, sq, hq, _ = out.shape
+    return out.new_empty((b * hq, sq), dtype=torch.float32)
+
+
+# the CPU implementation looks the twin up at call time (tests count its
+# calls)
+_delta_op = _build.kernel_op(
+    "flash_attention_bwd_delta", "(Tensor out, Tensor do) -> Tensor",
+    cuda=_delta_cuda,
+    cpu=lambda out, do: flash_attention_bwd_delta_reference(out, do),
+    fake=_delta_fake)
+
+
+def flash_attention_bwd_delta(out, do) -> torch.Tensor:
+    """The backward kernels' pre-pass: delta [B*Hq, Sq] f32 (the kernel
+    on the card, ``flash_attention_bwd_delta_reference`` on the CPU).
+    `out` and `do` are contiguous bf16 [B, Sq, Hq, D]."""
+    return _delta_op(out, do)
+
+
+def _dkv_cuda(q, k, v, out, lse, do, causal, scale, delta):
     what = "flash_attention_bwd_dkv"
     dev, do = _bwd_operands(what, q, k, v, out, lse, do, causal)
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if -(-sk // 64) > 65535:
         raise ValueError(f"{what}: Sk {sk} exceeds the grid")
-    delta = flash_attention_bwd_delta(out, do) if delta is None \
-        else _given_delta(what, delta, q, dev)
+    delta = _given_delta(what, delta, q, dev)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.library("flash_attention_bwd")
@@ -295,17 +333,31 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal: bool,
     return dk, dv
 
 
+_dkv_op = _build.kernel_op(
+    "flash_attention_bwd_dkv", _BWD_SCHEMA + " -> (Tensor, Tensor)",
+    cuda=_dkv_cuda, cpu=lambda *a: tuple(_plain_bwd(*a)[1:]),
+    fake=lambda q, k, v, *a: (torch.empty_like(k), torch.empty_like(v)))
+
+
+def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal: bool,
+                            scale: float, delta=None):
+    """(dk, dv) [B, Sk, Hkv, D], summed over each kv head's group of
+    query heads (the ``_bwd_dkv_kernel`` counterpart plus the caller's
+    group sum, flash_attention.py:436-440). The kernel reads the delta
+    pre-pass's result: `delta`, or None to launch the pre-pass here."""
+    if delta is None:
+        delta = flash_attention_bwd_delta(out, do.contiguous())
+    return _dkv_op(q, k, v, out, lse, do, bool(causal), float(scale), delta)
+
+
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool, scale: float):
     """(dq, dk, dv) in the [B, S, H, D] layout: the delta pre-pass once,
-    then the two backward kernels on the card, both reading its delta;
-    the pre-pass's plain twin and ``flash_attention_bwd_reference`` on
-    the CPU."""
+    then the two backward kernels, both reading its delta (their plain
+    versions on the CPU)."""
     delta = flash_attention_bwd_delta(out, do.contiguous())
-    if q.device.type == "cpu":
-        return _plain_bwd(q, k, v, out, lse, do, causal, scale, delta)
     dq = flash_attention_bwd_dq(q, k, v, out, lse, do, causal, scale, delta)
-    return (dq,) + flash_attention_bwd_dkv(q, k, v, out, lse, do, causal,
-                                           scale, delta)
+    return (dq,) + tuple(flash_attention_bwd_dkv(q, k, v, out, lse, do,
+                                                 causal, scale, delta))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -267,14 +267,18 @@ def _weight_only(what: str, x, wq, scale, int4: bool):
         raise ValueError(f"{what}: w must be int8 and scale float32 [{n}], "
                          f"got {wq.dtype} / {scale.dtype} "
                          f"{list(scale.shape)}")
-    if x.device.type == "cpu":
-        w_int = unpack_int4(wq) if int4 else wq
-        return _reference(x, w_int, scale)
-    dev = _build.require_cuda(what, x, wq, scale)
-    if m > MAX_DECODE_M:
+    if x.device.type == "cuda" and m > MAX_DECODE_M:
+        _build.require_cuda(what, x, wq, scale)
         out = _large_m(x, wq, scale, int4)
         _build.LAUNCHES[what + LARGE_M_SUFFIX] += 1
         return out
+    return _weight_only_op(what, x, wq, scale, bool(int4))
+
+
+def _weight_only_cuda(what: str, x, wq, scale, int4: bool):
+    m, k = x.shape
+    n = wq.shape[0]
+    dev = _build.require_cuda(what, x, wq, scale)
     _build.require_contiguous(what, x=x, w=wq, scale=scale)
     if x.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"{what}: the tensor-core GEMV takes bfloat16 or "
@@ -298,6 +302,20 @@ def _weight_only(what: str, x, wq, scale, int4: bool):
     _build.check(lib, err, what)
     _build.LAUNCHES[what] += 1
     return out
+
+
+# one operator for the two JAX functions the GEMV serves (`what` names the
+# launch counter: int4_matmul or int8_weight_matmul); the large-M route
+# (M > MAX_DECODE_M, plain PyTorch on the card) is no kernel and no
+# operator
+_weight_only_op = _build.kernel_op(
+    "weight_only_gemv",
+    "(str what, Tensor x, Tensor wq, Tensor scale, bool int4) -> Tensor",
+    cuda=_weight_only_cuda,
+    cpu=lambda what, x, wq, scale, int4: _reference(
+        x, unpack_int4(wq) if int4 else wq, scale),
+    fake=lambda what, x, wq, scale, int4: x.new_empty((x.shape[0],
+                                                       wq.shape[0])))
 
 
 def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,

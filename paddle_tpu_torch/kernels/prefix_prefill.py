@@ -183,10 +183,9 @@ def split_prefill_reference(q, k_new, v_new, key_cache, value_cache,
     return out.reshape(b, tn, nh, dh).to(q.dtype)
 
 
-def launch_paged_prefill(what: str, q, k_new, v_new, key_cache, value_cache,
-                         block_tables, cached_lens, new_lens,
-                         scale: float, k_scale=None,
-                         v_scale=None) -> torch.Tensor:
+def _paged_prefill_cuda(what: str, q, k_new, v_new, key_cache, value_cache,
+                        block_tables, cached_lens, new_lens, scale: float,
+                        k_scale=None, v_scale=None) -> torch.Tensor:
     """Check the operands and launch the CUDA kernel (its int8-pool
     variant when `k_scale` / `v_scale` are given); `what` names the JAX
     function the caller stands for (its launch counter, plus "_int8" over
@@ -261,6 +260,19 @@ def launch_paged_prefill(what: str, q, k_new, v_new, key_cache, value_cache,
     return out
 
 
+# one operator for the two JAX functions the kernel serves (`what` names
+# the launch counter: prefix_prefill_attention or ragged_paged_attention)
+paged_prefill_op = _build.kernel_op(
+    "paged_prefill_attention",
+    "(str what, Tensor q, Tensor k_new, Tensor v_new, Tensor key_cache, "
+    "Tensor value_cache, Tensor block_tables, Tensor cached_lens, "
+    "Tensor new_lens, float scale, Tensor? k_scale, Tensor? v_scale) "
+    "-> Tensor",
+    cuda=_paged_prefill_cuda,
+    cpu=lambda what, q, *a: paged_prefill_reference(q, *a).to(q.dtype),
+    fake=lambda what, q, *a: torch.empty_like(q))
+
+
 def prefix_prefill_reference(q, k_suf, v_suf, key_cache, value_cache,
                              prefix_tables, prefix_lens,
                              suffix_lens: Optional[torch.Tensor] = None, *,
@@ -312,12 +324,7 @@ def prefix_prefill_attention(q: torch.Tensor, k_suf: torch.Tensor,
     if suffix_lens is None:
         suffix_lens = torch.full((b,), sb, dtype=torch.int32,
                                  device=q.device)
-    if q.device.type == "cpu":
-        return prefix_prefill_reference(
-            q, k_suf, v_suf, key_cache, value_cache, prefix_tables,
-            prefix_lens, suffix_lens, scale=scale, k_scale=k_scale,
-            v_scale=v_scale).to(q.dtype)
-    return launch_paged_prefill("prefix_prefill_attention", q, k_suf, v_suf,
-                                key_cache, value_cache, prefix_tables,
-                                prefix_lens, suffix_lens, scale, k_scale,
-                                v_scale)
+    return paged_prefill_op("prefix_prefill_attention", q, k_suf, v_suf,
+                            key_cache, value_cache, prefix_tables,
+                            prefix_lens, suffix_lens, float(scale), k_scale,
+                            v_scale)

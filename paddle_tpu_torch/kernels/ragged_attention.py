@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .prefix_prefill import launch_paged_prefill, paged_prefill_reference
+from .prefix_prefill import paged_prefill_op, paged_prefill_reference
 
 
 def ragged_paged_attention_reference(q, k_new, v_new, key_cache,
@@ -71,12 +71,7 @@ def ragged_paged_attention(q: torch.Tensor, k_new: torch.Tensor,
         scale = 1.0 / math.sqrt(dh)
     if new_lens is None:
         new_lens = torch.full((b,), tn, dtype=torch.int32, device=q.device)
-    if q.device.type == "cpu":
-        return ragged_paged_attention_reference(
-            q, k_new, v_new, key_cache, value_cache, block_tables,
-            cached_lens, new_lens, scale=scale, k_scale=k_scale,
-            v_scale=v_scale).to(q.dtype)
-    return launch_paged_prefill("ragged_paged_attention", q, k_new, v_new,
-                                key_cache, value_cache, block_tables,
-                                cached_lens, new_lens, scale, k_scale,
-                                v_scale)
+    return paged_prefill_op("ragged_paged_attention", q, k_new, v_new,
+                            key_cache, value_cache, block_tables,
+                            cached_lens, new_lens, float(scale), k_scale,
+                            v_scale)

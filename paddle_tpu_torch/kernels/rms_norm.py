@@ -41,10 +41,8 @@ def rms_norm_bwd_reference(x: torch.Tensor, w: torch.Tensor,
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
-def _rms_norm_fwd(x: torch.Tensor, w: torch.Tensor,
-                  eps: float) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return rms_norm_reference(x, w, eps)
+def _rms_norm_cuda(x: torch.Tensor, w: torch.Tensor,
+                   eps: float) -> torch.Tensor:
     what = "rms_norm"
     dev = _build.require_cuda(what, x, w)
     _build.require_contiguous(what, x=x, w=w)
@@ -61,6 +59,17 @@ def _rms_norm_fwd(x: torch.Tensor, w: torch.Tensor,
     _build.check(lib, code, what)
     _build.LAUNCHES[what] += 1
     return out
+
+
+_rms_norm_op = _build.kernel_op(
+    "rms_norm", "(Tensor x, Tensor w, float eps) -> Tensor",
+    cuda=_rms_norm_cuda, cpu=rms_norm_reference,
+    fake=lambda x, w, eps: torch.empty_like(x))
+
+
+def _rms_norm_fwd(x: torch.Tensor, w: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    return _rms_norm_op(x, w, float(eps))
 
 
 class _RMSNorm(torch.autograd.Function):

@@ -91,11 +91,7 @@ def _check_cuda(what, x2d, wg, wu, *more):
     return dev, m, k, f, grid
 
 
-def swiglu_fwd(x2d, wg, wu):
-    """silu(x2d @ wg) * (x2d @ wu) [M, F] (the ``_fwd_pallas``
-    counterpart): the kernel on the card, the plain version on the CPU."""
-    if x2d.device.type == "cpu":
-        return swiglu_fwd_reference(x2d, wg, wu)
+def _swiglu_fwd_cuda(x2d, wg, wu):
     what = "swiglu_fwd"
     dev, m, k, f, grid = _check_cuda(what, x2d, wg, wu)
     out = torch.empty((m, f), dtype=x2d.dtype, device=dev)
@@ -108,11 +104,7 @@ def swiglu_fwd(x2d, wg, wu):
     return out
 
 
-def swiglu_bwd(x2d, wg, wu, dout):
-    """(dh_g, dh_u) [M, F] (the ``_bwd_pallas`` counterpart): the kernel
-    on the card, the plain version on the CPU."""
-    if x2d.device.type == "cpu":
-        return swiglu_bwd_reference(x2d, wg, wu, dout)
+def _swiglu_bwd_cuda(x2d, wg, wu, dout):
     what = "swiglu_bwd"
     dout = dout.contiguous()
     dev, m, k, f, grid = _check_cuda(what, x2d, wg, wu, dout)
@@ -129,6 +121,35 @@ def swiglu_bwd(x2d, wg, wu, dout):
     _build.check(lib, code, what)
     _build.LAUNCHES[what] += 1
     return dh_g, dh_u
+
+
+def _mf(x2d, wg):
+    return x2d.new_empty((x2d.shape[0], wg.shape[1]))
+
+
+_swiglu_fwd_op = _build.kernel_op(
+    "swiglu_fwd", "(Tensor x2d, Tensor wg, Tensor wu) -> Tensor",
+    cuda=_swiglu_fwd_cuda, cpu=swiglu_fwd_reference,
+    fake=lambda x2d, wg, wu: _mf(x2d, wg))
+
+_swiglu_bwd_op = _build.kernel_op(
+    "swiglu_bwd",
+    "(Tensor x2d, Tensor wg, Tensor wu, Tensor dout) -> (Tensor, Tensor)",
+    cuda=_swiglu_bwd_cuda,
+    cpu=lambda *a: tuple(swiglu_bwd_reference(*a)),
+    fake=lambda x2d, wg, wu, dout: (_mf(x2d, wg), _mf(x2d, wg)))
+
+
+def swiglu_fwd(x2d, wg, wu):
+    """silu(x2d @ wg) * (x2d @ wu) [M, F] (the ``_fwd_pallas``
+    counterpart): the kernel on the card, the plain version on the CPU."""
+    return _swiglu_fwd_op(x2d, wg, wu)
+
+
+def swiglu_bwd(x2d, wg, wu, dout):
+    """(dh_g, dh_u) [M, F] (the ``_bwd_pallas`` counterpart): the kernel
+    on the card, the plain version on the CPU."""
+    return _swiglu_bwd_op(x2d, wg, wu, dout)
 
 
 class _SwiGLUFused(torch.autograd.Function):

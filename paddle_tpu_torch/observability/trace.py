@@ -53,13 +53,18 @@ class TraceUnderJitError(RuntimeError):
     (The name is the JAX package's, where the hazard is a jit trace.)"""
 
 
-def _under_capture() -> bool:
+def _under_capture(kind: str = "event") -> bool:
     """True while this thread's current CUDA stream captures a graph or
     torch.compile traces. Cheap: two attribute checks unless CUDA is
-    initialized in this process."""
+    initialized in this process. Under an analysis trace of a program
+    (``torch.fx``) the emitter leaves a host-call node for lint rule
+    TPU602."""
     torch = sys.modules.get("torch")
     if torch is None:
         return False
+    build = sys.modules.get("paddle_tpu_torch.kernels._build")
+    if build is not None:
+        build.mark_host_call("observability.trace." + kind)
     if torch.cuda.is_initialized() \
             and torch.cuda.is_current_stream_capturing():
         return True
@@ -154,7 +159,7 @@ class _SpanHandle:
         self._device = name if device else None
 
     def __enter__(self):
-        if _under_capture():
+        if _under_capture("span"):
             raise TraceUnderJitError(
                 f"span {self.name!r} opened while a CUDA graph capture "
                 "(or a torch.compile trace) is recording: it would be "
@@ -216,7 +221,7 @@ class Tracer:
 
     def instant(self, name: str, **args) -> None:
         """Structured point-in-time event ("i" phase, thread scope)."""
-        if _under_capture():
+        if _under_capture("instant"):
             raise TraceUnderJitError(
                 f"instant {name!r} emitted while a CUDA graph capture "
                 "(or a torch.compile trace) is recording")
@@ -230,7 +235,7 @@ class Tracer:
     def counter(self, name: str, value) -> None:
         """Counter-series sample ("C" phase): Perfetto renders these as
         a stacked value track."""
-        if _under_capture():
+        if _under_capture("counter"):
             raise TraceUnderJitError(
                 f"counter {name!r} sampled while a CUDA graph capture "
                 "(or a torch.compile trace) is recording: it would record "

@@ -64,6 +64,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..kernels import _build
 from . import chaos
 
 _GEN_PREFIX = "gen-"
@@ -313,6 +314,12 @@ class CheckpointManager:
         blocking=False snapshots every tensor into a fresh host copy NOW
         and commits on a background thread; call `wait()` (or the next
         save/restore, which waits implicitly) to surface write errors."""
+        if _build.tracing():
+            # an analysis trace of a program (torch.fx on fake tensors):
+            # leave the host-call node lint rule TPU601 reports, write
+            # nothing
+            _build.mark_host_call("resilience.checkpoint.save")
+            return -1
         self.wait()  # one in-flight async save; surfaces prior errors
         tensors: List[torch.Tensor] = []
         # the SNAPSHOT: a CPU leaf's .cpu() aliases the live storage,

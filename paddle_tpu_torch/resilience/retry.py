@@ -86,6 +86,17 @@ class RetryPolicy:
         self._lock = threading.Lock()
         self.stats = RetryStats()
 
+    def __getstate__(self):
+        # a DataLoader worker process gets its own copy, with a lock of
+        # its own
+        state = dict(self.__dict__)
+        del state["_lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
     def delays(self):
         """The backoff sequence for one call (max_attempts - 1 sleeps).
         Consumes the policy RNG exactly as `.call` would."""

@@ -97,6 +97,7 @@ tokens, and `drain` combines them for an elastic scale-in.
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from collections import namedtuple
@@ -457,6 +458,12 @@ class ContinuousBatchingEngine:
         # graph must never take a block of their pool
         self._prefill_cache = {}
         self._prefill_host = {}
+        # each prefill program's body over (params, pools, *inputs), for
+        # the static audits (`_program_inventory`)
+        self._prefill_bodies = {}
+        self._kv_pool_budget = kv_pool_bytes
+        self._memory_audit = None
+        self._roofline_audit = None
         self._site = GraphSite(self.device)
         self._prefill_site = GraphSite(self.device)
         self._draft_site = GraphSite(self.device)
@@ -668,6 +675,8 @@ class ContinuousBatchingEngine:
             "blocked_syncs": self.blocked_syncs,
             "compile_stats": self.compile_stats(),
             "kernel_launches": _build.launch_counts(),
+            "memory_audit": self._memory_audit,
+            "roofline_audit": self._roofline_audit,
         }
 
     def add_request(self, prompt, max_new: Optional[int] = None,
@@ -1054,6 +1063,7 @@ class ContinuousBatchingEngine:
                         site=self._prefill_site)
         self._prefill_site.capture(prog)
         self._prefill_cache[key] = prog
+        self._prefill_bodies[prog.name] = body
         self._prefill_host[prog.name] = _HostSets(prog.inputs, prog.outputs)
 
     def _prefix_width_ladder(self) -> list:
@@ -1141,7 +1151,8 @@ class ContinuousBatchingEngine:
             bsz *= 2
         return bsz
 
-    def warm(self, buckets=None, prefix_widths=None):
+    def warm(self, buckets=None, prefix_widths=None, audit_memory=None,
+             audit_comms=None, audit_roofline=None):
         """Build the kernels (on the card) and capture every program the
         engine can need for the given prompt buckets (the JAX engine's
         warm()): each power-of-two prefill batch up to
@@ -1155,7 +1166,23 @@ class ContinuousBatchingEngine:
         as a CUDA graph (the step programs in one memory pool, the
         prefill programs in another) that every later dispatch replays;
         on the CPU the programs stay eager. Once
-        warm for the traffic's buckets, serving never captures again."""
+        warm for the traffic's buckets, serving never captures again.
+
+        `audit_memory` / `audit_roofline` then run the static audits over
+        every program (`audit_memory`, `audit_roofline`: one trace of
+        each program on fake tensors serves both) onto
+        ``metrics()['memory_audit']`` / ``['roofline_audit']``. Default
+        (None) follows FLAGS_audit_memory / FLAGS_audit_roofline
+        (PADDLE_TPU_AUDIT_*), both implied by PADDLE_TPU_LINT=1.
+        `audit_comms` resolving on raises: the port has no collective
+        yet (ROADMAP.md section 1 item 5)."""
+        from ..analysis import resolve_audit_comms
+        from ..analysis.memory import resolve_audit_memory
+        from ..analysis.roofline import resolve_audit_roofline
+
+        resolve_audit_comms(audit_comms)
+        do_mem = resolve_audit_memory(audit_memory)
+        do_roof = resolve_audit_roofline(audit_roofline)
         buckets = [self.max_prompt_len] if buckets is None else list(buckets)
         if self.unified:
             buckets = []
@@ -1187,6 +1214,234 @@ class ContinuousBatchingEngine:
                         break
                     bsz *= 2
             self._warm_programs()
+        if do_mem or do_roof:
+            shared = self._traced_inventory() if do_mem and do_roof else None
+            if do_mem:
+                self.audit_memory(graphs=shared)
+            if do_roof:
+                self.audit_roofline(graphs=shared)
+            # the traces' graphs and fakes are reference cycles: collect
+            # them here, not in the collector's passes while serving
+            del shared
+            gc.collect()
+
+    # ---- static audits (analysis/) ------------------------------------
+
+    def _program_inventory(self):
+        """(name, body, inputs) of every program this engine can
+        dispatch: the decode chunk, the unified window and the verify
+        window where the engine has them, and every prefill program made
+        so far; `body(params, pools_k, pools_v, *inputs)` is the
+        program's function, `inputs` its static input tensors."""
+        fns = {"decode": self._decode, "unified": self._unified,
+               "verify": self._verify}
+        progs = [(name, fns[name], prog.inputs)
+                 for name, prog in self._programs.items()]
+        for key, prog in sorted(self._prefill_cache.items(),
+                                key=lambda kv: str(kv[0])):
+            progs.append((prog.name, self._prefill_bodies[prog.name],
+                          prog.inputs))
+        return progs
+
+    def _traced_inventory(self, programs=None):
+        """(name, Graph) of every (optionally filtered) program: one
+        ``torch.fx`` trace each on fake tensors made from the engine's
+        parameters, pools and static inputs (no device memory, no
+        launch, no tensor changes). Unknown filter names raise: a typo'd
+        filter must not give a vacuously clean report."""
+        from ..analysis.graph import trace_graph
+
+        inventory = self._program_inventory()
+        if programs is not None:
+            want = set(programs)
+            missing = want - {it[0] for it in inventory}
+            if missing:
+                raise ValueError(
+                    f"programs {sorted(missing)} not in the inventory "
+                    f"{[it[0] for it in inventory]}")
+            inventory = [it for it in inventory if it[0] in want]
+        return [(name, trace_graph(fn, self.p, self.kcs, self.vcs, *ins,
+                                   name=name))
+                for name, fn, ins in inventory]
+
+    def audit_memory(self, hbm_budget_bytes=None, programs=None,
+                     graphs=None) -> dict:
+        """Static memory audit: the liveness pass (`analysis/memory.py`)
+        over every program, one report for the engine (each program's
+        peak, its in-place coverage and the TPU701/702/703 findings). The
+        programs share the pools and params and run one at a time, so
+        the engine's peak is the largest program's.
+
+        `hbm_budget_bytes` arms TPU702; None derives it from
+        `kv_pool_bytes=` when given (pools + params + 25% headroom,
+        floored at 1 MiB) and else from the device
+        (`analysis.device_specs.auto_hbm_budget`); 0 disarms it.
+        `programs` filters by name ("decode", "prefill:cold:..."):
+        unknown names raise, and a filtered run returns a `partial`
+        report without touching ``metrics()``. `graphs` are (name,
+        Graph) pairs of `_traced_inventory` to share one trace."""
+        from ..analysis import memory as _mem
+        from ..analysis.device_specs import auto_hbm_budget
+        from ..analysis.pipeline import analyze as _analyze
+
+        if hbm_budget_bytes is None and self._kv_pool_budget is not None:
+            base = self._kv_pool_budget + _mem.pytree_local_bytes(self.p)
+            hbm_budget_bytes = base + max(base // 4, 1 << 20)
+        elif hbm_budget_bytes is None:
+            hbm_budget_bytes = auto_hbm_budget(
+                None if self.device.type == "cuda" else "h100-sxm")
+        rule_config = {"TPU702.hbm_budget_bytes": int(hbm_budget_bytes)}
+        if graphs is None:
+            graphs = self._traced_inventory(programs)
+        min_miss = _mem.DonationMissRule.MIN_BYTES
+        out, diags = {}, 0
+        for name, g in graphs:
+            rep = _mem.audit_graph(g)
+            lint = _analyze(None, graph=g,
+                            rules=["TPU701", "TPU702", "TPU703"],
+                            rule_config=rule_config)
+            misses = [m for m in rep.donation["misses"]
+                      if m["bytes"] >= min_miss]
+            donated = rep.donation["donated_bytes"]
+            missed = sum(m["bytes"] for m in misses)
+            diags += len(lint)
+            out[name] = {
+                "peak_hbm_bytes": rep.peak_bytes,
+                "n_eqns": rep.n_eqns,
+                "mp": rep.mp,
+                "donated_bytes": donated,
+                "missed_bytes": missed,
+                "donation_misses": len(misses),
+                "donation_coverage": donated / (donated + missed)
+                if donated + missed else 1.0,
+                "diagnostics": lint.to_dict()["diagnostics"],
+            }
+        fleet_peak = max((p["peak_hbm_bytes"] for p in out.values()),
+                         default=0)
+        report = {
+            "programs": out,
+            "programs_audited": len(out),
+            "fleet_peak_hbm_bytes": fleet_peak,
+            "per_chip": True,
+            "mp": 1,
+            "cp": 1,
+            "kv_pool_bytes": self.mgr.kv_pool_bytes(),
+            "hbm_budget_bytes": hbm_budget_bytes,
+            "donation_clean": all(p["donation_misses"] == 0
+                                  for p in out.values()),
+            "n_diagnostics": diags,
+            "partial": programs is not None,
+        }
+        if report["partial"]:
+            return report
+        self._memory_audit = report
+        tr, mt = self._tracer, self._metrics
+        if tr is not None:
+            tr.instant("memory.audit", fleet_peak_hbm_bytes=fleet_peak,
+                       programs=len(out), mp=1,
+                       donation_clean=report["donation_clean"])
+        if mt is not None:
+            mt.event("memory.audit", fleet_peak_hbm_bytes=fleet_peak,
+                     programs=len(out), mp=1,
+                     donation_clean=report["donation_clean"],
+                     n_diagnostics=diags)
+            mt.gauge("predicted_peak_hbm_bytes",
+                     "static auditor per-chip peak over cached "
+                     "programs").set(fleet_peak)
+        return report
+
+    def audit_comms(self, *args, **kwargs):
+        """Not ported: the port has no collective yet (ROADMAP.md section
+        1 item 5)."""
+        from ..analysis import audit_comms
+
+        return audit_comms(*args, **kwargs)
+
+    def audit_roofline(self, device=None, programs=None, rule_config=None,
+                       graphs=None) -> dict:
+        """Static roofline audit: the FLOPs / bytes pass
+        (`analysis/roofline.py`) over every program against one device
+        row (`device`: a row name or DeviceSpec; None: the card's row,
+        else the H100's): each program's predicted time (max of compute
+        and HBM time, plus launches x the row's launch cost), bound class,
+        predicted MFU, its hand-written kernel launches and the
+        TPU901/902/903 findings. The decode chunk's `predicted_step_ms`
+        and `predicted_mfu` are the headline gauges;
+        `predicted_ms_per_token` divides the chunk by the tokens it makes
+        (steps_per_sync x slots). `programs` and `graphs` as in
+        `audit_memory`."""
+        from ..analysis import roofline as _roof
+        from ..analysis.pipeline import analyze as _analyze
+        from ..analysis.rules import RULES, rule_config_for
+
+        spec = _roof.get_spec(device)
+        rc = dict(rule_config or {})
+
+        def _rules():
+            out = []
+            for rid in ("TPU901", "TPU902", "TPU903"):
+                knobs = rule_config_for(rid, rc)
+                knobs.setdefault("device", spec)
+                out.append(RULES[rid](**knobs))
+            return out
+
+        if graphs is None:
+            graphs = self._traced_inventory(programs)
+        out, diags = {}, 0
+        for name, g in graphs:
+            rep = _roof.audit_graph(g, spec)
+            lint = _analyze(None, graph=g, rules=_rules())
+            diags += len(lint)
+            d = rep.to_dict(max_events=4)
+            out[name] = {k: d[k] for k in (
+                "predicted_step_ms", "predicted_mfu", "bound", "flops",
+                "hbm_bytes", "wire_bytes", "kernel_launches", "kernels",
+                "compute_ms", "bandwidth_ms", "wire_ms",
+                "launch_overhead_ms", "padding_waste_fraction", "mp",
+                "bottlenecks")}
+            out[name]["diagnostics"] = lint.to_dict()["diagnostics"]
+        step_ms = mfu = per_token_ms = None
+        if "decode" in out:
+            step_ms = out["decode"]["predicted_step_ms"]
+            mfu = out["decode"]["predicted_mfu"]
+            per_token_ms = step_ms / max(self.steps * self.slots, 1)
+        report = {
+            "programs": out,
+            "programs_audited": len(out),
+            "device": spec.name,
+            "per_chip": True,
+            "mp": 1,
+            "cp": 1,
+            "predicted_step_ms": step_ms,
+            "predicted_mfu": mfu,
+            "predicted_ms_per_token": per_token_ms,
+            "roofline_clean": diags == 0,
+            "n_diagnostics": diags,
+            "partial": programs is not None,
+        }
+        if report["partial"]:
+            return report
+        self._roofline_audit = report
+        tr, mt = self._tracer, self._metrics
+        if tr is not None:
+            tr.instant("roofline.audit", device=spec.name,
+                       predicted_step_ms=step_ms, predicted_mfu=mfu,
+                       programs=len(out), mp=1,
+                       roofline_clean=report["roofline_clean"])
+        if mt is not None:
+            mt.event("roofline.audit", device=spec.name,
+                     predicted_step_ms=step_ms, predicted_mfu=mfu,
+                     programs=len(out), mp=1,
+                     roofline_clean=report["roofline_clean"],
+                     n_diagnostics=diags)
+            if step_ms is not None:
+                mt.gauge("predicted_step_ms",
+                         "static roofline auditor predicted decode "
+                         "chunk latency").set(step_ms)
+                mt.gauge("predicted_mfu",
+                         "static roofline auditor predicted decode "
+                         "chunk MFU").set(mfu)
+        return report
 
     def _warm_programs(self):
         """Capture the decode chunk and, where the engine has them, the

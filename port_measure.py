@@ -4,10 +4,11 @@ kernels against another's on fixed inputs, end-to-end phases, and
 variants of the decode, flash and paged prefill kernels.
 
     python3 port_measure.py kernels TREE LABEL OUT.json [mega]
-    python3 port_measure.py e2e TREE LABEL [mega | quant | graph]
+    python3 port_measure.py e2e TREE LABEL [mega | quant | graph | dispatch]
     python3 port_measure.py stamps TREE LABEL
     python3 port_measure.py mega TREE LABEL OUT.json
     python3 port_measure.py kernels TREE LABEL OUT.json gemv
+    python3 port_measure.py loader TREE LABEL
     python3 port_measure.py variants [decode] [dkv] [fwd] [prefill] [swiglu]
         [dq] [mega] [gemv]
 
@@ -45,7 +46,11 @@ different hosts differ by more than the kernels do.
   10-12 only, `quant` phases 7 and 8 (the weight-only GEMV's engines),
   `graph` phases 2, 7, 8 and 10-12 and, where the tree has it, the
   double-buffered phase 2b (the engine's CUDA graphs: a tree whose
-  engine replays them logs its graphed and eager runs).
+  engine replays them logs its graphed and eager runs), `dispatch` the
+  wrappers' host time a call (rms_norm, the flash forward, paged and
+  contiguous decode), phase 2 (its eager `prefill_s` beside the replayed
+  one) and phase 13 (the eager train step): the cost of the kernels'
+  dispatch route (ctypes calls from Python, or torch.library operators).
 - stamps: the per-phase split of TREE's decode megakernel at the four
   rows: a copy of its csrc in which block 0 stamps %globaltimer at the
   launch's start and after every grid barrier, and every block stamps
@@ -54,6 +59,12 @@ different hosts differ by more than the kernels do.
   previous barrier's release, barrier time = release minus last arrival.
 - mega: stamps, `kernels ... mega` and `e2e ... mega` of one tree in one
   process (one build): the megakernel A/B.
+- loader: chip_smoke phase 24's fit (Llama-1B, batch 4 x 2048) for 12
+  steps, fed by 4 worker threads and by 4 worker processes over the
+  shared-memory ring, twice each in turns; for every step its wall time,
+  the trainer process's CPU time and the CPU time its worker processes
+  spent during it (from /proc), so a slow step shows whose cores it
+  waited for.
 - variants (all eight groups unless some are named): this checkout's
   decode body rebuilt with four warps, and with
   its P V partial sums capped to fit three blocks per SM, against the
@@ -428,9 +439,12 @@ def mega(tree: str, label: str, out_path: str) -> None:
 
 
 def e2e(tree: str, label: str, which: str = "all") -> None:
-    if which not in ("all", "mega", "quant", "graph"):
+    if which not in ("all", "mega", "quant", "graph", "dispatch"):
         raise SystemExit(f"e2e: unknown selection {which!r}")
     cs, _build = _import_tree(tree)
+    if which == "dispatch":
+        _e2e_dispatch(cs, label)
+        return
     if which == "quant":
         _e2e_quant(cs, label)
         return
@@ -455,6 +469,106 @@ def _e2e_graph(cs, label):
     cs.phase_mega_scan(cfg, params)
     cs.phase_mega_full(cfg, params, int8w)
     cs.phase_mega_attn(cfg, params, engine)
+    print(f"[{label}] done", flush=True)
+
+
+def _e2e_dispatch(cs, label):
+    """The dispatch route's cost: the wrappers' host time a call at small
+    shapes (where the host sets the pace), then chip_smoke phase 2 (the
+    engine served replayed and eagerly: eager `prefill_s` pays every
+    wrapper call) and phase 13 (the eager Llama-1B train step)."""
+    from paddle_tpu_torch.kernels.decode_attention import (
+        gqa_decode_attention, paged_decode_attention)
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    x, w = rnd(8, 4096), rnd(4096)
+    q, k, v = rnd(1, 128, 32, 128), rnd(1, 128, 8, 128), rnd(1, 128, 8, 128)
+    qd, kc, vc = rnd(8, 32, 128), rnd(8, 8, 256, 128), rnd(8, 8, 256, 128)
+    pools = [rnd(73, 8, 64, 128) for _ in range(2)]
+    tables = torch.arange(1, 73, device="cuda",
+                          dtype=torch.int32).reshape(8, 9)
+    lens = torch.full((8,), 200, dtype=torch.int32, device="cuda")
+    host_us(label, "rms_norm", lambda: rms_norm(x, w), n=1000)
+    host_us(label, "flash_attention",
+            lambda: flash_attention(q, k, v, causal=True), n=500)
+    host_us(label, "paged_decode_attention",
+            lambda: paged_decode_attention(qd, *pools, tables, lens), n=500)
+    host_us(label, "gqa_decode_attention",
+            lambda: gqa_decode_attention(qd, kc, vc, lens), n=500)
+    del x, w, q, k, v, qd, kc, vc, pools
+    cfg, params = cs.build_model()
+    cs.phase_engine(cfg, params)
+    del params
+    cs._release()
+    cs.phase_train()
+    print(f"[{label}] done", flush=True)
+
+
+def _children_cpu_s() -> float:
+    """CPU seconds (user + system) of this process's live children."""
+    import multiprocessing as mp
+
+    tick = os.sysconf("SC_CLK_TCK")
+    total = 0.0
+    for p in mp.active_children():
+        try:
+            with open(f"/proc/{p.pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            total += (int(fields[11]) + int(fields[12])) / tick
+        except OSError:
+            pass
+    return total
+
+
+def loader(tree: str, label: str) -> None:
+    """Phase 24's two loaders in turns (threads, ring, threads, ring),
+    each step's wall time beside the CPU time of the trainer and of the
+    workers during it."""
+    from paddle_tpu_torch.hapi import Callback
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+
+    cs, _build = _import_tree(tree)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cs.hapi_config()
+    x, y = cs.hapi_tokens(cfg, 48, 2048, cs.SEED + 24)
+
+    class Probe(Callback):
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def on_train_batch_begin(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.t = (time.perf_counter(), time.process_time(),
+                      _children_cpu_s())
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            t0, c0, w0 = self.t
+            self.rows.append((1e3 * (time.perf_counter() - t0),
+                              1e3 * (time.process_time() - c0),
+                              1e3 * (_children_cpu_s() - w0)))
+
+    for shm in (False, True, False, True):
+        model = cs.hapi_model(cfg, cs.SEED)
+        probe = Probe()
+        model.fit(DataLoader(TensorDataset([x, y]), batch_size=4,
+                             num_workers=4, use_shared_memory=shm),
+                  epochs=1, verbose=0, callbacks=[probe])
+        tag = "ring" if shm else "threads"
+        print(f"[{label}] {tag}: step ms / trainer CPU ms / workers' CPU ms "
+              + "; ".join(f"{w:.1f}/{c:.1f}/{k:.1f}"
+                          for w, c, k in probe.rows), flush=True)
+        del model
+        cs._release()
     print(f"[{label}] done", flush=True)
 
 
@@ -1119,4 +1233,5 @@ if __name__ == "__main__":
         sys.exit("port_measure: needs a CUDA card")
     mode, args = sys.argv[1], sys.argv[2:]
     {"kernels": kernels, "e2e": e2e, "stamps": stamps, "mega": mega,
+     "loader": loader,
      "variants": variants}[mode](*args)

@@ -2240,3 +2240,121 @@ def test_hapi_resumed_step_is_bitwise_the_live_one(dev, tmp_path):
     for (n, p), (_, q) in zip(live.network.named_parameters(),
                               fresh.network.named_parameters()):
         assert torch.equal(p, q), n
+
+
+# ---------------------------------------------------------------------------
+# the kernel operators, the static audits and the shared-memory loader
+# ---------------------------------------------------------------------------
+
+def test_kernel_operators_record_into_a_cuda_graph(dev):
+    """The operators' CUDA implementations launch on the capture stream:
+    a graph of rms_norm, the flash forward and paged decode replays to
+    the eager results, and the launches counted at capture equal one
+    eager run's."""
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    x, w = rnd(16, 256), rnd(256)
+    q, k, v = rnd(1, 128, 4, 128), rnd(1, 128, 2, 128), rnd(1, 128, 2, 128)
+    pools = [rnd(8, 2, 64, 128) for _ in range(2)]
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=dev)
+    lens = torch.tensor([70, 100], dtype=torch.int32, device=dev)
+    qd = rnd(2, 4, 128)
+
+    def body():
+        return (rms_norm(x, w), flash_attention(q, k, v, causal=True),
+                paged_decode_attention(qd, *pools, tables, lens))
+
+    _build.reset_launch_counts()
+    eager = body()
+    torch.cuda.synchronize()
+    counted = _build.launch_counts()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        body()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    _build.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        outs = body()
+    assert _build.launch_counts() == counted
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(outs, eager):
+        assert torch.equal(a, b)
+
+
+def _audited_engine(dev):
+    cfg, params = _graph_model(dev, "dense")
+    return _graph_engine(dev, cfg, params)
+
+
+def test_audits_allocate_nothing_and_touch_no_tensor(dev):
+    """warm()'s audits trace on fakes: the card's allocated bytes, the
+    launch counters, the pools and the params are unchanged across
+    audit_memory + audit_roofline, and the reports cover every program."""
+    eng = _audited_engine(dev)
+    torch.cuda.synchronize()
+    snap = [t.clone() for t in _pool_pages(eng)]
+    weights = {k: (v[0] if isinstance(v, tuple) else v).clone()
+               for k, v in eng.p.items()}
+    _build.reset_launch_counts()
+    before = torch.cuda.memory_allocated(dev)
+    mem = eng.audit_memory()
+    roof = eng.audit_roofline()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == before
+    assert not any(_build.launch_counts().values())
+    assert all(torch.equal(a, b) for a, b in zip(_pool_pages(eng), snap))
+    assert all(torch.equal((v[0] if isinstance(v, tuple) else v),
+                           weights[k]) for k, v in eng.p.items())
+    names = set(eng.compile_stats()) - {"draft"}
+    assert set(mem["programs"]) == names == set(roof["programs"])
+    assert mem["donation_clean"] and roof["device"] == "h100-sxm"
+
+
+def test_kernel_nodes_equal_one_eager_runs_launches(dev):
+    """Each program's kernel nodes equal what one eager run of its body
+    adds to the launch counters."""
+    from paddle_tpu_torch.analysis import kernel_launches
+
+    cfg, params = _graph_model(dev, "dense")
+    eng = _graph_engine(dev, cfg, params, graphed=False)
+    graphs = dict(eng._traced_inventory())
+    for name, fn, ins in eng._program_inventory():
+        _build.reset_launch_counts()
+        fn(eng.p, eng.kcs, eng.vcs, *ins)
+        torch.cuda.synchronize()
+        got = {k: n for k, n in _build.launch_counts().items() if n}
+        assert got == kernel_launches(graphs[name]), name
+
+
+class _CardDS:
+    def __len__(self):
+        return 32
+
+    def __getitem__(self, i):
+        return torch.full((4, 8), float(i), dtype=torch.bfloat16), i
+
+
+def test_shared_memory_loader_beside_a_cuda_context(dev):
+    """Four spawned workers (hidden from the card) feed a process that
+    holds a CUDA context; the batches equal the thread loader's and land
+    on the card."""
+    import multiprocessing as mp
+
+    from paddle_tpu_torch.io import DataLoader
+
+    torch.ones(1, device=dev).sum().item()       # a live context
+    procs = list(DataLoader(_CardDS(), batch_size=4, num_workers=4))
+    threads = list(DataLoader(_CardDS(), batch_size=4, num_workers=4,
+                              use_shared_memory=False))
+    assert len(procs) == 8
+    for (a, i), (b, j) in zip(procs, threads):
+        assert torch.equal(a, b) and torch.equal(i, j)
+        assert torch.equal(a.to(dev).cpu(), b)
+    assert mp.active_children() == []

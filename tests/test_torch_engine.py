@@ -239,14 +239,13 @@ def test_sampled_engine_with_top_k_one_is_greedy():
 
 # metrics() keys the port does not hold equal to the JAX engine's: the
 # host-time total of sync waits, and what waits for ROADMAP.md section 1
-# item 6 (the audits, the tuned-config artifact, the compile-cache
-# statistics)
+# items 5 and 6 (the comms audit, the tuned-config artifact, the
+# compile-cache statistics)
 METRICS_NOT_COMPARED = {"sync_wait_s"}
 # mid-serve only: the port captures every step program at its first
 # dispatch, the JAX engine compiles each at its first call
 METRICS_NOT_COMPARED_MID_SERVE = {"compile_stats"}
-METRICS_ITEM_6 = {"memory_audit", "comms_audit", "roofline_audit",
-                  "tuned_config", "warm_compile_stats"}
+METRICS_ITEM_6 = {"comms_audit", "tuned_config", "warm_compile_stats"}
 # reported by the port only: host timings and the kernel launch counts
 METRICS_PORT_ONLY = {"decode_s", "prefill_s", "kernel_launches"}
 
@@ -258,7 +257,8 @@ def test_metrics_keys_and_values_match_jax(unified):
     same value, pool occupancy (`pages_in_use`, `pool_occupancy`) and the
     parallelism fields (`serving_mp` 1, `serving_cp` 1,
     `quantized_collectives` False) included, mid-serve and drained. The
-    JAX engine's keys the port lacks are exactly the item-6 ones."""
+    JAX engine's keys the port lacks are exactly the item-5 / item-6
+    ones."""
     jcfg, _, raw, cfg, p = _setup()
     rng = np.random.default_rng(5)
     shared = rng.integers(1, cfg.vocab_size, (8,)).tolist()

@@ -447,9 +447,11 @@ def test_loader_collates_torch_and_prefetches_in_order():
     for (px, py), (jx, jy) in zip(single, jbatches):
         np.testing.assert_array_equal(px.numpy(), np.asarray(jx.numpy()))
         np.testing.assert_array_equal(py.numpy(), np.asarray(jy.numpy()))
-    # the shared-memory worker processes are not ported: no quiet fallback
-    with pytest.raises(NotImplementedError, match="shared-memory"):
-        iter(io.DataLoader(ds, batch_size=3, num_workers=2))
+    # the shared-memory worker processes (use_shared_memory=True, the
+    # default) yield the same batches
+    procs = list(io.DataLoader(ds, batch_size=3, num_workers=2))
+    assert all(torch.equal(a, b) for s, t in zip(single, procs)
+               for a, b in zip(s, t))
     g = torch.Generator().manual_seed(0)
     parts = io.random_split(ds, [6, 4], generator=g)
     assert sorted(parts[0].indices + parts[1].indices) == list(range(10))
@@ -460,11 +462,8 @@ def test_loader_collates_torch_and_prefetches_in_order():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,flags,match", [
-    ({"audit_memory": True}, {}, "item 6"),
-    ({"audit_comms": True}, {}, "item 6"),
-    ({"audit_roofline": True}, {}, "item 6"),
-    ({}, {"tpu_lint": True}, "item 6"),
-    ({}, {"audit_roofline": True}, "item 6"),
+    ({"audit_comms": True}, {}, "item 5"),
+    ({}, {"audit_comms": True}, "item 5"),
     ({"quantized_collectives": True}, {}, "item 5"),
     ({}, {"quantized_collectives": True}, "item 5"),
 ])
@@ -478,9 +477,6 @@ def test_refused_trainer_options_raise(kw, flags, match):
         set_flags({k: False for k in flags})
     # an explicit False wins over the flags
     off = {k: False for k in (kw or flags)}
-    if "tpu_lint" in off:
-        off = dict.fromkeys(("audit_memory", "audit_comms",
-                             "audit_roofline"), False)
     set_flags(flags)
     try:
         pm.fit(_lin_batches(1), epochs=1, verbose=0, **off)
