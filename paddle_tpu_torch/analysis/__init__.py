@@ -74,9 +74,19 @@ TPU903   launch-bound step  launch overhead share of the predicted time
                             (the H100 row's replayed-launch cost).
 =======  =================  =================================================
 
+The static autotuner (``tuner.py``) turns the memory and roofline passes
+into an objective over the serving engine's build-time knobs; its
+`TunedConfig` artifact is what ``ContinuousBatchingEngine(config=...)``
+and FLAGS_tuned_config apply::
+
+    report = analysis.autotune(cfg, params, engine_kwargs=geometry)
+    report.tuned_config().save(directory)
+
+    python -m paddle_tpu_torch.analysis --tune --device cpu-container
+
 The communication audit (``comms.py``, TPU401, TPU801-803) waits for
-multi-GPU (item 5) and the tuner (``tuner.py``, ``config=``) for the
-rest of item 6: `audit_comms` raises, naming its item.
+multi-GPU (ROADMAP.md section 1 item 5): `audit_comms` raises, naming its
+item.
 """
 from .diagnostics import (  # noqa: F401
     Diagnostic, LintError, Report, Severity,
@@ -97,6 +107,8 @@ from .roofline import (  # noqa: F401
     RooflineReport, audit_roofline, count_kernel_launches,
     count_step_kernels, kernel_launches,
 )
+from . import tuner  # noqa: F401,E402
+from .tuner import TunedConfig, TuningReport, autotune  # noqa: F401,E402
 
 COMMS_UNPORTED = ("the communication audit (analysis/comms.py, TPU401, "
                   "TPU801-803) is not ported: the port has no collective "
@@ -131,5 +143,5 @@ __all__ = [
     "count_kernel_launches", "count_step_kernels", "default_rules",
     "device_specs", "get_spec", "kernel_launches", "lint", "memory",
     "register_rule", "resolve_audit_comms", "roofline", "trace_for_memory",
-    "trace_graph",
+    "trace_graph", "TunedConfig", "TuningReport", "autotune", "tuner",
 ]

@@ -19,10 +19,20 @@ place) under ``--memory`` / ``--roofline``. ``--spec`` names the device
 row the roofline prices against (default: the card's row, else
 ``h100-sxm``).
 
-``--comms`` and ``--tune`` are not ported: they raise, naming their
-ROADMAP.md items. ``--format json`` prints one object (the `Report`
-schema plus ``memory`` / ``roofline`` keys); the exit status is 1 when a
-diagnostic reaches ``--fail-on`` (default: error).
+``--tune`` runs the static autotuner (`tuner.py`) over the tiny serving
+engine, rebuilds the engine through the winner's artifact and lints its
+decode program; ``--budget-candidates N`` caps the candidates scored
+(the baseline always rides along), ``--tune-out PATH`` saves the
+artifact. ``--device`` also takes a device row's name, as the alias of
+``--spec`` (the JAX CLI's spelling); ``cpu-container``, the row of the
+CPU host, runs the demo on the CPU. ``--comms`` is not
+ported: it raises, naming ROADMAP.md section 1 item 5. ``--format json``
+prints one object (the `Report` schema plus ``memory`` / ``roofline`` /
+``tuning`` keys); the exit status is 1 when a diagnostic reaches
+``--fail-on`` (default: error).
+
+    python -m paddle_tpu_torch.analysis --tune --device cpu-container \
+        --budget-candidates 12 --tune-out /tmp/tuned --format json
 """
 from __future__ import annotations
 
@@ -93,6 +103,82 @@ def _decode_demo(device):
         "models.llama tiny paged decode"
 
 
+def _tune_setup(device):
+    """The tiny serving engine the --tune demo tunes: its config, bf16
+    params on `device` and its geometry. The baseline's page (8) leaves a
+    larger page class (16) above it, and it serves the split path."""
+    import torch
+
+    from ..models import LlamaConfig, init_serving_params
+
+    cfg = LlamaConfig.tiny()
+    params = init_serving_params(cfg, seed=0, device=device,
+                                 dtype=torch.bfloat16)
+    kw = dict(slots=2, prompt_bucket=16, max_prompt_len=32,
+              max_new_tokens=8, block_size=8, steps_per_sync=4,
+              unified_step=False, dtype=torch.bfloat16, device=device)
+    return cfg, params, kw
+
+
+def demo_budget(baseline) -> int:
+    """The demo's HBM budget (`autotune`'s `hbm_budget_bytes` as a
+    function of the scored baseline): the all-defaults baseline's traced
+    peak, so the demo asks which configurations fit in the memory the
+    defaults need. The baseline stays feasible; a larger page class's
+    static bound exceeds it (pruned before tracing) and the unified
+    windows' traced peaks do (pruned after)."""
+    return baseline.peak_hbm_bytes
+
+
+def _tune_demo(device, spec=None, budget_candidates=None):
+    from . import tuner
+
+    cfg, params, kw = _tune_setup(device)
+    report = tuner.autotune(
+        cfg, params, engine_kwargs=kw, device=spec,
+        hbm_budget_bytes=demo_budget,
+        budget_candidates=budget_candidates)
+    return report, cfg, params, kw
+
+
+def _run_tune(args, device, rules, rule_config) -> int:
+    """--tune: autotune the tiny serving engine, rebuild it through the
+    winner's artifact, lint that engine's decode program (the --fail-on
+    gate prices what the tuner recommends) and print the report."""
+    from . import Severity, analyze
+    from ..serving import ContinuousBatchingEngine
+    from .graph import trace_graph
+    from .tuner import KNOBS
+
+    if args.target is not None:
+        raise SystemExit(
+            "--tune runs the bundled tiny-llama serving demo and takes no "
+            "target (tune a model with paddle_tpu_torch.analysis.autotune)")
+    report, cfg, params, kw = _tune_demo(device, args.spec,
+                                         args.budget_candidates)
+    tuned = report.tuned_config()
+    if args.tune_out:
+        print(f"tuned config -> {tuned.save(args.tune_out)}",
+              file=sys.stderr)
+    geometry = {k: v for k, v in kw.items() if k not in KNOBS}
+    eng = ContinuousBatchingEngine(cfg, params, config=tuned, **geometry)
+    name, fn, ins = eng._program_inventory()[0]
+    graph = trace_graph(fn, eng.p, eng.kcs, eng.vcs, *ins,
+                        name="models.llama tiny paged decode (tuned)")
+    lint = analyze(None, graph=graph, rules=rules, rule_config=rule_config)
+    if args.format == "json":
+        out = lint.to_dict()
+        out["tuning"] = report.to_dict()
+        print(json.dumps(out, sort_keys=True, indent=2))
+    else:
+        print(report.format())
+        print(lint.format(min_severity=Severity[args.min_severity.upper()]))
+    if args.fail_on != "never" and \
+            lint.at_least(Severity[args.fail_on.upper()]):
+        return 1
+    return 0
+
+
 def _resolve_target(spec, device, serving: bool):
     if spec is None:
         return _decode_demo(device) if serving else _forward_demo(device)
@@ -123,7 +209,10 @@ def main(argv=None) -> int:
                              "tiny-llama demos)")
     parser.add_argument("--device", default=None,
                         help="torch device of the demos (default: the "
-                             "card; 'cpu' on a host without one)")
+                             "card; 'cpu' on a host without one); a device "
+                             "row's name (h100-sxm, cpu-container) is the "
+                             "alias of --spec, and cpu-container runs the "
+                             "demo on the CPU")
     parser.add_argument("--spec", default=None, choices=sorted(DEVICE_SPECS),
                         help="device row the roofline prices against "
                              "(default: the card's row, else h100-sxm)")
@@ -140,7 +229,20 @@ def main(argv=None) -> int:
     parser.add_argument("--comms", action="store_true",
                         help="not ported (ROADMAP.md section 1 item 5)")
     parser.add_argument("--tune", action="store_true",
-                        help="not ported (ROADMAP.md section 1 item 6)")
+                        help="run the static autotuner over the tiny "
+                             "serving engine (prune over-budget candidates, "
+                             "rank the rest by the decode chunk's predicted "
+                             "time) and lint the winner's decode program; "
+                             "json output gains a 'tuning' key")
+    parser.add_argument("--budget-candidates", type=int, default=None,
+                        metavar="N",
+                        help="with --tune: score at most N candidates (the "
+                             "all-defaults baseline besides)")
+    parser.add_argument("--tune-out", default=None, metavar="PATH",
+                        help="with --tune: save the winner's TunedConfig "
+                             "(a directory gets .paddle_tpu_tune.json); "
+                             "ContinuousBatchingEngine(config=PATH) or "
+                             "FLAGS_tuned_config loads it")
     parser.add_argument("--format", default="text", choices=["text", "json"])
     parser.add_argument("--fail-on", default="error",
                         choices=["info", "warning", "error", "never"])
@@ -153,19 +255,21 @@ def main(argv=None) -> int:
 
     if args.comms:
         raise NotImplementedError(COMMS_UNPORTED)
-    if args.tune:
-        raise NotImplementedError(
-            "--tune: the static autotuner (analysis/tuner.py, "
-            "ContinuousBatchingEngine(config=)) is not ported yet "
-            "(ROADMAP.md section 1 item 6)")
     from ..device import resolve_device
 
+    if args.device in DEVICE_SPECS:
+        # the alias of --spec; the row that prices the CPU host runs the
+        # demo there
+        args.spec = args.device
+        args.device = "cpu" if args.device == "cpu-container" else None
     device = resolve_device(args.device)
     rules = args.rules.split(",") if args.rules else None
     rule_config = _parse_rule_config(args.rule_config)
     if args.spec:
         for rid in ("TPU901", "TPU902", "TPU903", "TPU702"):
             rule_config.setdefault(f"{rid}.device", args.spec)
+    if args.tune:
+        return _run_tune(args, device, rules, rule_config or None)
     fn, call_args, call_kwargs, label = _resolve_target(
         args.target, device, args.memory or args.roofline)
     graph = trace_graph(fn, *call_args, name=label, **call_kwargs)

@@ -8,7 +8,11 @@ W, from the published figures: dense bf16 / f16 989e12 FLOP/s, int8
 an f32 product runs there), HBM3 3.35e12 B/s, NVLink 900e9 B/s, 80 GiB.
 Its ``launch_overhead_s`` is measured on the card (``chip_smoke.py``
 phase 25, ``PERF.md``): a kernel launch replayed from a CUDA graph, the
-way the engine and the training step's programs run. The
+way the engine and the training step's programs run. Its
+``kernel_shares`` are measured there too: the share of its bound each
+hand-written kernel reaches at the main path's shape (``chip_smoke.py``
+phase 1, bound_ms / ms), which the roofline divides a kernel node's time
+by, so a kernel that runs at a third of its bound is priced so. The
 ``cpu-container`` row prices the CPU host, and is used only when asked
 for by name. The TPU rows of the JAX package are not here: its figures
 are not the port's.
@@ -32,7 +36,10 @@ class DeviceSpec:
     """One device row. `peak_flops` maps a dtype name to dense FLOP/s;
     dtypes without a row resolve through `peak_for` (f16 takes the bf16
     entry, int4 / fp8 the int8 one, anything else the f32 one).
-    Bandwidths are bytes/s."""
+    Bandwidths are bytes/s. `kernel_shares` maps a kernel's launch
+    counter (``kernels._build.LAUNCHES``) to the share of its roofline
+    bound it reaches on this device (`share_for`: an int8-pool counter
+    without a row takes its bf16 twin's, anything else 1.0)."""
 
     name: str
     peak_flops: Dict[str, float]
@@ -41,6 +48,17 @@ class DeviceSpec:
     launch_overhead_s: float  # fixed device cost of one kernel launch
     hbm_bytes: int            # capacity
     kinds: tuple = ()         # torch.cuda.get_device_name() strings
+    kernel_shares: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+
+    def share_for(self, counter: Optional[str]) -> float:
+        """The share of its bound the kernel behind `counter` reaches
+        here; 1.0 for anything that is not a hand-written kernel."""
+        if not counter:
+            return 1.0
+        if counter in self.kernel_shares:
+            return self.kernel_shares[counter]
+        return self.kernel_shares.get(counter.removesuffix("_int8"), 1.0)
 
     def peak_for(self, dtype) -> float:
         d = str(dtype).replace("torch.", "")
@@ -82,7 +100,36 @@ DEVICE_SPECS: Dict[str, DeviceSpec] = {
         # 700 W; an eager launch took 30.4 us there (PERF.md)
         launch_overhead_s=1.934e-6,
         hbm_bytes=80 << 30,
-        kinds=("NVIDIA H100 80GB HBM3",)),
+        kinds=("NVIDIA H100 80GB HBM3",),
+        # bound_ms / ms of each kernel's first phase-1 case (the main
+        # path's shape; the megakernels at their main configuration:
+        # int8 weights for scan / full, bf16 for attn), chip_smoke.py on
+        # an H100 80GB HBM3 at 700 W (PERF.md section 6)
+        kernel_shares={
+            "rms_norm": 0.7145,
+            "flash_attention_fwd": 0.1599,
+            "flash_attention_bwd_dq": 0.0714,
+            "flash_attention_bwd_dkv": 0.1858,
+            "flash_attention_bwd_delta": 0.5217,
+            "swiglu_fwd": 0.7425,
+            "swiglu_bwd": 0.5734,
+            "paged_decode_attention": 0.1247,
+            "paged_decode_attention_int8": 0.0872,
+            "prefix_prefill_attention": 0.1032,
+            "prefix_prefill_attention_int8": 0.0845,
+            "ragged_paged_attention": 0.0855,
+            "ragged_paged_attention_int8": 0.0641,
+            "gqa_decode_attention": 0.1944,
+            "decode_attention": 0.3192,
+            "int4_matmul": 0.4931,
+            "int8_weight_matmul": 0.7015,
+            "decode_layer_megakernel": 0.2422,
+            "decode_layer_megakernel_int8": 0.1972,
+            "decode_layer_megakernel_full": 0.3279,
+            "decode_layer_megakernel_full_int8": 0.3082,
+            "decode_layers_megakernel": 0.3329,
+            "decode_layers_megakernel_int8": 0.3111,
+        }),
     # the CPU host: selected only by name
     "cpu-container": DeviceSpec(
         name="cpu-container",

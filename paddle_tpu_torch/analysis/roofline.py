@@ -22,7 +22,11 @@ paddle_tpu/analysis/roofline.py).
   the decode chunk's steps and layers are all in the graph.
 - **Predicted time** = ``max(compute, bandwidth) + launches x
   launch_overhead_s`` against one `device_specs` row (the card has no
-  collectives yet: wire time is 0).
+  collectives yet: wire time is 0). A hand-written kernel's node is
+  priced at the share of its bound the kernel reaches on that row
+  (`DeviceSpec.kernel_shares`, measured on the card): its FLOPs and
+  bytes take their time divided by that share. Products and the other
+  operators are PyTorch's own and are priced at their bound.
 
 Three rules ride the pass (memoized per device row):
 
@@ -150,6 +154,7 @@ class EqnCost:
     padded_flops: int
     count: int = 1
     in_loop: bool = False
+    kernel: Optional[str] = None     # the launch counter of a kernel node
 
     @property
     def total_flops(self) -> int:
@@ -165,10 +170,11 @@ class EqnCost:
             float("inf") if self.flops else 0.0
 
     def bandwidth_s(self, spec: DeviceSpec) -> float:
-        return self.total_bytes / spec.hbm_gbs
+        return self.total_bytes / spec.hbm_gbs / spec.share_for(self.kernel)
 
     def compute_s(self, spec: DeviceSpec) -> float:
-        return self.total_flops / spec.peak_for(self.dtype)
+        return self.total_flops / spec.peak_for(self.dtype) \
+            / spec.share_for(self.kernel)
 
     def to_dict(self) -> dict:
         return {
@@ -234,12 +240,11 @@ class RooflineReport:
 
     @property
     def compute_s(self) -> float:
-        return sum(f / self.spec.peak_for(d)
-                   for d, f in self.flops_by_dtype().items())
+        return sum(e.compute_s(self.spec) for e in self.events)
 
     @property
     def bandwidth_s(self) -> float:
-        return self.total_hbm_bytes / self.spec.hbm_gbs
+        return sum(e.bandwidth_s(self.spec) for e in self.events)
 
     @property
     def wire_s(self) -> float:
@@ -372,7 +377,8 @@ def _cost(ctx: NodeCtx) -> Optional[EqnCost]:
         if model is None:
             model = {"flops": 0, "hbm_bytes": in_bytes + out_bytes}
         return EqnCost(ctx.path, ctx.op, dt, shape, int(model["flops"]),
-                       int(model["hbm_bytes"]), int(model["flops"]))
+                       int(model["hbm_bytes"]), int(model["flops"]),
+                       kernel=kernel_counter(ctx))
     dims = matmul_dims(ctx)
     if dims is not None:
         b, m, n, k, dt = dims

@@ -244,3 +244,34 @@ define_flag("audit_roofline", False,
             "implies it (the hooks compose with the lint switch) "
             "(also: PADDLE_TPU_AUDIT_ROOFLINE)",
             env_aliases=("PADDLE_TPU_AUDIT_ROOFLINE",))
+
+# --- the static autotuner's artifact and the kernel build cache ---
+define_flag("compile_cache", "",
+            "directory the hand-written CUDA kernels are built into and "
+            "loaded from (kernels/_build.py: one nvcc per csrc/*.cu "
+            "source, keyed by a hash of the sources and flags), in "
+            "place of paddle_tpu_torch/_build/: a fleet restart or a "
+            "new worker process whose directory already holds the "
+            "libraries builds nothing (warm_compile_stats in "
+            "engine.metrics() counts the libraries requested, found "
+            "built and built by nvcc). Read when the first kernel of a "
+            "process is loaded. Empty (default) = paddle_tpu_torch/"
+            "_build/ (also: PADDLE_TPU_COMPILE_CACHE)",
+            env_aliases=("PADDLE_TPU_COMPILE_CACHE",))
+define_flag("tuned_config", "",
+            "path of a persisted TunedConfig artifact "
+            "(analysis/tuner.py, .paddle_tpu_tune.json; a directory "
+            "means <dir>/.paddle_tpu_tune.json): non-empty makes "
+            "ContinuousBatchingEngine default its build-time knobs "
+            "(kv_cache_dtype, decode_megakernel, unified_step, "
+            "token_budget, block_size, speculative, spec_k; "
+            "serving_mp / serving_cp 1 and quantized_collectives off "
+            "on one card) from the autotuner's winner, ranked by the "
+            "H100 roofline with each kernel priced at the share of its "
+            "bound it reaches on the card at the main path's shapes "
+            "(check a winner far from those on the card); explicit "
+            "engine kwargs still win per knob. "
+            "A stale (schema / model mismatch) or unreadable artifact "
+            "is ignored with a warning. Empty (default) = off "
+            "(also: PADDLE_TPU_TUNED_CONFIG)",
+            env_aliases=("PADDLE_TPU_TUNED_CONFIG",))

@@ -8,6 +8,9 @@ plain C interface. At first use every source is compiled by its own
 The hash covers the source, the shared headers and the compiler flags, so
 an edited source rebuilds and an unchanged one is reused. A file lock
 keeps two processes from building into the same directory at once.
+FLAGS_compile_cache (PADDLE_TPU_COMPILE_CACHE) names another build
+directory; `BUILD_COUNTS` counts the libraries each build looked up, and
+those it found built (``serving/compile_cache.py`` reads them).
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception.
@@ -37,7 +40,7 @@ from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR = _PKG / "_build"    # the build directory when no flag names one
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -192,20 +195,37 @@ def _digest(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
-def _target(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_digest(CSRC / (name + '.cu'))}.so"
+def build_dir() -> Path:
+    """Where the libraries are built and loaded from: FLAGS_compile_cache
+    when set, else `BUILD_DIR`."""
+    from ..framework.flags import flag
+
+    named = str(flag("compile_cache") or "")
+    return Path(named).resolve() if named else BUILD_DIR
+
+
+def _target(name: str, where: Path) -> Path:
+    return where / f"{name}-{_digest(CSRC / (name + '.cu'))}.so"
+
+
+# libraries build_all looked up since the process started ("requests")
+# and those it found already built ("hits"); the rest nvcc built
+BUILD_COUNTS = {"requests": 0, "hits": 0}
 
 
 def build_all() -> Dict[str, Path]:
     """Compile every stale library, one nvcc per source in parallel.
     Returns name -> library path. Raises with the compiler's output if
     any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {name: _target(name) for name in SIGNATURES}
-    with open(BUILD_DIR / "lock", "w") as lock:
+    where = build_dir()
+    where.mkdir(parents=True, exist_ok=True)
+    targets = {name: _target(name, where) for name in SIGNATURES}
+    with open(where / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             todo = {n: t for n, t in targets.items() if not t.exists()}
+            BUILD_COUNTS["requests"] += len(targets)
+            BUILD_COUNTS["hits"] += len(targets) - len(todo)
             if todo:
                 nvcc = _nvcc()
                 procs = {}

@@ -175,6 +175,18 @@ def smem_bytes(b, H, nh, nkv, dh, bs, quant_w, quant_kv, dtype) -> int:
     return int(_MISC_BYTES + ring + red + max(x, attn))
 
 
+def page_fits_card(cfg, bs: int, quant_kv: bool) -> bool:
+    """Whether the CUDA megakernel takes `bs`-token pages of this model at
+    all: a one-row launch (the least shared memory any launch needs) over
+    bf16 or int8 weights fits the card's shared memory. The page enters
+    through phase 2's key tiles (`decode_tile_rows(bs)` rows a stage)."""
+    nh, nkv, dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                   cfg.head_dim)
+    return any(smem_bytes(1, cfg.hidden_size, nh, nkv, dh, bs, quant_w,
+                          quant_kv, torch.bfloat16) <= CARD_SMEM_BYTES
+               for quant_w in (False, True))
+
+
 def megakernel_attention_pieces(lens, W, bs, nkv, blocks):
     """Phase 2's pieces, as the kernel cuts them from lens over a grid of
     `blocks`: every (row, kv head)'s tiles (decode_tile_rows(bs)

@@ -1714,6 +1714,37 @@ def resolve_serving_cp(serving_cp: Optional[int] = None) -> int:
     return serving_cp
 
 
+def resolve_quantized_collectives(quantized: Optional[bool] = None) -> bool:
+    """The quantized-collectives switch, from the argument or
+    FLAGS_quantized_collectives (the JAX package's
+    parallel/collectives.py resolver). On one device there is no
+    collective for it to quantize (ROADMAP.md section 1 item 5)."""
+    if quantized is None:
+        quantized = _flag("quantized_collectives")
+    return bool(quantized)
+
+
+def serving_block_size_candidates(cfg, *, prompt_bucket: int,
+                                  kv_cache_dtype: str = "bf16",
+                                  max_candidates: int = 2) -> list:
+    """KV page sizes (``block_size``) a serving engine could be built at
+    for this model, ascending: the divisors of `prompt_bucket` (whole
+    pages a bucket, the engine's admission rule) that the card's kernels
+    take. The paged decode and prefill kernels take any page; the
+    megakernel's shared memory grows with it
+    (`decode_megakernel.page_fits_card`, the limit its launch checks), so
+    the static autotuner (analysis/tuner.py) proposes only pages the
+    kernels serve. `max_candidates` > 0 keeps the largest that many
+    (larger pages mean fewer table entries and scatter rows)."""
+    from ..kernels.decode_megakernel import page_fits_card
+
+    quant_kv = resolve_kv_cache_dtype(kv_cache_dtype) == "int8"
+    extent = int(prompt_bucket)
+    out = [bs for bs in range(1, extent + 1)
+           if extent % bs == 0 and page_fits_card(cfg, bs, quant_kv)]
+    return out[-max_candidates:] if max_candidates > 0 else out
+
+
 # ---------------------------------------------------------------------------
 # host-side page allocator (ported whole: it is pure host bookkeeping)
 # ---------------------------------------------------------------------------

@@ -255,6 +255,20 @@ class ContinuousBatchingEngine:
     those prompt buckets (default: max_prompt_len); a key traffic reaches
     unwarmed is captured at its first admission.
 
+    `config` (a `TunedConfig` from the static autotuner,
+    `analysis/tuner.py`, its dict, or the path of a persisted
+    ``.paddle_tpu_tune.json`` or its directory) defaults every build-time
+    knob the tuner swept; explicit kwargs win knob by knob (None counts
+    as unset), and the flags fill what neither set. None follows
+    FLAGS_tuned_config (a stale or unreadable flag artifact warns and is
+    ignored; a stale explicit one raises); False forces it off.
+    The artifact's `quantized_collectives` knob is read and left unused:
+    on one device there is no collective to quantize, so the engine takes
+    no such kwarg and reports False (ROADMAP.md section 1 item 5).
+    `metrics()['tuned_config']` reports the artifact and
+    ``['warm_compile_stats']`` the kernel build cache's traffic over the
+    last `warm()`.
+
     `tracer` / `metrics` (observability): an `observability.Tracer`
     records the request lifecycle as Perfetto-exportable spans and
     instants, a `MetricsRegistry` the TTFT / TPOT / queue-wait /
@@ -295,8 +309,28 @@ class ContinuousBatchingEngine:
                  spec_k: Optional[int] = None, drafter=None,
                  spec_adaptive: Optional[bool] = None,
                  config=None, tracer=None, metrics=None, device=None):
-        if config not in (None, False):
-            raise _unported("config= (tuned-config artifacts)")
+        # a tuned-config artifact fills the knobs the caller left unset,
+        # before any flag resolves them
+        self.tuned_config = self._resolve_tuned_config(config, cfg)
+        if self.tuned_config is not None:
+            merged = self.tuned_config.apply(dict(
+                kv_cache_dtype=kv_cache_dtype,
+                decode_megakernel=decode_megakernel,
+                unified_step=unified_step, serving_mp=serving_mp,
+                serving_cp=serving_cp,
+                token_budget=token_budget, block_size=block_size,
+                speculative=speculative, spec_k=spec_k))
+            kv_cache_dtype = merged["kv_cache_dtype"]
+            decode_megakernel = merged["decode_megakernel"]
+            unified_step = merged["unified_step"]
+            serving_mp = merged["serving_mp"]
+            serving_cp = merged.get("serving_cp", serving_cp)
+            token_budget = merged["token_budget"]
+            block_size = merged["block_size"]
+            speculative = merged.get("speculative", speculative)
+            spec_k = merged.get("spec_k", spec_k)
+            spec_adaptive = merged.get("spec_adaptive", spec_adaptive)
+        self.warm_compile_stats = None   # set by warm()
         self.kv_dtype = resolve_kv_cache_dtype(kv_cache_dtype)
         self.use_megakernel = resolve_decode_megakernel(decode_megakernel)
         if resolve_serving_mp(serving_mp) > 1:
@@ -677,7 +711,59 @@ class ContinuousBatchingEngine:
             "kernel_launches": _build.launch_counts(),
             "memory_audit": self._memory_audit,
             "roofline_audit": self._roofline_audit,
+            # the artifact this engine was built from (None: the flags'
+            # defaults) and the kernel build cache's traffic over the last
+            # warm(): a fresh process warming over a populated build
+            # directory reports cache_misses == 0
+            "tuned_config": (self.tuned_config.to_dict()
+                             if self.tuned_config is not None else None),
+            "warm_compile_stats": self.warm_compile_stats,
         }
+
+    @staticmethod
+    def _resolve_tuned_config(config, cfg):
+        """`config=` -> a valid TunedConfig or None: a TunedConfig, its
+        dict or a path; None follows FLAGS_tuned_config
+        (PADDLE_TPU_TUNED_CONFIG), False forces it off. A stale explicit
+        artifact raises; a stale or unreadable flag artifact warns and is
+        ignored (a fleet-wide setting must not stop engines of another
+        model)."""
+        import warnings
+
+        if config is False:
+            return None
+        from ..analysis.tuner import TunedConfig
+
+        explicit = config is not None
+        if config is None:
+            path = str(flag("tuned_config") or "")
+            if not path:
+                return None
+            try:
+                tuned = TunedConfig.load(path)
+            except Exception as e:
+                warnings.warn(
+                    f"FLAGS_tuned_config {path!r} unreadable ({e}); "
+                    "building with the flags' defaults", stacklevel=3)
+                return None
+        elif isinstance(config, TunedConfig):
+            tuned = config
+        elif isinstance(config, dict):
+            tuned = TunedConfig.from_dict(config)
+        else:
+            tuned = TunedConfig.load(str(config))
+        stale = tuned.stale_reason(cfg=cfg)
+        if stale is not None:
+            if explicit:
+                raise ValueError(
+                    f"stale TunedConfig (config=): {stale}; re-run the "
+                    "autotuner (python -m paddle_tpu_torch.analysis "
+                    "--tune) for this model")
+            warnings.warn(
+                f"FLAGS_tuned_config artifact is stale ({stale}); "
+                "building with the flags' defaults", stacklevel=3)
+            return None
+        return tuned
 
     def add_request(self, prompt, max_new: Optional[int] = None,
                     arrival_time: Optional[float] = None,
@@ -1175,11 +1261,21 @@ class ContinuousBatchingEngine:
         (None) follows FLAGS_audit_memory / FLAGS_audit_roofline
         (PADDLE_TPU_AUDIT_*), both implied by PADDLE_TPU_LINT=1.
         `audit_comms` resolving on raises: the port has no collective
-        yet (ROADMAP.md section 1 item 5)."""
+        yet (ROADMAP.md section 1 item 5).
+
+        The kernel build cache's traffic over this warm() lands on
+        `warm_compile_stats` (``metrics()['warm_compile_stats']``,
+        `serving/compile_cache.py`): libraries requested, found built and
+        built by nvcc. Only a process's first kernel load builds, so a
+        fresh process warming over a populated build directory reports
+        `cache_misses == 0`, and a later engine of the process requests
+        nothing. CUDA graph captures are counted by `compile_stats()`."""
         from ..analysis import resolve_audit_comms
         from ..analysis.memory import resolve_audit_memory
         from ..analysis.roofline import resolve_audit_roofline
+        from . import compile_cache as _compile_cache
 
+        snap = _compile_cache.snapshot()
         resolve_audit_comms(audit_comms)
         do_mem = resolve_audit_memory(audit_memory)
         do_roof = resolve_audit_roofline(audit_roofline)
@@ -1214,6 +1310,7 @@ class ContinuousBatchingEngine:
                         break
                     bsz *= 2
             self._warm_programs()
+        self.warm_compile_stats = _compile_cache.stats_since(snap)
         if do_mem or do_roof:
             shared = self._traced_inventory() if do_mem and do_roof else None
             if do_mem:

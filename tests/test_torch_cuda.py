@@ -2358,3 +2358,70 @@ def test_shared_memory_loader_beside_a_cuda_context(dev):
         assert torch.equal(a, b) and torch.equal(i, j)
         assert torch.equal(a.to(dev).cpu(), b)
     assert mp.active_children() == []
+
+
+# ---------------------------------------------------------------------------
+# the static autotuner and the kernel build cache
+# ---------------------------------------------------------------------------
+
+def test_autotune_on_the_card_allocates_and_launches_nothing(dev):
+    """autotune over every rung and both pool dtypes of the narrow model
+    (head_dim 128, 64-token pages) builds and traces each candidate on
+    fakes: the card's allocated bytes are unchanged, its peak rises by
+    under 256 MiB, no kernel launches, the params are untouched, and the
+    winner is no slower than the baseline, which is feasible."""
+    import gc
+
+    from paddle_tpu_torch.analysis import autotune, tuner
+
+    cfg, params = _graph_model(dev, "dense")
+    kw = dict(slots=4, prompt_bucket=64, max_prompt_len=192,
+              max_new_tokens=16, block_size=64, steps_per_sync=4,
+              unified_step=False, dtype=torch.bfloat16, device=dev)
+    base = tuner.baseline_config(cfg, kw)
+    space = {k: [v] for k, v in base.items()}
+    space.update(block_size=[32, 64], kv_cache_dtype=["bf16", "int8"],
+                 decode_megakernel=["off", "attn", "full", "scan"])
+    weights = {k: v.clone() for k, v in params.items()}
+    # earlier tests' engines sit in reference cycles: autotune's own
+    # collection would free them inside the measured span
+    gc.collect()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    peak0 = torch.cuda.max_memory_allocated(dev)
+    rep = autotune(cfg, params, engine_kwargs=kw, space=space)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == before
+    assert torch.cuda.max_memory_allocated(dev) - peak0 < 256 << 20
+    assert not any(_build.launch_counts().values())
+    assert all(torch.equal(params[k], weights[k]) for k in weights)
+    assert rep.device == "h100-sxm" and rep.n_candidates == 16
+    assert rep.baseline.feasible and len(rep.ranking) == 16
+    assert rep.best.predicted_step_ms <= rep.baseline.predicted_step_ms
+
+
+def test_fresh_process_warms_over_the_build_directory_with_no_miss(dev):
+    """This process built the kernels; a fresh process warming an engine
+    over the same build directory builds nothing: cache_misses 0 and
+    cache_hits == compile_requests > 0."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from paddle_tpu_torch.serving import compile_cache
+
+    _build.library("rms_norm")          # the directory holds every library
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m",
+                          "paddle_tpu_torch.serving.restart_probe"],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=repo))
+    assert out.returncode == 0, out.stderr[-2000:]
+    stats = json.loads(out.stdout.strip().splitlines()[-1])
+    assert stats["persistent_cache_dir"] == compile_cache.cache_dir()
+    assert stats["cache_misses"] == 0
+    assert stats["cache_hits"] == stats["compile_requests"] \
+        == len(_build.SIGNATURES)

@@ -147,6 +147,54 @@ def test_paged_decode_counts_table_pages(pools):
     assert ker[0].dtype == ("int8" if int8 else "bfloat16")
 
 
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+def test_a_kernel_node_is_priced_at_its_share_of_bound(pools):
+    """On the card's row a kernel node's time is its bound divided by the
+    share of bound the kernel reaches there (the row's kernel_shares,
+    keyed by launch counter); the products beside it are priced at their
+    bound, and a row without shares prices the kernel at its bound. Every
+    kernel counter has a share on the H100 row, the large-M routes (plain
+    PyTorch) none."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels.decode_attention import (
+        paged_decode_attention)
+
+    int8 = pools == "int8"
+    dt = torch.int8 if int8 else torch.bfloat16
+    args = [torch.zeros(64, 2, 16, 128, dtype=dt)] * 2 + [
+        torch.zeros(2, 2, dtype=torch.int32),
+        torch.zeros(2, dtype=torch.int32)]
+    kw = dict(k_scale=torch.zeros(64, 2), v_scale=torch.zeros(64, 2)) \
+        if int8 else {}
+    w = torch.zeros(512, 512, dtype=torch.bfloat16)
+
+    def f(q):
+        return paged_decode_attention(q, *args, **kw).reshape(2, 512) @ w
+
+    g = trace_graph(f, torch.zeros(2, 4, 128, dtype=torch.bfloat16))
+    t = roofline.audit_graph(g, H100)
+    counter = "paged_decode_attention" + ("_int8" if int8 else "")
+    ker = [e for e in t.events if e.kernel is not None]
+    assert [e.kernel for e in ker] == [counter]
+    share = H100.kernel_shares[counter]
+    assert 0.0 < share < 1.0
+    assert ker[0].bandwidth_s(H100) == pytest.approx(
+        ker[0].hbm_bytes / H100.hbm_gbs / share)
+    assert ker[0].compute_s(H100) == pytest.approx(
+        ker[0].flops / H100.peak_for(ker[0].dtype) / share)
+    mm = [e for e in t.events if e.kernel is None and e.flops]
+    assert mm and all(e.bandwidth_s(H100) == pytest.approx(
+        e.hbm_bytes / H100.hbm_gbs) for e in mm)
+    at_bound = roofline.audit_graph(
+        g, dataclasses.replace(H100, kernel_shares={}))
+    assert t.bandwidth_s - at_bound.bandwidth_s == pytest.approx(
+        ker[0].hbm_bytes / H100.hbm_gbs * (1 / share - 1))
+    assert set(H100.kernel_shares) == {
+        c for c in _build.COUNTERS if not c.endswith("_large_m")}
+    assert H100.share_for(None) == 1.0
+    assert DEVICE_SPECS["cpu-container"].share_for(counter) == 1.0
+
+
 def test_prefix_prefill_counts_pages_not_the_pool():
     from paddle_tpu_torch.kernels.prefix_prefill import (
         prefix_prefill_attention)
