@@ -11,8 +11,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    CUDA events beside its roofline bound and one PyTorch library call
    as a yardstick (the port never calls it); the paged attention kernels
    and the megakernel rungs also at the 32- and 128-token pages the
-   tuner may pick (phase 26). Logs each kernel's share of its bound,
-   the roofline's kernel_shares on the h100-sxm row.
+   tuner may pick (phase 26), and the megakernel's tensor-parallel modes
+   (residual=False, quantize_out=True) at a serving_mp=2 rank's shapes.
+   Logs each kernel's share of its bound, the roofline's kernel_shares
+   on the h100-sxm row.
 2. Serve 16 requests through ContinuousBatchingEngine at Llama-3-8B full
    width (32 layers, random bf16 weights from a seed) on the cold split
    path (prefix_cache=False); then hold the served tokens against a
@@ -127,8 +129,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    program's launches; each program's predicted time and peak beside
    its measured replay and the allocator's peak, the audits' wall time,
    and the card's launch cost (replayed and eager).
-26. tune, the static autotuner: Llama-3-8B (phase 2's bf16 params and
-   geometry) tuned on the card's row at phase 2's page, every megakernel
+26. tune, the static autotuner: Llama-3-8B's widths at 8 layers (phase
+   2's bf16 weights and geometry; cut from 32 for phase 27's room in the
+   1200 s) tuned on the card's row at phase 2's page, every megakernel
    rung and both pool dtypes (8 candidates, split path): nothing allocated or launched by the tuner,
    the baseline feasible and the winner predicted no slower; the
    winner's saved artifact builds ContinuousBatchingEngine(config=)
@@ -138,12 +141,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    compile_stats() steady) and replay decode chunks: predicted /
    measured and Kendall's tau printed; a fresh process warms an engine
    over the build directory phase 1 filled with no cache miss.
+27. tp, tensor- and context-parallel serving: phase 3's burst cut to 6
+   requests of 16 new tokens on Llama-3-8B (bf16) by a one-device engine
+   (eager), then by
+   ranks the port's launcher starts (python -m
+   paddle_tpu_torch.parallel.launch), processes that share the card over
+   gloo (NCCL refuses two ranks on one GPU, so the NCCL path and its
+   captured collectives are not run): mp2, cp2, cp2 at a per-rank budget
+   cp=1 refuses, mp2 on the megakernel attn rung (the seam kernel) and
+   with quantized_collectives, then cp2 x mp2 on four ranks at 8 layers
+   (four full-depth ranks do not fit beside this process). Gates: every
+   rank's streams equal, token identity with the one-device engine or
+   phase 2's rank margin (the first differing token and the products at
+   fault logged), half the pool bytes a rank at mp2, exact seam launches,
+   the int8 wire at JAX's token-match bar; tok/s and the head gather's
+   ms a layer logged.
 Then the kernel table as one JSON line (each kernel's launches from the
 phase that drives it), the card's name and power limit, and the closing
 {"ok": true, ...} line.
 
-Phases 15-22, phase 25's engine part and phase 26 run after phase 12 and
-before training; phase 23 runs after phase 14, then phase 24 and phase 25's
+Phases 15-22, phase 25's engine part, phase 26 and phase 27 run after
+phase 12 and before training; phase 23 runs after phase 14, then phase 24 and phase 25's
 training part. Every phase resets
 the kernel launch counters just before it serves and reads them just
 after: a bf16 phase must launch no int8 kernel, an int8
@@ -1127,6 +1145,15 @@ def megakernel_cases(cfg):
                 name += "_int8" if q8 else ""
                 res.setdefault(name, []).append(
                     ((quant, bs), check_megakernel(cfg, rung, quant, q8, ops)))
+            if not quant and bs == 64:
+                # the tensor-parallel seam at a serving_mp=2 rank's shapes
+                for tq, tname in ((False, "decode_layer_megakernel_partial"),
+                                  (True, "decode_layer_megakernel_partial"
+                                   "_quant")):
+                    tname += "_int8" if q8 else ""
+                    res.setdefault(tname, []).append(
+                        ((quant, bs), check_megakernel_seam(cfg, tq, q8,
+                                                            ops)))
             del ops
             _release()
     # main configurations: int8 weights for scan / full (phases 10, 11),
@@ -1136,6 +1163,118 @@ def megakernel_cases(cfg):
         cases.sort(key=lambda qc: (qc[0][0] != want, qc[0][1] != 64))
         res[name] = [c for _, c in cases]
     return res
+
+
+def mk_rank_operands(ops, mp: int = 2):
+    """Rank 0's operands of a serving_mp = `mp` attn-rung step from a
+    full-width case: its q heads (the first Hq / mp), kv heads (the first
+    Hkv / mp, pools and scales alike) and rows of wo; the rest whole."""
+    h, lens, tables, weights, pools, kw = ops
+    nq = weights[2].shape[-1] // mp
+    nk = weights[3].shape[-1] // mp
+    nkv = pools[0].shape[1] // mp
+    w = list(weights)
+    w[2], w[3], w[4] = (x[..., :n].contiguous()
+                        for x, n in ((w[2], nq), (w[3], nk), (w[4], nk)))
+    w[5] = w[5][:, :nq].contiguous()
+    return (h, lens, tables, w, [p[:, :nkv].contiguous() for p in pools],
+            {k: v[:, :nkv].contiguous() for k, v in kw.items()})
+
+
+def seam_call(plain: bool, ops, quant: bool, clone: bool = True):
+    """The attn rung's tensor-parallel seam (residual=False, or with
+    `quant` quantize_out=True) or its plain version."""
+    from paddle_tpu_torch.kernels import decode_megakernel as mk
+
+    h, lens, tables, weights, pools, kw = ops
+    if clone:
+        pools = [p.clone() for p in pools]
+        kw = {k: v.clone() for k, v in kw.items()}
+    one = [w[0] for w in weights]
+    fn = mk.decode_layer_megakernel_reference if plain \
+        else mk.decode_layer_megakernel
+    return fn(h, lens, tables, one[0], *one[2:6], *pools, residual=False,
+              quantize_out=quant, **kw)[0]
+
+
+def check_megakernel_seam(cfg, quant: bool, q8: bool, ops):
+    """csrc/decode_megakernel.cu's tensor-parallel modes at a serving_mp =
+    2 rank's shapes (Llama-3-8B: 16 of 32 q heads, 4 of 8 kv heads, wo's
+    2048 rows; 8 rows, bf16 weights, bf16 or int8 pools) against the plain
+    version. residual=False: the f32 o-proj partial, no further from the
+    plain version run in f32 than the bf16 plain version is (x1.25 +
+    1e-3, relative RMS: the megakernel's rule); two launches bitwise
+    equal. quantize_out=True: its int8 blocks and scales equal, bitwise,
+    to `quantize_blocks` of the kernel's own f32 partial (the same
+    phase-3 sums), and within one int8 step (scales 1e-2 relative) of
+    `quantize_blocks` of the plain partial. Times as check_megakernel's;
+    the library column is the off rung's multi-kernel step at the same
+    local shapes."""
+    from paddle_tpu_torch.kernels.decode_megakernel import megakernel_roofline
+    from paddle_tpu_torch.parallel.collectives import quantize_blocks
+
+    ops = mk_rank_operands(mk_layers(ops, 1))
+    h, lens, tables, weights, pools, kw = ops
+    got = seam_call(False, ops, False)
+    again = seam_call(False, ops, False)
+    gate_deterministic("megakernel seam partial", got, again)
+    ref = seam_call(True, ops, False)
+    f32 = [w.float() for w in weights]
+    ref32 = seam_call(True, (h.float(), lens, tables, f32,
+                             [p if q8 else p.float() for p in pools], kw),
+                      False)
+    e_k, e_p = rel_rms(got.float(), ref32), rel_rms(ref.float(), ref32)
+    name = "megakernel seam " + ("quantize_out" if quant else
+                                 "residual=False") \
+        + (", int8 pools" if q8 else ", bf16 pools")
+    if got.dtype != torch.float32 or not torch.isfinite(got).all() \
+            or e_k > 1.25 * e_p + 1e-3:
+        raise AssertionError(f"{name}: {got.dtype}, rel. RMS vs f32 plain "
+                             f"{e_k:.3e}, bf16 plain {e_p:.3e}")
+    err = float((got - ref).abs().max())
+    if quant:
+        q, sc = seam_call(False, ops, True)
+        kq, ks = quantize_blocks(got.reshape(got.shape[0], -1))
+        if not (torch.equal(q, kq) and torch.equal(sc, ks)):
+            raise AssertionError(f"{name}: the in-kernel quantization "
+                                 "differs from quantize_blocks of the "
+                                 "kernel's partial")
+        pq, ps = seam_call(True, ops, True)
+        step = int((q.int() - pq.int()).abs().max())
+        rel = float(((sc - ps).abs() / ps.abs().clamp(min=1e-30)).max())
+        if step > 1 or rel > 1e-2:
+            raise AssertionError(f"{name}: {step} int8 steps, scales "
+                                 f"{rel:.3e} relative from the plain "
+                                 "version's")
+        err = float(step)
+    own = (h, lens, tables, weights, [p.clone() for p in pools],
+           {k: v.clone() for k, v in kw.items()})
+    ms = queued_ms(lambda: seam_call(False, own, quant, clone=False))
+    call_ms = time_ms(lambda: seam_call(False, own, quant, clone=False),
+                      iters=10)
+    plain_ms = time_ms(lambda: seam_call(True, own, quant, clone=False),
+                       iters=2, warmup=1)
+    lib_ops = (h, lens, tables, weights, [p.clone() for p in pools],
+               {k: v.clone() for k, v in kw.items()})
+    lib_ms = time_ms(lambda: off_step("attn", lib_ops), iters=10)
+    w_bytes = sum(weights[i].numel() * weights[i].element_size()
+                  for i in (0, 2, 3, 4, 5))
+    nkv = pools[0].shape[1]
+    roof = megakernel_roofline(
+        b=MK_ROWS, H=cfg.hidden_size, F=cfg.intermediate_size,
+        nh=cfg.num_attention_heads // 2, nkv=nkv, dh=cfg.head_dim,
+        bs=pools[0].shape[2], n_layers=1, weight_bytes=w_bytes,
+        positions=sum(MK_LENS), kv_itemsize=1 if q8 else 2, row_itemsize=2,
+        mlp=False)
+    b_ms, by = bound_ms(roof["hbm_bytes"], roof["flops"])
+    return dict(case=f"{name}, a serving_mp=2 rank: B8 H4096 Hq16 Hkv4 "
+                     f"D128 block64 W{tables.shape[1]} positions "
+                     f"{sum(MK_LENS)}; rel. RMS vs f32 plain {e_k:.3e} "
+                     f"(bf16 plain {e_p:.3e}); max_abs_err: the f32 "
+                     "partial's, or the int8 steps from the plain "
+                     "version's; library = off-rung step",
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=by, library_ms=lib_ms)
 
 
 def gemv_step_totals(cases, m: int):
@@ -1300,10 +1439,10 @@ def build_model():
     return cfg, params
 
 
-def serve(eng, prompts, phase: str):
+def serve(eng, prompts, phase: str, new_tokens: int = 32):
     """Submit every prompt at once and drain the engine, with every
     kernel launch counter reset just before and read just after. Gates:
-    each request returns 32 in-vocabulary tokens."""
+    each request returns `new_tokens` in-vocabulary tokens."""
     from paddle_tpu_torch.kernels import _build
 
     _build.reset_launch_counts()
@@ -1314,9 +1453,10 @@ def serve(eng, prompts, phase: str):
     wall = time.perf_counter() - t0
     launches = _build.launch_counts()
     for r in reqs:
-        if not r.done or len(r.tokens) != 32:
+        if not r.done or len(r.tokens) != new_tokens:
             raise AssertionError(f"{phase} request {r.req_id}: "
-                                 f"{len(r.tokens)} tokens, expected 32")
+                                 f"{len(r.tokens)} tokens, expected "
+                                 f"{new_tokens}")
         if not all(0 <= t < eng.cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"{phase} request {r.req_id}: token out "
                                  "of vocab")
@@ -4709,9 +4849,24 @@ def kendall_tau(a, b) -> float:
     return float(s / (n * (n - 1) / 2)) if n > 1 else 1.0
 
 
+# phase 26's depth: a candidate's trace costs about 1 ms a node on the
+# host, and at 32 layers the tune left the 1200 s script no room for
+# phase 27
+TUNE_LAYERS = 8
+
+
+def tune_model(cfg, params):
+    """Llama-3-8B's widths at TUNE_LAYERS layers over phase 2's weights'
+    first layers (the same tensors, no copy)."""
+    keep = {k: v for k, v in params.items()
+            if not k.startswith("llama.layers.")
+            or int(k.split(".")[2]) < TUNE_LAYERS}
+    return dataclasses_replace(cfg, num_hidden_layers=TUNE_LAYERS), keep
+
+
 def phase_tune(cfg, params):
-    """Phase 26, "tune": autotune Llama-3-8B (phase 2's bf16 params and
-    geometry) on the card's row at phase 2's page (64 tokens, of the
+    """Phase 26, "tune": autotune Llama-3-8B's widths at TUNE_LAYERS
+    layers (phase 2's bf16 weights and geometry) on the card's row at phase 2's page (64 tokens, of the
     card rule's [64, 128] for its prompt bucket: the 16 candidates of both
     pages took 165 s, over the tune's 150 s budget), every megakernel
     rung and both pool dtypes (the split path, no speculation: 8
@@ -4894,6 +5049,374 @@ def phase_tune(cfg, params):
             "tau": tau, "warm_compile_stats": wcs}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: tensor- and context-parallel serving (gloo ranks on one card)
+# ---------------------------------------------------------------------------
+
+# (f)'s depth: four ranks each holding Llama-3-8B's replicated weights
+# (about 15 GB a rank at full depth) do not fit beside this process's
+TP_LAYERS = 8
+TP_REQUESTS = 6
+# 16 new tokens a request (JAX's int8-wire bar reads 2-5), and 8 at the
+# walled budget: the gloo ranks run eagerly, and the script's 1200 s
+TP_NEW = 16
+TP_KW = dict(max_prompt_len=768, max_new_tokens=TP_NEW)
+
+TP_SCRIPT = """import sys
+sys.path.insert(0, sys.argv[3])
+import chip_smoke
+chip_smoke.tp_rank(sys.argv[1], sys.argv[2])
+"""
+
+
+def tp_traffic(cfg):
+    """Phase 3's burst cut to TP_REQUESTS requests (a shared 512-token
+    system prompt and suffixes of 16-200 tokens)."""
+    return prefix_traffic(cfg)[:TP_REQUESTS]
+
+
+def tp_rank(spec_path: str, out_dir: str) -> None:
+    """One rank's body (the launcher starts it through TP_SCRIPT): join
+    the process group by the backend rule (gloo: the ranks share the
+    card), make the weights from SEED on the card, then for each part of
+    the spec build the engine, serve the traffic with the launch
+    counters reset just before and read just after, and time the head
+    gather at the decode chunk's shape; write rank<r>.json."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaConfig, init_serving_params
+    from paddle_tpu_torch.parallel.ranks import init_ranks
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, world, dev = init_ranks()
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=spec["layers"])
+    t0 = time.perf_counter()
+    params = init_serving_params(cfg, seed=SEED, device=dev)
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "params_s": time.perf_counter() - t0, "parts": {}}
+    for name, kw, n_req in spec["parts"]:
+        eng = ContinuousBatchingEngine(
+            cfg, params, **{**SERVE_KW, **TP_KW, "device": dev, **kw})
+        traffic = spec["traffic"][:n_req]
+        dist.barrier()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [eng.add_request(p) for p in traffic]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        m = eng.metrics()
+        gather_ms = None
+        if eng._tp.mp > 1:
+            x = torch.randn(eng.slots, eng._tp.nh_local, cfg.head_dim,
+                            dtype=torch.bfloat16, device=dev)
+            for _ in range(3):
+                eng._tp.gather_heads(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(20):
+                eng._tp.gather_heads(x)
+            torch.cuda.synchronize()
+            gather_ms = (time.perf_counter() - t1) * 1e3 / 20
+        products = tp_products(eng, params, traffic[0]) \
+            if eng._tp.mp > 1 and not eng._tp.quantized else None
+        out["parts"][name] = dict(
+            products=products,
+            tokens=[list(r.tokens) for r in reqs], wall=wall,
+            launches=launches, pool_bytes=m["kv_pool_bytes"],
+            max_pages=eng.mgr.max_pages, rung=eng.megakernel_rung,
+            backend=m["serving_backend"],
+            quantized=m["quantized_collectives"],
+            graphs=eng.compile_stats()["graphs"],
+            device_steps=m["device_steps"], gather_ms=gather_ms,
+            done=all(r.done for r in reqs))
+        del eng, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_products(eng, params, prompt):
+    """Where a rank's numerics can leave the one-device engine's: layer
+    0's q / k / v products over its column slice against the same
+    columns of the full product (torch.matmul: cuBLAS may pick another
+    algorithm for a narrower N), at the prefill's rows (the prompt) and
+    a decode chunk's (one row a slot). Returns {product: max |diff|}."""
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm
+
+    tp, m = eng._tp, eng._tp.m_index
+    ids = torch.tensor([prompt], device=eng.device)
+    h = params["llama.embed_tokens.weight"][ids]
+    x = rms_norm(h, params["llama.layers.0.input_layernorm.weight"])
+    out = {}
+    for rows, xx in (("prefill", x), ("decode", x[0, :eng.slots, None])):
+        for n in "qkv":
+            key = f"llama.layers.0.self_attn.{n}_proj.weight"
+            w = eng.p[key].shape[1]
+            full = (xx @ params[key])[..., m * w:(m + 1) * w]
+            out[f"{n}_proj {rows}"] = float(
+                (xx @ eng.p[key] - full).abs().max())
+    return out
+
+
+def tp_launch(phase: str, world: int, spec: dict) -> list:
+    """Start `world` ranks on the card through the port's launcher
+    (``python -m paddle_tpu_torch.parallel.launch``), wait for them, and
+    return each rank's results; any rank failing fails the phase with
+    the ranks' logs."""
+    root = tempfile.mkdtemp(prefix="tp-ranks-")
+    try:
+        spec_path = os.path.join(root, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        script = os.path.join(root, "rank.py")
+        with open(script, "w") as f:
+            f.write(TP_SCRIPT)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo)
+        t0 = time.perf_counter()
+        rc = subprocess.call(
+            [sys.executable, "-m", "paddle_tpu_torch.parallel.launch",
+             "--nproc_per_node", str(world), "--max_restart", "0",
+             "--log_dir", os.path.join(root, "logs"), script, spec_path,
+             root, repo], env=env, cwd=repo, timeout=600)
+        wall = time.perf_counter() - t0
+        logs = {os.path.basename(p): open(p).read()[-3000:]
+                for p in sorted(glob.glob(os.path.join(root, "logs", "*")))}
+        if rc != 0:
+            raise AssertionError(f"{phase}: the launcher exited {rc}; "
+                                 f"logs {json.dumps(logs)[-8000:]}")
+        out = []
+        for r in range(world):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+        made = ", ".join("%.1f" % o["params_s"] for o in out)
+        log(f"[{phase}] {world} ranks through the launcher in {wall:.1f}s "
+            f"(weights made in {made} s)")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _tp_part(phase: str, ranks, name: str, world: int) -> dict:
+    """A part's results, gated alike on every rank: served to the end,
+    the gloo backend, eager programs (compile_stats()'s "graphs" False),
+    and every rank's streams equal to rank 0's."""
+    parts = [o["parts"][name] for o in ranks]
+    p0 = parts[0]
+    for r, p in enumerate(parts):
+        if not p["done"] or p["backend"] != "gloo" or p["graphs"] \
+                is not False:
+            raise AssertionError(f"{phase} {name} rank {r}: done "
+                                 f"{p['done']}, backend {p['backend']}, "
+                                 f"graphs {p['graphs']}")
+        if p["tokens"] != p0["tokens"]:
+            raise AssertionError(f"{phase} {name}: rank {r}'s streams "
+                                 "differ from rank 0's")
+    n_tok = sum(len(t) for t in p0["tokens"])
+    log(f"[{phase}] {name}: {world} ranks (backend gloo, graphs false), "
+        f"{len(p0['tokens'])} requests, {n_tok} tokens in "
+        f"{p0['wall']:.3f}s: {n_tok / p0['wall']:.1f} tok/s; rung "
+        f"{p0['rung']}, quantized_collectives {p0['quantized']}; pool "
+        f"{p0['pool_bytes']} B a rank over {p0['max_pages']} pages; "
+        + ("" if p0["gather_ms"] is None else
+           f"head gather {p0['gather_ms']:.3f} ms a layer a step; ")
+        + "launches a rank "
+        + json.dumps([{k: n for k, n in p['launches'].items() if n}
+                      for p in parts]))
+    return parts
+
+
+def _tp_tokens(phase, name, plain, prompts, got, want) -> str:
+    """Token identity with `want`, or else (the first differing position
+    logged) every served token within 0.5 logit of the plain forward's
+    argmax (phase 2's rule). Returns which held."""
+    if got == want:
+        log(f"[{phase}] {name}: token-identical to the one-device engine")
+        return "identical"
+    i = next(j for j in range(len(got)) if got[j] != want[j])
+    k = next(j for j in range(len(got[i])) if got[i][j] != want[i][j])
+    gap = rank_margin(plain, SimpleNamespace(prompt=prompts[i],
+                                             tokens=got[i][:k + 1]))
+    log(f"[{phase}] {name}: request {i} first differs at token {k} "
+        f"({got[i][k]} vs {want[i][k]}; the plain forward ranks its tokens "
+        f"up to there at most {gap:.3f} logit below its argmax); gating "
+        "by the rank margin")
+    reqs = [SimpleNamespace(prompt=p, tokens=t, req_id=j, cached_tokens=0)
+            for j, (p, t) in enumerate(zip(prompts, got))]
+    _gate_ranks(phase, plain, reqs)
+    return "rank-margin"
+
+
+def phase_tp(cfg, params):
+    """Phase 27: serving_mp / serving_cp over torch.distributed ranks
+    that share the card (gloo; NCCL refuses two ranks on one GPU, so the
+    NCCL path and its captured collectives are not run here). Phase 3's
+    burst cut to 6 requests of TP_NEW new tokens, Llama-3-8B at full
+    width, bf16, eager.
+    (a) the oracle: a one-device engine, eager; the budget of half a
+    request's pages refused at cp = 1. Ranks started by the launcher:
+    (b) mp2, (c) cp2 and cp2 at that budget (one request), (d) mp2 at
+    decode_megakernel="attn" (the seam kernel, residual=False), (e) mp2
+    at "attn" with quantized_collectives (quantize_out and the int8
+    wire); then (f) cp2 x mp2 on four ranks at TP_LAYERS layers against
+    an oracle of that depth. Gates: every rank's streams equal; (b), (c),
+    (f) token-identical to the oracle or within phase 2's rank margin
+    (the first differing token logged); (b) a rank's pools half the
+    oracle's bytes at equal pages and the paged kernels launched on
+    every rank; (c) the walled budget served; (d) / (e) exactly one seam
+    launch a layer a decode step on each rank (the first dispatch's
+    warm-up step included), (d) within the rank
+    margin, (e) matching (b)'s tokens at the JAX int8-wire bar (80% of
+    tokens, all but two requests identical) over the stream lengths of
+    JAX's test (request i's first 2 + i % 4 tokens)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, init_serving_params
+    from paddle_tpu_torch.models.llama import PagedKVManager
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    phase, L = "tp", cfg.num_hidden_layers
+    traffic = tp_traffic(cfg)
+    eng = ContinuousBatchingEngine(cfg, params, **{**SERVE_KW, **TP_KW})
+    eng.graphed = False
+    reqs, _, _, m = serve(eng, traffic, "tp-oracle", TP_NEW)
+    oracle = [list(r.tokens) for r in reqs]
+    pool1, pages1 = m["kv_pool_bytes"], eng.mgr.max_pages
+    cap = eng._capacity_pages(eng.max_prompt_len)
+    budget = ((cap + 3) // 2) * PagedKVManager.page_bytes(
+        64, n_layers=L, num_kv_heads=cfg.num_key_value_heads,
+        head_dim=cfg.head_dim)
+    del eng, reqs
+    _release()
+    try:
+        ContinuousBatchingEngine(cfg, params, **{**SERVE_KW, **TP_KW},
+                                 kv_pool_bytes=budget)
+        raise AssertionError(f"{phase}: cp=1 took a budget of "
+                             f"{budget} B")
+    except ValueError as e:
+        if "holds only" not in str(e):
+            raise
+    spec = dict(layers=L, traffic=traffic, parts=[
+        ("mp2", dict(serving_mp=2), TP_REQUESTS),
+        ("cp2", dict(serving_cp=2), TP_REQUESTS),
+        ("cp2-wall", dict(serving_cp=2, kv_pool_bytes=budget,
+                          max_new_tokens=8), 1),
+        ("mp2-attn", dict(serving_mp=2, decode_megakernel="attn"),
+         TP_REQUESTS),
+        ("mp2-quant", dict(serving_mp=2, decode_megakernel="attn",
+                           quantized_collectives=True), TP_REQUESTS)])
+    ranks = tp_launch(phase, 2, spec)
+    plain = LlamaForCausalLM(cfg, use_kernels=False).load_params(params)
+    res = {}
+    b = _tp_part(phase, ranks, "mp2", 2)
+    for r, p in enumerate(b):
+        log(f"[{phase}] mp2 rank {r}: layer 0's products over its columns "
+            f"against the full products' (max |diff|): "
+            f"{json.dumps(p['products'])}")
+    res["mp2"] = _tp_tokens(phase, "mp2", plain, traffic, b[0]["tokens"],
+                            oracle)
+    for r, p in enumerate(b):
+        if p["max_pages"] != pages1 or 2 * p["pool_bytes"] != pool1:
+            raise AssertionError(f"{phase} mp2 rank {r}: {p['pool_bytes']} "
+                                 f"B over {p['max_pages']} pages, oracle "
+                                 f"{pool1} B over {pages1}")
+        for k in ("flash_attention_fwd", "paged_decode_attention",
+                  "prefix_prefill_attention", "rms_norm"):
+            if p["launches"][k] <= 0:
+                raise AssertionError(f"{phase} mp2 rank {r}: no {k}")
+    c = _tp_part(phase, ranks, "cp2", 2)
+    res["cp2"] = _tp_tokens(phase, "cp2", plain, traffic, c[0]["tokens"],
+                            oracle)
+    wall = _tp_part(phase, ranks, "cp2-wall", 2)
+    if wall[0]["pool_bytes"] > budget or len(wall[0]["tokens"][0]) != 8:
+        raise AssertionError(f"{phase} cp2-wall: {wall[0]['pool_bytes']} B "
+                             f"a rank (budget {budget})")
+    log(f"[{phase}] a per-rank budget of {budget} B: cp=1 refuses it, "
+        f"cp=2 serves a {len(traffic[0])}-token prompt over "
+        f"{wall[0]['max_pages']} fleet pages")
+    for name, kernel in (("mp2-attn", "decode_layer_megakernel_partial"),
+                         ("mp2-quant",
+                          "decode_layer_megakernel_partial_quant")):
+        parts = _tp_part(phase, ranks, name, 2)
+        for r, p in enumerate(parts):
+            # the decode body also runs once at the first dispatch (the
+            # programs' warm-up over scratch rows, eager on a gloo rank)
+            _gate_exact(f"{phase} {name} rank {r}", p["launches"], kernel,
+                        (p["device_steps"] + 1)
+                        * SERVE_KW["steps_per_sync"] * L)
+            if p["launches"]["paged_decode_attention"]:
+                raise AssertionError(f"{phase} {name}: multi-kernel decode")
+        res[name] = parts[0]["launches"]
+    d_reqs = [SimpleNamespace(prompt=p, tokens=t, req_id=j, cached_tokens=0)
+              for j, (p, t) in enumerate(zip(traffic,
+                                             ranks[0]["parts"]["mp2-attn"]
+                                             ["tokens"]))]
+    _gate_ranks(phase, plain, d_reqs)
+    # the int8 wire against the bf16 one: JAX's bar (at least 80% of
+    # tokens and all but two requests identical) over the stream lengths
+    # of its test (request i's first 2 + i % 4 tokens: once a random-
+    # weight stream flips a near-tie, every later token differs); the
+    # whole streams' match and the rank gap are logged
+    q = ranks[0]["parts"]["mp2-quant"]["tokens"]
+    heads = [(t[:2 + i % 4], u[:2 + i % 4])
+             for i, (t, u) in enumerate(zip(q, b[0]["tokens"]))]
+    rate = _token_match([SimpleNamespace(tokens=t) for t, _ in heads],
+                        [u for _, u in heads])
+    same = sum(t == u for t, u in heads)
+    whole = _token_match([SimpleNamespace(tokens=t) for t in q],
+                         b[0]["tokens"])
+    gaps = [rank_margin(plain, SimpleNamespace(prompt=p, tokens=t))
+            for p, t in zip(traffic, q)]
+    log(f"[{phase}] mp2-quant against mp2: {100 * rate:.1f}% of the "
+        f"first 2-5 tokens match, {same} of {len(q)} requests identical "
+        f"there; {100 * whole:.1f}% of the whole {TP_NEW}-token streams; "
+        f"the "
+        f"int8-wire tokens' worst gap to the bf16 plain argmax "
+        f"{max(gaps):.3f}")
+    if rate < 0.8 or same < len(q) - 2:
+        raise AssertionError(f"{phase} mp2-quant: {rate:.3f} token match, "
+                             f"{same} requests identical")
+    del plain, ranks
+    _release()
+    # (f): four ranks at TP_LAYERS layers, against an oracle of that depth
+    cfg_f = dataclasses_replace(cfg, num_hidden_layers=TP_LAYERS)
+    params_f = init_serving_params(cfg_f, seed=SEED, device="cuda")
+    eng = ContinuousBatchingEngine(cfg_f, params_f, **{**SERVE_KW, **TP_KW})
+    eng.graphed = False
+    reqs, _, _, _ = serve(eng, traffic, "tp-oracle-f", TP_NEW)
+    oracle_f = [list(r.tokens) for r in reqs]
+    del eng, reqs
+    _release()
+    ranks = tp_launch(phase, 4, dict(layers=TP_LAYERS, traffic=traffic,
+                                     parts=[("cp2xmp2", dict(
+                                         serving_cp=2, serving_mp=2),
+                                         TP_REQUESTS)]))
+    f = _tp_part(phase, ranks, "cp2xmp2", 4)
+    plain_f = LlamaForCausalLM(cfg_f, use_kernels=False).load_params(
+        params_f)
+    res["cp2xmp2"] = _tp_tokens(phase, f"cp2xmp2 ({TP_LAYERS} layers)",
+                                plain_f, traffic, f[0]["tokens"], oracle_f)
+    del plain_f, params_f
+    _release()
+    log(f"[{phase}] the NCCL path (a GPU a rank, collectives captured in "
+        "CUDA graphs) was not run: one card holds one NCCL rank")
+    return {"launches": {"decode_layer_megakernel_partial":
+                         res["mp2-attn"]["decode_layer_megakernel_partial"],
+                         "decode_layer_megakernel_partial_quant":
+                         res["mp2-quant"][
+                             "decode_layer_megakernel_partial_quant"]},
+            "tokens": {k: v for k, v in res.items() if isinstance(v, str)},
+            "mp2_tok_s": sum(map(len, b[0]["tokens"])) / b[0]["wall"],
+            "cp2_tok_s": sum(map(len, c[0]["tokens"])) / c[0]["wall"],
+            "gather_ms": b[0]["gather_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4942,7 +5465,8 @@ def main() -> int:
             ("observe", lambda: phase_observe(cfg, params)),
             ("fleet", lambda: phase_fleet(cfg, params, phases["prefix"])),
             ("audit", lambda: phase_audit(cfg, params)),
-            ("tune", lambda: phase_tune(cfg, params))):
+            ("tune", lambda: phase_tune(*tune_model(cfg, params))),
+            ("tp", lambda: phase_tp(cfg, params))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")
@@ -4978,6 +5502,8 @@ def main() -> int:
                  "decode_layer_megakernel_full": "mega-scan-full",
                  "decode_layer_megakernel_full_int8": "mega-full",
                  "decode_layer_megakernel": "mega-attn",
+                 "decode_layer_megakernel_partial": "tp",
+                 "decode_layer_megakernel_partial_quant": "tp",
                  "flash_attention_bwd_dq": "train",
                  "flash_attention_bwd_dkv": "train",
                  "flash_attention_bwd_delta": "train",
@@ -5031,6 +5557,14 @@ def main() -> int:
         "decode_layer_megakernel": (
             "paddle_tpu_torch/csrc/decode_megakernel.cu",
             "paddle_tpu/kernels/decode_megakernel.py:239"),
+        # the attn rung's tensor-parallel modes: the same Pallas kernel's
+        # residual=False / quantize_out epilogue (:434-457)
+        "decode_layer_megakernel_partial": (
+            "paddle_tpu_torch/csrc/decode_megakernel.cu",
+            "paddle_tpu/kernels/decode_megakernel.py:434"),
+        "decode_layer_megakernel_partial_quant": (
+            "paddle_tpu_torch/csrc/decode_megakernel.cu",
+            "paddle_tpu/kernels/decode_megakernel.py:441"),
         "flash_attention_bwd_dq": (
             "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
             "paddle_tpu/kernels/flash_attention.py:265"),

@@ -51,8 +51,9 @@ TPU301   bf16 -> f32, MXU   bf16 -> f32 upcasts feeding compute; f32
          f32 rate           products over widened operands run at the
                             CUDA-core f32 rate (the H100 row prices f32 at
                             67 TFLOP/s: the port never enables TF32).
-TPU401   collectives        not ported: the port has no collective yet
-                            (ROADMAP.md section 1 item 5).
+TPU401   collectives        not ported: the communication pass comes
+                            with the comms audit (ROADMAP.md section 1
+                            item 5).
 TPU501   host callbacks     ``.item()``, ``.tolist()``
                             (``_local_scalar_dense``), ``.cpu()`` and host
                             calls inside a program: ERROR, since a CUDA
@@ -111,8 +112,8 @@ from . import tuner  # noqa: F401,E402
 from .tuner import TunedConfig, TuningReport, autotune  # noqa: F401,E402
 
 COMMS_UNPORTED = ("the communication audit (analysis/comms.py, TPU401, "
-                  "TPU801-803) is not ported: the port has no collective "
-                  "yet (ROADMAP.md section 1 item 5)")
+                  "TPU801-803) is not ported yet (ROADMAP.md section 1 "
+                  "item 5)")
 
 
 def audit_comms(*args, **kwargs):
@@ -122,8 +123,8 @@ def audit_comms(*args, **kwargs):
 def resolve_audit_comms(audit_comms_param=None) -> bool:
     """An explicit True, or FLAGS_audit_comms (PADDLE_TPU_AUDIT_COMMS),
     asks for the communication audit, which raises naming item 5.
-    PADDLE_TPU_LINT=1 does not imply it here: on one device it would
-    always be empty."""
+    PADDLE_TPU_LINT=1 does not imply it here (it would raise on every
+    engine)."""
     if audit_comms_param is not None:
         on = bool(audit_comms_param)
     else:

@@ -129,6 +129,12 @@ DEVICE_SPECS: Dict[str, DeviceSpec] = {
             "decode_layer_megakernel_full_int8": 0.3082,
             "decode_layers_megakernel": 0.3329,
             "decode_layers_megakernel_int8": 0.3111,
+            # the attn rung's tensor-parallel modes at a serving_mp=2
+            # rank's shapes (bf16 weights)
+            "decode_layer_megakernel_partial": 0.1719,
+            "decode_layer_megakernel_partial_int8": 0.1438,
+            "decode_layer_megakernel_partial_quant": 0.1685,
+            "decode_layer_megakernel_partial_quant_int8": 0.1395,
         }),
     # the CPU host: selected only by name
     "cpu-container": DeviceSpec(

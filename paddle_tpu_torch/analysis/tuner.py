@@ -3,16 +3,17 @@ over the serving engine's build-time knobs (counterpart of
 paddle_tpu/analysis/tuner.py).
 
 - **search space**: the engine's build-time knobs, each an engine kwarg
-  of the same name (but `quantized_collectives`, which the port's engine
-  reads from an artifact and leaves unused on one device), so
+  of the same name (`quantized_collectives` stays off: at mp = cp = 1
+  there is no collective to quantize), so
   `TunedConfig.apply` is a plain dict merge: the KV
   page size (`block_size`, from the card's page rule,
   `models.llama.serving_block_size_candidates`), `kv_cache_dtype` (bf16 |
   int8 pools), `decode_megakernel` (off | attn | full | scan),
   `unified_step`, `token_budget` (the unified window), `speculative` /
   `spec_k`, and `serving_mp` / `serving_cp` / `quantized_collectives`,
-  which stay 1 / 1 / off on one card (a caller's space that asks for a
-  mesh has those candidates pruned by name: ROADMAP.md section 1 item 5).
+  which stay 1 / 1 / off (a caller's space that asks for a mesh has
+  those candidates pruned by name: scoring them needs the communication
+  pass and wire bytes per token, ROADMAP.md section 1 item 5).
 - **feasibility gate** (`memory.py`, `device_specs.auto_hbm_budget`): a
   candidate whose static params + pool bytes already exceed the device
   row's budget is pruned before any trace, and one whose traced peak
@@ -83,8 +84,9 @@ KNOBS = ("block_size", "decode_megakernel", "kv_cache_dtype",
 SCHEMA_VERSION = 1
 TUNE_FILENAME = ".paddle_tpu_tune.json"
 
-_MESH_UNPORTED = ("the port's engine serves one device and refuses a "
-                  "serving mesh (ROADMAP.md section 1 item 5)")
+_MESH_UNPORTED = ("a sharded candidate's wire bytes need the "
+                  "communication pass, which is not ported yet "
+                  "(ROADMAP.md section 1 item 5)")
 
 
 def model_signature(cfg) -> str:
@@ -567,8 +569,8 @@ def _score_candidate(cfg, params, config, engine_kwargs, spec, budget,
     from . import roofline as _roof
 
     geo = _engine_geometry(engine_kwargs)
-    # the engine takes no quantized_collectives (nothing to quantize on
-    # one device)
+    # mp = cp = 1 here (sharded candidates are pruned): the wire switch
+    # has nothing to quantize
     kw = {k: v for k, v in {**(engine_kwargs or {}), **config}.items()
           if k != "quantized_collectives"}
     kw.setdefault("device", params["llama.embed_tokens.weight"].device)
@@ -664,7 +666,7 @@ def autotune(cfg, params, *, engine_kwargs: Optional[dict] = None,
         mp = int(config["serving_mp"])
         cp = int(config.get("serving_cp", 1))
         if mp > 1 or cp > 1:
-            # named, never built: the engine would raise
+            # named, never built: no pass prices their wire
             res = CandidateResult(
                 config=config, feasible=False, static_bound_bytes=bound,
                 pruned_reason=f"serving_mp={mp}, serving_cp={cp}: "

@@ -17,6 +17,15 @@
 //   3. o projection + residual;
 //   4. (mlp) post-attention rms_norm + gate and up, silu(g) * u;
 //   5. (mlp) down + residual.
+// The tensor-parallel seam of the attn rung (one layer, no MLP; JAX
+// `_decode_megakernel_kernel`'s residual / quantize_out): out_mode 1 makes
+// phase 3 store the f32 o-proj partial over this rank's heads into `pout`
+// [b, H] instead of adding it to the residual; out_mode 2 then, after one
+// more grid barrier, quantizes that partial per 128-lane block of a row
+// into `qout` [b, H] int8 and `qsc` [b, H / 128] f32 with
+// parallel/collectives.py `quantize_blocks`' ops in their order (scale =
+// absmax / 127, divide by the scale or by 1 where it is 0, round half to
+// even, no clip; a NaN in the block makes the scale NaN), one warp a block.
 // The residual stream lives in `out` [b, H] for the whole launch (seeded
 // from h), never in a per-layer copy. Data written inside the launch is
 // read with ld.global.cg (L2), never through a possibly stale L1.
@@ -165,6 +174,10 @@ struct Args {
   float* part;            // split partials (GEMV k splits, attention)
   int* cnt;               // their arrival counters, zero on entry
   unsigned* bar;          // the grid barrier's counter, zero on entry
+  float* pout;            // out_mode 1, 2: the f32 o-proj partial [B, H]
+  int8_t* qout;           // out_mode 2: its int8 blocks [B, H]
+  float* qsc;             // out_mode 2: their scales [B, H / 128]
+  int out_mode;           // 0 residual, 1 f32 partial, 2 int8 partial
   int L, B, H, F, NH, NKV, D, BS, W, P;   // P: pool pages per layer
   int mlp;
   int ks[4];              // K splits of phases 1, 3, 4, 5 (plan())
@@ -1255,6 +1268,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) mega_kernel(Args a) {
           if (n >= H) continue;
           float p = red[i];
           if (QW) p = p * sc[n];
+          if (a.out_mode) {          // the partial: the caller sums ranks
+            a.pout[static_cast<int64_t>(m) * H + n] = p;
+            continue;
+          }
           T* o = out + static_cast<int64_t>(m) * H + n;
           *o = from_f32<T>(__fadd_rn(to_f32(ldcg_t(o)), p));
         }
@@ -1322,6 +1339,36 @@ __global__ void __launch_bounds__(NTHREADS, 1) mega_kernel(Args a) {
     }
     if (l + 1 < a.L) grid_barrier(a.bar, nb);
   }
+  if (a.out_mode == 2) {
+    // ---- 6 (quantize_out): the partial's 128-lane blocks to int8, one
+    // warp a (row, block); the partial was written by other blocks, so
+    // it is read through L2
+    grid_barrier(a.bar, nb);
+    const int warp = tid >> 5, lane = tid & 31, nbk = H / 128;
+    for (int it = blockIdx.x * NWARP + warp; it < B * nbk;
+         it += gridDim.x * NWARP) {
+      const int64_t off = static_cast<int64_t>(it) * 128;  // row-major
+      float v[4], amax = 0.f;
+      bool nan = false;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = __ldcg(a.pout + off + lane + 32 * e);
+        nan |= v[e] != v[e];
+        amax = fmaxf(amax, fabsf(v[e]));
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      const float sc = __any_sync(0xffffffffu, nan) ? __int_as_float(0x7fc00000)
+                                                     : __fdiv_rn(amax, 127.f);
+      const float safe = sc > 0.f ? sc : 1.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        a.qout[off + lane + 32 * e] =
+            static_cast<int8_t>(__float2int_rn(__fdiv_rn(v[e], safe)));
+      if (lane == 0) a.qsc[it] = sc;
+    }
+  }
   csync();
   if (tid == 0) MK_STAMP_ARRIVE(nb);
 }
@@ -1333,7 +1380,9 @@ inline bool shapes_ok(const Args& a, int elem) {
   return a.B >= 1 && a.B <= MAXB && a.NKV >= 1 && a.NH % a.NKV == 0 &&
          a.D % 16 == 0 && a.D <= 256 && a.H % unit == 0 &&
          (a.NH * a.D) % unit == 0 && (!a.mlp || a.F % unit == 0) &&
-         a.st > 0 && a.BS % a.st == 0 && a.L >= 1;
+         a.st > 0 && a.BS % a.st == 0 && a.L >= 1 &&
+         (a.out_mode == 0 || (a.L == 1 && !a.mlp)) &&
+         (a.out_mode != 2 || a.H % 128 == 0);
 }
 
 // resident blocks of the launch (occupancy x SMs) and its shared memory;
@@ -1485,8 +1534,10 @@ Args dims(const int* ints) {
 // ptrs: h, out, lens, tables, cos, sin, w_in, w_post, wq, wk, wv, wo, wg,
 //   wu, wd, sq, sk, sv, so, sg, su, sd, k_cache, v_cache, k_scale,
 //   v_scale, q_ws, k_ws, v_ws, ctx_ws, y_ws, partials (f32), counters
-//   (int32, zeroed: the barrier's two words, then the split counters)
-// ints: see dims(); the grid and the K splits are planned here
+//   (int32, zeroed: the barrier's two words, then the split counters),
+//   pout, qout, qsc (null unless out_mode asks for them)
+// ints: see dims(), then the partial floats and counters allocated and
+//   out_mode; the grid and the K splits are planned here
 extern "C" int decode_megakernel_launch(const void* const* ptrs,
                                         const int* ints, float scale,
                                         float eps, void* stream) {
@@ -1516,6 +1567,10 @@ extern "C" int decode_megakernel_launch(const void* const* ptrs,
   int* counters = static_cast<int*>(const_cast<void*>(ptrs[32]));
   a.bar = reinterpret_cast<unsigned*>(counters);
   a.cnt = counters + 2;
+  a.pout = static_cast<float*>(const_cast<void*>(ptrs[33]));
+  a.qout = static_cast<int8_t*>(const_cast<void*>(ptrs[34]));
+  a.qsc = static_cast<float*>(const_cast<void*>(ptrs[35]));
+  a.out_mode = ints[17];
   a.scale = scale;
   a.eps = eps;
   const int64_t part_cap = ints[15], cnt_cap = ints[16];

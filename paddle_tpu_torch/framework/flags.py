@@ -109,11 +109,14 @@ define_flag("unified_step", "auto",
             env_aliases=("PADDLE_TPU_UNIFIED_STEP",))
 define_flag("serving_mp", 1,
             "tensor-parallel degree of the paged serving stack; 1 "
-            "(default) = one device (also: PADDLE_TPU_SERVING_MP)",
+            "(default) = one device; above 1 the engine runs on every "
+            "rank of a process group of serving_mp * serving_cp ranks "
+            "(parallel/ranks.py) (also: PADDLE_TPU_SERVING_MP)",
             env_aliases=("PADDLE_TPU_SERVING_MP",))
 define_flag("serving_cp", 1,
-            "context-parallel degree of the paged serving stack; 1 "
-            "(default) = one device (also: PADDLE_TPU_SERVING_CP)",
+            "context-parallel degree of the paged serving stack (pools "
+            "sharded by page); 1 (default) = one device "
+            "(also: PADDLE_TPU_SERVING_CP)",
             env_aliases=("PADDLE_TPU_SERVING_CP",))
 define_flag("speculative", "off",
             "speculative decoding policy of the serving engine "
@@ -230,8 +233,8 @@ define_flag("audit_memory", False,
             env_aliases=("PADDLE_TPU_AUDIT_MEMORY",))
 define_flag("audit_comms", False,
             "run the static communication auditor at the audit hooks; "
-            "the port has no collective yet, so an audit that resolves "
-            "on raises (ROADMAP.md section 1 item 5) "
+            "the communication audit is not ported yet, so an audit "
+            "that resolves on raises (ROADMAP.md section 1 item 5) "
             "(also: PADDLE_TPU_AUDIT_COMMS)",
             env_aliases=("PADDLE_TPU_AUDIT_COMMS",))
 define_flag("audit_roofline", False,

@@ -315,7 +315,13 @@ COUNTERS = ("rms_norm", "flash_attention_fwd", "flash_attention_bwd_dq",
             "decode_layer_megakernel", "decode_layer_megakernel_full",
             "decode_layers_megakernel", "decode_layer_megakernel_int8",
             "decode_layer_megakernel_full_int8",
-            "decode_layers_megakernel_int8")
+            "decode_layers_megakernel_int8",
+            # the attn rung's tensor-parallel modes (residual=False, and
+            # quantize_out=True)
+            "decode_layer_megakernel_partial",
+            "decode_layer_megakernel_partial_int8",
+            "decode_layer_megakernel_partial_quant",
+            "decode_layer_megakernel_partial_quant_int8")
 
 # launches of each kernel since the last reset: every wrapper adds one
 # where it launches its kernel, and nowhere else (a run can then show

@@ -446,7 +446,8 @@ def _mk_roofline(a):
 
 
 register_constraint(KernelConstraint(
-    name="decode_megakernel", ops=("decode_megakernel",),
+    name="decode_megakernel",
+    ops=("decode_megakernel", "decode_megakernel_partial"),
     limits={"max_rows": 16, "head_dim": "multiple of 16 up to 256",
             "smem_bytes": 232448},
     note="one cooperative launch a layer (attn, full) or for every layer "

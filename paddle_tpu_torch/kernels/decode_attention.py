@@ -36,6 +36,7 @@ check hold the kernels against it; the wrappers never call it).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -54,10 +55,29 @@ _SMS, _BLOCKS_PER_SM = 132, 4
 PREFILL_TILE = 64
 
 
+# the split plans size their grid by the MODEL's kv heads: a serving_mp
+# rank that holds 1/k of them plans under `model_kv_heads(k)`, so each of
+# its rows splits (and merges) exactly as on one device
+_PLAN_HEADS = [1]
+
+
+@contextlib.contextmanager
+def model_kv_heads(shards: int):
+    """Within this block the split plans count `shards` x the kv heads
+    they are given (a rank's share of a model sharded `shards` ways)."""
+    prev, _PLAN_HEADS[0] = _PLAN_HEADS[0], int(shards)
+    try:
+        yield
+    finally:
+        _PLAN_HEADS[0] = prev
+
+
 def decode_split_plan(n_tiles: int, b: int, hkv: int):
     """(tiles per split, splits) for rows of `n_tiles` tiles: enough
     splits that the grid (splits, Hkv, B) holds about four blocks per SM,
-    at most one split per tile, every split `tps` tiles but the last."""
+    at most one split per tile, every split `tps` tiles but the last.
+    Hkv is the model's (`model_kv_heads`)."""
+    hkv = hkv * _PLAN_HEADS[0]
     want = -(-_SMS * _BLOCKS_PER_SM // max(1, b * hkv))
     splits = max(1, min(n_tiles, want))
     tps = -(-n_tiles // splits)

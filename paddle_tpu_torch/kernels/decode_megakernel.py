@@ -50,8 +50,20 @@ pieces phase 2 cuts from lens over the grid) and
 ``split_attend_current_reference`` (its split-and-merge attention) are
 the plain twins of the kernel's phase 2: the CPU tests hold them against
 the unsplit plain attention and JAX; the wrappers never call them.
-``residual=False`` and ``quantize_out=True`` serve the JAX package's
-tensor-parallel decode and are not ported (ROADMAP.md section 1 item 5).
+
+The tensor-parallel seam of the attn rung (JAX decode_megakernel.py
+:223-235, :434-457): with ``residual=False`` the kernel's last phase
+stores the f32 o-proj partial over the rank's heads (its rows of wo)
+instead of adding it to the residual, and returns it [b, 1, H];
+``quantize_out=True`` (needs residual=False and H % 128 == 0) emits that
+partial already int8 per 128-lane block, (q [b, H] int8, scale [b, H /
+128] f32), in `parallel.collectives.quantize_blocks`' layout and ops
+(scale = absmax / 127, zero block -> scale 0, round half to even, no
+clip), for ``quantized_psum_prequant`` to put on the wire. Both are
+branches of the same CUDA kernel (counters
+``decode_layer_megakernel_partial`` and
+``decode_layer_megakernel_partial_quant``, with ``_int8`` on int8
+pools); the plain version takes the same two arguments.
 """
 from __future__ import annotations
 
@@ -84,8 +96,7 @@ _GEO = {"int8": dict(tn=16, tk=1024, rows=16, row=1024, kg=8),
         torch.bfloat16: dict(tn=64, tk=128, rows=128, row=128, kg=2),
         torch.float32: dict(tn=64, tk=64, rows=64, row=256, kg=2)}
 
-_TP_ONLY = ("is the tensor-parallel decode seam, not ported yet "
-            "(ROADMAP.md section 1 item 5)")
+LANE = 128                       # quantize_out's block (QCOLL_BLOCK)
 
 
 # ---------------------------------------------------------------------------
@@ -464,11 +475,12 @@ def _commit(kct, vct, k_cur, v_cur, tables, lens, bs):
 
 
 def _layer_reference(h, lens, tables, cos, sin, w_in, wq, wk, wv, wo,
-                     kct, vct, *, eps, scale, mlp=None):
+                     kct, vct, *, eps, scale, mlp=None, residual=True):
     """One layer of the megakernel in plain PyTorch. h [b, H] in the
     compute dtype; tables already offset to this layer's pages; kct/vct
     pools or (int8 pool, scale) pairs, committed in place; `mlp` =
-    (w_post, wg, wu, wd) for the full rung. Returns h_out [b, H]."""
+    (w_post, wg, wu, wd) for the full rung. Returns h_out [b, H], or with
+    `residual=False` the f32 o-proj partial [b, H] (no residual add)."""
     cdt = h.dtype
     b = h.shape[0]
     kc = kct[0] if isinstance(kct, tuple) else kct
@@ -488,6 +500,8 @@ def _layer_reference(h, lens, tables, cos, sin, w_in, wq, wk, wv, wo,
                           lens, scale, ksc, vsc)
     _commit(kct, vct, k, v, tables, lens, bs)      # attend before commit
     proj = _proj(ctx.to(cdt).reshape(b, -1), wo)
+    if not residual:
+        return proj
     h = (h.float() + proj).to(cdt)
     if mlp is None:
         return h
@@ -529,16 +543,44 @@ def decode_layer_megakernel_reference(h, lens, tables, w_in, wq, wk, wv, wo,
                                       rope_base: float = 10000.0,
                                       eps: float = 1e-6,
                                       scale: Optional[float] = None,
-                                      k_scale=None, v_scale=None):
-    """Plain version of `decode_layer_megakernel` (pools in place)."""
+                                      k_scale=None, v_scale=None,
+                                      residual: bool = True,
+                                      quantize_out: bool = False):
+    """Plain version of `decode_layer_megakernel` (pools in place), its
+    tensor-parallel modes included: ``residual=False`` returns the f32
+    o-proj partial [b, 1, H], ``quantize_out=True`` its
+    `quantize_blocks` pair (q [b, H] int8, scale [b, H / 128] f32)."""
+    _check_seam(h, residual, quantize_out)
     b, _, H = h.shape
     dh = k_cache.shape[3]
     scale = 1.0 / math.sqrt(dh) if scale is None else scale
     cos, sin = _rope_tables(lens, dh, rope_base)
     kct, vct = _pools(k_cache, v_cache, k_scale, v_scale)
     out = _layer_reference(h.reshape(b, H), lens, tables, cos, sin, w_in,
-                           wq, wk, wv, wo, kct, vct, eps=eps, scale=scale)
+                           wq, wk, wv, wo, kct, vct, eps=eps, scale=scale,
+                           residual=residual)
+    if quantize_out:
+        from ..parallel.collectives import quantize_blocks
+
+        return _pair_returns(quantize_blocks(out, LANE), k_cache, v_cache,
+                             k_scale, v_scale)
     return _returns(out, b, H, k_cache, v_cache, k_scale, v_scale)
+
+
+def _pair_returns(pair, k_cache, v_cache, k_scale, v_scale):
+    if k_cache.dtype == torch.int8:
+        return pair, (k_cache, k_scale), (v_cache, v_scale)
+    return pair, k_cache, v_cache
+
+
+def _check_seam(h, residual, quantize_out):
+    if quantize_out:
+        if residual:
+            raise ValueError("quantize_out emits a PARTIAL (the psum "
+                             "payload); it requires residual=False")
+        if h.shape[-1] % LANE:
+            raise ValueError(
+                f"quantize_out needs lane-aligned H, got {h.shape[-1]}")
 
 
 def _layer_of(w, i):
@@ -594,29 +636,39 @@ def _stack_one(w):
     return w.unsqueeze(0)
 
 
-def _tp_seam(residual, quantize_out):
-    if not residual or quantize_out:
-        what = "residual=False" if not residual else "quantize_out=True"
-        raise NotImplementedError(f"{what} {_TP_ONLY}")
-
-
 def decode_layer_megakernel(h, lens, tables, w_in, wq, wk, wv, wo,
                             k_cache, v_cache, *, rope_base: float = 10000.0,
                             eps: float = 1e-6, scale: Optional[float] = None,
                             k_scale=None, v_scale=None,
                             residual: bool = True,
                             quantize_out: bool = False):
-    """One decoder layer's attention block, fused (rung ``attn``)."""
-    _tp_seam(residual, quantize_out)
+    """One decoder layer's attention block, fused (rung ``attn``). With
+    ``residual=False`` the result is the f32 o-proj partial [b, 1, H];
+    with ``quantize_out=True`` its int8 pair (module docstring)."""
+    _check_seam(h, residual, quantize_out)
     reason = megakernel_supported(h, w_in, wq, wk, wv, wo, k_cache,
                                   v_cache, tables, k_scale=k_scale,
                                   v_scale=v_scale)
     if reason is not None:
         raise ValueError(f"decode megakernel unsupported here: {reason}")
-    return _megakernel("decode_layer_megakernel", h, lens, tables,
-                       [_stack_one(w) for w in (w_in, wq, wk, wv, wo)],
-                       k_cache, v_cache, 1, False, rope_base, eps, scale,
-                       k_scale, v_scale)
+    weights = [_stack_one(w) for w in (w_in, wq, wk, wv, wo)]
+    if residual:
+        return _megakernel("decode_layer_megakernel", h, lens, tables,
+                           weights, k_cache, v_cache, 1, False, rope_base,
+                           eps, scale, k_scale, v_scale)
+    b, _, H = h.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(k_cache.shape[3])
+    what = "decode_layer_megakernel_partial" + (
+        "_quant" if quantize_out else "")
+    ws = [w[0] if isinstance(w, tuple) else w for w in weights]
+    ss = [w[1] if isinstance(w, tuple) else None for w in weights]
+    out, sc = _partial_op(what, h, lens, tables, ws, ss, k_cache, v_cache,
+                          k_scale, v_scale, 1, False, bool(quantize_out),
+                          float(rope_base), float(eps), float(scale))
+    if quantize_out:
+        return _pair_returns((out, sc), k_cache, v_cache, k_scale, v_scale)
+    return _returns(out, b, H, k_cache, v_cache, k_scale, v_scale)
 
 
 def decode_layers_megakernel(h, lens, tables, w_in, w_post, wq, wk, wv,
@@ -675,6 +727,38 @@ def _megakernel_cuda(what, h, lens, tables, ws, ss, k_cache, v_cache,
                    scale=scale, k_scale=k_scale, v_scale=v_scale)[0]
 
 
+def _partial_cuda(what, h, lens, tables, ws, ss, k_cache, v_cache, k_scale,
+                  v_scale, L, mlp, quantize, rope_base, eps, scale):
+    return _launch(what, h, lens, tables, _weights_of(ws, ss), k_cache,
+                   v_cache, L, mlp=mlp, rope_base=rope_base, eps=eps,
+                   scale=scale, k_scale=k_scale, v_scale=v_scale,
+                   out_mode=2 if quantize else 1)[0]
+
+
+def _partial_cpu(what, h, lens, tables, ws, ss, k_cache, v_cache, k_scale,
+                 v_scale, L, mlp, quantize, rope_base, eps, scale):
+    out = decode_layer_megakernel_reference(
+        h, lens, tables, *(_layer_of(x, 0) for x in _weights_of(ws, ss)),
+        k_cache, v_cache, rope_base=rope_base, eps=eps, scale=scale,
+        k_scale=k_scale, v_scale=v_scale, residual=False,
+        quantize_out=quantize)[0]
+    if quantize:
+        return out
+    b, _, H = h.shape
+    return out.reshape(b, H), torch.empty(0, device=h.device)
+
+
+def _partial_fake(what, h, lens, tables, ws, ss, k_cache, v_cache, k_scale,
+                  v_scale, L, mlp, quantize, *a):
+    b, _, H = h.shape
+    if quantize:
+        return (torch.empty((b, H), dtype=torch.int8, device=h.device),
+                torch.empty((b, H // LANE), dtype=torch.float32,
+                            device=h.device))
+    return (torch.empty((b, H), dtype=torch.float32, device=h.device),
+            torch.empty(0, device=h.device))
+
+
 def _megakernel_cpu(what, h, lens, tables, ws, ss, k_cache, v_cache,
                     k_scale, v_scale, L, mlp, rope_base, eps, scale):
     kw = dict(rope_base=rope_base, eps=eps, scale=scale, k_scale=k_scale,
@@ -700,6 +784,17 @@ _megakernel_op = _build.kernel_op(
     "float rope_base, float eps, float scale) -> Tensor",
     cuda=_megakernel_cuda, cpu=_megakernel_cpu,
     fake=lambda what, h, *a: torch.empty_like(h))
+
+# the attn rung's tensor-parallel seam: (f32 partial [b, H], empty) or
+# (int8 [b, H], f32 scales [b, H / 128]); the residual is the caller's
+_partial_op = _build.kernel_op(
+    "decode_megakernel_partial",
+    "(str what, Tensor h, Tensor lens, Tensor tables, Tensor[] weights, "
+    "Tensor?[] weight_scales, Tensor(a!) k_cache, Tensor(b!) v_cache, "
+    "Tensor(c!)? k_scale, Tensor(d!)? v_scale, int n_layers, bool mlp, "
+    "bool quantize, float rope_base, float eps, float scale) "
+    "-> (Tensor, Tensor)",
+    cuda=_partial_cuda, cpu=_partial_cpu, fake=_partial_fake)
 
 
 def decode_layer_megakernel_full(h, lens, tables, w_in, w_post, wq, wk,
@@ -754,9 +849,13 @@ def card_geometry(dev, *, L, b, H, F, nh, nkv, dh, bs, W, pages, mlp,
 
 
 def _launch(what, h, lens, tables, weights, k_cache, v_cache, L, *, mlp,
-            rope_base, eps, scale, k_scale, v_scale):
+            rope_base, eps, scale, k_scale, v_scale, out_mode=0):
     """Check the operands and launch csrc/decode_megakernel.cu. `weights`
-    are stacked [L, ...]: w_in, wq, wk, wv, wo (+ w_post, wg, wu, wd)."""
+    are stacked [L, ...]: w_in, wq, wk, wv, wo (+ w_post, wg, wu, wd).
+    `out_mode` 0 adds the o-proj into the residual (returns (h_out,
+    pools)); 1 stores the f32 partial (returns ((partial [b, H], empty),
+    pools)); 2 its int8 blocks (returns ((q, scales), pools)); 1 and 2
+    take one layer without the MLP."""
     quant_kv = _build.int8_pools(k_cache, k_scale, v_scale)
     b, _, H = h.shape
     n_pool, nkv, bs, dh = k_cache.shape
@@ -808,6 +907,15 @@ def _launch(what, h, lens, tables, weights, k_cache, v_cache, L, *, mlp,
     if hc.data_ptr() % 16:
         hc = hc.clone()
     out = torch.empty_like(hc)
+    if out_mode and (L != 1 or mlp or (out_mode == 2 and H % LANE)):
+        raise ValueError(f"{what}: the partial modes take one layer "
+                         "without the MLP (and H % 128 == 0 to quantize)")
+    pout = torch.empty((b, H), dtype=torch.float32, device=dev) \
+        if out_mode else None
+    qout = torch.empty((b, H), dtype=torch.int8, device=dev) \
+        if out_mode == 2 else None
+    qsc = torch.empty((b, H // LANE), dtype=torch.float32, device=dev) \
+        if out_mode == 2 else None
     cos, sin = (t.contiguous() for t in _rope_tables(lens, dh, rope_base))
     lib = _build.library("decode_megakernel")
     geo = card_geometry(dev, L=L, b=b, H=H, F=F_, nh=nh, nkv=nkv, dh=dh,
@@ -844,8 +952,9 @@ def _launch(what, h, lens, tables, weights, k_cache, v_cache, L, *, mlp,
            k_scale.data_ptr() if quant_kv else 0,
            v_scale.data_ptr() if quant_kv else 0] \
         + [base + o * it for o in offs[:5]] \
-        + [part.data_ptr(), counters.data_ptr()]
-    ints = [*geo["ints"], part.numel(), geo["counters"]]
+        + [part.data_ptr(), counters.data_ptr()] \
+        + [0 if t is None else t.data_ptr() for t in (pout, qout, qsc)]
+    ints = [*geo["ints"], part.numel(), geo["counters"], int(out_mode)]
     parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     iarr = (ctypes.c_int * len(ints))(*ints)
     code = lib.decode_megakernel_launch(
@@ -855,6 +964,12 @@ def _launch(what, h, lens, tables, weights, k_cache, v_cache, L, *, mlp,
         what += _build.INT8_SUFFIX
     _build.check(lib, code, what)
     _build.LAUNCHES[what] += 1
+    if out_mode == 1:
+        return _pair_returns((pout, torch.empty(0, device=dev)), k_cache,
+                             v_cache, k_scale, v_scale)
+    if out_mode == 2:
+        return _pair_returns((qout, qsc), k_cache, v_cache, k_scale,
+                             v_scale)
     return _returns(out, b, H, k_cache, v_cache, k_scale, v_scale)
 
 

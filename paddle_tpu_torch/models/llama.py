@@ -28,7 +28,14 @@ What is here:
   -> attn -> off, one reason per refused rung),
   ``_make_decode_step_megakernel`` and, for 'scan', the stacked layout
   (``stack_decode_layer_params``, read back through ``_lw``; one
-  layer-major pool whose readers add ``_layer_kv``'s page offset).
+  layer-major pool whose readers add ``_layer_kv``'s page offset);
+- tensor- and context-parallel serving: ``ServingTP`` (the head and page
+  geometry of ``serving_mp`` / ``serving_cp`` and its three seams, the
+  only code that issues a collective: ``gather_heads``, ``psum_partial``,
+  ``merge_attn_partials``), ``make_serving_tp`` and
+  ``shard_serving_params``. Every serving body takes ``tp=`` and then
+  computes its rank's local heads (and, under cp, its own pages); the
+  ranks are processes under torch.distributed (``parallel.ranks``).
 
 Weight layout: every projection keeps paddle's ``Linear`` layout
 [in_features, out_features] (``y = x @ w``), in the decode-params dict and
@@ -63,6 +70,7 @@ from ..framework.cuda_graph import GenerateProgram, GraphSite
 from ..framework.flags import flag as _flag
 from ..kernels.decode_attention import (decode_attention,
                                         gqa_decode_attention,
+                                        model_kv_heads,
                                         paged_decode_attention)
 from ..kernels.decode_megakernel import (decode_layer_megakernel,
                                          decode_layer_megakernel_full,
@@ -73,6 +81,11 @@ from ..kernels.decode_megakernel import (decode_layer_megakernel,
 from ..kernels.flash_attention import (flash_attention,
                                        flash_attention_reference)
 from ..kernels.int4_matmul import int4_matmul, int8_weight_matmul
+from ..kernels.partial_attention import (causal_window_partials,
+                                         combine_partials, cp_local_view,
+                                         cp_write_rows,
+                                         decode_paged_partials,
+                                         finalize_partials, paged_partials)
 from ..kernels.prefix_prefill import prefix_prefill_attention
 from ..kernels.ragged_attention import ragged_paged_attention
 from ..kernels.rms_norm import rms_norm as _k_rms
@@ -80,6 +93,10 @@ from ..kernels.rms_norm import rms_norm_reference
 from ..kernels.rope import apply_rotary_emb
 from ..kernels.swiglu import swiglu_matmul, swiglu_matmul_reference
 from ..nn.quant import weight_quantize
+from ..parallel.collectives import (all_gather, all_reduce,
+                                    quantized_all_gather, quantized_psum,
+                                    quantized_psum_prequant,
+                                    resolve_quantized_collectives)
 
 WEIGHT_QUANTS = ("weight_only_int8", "weight_only_int4")
 
@@ -696,7 +713,9 @@ class LlamaForCausalLM(nn.Module):
         kv_dtype = resolve_kv_cache_dtype() if paged else None
         megakernel = resolve_decode_megakernel() if paged else None
         serving_mp = resolve_serving_mp() if paged else None
-        qcoll = False if paged else None       # no collectives on one GPU
+        # the quantized wire joins the key where there is a wire
+        qcoll = (resolve_quantized_collectives() and serving_mp > 1) \
+            if paged else None
         sig = (b, sb, max_new_tokens, eos_token_id, do_sample, int(top_k),
                quant, prefill_with_quant, cache_layout, kv_block_size,
                kv_dtype, megakernel, qcoll, serving_mp)
@@ -717,8 +736,13 @@ class LlamaForCausalLM(nn.Module):
                                          max_seq, eos_token_id, do_sample,
                                          int(top_k))
                 name = "jit_generate(contiguous)"
-            cache[sig] = GenerateProgram(name, fn, self._gen_site,
-                                         do_sample)
+            site = self._gen_site
+            tp = getattr(fn, "tp", None)
+            if tp is not None and tp.backend != "nccl":
+                # a gloo collective cannot be captured: eager program
+                site = GraphSite(dev)
+                site.graphed = False
+            cache[sig] = GenerateProgram(name, fn, site, do_sample)
         if seed is None:
             seed = int(torch.randint(2 ** 62, (1,)))
         if paged:
@@ -833,6 +857,10 @@ def _mm(x, w):
         else:
             out = int8_weight_matmul(x2, wq, sc)
         return out.reshape(*x.shape[:-1], wq.shape[0])
+    if x.dtype != w.dtype:
+        # the bf16 head gather of an f32 stream meets an f32 o-proj: JAX
+        # promotes the product to f32
+        x = x.to(torch.promote_types(x.dtype, w.dtype))
     return x @ w
 
 
@@ -943,29 +971,44 @@ def _layer_kv(kcs, vcs, i, n_layers):
     return kc, vc, i * (pool.shape[0] // n_layers)
 
 
-def _layers(cfg, p, h, pos_ids, attend):
+def _layers(cfg, p, h, pos_ids, attend, tp=None):
     """The decoder stack over the decode-params dict, from embedded
     tokens h [b, s, hidden]: L x (rms / attention / mlp) -> final rms.
     q and k are rotary-encoded at `pos_ids` ([s] or [b, s]); layer i's
     attention context comes from ``attend(i, q, k, v)``. Returns (h_final,
-    [(k_i, v_i)]) with the rotary-applied K/V [b, s, nkv, dh] per layer."""
+    [(k_i, v_i)]) with the rotary-applied K/V [b, s, nkv, dh] per layer.
+
+    With `tp` (ServingTP) the params are the rank's slice: q / k / v
+    carry its local heads (so do the returned K/V), and the attention
+    context all-gathers along the head axis before the replicated o-proj
+    (`ServingTP.gather_heads`, the one collective a layer)."""
     nh, nkv, dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
+    # the head counts the projections reshape at: the rank's under tp
+    nh_l = tp.nh_local if tp is not None else nh
+    nkv_l = tp.nkv_local if tp is not None else nkv
     eps = cfg.rms_norm_eps
     b, s, _ = h.shape
     kvs = []
     for i in range(cfg.num_hidden_layers):
         x = _k_rms(h, _lw(p, i, "input_layernorm.weight"), eps)
         q = _mm(x, _lw(p, i, "self_attn.q_proj.weight")).reshape(
-            b, s, nh, dh)
+            b, s, nh_l, dh)
         k = _mm(x, _lw(p, i, "self_attn.k_proj.weight")).reshape(
-            b, s, nkv, dh)
+            b, s, nkv_l, dh)
         v = _mm(x, _lw(p, i, "self_attn.v_proj.weight")).reshape(
-            b, s, nkv, dh)
+            b, s, nkv_l, dh)
         q, k = apply_rotary_emb(q, k, position_ids=pos_ids,
                                 base=cfg.rope_theta)
         kvs.append((k, v))
-        attn = attend(i, q, k, v)
+        if tp is None:
+            attn = attend(i, q, k, v)
+        else:
+            # the split plans size their grid by the model's kv heads, so
+            # a rank splits each row as one device does
+            with model_kv_heads(tp.kv_shards):
+                attn = attend(i, q, k, v)
+            attn = tp.gather_heads(attn)
         h = h + _mm(attn.reshape(b, s, nh * dh),
                     _lw(p, i, "self_attn.o_proj.weight"))
         x2 = _k_rms(h, _lw(p, i, "post_attention_layernorm.weight"), eps)
@@ -975,16 +1018,18 @@ def _layers(cfg, p, h, pos_ids, attend):
     return _k_rms(h, p["llama.norm.weight"], eps), kvs
 
 
-def _make_prefill(cfg, b, sb):
+def _make_prefill(cfg, b, sb, tp=None):
     """Per-layer prefill over the decode-params dict: embed ->
     L x (rms / attention / mlp) -> final rms. Returns (h_final,
     [(k_i, v_i)]) with rotary-applied K/V [b, sb, nkv, dh] per layer;
-    the caller owns the cache layout."""
+    the caller owns the cache layout. With `tp` the flash attention runs
+    over the rank's heads and the K/V are its local kv heads."""
     def prefill(p, ids):
         h = p["llama.embed_tokens.weight"][ids]          # [b, sb, h]
         return _layers(cfg, p, h, torch.arange(sb, device=h.device),
                        lambda i, q, k, v: flash_attention(q, k, v,
-                                                          causal=True))
+                                                          causal=True),
+                       tp=tp)
 
     return prefill
 
@@ -1003,15 +1048,26 @@ def _pool_pair(kcs, vcs, i, n_layers):
     return kc, vc, ksc, vsc, poff
 
 
-def _make_window_prefill(cfg, tn, paged_attention):
+def _make_window_prefill(cfg, tn, paged_attention, tp=None,
+                         window_lens: bool = True):
     """The prefill shared by the cached-prefix suffix prefill and the
     unified step's chunk lane: `tn` new tokens per row at positions
     cached[:, None] + arange(tn), each layer attending the row's cached
     pool pages plus the window through `paged_attention` (the
     prefix-prefill or ragged wrapper). Pool entries may be (int8 pool, f32
-    scale) pairs: the wrapper then dequantizes inside its f32 math."""
+    scale) pairs: the wrapper then dequantizes inside its f32 math.
+
+    With `tp` the params and pools are the rank's (local heads). Under cp
+    the rank holds only its pages: the cached phase runs as
+    online-softmax partials over its own pages (position valid AND
+    owned), merged across the cp group, and the causal window, computed
+    alike on every rank, joins once (the JAX cp branches). `window_lens`
+    says whether the window's columns and rows past new_lens are pad (the
+    chunk lane) or live (the prefix suffix, whose cp branch in JAX reads
+    no suffix lengths)."""
     n_layers = cfg.num_hidden_layers
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    cp = tp is not None and tp.cp > 1
 
     def prefill(p, kcs, vcs, ids, tables, cached, new_lens=None):
         h = p["llama.embed_tokens.weight"][ids]          # [b, tn, h]
@@ -1021,16 +1077,33 @@ def _make_window_prefill(cfg, tn, paged_attention):
         def attend(i, q, k, v):
             kc, vc, ksc, vsc, poff = _pool_pair(kcs, vcs, i, n_layers)
             tbl = tables + poff if poff else tables
-            return paged_attention(q, k, v, kc, vc, tbl, cached,
-                                   new_lens, scale=scale, k_scale=ksc,
-                                   v_scale=vsc)
+            if not cp:
+                return paged_attention(q, k, v, kc, vc, tbl, cached,
+                                       new_lens, scale=scale, k_scale=ksc,
+                                       v_scale=vsc)
+            loc, owned = cp_local_view(tbl, tp.pps(kc), tp.c_index)
+            page = kc.shape[2]
+            pos_ok = torch.arange(loc.shape[1] * page, device=h.device)[
+                None, :] < cached.to(torch.int64)[:, None]
+            valid = pos_ok & torch.repeat_interleave(owned, page, dim=1)
+            part = tp.merge_attn_partials(*paged_partials(
+                q, kc, vc, loc, valid, scale=scale, k_scale=ksc,
+                v_scale=vsc))
+            lens = new_lens if window_lens else None
+            live = None
+            if window_lens:
+                live = (torch.arange(tn, device=h.device)[None, :]
+                        < new_lens.to(torch.int64)[:, None])[..., None]
+            win = causal_window_partials(q, k, v, lens, scale=scale)
+            return finalize_partials(*combine_partials(part, win),
+                                     live).to(h.dtype)
 
-        return _layers(cfg, p, h, pos_ids, attend)
+        return _layers(cfg, p, h, pos_ids, attend, tp=tp)
 
     return prefill
 
 
-def _make_prefill_with_prefix(cfg, b, sb, w_pre, block_size):
+def _make_prefill_with_prefix(cfg, b, sb, w_pre, block_size, tp=None):
     """Suffix prefill over a cached block-aligned prefix (the JAX
     function's single-device branch): hidden states for the `sb` uncached
     suffix tokens only, attending over the prefix pages named by
@@ -1048,10 +1121,11 @@ def _make_prefill_with_prefix(cfg, b, sb, w_pre, block_size):
             f"prefix prefill needs a suffix bucket that is a whole number "
             f"of pages ({sb} % {block_size}) and a prefix table at least "
             f"one page wide (w_pre {w_pre})")
-    return _make_window_prefill(cfg, sb, prefix_prefill_attention)
+    return _make_window_prefill(cfg, sb, prefix_prefill_attention, tp=tp,
+                                window_lens=False)
 
 
-def _make_chunk_prefill(cfg, tn):
+def _make_chunk_prefill(cfg, tn, tp=None):
     """Chunk lane of the unified serving step (the JAX function's
     single-device branch): one prefill window of `tn` tokens for one
     request, attending its committed tokens (earlier windows or a cached
@@ -1063,10 +1137,10 @@ def _make_chunk_prefill(cfg, tn):
     Returns prefill(p, kcs, vcs, ids, chunk_table, cached_len, new_len)
     -> (h_final [1, tn, h], [(k_i, v_i)]) with rotary-applied window K/V
     [1, tn, nkv, dh] per layer; the caller owns the page scatter."""
-    return _make_window_prefill(cfg, tn, ragged_paged_attention)
+    return _make_window_prefill(cfg, tn, ragged_paged_attention, tp=tp)
 
 
-def _make_verify_window(cfg, b, w):
+def _make_verify_window(cfg, b, w, tp=None):
     """Speculative-verify body (the JAX function's single-device branch):
     the chunk lane of `_make_chunk_prefill` batched over `b` slots at a
     fixed window of `w` = spec_k + 1 tokens, the slot's pending token and
@@ -1079,8 +1153,13 @@ def _make_verify_window(cfg, b, w):
     (h_final [b, w, hidden], [(k_i, v_i)]) with rotary-applied window K/V
     [b, w, nkv, dh] per layer; the caller owns the per-column page
     scatter and the head, whose row j scores the token after window
-    token j."""
-    return _make_window_prefill(cfg, w, ragged_paged_attention)
+    token j. Under tp: the rank's heads (mp); cp raises, as in JAX."""
+    if tp is not None and tp.cp > 1:
+        raise NotImplementedError(
+            "speculative verify windows do not compose with serving_cp "
+            "(the page-sharded merge of a multi-row window is not in the "
+            "JAX package either)")
+    return _make_window_prefill(cfg, w, ragged_paged_attention, tp=tp)
 
 
 def make_paged_kv_helpers(b, n_pre, nkv, dh, block_size, tables):
@@ -1179,7 +1258,8 @@ def make_paged_kv_q8_helpers(b, n_pre, nkv, dh, block_size, tables):
     return to_pages_q8, kv_write_q8
 
 
-def _make_decode_step(cfg, b, max_seq=None, kv_write=None, kv_attend=None):
+def _make_decode_step(cfg, b, max_seq=None, kv_write=None, kv_attend=None,
+                      tp=None):
     """Single-token decode step over the decode-params dict; the KV
     store is injected:
 
@@ -1193,9 +1273,14 @@ def _make_decode_step(cfg, b, max_seq=None, kv_write=None, kv_attend=None):
     Defaults (both None): contiguous caches [B, Hkv, max_seq, D], written
     IN PLACE at `pos` (the JAX dynamic_update_slice, whose start index
     clamps to max_seq - 1 where torch would raise) and attended through
-    ``decode_attention`` (group 1) or ``gqa_decode_attention``."""
+    ``decode_attention`` (group 1) or ``gqa_decode_attention``.
+
+    With `tp` the step computes the rank's heads over its pools and
+    all-gathers the context before the o-proj (`_layers`); the GQA group
+    comes from the rank's head counts, never the model's."""
     n_layers = cfg.num_hidden_layers
-    group = cfg.num_attention_heads // cfg.num_key_value_heads
+    group = (tp.nh_local // tp.nkv_local) if tp is not None \
+        else cfg.num_attention_heads // cfg.num_key_value_heads
     head_logits = _make_head_logits(cfg)
 
     if kv_write is None:
@@ -1235,32 +1320,56 @@ def _make_decode_step(cfg, b, max_seq=None, kv_write=None, kv_attend=None):
             return kv_attend(q[:, 0].contiguous(), kc, vc, pos)
 
         pos_ids = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
-        h, _ = _layers(cfg, p, h, pos_ids, attend)
+        h, _ = _layers(cfg, p, h, pos_ids, attend, tp=tp)
         return head_logits(h, p)[:, -1], kcs, vcs
 
     return decode_step
 
 
 def make_paged_decode_step(cfg, b, block_size, tables,
-                           kv_cache_dtype: str = "bf16"):
+                           kv_cache_dtype: str = "bf16", tp=None):
     """`_make_decode_step` over paged pools [P, nkv, block_size, dh]
     with block table `tables` [b, W] int32: the token's K/V is written
     in place, then ``paged_decode_attention`` attends positions <= pos.
     On int8 pools (`kv_cache_dtype="int8"`) every pool entry is an (int8
     pool, f32 scale) pair: the q8 commit writes the token and the int8
-    kernel attends with the scales."""
+    kernel attends with the scales.
+
+    With `tp` the pools hold the rank's kv heads. Under cp they hold its
+    pages (plus the sink row): the commit aims pages other ranks own at
+    the sink (`cp_write_rows`; the q8 commit then reads and rewrites the
+    sink), and the attention runs as `decode_paged_partials` over the
+    owned pages, merged across the cp group and normalized."""
     helpers = make_paged_kv_q8_helpers if kv_cache_dtype == "int8" \
         else make_paged_kv_helpers
-    _, kv_write = helpers(b, 0, cfg.num_key_value_heads, cfg.head_dim,
-                          block_size, tables)
+    nkv = tp.nkv_local if tp is not None else cfg.num_key_value_heads
+    if tp is None or tp.cp <= 1:
+        _, kv_write = helpers(b, 0, nkv, cfg.head_dim, block_size, tables)
+
+        def kv_attend(q1, kc, vc, pos):
+            (kc, ksc), (vc, vsc) = _split_pool(kc), _split_pool(vc)
+            return paged_decode_attention(q1, kc, vc, tables,
+                                          pos.to(torch.int32), k_scale=ksc,
+                                          v_scale=vsc)
+
+        return _make_decode_step(cfg, b, kv_write=kv_write,
+                                 kv_attend=kv_attend, tp=tp)
+
+    def kv_write(kc, vc, k, v, pos):
+        pps = tp.pps(_split_pool(kc)[0])
+        _, write = helpers(b, 0, nkv, cfg.head_dim, block_size,
+                           cp_write_rows(tables, pps, tp.c_index))
+        return write(kc, vc, k, v, pos)
 
     def kv_attend(q1, kc, vc, pos):
         (kc, ksc), (vc, vsc) = _split_pool(kc), _split_pool(vc)
-        return paged_decode_attention(q1, kc, vc, tables,
-                                      pos.to(torch.int32), k_scale=ksc,
-                                      v_scale=vsc)
+        loc, owned = cp_local_view(tables, tp.pps(kc), tp.c_index)
+        m, l, acc = tp.merge_attn_partials(*decode_paged_partials(
+            q1, kc, vc, loc, pos, owned, k_scale=ksc, v_scale=vsc))
+        return finalize_partials(m, l, acc).to(q1.dtype)
 
-    return _make_decode_step(cfg, b, kv_write=kv_write, kv_attend=kv_attend)
+    return _make_decode_step(cfg, b, kv_write=kv_write, kv_attend=kv_attend,
+                             tp=tp)
 
 
 def _decode_tail(decode_step, p_dec, kcs, vcs, last_logits, s0, generator,
@@ -1414,17 +1523,24 @@ def build_paged_generate(cfg, b, sb, max_new, block_size: int = 64,
     steps through ``make_paged_decode_step`` or, when
     ``resolve_decode_megakernel()`` asks for a rung at build time,
     ``_megakernel_or_fallback_step`` (scan steps down to full here: this
-    program keeps per-layer params and pools). ``serving_mp > 1`` is not
-    ported (ROADMAP section 1 item 5)."""
+    program keeps per-layer params and pools).
+
+    ``serving_mp > 1`` (argument or FLAGS_serving_mp, read at build) runs
+    the program on every rank of an initialized process group of mp ranks
+    (SPMD; `ServingTP.bind`): `run` takes the full params or the rank's
+    slice (`shard_serving_params`), the pools hold the rank's kv heads and
+    the o-proj activations all-gather once a layer. Every rank returns
+    the same tokens. The returned `run` carries the geometry as
+    ``run.tp`` (None at mp = 1)."""
     nkv, dh = cfg.num_key_value_heads, cfg.head_dim
     n_layers = cfg.num_hidden_layers
     if sb % block_size:
         raise ValueError(f"bucketed prompt length {sb} must be a multiple "
                          f"of block_size {block_size}")
-    if resolve_serving_mp(serving_mp) > 1:
-        raise NotImplementedError(
-            "build_paged_generate with serving_mp > 1 is not ported yet "
-            "(ROADMAP.md section 1 item 5)")
+    tp = make_serving_tp(cfg, serving_mp, serving_cp=1)
+    if tp is not None:
+        tp.bind()
+        nkv = tp.nkv_local
     total = sb + max_new
     pages_per_seq = -(-total // block_size)
     n_pre = sb // block_size
@@ -1440,7 +1556,7 @@ def build_paged_generate(cfg, b, sb, max_new, block_size: int = 64,
             "build); serving the 'full' rung", stacklevel=2)
         use_mega = "full"
     head_logits = _make_head_logits(cfg)
-    base_prefill = _make_prefill(cfg, b, sb)
+    base_prefill = _make_prefill(cfg, b, sb, tp=tp)
     helpers = make_paged_kv_q8_helpers if kv_dtype == "int8" \
         else make_paged_kv_helpers
     to_pages, _ = helpers(b, n_pre, nkv, dh, block_size, None)
@@ -1463,6 +1579,8 @@ def build_paged_generate(cfg, b, sb, max_new, block_size: int = 64,
 
     def run(p_dec, ids, s0_vec, tables, generator=None, temperature=1.0,
             top_p=1.0):
+        if tp is not None:
+            p_dec = shard_serving_params(p_dec, tp)
         dtype = p_dec["llama.embed_tokens.weight"].dtype
         dev = ids.device
         kcs = [pool(dtype, dev) for _ in range(n_layers)]
@@ -1477,14 +1595,16 @@ def build_paged_generate(cfg, b, sb, max_new, block_size: int = 64,
         h_last = h[rows, s0_vec.to(torch.int64) - 1][:, None, :]
         last_logits = head_logits(h_last, p_dec)[:, -1]
         step = make_paged_decode_step(cfg, b, block_size, tables,
-                                      kv_cache_dtype=kv_dtype)
+                                      kv_cache_dtype=kv_dtype, tp=tp)
         if use_mega != "off":
             step = _megakernel_or_fallback_step(cfg, b, tables, p_dec, kcs,
-                                                vcs, step, mode=use_mega)
+                                                vcs, step, mode=use_mega,
+                                                tp=tp)
         return _decode_tail(step, p_dec, kcs, vcs, last_logits, s0_vec,
                             generator, temperature, top_p, ids.dtype,
                             max_new, eos_token_id, do_sample, top_k, b)
 
+    run.tp = tp
     return run
 
 
@@ -1535,14 +1655,25 @@ def megakernel_rung_order(mode: str):
 
 
 def _megakernel_rung_reason(rung, cfg, b, p, kcs, vcs, tables,
-                            on_card: Optional[bool] = None) -> Optional[str]:
+                            on_card: Optional[bool] = None,
+                            tp=None) -> Optional[str]:
     """None when fusion rung `rung` can serve this decode step's operands
     (layer 0's weights stand in for every layer), else the reason the
     rung steps down. Shape-only: meta tensors serve as spec views.
     `on_card` adds the CUDA kernel's limits (default: whether the pool
-    is a CUDA tensor)."""
+    is a CUDA tensor). Under `tp` the params and pools are the rank's,
+    and the o-proj is checked at its local contraction slice."""
     if rung == "off":
         return None
+    if tp is not None and tp.cp > 1:
+        # the fused kernel normalizes in its epilogue: it has no
+        # online-softmax partials for the cross-rank cp merge
+        return ("serving_cp > 1: the fused layer kernel cannot emit "
+                "online-softmax partials for the cross-rank cp merge")
+    if rung in ("full", "scan") and tp is not None:
+        return (f"serving_mp > 1: the {rung} rung fuses the MLP past "
+                "the per-layer o-proj psum, which must stay a cross-rank "
+                "collective between the fused halves")
     kc0, vc0 = kcs[0], vcs[0]
     ksc = vsc = None
     if isinstance(kc0, tuple):
@@ -1563,19 +1694,23 @@ def _megakernel_rung_reason(rung, cfg, b, p, kcs, vcs, tables,
         return megakernel_full_supported(h_spec, *layer, kc0, vc0, tables,
                                          **kw)
     w_in, _, wq, wk, wv, wo = layer[:6]
+    if tp is not None:
+        wo = _tp_slice_o_proj(wo, tp, spec_only=True)
     return megakernel_supported(h_spec, w_in, wq, wk, wv, wo, kc0, vc0,
                                 tables, **kw)
 
 
 def plan_megakernel_rung(mode, cfg, b, p, kcs, vcs, tables,
-                         on_card: Optional[bool] = None):
+                         on_card: Optional[bool] = None, tp=None):
     """(served_rung, refusals) for a requested decode_megakernel mode:
     walk the ladder strongest first, stepping down one fusion level per
-    refusal; `refusals` is [(rung, reason), ...]. 'off' always serves."""
+    refusal; `refusals` is [(rung, reason), ...]. 'off' always serves.
+    Under mp the full and scan rungs step down to attn, under cp every
+    rung to off (`_megakernel_rung_reason`)."""
     refusals = []
     for rung in megakernel_rung_order(mode):
         reason = _megakernel_rung_reason(rung, cfg, b, p, kcs, vcs, tables,
-                                         on_card=on_card)
+                                         on_card=on_card, tp=tp)
         if reason is None:
             return rung, refusals
         refusals.append((rung, reason))
@@ -1593,19 +1728,22 @@ def warn_refusals(refusals, rung: str, where: str = "here") -> None:
 
 
 def _megakernel_or_fallback_step(cfg, b, tables, p, kcs, vcs, base,
-                                 mode: str = "attn", warn: bool = True):
+                                 mode: str = "attn", warn: bool = True,
+                                 tp=None):
     """The strongest supported fused decode step at or below `mode`, else
     `base` (the multi-kernel step). Each refused rung warns once by name
     with its reason; `warn=False` callers warned when they planned."""
-    rung, refusals = plan_megakernel_rung(mode, cfg, b, p, kcs, vcs, tables)
+    rung, refusals = plan_megakernel_rung(mode, cfg, b, p, kcs, vcs, tables,
+                                          tp=tp)
     if warn and refusals:
         warn_refusals(refusals, rung)
     if rung == "off":
         return base
-    return _make_decode_step_megakernel(cfg, b, tables, mode=rung)
+    return _make_decode_step_megakernel(cfg, b, tables, mode=rung, tp=tp)
 
 
-def _make_decode_step_megakernel(cfg, b, tables, mode: str = "attn"):
+def _make_decode_step_megakernel(cfg, b, tables, mode: str = "attn",
+                                 tp=None):
     """`_make_decode_step`'s paged twin at fusion rung `mode` (the JAX
     function's single-device branch), over block table `tables` [b, W]
     int32; the pools are updated in place:
@@ -1615,10 +1753,35 @@ def _make_decode_step_megakernel(cfg, b, tables, mode: str = "attn"):
     - 'full': ``decode_layer_megakernel_full`` once per layer;
     - 'scan': ``decode_layers_megakernel`` once per step over the stacked
       weights (``stack_decode_layer_params``) and the layer-major pool.
-    The final rms_norm and the lm head follow in every rung."""
+    The final rms_norm and the lm head follow in every rung.
+
+    Under `tp` (attn only: the plan steps full and scan down) each rank
+    runs the kernel over its heads and pools with its contraction slice
+    of the o-proj and ``residual=False``: the kernel emits the f32 o-proj
+    partial, `psum_partial` sums the ranks' partials and the residual is
+    added once, after the sum. With quantized collectives at
+    lane-aligned shapes the kernel emits the partial already int8
+    (``quantize_out``) and ``quantized_psum_prequant`` ships it."""
     n_layers, eps = cfg.num_hidden_layers, cfg.rms_norm_eps
     head_logits = _make_head_logits(cfg)
     kw = dict(rope_base=cfg.rope_theta, eps=eps)
+    H = cfg.hidden_size
+    # the in-kernel quantize needs the flat [b H] payload to split into
+    # whole 128-lane blocks per rank (JAX `quantize_wire`)
+    quantize_wire = (tp is not None and tp.mp > 1 and tp.quantized
+                     and H % 128 == 0 and (b * H) % (tp.mp * 128) == 0)
+    # the rank's o-proj contraction slices, made at the first step (before
+    # a capture) and kept per weight
+    o_local = {}
+
+    def wo_of(p, i):
+        w = _lw(p, i, "self_attn.o_proj.weight")
+        if tp is None:
+            return w
+        key = (i, id(w[0] if isinstance(w, tuple) else w))
+        if key not in o_local:
+            o_local[key] = _tp_slice_o_proj(w, tp)
+        return o_local[key]
 
     def embed_lens(p, tok, pos):
         h = p["llama.embed_tokens.weight"][tok[:, 0]][:, None, :]
@@ -1665,10 +1828,22 @@ def _make_decode_step_megakernel(cfg, b, tables, mode: str = "attn"):
         h, lens = embed_lens(p, tok, pos)
         for i in range(n_layers):
             pl, sc = pools(kcs[i], vcs[i])
-            h, _, _ = decode_layer_megakernel(
+            out, _, _ = decode_layer_megakernel(
                 h, lens, tables, _lw(p, i, "input_layernorm.weight"),
-                *(_lw(p, i, f"self_attn.{n}_proj.weight") for n in "qkvo"),
-                *pl, **sc, **kw)
+                *(_lw(p, i, f"self_attn.{n}_proj.weight") for n in "qkv"),
+                wo_of(p, i), *pl, **sc, **kw, residual=tp is None,
+                quantize_out=quantize_wire)
+            if tp is None:
+                h = out
+            else:
+                if quantize_wire:
+                    q8, q8s = out
+                    red = quantized_psum_prequant(
+                        q8, q8s, tp.mp_group, shape=(b, 1, H),
+                        dtype=torch.float32)
+                else:
+                    red = tp.psum_partial(out)
+                h = (h.to(torch.float32) + red).to(h.dtype)
             x2 = _k_rms(h, _lw(p, i, "post_attention_layernorm.weight"),
                         eps)
             gate = _mm(x2, _lw(p, i, "mlp.gate_proj.weight"))
@@ -1714,14 +1889,238 @@ def resolve_serving_cp(serving_cp: Optional[int] = None) -> int:
     return serving_cp
 
 
-def resolve_quantized_collectives(quantized: Optional[bool] = None) -> bool:
-    """The quantized-collectives switch, from the argument or
-    FLAGS_quantized_collectives (the JAX package's
-    parallel/collectives.py resolver). On one device there is no
-    collective for it to quantize (ROADMAP.md section 1 item 5)."""
-    if quantized is None:
-        quantized = _flag("quantized_collectives")
-    return bool(quantized)
+SERVING_MP_FALLBACK_MSG = (
+    "kv heads not divisible by serving_mp; falling back to "
+    "replicated-KV head-sharded-Q (each rank streams the FULL kv "
+    "pools: no per-rank KV memory win, query compute still shards)")
+
+
+class PageShardingError(ValueError):
+    """A paged-pool geometry cannot shard along the page axis as asked:
+    the fleet page count does not split evenly across the cp ranks."""
+
+
+class ServingTP:
+    """Head and page geometry of a sharded serving program (the JAX
+    `ServingTP`), over torch.distributed ranks.
+
+    - q / k / v projections shard by head over `mp`: rank m of an mp
+      group owns q heads [m nh_local, (m + 1) nh_local) and kv heads
+      [m nkv_local, (m + 1) nkv_local), so GQA groups stay whole. The
+      pools (and their int8 scale sidecars) hold the local kv heads;
+      block tables, lengths and budgets are replicated.
+    - Attention is rank-local. `gather_heads` all-gathers the per-rank
+      attention outputs along the head axis, the one collective a layer
+      (cast to bf16 before the wire); the o-proj and everything outside
+      attention run replicated.
+    - MQA fallback (kv heads % mp != 0): k / v and the pools replicate,
+      q still shards (one warning).
+    - Under `cp` the pools shard by page: global page g lives on cp rank
+      g // pps. Each rank attends its own pages as online-softmax
+      partials and `merge_attn_partials` merges them across the cp group;
+      the fresh window is computed alike on every rank and joins once.
+
+    The geometry (and its errors) needs no process group. `bind()` ties
+    the seams to this rank's mp and cp groups (rank = c * mp + m); only
+    the three seams issue collectives."""
+
+    def __init__(self, cfg, mp: int, quantized: Optional[bool] = None,
+                 cp: int = 1):
+        self.quantized = resolve_quantized_collectives(quantized)
+        self.cp = int(cp)
+        if self.cp < 1:
+            raise ValueError(f"serving_cp must be >= 1, got {cp}")
+        nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+        if nh % mp:
+            raise ValueError(
+                f"serving_mp={mp} does not divide num_attention_heads "
+                f"{nh}; query heads must shard evenly")
+        self.mp = int(mp)
+        self.nh = nh
+        self.head_dim = cfg.head_dim
+        self.nh_local = nh // mp
+        self.kv_sharded = nkv % mp == 0
+        self.nkv_local = nkv // mp if self.kv_sharded else nkv
+        # how many ways the pools' kv heads are split (1: replicated)
+        self.kv_shards = self.mp if self.kv_sharded else 1
+        if self.kv_sharded and self.nh_local % self.nkv_local:
+            raise ValueError(
+                f"serving_mp={mp} breaks the GQA grouping: {nh} q heads "
+                f"/ {nkv} kv heads shard to {self.nh_local}/"
+                f"{self.nkv_local} per rank")
+        if not self.kv_sharded:
+            if self.nh_local % nkv:
+                raise ValueError(
+                    f"serving_mp={mp} with {nkv} kv heads leaves "
+                    f"{self.nh_local} q heads per rank: not a whole "
+                    "number of kv groups; no valid replicated-KV grid")
+            import warnings
+
+            warnings.warn(f"serving_mp={mp} with {nkv} kv heads: "
+                          + SERVING_MP_FALLBACK_MSG, stacklevel=3)
+        self.rank = 0
+        self.mp_group = self.cp_group = None
+        self.backend = None
+
+    def bind(self):
+        """Tie the seams to this rank's groups of the default process
+        group, which must hold exactly mp * cp ranks."""
+        import torch.distributed as dist
+
+        from ..parallel.ranks import LAUNCHER, serving_groups
+
+        world = self.mp * self.cp
+        if not (dist.is_available() and dist.is_initialized()):
+            raise ValueError(
+                f"serving_mp={self.mp} x serving_cp={self.cp} runs one "
+                f"process per rank under torch.distributed and needs an "
+                f"initialized default process group of {world} ranks: "
+                f"start the ranks with `{LAUNCHER} script.py` and call "
+                "paddle_tpu_torch.parallel.ranks.init_ranks() (or "
+                "torch.distributed.init_process_group) before building")
+        if dist.get_world_size() != world:
+            raise ValueError(
+                f"serving_mp={self.mp} x serving_cp={self.cp} needs a "
+                f"default process group of {world} ranks, got "
+                f"{dist.get_world_size()} (start them with `{LAUNCHER}`)")
+        self.rank = dist.get_rank()
+        self.backend = dist.get_backend()
+        self.mp_group, self.cp_group = serving_groups(self.mp, self.cp)
+        return self
+
+    @property
+    def m_index(self) -> int:
+        """This rank's position in its mp group (its head shard)."""
+        return self.rank % self.mp
+
+    @property
+    def c_index(self) -> int:
+        """This rank's position in its cp group (its page shard)."""
+        return self.rank // self.mp
+
+    def gather_heads(self, ctx):
+        """All-gather the per-rank attention outputs [..., nh_local, dh]
+        along the head axis -> [..., nh, dh]: the one collective a layer.
+        An f32 payload is cast to bf16 before the wire (JAX
+        `gather_heads`: every rank rounds alike, and the wire halves);
+        with quantized collectives it ships as int8 blocks."""
+        if self.mp <= 1:
+            return ctx
+        if ctx.dtype == torch.float32:
+            ctx = ctx.to(torch.bfloat16)
+        if self.quantized:
+            return quantized_all_gather(ctx, self.mp_group,
+                                        dim=ctx.ndim - 2)
+        return all_gather(ctx, self.mp_group, dim=ctx.ndim - 2)
+
+    def psum_partial(self, partial):
+        """Sum the ranks' f32 o-proj partials (the megakernel path's
+        collective); quantized collectives run the two-hop int8 psum."""
+        if self.mp <= 1:
+            return partial
+        if self.quantized:
+            return quantized_psum(partial, self.mp_group)
+        return all_reduce(partial, self.mp_group)
+
+    def merge_attn_partials(self, m, l, acc):
+        """Merge the cp ranks' online-softmax partials: M = max m,
+        w = exp(m - M), l = sum l w, acc = sum acc w. Only the stats and
+        the weighted accumulator cross the wire; with quantized
+        collectives the accumulator takes the int8 psum, the stats stay
+        exact."""
+        if self.cp <= 1:
+            return m, l, acc
+        m_g = all_reduce(m, self.cp_group, op="max")
+        w = torch.exp(m - m_g)
+        l_g = all_reduce(l * w, self.cp_group)
+        acc_w = acc * w[..., None]
+        if self.quantized:
+            acc_g = quantized_psum(acc_w, self.cp_group)
+        else:
+            acc_g = all_reduce(acc_w, self.cp_group)
+        return m_g, l_g, acc_g
+
+    def pps(self, pool) -> int:
+        """Pages a cp rank owns, from its pool (rows past them: the sink
+        row, `kernels.partial_attention`)."""
+        return pool.shape[0] - 1 if self.cp > 1 else pool.shape[0]
+
+
+def make_serving_tp(cfg, serving_mp: Optional[int] = None,
+                    quantized_collectives: Optional[bool] = None,
+                    serving_cp: Optional[int] = None):
+    """ServingTP geometry for the resolved (mp, cp) degrees, or None at
+    mp = cp = 1 (the single-device programs take no TP plumbing). The
+    result is not bound to process groups yet (`ServingTP.bind`)."""
+    mp = resolve_serving_mp(serving_mp)
+    cp = resolve_serving_cp(serving_cp)
+    if mp <= 1 and cp <= 1:
+        return None
+    return ServingTP(cfg, mp, quantized=quantized_collectives, cp=cp)
+
+
+def _tp_sharded_name(name: str, tp: ServingTP) -> bool:
+    return name.endswith("q_proj.weight") or (
+        tp.kv_sharded and (name.endswith("k_proj.weight")
+                           or name.endswith("v_proj.weight")))
+
+
+def _tp_full_width(name: str, tp: ServingTP) -> int:
+    n_heads = tp.nh if name.endswith("q_proj.weight") \
+        else tp.nkv_local * tp.mp
+    return n_heads * tp.head_dim
+
+
+def shard_serving_params(params: dict, tp: ServingTP,
+                         rank: Optional[int] = None) -> dict:
+    """Rank `rank`'s slice of a decode-params dict (default: the rank tp
+    is bound to): q, and k / v when the kv heads shard, split on their
+    output-head axis -- dense [in, out] (or stacked [L, in, out]) on the
+    last axis, weight-only pairs (w [out, in_packed], scale [out]; or
+    stacked) on the output axis of both -- into copies of their own;
+    everything else (o-proj included: it takes the gathered heads) is the
+    caller's tensor, replicated. A dict already holding local widths is
+    returned as it is."""
+    m = (tp.rank if rank is None else int(rank)) % tp.mp
+    out = dict(params)
+    if tp.mp <= 1:
+        return out
+    for name, w in params.items():
+        if not _tp_sharded_name(name, tp):
+            continue
+        full = _tp_full_width(name, tp)
+        stacked = name.startswith(STACKED_PREFIX)
+        if isinstance(w, tuple):
+            ax = 1 if stacked else 0
+            if w[0].shape[ax] != full:
+                continue               # already this rank's slice
+            n = full // tp.mp
+            out[name] = tuple(a.narrow(ax, m * n, n).clone() for a in w)
+        else:
+            if w.shape[-1] != full:
+                continue
+            n = full // tp.mp
+            out[name] = w.narrow(w.ndim - 1, m * n, n).contiguous()
+    return out
+
+
+def _tp_slice_o_proj(w, tp: ServingTP, spec_only: bool = False):
+    """This rank's contraction slice of the (replicated) o-proj for the
+    megakernel's partial: dense [nh dh, H] rows, or a pair's (w [H, nh
+    dh]) columns with the per-output scale kept whole. `spec_only`
+    returns meta tensors of the slice's shape (for the build-time plan)."""
+    m = tp.m_index
+    if isinstance(w, tuple):
+        wq, sc = w
+        k = wq.shape[1] // tp.mp
+        if spec_only:
+            return (torch.empty((wq.shape[0], k), dtype=wq.dtype,
+                                device="meta"), sc)
+        return (wq[:, m * k:(m + 1) * k].contiguous(), sc)
+    k = w.shape[0] // tp.mp
+    if spec_only:
+        return torch.empty((k, w.shape[1]), dtype=w.dtype, device="meta")
+    return w[m * k:(m + 1) * k]
 
 
 def serving_block_size_candidates(cfg, *, prompt_bucket: int,
@@ -1824,9 +2223,10 @@ class PagedKVManager:
         if cp < 1:
             raise ValueError(f"cp must be >= 1, got {cp}")
         if self.max_pages % cp:
-            raise ValueError(
+            raise PageShardingError(
                 f"fleet page count {self.max_pages} not divisible by "
-                f"cp {cp}")
+                f"cp {cp}: the page axis shards contiguously "
+                f"({self.max_pages % cp} pages would have no owner)")
         self._geometry = dict(n_layers=int(n_layers),
                               num_kv_heads=int(num_kv_heads),
                               head_dim=int(head_dim),

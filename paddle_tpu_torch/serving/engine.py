@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over the paged KV cache
-(counterpart of paddle_tpu/serving/engine.py, on one device).
+(counterpart of paddle_tpu/serving/engine.py).
 
 New prompts enter while other sequences decode, finished rows retire
 mid-stream and their pages recycle into the pool. The device sees fixed
@@ -90,6 +90,28 @@ handed-off requests into slots as they free. The pools are shared, so
 the handoff is block-table bookkeeping; a request whose first token is
 EOS, or whose max_new is 1, retires at the handoff.
 
+**Tensor- and context-parallel serving** (``serving_mp`` /
+``serving_cp``, default from the flags): one process a rank under
+torch.distributed, SPMD, where the JAX engine is one controller over a
+``cp x mp`` mesh. Every rank builds this engine from the same arguments,
+receives the same requests and runs the same host scheduler, so block
+tables, lengths, budgets and sampling inputs stay replicated without a
+scheduler RPC; the default process group must hold exactly mp * cp ranks
+(rank = c * mp + m; `parallel.ranks`, started by ``python -m
+paddle_tpu_torch.parallel.launch``). Each rank holds its slice of the
+params (`shard_serving_params`: q, and k / v where the kv heads shard),
+pools of its kv heads and, under cp, its max_pages / cp pages (plus a
+sink row); the programs all-gather the attention heads once a layer
+(`ServingTP.gather_heads`; the megakernel attn rung sums o-proj partials
+instead) and merge the cp ranks' online-softmax partials
+(`merge_attn_partials`). ``quantized_collectives`` ships those payloads
+as int8 blocks. Backend rule (`parallel.ranks.backend_for`): NCCL where
+every rank has a GPU of its own, gloo where ranks share one or run on
+the CPU; gloo ranks run every program eagerly (a gloo collective cannot
+be captured), and ``compile_stats()['graphs']`` says so. A watchdog
+(`run(watchdog_timeout=)`) and the static audits are refused on a
+sharded engine.
+
 **Fleet hooks** (serving/fleet.py): `pause_admission` stops admission
 from `waiting` while in-flight work finishes, `take_waiting` hands the
 unadmitted queue back, `export_progress` snapshots every owned request's
@@ -120,11 +142,15 @@ from ..models.llama import (STACKED_LAYER_NAMES, STACKED_PREFIX,
                             _make_verify_window, _sample_next,
                             hash_prefix_blocks,
                             make_paged_decode_step, make_paged_kv_helpers,
-                            make_paged_kv_q8_helpers, plan_megakernel_rung,
+                            make_paged_kv_q8_helpers, make_serving_tp,
+                            plan_megakernel_rung,
                             resolve_decode_megakernel,
                             resolve_kv_cache_dtype, resolve_serving_cp,
                             resolve_serving_mp, resolve_unified_step,
+                            shard_serving_params,
                             stack_decode_layer_params, warn_refusals)
+from ..kernels.partial_attention import cp_write_rows
+from ..parallel.collectives import resolve_quantized_collectives
 from ..observability import metrics as obs_metrics
 from ..observability import trace as obs_trace
 from ..resilience import chaos
@@ -195,7 +221,8 @@ class _Slot:
 _Plan = namedtuple("_Plan", "sb_suf n_cached n_lru need suffix_len")
 
 class ContinuousBatchingEngine:
-    """Continuous batching over `PagedKVManager`, on one device.
+    """Continuous batching over `PagedKVManager`, on one device or on
+    every rank of a ``serving_mp`` x ``serving_cp`` process group.
 
     Usage::
 
@@ -262,9 +289,12 @@ class ContinuousBatchingEngine:
     as unset), and the flags fill what neither set. None follows
     FLAGS_tuned_config (a stale or unreadable flag artifact warns and is
     ignored; a stale explicit one raises); False forces it off.
-    The artifact's `quantized_collectives` knob is read and left unused:
-    on one device there is no collective to quantize, so the engine takes
-    no such kwarg and reports False (ROADMAP.md section 1 item 5).
+    `serving_mp` / `serving_cp` (FLAGS_serving_mp / FLAGS_serving_cp)
+    shard the engine over the ranks of an initialized default process
+    group of mp * cp ranks (module docstring; without one the build
+    raises ValueError naming the launcher); `quantized_collectives`
+    (FLAGS_quantized_collectives) ships the head gather, the megakernel's
+    partial sum and the cp merge as int8 blocks.
     `metrics()['tuned_config']` reports the artifact and
     ``['warm_compile_stats']`` the kernel build cache's traffic over the
     last `warm()`.
@@ -303,6 +333,7 @@ class ContinuousBatchingEngine:
                  decode_megakernel=None,
                  serving_mp: Optional[int] = None,
                  serving_cp: Optional[int] = None,
+                 quantized_collectives: Optional[bool] = None,
                  disaggregated: bool = False, unified_step=None,
                  token_budget: Optional[int] = None,
                  speculative: Optional[str] = None,
@@ -318,6 +349,7 @@ class ContinuousBatchingEngine:
                 decode_megakernel=decode_megakernel,
                 unified_step=unified_step, serving_mp=serving_mp,
                 serving_cp=serving_cp,
+                quantized_collectives=quantized_collectives,
                 token_budget=token_budget, block_size=block_size,
                 speculative=speculative, spec_k=spec_k))
             kv_cache_dtype = merged["kv_cache_dtype"]
@@ -325,6 +357,8 @@ class ContinuousBatchingEngine:
             unified_step = merged["unified_step"]
             serving_mp = merged["serving_mp"]
             serving_cp = merged.get("serving_cp", serving_cp)
+            quantized_collectives = merged.get("quantized_collectives",
+                                               quantized_collectives)
             token_budget = merged["token_budget"]
             block_size = merged["block_size"]
             speculative = merged.get("speculative", speculative)
@@ -333,10 +367,13 @@ class ContinuousBatchingEngine:
         self.warm_compile_stats = None   # set by warm()
         self.kv_dtype = resolve_kv_cache_dtype(kv_cache_dtype)
         self.use_megakernel = resolve_decode_megakernel(decode_megakernel)
-        if resolve_serving_mp(serving_mp) > 1:
-            raise _unported("serving_mp > 1")
-        if resolve_serving_cp(serving_cp) > 1:
-            raise _unported("serving_cp > 1")
+        # the sharding degrees and the quantized wire, resolved at build
+        # like every serving flag; mp = cp = 1 builds exactly the
+        # single-device programs
+        self.mp = resolve_serving_mp(serving_mp)
+        self.cp = resolve_serving_cp(serving_cp)
+        self.quantized_collectives = resolve_quantized_collectives(
+            quantized_collectives)
         # speculative decoding, resolved at build time like every serving
         # flag: "off" builds exactly the engine without it (no verify
         # program, no drafter)
@@ -356,6 +393,11 @@ class ContinuousBatchingEngine:
                     "speculative decoding is greedy-only: acceptance "
                     "compares drafts against the target's argmax; build "
                     "with do_sample=False or speculative='off'")
+            if self.cp > 1:
+                raise ValueError(
+                    "speculative decoding does not compose with serving_cp "
+                    "(the page-sharded merge of a multi-row verify window "
+                    "is not in the JAX package either)")
             if self.speculative == "draft":
                 if drafter is None:
                     raise ValueError(
@@ -398,6 +440,22 @@ class ContinuousBatchingEngine:
             raise ValueError(f"head_dim {cfg.head_dim} has no flash "
                              f"kernel (needs one of {KERNEL_HEAD_DIMS})")
         self.cfg = cfg
+        # the geometry of serving_mp / serving_cp, tied to this rank's
+        # process groups (one process a rank, SPMD: every rank builds this
+        # engine from the same arguments and runs the same scheduler)
+        self._tp = make_serving_tp(
+            cfg, self.mp, quantized_collectives=self.quantized_collectives,
+            serving_cp=self.cp)
+        if self._tp is not None:
+            self._tp.bind()
+            if self._tp.backend == "nccl" and self.device.type != "cuda":
+                raise ValueError("an NCCL process group needs ranks on "
+                                 "CUDA devices")
+            # this rank's slice of the params (a slice passes through)
+            dec_params = shard_serving_params(dec_params, self._tp)
+        # kv-head shard count of the pools: mp when they shard, 1 when they
+        # replicate (one device, or the MQA fallback)
+        self.kv_shards = self._tp.kv_shards if self._tp is not None else 1
         self.p = dec_params
         self.slots = slots
         self.prompt_bucket = prompt_bucket
@@ -429,21 +487,27 @@ class ContinuousBatchingEngine:
             if max_pages is not None:
                 raise ValueError(
                     "pass max_pages OR kv_pool_bytes, not both")
+            # a per-rank budget: kv-head sharding buys ~mp x the pages,
+            # page sharding cp x the fleet's page count
             max_pages = PagedKVManager.pages_for_bytes(
                 kv_pool_bytes, block_size, n_layers=cfg.num_hidden_layers,
-                num_kv_heads=nkv, head_dim=dh, kv_cache_dtype=self.kv_dtype)
+                num_kv_heads=nkv, head_dim=dh, kv_cache_dtype=self.kv_dtype,
+                mp=self.kv_shards, cp=self.cp)
             if max_pages < cap + 2:
                 raise ValueError(
                     f"kv_pool_bytes {kv_pool_bytes} holds only {max_pages} "
-                    f"pages at kv_cache_dtype={self.kv_dtype}; need at "
-                    f"least {cap + 2} (one full request + scratch + one "
-                    "cacheable page)")
+                    f"pages at kv_cache_dtype={self.kv_dtype} "
+                    f"(cp={self.cp}); need at least {cap + 2} (one full "
+                    "request + scratch + one cacheable page)")
         if max_pages is None:
-            max_pages = slots * cap + 1
+            # a whole number of cp shards (set_pool_geometry refuses
+            # ownerless remainder pages)
+            max_pages = -(-(slots * cap + 1) // self.cp) * self.cp
         self.mgr = PagedKVManager(max_pages, block_size)
         self.mgr.set_pool_geometry(n_layers=cfg.num_hidden_layers,
                                    num_kv_heads=nkv, head_dim=dh,
-                                   kv_cache_dtype=self.kv_dtype)
+                                   kv_cache_dtype=self.kv_dtype,
+                                   mp=self.kv_shards, cp=self.cp)
         self.scratch_page = self.mgr.alloc_pages(1)[0]  # free rows' sink
         # the megakernel rung, planned once here over spec views of this
         # engine's decode operands (one warning per refused rung). The
@@ -456,7 +520,10 @@ class ContinuousBatchingEngine:
         scan = self.megakernel_rung == "scan"
         n_layers = cfg.num_hidden_layers
         self._page_stride = max_pages if scan else 0
-        shape = (max_pages * n_layers if scan else max_pages, nkv,
+        # a rank's pool: its kv heads, and under cp its max_pages / cp
+        # pages plus the sink row that writes to other ranks' pages land in
+        rows = max_pages if self.cp == 1 else max_pages // self.cp + 1
+        shape = (max_pages * n_layers if scan else rows, self._nkv_eff,
                  block_size, dh)
 
         def pool():
@@ -501,6 +568,10 @@ class ContinuousBatchingEngine:
         self._site = GraphSite(self.device)
         self._prefill_site = GraphSite(self.device)
         self._draft_site = GraphSite(self.device)
+        if self._tp is not None and self._tp.backend != "nccl":
+            # a gloo collective cannot be captured in a CUDA graph: every
+            # program of a gloo rank runs its eager body
+            self.graphed = False
         # the eager bodies: the decode chunk, the unified step's prefill
         # window (unified path only) and the verify window (speculation
         # only)
@@ -596,6 +667,14 @@ class ContinuousBatchingEngine:
             return 0.0
         return self.prefix_hit_tokens / self.prompt_tokens
 
+    @property
+    def _nkv_eff(self) -> int:
+        """kv heads of the pools a program body sees: the rank's under
+        kv-head sharding, the model's otherwise (one device, or the MQA
+        fallback's replicated pools)."""
+        return self._tp.nkv_local if self._tp is not None \
+            else self.cfg.num_key_value_heads
+
     def _plan_megakernel(self, max_pages: int) -> str:
         """The served megakernel rung, planned once per engine build over
         meta-tensor views of this engine's decode operands: the slots-wide
@@ -619,8 +698,7 @@ class ContinuousBatchingEngine:
             pview[STACKED_PREFIX + name] = spec(
                 self.p[f"llama.layers.0.{name}"], (L,))
         rows = max_pages * L
-        shape = (rows, cfg.num_key_value_heads, self.block_size,
-                 cfg.head_dim)
+        shape = (rows, self._nkv_eff, self.block_size, cfg.head_dim)
         emb = self.p["llama.embed_tokens.weight"]
         if self.kv_dtype == "int8":
             pool = (torch.empty(shape, dtype=torch.int8, device="meta"),
@@ -632,14 +710,16 @@ class ContinuousBatchingEngine:
                              dtype=torch.int32, device="meta")
         rung, refusals = plan_megakernel_rung(
             self.use_megakernel, cfg, self.slots, pview, [pool], [pool],
-            tables, on_card=self.device.type == "cuda")
+            tables, on_card=self.device.type == "cuda", tp=self._tp)
         warn_refusals(refusals, rung, "on this engine build")
         return rung
 
     def compile_stats(self) -> dict:
         """Captures of each engine program (a CUDA graph each on the card):
         the steady-state guard, as the JAX engine's jit cache sizes. After
-        warm(), serving traffic must not grow any entry."""
+        warm(), serving traffic must not grow any entry. A sharded engine
+        adds "graphs": whether its programs replay CUDA graphs (False on
+        gloo ranks and the CPU: the eager bodies run)."""
         stats = {name: prog.captures
                  for name, prog in self._programs.items()}
         if self._drafter is not None:
@@ -647,6 +727,8 @@ class ContinuousBatchingEngine:
         for key, prog in self._prefill_cache.items():
             stats["prefill:" + ":".join(str(k) for k in key)] = \
                 prog.captures
+        if self._tp is not None:
+            stats["graphs"] = self.graphed
         return stats
 
     def metrics(self) -> dict:
@@ -696,11 +778,12 @@ class ContinuousBatchingEngine:
             "kv_cache_dtype": self.kv_dtype,
             "decode_megakernel": self.use_megakernel,
             "megakernel_rung": self.megakernel_rung,
-            # one device until ROADMAP.md section 1 item 5 (kv-head and
-            # page-axis sharding, int8 collectives)
-            "serving_mp": 1,
-            "serving_cp": 1,
-            "quantized_collectives": False,
+            "serving_mp": self.mp,
+            "serving_cp": self.cp,
+            "quantized_collectives": self.quantized_collectives,
+            # the ranks' process-group backend (None on one device)
+            "serving_backend": (self._tp.backend if self._tp is not None
+                                else None),
             "kv_pool_bytes": mgr.kv_pool_bytes(),
             "n_cacheable_pages": self.n_cacheable_pages,
             "decode_s": self.decode_s,
@@ -887,7 +970,7 @@ class ContinuousBatchingEngine:
         """Prefill `bsz` cold requests in one call: scatter each row's
         pages, pick each row's first token at its own true length."""
         cfg = self.cfg
-        base = _make_prefill(cfg, bsz, sb)
+        base = _make_prefill(cfg, bsz, sb, tp=self._tp)
         head_logits = _make_head_logits(cfg)
         scatter = self._page_scatter(bsz, sb // self.block_size)
 
@@ -907,7 +990,7 @@ class ContinuousBatchingEngine:
         prefix-prefill kernel)."""
         cfg = self.cfg
         base = _make_prefill_with_prefix(cfg, bsz, sb, w_pre,
-                                         self.block_size)
+                                         self.block_size, tp=self._tp)
         head_logits = _make_head_logits(cfg)
         scatter = self._page_scatter(bsz, sb // self.block_size)
 
@@ -929,10 +1012,14 @@ class ContinuousBatchingEngine:
         before any row attends them. On int8 pools this is the
         quantize-on-scatter: each page's absmax (pad positions included,
         as in the JAX engine) becomes its scale, and the int8 page and its
-        scale row are stored together."""
+        scale row are stored together. Under tp the pages hold the rank's
+        kv heads; under cp a page another rank owns is written to the
+        sink row (`cp_write_rows`)."""
         cfg = self.cfg
-        args = (bsz, n_pre, cfg.num_key_value_heads, cfg.head_dim,
+        args = (bsz, n_pre, self._nkv_eff, cfg.head_dim,
                 self.block_size, None)
+        tp = self._tp
+        cp = tp is not None and tp.cp > 1
         if self.kv_dtype == "int8":
             to_pages_q8, _ = make_paged_kv_q8_helpers(*args)
 
@@ -951,6 +1038,9 @@ class ContinuousBatchingEngine:
         stride = self._page_stride
 
         def scatter(kcs, vcs, kvs, pages):
+            if cp:
+                pool = kcs[0][0] if isinstance(kcs[0], tuple) else kcs[0]
+                pages = cp_write_rows(pages, tp.pps(pool), tp.c_index)
             for i, (k, v) in enumerate(kvs):
                 j = 0 if stride else i
                 one(kcs[j], vcs[j], k, v, pages + i * stride)
@@ -967,9 +1057,11 @@ class ContinuousBatchingEngine:
 
         def make_step(tables):
             if rung != "off":
-                return _make_decode_step_megakernel(cfg, b, tables, rung)
+                return _make_decode_step_megakernel(cfg, b, tables, rung,
+                                                    tp=self._tp)
             return make_paged_decode_step(cfg, b, bs, tables,
-                                          kv_cache_dtype=self.kv_dtype)
+                                          kv_cache_dtype=self.kv_dtype,
+                                          tp=self._tp)
 
         return make_step
 
@@ -1015,7 +1107,7 @@ class ContinuousBatchingEngine:
         after the other on the same pools."""
         cfg, bs = self.cfg, self.block_size
         tn = self.token_budget
-        chunk_body = _make_chunk_prefill(cfg, tn)
+        chunk_body = _make_chunk_prefill(cfg, tn, tp=self._tp)
         head_logits = _make_head_logits(cfg)
         scatter = self._page_scatter(1, tn // bs)
 
@@ -1040,7 +1132,7 @@ class ContinuousBatchingEngine:
         adjacent window positions share a page, and on int8 pools each
         column's absmax rescale must see the previous column's."""
         b, bs, W = self.slots, self.block_size, self.table_width
-        nkv, dh = self.cfg.num_key_value_heads, self.cfg.head_dim
+        nkv, dh = self._nkv_eff, self.cfg.head_dim
         quant = self.kv_dtype == "int8"
         scratch = self.scratch_page
 
@@ -1076,7 +1168,7 @@ class ContinuousBatchingEngine:
         Rejected rows' K/V past the committed length is never attended
         and a later commit overwrites it."""
         b, w = self.slots, self.spec_k + 1
-        body = _make_verify_window(self.cfg, b, w)
+        body = _make_verify_window(self.cfg, b, w, tp=self._tp)
         head_logits = _make_head_logits(self.cfg)
         scatter = self._verify_scatter(w)
         stride = self._page_stride
@@ -1099,9 +1191,10 @@ class ContinuousBatchingEngine:
         """The JAX engine's prefill program key, field for field: the
         kind and shape (bucket, batch[, prefix width]), then the pool
         dtype, the requested megakernel mode, spec_k, cp, quantized
-        collectives and mp (1, 0 and 1 on one device)."""
+        collectives and mp."""
         return (kind, *shape, self.kv_dtype, self.use_megakernel,
-                self.spec_k, 1, 0, 1)
+                self.spec_k, self.cp, int(self.quantized_collectives),
+                self.mp)
 
     def _get_prefill(self, sb: int, bsz: int) -> _Program:
         """The cold prefill program of (bucket, batch): ids [bsz, sb],
@@ -1260,8 +1353,8 @@ class ContinuousBatchingEngine:
         ``metrics()['memory_audit']`` / ``['roofline_audit']``. Default
         (None) follows FLAGS_audit_memory / FLAGS_audit_roofline
         (PADDLE_TPU_AUDIT_*), both implied by PADDLE_TPU_LINT=1.
-        `audit_comms` resolving on raises: the port has no collective
-        yet (ROADMAP.md section 1 item 5).
+        `audit_comms` resolving on raises: the communication audit is
+        not ported yet (ROADMAP.md section 1 item 5).
 
         The kernel build cache's traffic over this warm() lands on
         `warm_compile_stats` (``metrics()['warm_compile_stats']``,
@@ -1348,6 +1441,11 @@ class ContinuousBatchingEngine:
         filter must not give a vacuously clean report."""
         from ..analysis.graph import trace_graph
 
+        if self._tp is not None:
+            # a fake-tensor trace cannot pass through a collective; the
+            # sharded programs' audits come with the comms audit
+            raise _unported("the static audits of a sharded engine "
+                            "(serving_mp * serving_cp > 1)")
         inventory = self._program_inventory()
         if programs is not None:
             want = set(programs)
@@ -1448,7 +1546,7 @@ class ContinuousBatchingEngine:
         return report
 
     def audit_comms(self, *args, **kwargs):
-        """Not ported: the port has no collective yet (ROADMAP.md section
+        """Not ported: the communication audit (ROADMAP.md section
         1 item 5)."""
         from ..analysis import audit_comms
 
@@ -2486,6 +2584,15 @@ class ContinuousBatchingEngine:
         step_fn = self._pipeline_step if db else self.step
         wd = None
         if watchdog_timeout and watchdog_timeout > 0:
+            if self._tp is not None:
+                # a deadline read off one rank's clock would retire a
+                # victim on that rank alone and break the ranks' lockstep
+                # (and a hung collective stalls every rank anyway)
+                raise ValueError(
+                    "run(watchdog_timeout=) retires slots on one rank's "
+                    "wall clock, which would desynchronize the ranks of "
+                    "a serving_mp / serving_cp engine; serve it without "
+                    "a watchdog")
             from ..resilience.watchdog import StepTimeout, Watchdog
 
             wd = Watchdog(watchdog_timeout, name="engine.step")

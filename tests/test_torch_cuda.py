@@ -908,16 +908,107 @@ def test_decode_megakernel_smem_at_llama3_8b(dev, rung):
 
 
 def test_decode_megakernel_refuses_the_tp_seam(dev):
+    """The seam's refusals that stand (JAX's): quantize_out without
+    residual=False, and quantize_out at an H that is not a multiple of
+    128 (this case's H is 256, so the launch itself is refused with the
+    card's words when the MLP is asked for)."""
     from paddle_tpu_torch.kernels import decode_megakernel as mk
 
     h, lens, tables, ws, pl, kw = _mk_case(dev, torch.bfloat16, False,
                                            False, 1)
     one = [w[0] for w in ws]
     args = (h, lens, tables, one[0], *one[2:6], *pl)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mk.decode_layer_megakernel(*args, residual=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mk.decode_layer_megakernel(*args, residual=False, quantize_out=True)
+    with pytest.raises(ValueError, match="requires residual=False"):
+        mk.decode_layer_megakernel(*args, quantize_out=True)
+    with pytest.raises(ValueError, match="lane-aligned"):
+        mk.decode_layer_megakernel(h[..., :200], lens, tables,
+                                   one[0][:200], *one[2:6], *pl,
+                                   residual=False, quantize_out=True)
+
+
+@pytest.mark.parametrize("int8_pools", [False, True], ids=["bf16", "int8"])
+def test_decode_megakernel_seam_modes_match_plain(dev, int8_pools):
+    """residual=False launches the seam kernel (its counter), returns the
+    f32 o-proj partial within the megakernel's bf16 rule of the plain
+    version (relative RMS vs the f32 plain version at most 1.25x the bf16
+    plain version's + 1e-3), bitwise across two launches, and commits
+    the pools as the residual launch does; quantize_out=True returns
+    `quantize_blocks` of that partial bitwise and stays within one int8
+    step of the plain version's."""
+    from paddle_tpu_torch.kernels import decode_megakernel as mk
+    from paddle_tpu_torch.parallel.collectives import quantize_blocks
+
+    h, lens, tables, ws, pl, kw = _mk_case(dev, torch.bfloat16, False,
+                                           int8_pools, 1)
+    one = [w[0] for w in ws]
+    sfx = "_int8" if int8_pools else ""
+
+    def call(fn, quant, dtype=None):
+        pools = [p.clone() for p in pl]
+        skw = {k: v.clone() for k, v in kw.items()}
+        if dtype is not None and not int8_pools:
+            pools = [p.to(dtype) for p in pools]
+        args = [h, lens, tables, one[0], *one[2:6]]
+        if dtype is not None:
+            args = [a.to(dtype) if a.is_floating_point() else a
+                    for a in args]
+        out = fn(*args, *pools, residual=False, quantize_out=quant, **skw)
+        return out[0], pools
+
+    got, gpools = _launched("decode_layer_megakernel_partial" + sfx,
+                            lambda: call(mk.decode_layer_megakernel, False))
+    again, _ = call(mk.decode_layer_megakernel, False)
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    ref, rpools = call(mk.decode_layer_megakernel_reference, False)
+    ref32, _ = call(mk.decode_layer_megakernel_reference, False,
+                    dtype=torch.float32)
+
+    def rel(a, b):
+        return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+    assert rel(got, ref32) <= 1.25 * rel(ref.float(), ref32) + 1e-3
+    fpools = [p.clone() for p in pl]
+    fkw = {k: v.clone() for k, v in kw.items()}
+    mk.decode_layer_megakernel(h, lens, tables, one[0], *one[2:6], *fpools,
+                               **fkw)
+    for a, b in zip(gpools, fpools):
+        assert torch.equal(a, b)            # the same commits as residual
+    (q, sc), _ = _launched("decode_layer_megakernel_partial_quant" + sfx,
+                           lambda: call(mk.decode_layer_megakernel, True))
+    kq, ks = quantize_blocks(got.reshape(got.shape[0], -1))
+    assert torch.equal(q, kq) and torch.equal(sc, ks)
+    (pq, ps), _ = call(mk.decode_layer_megakernel_reference, True)
+    assert int((q.int() - pq.int()).abs().max()) <= 1
+    assert torch.allclose(sc, ps, rtol=1e-2, atol=0)
+
+
+def test_two_gloo_ranks_on_one_card_match_one_rank(dev):
+    """A serving_mp=2 engine on two gloo ranks that share cuda:0 (a
+    serving_cp=2 one too) serves the one-rank engine's greedy tokens
+    (f32: the cold flash prefill takes bf16 only, so the unified step),
+    every rank alike, its programs eager."""
+    from torch_rank_pool import RankPool, serve_rank_cuda
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 128, (n,)).tolist() for n in (5, 9, 14, 3)]
+    kw = dict(slots=2, prompt_bucket=16, max_prompt_len=16,
+              max_new_tokens=6, block_size=16, steps_per_sync=3,
+              unified_step=True)
+    pool = RankPool(2)
+    try:
+        one = pool.run(1, serve_rank_cuda, kw, prompts)[0]
+        for over in (dict(serving_mp=2), dict(serving_cp=2)):
+            outs = pool.run(2, serve_rank_cuda, dict(kw, **over), prompts)
+            for o in outs:
+                assert o["tokens"] == one["tokens"], over
+                assert o["backend"] == "gloo" and o["graphs"] is False
+                # mp: the ragged kernel at the rank's heads; cp's cached
+                # phase is the plain partials
+                assert o["launches"]["ragged_paged_attention" if
+                                     "serving_mp" in over
+                                     else "rms_norm"] > 0
+    finally:
+        pool.close()
 
 
 def test_megakernel_engine_int4_steps_down_and_scan_serves(dev):

@@ -196,7 +196,8 @@ def test_warm_metrics_and_cpu_launch_counts():
 
 
 # a tuned-config artifact is applied (tests/test_torch_tuner.py); one whose
-# knobs ask for a serving mesh reaches the engine's own refusal
+# knobs ask for a serving mesh reaches the engine's process-group check:
+# serving_mp / serving_cp > 1 needs the ranks the launcher starts
 _MESH_ARTIFACT = dict(schema_version=1, device="h100-sxm",
                       model="llama:h64:l2:q4:kv2:d16:i128:v128",
                       space_hash="0", knobs={"serving_mp": 2})
@@ -209,7 +210,7 @@ _MESH_ARTIFACT = dict(schema_version=1, device="h100-sxm",
     dict(serving_mp=2), dict(serving_cp=2)])
 def test_unported_options_raise(kwargs):
     _, _, _, cfg, p = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="parallel.launch"):
         _engine(cfg, p, **kwargs)
 
 
@@ -252,8 +253,10 @@ METRICS_NOT_COMPARED = {"sync_wait_s"}
 # dispatch, the JAX engine compiles each at its first call
 METRICS_NOT_COMPARED_MID_SERVE = {"compile_stats"}
 METRICS_ITEM_5 = {"comms_audit"}
-# reported by the port only: host timings and the kernel launch counts
-METRICS_PORT_ONLY = {"decode_s", "prefill_s", "kernel_launches"}
+# reported by the port only: host timings, the kernel launch counts and
+# the ranks' process-group backend (None on one device)
+METRICS_PORT_ONLY = {"decode_s", "prefill_s", "kernel_launches",
+                     "serving_backend"}
 
 
 @pytest.mark.parametrize("unified", [False, True], ids=["split", "unified"])

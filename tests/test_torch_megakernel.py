@@ -285,17 +285,20 @@ def test_scan_equals_per_layer_full_chain_bitwise(int8_pools):
 
 
 def test_tp_seam_and_unsupported_operands_raise():
-    """residual=False / quantize_out name ROADMAP; packed int4 raises
-    ValueError as in JAX."""
+    """The tensor-parallel modes refuse what JAX refuses (quantize_out
+    without residual=False, H not a multiple of 128) with ValueError;
+    packed int4 raises ValueError as in JAX."""
     c = _case(nh=4, nkv=2)
     h, lens, tables, weights, pools, _ = _torch_ops(
         _jax_ops(c, jnp.bfloat16), torch.bfloat16)
     one = [_layer0(w) for w in weights]
     args = (h, lens, tables, one[0], *one[2:6], *pools)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmk.decode_layer_megakernel(*args, residual=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="requires residual=False"):
+        tmk.decode_layer_megakernel(*args, quantize_out=True)
+    with pytest.raises(ValueError, match="lane-aligned H"):
         tmk.decode_layer_megakernel(*args, residual=False, quantize_out=True)
+    part = tmk.decode_layer_megakernel(*args, residual=False)[0]
+    assert part.dtype == torch.float32 and tuple(part.shape) == (4, 1, 32)
     wq8 = tuple(torch.from_numpy(a) for a in _quantize_w(
         np.asarray(one[2].float().numpy())))
     packed = (wq8[0][:, ::2].contiguous(), wq8[1])
