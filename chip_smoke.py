@@ -3865,9 +3865,10 @@ def bench_decay(name: str) -> bool:
     return "norm" not in name and not name.endswith(".b_0")
 
 
-def build_train_step(model, strategy=None):
+def build_train_step(model, strategy=None, mesh=None, quantized=False):
     """bench.py main()'s step: AdamW(1e-4, weight decay 0.01, bench's
-    decay function) through make_train_step's optimizer= route."""
+    decay function) through make_train_step's optimizer= route (over
+    `mesh`'s dp ranks, the gradient sync quantized or not)."""
     from paddle_tpu_torch.models import LlamaPretrainingCriterion
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import make_train_step
@@ -3876,8 +3877,9 @@ def build_train_step(model, strategy=None):
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 apply_decay_param_fun=bench_decay,
                 parameters=model.parameters())
-    return make_train_step(model, lambda lg, lb: crit(lg, lb), None,
-                           optimizer=opt, strategy=strategy)
+    return make_train_step(model, lambda lg, lb: crit(lg, lb), mesh,
+                           optimizer=opt, strategy=strategy,
+                           quantized_collectives=quantized)
 
 
 def bench_batch(cfg, batch: int, seq: int):
@@ -4849,19 +4851,29 @@ def kendall_tau(a, b) -> float:
     return float(s / (n * (n - 1) / 2)) if n > 1 else 1.0
 
 
+# the depth of the serving phases that compare only runs of their own (or
+# of each other: 8 -> 11 and 20), cut from 32 to fit the script's time
+# beside phases 27-28 (PERF.md section 4): phases 8, 10, 11, 15-17, 19-21
+# and 25. Their docstrings count launches at Llama-3-8B's 32 layers; the
+# gates count them at the cut depth.
+CUT_LAYERS = 8
 # phase 26's depth: a candidate's trace costs about 1 ms a node on the
 # host, and at 32 layers the tune left the 1200 s script no room for
 # phase 27
 TUNE_LAYERS = 8
 
 
-def tune_model(cfg, params):
-    """Llama-3-8B's widths at TUNE_LAYERS layers over phase 2's weights'
+def cut_depth(cfg, params, layers: int):
+    """Llama-3-8B's widths at `layers` layers over phase 2's weights'
     first layers (the same tensors, no copy)."""
     keep = {k: v for k, v in params.items()
             if not k.startswith("llama.layers.")
-            or int(k.split(".")[2]) < TUNE_LAYERS}
-    return dataclasses_replace(cfg, num_hidden_layers=TUNE_LAYERS), keep
+            or int(k.split(".")[2]) < layers}
+    return dataclasses_replace(cfg, num_hidden_layers=layers), keep
+
+
+def tune_model(cfg, params):
+    return cut_depth(cfg, params, TUNE_LAYERS)
 
 
 def phase_tune(cfg, params):
@@ -5102,6 +5114,7 @@ def tp_rank(spec_path: str, out_dir: str) -> None:
             cfg, params, **{**SERVE_KW, **TP_KW, "device": dev, **kw})
         traffic = spec["traffic"][:n_req]
         dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         reqs = [eng.add_request(p) for p in traffic]
@@ -5124,8 +5137,10 @@ def tp_rank(spec_path: str, out_dir: str) -> None:
             gather_ms = (time.perf_counter() - t1) * 1e3 / 20
         products = tp_products(eng, params, traffic[0]) \
             if eng._tp.mp > 1 and not eng._tp.quantized else None
+        audit = tp_audit(eng, name == "mp2") \
+            if name in spec.get("audit", ()) else None
         out["parts"][name] = dict(
-            products=products,
+            products=products, audit=audit,
             tokens=[list(r.tokens) for r in reqs], wall=wall,
             launches=launches, pool_bytes=m["kv_pool_bytes"],
             max_pages=eng.mgr.max_pages, rung=eng.megakernel_rung,
@@ -5141,6 +5156,95 @@ def tp_rank(spec_path: str, out_dir: str) -> None:
         json.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def tp_audit(eng, memory: bool) -> dict:
+    """A rank's decode chunk through the communication audit (and with
+    `memory` the memory audit over the same trace), with the launch
+    counters, the allocator's bytes and its peak read around it (the
+    audit must allocate and launch nothing); then one run of the decode
+    program's body with the collectives' byte counters reset just before
+    and read just after: the bytes of other ranks' data the collectives
+    delivered per decoded token."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.parallel import collectives as coll
+
+    torch.cuda.synchronize()
+    peak_serve = torch.cuda.max_memory_allocated()
+    alloc0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    peak0 = torch.cuda.max_memory_allocated()
+    before = _build.launch_counts()
+    t0 = time.perf_counter()
+    graphs = eng._traced_inventory(("decode",))
+    rep = eng.audit_comms(graphs=graphs)
+    mem = eng.audit_memory(graphs=graphs) if memory else None
+    wall = time.perf_counter() - t0
+    del graphs
+    gc.collect()
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0)
+                for k, v in _build.launch_counts().items()
+                if v != before.get(k, 0)}
+    grew = torch.cuda.memory_allocated() - alloc0
+    peak_grew = torch.cuda.max_memory_allocated() - peak0
+    dec = rep["programs"]["decode"]
+    coll.reset_wire_counts()
+    with torch.no_grad():
+        eng._decode(eng.p, eng.kcs, eng.vcs, *eng._programs["decode"].inputs)
+    torch.cuda.synchronize()
+    wire = {k: dict(v) for k, v in coll.WIRE_COUNTS.items()}
+    tokens = eng.steps * eng.slots
+    return dict(
+        wall_s=wall, launched=launched, grew=grew, peak_grew=peak_grew,
+        peak_serve=peak_serve,
+        per_token=rep["predicted_bytes_on_wire_per_token"],
+        sites=dec["n_collective_sites"], n=dec["n_collectives"],
+        per_kind=dec["per_kind"], reshards=dec["n_implicit_reshards"],
+        quantized_wire_bytes=dec["quantized_wire_bytes"],
+        n_quantized_sites=dec["n_quantized_sites"],
+        diags=sorted({d["rule"] for d in dec["diagnostics"]}),
+        mem_peak=None if mem is None else mem["fleet_peak_hbm_bytes"],
+        received_per_token=sum(v["received_bytes"] for v in wire.values())
+        / tokens, wire=wire, steps=eng.steps)
+
+
+def _gate_tp_audit(phase: str, parts, name: str, L: int, hand=None):
+    """The audit left nothing allocated (phase 25's rule; its transient
+    peak growth is logged) and launched nothing on any rank, found no
+    implicit reshard, and folded the chunk into one site a layer (`hand`:
+    the predicted bytes a token within 10% of it); logged beside the
+    bytes the collectives delivered a token."""
+    for r, p in enumerate(parts):
+        a = p["audit"]
+        if a["launched"] or a["grew"] or a["reshards"]:
+            raise AssertionError(f"{phase} {name} rank {r}: the audit "
+                                 f"launched {a['launched']}, grew the "
+                                 f"allocator by {a['grew']} B, "
+                                 f"{a['reshards']} reshards")
+        if a["n"] != a["sites"] * a["steps"] or a["sites"] % L:
+            raise AssertionError(f"{phase} {name} rank {r}: {a['sites']} "
+                                 f"sites, {a['n']} collectives")
+        if hand is not None and abs(a["per_token"] - hand) / hand > 0.10:
+            raise AssertionError(f"{phase} {name} rank {r}: predicted "
+                                 f"{a['per_token']} B a token, hand "
+                                 f"formula {hand}")
+        log(f"[{phase}] {name} rank {r} audit_comms(decode) in "
+            f"{a['wall_s']:.2f}s (nothing launched, allocated bytes "
+            f"unchanged, peak +{a['peak_grew']} B): "
+            f"predicted {a['per_token']:.1f} B on wire a token"
+            + ("" if hand is None else f" (hand formula L nh dh 2 "
+               f"(mp-1)/mp = {hand:.0f})")
+            + f", delivered by the collectives "
+            f"{a['received_per_token']:.1f} B a token "
+            f"{json.dumps(a['wire'])}; {a['sites']} sites x {a['steps']} "
+            f"steps, per kind {json.dumps(a['per_kind'])}; quantized "
+            f"wire {a['quantized_wire_bytes']} B over "
+            f"{a['n_quantized_sites']} sites; rules {a['diags']}"
+            + ("" if a["mem_peak"] is None else
+               f"; audit_memory(decode) per-rank peak {a['mem_peak']} B "
+               f"beside the allocator's peak while serving "
+               f"{a['peak_serve']} B"))
 
 
 def tp_products(eng, params, prompt):
@@ -5302,7 +5406,8 @@ def phase_tp(cfg, params):
     except ValueError as e:
         if "holds only" not in str(e):
             raise
-    spec = dict(layers=L, traffic=traffic, parts=[
+    spec = dict(layers=L, traffic=traffic, audit=["mp2", "mp2-quant"],
+                parts=[
         ("mp2", dict(serving_mp=2), TP_REQUESTS),
         ("cp2", dict(serving_cp=2), TP_REQUESTS),
         ("cp2-wall", dict(serving_cp=2, kv_pool_bytes=budget,
@@ -5321,6 +5426,24 @@ def phase_tp(cfg, params):
             f"{json.dumps(p['products'])}")
     res["mp2"] = _tp_tokens(phase, "mp2", plain, traffic, b[0]["tokens"],
                             oracle)
+    if res["mp2"] != "identical":
+        # the divergence the card test
+        # test_serving_mp2_q_projection_is_the_product_that_differs names
+        named = [r for r, p in enumerate(b)
+                 if p["products"]["q_proj decode"] > 0]
+        others = [k for p in b for k, v in p["products"].items()
+                  if v > 0 and k != "q_proj decode"]
+        if not named or others:
+            raise AssertionError(f"{phase} mp2: not token-identical, and "
+                                 "the decode q projection is not the "
+                                 f"product that differs ({others})")
+        log(f"[{phase}] part A: mp2 identity out of reach: the decode "
+            f"chunk's q projection (cuBLAS picks its kernel and K order "
+            f"by N: 2048 columns on a rank, 4096 on one device) differs by "
+            f"one bf16 step on ranks {named}; every other product is "
+            "bitwise equal")
+    _gate_tp_audit(phase, b, "mp2", L, hand=L * cfg.num_attention_heads
+                   * cfg.head_dim * 2 * (2 - 1) / 2)
     for r, p in enumerate(b):
         if p["max_pages"] != pages1 or 2 * p["pool_bytes"] != pool1:
             raise AssertionError(f"{phase} mp2 rank {r}: {p['pool_bytes']} "
@@ -5333,6 +5456,12 @@ def phase_tp(cfg, params):
     c = _tp_part(phase, ranks, "cp2", 2)
     res["cp2"] = _tp_tokens(phase, "cp2", plain, traffic, c[0]["tokens"],
                             oracle)
+    if res["cp2"] != "identical":
+        log(f"[{phase}] part A: cp2 identity out of reach: a cp rank's "
+            "cached phase sums its pages' softmax in the plain PyTorch "
+            "partials and the ranks' states merge once, where one device's "
+            "paged decode kernel merges its own position splits (test_"
+            "serving_cp2_partial_merge_is_the_sum_that_differs)")
     wall = _tp_part(phase, ranks, "cp2-wall", 2)
     if wall[0]["pool_bytes"] > budget or len(wall[0]["tokens"][0]) != 8:
         raise AssertionError(f"{phase} cp2-wall: {wall[0]['pool_bytes']} B "
@@ -5353,6 +5482,10 @@ def phase_tp(cfg, params):
             if p["launches"]["paged_decode_attention"]:
                 raise AssertionError(f"{phase} {name}: multi-kernel decode")
         res[name] = parts[0]["launches"]
+        if name == "mp2-quant":
+            _gate_tp_audit(phase, parts, name, L)
+            if any(p["audit"]["n_quantized_sites"] <= 0 for p in parts):
+                raise AssertionError(f"{phase} {name}: no quantized site")
     d_reqs = [SimpleNamespace(prompt=p, tokens=t, req_id=j, cached_tokens=0)
               for j, (p, t) in enumerate(zip(traffic,
                                              ranks[0]["parts"]["mp2-attn"]
@@ -5417,6 +5550,324 @@ def phase_tp(cfg, params):
             "gather_ms": b[0]["gather_ms"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: data-parallel training (gloo ranks on one card)
+# ---------------------------------------------------------------------------
+
+# phase 13's model (Llama-1B widths, kv heads 4, bf16) cut to 4 layers;
+# its global batch 4 x 2048, 2 x 2048 a rank
+DP_LAYERS = 4
+DP_BATCH, DP_SEQ, DP_STEPS = 4, 2048, 3
+# a dp loss beside the one-process step's on the global batch (bf16: the
+# ranks' gradients sum in bf16, the matmuls see 2 rows, not 4)
+DP_LOSS_RTOL = 1e-2
+# the quantized gradient sync beside the plain one (JAX's
+# TestFitQuantizedDP bar)
+DP_QUANT_RTOL = 0.05
+
+DP_SCRIPT = """import sys
+sys.path.insert(0, sys.argv[3])
+import chip_smoke
+chip_smoke.dp_rank(sys.argv[1], sys.argv[2])
+"""
+
+
+def dp_config():
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig.llama_1b(dtype="bfloat16", recompute=False,
+                                num_key_value_heads=4,
+                                num_hidden_layers=DP_LAYERS,
+                                max_position_embeddings=DP_SEQ)
+
+
+def dp_model(cfg):
+    from paddle_tpu_torch.models import LlamaForCausalLM, init_train_params
+
+    return LlamaForCausalLM(cfg).load_params(
+        init_train_params(cfg, seed=SEED, device="cuda"), trainable=True)
+
+
+def dp_per_step(L: int) -> dict:
+    """Phase 13's kernel launches a step, per layer, at L layers."""
+    return {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "flash_attention_bwd_delta": L,
+            "rms_norm": 2 * L + 1, "swiglu_fwd": 0, "swiglu_bwd": 0}
+
+
+def params_sha256(params: dict) -> str:
+    """sha256 over every parameter's bytes in name order (host copies)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        t = params[k].detach().to("cpu").contiguous()
+        h.update(k.encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_digest(params: dict) -> torch.Tensor:
+    """Two int64 sums a parameter of its 2-byte words (w, w * w): equal
+    across ranks when the parameters are bitwise equal."""
+    out = []
+    for k in sorted(params):
+        w = params[k].detach().reshape(-1).view(torch.int16).to(torch.int64)
+        out += [w.sum(), (w * w).sum()]
+    return torch.stack(out)
+
+
+def dp_rank(spec_path: str, out_dir: str) -> None:
+    """One dp rank's body (the launcher starts it through DP_SCRIPT): join
+    the default group (gloo: the ranks share the card), build the dp mesh,
+    then train phase 13's model at DP_LAYERS layers on the global batch
+    through make_train_step(mesh=): a warm-up and DP_STEPS steps with the
+    plain gradient sync, then the same from the same weights with the
+    quantized one, the launch counters reset just before each step and
+    read just after, every rank's parameters compared after every step;
+    time the gradient sync alone; one fit(audit_comms=True) step; a
+    sharded save. Writes rank<r>.json."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import hapi
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import (build_mesh, save_state_dict,
+                                           set_global_mesh)
+    from paddle_tpu_torch.parallel.collectives import all_gather
+    from paddle_tpu_torch.parallel.ranks import init_ranks
+    from paddle_tpu_torch.parallel.trainer import sync_grads
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, world, dev = init_ranks()
+    cfg = dp_config()
+    x, y = bench_batch(cfg, DP_BATCH, DP_SEQ)
+    mesh = build_mesh({"dp": world})
+    ref = mesh.axis_ref("dp")
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "runs": {}}
+    for quantized in (False, True):
+        model = dp_model(cfg)
+        step, p, s = build_train_step(model, mesh=mesh, quantized=quantized)
+        losses, ms, launches, equal = [], [], [], True
+        for _ in range(DP_STEPS + 1):
+            dist.barrier()
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, p, s = step(p, s, x, y)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            launches.append({k: v for k, v in _build.launch_counts().items()
+                             if v})
+            losses.append(float(loss))
+            dig = all_gather(_dp_digest(p)[None], ref, 0)
+            equal &= bool(torch.equal(dig[0], dig[1]))
+        out["runs"]["quantized" if quantized else "plain"] = dict(
+            losses=losses, ms=ms, launches=launches, equal=equal)
+        if quantized:
+            break
+        # the gradient sync alone, on gradients shaped like the params
+        grads = {k: torch.randn_like(v) * 1e-3 for k, v in p.items()}
+        sync_ms = []
+        for _ in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sync_grads(grads, ref, False)
+            torch.cuda.synchronize()
+            sync_ms.append(1e3 * (time.perf_counter() - t0))
+        out["sync_ms"] = sync_ms
+        out["grad_bytes"] = sum(g.numel() * g.element_size()
+                                for g in grads.values())
+        del grads, step, p, s, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one fit step with the communication audit, over the dp mesh
+    crit = LlamaPretrainingCriterion(cfg)
+    hm = hapi.Model(model, device=dev)
+    hm.prepare(optimizer=AdamW(learning_rate=1e-4, weight_decay=0.01,
+                               apply_decay_param_fun=bench_decay,
+                               parameters=model.parameters()),
+               loss=lambda lg, lb: crit(lg, lb))
+    set_global_mesh(mesh)
+    try:
+        dist.barrier()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        hm.fit([(x, y)], epochs=1, verbose=0, audit_comms=True)
+        torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        out["fit_launches"] = {k: v for k, v in
+                               _build.launch_counts().items() if v}
+    finally:
+        set_global_mesh(None)
+    audit = hm.comms_audit
+    out["audit"] = {k: audit[k] for k in (
+        "target", "bytes_on_wire", "float_payload_bytes", "per_kind",
+        "per_axis", "n_collective_sites", "mp")}
+    out["audit"]["rules"] = [(d["rule"], d["where"])
+                             for d in audit["diagnostics"]]
+    # the sharded save: each rank writes its rows of every parameter
+    params = dict(model.named_parameters())
+    dist.barrier()
+    t0 = time.perf_counter()
+    save_state_dict(params, spec["ckpt"])
+    dist.barrier()
+    out["save_s"] = time.perf_counter() - t0
+    out["sha256"] = params_sha256(params)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_dp():
+    """Phase 28: data-parallel training over torch.distributed ranks that
+    share the card (gloo). `python -m paddle_tpu_torch.parallel.launch
+    --nproc_per_node 2` starts two ranks training phase 13's model
+    (Llama-1B widths, bf16, AdamW) cut to DP_LAYERS layers on phase 13's
+    global batch 4 x 2048 (2 x 2048 a rank) through
+    make_train_step(mesh=dp2): a warm-up and DP_STEPS steps with the plain
+    gradient sum, then with quantized_collectives; one
+    fit(audit_comms=True) step; a sharded save, loaded here at world 1.
+    First, in this process, the one-process step of the same model on
+    the global batch. Gates: both ranks' parameters bitwise equal after
+    every step; losses finite and falling, within DP_LOSS_RTOL of the
+    one-process step's; the quantized run within DP_QUANT_RTOL of the
+    plain one; exactly phase 13's launches a layer a step on each rank
+    (the fit step too); TPU803 names the gradient all-reduce; the
+    reloaded state byte-identical (sha256) to both ranks'."""
+    from paddle_tpu_torch.parallel import load_state_dict
+
+    phase, L = "dp", DP_LAYERS
+    cfg = dp_config()
+    model = dp_model(cfg)
+    step, p, s = build_train_step(model)
+    x, y = bench_batch(cfg, DP_BATCH, DP_SEQ)
+    one = []
+    for _ in range(DP_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, p, s = step(p, s, x, y)
+        torch.cuda.synchronize()
+        one.append((float(loss), 1e3 * (time.perf_counter() - t0)))
+    del step, p, s
+    _release()
+    root = tempfile.mkdtemp(prefix="dp-ranks-")
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        spec_path = os.path.join(root, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump({"ckpt": ckpt}, f)
+        script = os.path.join(root, "rank.py")
+        with open(script, "w") as f:
+            f.write(DP_SCRIPT)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        rc = subprocess.call(
+            [sys.executable, "-m", "paddle_tpu_torch.parallel.launch",
+             "--nproc_per_node", "2", "--max_restart", "0", "--log_dir",
+             os.path.join(root, "logs"), script, spec_path, root, repo],
+            env=dict(os.environ, PYTHONPATH=repo), cwd=repo, timeout=600)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            logs = {os.path.basename(q): open(q).read()[-3000:] for q in
+                    sorted(glob.glob(os.path.join(root, "logs", "*")))}
+            raise AssertionError(f"{phase}: the launcher exited {rc}; logs "
+                                 f"{json.dumps(logs)[-8000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        # the sharded save loaded at world 1, byte-compared
+        fresh = {k: torch.empty_like(v, device="cpu")
+                 for k, v in model.named_parameters()}
+        t1 = time.perf_counter()
+        load_state_dict(fresh, ckpt)
+        load_s = time.perf_counter() - t1
+        reloaded = params_sha256(fresh)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model, fresh
+    _release()
+    want = dp_per_step(L)
+    one_losses = [v for v, _ in one]
+    for r, o in enumerate(ranks):
+        if o["backend"] != "gloo":
+            raise AssertionError(f"{phase} rank {r}: backend {o['backend']}")
+        for name, run in o["runs"].items():
+            if not run["equal"]:
+                raise AssertionError(f"{phase} {name}: the ranks' "
+                                     "parameters differ after a step")
+            for i, got in enumerate(run["launches"]):
+                for k, n in want.items():
+                    if got.get(k, 0) != n:
+                        raise AssertionError(
+                            f"{phase} {name} rank {r} step {i}: {k} "
+                            f"launched {got.get(k, 0)} times, want {n}")
+            ls = run["losses"]
+            if not all(math.isfinite(v) for v in ls) or ls[-1] >= ls[0]:
+                raise AssertionError(f"{phase} {name} rank {r}: losses {ls}")
+        for k, n in want.items():
+            if o["fit_launches"].get(k, 0) != n:
+                raise AssertionError(f"{phase} fit rank {r}: {k} launched "
+                                     f"{o['fit_launches'].get(k, 0)}, want "
+                                     f"{n}")
+        if o["sha256"] != reloaded:
+            raise AssertionError(f"{phase}: rank {r}'s parameters and the "
+                                 "state reloaded at world 1 differ")
+    plain = ranks[0]["runs"]["plain"]["losses"]
+    quant = ranks[0]["runs"]["quantized"]["losses"]
+    if ranks[1]["runs"]["plain"]["losses"] != plain:
+        raise AssertionError(f"{phase}: the ranks' losses differ")
+    for a, b in zip(plain, one_losses):
+        if abs(a - b) / abs(b) > DP_LOSS_RTOL:
+            raise AssertionError(f"{phase}: dp losses {plain} vs one "
+                                 f"process {one_losses}")
+    for a, b in zip(quant, plain):
+        if abs(a - b) / abs(a) > DP_QUANT_RTOL:
+            raise AssertionError(f"{phase}: quantized losses {quant} vs "
+                                 f"plain {plain}")
+    audit = ranks[0]["audit"]
+    hits = [w for rule, w in audit["rules"] if rule == "TPU803"]
+    if not hits or "psum" not in audit["per_kind"] \
+            or not any("all_reduce" in w for w in hits):
+        raise AssertionError(f"{phase}: TPU803 does not name the gradient "
+                             f"all-reduce: {audit}")
+    o0 = ranks[0]
+    step_ms = {k: [round(v, 1) for v in o0["runs"][k]["ms"]]
+               for k in o0["runs"]}
+    log(f"[{phase}] 2 ranks (gloo, sharing the card) through the launcher "
+        f"in {wall:.1f}s; Llama-1B widths at {L} layers, bf16, AdamW, "
+        f"global batch {DP_BATCH} x {DP_SEQ}: losses plain "
+        f"{[round(v, 4) for v in plain]}, quantized "
+        f"{[round(v, 4) for v in quant]}, one process "
+        f"{[round(v, 4) for v in one_losses]}; ms a step on rank 0 "
+        f"(warm-up first) {json.dumps(step_ms)}, rank 1 "
+        f"{[round(v, 1) for v in ranks[1]['runs']['plain']['ms']]}; one "
+        f"process on the global batch {[round(m, 1) for _, m in one]}")
+    log(f"[{phase}] the gradient all-reduce: {o0['grad_bytes']} B a step "
+        f"(bf16 gradients, one all-reduce), "
+        f"{[round(v, 1) for v in o0['sync_ms']]} ms through the host "
+        f"(rank 1 {[round(v, 1) for v in ranks[1]['sync_ms']]}); launches a "
+        f"rank a step {json.dumps(o0['runs']['plain']['launches'][-1])}")
+    log(f"[{phase}] fit(audit_comms=True) step in {o0['fit_s']:.1f}s: "
+        f"{audit['target']}, {audit['bytes_on_wire']} B on wire a rank, "
+        f"float payload {audit['float_payload_bytes']} B, "
+        f"{audit['n_collective_sites']} site(s) {json.dumps(audit['per_kind'])}"
+        f"; TPU803 at {hits[0]}")
+    log(f"[{phase}] sharded save in {o0['save_s']:.1f}s, loaded at world 1 "
+        f"in {load_s:.1f}s: sha256 {reloaded[:16]} on both ranks and "
+        "reloaded")
+    return {"launches": {k: sum(l.get(k, 0) for l in
+                                o0["runs"]["plain"]["launches"])
+                         for k in want}, "losses": plain,
+            "step_ms": o0["runs"]["plain"]["ms"], "sync_ms": o0["sync_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -5443,28 +5894,38 @@ def main() -> int:
             ("int8-unified", lambda: phase_int8_unified(cfg, params)),
             ("int4-split", lambda: phase_int4_split(cfg)),
             ("int8w-int8kv-unified",
-             lambda: phase_int8w_unified(cfg, params)),
+             lambda: phase_int8w_unified(
+                 *cut_depth(cfg, params, CUT_LAYERS))),
             ("quant-generate", lambda: quant_generate(
                 cfg, phases["int4-split"]["params"], "weight_only_int4",
                 "quant-generate", "gqa_decode_attention")),
             ("quant-generate-7b", phase_quant_generate_7b),
-            ("mega-scan", lambda: phase_mega_scan(cfg, params)),
+            ("mega-scan", lambda: phase_mega_scan(
+                *cut_depth(cfg, params, CUT_LAYERS))),
             ("mega-full", lambda: phase_mega_full(
-                cfg, params, phases["int8w-int8kv-unified"])),
+                *cut_depth(cfg, params, CUT_LAYERS),
+                phases["int8w-int8kv-unified"])),
             ("mega-attn", lambda: phase_mega_attn(cfg, params,
                                                   phases["engine"])),
-            ("spec-ngram", lambda: phase_spec_ngram(cfg, params)),
-            ("spec-self", lambda: phase_spec_self(cfg, params)),
+            ("spec-ngram", lambda: phase_spec_ngram(
+                *cut_depth(cfg, params, CUT_LAYERS))),
+            ("spec-self", lambda: phase_spec_self(
+                *cut_depth(cfg, params, CUT_LAYERS))),
             ("spec-scan-unified",
-             lambda: phase_spec_scan_unified(cfg, params)),
+             lambda: phase_spec_scan_unified(
+                 *cut_depth(cfg, params, CUT_LAYERS))),
             ("disagg", lambda: phase_disagg(cfg, params, phases["prefix"],
                                             phases["unified"])),
-            ("generate", lambda: phase_generate(cfg, params)),
+            ("generate", lambda: phase_generate(
+                *cut_depth(cfg, params, CUT_LAYERS))),
             ("checkpoint", lambda: phase_checkpoint(
-                cfg, params, phases["int8w-int8kv-unified"])),
-            ("observe", lambda: phase_observe(cfg, params)),
+                *cut_depth(cfg, params, CUT_LAYERS),
+                phases["int8w-int8kv-unified"])),
+            ("observe", lambda: phase_observe(
+                *cut_depth(cfg, params, CUT_LAYERS))),
             ("fleet", lambda: phase_fleet(cfg, params, phases["prefix"])),
-            ("audit", lambda: phase_audit(cfg, params)),
+            ("audit", lambda: phase_audit(
+                *cut_depth(cfg, params, CUT_LAYERS))),
             ("tune", lambda: phase_tune(*tune_model(cfg, params))),
             ("tp", lambda: phase_tp(cfg, params))):
         t0 = time.perf_counter()
@@ -5483,7 +5944,8 @@ def main() -> int:
                      ("hapi", lambda: phase_hapi(phases["train"]["step_ms"])),
                      ("loader",
                       lambda: phase_loader(phases["train"]["step_ms"])),
-                     ("audit-fit", lambda: phase_audit_fit(phases["loader"]))):
+                     ("audit-fit", lambda: phase_audit_fit(phases["loader"])),
+                     ("dp", phase_dp)):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")

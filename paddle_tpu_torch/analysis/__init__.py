@@ -51,9 +51,10 @@ TPU301   bf16 -> f32, MXU   bf16 -> f32 upcasts feeding compute; f32
          f32 rate           products over widened operands run at the
                             CUDA-core f32 rate (the H100 row prices f32 at
                             67 TFLOP/s: the port never enables TF32).
-TPU401   collectives        not ported: the communication pass comes
-                            with the comms audit (ROADMAP.md section 1
-                            item 5).
+TPU401   collectives        dead and duplicate collectives, an axis
+                            outside the declared mesh, large float
+                            payloads (the collective operators' nodes,
+                            ``comms.py``'s inventory).
 TPU501   host callbacks     ``.item()``, ``.tolist()``
                             (``_local_scalar_dense``), ``.cpu()`` and host
                             calls inside a program: ERROR, since a CUDA
@@ -68,6 +69,12 @@ TPU701   donation miss      a fresh full-size copy of an input the program
 TPU702   HBM over budget    the liveness peak over the budget (the card's
                             memory, or the engine's pools + params).
 TPU703   live-range bloat   a large intermediate live across many calls.
+TPU801   collective in a    a collective repeated by the program's
+         scan body          unrolled steps past `max_step_wire_bytes`.
+TPU802   implicit reshard   silent by construction: SPMD ranks make only
+                            the collectives they call.
+TPU803   quantizable        a float-payload collective >= `min_bytes`
+         collective         (amplified): quantized_collectives' rewrite.
 TPU901   bandwidth-bound    a repeated call (the unrolled loop's) below
          scan body          the ridge point, with >= 0.5 ms of HBM time.
 TPU902   tile padding       the products' mma tile padding share.
@@ -85,9 +92,16 @@ and FLAGS_tuned_config apply::
 
     python -m paddle_tpu_torch.analysis --tune --device cpu-container
 
-The communication audit (``comms.py``, TPU401, TPU801-803) waits for
-multi-GPU (ROADMAP.md section 1 item 5): `audit_comms` raises, naming its
-item.
+The communication audit (``comms.py``; TPU401, TPU801-803) prices each
+rank's bytes on the wire from the collective operators' nodes
+(``parallel/collectives.py``), with a program's unrolled steps folded
+into sites::
+
+    analysis.audit_comms(fn, *args, steps=8).total_wire_bytes
+    eng.warm(audit_comms=True);  eng.audit_comms()   # a sharded engine
+    model.fit(..., audit_comms=True)                 # the dp step
+
+    python -m paddle_tpu_torch.analysis --comms --format json
 """
 from .diagnostics import (  # noqa: F401
     Diagnostic, LintError, Report, Severity,
@@ -97,9 +111,12 @@ from .pipeline import Pipeline, analyze, lint  # noqa: F401
 from .rules import (  # noqa: F401
     RULES, Rule, default_rules, register_rule,
 )
-# imported for their side effect too: they register TPU701-703 and
-# TPU901-903
-from . import device_specs, memory, roofline  # noqa: F401,E402
+# imported for their side effect too: they register TPU701-703,
+# TPU801-803 and TPU901-903
+from . import comms, device_specs, memory, roofline  # noqa: F401,E402
+from .comms import (  # noqa: F401,E402
+    CommsReport, audit_comms, resolve_audit_comms,
+)
 from .device_specs import DeviceSpec, auto_hbm_budget, get_spec  # noqa
 from .memory import (  # noqa: F401
     MemoryReport, audit_graph, audit_memory, trace_for_memory,
@@ -111,36 +128,11 @@ from .roofline import (  # noqa: F401
 from . import tuner  # noqa: F401,E402
 from .tuner import TunedConfig, TuningReport, autotune  # noqa: F401,E402
 
-COMMS_UNPORTED = ("the communication audit (analysis/comms.py, TPU401, "
-                  "TPU801-803) is not ported yet (ROADMAP.md section 1 "
-                  "item 5)")
-
-
-def audit_comms(*args, **kwargs):
-    raise NotImplementedError(COMMS_UNPORTED)
-
-
-def resolve_audit_comms(audit_comms_param=None) -> bool:
-    """An explicit True, or FLAGS_audit_comms (PADDLE_TPU_AUDIT_COMMS),
-    asks for the communication audit, which raises naming item 5.
-    PADDLE_TPU_LINT=1 does not imply it here (it would raise on every
-    engine)."""
-    if audit_comms_param is not None:
-        on = bool(audit_comms_param)
-    else:
-        from ..framework.flags import flag
-
-        on = bool(flag("audit_comms"))
-    if on:
-        raise NotImplementedError(COMMS_UNPORTED)
-    return False
-
-
 __all__ = [
-    "COMMS_UNPORTED", "DeviceSpec", "Diagnostic", "Graph", "LintError",
+    "CommsReport", "DeviceSpec", "Diagnostic", "Graph", "LintError",
     "MemoryReport", "Pipeline", "Report", "RooflineReport", "RULES",
     "Rule", "Severity", "analyze", "audit_comms", "audit_graph",
-    "audit_memory", "audit_roofline", "auto_hbm_budget",
+    "audit_memory", "audit_roofline", "auto_hbm_budget", "comms",
     "count_kernel_launches", "count_step_kernels", "default_rules",
     "device_specs", "get_spec", "kernel_launches", "lint", "memory",
     "register_rule", "resolve_audit_comms", "roofline", "trace_for_memory",

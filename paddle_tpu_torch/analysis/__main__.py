@@ -7,6 +7,7 @@
     python -m paddle_tpu_torch.analysis --roofline --spec h100-sxm
     python -m paddle_tpu_torch.analysis mypkg.models:factory --device cpu
     python -m paddle_tpu_torch.analysis --rule-config TPU702.hbm_budget_bytes=2147483648
+    python -m paddle_tpu_torch.analysis --comms --device cpu --format json
 
 A factory is a zero-argument callable in an importable module returning
 ``(fn, args)`` or ``(fn, args, kwargs)``; `fn` is traced called with
@@ -25,11 +26,16 @@ decode program; ``--budget-candidates N`` caps the candidates scored
 (the baseline always rides along), ``--tune-out PATH`` saves the
 artifact. ``--device`` also takes a device row's name, as the alias of
 ``--spec`` (the JAX CLI's spelling); ``cpu-container``, the row of the
-CPU host, runs the demo on the CPU. ``--comms`` is not
-ported: it raises, naming ROADMAP.md section 1 item 5. ``--format json``
-prints one object (the `Report` schema plus ``memory`` / ``roofline`` /
-``tuning`` keys); the exit status is 1 when a diagnostic reaches
-``--fail-on`` (default: error).
+CPU host, runs the demo on the CPU. ``--comms`` runs the communication
+audit (`comms.py`); its demo is the tiny serving engine's decode chunk at
+``serving_mp=2``, built as rank 0 with no live process group
+(`parallel.ranks.traced_rank`: the program traces, nothing is
+exchanged), its steps folded into sites, and the same chunk again with
+quantized collectives (``comms.quantized_decode``: its bytes on wire and
+their ratio to the bf16 wire's). ``--format json`` prints one object (the
+`Report` schema plus ``memory`` / ``comms`` / ``roofline`` / ``tuning``
+keys); the exit status is 1 when a diagnostic reaches ``--fail-on``
+(default: error).
 
     python -m paddle_tpu_torch.analysis --tune --device cpu-container \
         --budget-candidates 12 --tune-out /tmp/tuned --format json
@@ -84,9 +90,7 @@ def _forward_demo(device):
     return model, (ids,), {}, "models.llama tiny forward"
 
 
-def _decode_demo(device):
-    """The tiny serving engine's decode chunk: its program body over the
-    params, the paged pools and the program's static inputs."""
+def _tiny_engine(device, **kw):
     import torch
 
     from ..models import LlamaConfig, init_serving_params
@@ -94,13 +98,34 @@ def _decode_demo(device):
 
     cfg = LlamaConfig.tiny()
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    eng = ContinuousBatchingEngine(
+    return ContinuousBatchingEngine(
         cfg, init_serving_params(cfg, seed=0, device=device, dtype=dtype),
         slots=2, prompt_bucket=16, max_prompt_len=32, max_new_tokens=8,
-        block_size=16, steps_per_sync=4, device=device, dtype=dtype)
+        block_size=16, steps_per_sync=4, device=device, dtype=dtype, **kw)
+
+
+def _decode_demo(device):
+    """The tiny serving engine's decode chunk: its program body over the
+    params, the paged pools and the program's static inputs."""
+    eng = _tiny_engine(device)
     name, fn, ins = eng._program_inventory()[0]
     return fn, (eng.p, eng.kcs, eng.vcs, *ins), {}, \
         "models.llama tiny paged decode"
+
+
+def _sharded_decode_demo(device, quantized: bool = False):
+    """--comms target: the tiny engine's decode chunk at serving_mp=2 (one
+    head all-gather a layer a step), built as rank 0 of two with no live
+    process group. Returns (fn, args, kwargs, label, steps)."""
+    from ..parallel.ranks import traced_rank
+
+    with traced_rank(0):
+        eng = _tiny_engine(device, serving_mp=2,
+                           quantized_collectives=quantized)
+    name, fn, ins = eng._program_inventory()[0]
+    tag = "+int8coll" if quantized else ""
+    return (fn, (eng.p, eng.kcs, eng.vcs, *ins), {},
+            f"models.llama tiny sharded decode (mp=2){tag}", eng.steps)
 
 
 def _tune_setup(device):
@@ -227,7 +252,11 @@ def main(argv=None) -> int:
     parser.add_argument("--roofline", action="store_true",
                         help="also run the static roofline auditor")
     parser.add_argument("--comms", action="store_true",
-                        help="not ported (ROADMAP.md section 1 item 5)")
+                        help="run the communication audit (bytes on wire "
+                             "per rank; default target: the tiny engine's "
+                             "decode chunk at serving_mp=2 and its "
+                             "quantized twin); json output gains a "
+                             "'comms' key")
     parser.add_argument("--tune", action="store_true",
                         help="run the static autotuner over the tiny "
                              "serving engine (prune over-budget candidates, "
@@ -250,11 +279,8 @@ def main(argv=None) -> int:
                         choices=["info", "warning", "error"])
     args = parser.parse_args(argv)
 
-    from . import COMMS_UNPORTED, Severity, analyze
+    from . import Severity, analyze
     from .graph import trace_graph
-
-    if args.comms:
-        raise NotImplementedError(COMMS_UNPORTED)
     from ..device import resolve_device
 
     if args.device in DEVICE_SPECS:
@@ -270,16 +296,43 @@ def main(argv=None) -> int:
             rule_config.setdefault(f"{rid}.device", args.spec)
     if args.tune:
         return _run_tune(args, device, rules, rule_config or None)
-    fn, call_args, call_kwargs, label = _resolve_target(
-        args.target, device, args.memory or args.roofline)
+    steps = 1
+    if args.comms and args.target is None:
+        fn, call_args, call_kwargs, label, steps = \
+            _sharded_decode_demo(device)
+    else:
+        fn, call_args, call_kwargs, label = _resolve_target(
+            args.target, device, args.memory or args.roofline)
     graph = trace_graph(fn, *call_args, name=label, **call_kwargs)
+    graph.unrolled_steps = steps
     report = analyze(None, graph=graph, rules=rules,
                      rule_config=rule_config or None)
-    mem = roof = None
+    mem = roof = comms = None
     if args.memory:
         from .memory import audit_graph
 
         mem = audit_graph(graph)
+    if args.comms:
+        from .comms import audit_graph as comms_audit_graph
+
+        rep = comms_audit_graph(graph)
+        comms = rep.to_dict()
+        if args.target is None and rep.total_wire_bytes:
+            # the quantized twin: the same chunk with quantized
+            # collectives (int8 payload + packed f32 scales on the gather)
+            fq, aq, kq, lq, sq = _sharded_decode_demo(device,
+                                                      quantized=True)
+            gq = trace_graph(fq, *aq, name=lq, **kq)
+            gq.unrolled_steps = sq
+            qrep = comms_audit_graph(gq)
+            comms["quantized_decode"] = {
+                "target": lq,
+                "bytes_on_wire": qrep.total_wire_bytes,
+                "quantized_wire_bytes": qrep.quantized_wire_bytes,
+                "n_quantized_sites": qrep.n_quantized_sites,
+                "wire_bytes_ratio_vs_unquantized": round(
+                    qrep.total_wire_bytes / rep.total_wire_bytes, 4),
+            }
     if args.roofline:
         from .roofline import audit_graph as roofline_audit_graph
 
@@ -288,14 +341,27 @@ def main(argv=None) -> int:
         out = report.to_dict()
         if mem is not None:
             out["memory"] = mem.to_dict()
+        if comms is not None:
+            out["comms"] = comms
         if roof is not None:
             out["roofline"] = roof.to_dict()
         print(json.dumps(out, sort_keys=True, indent=2))
     else:
         print(report.format(min_severity=Severity[args.min_severity.upper()]))
-        for rep in (mem, roof):
-            if rep is not None:
-                print(rep.format())
+        if mem is not None:
+            print(mem.format())
+        if comms is not None:
+            from .comms import audit_graph as comms_audit_graph
+
+            print(comms_audit_graph(graph).format())
+            q = comms.get("quantized_decode")
+            if q is not None:
+                print(f"  int8coll twin: {q['bytes_on_wire'] / 1024:.2f} "
+                      f"KiB on wire = "
+                      f"{q['wire_bytes_ratio_vs_unquantized']}x the bf16 "
+                      "wire")
+        if roof is not None:
+            print(roof.format())
     if args.fail_on != "never" and \
             report.at_least(Severity[args.fail_on.upper()]):
         return 1

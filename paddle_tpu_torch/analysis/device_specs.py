@@ -94,6 +94,8 @@ DEVICE_SPECS: Dict[str, DeviceSpec] = {
         name="h100-sxm",
         peak_flops={"bfloat16": 989e12, "float16": 989e12,
                     "int8": 1979e12, "float32": 67e12},
+        # ici_gbs: the card's link rate, NVLink 4 on the H100 SXM, 900 GB/s
+        # a GPU (NVIDIA H100 Tensor Core GPU data sheet)
         hbm_gbs=3.35e12, ici_gbs=900e9,
         # a launch replayed from a CUDA graph (rms_norm [1, 128] bf16,
         # 2000 launches), chip_smoke.py phase 25 on an H100 80GB HBM3 at

@@ -146,6 +146,11 @@ class Graph:
         # 2 and 2.0 hash equal and must stay distinct); None when the
         # graph was not traced by `trace_graph`
         self.scalar_args = scalar_args
+        # the times the program repeats one step (a decode chunk's
+        # steps_per_sync, unrolled in the graph) and the ranks it runs on
+        # (None: one, or unknown); the communication audit reads both
+        self.unrolled_steps = 1
+        self.mesh_size: Optional[int] = None
         self._nodes: Optional[List[NodeCtx]] = None
         self._ctx: Dict[torch.fx.Node, NodeCtx] = {}
 

@@ -20,9 +20,10 @@ paddle_tpu/analysis/roofline.py).
   traffic.
 - **No loops**: a torch graph is unrolled, so each node counts once and
   the decode chunk's steps and layers are all in the graph.
-- **Predicted time** = ``max(compute, bandwidth) + launches x
-  launch_overhead_s`` against one `device_specs` row (the card has no
-  collectives yet: wire time is 0). A hand-written kernel's node is
+- **Predicted time** = ``max(compute, bandwidth, wire) + launches x
+  launch_overhead_s`` against one `device_specs` row, the wire time being
+  the communication pass's per-rank bytes (`comms.py`) over the row's
+  link rate (``ici_gbs``; 0 for a one-device program). A hand-written kernel's node is
   priced at the share of its bound the kernel reaches on that row
   (`DeviceSpec.kernel_shares`, measured on the card): its FLOPs and
   bytes take their time divided by that share. Products and the other
@@ -248,7 +249,7 @@ class RooflineReport:
 
     @property
     def wire_s(self) -> float:
-        return 0.0
+        return self.wire_bytes / self.spec.ici_gbs
 
     @property
     def launch_overhead_s(self) -> float:
@@ -256,12 +257,15 @@ class RooflineReport:
 
     @property
     def bound(self) -> str:
-        return "compute" if self.compute_s > self.bandwidth_s \
-            else "bandwidth"
+        times = {"compute": self.compute_s, "bandwidth": self.bandwidth_s,
+                 "wire": self.wire_s}
+        if times["compute"] <= times["bandwidth"]:
+            times.pop("compute")
+        return max(times, key=times.get)
 
     @property
     def predicted_step_s(self) -> float:
-        return max(self.compute_s, self.bandwidth_s) \
+        return max(self.compute_s, self.bandwidth_s, self.wire_s) \
             + self.launch_overhead_s
 
     @property
@@ -297,7 +301,7 @@ class RooflineReport:
             "kernels": dict(self.kernels),
             "compute_ms": self.compute_s * 1e3,
             "bandwidth_ms": self.bandwidth_s * 1e3,
-            "wire_ms": 0.0,
+            "wire_ms": self.wire_s * 1e3,
             "launch_overhead_ms": self.launch_overhead_s * 1e3,
             "predicted_step_ms": self.predicted_step_ms,
             "predicted_mfu": round(self.predicted_mfu, 4),
@@ -445,8 +449,13 @@ def audit_graph(graph: Graph, device=None) -> RooflineReport:
         if raw is None:
             raw = graph._roofline_raw = _walk(graph)
         events, launches = raw
+        from .comms import audit_graph as comms_audit_graph
+
         rep = RooflineReport(graph.name, events, spec, launches,
                              len(graph.nodes()), kernel_launches(graph))
+        comms = comms_audit_graph(graph)
+        rep.wire_bytes = comms.total_wire_bytes
+        rep.mp = comms.mp
         if registered:
             cache[spec.name] = rep
     return rep

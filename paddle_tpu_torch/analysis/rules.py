@@ -17,6 +17,9 @@ version of its hazard (the table in ``analysis/__init__.py``):
   TPU202 const-bloat          large tensors captured from the closure
   TPU301 dtype-promotion      bf16 -> f32 upcasts feeding compute; f32
                               products run at the CUDA-core rate
+  TPU401 collectives          dead and duplicate collectives, an axis
+                              outside the declared mesh, large float
+                              payloads (over the comms.py inventory)
   TPU501 host-sync            device values read on the host inside a
                               program (.item(), .cpu(), .tolist())
   TPU601 ckpt-in-program      checkpoint saves inside a program
@@ -459,6 +462,97 @@ class DtypePromotionRule(Rule):
             yield self.diag(f"{elided} more upcast finding(s) elided "
                             f"(first {self.MAX_REPORTS} shown)",
                             where=graph.name)
+
+
+# ---------------------------------------------------------------------------
+# TPU401: collective hygiene
+# ---------------------------------------------------------------------------
+
+@register_rule
+class CollectiveRule(Rule):
+    """Four checks over the collective operators' nodes (the
+    ``analysis/comms.py`` inventory, which also carries the byte math):
+
+    - dead: the collective's result is never used, yet every rank still
+      pays the exchange;
+    - duplicate: two identical collectives over the same operand and
+      group (fold into one);
+    - unknown axis: the group's axis is not in the `mesh_axes=` the
+      caller declared (skipped when not declared), ERROR;
+    - unquantized large payload: a collective moving more than
+      `max_collective_bytes` (default 0 = off: TPU803 owns the
+      default-threshold size check) of float data, amplified by the
+      program's unrolled steps; a site repeated by the steps reports at
+      the rule's severity, a one-shot one at INFO.
+    """
+
+    id = "TPU401"
+    name = "collectives"
+    default_severity = Severity.WARNING
+
+    def check(self, graph: Graph) -> Iterator[Diagnostic]:
+        from . import comms as _comms
+
+        mesh_axes = self.config.get("mesh_axes")
+        max_bytes = self.config.get("max_collective_bytes", 0)
+        if max_bytes:
+            for ev in _comms.audit_graph(graph).collectives:
+                payload = ev.float_payload_bytes
+                amplified = ev.total_float_payload_bytes
+                if not payload or amplified <= max_bytes:
+                    continue
+                if ev.in_loop:
+                    amp = (f" x {ev.count} iterations = {amplified} "
+                           f"bytes" if ev.count > 1 else "")
+                    desc = (f"per iteration inside a loop body"
+                            f"{amp} (> {max_bytes})")
+                else:
+                    desc = f"(> {max_bytes}) per call"
+                yield self.diag(
+                    f"{ev.kind} over {ev.axes} moves {payload} "
+                    f"bytes of float payload " + desc,
+                    where=ev.path,
+                    severity=None if ev.in_loop else Severity.INFO,
+                    hint="quantize the payload (absmax int8 + f32 "
+                         "scale sidecar: quantized_collectives) or "
+                         "shrink it; raise max_collective_bytes= if "
+                         "this size is intended")
+        seen: Dict[tuple, NodeCtx] = {}
+        for ctx in graph.nodes():
+            if not _comms.is_collective(ctx):
+                continue
+            kind = _comms.collective_kind(ctx)
+            axes = _comms.collective_axes(ctx)
+            if mesh_axes is not None:
+                for a in axes:
+                    if a not in mesh_axes:
+                        yield self.diag(
+                            f"{kind} over axis {a!r} which is not in the "
+                            f"mesh axes {tuple(mesh_axes)}",
+                            where=ctx.path,
+                            hint="a collective outside the mesh's groups "
+                                 "raises at run time (no group is "
+                                 "registered for it)",
+                            severity=Severity.ERROR)
+            if not ctx.node.users:
+                yield self.diag(
+                    f"result of {kind} over {axes} is never used (a dead "
+                    "collective still makes every rank exchange)",
+                    where=ctx.path,
+                    hint="delete it, or consume its result")
+                continue
+            key = (ctx.op, tuple(str(a) for a in ctx.node.args[1:]),
+                   ctx.node.args[0])
+            prev = seen.get(key)
+            if prev is not None:
+                yield self.diag(
+                    f"duplicate {kind} over {axes} on the same operand "
+                    f"(first at {prev.path})",
+                    where=ctx.path,
+                    hint="reuse the first result; each copy is a full "
+                         "exchange")
+            else:
+                seen[key] = ctx
 
 
 # ---------------------------------------------------------------------------

@@ -3,17 +3,21 @@ over the serving engine's build-time knobs (counterpart of
 paddle_tpu/analysis/tuner.py).
 
 - **search space**: the engine's build-time knobs, each an engine kwarg
-  of the same name (`quantized_collectives` stays off: at mp = cp = 1
-  there is no collective to quantize), so
+  of the same name (`quantized_collectives` collapses to off at
+  mp = cp = 1: there is no collective to quantize), so
   `TunedConfig.apply` is a plain dict merge: the KV
   page size (`block_size`, from the card's page rule,
   `models.llama.serving_block_size_candidates`), `kv_cache_dtype` (bf16 |
   int8 pools), `decode_megakernel` (off | attn | full | scan),
   `unified_step`, `token_budget` (the unified window), `speculative` /
-  `spec_k`, and `serving_mp` / `serving_cp` / `quantized_collectives`,
-  which stay 1 / 1 / off (a caller's space that asks for a mesh has
-  those candidates pruned by name: scoring them needs the communication
-  pass and wire bytes per token, ROADMAP.md section 1 item 5).
+  `spec_k`, and `serving_mp` / `serving_cp` / `quantized_collectives`.
+  The default space offers only the degrees the host's cards can build
+  (`torch.cuda.device_count()`, JAX's degree rule), so on one card or the
+  CPU the mesh knobs stay 1 / 1 / off unless the caller's space asks for
+  more. A sharded candidate is built on fakes as rank 0 with no live
+  process group (`parallel.ranks.traced_rank`) and priced at its rank's
+  programs plus its wire (the communication pass's bytes over the row's
+  link rate, `DeviceSpec.ici_gbs`).
 - **feasibility gate** (`memory.py`, `device_specs.auto_hbm_budget`): a
   candidate whose static params + pool bytes already exceed the device
   row's budget is pruned before any trace, and one whose traced peak
@@ -21,8 +25,8 @@ paddle_tpu/analysis/tuner.py).
   while the caller's dict keeps the originals, so both gates count that
   copy at scan (the JAX tuner does not: its bound differs there).
 - **objective** (`roofline.py`): the survivors rank by the decode chunk's
-  predicted step time, then wire bytes per token (0.0 on one device: the
-  communication pass waits for item 5), traced peak, and the canonical
+  predicted step time, then wire bytes per token (the communication
+  audit's, 0.0 on one device), traced peak, and the canonical
   config string. The all-defaults config is always scored, so the winner
   never predicts slower than it. The roofline prices each hand-written
   kernel at the share of its bound it reaches on the device row
@@ -83,11 +87,6 @@ KNOBS = ("block_size", "decode_megakernel", "kv_cache_dtype",
 
 SCHEMA_VERSION = 1
 TUNE_FILENAME = ".paddle_tpu_tune.json"
-
-_MESH_UNPORTED = ("a sharded candidate's wire bytes need the "
-                  "communication pass, which is not ported yet "
-                  "(ROADMAP.md section 1 item 5)")
-
 
 def model_signature(cfg) -> str:
     """Shape identity of a model config: what a TunedConfig is valid for.
@@ -543,6 +542,7 @@ def _fake_engine(cfg, params, engine_kwargs: dict):
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.fx.experimental.symbolic_shapes import ShapeEnv
 
+    from ..parallel.ranks import traced_rank
     from ..serving import ContinuousBatchingEngine
 
     mode = FakeTensorMode(allow_non_fake_inputs=True, shape_env=ShapeEnv(),
@@ -554,7 +554,8 @@ def _fake_engine(cfg, params, engine_kwargs: dict):
         return mode.from_tensor(v)
 
     fakes = {name: fake(w) for name, w in params.items()}
-    with mode, warnings.catch_warnings():
+    # a sharded candidate binds as rank 0 with no live process group
+    with mode, warnings.catch_warnings(), traced_rank(0):
         warnings.simplefilter("ignore")
         return ContinuousBatchingEngine(cfg, fakes, **engine_kwargs)
 
@@ -565,14 +566,12 @@ def _score_candidate(cfg, params, config, engine_kwargs, spec, budget,
     chunk, and the unified window where built) on a fake engine, gate the
     traced peak against the budget, and price the decode chunk with the
     roofline pass."""
+    from . import comms as _comms
     from . import memory as _mem
     from . import roofline as _roof
 
     geo = _engine_geometry(engine_kwargs)
-    # mp = cp = 1 here (sharded candidates are pruned): the wire switch
-    # has nothing to quantize
-    kw = {k: v for k, v in {**(engine_kwargs or {}), **config}.items()
-          if k != "quantized_collectives"}
+    kw = {**(engine_kwargs or {}), **config}
     kw.setdefault("device", params["llama.embed_tokens.weight"].device)
     progs = ["decode"] + (["unified"] if config["unified_step"] else [])
     keys = {name: _program_key(name, config) for name in progs}
@@ -588,7 +587,8 @@ def _score_candidate(cfg, params, config, engine_kwargs, spec, budget,
             if name == "decode":
                 roof = _roof.audit_graph(graph, spec)
                 res.update(step_ms=roof.predicted_step_ms,
-                           mfu=roof.predicted_mfu, bound=roof.bound)
+                           mfu=roof.predicted_mfu, bound=roof.bound,
+                           wire=_comms.audit_graph(graph).total_wire_bytes)
             results[name] = memo[keys[name]] = res
     peak = max(res["peak"] for res in results.values())
     if peak > budget:
@@ -606,9 +606,8 @@ def _score_candidate(cfg, params, config, engine_kwargs, spec, budget,
         predicted_step_ms=dec["step_ms"],
         predicted_ms_per_token=dec["step_ms"] / tokens,
         predicted_mfu=dec["mfu"],
-        # no wire on one device: the communication pass waits for
-        # ROADMAP.md section 1 item 5; the key keeps the JAX schema
-        predicted_wire_bytes_per_token=0.0,
+        # the decode chunk's per-rank wire bytes a token (0 on one device)
+        predicted_wire_bytes_per_token=dec["wire"] / tokens,
         bound=dec["bound"], n_programs=len(results))
 
 
@@ -663,15 +662,7 @@ def autotune(cfg, params, *, engine_kwargs: Optional[dict] = None,
     for config in candidates:
         bound = static_candidate_bound(cfg, params, config,
                                        engine_kwargs)
-        mp = int(config["serving_mp"])
-        cp = int(config.get("serving_cp", 1))
-        if mp > 1 or cp > 1:
-            # named, never built: no pass prices their wire
-            res = CandidateResult(
-                config=config, feasible=False, static_bound_bytes=bound,
-                pruned_reason=f"serving_mp={mp}, serving_cp={cp}: "
-                              f"{_MESH_UNPORTED}")
-        elif bound > budget:
+        if bound > budget:
             res = CandidateResult(
                 config=config, feasible=False,
                 static_bound_bytes=bound,

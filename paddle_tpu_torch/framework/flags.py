@@ -201,15 +201,16 @@ define_flag("barrier_timeout_s", 60.0,
             "PADDLE_TPU_BARRIER_TIMEOUT_S)",
             env_aliases=("PADDLE_TPU_BARRIER_TIMEOUT_S",))
 
-# --- trainer options hapi.Model.fit resolves (and the port refuses) ---
+# --- the wire: serving seams and the dp gradient sync ---
 define_flag("quantized_collectives", False,
             "ship the hot cross-chip payloads as absmax-scaled int8 "
             "with an f32 scale sidecar (parallel/collectives.py, "
             "EQuARX-style — the int8 KV pools' proven scheme): the "
             "per-layer o-proj activation all-gather at serving_mp > 1 "
             "(and the megakernel path's partial-sum psum), and the dp "
-            "gradient psum in Model.fit (reduce-scatter on int8 "
-            "shards + f32 dequant-accumulate + all-gather). ~0.5x the "
+            "gradient sum in Model.fit (quantized_psum_tree: an "
+            "all_to_all of int8 chunks + f32 dequant-accumulate + "
+            "all-gather). ~0.5x the "
             "bf16 wire bytes, ~0.25x f32. Off (default) = every wire "
             "byte-identical to today. Read at program-BUILD time like "
             "every serving flag (it joins the jit program keys; "
@@ -232,10 +233,12 @@ define_flag("audit_memory", False,
             "(also: PADDLE_TPU_AUDIT_MEMORY)",
             env_aliases=("PADDLE_TPU_AUDIT_MEMORY",))
 define_flag("audit_comms", False,
-            "run the static communication auditor at the audit hooks; "
-            "the communication audit is not ported yet, so an audit "
-            "that resolves on raises (ROADMAP.md section 1 item 5) "
-            "(also: PADDLE_TPU_AUDIT_COMMS)",
+            "run the static communication auditor (analysis/comms.py: "
+            "bytes on wire per rank from the collective operators' "
+            "nodes, TPU801-803) at the audit hooks — "
+            "ContinuousBatchingEngine.warm() over every program and "
+            "Model.fit over the training step. PADDLE_TPU_LINT=1 "
+            "implies it (also: PADDLE_TPU_AUDIT_COMMS)",
             env_aliases=("PADDLE_TPU_AUDIT_COMMS",))
 define_flag("audit_roofline", False,
             "run the static roofline auditor (analysis/roofline.py: "
@@ -268,8 +271,8 @@ define_flag("tuned_config", "",
             "ContinuousBatchingEngine default its build-time knobs "
             "(kv_cache_dtype, decode_megakernel, unified_step, "
             "token_budget, block_size, speculative, spec_k; "
-            "serving_mp / serving_cp 1 and quantized_collectives off "
-            "on one card) from the autotuner's winner, ranked by the "
+            "serving_mp / serving_cp / quantized_collectives, from the "
+            "degrees the host's cards build) from the autotuner's winner, ranked by the "
             "H100 roofline with each kernel priced at the share of its "
             "bound it reaches on the card at the main path's shapes "
             "(check a winner far from those on the card); explicit "

@@ -18,13 +18,18 @@ Differences from the JAX package's trainer, by design:
 - resume and `load` copy the saved state into the live parameters
   (``network.load_state_dict``), so every parameter keeps its identity
   and the optimizer's state, keyed by parameter, stays attached.
-- The static audits (``audit_memory`` / ``audit_roofline``, or
-  ``PADDLE_TPU_LINT=1``) trace the whole training step once (forward,
-  backward and the optimizer's update) on fake tensors; the JAX package
-  traces the forward for its memory audit. ``audit_comms`` and
-  ``quantized_collectives`` need a device mesh, which the port does not
-  have: `fit` raises NotImplementedError when one resolves on (ROADMAP.md
-  section 1 item 5) instead of ignoring it.
+- The static audits (``audit_memory`` / ``audit_comms`` /
+  ``audit_roofline``, or ``PADDLE_TPU_LINT=1``) trace the whole training
+  step once (forward, backward, the dp gradient sync and the optimizer's
+  update) on fake tensors; the JAX package traces the forward for its
+  memory audit.
+- Data parallelism: under a global mesh whose dp axis exceeds 1
+  (`parallel.mesh`), every rank runs `fit` over the same global batches
+  and trains on its rows of each; the gradients are summed over dp before
+  the optimizer's step (one all-reduce a dtype, or with
+  ``quantized_collectives`` the int8 `quantized_psum_tree`). The JAX
+  single controller trains the global batch eagerly unless the sync is
+  quantized; SPMD ranks always sync.
 """
 from __future__ import annotations
 
@@ -37,7 +42,6 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..framework.flags import flag
 from ..io import DataLoader, Dataset
 from ..metric import Metric
 from ..observability import metrics as obs_metrics
@@ -52,14 +56,6 @@ def _to_list(x):
     if x is None:
         return []
     return list(x) if isinstance(x, (list, tuple)) else [x]
-
-
-def _resolve_refused(value, *flags) -> bool:
-    """An explicit True/False wins; None follows the flags (each audit's
-    own, or the PADDLE_TPU_LINT switch that implies them all)."""
-    if value is not None:
-        return bool(value)
-    return any(bool(flag(f)) for f in flags)
 
 
 def _numpy_out(t):
@@ -99,6 +95,11 @@ class Model:
         # fit(audit_memory=True) / fit(audit_roofline=True), else None
         self.memory_audit = None
         self.roofline_audit = None
+        self.comms_audit = None
+        # the last fit()'s resolved quantized_collectives (None before a
+        # fit) and the batches synced through the quantized dp step
+        self._quantized_collectives = None
+        self.quantized_dp_steps = 0
 
     # ------------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -143,6 +144,55 @@ class Model:
             self._optimizer.clear_grad()
         metrics = self._update_metrics(outputs, labels)
         out = [float(loss.detach())]
+        return (out, metrics) if metrics else out
+
+    def _dp_ref(self):
+        """The global mesh's dp GroupRef when dp > 1, else None."""
+        from ..parallel.mesh import get_global_mesh
+        from ..parallel.trainer import dp_ref_of
+
+        return dp_ref_of(get_global_mesh())
+
+    def _dp_train_batch(self, inputs, labels=None, update=True):
+        """`train_batch` over the dp mesh: this rank's rows, its loss
+        weighted by its share of the rows, and (at an update) the
+        gradients accumulated so far summed over dp before the optimizer's
+        step; the loss returned is the global batch's. A batch dp does
+        not divide runs whole (`train_batch`)."""
+        from ..parallel.collectives import all_reduce
+        from ..parallel.trainer import local_rows, sync_grads
+
+        dp = self._dp_ref()
+        self.network.train()
+        inputs = self._on_device(inputs)
+        labels = self._on_device(labels)
+        n_in = len(inputs)
+        split = local_rows(tuple(inputs) + tuple(labels), dp)
+        if split is None:
+            return self.train_batch(inputs, labels, update=update)
+        rows, share = split
+        outputs = self.network(*rows[:n_in])
+        loss = self._compute_loss(outputs, list(rows[n_in:]))
+        (loss * share).backward()
+        if update and self._optimizer is not None:
+            params = {n: p for n, p in self.network.named_parameters()
+                      if p.grad is not None}
+            quantized = bool(self._quantized_collectives)
+            red = sync_grads({n: p.grad for n, p in params.items()}, dp,
+                             quantized)
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.grad.copy_(red[n])
+            self.quantized_dp_steps += int(quantized)
+            self._optimizer.step()
+            self._optimizer.clear_grad()
+        loss = all_reduce(loss.detach() * share, dp)
+        metrics = []
+        if self._metrics:
+            with torch.no_grad():
+                metrics = self._update_metrics(self.network(*inputs),
+                                               labels)
+        out = [float(loss)]
         return (out, metrics) if metrics else out
 
     @torch.no_grad()
@@ -208,34 +258,50 @@ class Model:
         `fit_*_s` histograms and the `fit_steps` counter. Off (default):
         nothing is recorded.
 
-        Static audits: `audit_memory=True` / `audit_roofline=True`
-        (default: FLAGS_audit_memory / FLAGS_audit_roofline, both implied
-        by PADDLE_TPU_LINT=1) trace the training step once at the first
-        batch's shapes, on fake tensors (forward, backward and the
-        optimizer's update; nothing runs, no parameter or state moves),
-        and keep the liveness report (`analysis/memory.py`, TPU701-703)
-        on `self.memory_audit` and the roofline report
+        Static audits: `audit_memory=True` / `audit_comms=True` /
+        `audit_roofline=True` (default: FLAGS_audit_memory /
+        FLAGS_audit_comms / FLAGS_audit_roofline, all implied by
+        PADDLE_TPU_LINT=1) trace the training step once at the first
+        batch's shapes, on fake tensors (forward, backward, the dp
+        gradient sync and the optimizer's update; nothing runs, no
+        parameter or state moves, nothing is exchanged), and keep the
+        liveness report (`analysis/memory.py`, TPU701-703) on
+        `self.memory_audit`, the wire report (`analysis/comms.py`,
+        TPU801-803: the dp gradient all-reduce, ``fit.step[dp=N]``) on
+        `self.comms_audit` and the roofline report
         (`analysis/roofline.py`, TPU901-903) on `self.roofline_audit`,
         each with its observability event. A failed audit warns and
         training goes on.
 
-        Refused (NotImplementedError, nothing ignored): audit_comms and
-        quantized_collectives resolving on (the argument, or
-        PADDLE_TPU_AUDIT_COMMS / PADDLE_TPU_QUANTIZED_COLLECTIVES).
+        Data parallelism and `quantized_collectives` (default:
+        FLAGS_quantized_collectives): under a global mesh whose dp axis
+        exceeds 1, each batch trains on this rank's rows and the
+        gradients are summed over dp before the optimizer's step; with
+        quantized collectives the sum is `quantized_psum_tree` (counted
+        by `self.quantized_dp_steps`). Without a dp mesh, quantized
+        collectives warn and training keeps the one-rank path. A batch
+        whose rows dp does not divide runs whole on every rank (no sync).
         """
-        from ..analysis import resolve_audit_comms
+        from ..analysis.comms import resolve_audit_comms
         from ..analysis.memory import resolve_audit_memory
         from ..analysis.roofline import resolve_audit_roofline
+        from ..parallel.collectives import resolve_quantized_collectives
 
-        resolve_audit_comms(audit_comms)
         audits = (resolve_audit_memory(audit_memory),
-                  resolve_audit_roofline(audit_roofline))
+                  resolve_audit_roofline(audit_roofline),
+                  resolve_audit_comms(audit_comms))
         audit_pending = any(audits)
-        if _resolve_refused(quantized_collectives, "quantized_collectives"):
-            raise NotImplementedError(
-                "fit(quantized_collectives=True): the quantized dp "
-                "gradient sync needs a device mesh, which the port does "
-                "not have yet (ROADMAP.md section 1 item 5)")
+        self._quantized_collectives = resolve_quantized_collectives(
+            quantized_collectives)
+        self.quantized_dp_steps = 0
+        dp = self._dp_ref()
+        if self._quantized_collectives and dp is None:
+            warnings.warn(
+                "fit(quantized_collectives=True): no global mesh with a dp "
+                "axis above 1, so there is no gradient sync to quantize; "
+                "training keeps the one-rank path")
+        train_batch = self.train_batch if dp is None else \
+            self._dp_train_batch
         loader = self._make_loader(train_data, batch_size, shuffle)
         eval_loader = self._make_loader(eval_data, batch_size, False)
         cbks = CallbackList(_to_list(callbacks) or [ProgBarLogger(log_freq,
@@ -306,16 +372,14 @@ class Model:
                         self._audit_step(ins, labs, *audits)
                     update = (step + 1) % accumulate_grad_batches == 0
                     if tr is None and mt is None:
-                        res = self.train_batch(ins, labs, update=update)
+                        res = train_batch(ins, labs, update=update)
                     else:
                         t0 = time.perf_counter()
                         if tr is not None:
                             with tr.step_span("fit.step", it_count):
-                                res = self.train_batch(ins, labs,
-                                                       update=update)
+                                res = train_batch(ins, labs, update=update)
                         else:
-                            res = self.train_batch(ins, labs,
-                                                   update=update)
+                            res = train_batch(ins, labs, update=update)
                         if mt is not None:
                             mt.histogram(
                                 "fit_step_s",
@@ -482,23 +546,35 @@ class Model:
         return outputs
 
     # ------------------------------------------------------------------
-    def _step_program(self, n_ins):
+    def _step_program(self, n_ins, dp=None):
         """step(params, states, *inputs, *labels) -> loss: the training
         step `train_batch` runs (forward, backward, the optimizer's
         per-parameter update), as a function of its tensors for the
-        static audits. An optimizer without state yet makes its
-        accumulators inside the step."""
+        static audits; with `dp` (a GroupRef) the `_dp_train_batch` step:
+        this rank's rows and the dp gradient sum before the update. An
+        optimizer without state yet makes its accumulators inside the
+        step."""
         from torch.nn.utils.stateless import _reparametrize_module
+
+        from ..parallel.trainer import local_rows, sync_grads
 
         net, opt = self.network, self._optimizer
         real = dict(net.named_parameters())
+        quantized = bool(self._quantized_collectives)
 
         def step(params, states, *batch):
+            share = 1.0
+            if dp is not None:
+                batch, share = local_rows(batch, dp)
             ins, labs = batch[:n_ins], batch[n_ins:]
             with _reparametrize_module(net, params):
                 loss = self._compute_loss(net(*ins), list(labs))
             ps = list(params.values())
-            grads = torch.autograd.grad(loss, ps, allow_unused=True)
+            grads = torch.autograd.grad(loss * share, ps, allow_unused=True)
+            if dp is not None:
+                got = {n: g for n, g in zip(params, grads) if g is not None}
+                red = sync_grads(got, dp, quantized)
+                grads = [red.get(n) for n in params]
             if opt is None or not hasattr(opt, "_update_rule_arr"):
                 return loss
             if opt._grad_clip is not None:
@@ -523,15 +599,21 @@ class Model:
 
         return step
 
-    def _audit_step(self, ins, labs, do_memory, do_roofline):
+    def _audit_step(self, ins, labs, do_memory, do_roofline,
+                    do_comms=False):
         """Trace the training step once at this batch's shapes (fakes on
-        the model's device: no device memory, no launch) and run the
-        asked audits over the one graph."""
+        the model's device: no device memory, no launch, no exchange) and
+        run the asked audits over the one graph. Under a dp mesh the step
+        is the dp step (``fit.step[dp=N]``, ``+int8coll`` with quantized
+        collectives); a batch dp does not divide audits the one-rank step
+        and warns, since its report would hide the gradient sum."""
         try:
+            from ..analysis import comms as _comms
             from ..analysis import memory as _mem
             from ..analysis import roofline as _roof
             from ..analysis.graph import fakes_on, trace_graph
             from ..analysis.pipeline import analyze as _analyze
+            from ..parallel.trainer import local_rows
 
             batch = fakes_on(self.device, [torch.as_tensor(x) for x in
                                            _to_list(ins) + _to_list(labs)])
@@ -540,8 +622,29 @@ class Model:
             opt = self._optimizer
             states = [getattr(opt, "_accumulators", {}).get(id(p))
                       for p in params.values()]
-            g = trace_graph(self._step_program(len(_to_list(ins))), params,
-                            states, *batch, name="fit.step", grad=True)
+            dp, name = self._dp_ref(), "fit.step"
+            if dp is not None and local_rows(tuple(batch), dp) is None:
+                warnings.warn(
+                    f"fit's static audit: the global mesh has dp={dp.size} "
+                    "but a batch leaf is 0-d or its leading dim does not "
+                    "divide by dp — auditing the single-rank step; the dp "
+                    "gradient psum is NOT counted")
+                dp = None
+            if dp is not None:
+                name = f"fit.step[dp={dp.size}]" + (
+                    "+int8coll" if self._quantized_collectives else "")
+            g = trace_graph(self._step_program(len(_to_list(ins)), dp),
+                            params, states, *batch, name=name, grad=True)
+            if do_comms:
+                rep = _comms.audit_graph(g)
+                lint = _analyze(None, graph=g,
+                                rules=["TPU801", "TPU802", "TPU803"])
+                self.comms_audit = {
+                    **rep.to_dict(),
+                    "diagnostics": lint.to_dict()["diagnostics"]}
+                record_event("comms.audit", target=name,
+                             bytes_on_wire=rep.total_wire_bytes,
+                             n_collectives=rep.n_collectives, mp=rep.mp)
             if do_memory:
                 rep = _mem.audit_graph(g)
                 lint = _analyze(None, graph=g,
@@ -549,7 +652,7 @@ class Model:
                 self.memory_audit = {
                     **rep.to_dict(),
                     "diagnostics": lint.to_dict()["diagnostics"]}
-                record_event("memory.audit", target="fit.step",
+                record_event("memory.audit", target=name,
                              peak_hbm_bytes=rep.peak_bytes, mp=rep.mp)
             if do_roofline:
                 rep = _roof.audit_graph(g)
@@ -562,7 +665,7 @@ class Model:
                 self.roofline_audit = {
                     **rep.to_dict(),
                     "diagnostics": lint.to_dict()["diagnostics"]}
-                record_event("roofline.audit", target="fit.step",
+                record_event("roofline.audit", target=name,
                              device=rep.spec.name,
                              predicted_step_ms=rep.predicted_step_ms,
                              predicted_mfu=rep.predicted_mfu,

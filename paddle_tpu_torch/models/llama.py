@@ -1839,7 +1839,7 @@ def _make_decode_step_megakernel(cfg, b, tables, mode: str = "attn",
                 if quantize_wire:
                     q8, q8s = out
                     red = quantized_psum_prequant(
-                        q8, q8s, tp.mp_group, shape=(b, 1, H),
+                        q8, q8s, tp.mp_ref, shape=(b, 1, H),
                         dtype=torch.float32)
                 else:
                     red = tp.psum_partial(out)
@@ -1922,7 +1922,10 @@ class ServingTP:
 
     The geometry (and its errors) needs no process group. `bind()` ties
     the seams to this rank's mp and cp groups (rank = c * mp + m); only
-    the three seams issue collectives."""
+    the three seams make collectives, naming the groups by their
+    `GroupRef` (`mp_ref`, `cp_ref`), so under
+    `parallel.ranks.traced_rank` a ServingTP binds as that rank with no
+    live group and its programs trace (the tuner's sharded candidates)."""
 
     def __init__(self, cfg, mp: int, quantized: Optional[bool] = None,
                  cp: int = 1):
@@ -1961,15 +1964,29 @@ class ServingTP:
         self.rank = 0
         self.mp_group = self.cp_group = None
         self.backend = None
+        self._refs(0)
+
+    def _refs(self, rank: int):
+        from ..parallel.ranks import serving_group_keys
+
+        self.rank = int(rank)
+        self.mp_ref, self.cp_ref = serving_group_keys(self.mp, self.cp,
+                                                      self.rank)
 
     def bind(self):
         """Tie the seams to this rank's groups of the default process
-        group, which must hold exactly mp * cp ranks."""
+        group, which must hold exactly mp * cp ranks (under
+        `parallel.ranks.traced_rank`: to that rank's group keys, with no
+        group)."""
         import torch.distributed as dist
 
-        from ..parallel.ranks import LAUNCHER, serving_groups
+        from ..parallel.ranks import LAUNCHER, serving_groups, tracing_rank
 
         world = self.mp * self.cp
+        traced = tracing_rank()
+        if traced is not None:
+            self._refs(traced % world)
+            return self
         if not (dist.is_available() and dist.is_initialized()):
             raise ValueError(
                 f"serving_mp={self.mp} x serving_cp={self.cp} runs one "
@@ -1983,7 +2000,7 @@ class ServingTP:
                 f"serving_mp={self.mp} x serving_cp={self.cp} needs a "
                 f"default process group of {world} ranks, got "
                 f"{dist.get_world_size()} (start them with `{LAUNCHER}`)")
-        self.rank = dist.get_rank()
+        self._refs(dist.get_rank())
         self.backend = dist.get_backend()
         self.mp_group, self.cp_group = serving_groups(self.mp, self.cp)
         return self
@@ -2009,9 +2026,9 @@ class ServingTP:
         if ctx.dtype == torch.float32:
             ctx = ctx.to(torch.bfloat16)
         if self.quantized:
-            return quantized_all_gather(ctx, self.mp_group,
+            return quantized_all_gather(ctx, self.mp_ref,
                                         dim=ctx.ndim - 2)
-        return all_gather(ctx, self.mp_group, dim=ctx.ndim - 2)
+        return all_gather(ctx, self.mp_ref, dim=ctx.ndim - 2)
 
     def psum_partial(self, partial):
         """Sum the ranks' f32 o-proj partials (the megakernel path's
@@ -2019,8 +2036,8 @@ class ServingTP:
         if self.mp <= 1:
             return partial
         if self.quantized:
-            return quantized_psum(partial, self.mp_group)
-        return all_reduce(partial, self.mp_group)
+            return quantized_psum(partial, self.mp_ref)
+        return all_reduce(partial, self.mp_ref)
 
     def merge_attn_partials(self, m, l, acc):
         """Merge the cp ranks' online-softmax partials: M = max m,
@@ -2030,14 +2047,14 @@ class ServingTP:
         exact."""
         if self.cp <= 1:
             return m, l, acc
-        m_g = all_reduce(m, self.cp_group, op="max")
+        m_g = all_reduce(m, self.cp_ref, op="max")
         w = torch.exp(m - m_g)
-        l_g = all_reduce(l * w, self.cp_group)
+        l_g = all_reduce(l * w, self.cp_ref)
         acc_w = acc * w[..., None]
         if self.quantized:
-            acc_g = quantized_psum(acc_w, self.cp_group)
+            acc_g = quantized_psum(acc_w, self.cp_ref)
         else:
-            acc_g = all_reduce(acc_w, self.cp_group)
+            acc_g = all_reduce(acc_w, self.cp_ref)
         return m_g, l_g, acc_g
 
     def pps(self, pool) -> int:

@@ -1,9 +1,32 @@
-"""Quantized collectives over torch.distributed process groups
-(counterpart of paddle_tpu/parallel/collectives.py).
+"""Collectives over torch.distributed process groups, as graph nodes,
+and the quantized wire (counterpart of paddle_tpu/parallel/collectives.py).
 
 The JAX functions take a mesh axis name inside ``shard_map``; these take
-a process group (None = the default group) and run on every rank of it,
-SPMD. The wire format is the JAX package's, byte for byte:
+a process group (None = the default group, a ``ProcessGroup``, or a
+`parallel.ranks.GroupRef`) and run on every rank of it, SPMD.
+
+**Collectives as operators.** Each plain collective (``all_gather``,
+``all_reduce``, ``all_to_all``, ``broadcast``) is one ``torch.library``
+operator ``paddle_tpu_comm::<name>`` (the precedent is
+``kernels/_build.kernel_op``), so ``make_fx`` records it as one node
+that the communication audit (``analysis/comms.py``) reads:
+
+- the schema names the group by its registry key and size (a schema
+  cannot take a ``ProcessGroup``; `parallel.ranks.resolve_group` looks
+  the key up and raises when it is missing);
+- the real implementation is the exchange: on a gloo group a CUDA
+  tensor is copied to the host, exchanged there and copied back (gloo
+  has no CUDA path for all_to_all and only a host-staged one for the
+  rest; ranks that share one card run gloo, since NCCL refuses two ranks
+  on one GPU), on NCCL device tensors are exchanged directly;
+- the fake implementation gives the output's shape from the group size,
+  so a program traces on fake tensors with no live group.
+
+The namespace is not the kernels' (``paddle_tpu``): a collective node is
+never counted as a kernel launch. Size-1 groups never reach an operator
+(the functions return their input).
+
+**The wire format** is the JAX package's, byte for byte:
 
 - ``quantize_blocks`` / ``dequantize_blocks``: symmetric absmax int8 in
   blocks of 128 along the last dim (scale = absmax / 127; an all-zero
@@ -19,18 +42,13 @@ SPMD. The wire format is the JAX package's, byte for byte:
   all-gather of the re-quantized reduced chunk;
 - ``quantized_psum_prequant``: hops 2 and 3 for a payload the producer
   quantized already (the decode megakernel's ``quantize_out``);
-- ``quantized_reduce_scatter``: the first hop alone.
+- ``quantized_reduce_scatter``: the first hop alone;
+- ``quantized_psum_tree``: the dp gradient sync, one ``quantized_psum``
+  over the float leaves of a tree concatenated in JAX's leaf order
+  (``all_reduce_tree`` is the unquantized sync: one all-reduce a dtype).
 
-The plain collectives below them (``all_gather``, ``all_reduce``,
-``all_to_all``) are the only calls into torch.distributed the serving
-seams make. gloo has no CUDA path for all_to_all and only a host-staged
-one for the rest, so on a gloo group a CUDA tensor is copied to the host,
-exchanged there and copied back: the call that works for every op, taken
-on purpose (ranks that share one card run gloo; NCCL refuses two ranks on
-one GPU). NCCL groups exchange device tensors directly.
-
-The tree psum of dp gradients (`quantized_psum_tree`) serves training and
-is not here yet (ROADMAP.md section 1 item 5).
+Each quantized hop is one int8 node of the plain operators above, which
+is how the audit recognizes the rewrite (JAX's `_mark_quantized`).
 """
 from __future__ import annotations
 
@@ -41,12 +59,15 @@ import torch
 import torch.distributed as dist
 
 from ..framework.flags import flag as _flag
+from .ranks import group_ref, resolve_group
 
 __all__ = [
-    "QCOLL_BLOCK", "QCOLL_FALLBACK_MSG", "resolve_quantized_collectives",
-    "quantize_blocks", "dequantize_blocks", "quantized_all_gather",
-    "quantized_psum", "quantized_psum_prequant", "quantized_reduce_scatter",
-    "all_gather", "all_reduce", "all_to_all", "group_size",
+    "COMM_NAMESPACE", "QCOLL_BLOCK", "QCOLL_FALLBACK_MSG",
+    "resolve_quantized_collectives", "quantize_blocks", "dequantize_blocks",
+    "quantized_all_gather", "quantized_psum", "quantized_psum_prequant",
+    "quantized_psum_tree", "quantized_reduce_scatter", "all_gather",
+    "all_reduce", "all_reduce_tree", "all_to_all", "WIRE_COUNTS",
+    "reset_wire_counts", "broadcast", "group_size", "tree_leaves",
 ]
 
 # lane-width blocks along the last dim (one f32 scale per 128 int8 bytes)
@@ -55,6 +76,8 @@ QCOLL_BLOCK = 128
 QCOLL_FALLBACK_MSG = (
     "payload cannot be block-quantized; falling back to the "
     "unquantized collective (full-width wire bytes, exact numerics)")
+
+COMM_NAMESPACE = "paddle_tpu_comm"
 
 
 def resolve_quantized_collectives(quantized: Optional[bool] = None) -> bool:
@@ -67,58 +90,159 @@ def resolve_quantized_collectives(quantized: Optional[bool] = None) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the plain collectives (the only torch.distributed calls of the seams)
+# the plain collectives: one operator each
 # ---------------------------------------------------------------------------
 
+_OPS = torch.library.Library(COMM_NAMESPACE, "DEF")
+_REDUCE = {"sum": "SUM", "max": "MAX", "min": "MIN"}
+
+# what the real implementations exchanged, by operator: calls, the bytes
+# this rank handed in, and the bytes of other ranks' data its result
+# holds (a gather's (n-1)/n, an all-to-all's (n-1)/n, a reduction's n-1
+# contributions, a broadcast's payload off the source). Moved only by a
+# real exchange: a traced (fake) call counts nothing.
+WIRE_COUNTS = {}
+
+
+def _count(kind: str, handed: int, received: int) -> None:
+    c = WIRE_COUNTS.setdefault(kind, {"calls": 0, "handed_bytes": 0,
+                                      "received_bytes": 0})
+    c["calls"] += 1
+    c["handed_bytes"] += int(handed)
+    c["received_bytes"] += int(received)
+
+
+def reset_wire_counts() -> None:
+    WIRE_COUNTS.clear()
+
+
+def _staged(x: torch.Tensor, pg, inplace: bool = False):
+    """(tensor to hand the backend, whether it was copied to the host);
+    `inplace` exchanges write into it, so it must be a copy."""
+    staged = x.is_cuda and dist.get_backend(pg) == "gloo"
+    if staged:
+        return x.cpu().contiguous(), True
+    return (x.clone() if inplace else x).contiguous(), False
+
+
+def _all_gather_impl(x, group: str, size: int, dim: int):
+    pg = resolve_group(group)
+    src, staged = _staged(x, pg)
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src, group=pg)
+    out = torch.cat(parts, dim=dim)
+    nb = src.numel() * src.element_size()
+    _count("all_gather", nb, nb * (size - 1))
+    return out.to(x.device) if staged else out
+
+
+def _all_gather_fake(x, group: str, size: int, dim: int):
+    shape = list(x.shape)
+    shape[dim] *= size
+    return x.new_empty(shape)
+
+
+def _all_reduce_impl(x, group: str, size: int, op: str):
+    pg = resolve_group(group)
+    out, staged = _staged(x, pg, inplace=True)
+    dist.all_reduce(out, op=getattr(dist.ReduceOp, _REDUCE[op]), group=pg)
+    nb = out.numel() * out.element_size()
+    _count("all_reduce", nb, nb * (size - 1))
+    return out.to(x.device) if staged else out
+
+
+def _all_to_all_impl(x, group: str, size: int):
+    pg = resolve_group(group)
+    src, staged = _staged(x, pg)
+    # the single-tensor form: gloo implements it (alltoall_base), not the
+    # list form
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=pg)
+    nb = src.numel() * src.element_size()
+    _count("all_to_all", nb, nb * (size - 1) // size)
+    return out.to(x.device) if staged else out
+
+
+def _broadcast_impl(x, group: str, size: int, src: int):
+    pg = resolve_group(group)
+    out, staged = _staged(x, pg, inplace=True)
+    dist.broadcast(out, src=dist.get_global_rank(pg, src)
+                   if pg is not dist.group.WORLD else src, group=pg)
+    nb = out.numel() * out.element_size()
+    _count("broadcast", nb, 0 if dist.get_rank(pg) == src else nb)
+    return out.to(x.device) if staged else out
+
+
+def _same_fake(x, *args):
+    return torch.empty_like(x)
+
+
+def _comm_op(name, schema, impl, fake):
+    _OPS.define(name + schema)
+    for key in ("CPU", "CUDA"):
+        _OPS.impl(name, impl, key)
+    torch.library.register_fake(f"{COMM_NAMESPACE}::{name}", fake, lib=_OPS)
+    return getattr(getattr(torch.ops, COMM_NAMESPACE), name).default
+
+
+_all_gather_op = _comm_op(
+    "all_gather", "(Tensor x, str group, int size, int dim) -> Tensor",
+    _all_gather_impl, _all_gather_fake)
+_all_reduce_op = _comm_op(
+    "all_reduce", "(Tensor x, str group, int size, str op) -> Tensor",
+    _all_reduce_impl, _same_fake)
+_all_to_all_op = _comm_op(
+    "all_to_all", "(Tensor x, str group, int size) -> Tensor",
+    _all_to_all_impl, _same_fake)
+_broadcast_op = _comm_op(
+    "broadcast", "(Tensor x, str group, int size, int src) -> Tensor",
+    _broadcast_impl, _same_fake)
+
+
 def group_size(group=None) -> int:
-    return dist.get_world_size(group)
-
-
-def _host_staged(x: torch.Tensor, group) -> bool:
-    return x.is_cuda and dist.get_backend(group) == "gloo"
+    return group_ref(group).size
 
 
 def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     """Every rank's `x` concatenated along `dim` in rank order (the JAX
     ``all_gather(tiled=True)``)."""
-    n = group_size(group)
-    if n == 1:
+    ref = group_ref(group)
+    if ref.size == 1:
         return x
-    staged = _host_staged(x, group)
-    src = (x.cpu() if staged else x).contiguous()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts, dim=dim)
-    return out.to(x.device) if staged else out
+    return _all_gather_op(x, ref.key, ref.size, dim % max(x.ndim, 1))
 
 
 def all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
-    """A new tensor holding the sum (or max) of every rank's `x`."""
-    if group_size(group) == 1:
+    """A new tensor holding the sum (or max, min) of every rank's `x`."""
+    ref = group_ref(group)
+    if ref.size == 1:
         return x
-    staged = _host_staged(x, group)
-    out = x.cpu() if staged else x.clone()
-    out = out.contiguous()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
-                    else dist.ReduceOp.SUM, group=group)
-    return out.to(x.device) if staged else out
+    if op not in _REDUCE:
+        raise ValueError(f"all_reduce: op {op!r} is not one of "
+                         f"{sorted(_REDUCE)}")
+    return _all_reduce_op(x, ref.key, ref.size, op)
 
 
 def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     """x [n, ...] -> [n, ...]: row j goes to rank j, and row j of the
     result came from rank j (the JAX ``all_to_all(split_axis=0,
     concat_axis=0)``)."""
-    n = group_size(group)
+    ref = group_ref(group)
+    n = ref.size
     if x.shape[0] != n:
         raise ValueError(f"all_to_all: leading dim {x.shape[0]} is not the "
                          f"group size {n}")
-    staged = _host_staged(x, group)
-    src = (x.cpu() if staged else x).contiguous()
-    # the single-tensor form: gloo implements it (alltoall_base), not the
-    # list form
-    out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=group)
-    return out.to(x.device) if staged else out
+    if n == 1:
+        return x
+    return _all_to_all_op(x, ref.key, n)
+
+
+def broadcast(x: torch.Tensor, group=None, src: int = 0) -> torch.Tensor:
+    """A new tensor holding the group's rank `src`'s `x` on every rank."""
+    ref = group_ref(group)
+    if ref.size == 1:
+        return x
+    return _broadcast_op(x, ref.key, ref.size, int(src))
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +401,7 @@ def quantized_reduce_scatter(x: torch.Tensor, group=None, *,
         warnings.warn(f"quantized_reduce_scatter: {QCOLL_FALLBACK_MSG}",
                       stacklevel=2)
         full = all_reduce(x, group)
-        return full.reshape(n, -1, *x.shape[1:])[dist.get_rank(group)]
+        return full.reshape(n, -1, *x.shape[1:])[group_ref(group).rank]
     if n == 1:
         return x
     if x.shape[0] % n:
@@ -291,3 +415,86 @@ def quantized_reduce_scatter(x: torch.Tensor, group=None, *,
     red = torch.sum(dequantize_blocks(qx, sx, out_dim=int(x.shape[-1])),
                     dim=0)
     return red.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the dp gradient sync
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree):
+    """The leaves of a nest of dicts, lists and tuples in JAX's order
+    (``jax.tree.flatten``: a dict's keys sorted), with a function that
+    rebuilds the nest from a list of new leaves."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        subs = [tree_leaves(tree[k]) for k in keys]
+        leaves = [leaf for sub_leaves, _ in subs for leaf in sub_leaves]
+
+        def build(new):
+            out, off = {}, 0
+            for k, (sub_leaves, sub_build) in zip(keys, subs):
+                out[k] = sub_build(new[off:off + len(sub_leaves)])
+                off += len(sub_leaves)
+            return out
+
+        return leaves, build
+    if isinstance(tree, (list, tuple)):
+        subs = [tree_leaves(v) for v in tree]
+        leaves = [leaf for sub_leaves, _ in subs for leaf in sub_leaves]
+
+        def build(new):
+            out, off = [], 0
+            for sub_leaves, sub_build in subs:
+                out.append(sub_build(new[off:off + len(sub_leaves)]))
+                off += len(sub_leaves)
+            return type(tree)(out) if isinstance(tree, list) \
+                else tuple(out)
+
+        return leaves, build
+    return [tree], lambda new: new[0]
+
+
+def all_reduce_tree(tree, group=None):
+    """The unquantized dp gradient sync: the sum over the group of a tree
+    of tensors, as ONE all-reduce per dtype (the leaves of a dtype
+    concatenated flat in JAX's leaf order and split back), where JAX's
+    ``psum`` of the tree is one collective over all its leaves."""
+    leaves, build = tree_leaves(tree)
+    if group_ref(group).size == 1:
+        return build(list(leaves))
+    out = list(leaves)
+    for dtype in dict.fromkeys(leaf.dtype for leaf in leaves):
+        idx = [i for i, leaf in enumerate(leaves) if leaf.dtype == dtype]
+        flat = torch.cat([leaves[i].reshape(-1) for i in idx])
+        red, off = all_reduce(flat, group), 0
+        for i in idx:
+            n = leaves[i].numel()
+            out[i] = red[off:off + n].reshape(leaves[i].shape)
+            off += n
+    return build(out)
+
+
+def quantized_psum_tree(tree, group=None, *, block: int = QCOLL_BLOCK):
+    """The dp gradient sync: the sum over the group of a tree of float
+    leaves (a grads dict) through ONE quantized exchange. The float
+    leaves flatten and concatenate into one f32 vector in JAX's leaf
+    order (a dict's keys sorted: the 128-wide blocks, and so every
+    scale, depend on that order), `quantized_psum` sums it, and the
+    result splits back at each leaf's shape and dtype. Non-float leaves
+    take a plain sum."""
+    leaves, build = tree_leaves(tree)
+    qleaves = [leaf for leaf in leaves if _quantizable(leaf)]
+    if not qleaves:
+        return build([all_reduce(leaf, group) for leaf in leaves])
+    flat = torch.cat([leaf.to(torch.float32).reshape(-1)
+                      for leaf in qleaves])
+    red = quantized_psum(flat, group, block=block)
+    out, off = [], 0
+    for leaf in leaves:
+        if _quantizable(leaf):
+            n = leaf.numel()
+            out.append(red[off:off + n].reshape(leaf.shape).to(leaf.dtype))
+            off += n
+        else:
+            out.append(all_reduce(leaf, group))
+    return build(out)

@@ -1,0 +1,208 @@
+"""The hybrid-parallel topology (counterpart of paddle_tpu/parallel/mesh.py;
+Paddle's ``HybridCommunicateGroup``, fleet/base/topology.py).
+
+The JAX package's mesh is one ``jax.sharding.Mesh`` of named axes over a
+single controller's devices. Here a `Mesh` is a set of process groups, one
+per axis, over the default group's ranks (one process a rank): rank r's
+coordinates are r's row-major digits over the axis sizes, and the group of
+axis a holds the ranks that differ from r in a alone. Each group is
+registered under ``"<axis>@<ranks>"`` (`parallel.ranks.register_group`),
+so the collectives and the communication audit name it by its axis.
+
+Only the ``dp`` axis may exceed 1 in this slice (data-parallel training:
+`make_train_step(mesh=)`, `DataParallel`, ``hapi.Model.fit``); any other
+axis above 1 raises, naming ROADMAP.md section 1 item 5's later steps.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence
+
+import torch.distributed as dist
+
+from .ranks import GroupRef, ranks_key, register_group
+
+__all__ = [
+    "BATCH_AXES", "CP_AXIS", "HYBRID_AXES", "HybridCommunicateGroup",
+    "HybridParallelInfo", "MP_AXIS", "Mesh", "auto_mesh", "build_mesh",
+    "divisible_prefix", "get_global_mesh", "set_global_mesh",
+]
+
+# the reference's ["data", "pipe", "sharding", "sep", "model"] order
+HYBRID_AXES = ("dp", "pp", "sharding", "sep", "mp")
+# the axes a data batch shards over (dp and the ZeRO axis)
+BATCH_AXES = ("dp", "sharding")
+MP_AXIS = "mp"
+CP_AXIS = "cp"
+# the axes this slice builds groups for above size 1
+PORTED_AXES = ("dp",)
+LATER_STEPS = ("ROADMAP.md section 1 item 5's later steps (ZeRO sharding, "
+               "then the model-parallel axes)")
+
+
+@dataclasses.dataclass
+class Mesh:
+    """Named axes over the default group's ranks: `shape` maps each axis
+    to its size (axes of size 1 kept), `refs` each axis to this rank's
+    group on it."""
+
+    shape: Dict[str, int]
+    refs: Dict[str, GroupRef]
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def axis_ref(self, axis: str) -> GroupRef:
+        return self.refs[axis]
+
+    def axis_rank(self, axis: str) -> int:
+        return self.refs[axis].rank
+
+
+def divisible_prefix(mesh, dim: int, names) -> tuple:
+    """Longest prefix of `names` (those in `mesh`) whose product divides
+    `dim` (the JAX rule behind batch sharding specs)."""
+    kept, size = [], 1
+    for n in names:
+        if n not in mesh.axis_names:
+            continue
+        if dim % (size * int(mesh.shape[n])) == 0:
+            kept.append(n)
+            size *= int(mesh.shape[n])
+        else:
+            break
+    return tuple(kept)
+
+
+def _axis_groups(sizes: List[int], axis: int) -> List[List[int]]:
+    """Every group of ranks that differ only in digit `axis` (row-major
+    digits over `sizes`), in a fixed order."""
+    strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
+    others = [i for i in range(len(sizes)) if i != axis]
+    out = []
+    for combo in range(math.prod(sizes[i] for i in others)):
+        base, rem = 0, combo
+        for i in reversed(others):
+            base += (rem % sizes[i]) * strides[i]
+            rem //= sizes[i]
+        out.append([base + k * strides[axis] for k in range(sizes[axis])])
+    return out
+
+
+def build_mesh(shape, axis_names: Optional[Sequence[str]] = None) -> Mesh:
+    """A Mesh from {axis: size} (or sizes with `axis_names`, default the
+    hybrid order). Its size must be the default group's world size (1
+    without a process group). Every rank must call it, in the same order:
+    each axis above 1 makes its process groups (``new_group`` is
+    collective)."""
+    if isinstance(shape, dict):
+        names = tuple(shape)
+        sizes = [int(v) for v in shape.values()]
+    else:
+        sizes = [int(v) for v in shape]
+        names = tuple(axis_names or HYBRID_AXES[:len(sizes)])
+    for name, n in zip(names, sizes):
+        if n > 1 and name not in PORTED_AXES:
+            raise NotImplementedError(
+                f"mesh axis {name!r} of size {n}: only the dp axis is "
+                f"ported above 1 ({LATER_STEPS})")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = math.prod(sizes)
+    if n != world:
+        raise ValueError(f"mesh shape {dict(zip(names, sizes))} needs {n} "
+                         f"ranks, the default group has {world}")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    refs = {}
+    for i, name in enumerate(names):
+        if sizes[i] == 1:
+            refs[name] = GroupRef(ranks_key(name, [rank]), 1, 0)
+            continue
+        for ranks in _axis_groups(sizes, i):
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                refs[name] = register_group(name, ranks, g)
+    return Mesh(dict(zip(names, sizes)), refs)
+
+
+_global_mesh: Optional[Mesh] = None
+
+
+def set_global_mesh(mesh: Optional[Mesh]) -> None:
+    global _global_mesh
+    _global_mesh = mesh
+
+
+def get_global_mesh() -> Optional[Mesh]:
+    return _global_mesh
+
+
+def auto_mesh(**degrees: int) -> Mesh:
+    """Build and install a hybrid mesh, the dp degree inferred from the
+    world size (the reference's HybridCommunicateGroup check)."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    known = math.prod(degrees.values()) if degrees else 1
+    if n % known:
+        raise ValueError(f"{degrees} does not divide the world size {n}")
+    shape = dict(degrees)
+    if "dp" not in shape:
+        shape = {"dp": n // known, **shape}
+    mesh = build_mesh(shape)
+    set_global_mesh(mesh)
+    return mesh
+
+
+@dataclasses.dataclass
+class HybridParallelInfo:
+    """Per-axis degree / rank view (the reference's
+    get_*_parallel_world_size / rank accessors)."""
+
+    mesh: Mesh
+
+    def degree(self, axis: str) -> int:
+        return int(self.mesh.shape.get(axis, 1))
+
+    def axis_rank(self, axis: str) -> int:
+        return self.mesh.axis_rank(axis) if axis in self.mesh.shape else 0
+
+    def get_data_parallel_world_size(self):
+        return self.degree("dp")
+
+    def get_model_parallel_world_size(self):
+        return self.degree("mp")
+
+    def get_pipe_parallel_world_size(self):
+        return self.degree("pp")
+
+    def get_sharding_parallel_world_size(self):
+        return self.degree("sharding")
+
+    def get_sep_parallel_world_size(self):
+        return self.degree("sep")
+
+    def get_data_parallel_rank(self):
+        return self.axis_rank("dp")
+
+    def get_model_parallel_rank(self):
+        return self.axis_rank("mp")
+
+
+class HybridCommunicateGroup(HybridParallelInfo):
+    """API-parity facade over the mesh (the reference's topology.py)."""
+
+    def __init__(self, mesh: Optional[Mesh] = None, **degrees: int):
+        if mesh is None:
+            mesh = get_global_mesh() or auto_mesh(**degrees)
+        super().__init__(mesh)
+
+    @property
+    def nranks(self) -> int:
+        return self.mesh.size
+
+    def topology(self) -> List[int]:
+        return [self.degree(a) for a in self.mesh.axis_names]

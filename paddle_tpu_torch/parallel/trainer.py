@@ -1,4 +1,5 @@
-"""The train step on one GPU (counterpart of paddle_tpu/parallel/trainer.py).
+"""The train step (counterpart of paddle_tpu/parallel/trainer.py), on one
+GPU or over a data-parallel mesh of ranks.
 
     step_fn, params, opt_state = make_train_step(model, loss_fn, None, ...)
     loss, params, opt_state = step_fn(params, opt_state, x, y)
@@ -16,18 +17,37 @@ Ported: the default fused AdamW (``adamw_update``: global-norm clip at
 1.0, moments in the params' dtype, decay on ndim > 1 only), the
 ``optimizer=`` route through ``FusedOptimizer``, and the strategy
 sections ``amp``, ``recompute`` and ``gradient_merge`` (a dict of
-section dicts). A mesh, ``sharding`` and a whole-loss checkpoint for a
-model without a ``config.recompute`` knob are refused (ROADMAP section 1
-item 5, "Trainer options the port refuses").
+section dicts). ``sharding`` (ZeRO, ROADMAP section 1 item 5 step 3) and
+a whole-loss checkpoint for a model without a ``config.recompute`` knob
+are refused ("Trainer options the port refuses").
+
+Data parallelism (``mesh=``, default the global mesh of
+`parallel.mesh`): the JAX step lays the global batch over ``("dp",
+"sharding")`` and the compiler reduces the gradients. Here every rank is
+handed the same global batch and takes its rows (rank r of dp = n the
+r-th of n equal row blocks); its loss is its rows' mean weighted by its
+share of the rows, so the gradients summed over dp (one all-reduce a
+dtype, `collectives.all_reduce_tree`, or with ``quantized_collectives``
+the int8 `quantized_psum_tree`) are the global mean's, and so is the
+returned loss. The sum lands before clipping and the update, so every
+rank applies the same update and the parameters stay bitwise equal
+across ranks (they are broadcast from dp rank 0 when the step is built).
+With gradient merge the micro-batches accumulate locally and sync once.
+A batch whose rows dp does not divide (or a 0-d leaf) runs whole on every
+rank, with a warning: JAX replicates such a batch.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
+from . import mesh as mesh_mod
+from .collectives import all_reduce, all_reduce_tree, broadcast, \
+    quantized_psum_tree
 from .fused_optimizer import FusedOptimizer
 
 
@@ -104,10 +124,43 @@ def _bind(model: nn.Module, params: Dict[str, nn.Parameter]) -> None:
             setattr(mod, leaf, p)
 
 
+def dp_ref_of(mesh):
+    """The dp axis' GroupRef of `mesh` when it exceeds 1, else None."""
+    if mesh is None:
+        return None
+    for axis, n in mesh.shape.items():
+        if n > 1 and axis not in mesh_mod.PORTED_AXES:
+            raise NotImplementedError(
+                f"mesh axis {axis!r} of size {n}: the port trains over dp "
+                f"only ({mesh_mod.LATER_STEPS})")
+    if mesh.shape.get("dp", 1) <= 1:
+        return None
+    return mesh.axis_ref("dp")
+
+
+def local_rows(batch, dp):
+    """(this rank's rows of every leaf, its share of the rows), or None
+    when a leaf is 0-d or dp does not divide its rows."""
+    n = dp.size
+    if not batch or any(b.ndim == 0 or b.shape[0] % n for b in batch):
+        return None
+    rows = batch[0].shape[0] // n
+    return (tuple(b[dp.rank * rows:(dp.rank + 1) * rows] for b in batch),
+            1.0 / n)
+
+
+def sync_grads(grads: Dict[str, torch.Tensor], dp, quantized: bool):
+    """The dp gradient sum (`all_reduce_tree`, or `quantized_psum_tree`)."""
+    if quantized:
+        return quantized_psum_tree(grads, dp)
+    return all_reduce_tree(grads, dp)
+
+
 def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
                     lr: float = 1e-4, weight_decay: float = 0.01,
                     grad_clip_norm: Optional[float] = 1.0, optimizer=None,
-                    strategy=None, device=None):
+                    strategy=None, device=None,
+                    quantized_collectives: bool = False):
     """Build (step_fn, params, opt_state) for `model` on `device`
     (default: the CUDA card; the model's params must live there).
 
@@ -123,19 +176,27 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
         restored).
       - gradient_merge.enable + k_steps[, avg]: the batch in k_steps
         micro-batches, grads summed in f32, averaged unless avg=False.
+    `mesh` (default: the global mesh) with dp > 1 trains data-parallel
+    (the module docstring); `quantized_collectives` makes its gradient
+    sync the int8 `quantized_psum_tree`.
     """
     strat = _resolve_strategy(strategy)
-    if mesh is not None or strat["sharding"].get("enable"):
+    if strat["sharding"].get("enable"):
         raise NotImplementedError(
-            "make_train_step runs on one GPU: a mesh and the sharding "
-            "strategy are not ported (ROADMAP section 1 item 5, \"Trainer "
-            "options the port refuses\")")
+            "the sharding strategy (ZeRO) is not ported: ROADMAP section 1 "
+            "item 5 step 3 (\"Trainer options the port refuses\")")
+    dp = dp_ref_of(mesh if mesh is not None else mesh_mod.get_global_mesh())
     dev = resolve_device(device)
     params = dict(model.named_parameters())
     for name, p in params.items():
         if p.device != dev:
             raise ValueError(f"{name} lives on {p.device}, the step on {dev}"
                              " (load the params there first)")
+    if dp is not None:
+        # every rank starts from dp rank 0's parameters
+        with torch.no_grad():
+            for p in params.values():
+                p.copy_(broadcast(p.detach(), dp, 0))
     fused = FusedOptimizer(optimizer, model) if optimizer is not None \
         else None
     trainable = fused.trainable if fused is not None else frozenset(
@@ -164,7 +225,10 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
         if amp:
             batch = tuple(b.to(torch.bfloat16) if b.dtype == torch.float32
                           else b for b in batch)
-        return loss_fn(model(batch[0]), *batch[1:]).to(torch.float32)
+        loss = loss_fn(model(batch[0]), *batch[1:]).to(torch.float32)
+        return loss * share if share != 1.0 else loss
+
+    share = 1.0
 
     def loss_and_grads(work, *batch):
         """Forward and backward over `work` (the bound params); returns
@@ -190,8 +254,24 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
         return loss_sum / k_steps, {n: (acc[n] * scale).to(params[n].dtype)
                                     for n in trainable}
 
+    warned = []
+
     def step_fn(p, state, *batch):
+        nonlocal share
         batch = tuple(torch.as_tensor(b, device=dev) for b in batch)
+        synced = dp
+        if dp is not None:
+            split = local_rows(batch, dp)
+            if split is None:
+                synced = None
+                if not warned:
+                    warned.append(True)
+                    warnings.warn(
+                        f"make_train_step: dp={dp.size} does not divide a "
+                        "batch leaf's rows (or a leaf is 0-d): the batch "
+                        "runs whole on every rank, no gradient sync")
+            else:
+                batch, share = split
         work = p
         if amp:
             work = {n: nn.Parameter(t.detach().to(torch.bfloat16),
@@ -211,6 +291,10 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
             _bind(model, p)
         for n in trainable:
             work[n].grad = None
+        share = 1.0
+        if synced is not None:
+            grads = sync_grads(grads, synced, quantized_collectives)
+            loss = all_reduce(loss, synced)
         if fused is not None:
             p, state = fused.update(p, grads, state, fused.host_lr())
             fused.host_tick()

@@ -109,8 +109,11 @@ as int8 blocks. Backend rule (`parallel.ranks.backend_for`): NCCL where
 every rank has a GPU of its own, gloo where ranks share one or run on
 the CPU; gloo ranks run every program eagerly (a gloo collective cannot
 be captured), and ``compile_stats()['graphs']`` says so. A watchdog
-(`run(watchdog_timeout=)`) and the static audits are refused on a
-sharded engine.
+(`run(watchdog_timeout=)`) is refused on a sharded engine (no rank may
+decide on its own clock). The static audits trace a rank's programs (a
+collective is an operator node): `audit_memory` / `audit_roofline` give
+per-rank peaks and times, `audit_comms` the bytes a rank puts on the
+wire.
 
 **Fleet hooks** (serving/fleet.py): `pause_admission` stops admission
 from `waiting` while in-flight work finishes, `take_waiting` hands the
@@ -157,12 +160,6 @@ from ..resilience import chaos
 from .speculative import (AdaptiveSpecPolicy, NGramDrafter,
                           resolve_spec_adaptive, resolve_spec_k,
                           resolve_speculative)
-
-_ROADMAP = "ROADMAP.md, 'Engine options the port refuses'"
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({_ROADMAP})")
 
 
 @dataclass
@@ -565,6 +562,7 @@ class ContinuousBatchingEngine:
         self._kv_pool_budget = kv_pool_bytes
         self._memory_audit = None
         self._roofline_audit = None
+        self._comms_audit = None
         self._site = GraphSite(self.device)
         self._prefill_site = GraphSite(self.device)
         self._draft_site = GraphSite(self.device)
@@ -793,6 +791,7 @@ class ContinuousBatchingEngine:
             "compile_stats": self.compile_stats(),
             "kernel_launches": _build.launch_counts(),
             "memory_audit": self._memory_audit,
+            "comms_audit": self._comms_audit,
             "roofline_audit": self._roofline_audit,
             # the artifact this engine was built from (None: the flags'
             # defaults) and the kernel build cache's traffic over the last
@@ -1350,11 +1349,12 @@ class ContinuousBatchingEngine:
         `audit_memory` / `audit_roofline` then run the static audits over
         every program (`audit_memory`, `audit_roofline`: one trace of
         each program on fake tensors serves both) onto
-        ``metrics()['memory_audit']`` / ``['roofline_audit']``. Default
-        (None) follows FLAGS_audit_memory / FLAGS_audit_roofline
-        (PADDLE_TPU_AUDIT_*), both implied by PADDLE_TPU_LINT=1.
-        `audit_comms` resolving on raises: the communication audit is
-        not ported yet (ROADMAP.md section 1 item 5).
+        ``metrics()['memory_audit']`` / ``['roofline_audit']``, and
+        `audit_comms` the communication audit (`audit_comms`) onto
+        ``metrics()['comms_audit']``; any two of them share one trace of
+        each program. Default (None) follows FLAGS_audit_memory /
+        FLAGS_audit_comms / FLAGS_audit_roofline (PADDLE_TPU_AUDIT_*), all
+        implied by PADDLE_TPU_LINT=1.
 
         The kernel build cache's traffic over this warm() lands on
         `warm_compile_stats` (``metrics()['warm_compile_stats']``,
@@ -1369,7 +1369,7 @@ class ContinuousBatchingEngine:
         from . import compile_cache as _compile_cache
 
         snap = _compile_cache.snapshot()
-        resolve_audit_comms(audit_comms)
+        do_comms = resolve_audit_comms(audit_comms)
         do_mem = resolve_audit_memory(audit_memory)
         do_roof = resolve_audit_roofline(audit_roofline)
         buckets = [self.max_prompt_len] if buckets is None else list(buckets)
@@ -1404,10 +1404,13 @@ class ContinuousBatchingEngine:
                     bsz *= 2
             self._warm_programs()
         self.warm_compile_stats = _compile_cache.stats_since(snap)
-        if do_mem or do_roof:
-            shared = self._traced_inventory() if do_mem and do_roof else None
+        if do_mem or do_comms or do_roof:
+            shared = self._traced_inventory() \
+                if do_mem + do_comms + do_roof >= 2 else None
             if do_mem:
                 self.audit_memory(graphs=shared)
+            if do_comms:
+                self.audit_comms(graphs=shared)
             if do_roof:
                 self.audit_roofline(graphs=shared)
             # the traces' graphs and fakes are reference cycles: collect
@@ -1437,15 +1440,14 @@ class ContinuousBatchingEngine:
         """(name, Graph) of every (optionally filtered) program: one
         ``torch.fx`` trace each on fake tensors made from the engine's
         parameters, pools and static inputs (no device memory, no
-        launch, no tensor changes). Unknown filter names raise: a typo'd
-        filter must not give a vacuously clean report."""
+        launch, no tensor changes, no collective: a collective is an
+        operator node whose fake gives its shape). Unknown filter names
+        raise: a typo'd filter must not give a vacuously clean report.
+        Each graph carries the program's unrolled steps (the decode
+        chunk's steps_per_sync, for the communication audit's sites) and
+        the engine's rank count (mp * cp)."""
         from ..analysis.graph import trace_graph
 
-        if self._tp is not None:
-            # a fake-tensor trace cannot pass through a collective; the
-            # sharded programs' audits come with the comms audit
-            raise _unported("the static audits of a sharded engine "
-                            "(serving_mp * serving_cp > 1)")
         inventory = self._program_inventory()
         if programs is not None:
             want = set(programs)
@@ -1455,9 +1457,13 @@ class ContinuousBatchingEngine:
                     f"programs {sorted(missing)} not in the inventory "
                     f"{[it[0] for it in inventory]}")
             inventory = [it for it in inventory if it[0] in want]
-        return [(name, trace_graph(fn, self.p, self.kcs, self.vcs, *ins,
-                                   name=name))
-                for name, fn, ins in inventory]
+        out = []
+        for name, fn, ins in inventory:
+            g = trace_graph(fn, self.p, self.kcs, self.vcs, *ins, name=name)
+            g.unrolled_steps = self.steps if name == "decode" else 1
+            g.mesh_size = self.mp * self.cp
+            out.append((name, g))
+        return out
 
     def audit_memory(self, hbm_budget_bytes=None, programs=None,
                      graphs=None) -> dict:
@@ -1518,8 +1524,8 @@ class ContinuousBatchingEngine:
             "programs_audited": len(out),
             "fleet_peak_hbm_bytes": fleet_peak,
             "per_chip": True,
-            "mp": 1,
-            "cp": 1,
+            "mp": self.mp,
+            "cp": self.cp,
             "kv_pool_bytes": self.mgr.kv_pool_bytes(),
             "hbm_budget_bytes": hbm_budget_bytes,
             "donation_clean": all(p["donation_misses"] == 0
@@ -1533,11 +1539,11 @@ class ContinuousBatchingEngine:
         tr, mt = self._tracer, self._metrics
         if tr is not None:
             tr.instant("memory.audit", fleet_peak_hbm_bytes=fleet_peak,
-                       programs=len(out), mp=1,
+                       programs=len(out), mp=self.mp,
                        donation_clean=report["donation_clean"])
         if mt is not None:
             mt.event("memory.audit", fleet_peak_hbm_bytes=fleet_peak,
-                     programs=len(out), mp=1,
+                     programs=len(out), mp=self.mp,
                      donation_clean=report["donation_clean"],
                      n_diagnostics=diags)
             mt.gauge("predicted_peak_hbm_bytes",
@@ -1545,12 +1551,86 @@ class ContinuousBatchingEngine:
                      "programs").set(fleet_peak)
         return report
 
-    def audit_comms(self, *args, **kwargs):
-        """Not ported: the communication audit (ROADMAP.md section
-        1 item 5)."""
-        from ..analysis import audit_comms
+    def audit_comms(self, programs=None, rule_config=None,
+                    graphs=None) -> dict:
+        """Static communication audit: the bytes-on-wire pass
+        (`analysis/comms.py`) over every program, one fleet report for
+        the engine (JAX's keys): each program's per-rank wire bytes (ring
+        cost model; the decode chunk's steps folded into sites, so a
+        layer's gather is one site counted steps_per_sync times), the
+        per-axis and per-kind splits and the TPU801/802/803 findings.
+        The headline is `predicted_bytes_on_wire_per_token`: the decode
+        chunk's bytes divided by the tokens one chunk makes
+        (steps_per_sync x slots). At mp = cp = 1 every program audits to
+        zero collectives.
 
-        return audit_comms(*args, **kwargs)
+        `programs` filters by name as in `audit_memory` (a filtered run
+        returns a `partial` report without touching ``metrics()``);
+        `rule_config` passes TPU80x knobs (``{"TPU803.min_bytes": ...}``);
+        `graphs` shares one trace with the other audits. Tracing only:
+        nothing is allocated, launched or exchanged."""
+        from ..analysis import comms as _comms
+        from ..analysis.pipeline import analyze as _analyze
+
+        if graphs is None:
+            graphs = self._traced_inventory(programs)
+        out, diags = {}, 0
+        for name, g in graphs:
+            rep = _comms.audit_graph(g)
+            lint = _analyze(None, graph=g,
+                            rules=["TPU801", "TPU802", "TPU803"],
+                            rule_config=rule_config)
+            diags += len(lint)
+            out[name] = {
+                "bytes_on_wire": rep.total_wire_bytes,
+                "quantized_wire_bytes": rep.quantized_wire_bytes,
+                "n_quantized_sites": rep.n_quantized_sites,
+                "n_collective_sites": rep.n_collective_sites,
+                "n_collectives": rep.n_collectives,
+                "n_implicit_reshards": len(rep.reshards),
+                "mp": rep.mp,
+                "per_axis": rep.per_axis(),
+                "per_kind": rep.per_kind(),
+                "top_talkers": [e.to_dict() for e in rep.top_talkers(4)],
+                "diagnostics": lint.to_dict()["diagnostics"],
+            }
+        per_token = None
+        if "decode" in out:
+            per_token = out["decode"]["bytes_on_wire"] \
+                / max(self.steps * self.slots, 1)
+        report = {
+            "programs": out,
+            "programs_audited": len(out),
+            "per_chip": True,
+            "mp": self.mp,
+            "cp": self.cp,
+            "total_bytes_on_wire": sum(p["bytes_on_wire"]
+                                       for p in out.values()),
+            "predicted_bytes_on_wire_per_token": per_token,
+            "comms_clean": diags == 0,
+            "n_diagnostics": diags,
+            "partial": programs is not None,
+        }
+        if report["partial"]:
+            return report
+        self._comms_audit = report
+        tr, mt = self._tracer, self._metrics
+        if tr is not None:
+            tr.instant("comms.audit",
+                       total_bytes_on_wire=report["total_bytes_on_wire"],
+                       programs=len(out), mp=self.mp,
+                       comms_clean=report["comms_clean"])
+        if mt is not None:
+            mt.event("comms.audit",
+                     total_bytes_on_wire=report["total_bytes_on_wire"],
+                     programs=len(out), mp=self.mp,
+                     comms_clean=report["comms_clean"],
+                     n_diagnostics=diags)
+            if per_token is not None:
+                mt.gauge("predicted_bytes_on_wire_per_token",
+                         "static auditor per-rank wire bytes per decoded "
+                         "token (decode chunk)").set(per_token)
+        return report
 
     def audit_roofline(self, device=None, programs=None, rule_config=None,
                        graphs=None) -> dict:
@@ -1605,8 +1685,8 @@ class ContinuousBatchingEngine:
             "programs_audited": len(out),
             "device": spec.name,
             "per_chip": True,
-            "mp": 1,
-            "cp": 1,
+            "mp": self.mp,
+            "cp": self.cp,
             "predicted_step_ms": step_ms,
             "predicted_mfu": mfu,
             "predicted_ms_per_token": per_token_ms,

@@ -2516,3 +2516,96 @@ def test_fresh_process_warms_over_the_build_directory_with_no_miss(dev):
     assert stats["cache_misses"] == 0
     assert stats["cache_hits"] == stats["compile_requests"] \
         == len(_build.SIGNATURES)
+
+
+# ---------------------------------------------------------------------------
+# sharded serving: where a rank's numerics leave the one-device engine's
+# ---------------------------------------------------------------------------
+
+def test_serving_mp2_q_projection_is_the_product_that_differs(dev):
+    """serving_mp=2's divergence from one device, named. At Llama-3-8B's
+    widths (K 4096, q over 4096 columns, k / v over 1024, bf16) a rank's
+    slice of a projection is a product of its own N: rank m computes
+    ``x @ w[:, m N/2:(m + 1) N/2]``, one device ``x @ w`` and takes the
+    same columns. cuBLAS picks its kernel, tiling and K-reduction order by
+    the problem's shape, so the rank's columns may be summed in another
+    order. Measured: the decode chunk's q projection (M 8 rows, N 4096 vs
+    2048) differs from the full product's columns by one bf16 step on
+    both ranks, with torch's ``allow_bf16_reduced_precision_reduction`` at
+    its default (True) and off alike (the flag governs split-K's reduced
+    precision, not the order); k / v at M 8 and every projection at the
+    prefill's rows (M 704) are bitwise equal. Identity would need a
+    product whose per-column order does not depend on N on the
+    one-device engine too (for the replayed decode chunk: more launches a
+    layer, outside phase 2's 72.30-72.36 ms spread), so it is out of
+    reach; ROADMAP.md logs the divergence, and phase 27 gates mp2 by the
+    rank margin."""
+    g = torch.Generator().manual_seed(21)
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    x8 = torch.randn(8, 4096, generator=g).to(dev, torch.bfloat16)
+    x704 = torch.randn(704, 4096, generator=g).to(dev, torch.bfloat16)
+    w = {n: (torch.randn(4096, n, generator=g) * 0.02).to(dev,
+                                                          torch.bfloat16)
+         for n in (4096, 1024)}
+    differs = {}
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+                = flag
+            for (n, x), name in (((4096, x8), "q decode"),
+                                 ((1024, x8), "kv decode"),
+                                 ((4096, x704), "q prefill"),
+                                 ((1024, x704), "kv prefill")):
+                full = x @ w[n]
+                same = True
+                for m in range(2):
+                    cols = slice(m * n // 2, (m + 1) * n // 2)
+                    part = x @ w[n][:, cols].contiguous()
+                    _within_one_bf16_step(part, full[:, cols])
+                    same &= torch.equal(part, full[:, cols])
+                differs[(flag, name)] = not same
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = prev
+    assert {k for k, v in differs.items() if v} == {
+        (True, "q decode"), (False, "q decode")}, differs
+
+
+def test_serving_cp2_partial_merge_is_the_sum_that_differs(dev):
+    """serving_cp=2's divergence from one device, named. A cp rank streams
+    its own pages through the plain PyTorch partials
+    (`kernels.partial_attention.decode_paged_partials`: f32 scores, exp
+    and sums in PyTorch's reduction order) and the ranks' states merge
+    once (`ServingTP.merge_attn_partials`, here `combine_partials`, the
+    same recurrence without the wire); one device runs the paged decode
+    kernel, whose positions split across blocks by `decode_split_plan`
+    and merge in its own order. Same f32 math, another summation order:
+    the bf16 outputs agree within one bf16 step but not bitwise, so cp2's
+    streams can leave one device's at a near-tie. Identity would need the
+    cp merge to reproduce the kernel's tile-and-split order exactly (a cp
+    rank's pages are not the kernel's splits); ROADMAP.md logs it, and
+    phase 27 gates cp2 by the rank margin."""
+    from paddle_tpu_torch.kernels.partial_attention import (
+        combine_partials, cp_local_view, decode_paged_partials,
+        finalize_partials)
+
+    g = torch.Generator().manual_seed(22)
+    bs, hq, hkv, d, w, pps = 64, 32, 8, 128, 17, 68
+    kc, vc = (torch.randn(2 * pps, hkv, bs, d, generator=g).to(
+        dev, torch.bfloat16) for _ in range(2))
+    q = torch.randn(8, hq, d, generator=g).to(dev, torch.bfloat16)
+    tables = torch.randperm(2 * pps, generator=g)[:8 * w].reshape(8, w).to(
+        torch.int32).to(dev)
+    lens = torch.tensor([0, 63, 64, 500, 700, 1000, 1087, 333],
+                        dtype=torch.int32, device=dev)
+    one = paged_decode_attention(q, kc, vc, tables, lens)
+    parts = []
+    for c in range(2):
+        sink = torch.zeros(1, hkv, bs, d, dtype=kc.dtype, device=dev)
+        kl = torch.cat([kc[c * pps:(c + 1) * pps], sink])
+        vl = torch.cat([vc[c * pps:(c + 1) * pps], sink])
+        loc, owned = cp_local_view(tables, pps, c)
+        parts.append(decode_paged_partials(q, kl, vl, loc, lens, owned))
+    cp2 = finalize_partials(*combine_partials(*parts)).to(torch.bfloat16)
+    _within_one_bf16_step(cp2, one)
+    assert not torch.equal(cp2, one)

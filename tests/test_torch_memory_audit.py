@@ -284,17 +284,25 @@ def test_warm_audits_off_by_default_and_flag_composition():
 
 
 def test_audit_comms_is_refused_naming_item_5(engines):
+    """The communication audit is ported (the item 5 refusal is gone): a
+    one-device engine audits to zero collectives through audit_comms(),
+    warm(audit_comms=True) and FLAGS_audit_comms, sharing the memory
+    audit's trace (tests/test_torch_comms_audit.py holds the sharded
+    engines)."""
     port, _ = engines
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port.audit_comms()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port.warm(buckets=[16], audit_comms=True)
+    rep = port.audit_comms()
+    assert rep["total_bytes_on_wire"] == 0 and rep["comms_clean"]
+    port._comms_audit = None
+    port.warm(buckets=[16], audit_comms=True, audit_memory=True)
+    assert port.metrics()["comms_audit"]["programs_audited"] \
+        == port.metrics()["memory_audit"]["programs_audited"]
+    port._comms_audit = None
     set_flags({"audit_comms": True})
     try:
-        with pytest.raises(NotImplementedError, match="item 5"):
-            port.warm(buckets=[16])
+        port.warm(buckets=[16])
     finally:
         set_flags({"audit_comms": False})
+    assert port.metrics()["comms_audit"]["n_diagnostics"] == 0
 
 
 def _fit_model(seed=0):

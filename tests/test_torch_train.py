@@ -251,8 +251,12 @@ def test_refused_options_raise():
     _, tm = _models()
     crit = LlamaPretrainingCriterion()
     loss = lambda lg, lb: crit(lg, lb)  # noqa: E731
+    from paddle_tpu_torch.parallel.mesh import Mesh
+
+    # a model-parallel axis (dp alone trains: tests/test_torch_dp.py)
     with pytest.raises(NotImplementedError, match="section 1 item 5"):
-        make_train_step(tm, loss, mesh=object(), device="cpu")
+        make_train_step(tm, loss, mesh=Mesh({"dp": 1, "mp": 2}, {}),
+                        device="cpu")
     with pytest.raises(NotImplementedError, match="section 1 item 5"):
         make_train_step(tm, loss, None, device="cpu",
                         strategy={"sharding": {"enable": True, "stage": 2}})

@@ -347,8 +347,10 @@ def test_report_is_byte_identical_without_the_program_memo(monkeypatch):
 
 
 def test_mesh_candidates_are_pruned_by_name(monkeypatch):
-    """A caller's space asking for serving_mp / serving_cp above 1 prunes
-    those candidates naming ROADMAP item 5, without building them."""
+    """A caller's space asking for serving_mp / serving_cp above 1 has
+    those candidates built on fakes as rank 0 with no live group and
+    scored (none is pruned by name any more): each priced with its wire,
+    the sharded ones above 0 bytes a token, the one-device one at 0."""
     cfg, params, _, _, _, _ = _demo_runs()
     base = tuner.baseline_config(cfg, RANK_KW)
     space = {k: [v] for k, v in base.items()}
@@ -357,10 +359,15 @@ def test_mesh_candidates_are_pruned_by_name(monkeypatch):
     real = tuner._fake_engine
     monkeypatch.setattr(tuner, "_fake_engine",
                         lambda c, p, kw: built.append(kw) or real(c, p, kw))
-    rep = autotune(cfg, params, engine_kwargs=RANK_KW, space=space)
-    assert rep.n_candidates == 4 and len(rep.ranking) == 1
-    assert all("item 5" in p.pruned_reason for p in rep.pruned)
-    assert len(built) == 1 and built[0]["serving_mp"] == 1
+    rep = autotune(cfg, params, engine_kwargs=RANK_KW, space=space,
+                   hbm_budget_bytes=1 << 40)
+    assert rep.n_candidates == 4 and len(rep.ranking) == 4
+    assert not rep.pruned
+    assert sorted((kw["serving_mp"], kw["serving_cp"]) for kw in built) \
+        == [(1, 1), (1, 2), (2, 1), (2, 2)]
+    for c in rep.ranking:
+        sharded = c.config["serving_mp"] * c.config["serving_cp"] > 1
+        assert (c.predicted_wire_bytes_per_token > 0) == sharded
 
 
 # ---------------------------------------------------------------------------

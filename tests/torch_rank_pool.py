@@ -216,3 +216,271 @@ def prequant_rank(partials):
     a = C.quantized_psum_prequant(q, s, None, shape=x.shape,
                                   dtype=torch.float32)
     return a.numpy(), C.quantized_psum(x, None).numpy()
+
+
+# ---------------------------------------------------------------------------
+# data-parallel training, the collective facade and the sharded checkpoint
+# ---------------------------------------------------------------------------
+
+def _rank():
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
+def _tiny_train_model(np_params, cfg_kw=None):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(**(cfg_kw or {}))
+    return LlamaForCausalLM(cfg).load_params(_port_params(np_params),
+                                             trainable=True)
+
+
+def dp_train_rank(np_params, x, y, steps, lr, strategy=None,
+                  quantized=False, perturb=False):
+    """`make_train_step(mesh=build_mesh({"dp": world}))` on tiny() f32
+    over the global batch (x, y): (losses, params after the last step).
+    `perturb` shifts ranks > 0's weights first (the step's broadcast from
+    dp rank 0 must undo it)."""
+    import torch
+
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+    from paddle_tpu_torch.parallel import build_mesh, make_train_step
+    import torch.distributed as dist
+
+    tm = _tiny_train_model(np_params)
+    if perturb and _rank() > 0:
+        with torch.no_grad():
+            for p in tm.parameters():
+                p.add_(0.01)
+    crit = LlamaPretrainingCriterion(tm.config)
+    mesh = build_mesh({"dp": dist.get_world_size()})
+    step, p, s = make_train_step(tm, lambda lg, lb: crit(lg, lb), mesh,
+                                 lr=lr, strategy=strategy, device="cpu",
+                                 quantized_collectives=quantized)
+    losses = []
+    for _ in range(steps):
+        loss, p, s = step(p, s, x, y)
+        losses.append(float(loss))
+    return losses, {k: v.detach().numpy().copy() for k, v in p.items()}
+
+
+def data_parallel_rank(ws, xs, ys, lr):
+    """paddle.DataParallel over an MLP Linear(8, 8) - Tanh - Linear(8, 2)
+    (weights `ws`: JAX's [in, out] layouts) trained by SGD on this rank's
+    rows of each global batch; returns the first layer's weight [in, out]
+    and what the wrapper's checks saw."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.parallel import DataParallel
+
+    def lin(w, b):
+        m = torch.nn.Linear(*w.shape)
+        with torch.no_grad():
+            m.weight.copy_(torch.from_numpy(w).T)
+            m.bias.copy_(torch.from_numpy(b))
+        return m
+
+    m = torch.nn.Sequential(lin(ws[0], ws[1]), torch.nn.Tanh(),
+                            lin(ws[2], ws[3]))
+    if _rank() > 0:           # the wrap broadcasts rank 0's weights
+        with torch.no_grad():
+            m[0].weight.add_(1.0)
+    dp = DataParallel(m)
+    r, n = _rank(), 2
+    seen = {"state_dict": len(dp.state_dict())}
+    for x, y in zip(xs, ys):
+        rows = x.shape[0] // n
+        xl = torch.from_numpy(x[r * rows:(r + 1) * rows])
+        yl = torch.from_numpy(y[r * rows:(r + 1) * rows]).long()
+        loss = F.cross_entropy(dp(xl), yl)
+        loss.backward()
+        with torch.no_grad():
+            for p in m.parameters():
+                p -= lr * p.grad
+                p.grad = None
+    # no_sync: a backward inside keeps this rank's own gradient
+    xl = torch.from_numpy(xs[0][r * 4:(r + 1) * 4])
+    with dp.no_sync():
+        dp(xl).sum().backward()
+    seen["no_sync_grad"] = m[0].weight.grad.numpy().copy()
+    return m[0].weight.detach().numpy().T.copy(), seen
+
+
+def psum_tree_rank(trees):
+    """`quantized_psum_tree` of this rank's tree (a dict of numpy)."""
+    import torch
+
+    from paddle_tpu_torch.parallel.collectives import quantized_psum_tree
+
+    t = {k: torch.from_numpy(v) for k, v in trees[_rank()].items()}
+    return {k: v.numpy() for k, v in quantized_psum_tree(t).items()}
+
+
+def facade_rank():
+    """Paddle's collective API on torch tensors over the default group
+    of 2 ranks: each call's result on this rank."""
+    import torch
+
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel import env
+
+    r = _rank()
+    x = torch.arange(4, dtype=torch.float32) + 10 * r
+    out = {"rank": env.get_rank(), "world": env.get_world_size(),
+           "nranks": env.ParallelEnv().nranks}
+    out["sum"] = C.all_reduce(x.clone()).numpy()
+    out["max"] = C.all_reduce(x.clone(), op=C.ReduceOp.MAX).numpy()
+    out["avg"] = C.all_reduce(x.clone(), op=C.ReduceOp.AVG).numpy()
+    out["prod"] = C.all_reduce(x.clone() + 1, op=C.ReduceOp.PROD).numpy()
+    lst = []
+    C.all_gather(lst, x)
+    out["gather"] = [t.numpy() for t in lst]
+    objs = []
+    C.all_gather_object(objs, {"r": r})
+    out["objects"] = objs
+    out["broadcast"] = C.broadcast(x.clone(), src=1).numpy()
+    out["a2a"] = [t.numpy() for t in C.all_to_all(
+        [x[:2] + 100 * j for j in range(2)])]
+    out["a2a_single"] = C.all_to_all_single(x.clone()).numpy()
+    out["reduce_scatter"] = C.reduce_scatter(x.clone()).numpy()
+    dst = torch.zeros(2)
+    C.scatter(dst, [torch.full((2,), 5.0), torch.full((2,), 7.0)], src=0)
+    out["scatter"] = dst.numpy()
+    g = C.new_group([0, 1], axis="dp")
+    out["group"] = (g.nranks, g.rank, g.get_group_rank(1))
+    buf = torch.zeros(3)
+    if r == 0:
+        C.send(torch.tensor([1.0, 2.0, 3.0]), dst=1)
+    else:
+        C.recv(buf, src=0)
+    out["recv"] = buf.numpy()
+    C.barrier()
+    return out
+
+
+def ckpt_save_rank(path, arrays, bf16_names, shard_name=None):
+    """`save_state_dict` of numpy `arrays` (those named in `bf16_names`
+    cast to bf16); `shard_name` is saved as this rank's `Shard` of rows
+    of its array instead of a replicated tensor."""
+    import torch
+
+    from paddle_tpu_torch.parallel import Shard, save_state_dict
+    import torch.distributed as dist
+
+    sd = {}
+    for k, v in arrays.items():
+        t = torch.from_numpy(np.asarray(v))
+        if k in bf16_names:
+            t = t.to(torch.bfloat16)
+        if k == shard_name:
+            n = t.shape[0] // dist.get_world_size()
+            t = Shard(t[_rank() * n:(_rank() + 1) * n].clone(),
+                      [_rank() * n] + [0] * (t.ndim - 1), list(t.shape))
+        sd[k] = t
+    save_state_dict(sd, path)
+    return sorted(__import__("os").listdir(path))
+
+
+class _LossRec:
+    """A fit callback keeping each batch's logged loss."""
+
+    def __init__(self):
+        from paddle_tpu_torch.hapi.callbacks import Callback
+
+        outer = self
+
+        class Rec(Callback):
+            def on_train_batch_end(self, step, logs=None):
+                outer.losses.append(logs["loss"][0])
+
+        self.losses = []
+        self.cb = Rec()
+
+
+def fit_dp_rank(np_params, batches, quantized, audit=False):
+    """`hapi.Model.fit` of tiny() (Adam 0.01, MSE of the logits against
+    random targets: JAX's TestFitQuantizedDP model) under a dp mesh of
+    the world: (losses, quantized_dp_steps, params, comms_audit)."""
+    import torch
+
+    from paddle_tpu_torch import hapi
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import build_mesh, set_global_mesh
+    import torch.distributed as dist
+
+    net = _tiny_train_model(np_params)
+    model = hapi.Model(net, device="cpu")
+    model.prepare(optimizer=Adam(learning_rate=0.01,
+                                 parameters=net.parameters()),
+                  loss=lambda out, y: ((out - y) ** 2).mean())
+    rec = _LossRec()
+    set_global_mesh(build_mesh({"dp": dist.get_world_size()}))
+    try:
+        model.fit([(torch.from_numpy(a), torch.from_numpy(b))
+                   for a, b in batches], epochs=1, verbose=0,
+                  callbacks=[rec.cb], quantized_collectives=quantized,
+                  audit_comms=audit)
+    finally:
+        set_global_mesh(None)
+    return (rec.losses, model.quantized_dp_steps,
+            {k: v.detach().numpy().copy()
+             for k, v in net.named_parameters()}, model.comms_audit)
+
+
+def fit_audit_rank(width, rows):
+    """fit(audit_comms=True) of a Linear(width, width) (Adam, MSE) on one
+    batch of `rows` rows under a dp mesh of the world: (comms_audit, the
+    warnings' texts)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import hapi
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import build_mesh, set_global_mesh
+    import torch.distributed as dist
+
+    torch.manual_seed(5)
+    net = torch.nn.Linear(width, width)
+    model = hapi.Model(net, device="cpu")
+    model.prepare(optimizer=Adam(learning_rate=0.01,
+                                 parameters=net.parameters()),
+                  loss=lambda out, y: ((out - y) ** 2).mean())
+    rng = np.random.default_rng(0)
+    batch = [(torch.from_numpy(rng.normal(size=(rows, width))
+                               .astype(np.float32)),
+              torch.from_numpy(rng.normal(size=(rows, width))
+                               .astype(np.float32)))]
+    set_global_mesh(build_mesh({"dp": dist.get_world_size()}))
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model.fit(batch, epochs=1, verbose=0, audit_comms=True)
+    finally:
+        set_global_mesh(None)
+    return model.comms_audit, [str(w.message) for w in caught]
+
+
+def audit_engine_rank(np_params, engine_kw):
+    """A tiny f32 engine on a live group of the world (serving_mp /
+    serving_cp in `engine_kw`), warmed with the communication audit on:
+    (metrics()['comms_audit'] with the decode chunk's TPU803 findings at
+    a 256-byte threshold under "tight", audit_memory(), audit_roofline())."""
+    import torch
+
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(LlamaConfig.tiny(),
+                                   _port_params(np_params), device="cpu",
+                                   dtype=torch.float32, **engine_kw)
+    eng.warm([16], audit_comms=True)
+    fleet = dict(eng.metrics()["comms_audit"])
+    tight = eng.audit_comms(programs=("decode",),
+                            rule_config={"TPU803.min_bytes": 256})
+    fleet["tight"] = [d["rule"] for d in
+                      tight["programs"]["decode"]["diagnostics"]]
+    return fleet, eng.audit_memory(), eng.audit_roofline()
