@@ -1310,7 +1310,9 @@ def phase_kernels():
         "flash_attention_fwd": [check_flash(4, 512, 512, 32, 8, 128),
                                 check_flash(1, 300, 300, 32, 8, 128),
                                 check_flash(2, 200, 333, 32, 8, 128),
-                                check_flash(4, 2048, 2048, 16, 4, 128)],
+                                check_flash(4, 2048, 2048, 16, 4, 128),
+                                # phase 29's mp2 rank: its 8 of 16 heads
+                                check_flash(4, 2048, 2048, 8, 2, 128)],
         "paged_decode_attention": [
             check_paged_decode(8, 32, 8, 128, 64),
             check_paged_decode(8, 32, 32, 128, 64),
@@ -1389,13 +1391,15 @@ def phase_kernels():
     res["decode_attention"] = [
         check_contiguous_decode("decode_attention", 8, 32, 32, 128, 1024)]
     # the training kernels: the flash backward at phase 13's shape
-    # (bench.py's Llama-1B step) and at Llama-3-8B's heads (phase 14);
+    # (bench.py's Llama-1B step), at Llama-3-8B's heads (phase 14) and at
+    # phase 29's mp2 rank's heads (8 q, 2 kv);
     # SwiGLU at phase 14's MLP (M = 4 x 2048 tokens); the dkv row's time
     # is its wrapper's, delta pre-pass included
     (res["flash_attention_bwd_dq"], res["flash_attention_bwd_dkv"],
      res["flash_attention_bwd_delta"]) = (
         list(rows) for rows in zip(check_flash_bwd(4, 2048, 16, 4, 128),
-                                   check_flash_bwd(1, 2048, 32, 8, 128)))
+                                   check_flash_bwd(1, 2048, 32, 8, 128),
+                                   check_flash_bwd(4, 2048, 8, 2, 128)))
     res["swiglu_fwd"], res["swiglu_bwd"] = check_swiglu(8192, 4096, 14336)
     _release()
     from paddle_tpu_torch.models import LlamaConfig
@@ -5065,8 +5069,10 @@ def phase_tune(cfg, params):
 # phase 27: tensor- and context-parallel serving (gloo ranks on one card)
 # ---------------------------------------------------------------------------
 
-# (f)'s depth: four ranks each holding Llama-3-8B's replicated weights
-# (about 15 GB a rank at full depth) do not fit beside this process's
+# the phase's depth: four ranks each holding Llama-3-8B's replicated
+# weights (about 15 GB a rank at full depth) do not fit beside this
+# process's, and at full depth the two-rank parts left the 1200 s script
+# no margin (PERF.md section 4); every part runs at this depth
 TP_LAYERS = 8
 TP_REQUESTS = 6
 # 16 new tokens a request (JAX's int8-wire bar reads 2-5), and 8 at the
@@ -5359,19 +5365,28 @@ def _tp_tokens(phase, name, plain, prompts, got, want) -> str:
     return "rank-margin"
 
 
+def tp_model(cfg):
+    """Phase 27's model: Llama-3-8B's widths at TP_LAYERS layers, its
+    weights made from SEED at that depth, as its ranks make theirs."""
+    from paddle_tpu_torch.models import init_serving_params
+
+    cfg_t = dataclasses_replace(cfg, num_hidden_layers=TP_LAYERS)
+    return cfg_t, init_serving_params(cfg_t, seed=SEED, device="cuda")
+
+
 def phase_tp(cfg, params):
     """Phase 27: serving_mp / serving_cp over torch.distributed ranks
     that share the card (gloo; NCCL refuses two ranks on one GPU, so the
     NCCL path and its captured collectives are not run here). Phase 3's
     burst cut to 6 requests of TP_NEW new tokens, Llama-3-8B at full
-    width, bf16, eager.
+    width and `tp_model`'s depth, bf16, eager.
     (a) the oracle: a one-device engine, eager; the budget of half a
     request's pages refused at cp = 1. Ranks started by the launcher:
     (b) mp2, (c) cp2 and cp2 at that budget (one request), (d) mp2 at
     decode_megakernel="attn" (the seam kernel, residual=False), (e) mp2
     at "attn" with quantized_collectives (quantize_out and the int8
-    wire); then (f) cp2 x mp2 on four ranks at TP_LAYERS layers against
-    an oracle of that depth. Gates: every rank's streams equal; (b), (c),
+    wire); then (f) cp2 x mp2 on four ranks against the same oracle.
+    Gates: every rank's streams equal; (b), (c),
     (f) token-identical to the oracle or within phase 2's rank margin
     (the first differing token logged); (b) a rank's pools half the
     oracle's bytes at equal pages and the paged kernels launched on
@@ -5381,7 +5396,7 @@ def phase_tp(cfg, params):
     margin, (e) matching (b)'s tokens at the JAX int8-wire bar (80% of
     tokens, all but two requests identical) over the stream lengths of
     JAX's test (request i's first 2 + i % 4 tokens)."""
-    from paddle_tpu_torch.models import LlamaForCausalLM, init_serving_params
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.models.llama import PagedKVManager
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
 
@@ -5515,27 +5530,17 @@ def phase_tp(cfg, params):
     if rate < 0.8 or same < len(q) - 2:
         raise AssertionError(f"{phase} mp2-quant: {rate:.3f} token match, "
                              f"{same} requests identical")
-    del plain, ranks
+    del ranks
     _release()
-    # (f): four ranks at TP_LAYERS layers, against an oracle of that depth
-    cfg_f = dataclasses_replace(cfg, num_hidden_layers=TP_LAYERS)
-    params_f = init_serving_params(cfg_f, seed=SEED, device="cuda")
-    eng = ContinuousBatchingEngine(cfg_f, params_f, **{**SERVE_KW, **TP_KW})
-    eng.graphed = False
-    reqs, _, _, _ = serve(eng, traffic, "tp-oracle-f", TP_NEW)
-    oracle_f = [list(r.tokens) for r in reqs]
-    del eng, reqs
-    _release()
-    ranks = tp_launch(phase, 4, dict(layers=TP_LAYERS, traffic=traffic,
+    # (f): four ranks, against the same oracle
+    ranks = tp_launch(phase, 4, dict(layers=L, traffic=traffic,
                                      parts=[("cp2xmp2", dict(
                                          serving_cp=2, serving_mp=2),
                                          TP_REQUESTS)]))
     f = _tp_part(phase, ranks, "cp2xmp2", 4)
-    plain_f = LlamaForCausalLM(cfg_f, use_kernels=False).load_params(
-        params_f)
-    res["cp2xmp2"] = _tp_tokens(phase, f"cp2xmp2 ({TP_LAYERS} layers)",
-                                plain_f, traffic, f[0]["tokens"], oracle_f)
-    del plain_f, params_f
+    res["cp2xmp2"] = _tp_tokens(phase, "cp2xmp2", plain, traffic,
+                                f[0]["tokens"], oracle)
+    del plain
     _release()
     log(f"[{phase}] the NCCL path (a GPU a rank, collectives captured in "
         "CUDA graphs) was not run: one card holds one NCCL rank")
@@ -5637,7 +5642,7 @@ def dp_rank(spec_path: str, out_dir: str) -> None:
                                            set_global_mesh)
     from paddle_tpu_torch.parallel.collectives import all_gather
     from paddle_tpu_torch.parallel.ranks import init_ranks
-    from paddle_tpu_torch.parallel.trainer import sync_grads
+    from paddle_tpu_torch.parallel.collectives import psum_tree
 
     with open(spec_path) as f:
         spec = json.load(f)
@@ -5676,7 +5681,7 @@ def dp_rank(spec_path: str, out_dir: str) -> None:
             dist.barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            sync_grads(grads, ref, False)
+            psum_tree(grads, ref)
             torch.cuda.synchronize()
             sync_ms.append(1e3 * (time.perf_counter() - t0))
         out["sync_ms"] = sync_ms
@@ -5865,7 +5870,315 @@ def phase_dp():
     return {"launches": {k: sum(l.get(k, 0) for l in
                                 o0["runs"]["plain"]["launches"])
                          for k in want}, "losses": plain,
+            "one_losses": one_losses,
             "step_ms": o0["runs"]["plain"]["ms"], "sync_ms": o0["sync_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 29: ZeRO stages 1-3 and tensor-parallel training
+# ---------------------------------------------------------------------------
+
+# the four-rank run: sharding2 x mp2 at 2 layers, a warm-up and 2 steps
+ZT_LAYERS4, ZT_STEPS4 = 2, 2
+# a rank's bytes at the update (params, gradients and optimizer state,
+# activations freed) beside the formula of PERF.md's PR 22 section
+ZT_HELD_RTOL = 0.10
+
+ZT_SCRIPT = """import sys
+sys.path.insert(0, sys.argv[3])
+import chip_smoke
+chip_smoke.zero_tp_rank(sys.argv[1], sys.argv[2])
+"""
+
+
+def zt_held_formula(n_params: int, stage: int, ranks: int = 2) -> int:
+    """A rank's bytes at the update of phase 29's bf16 AdamW step: params
+    and gradients 2 bytes a parameter, two f32 moments 8; ZeRO stage 1
+    shards the moments, 2 the gradients too, 3 the params too."""
+    p, g, os_ = 2 * n_params, 2 * n_params, 8 * n_params
+    return int(p / (ranks if stage >= 3 else 1)
+               + g / (ranks if stage >= 2 else 1) + os_ / ranks)
+
+
+def _zt_digests(params: dict, mesh) -> bool:
+    """Every rank's block digests gathered: True when the ranks that hold
+    the same block of a parameter (the same coordinates on its sharded
+    axes) hold it bitwise equal."""
+    from paddle_tpu_torch.parallel.collectives import all_gather
+    from paddle_tpu_torch.parallel.placement import dist_attr
+
+    names = sorted(params)
+    coords = torch.tensor([mesh.axis_rank(a) if mesh.shape[a] > 1 else 0
+                           for a in mesh.axis_names], device="cuda")
+    dig = all_gather(_dp_digest(params)[None], None, 0).cpu()
+    crd = all_gather(coords[None], None, 0).cpu()
+    for i, k in enumerate(names):
+        attr = dist_attr(params[k])
+        held = attr.sharded_axes() if attr is not None else ()
+        idx = [mesh.axis_names.index(a) for a in held]
+        seen = {}
+        for r in range(dig.shape[0]):
+            key = tuple(int(crd[r, j]) for j in idx)
+            d = tuple(int(v) for v in dig[r, 2 * i:2 * i + 2])
+            if seen.setdefault(key, d) != d:
+                return False
+    return True
+
+
+def zero_tp_rank(spec_path: str, out_dir: str) -> None:
+    """One rank of phase 29 (the launcher starts it through ZT_SCRIPT):
+    join the default group (gloo: the ranks share the card), then for
+    each run of the spec build its mesh, phase 13's model at its depth
+    from SEED (shard_llama first where asked) and bench.py's step with
+    its sharding strategy, and take a warm-up and its steps on the global
+    batch. Each step: launch and wire counters reset just before it and
+    read just after, the rank's bytes at the update (the optimizer's
+    entry) and after the step, its peak, every replica's blocks compared.
+    Where asked, the blocks are saved and rank 0 hashes the gathered
+    parameters. Writes zt<r>.json."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import gather_params, shard_llama
+    from paddle_tpu_torch.parallel import build_mesh, save_state_dict
+    from paddle_tpu_torch.parallel import collectives as coll
+    from paddle_tpu_torch.parallel.ranks import init_ranks
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, world, dev = init_ranks()
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "runs": {}}
+    for run in spec["runs"]:
+        cfg = dataclasses_replace(dp_config(),
+                                  num_hidden_layers=run["layers"])
+        x, y = bench_batch(cfg, DP_BATCH, DP_SEQ)
+        mesh = build_mesh(run["shape"])
+        model = dp_model(cfg)
+        n_params = sum(p.numel() for p in model.parameters())
+        if run["shard"]:
+            shard_llama(model, mesh)
+        step, p, s = build_train_step(model, strategy=run["strategy"],
+                                      mesh=mesh)
+        held = []
+        fused = step.fused_optimizer
+        update = fused.update
+
+        def measured(*a, **k):
+            torch.cuda.synchronize()
+            held.append(torch.cuda.memory_allocated())
+            return update(*a, **k)
+
+        fused.update = measured
+        rec = dict(losses=[], ms=[], launches=[], wire=[], after=[],
+                   peak=[], equal=True, n_params=n_params)
+        for _ in range(run["steps"] + 1):
+            dist.barrier()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            coll.reset_wire_counts()
+            t0 = time.perf_counter()
+            loss, p, s = step(p, s, x, y)
+            torch.cuda.synchronize()
+            rec["ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["launches"].append({k: v for k, v in
+                                    _build.launch_counts().items() if v})
+            rec["wire"].append({k: dict(v) for k, v in
+                                coll.WIRE_COUNTS.items()})
+            rec["after"].append(torch.cuda.memory_allocated())
+            rec["peak"].append(torch.cuda.max_memory_allocated())
+            rec["losses"].append(float(loss))
+            rec["equal"] &= _zt_digests(p, mesh)
+        rec["held"] = held
+        if run.get("save"):
+            dist.barrier()
+            t0 = time.perf_counter()
+            save_state_dict(p, run["save"])
+            dist.barrier()
+            rec["save_s"] = time.perf_counter() - t0
+            full = gather_params(p)
+            if rank == 0:
+                rec["sha256"] = params_sha256(full)
+            del full
+        out["runs"][run["name"]] = rec
+        del step, p, s, model, fused, update, measured
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"zt{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _zt_launch(phase: str, root: str, world: int, runs: list) -> list:
+    """Start `world` ranks of `zero_tp_rank` through the launcher; their
+    outputs in rank order."""
+    spec_path = os.path.join(root, f"spec{world}.json")
+    with open(spec_path, "w") as f:
+        json.dump({"runs": runs}, f)
+    script = os.path.join(root, "zt_rank.py")
+    with open(script, "w") as f:
+        f.write(ZT_SCRIPT)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    logs = os.path.join(root, f"logs{world}")
+    t0 = time.perf_counter()
+    rc = subprocess.call(
+        [sys.executable, "-m", "paddle_tpu_torch.parallel.launch",
+         "--nproc_per_node", str(world), "--max_restart", "0", "--log_dir",
+         logs, script, spec_path, root, repo],
+        env=dict(os.environ, PYTHONPATH=repo), cwd=repo, timeout=600)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        tails = {os.path.basename(q): open(q).read()[-3000:] for q in
+                 sorted(glob.glob(os.path.join(logs, "*")))}
+        raise AssertionError(f"{phase}: the {world}-rank launcher exited "
+                             f"{rc}; logs {json.dumps(tails)[-8000:]}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(root, f"zt{r}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"[{phase}] {world} ranks through the launcher in {wall:.1f}s")
+    return ranks
+
+
+def _zt_gate_run(phase, name, ranks, oracle, L):
+    """Phase 29's gates on one run (the phase docstring); returns rank
+    0's record."""
+    want = dp_per_step(L)
+    o0 = ranks[0]["runs"][name]
+    for r, o in enumerate(ranks):
+        if o["backend"] != "gloo":
+            raise AssertionError(f"{phase} rank {r}: backend {o['backend']}")
+        run = o["runs"][name]
+        if not run["equal"]:
+            raise AssertionError(f"{phase} {name}: replicas of a block "
+                                 "differ after a step")
+        if run["losses"] != o0["losses"]:
+            raise AssertionError(f"{phase} {name}: the ranks' losses differ")
+        for i, got in enumerate(run["launches"]):
+            for k, n in want.items():
+                if got.get(k, 0) != n:
+                    raise AssertionError(
+                        f"{phase} {name} rank {r} step {i}: {k} launched "
+                        f"{got.get(k, 0)} times, want {n}")
+    ls = o0["losses"]
+    if not all(math.isfinite(v) for v in ls) or ls[-1] >= ls[0]:
+        raise AssertionError(f"{phase} {name}: losses {ls}")
+    for a, b in zip(ls, oracle):
+        if abs(a - b) / abs(b) > DP_LOSS_RTOL:
+            raise AssertionError(f"{phase} {name}: losses {ls} vs one "
+                                 f"process {oracle}")
+    return o0
+
+
+def _zt_wire(rec) -> str:
+    last = rec["wire"][-1]
+    return json.dumps({k: [v["calls"], v["handed_bytes"],
+                           v["received_bytes"], round(1e3 * v["seconds"], 1)]
+                       for k, v in sorted(last.items())})
+
+
+def phase_zero_tp(dp_out: dict):
+    """Phase 29: ZeRO and tensor-parallel training over torch.distributed
+    ranks that share the card (gloo), through `python -m
+    paddle_tpu_torch.parallel.launch`, on phase 28's model (Llama-1B
+    widths, kv heads 4, bf16, AdamW through make_train_step(optimizer=)
+    with bench's decay function) at DP_LAYERS layers and its global batch
+    4 x 2048: two ranks over {"sharding": 2} at ZeRO stage 1, 2 and 3,
+    bench.py main()'s route (shard_llama over {"sharding": 2}, no
+    strategy) and {"mp": 2} (shard_llama), a warm-up and DP_STEPS steps
+    each from the same weights; then four ranks, {"sharding": 2, "mp":
+    2} at ZT_LAYERS4 layers and ZT_STEPS4 steps, its blocks saved and
+    loaded here at world 1. Gates: losses finite and falling, within
+    DP_LOSS_RTOL of the one-process losses (phase 28's; the 4-rank run's
+    own one-process run at its depth); the replicas of every block
+    bitwise equal after every step; exactly dp_per_step(L) launches a
+    rank a step; a rank's bytes at the update falling from stage 1 to 2
+    to 3, each within ZT_HELD_RTOL of `zt_held_formula`; the reload's
+    sha256 the gathered parameters'."""
+    from paddle_tpu_torch.models.llama import param_shapes
+    from paddle_tpu_torch.parallel import load_state_dict
+
+    phase, L = "zero-tp", DP_LAYERS
+    stage = lambda k: {"sharding": {"enable": True, "stage": k}}  # noqa
+    runs2 = [dict(name=f"stage{k}", shape={"sharding": 2},
+                  strategy=stage(k), shard=False, layers=L, steps=DP_STEPS)
+             for k in (1, 2, 3)]
+    runs2 += [dict(name="shard_llama", shape={"sharding": 2},
+                   strategy=None, shard=True, layers=L, steps=DP_STEPS),
+              dict(name="mp2", shape={"mp": 2}, strategy=None, shard=True,
+                   layers=L, steps=DP_STEPS)]
+    # the 4-rank run's oracle: one process at its depth
+    cfg4 = dataclasses_replace(dp_config(), num_hidden_layers=ZT_LAYERS4)
+    model = dp_model(cfg4)
+    step, p, s = build_train_step(model)
+    x, y = bench_batch(cfg4, DP_BATCH, DP_SEQ)
+    one4 = []
+    for _ in range(ZT_STEPS4 + 1):
+        loss, p, s = step(p, s, x, y)
+        one4.append(float(loss))
+    del model, step, p, s
+    _release()
+    root = tempfile.mkdtemp(prefix="zt-ranks-")
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        r2 = _zt_launch(phase, root, 2, runs2)
+        r4 = _zt_launch(phase, root, 4, [dict(
+            name="sharding2xmp2", shape={"sharding": 2, "mp": 2},
+            strategy=None, shard=True, layers=ZT_LAYERS4,
+            steps=ZT_STEPS4, save=ckpt)])
+        fresh = {k: torch.empty(v, dtype=torch.bfloat16) for k, v in
+                 param_shapes(cfg4).items()}
+        t1 = time.perf_counter()
+        load_state_dict(fresh, ckpt)
+        load_s = time.perf_counter() - t1
+        reloaded = params_sha256(fresh)
+        del fresh
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    oracle = dp_out["one_losses"]
+    recs = {r["name"]: _zt_gate_run(phase, r["name"], r2, oracle, L)
+            for r in runs2}
+    rec4 = _zt_gate_run(phase, "sharding2xmp2", r4, one4, ZT_LAYERS4)
+    if rec4["sha256"] != reloaded:
+        raise AssertionError(f"{phase}: the 4-rank save reloaded at world "
+                             "1 differs from the gathered parameters")
+    n = recs["stage1"]["n_params"]
+    held = {}
+    for k in (1, 2, 3):
+        got = max(max(o["runs"][f"stage{k}"]["held"]) for o in r2)
+        want = zt_held_formula(n, k)
+        held[k] = got
+        log(f"[{phase}] stage {k}: {got} B a rank at the update, formula "
+            f"{want} ({got / want:.3f}); after a step "
+            f"{recs[f'stage{k}']['after'][-1]}, peak "
+            f"{max(recs[f'stage{k}']['peak'])}")
+        if abs(got - want) > ZT_HELD_RTOL * want:
+            raise AssertionError(f"{phase}: stage {k} holds {got} B a rank "
+                                 f"at the update, the formula {want}")
+    if not held[1] > held[2] > held[3]:
+        raise AssertionError(f"{phase}: held bytes do not fall stage 1 > "
+                             f"2 > 3: {held}")
+    for name, rec in list(recs.items()) + [("sharding2xmp2", rec4)]:
+        wire = rec["wire"][-1]
+        coll_ms = 1e3 * sum(v["seconds"] for v in wire.values())
+        log(f"[{phase}] {name}: losses {[round(v, 4) for v in rec['losses']]}"
+            f"; ms a step (warm-up first) "
+            f"{[round(v, 1) for v in rec['ms']]}; collectives "
+            f"{coll_ms:.1f} ms of the last; wire a step (calls, handed B, "
+            f"received B, ms) {_zt_wire(rec)}; held at the update "
+            f"{max(rec['held'])} B, peak {max(rec['peak'])} B")
+    log(f"[{phase}] one process: {[round(v, 4) for v in oracle]} "
+        f"({L} layers), {[round(v, 4) for v in one4]} ({ZT_LAYERS4}); "
+        f"sharded save {rec4['save_s']:.1f}s, loaded at world 1 in "
+        f"{load_s:.1f}s, sha256 {reloaded[:16]} equal")
+    launches = {k: sum(sum(l.get(k, 0) for l in rec["launches"])
+                       for rec in recs.values())
+                + sum(l.get(k, 0) for l in rec4["launches"])
+                for k in dp_per_step(L)}
+    return {"launches": launches, "held": held,
+            "step_ms": {k: v["ms"] for k, v in recs.items()}}
 
 
 def main() -> int:
@@ -5927,7 +6240,7 @@ def main() -> int:
             ("audit", lambda: phase_audit(
                 *cut_depth(cfg, params, CUT_LAYERS))),
             ("tune", lambda: phase_tune(*tune_model(cfg, params))),
-            ("tp", lambda: phase_tp(cfg, params))):
+            ("tp", lambda: phase_tp(*tp_model(cfg)))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")
@@ -5945,7 +6258,8 @@ def main() -> int:
                      ("loader",
                       lambda: phase_loader(phases["train"]["step_ms"])),
                      ("audit-fit", lambda: phase_audit_fit(phases["loader"])),
-                     ("dp", phase_dp)):
+                     ("dp", phase_dp),
+                     ("zero-tp", lambda: phase_zero_tp(phases["dp"]))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")
@@ -6048,7 +6362,9 @@ def main() -> int:
     for name, cases in kernels.items():
         if name not in own_phase:
             continue    # a variant no phase serves: checked in phase 1 only
-        n = phases[own_phase[name]]["launches"][name]
+        # phase 29's rank 0 drives the training kernels too
+        n = phases[own_phase[name]]["launches"][name] \
+            + phases["zero-tp"]["launches"].get(name, 0)
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"{own_phase[name]} phase's main path")

@@ -51,6 +51,9 @@ from .callbacks import CallbackList, ProgBarLogger
 
 __all__ = ["Model", "summary"]
 
+# fit's rows split over dp only, as JAX's fit
+_FIT_BATCH_SPEC = (("dp",),)
+
 
 def _to_list(x):
     if x is None:
@@ -146,12 +149,29 @@ class Model:
         out = [float(loss.detach())]
         return (out, metrics) if metrics else out
 
-    def _dp_ref(self):
-        """The global mesh's dp GroupRef when dp > 1, else None."""
+    def _dp_mesh(self):
+        """The global mesh when its dp axis exceeds 1, else None (fit
+        trains over dp only, as JAX's fit)."""
         from ..parallel.mesh import get_global_mesh
-        from ..parallel.trainer import dp_ref_of
 
-        return dp_ref_of(get_global_mesh())
+        mesh = get_global_mesh()
+        if mesh is None or mesh.shape.get("dp", 1) <= 1:
+            return None
+        return mesh
+
+    @staticmethod
+    def _dp_rows(batch, mesh):
+        """(this rank's rows of every leaf of `batch`, its share of the
+        rows, the dp GroupRef), the train step's row split with
+        ``batch_spec=(("dp",),)``; None when a leaf is 0-d or dp does not
+        divide the rows."""
+        from ..parallel.trainer import row_axes, take_rows
+
+        axes = row_axes(mesh, batch, _FIT_BATCH_SPEC)
+        if not axes:
+            return None
+        rows, share = take_rows(mesh, batch, axes)
+        return rows, share, mesh.group_ref(axes)
 
     def _dp_train_batch(self, inputs, labels=None, update=True):
         """`train_batch` over the dp mesh: this rank's rows, its loss
@@ -159,18 +179,17 @@ class Model:
         gradients accumulated so far summed over dp before the optimizer's
         step; the loss returned is the global batch's. A batch dp does
         not divide runs whole (`train_batch`)."""
-        from ..parallel.collectives import all_reduce
-        from ..parallel.trainer import local_rows, sync_grads
+        from ..parallel.collectives import all_reduce, psum_tree
 
-        dp = self._dp_ref()
         self.network.train()
         inputs = self._on_device(inputs)
         labels = self._on_device(labels)
         n_in = len(inputs)
-        split = local_rows(tuple(inputs) + tuple(labels), dp)
+        split = self._dp_rows(tuple(inputs) + tuple(labels),
+                              self._dp_mesh())
         if split is None:
             return self.train_batch(inputs, labels, update=update)
-        rows, share = split
+        rows, share, dp = split
         outputs = self.network(*rows[:n_in])
         loss = self._compute_loss(outputs, list(rows[n_in:]))
         (loss * share).backward()
@@ -178,8 +197,8 @@ class Model:
             params = {n: p for n, p in self.network.named_parameters()
                       if p.grad is not None}
             quantized = bool(self._quantized_collectives)
-            red = sync_grads({n: p.grad for n, p in params.items()}, dp,
-                             quantized)
+            red = psum_tree({n: p.grad for n, p in params.items()}, dp,
+                            quantized)
             with torch.no_grad():
                 for n, p in params.items():
                     p.grad.copy_(red[n])
@@ -294,7 +313,7 @@ class Model:
         self._quantized_collectives = resolve_quantized_collectives(
             quantized_collectives)
         self.quantized_dp_steps = 0
-        dp = self._dp_ref()
+        dp = self._dp_mesh()
         if self._quantized_collectives and dp is None:
             warnings.warn(
                 "fit(quantized_collectives=True): no global mesh with a dp "
@@ -550,22 +569,23 @@ class Model:
         """step(params, states, *inputs, *labels) -> loss: the training
         step `train_batch` runs (forward, backward, the optimizer's
         per-parameter update), as a function of its tensors for the
-        static audits; with `dp` (a GroupRef) the `_dp_train_batch` step:
-        this rank's rows and the dp gradient sum before the update. An
+        static audits; with `dp` (a mesh, `_dp_mesh`) the
+        `_dp_train_batch` step: this rank's rows and the dp gradient sum
+        before the update. An
         optimizer without state yet makes its accumulators inside the
         step."""
         from torch.nn.utils.stateless import _reparametrize_module
 
-        from ..parallel.trainer import local_rows, sync_grads
+        from ..parallel.collectives import psum_tree
 
         net, opt = self.network, self._optimizer
         real = dict(net.named_parameters())
         quantized = bool(self._quantized_collectives)
 
         def step(params, states, *batch):
-            share = 1.0
+            share, ref = 1.0, None
             if dp is not None:
-                batch, share = local_rows(batch, dp)
+                batch, share, ref = self._dp_rows(batch, dp)
             ins, labs = batch[:n_ins], batch[n_ins:]
             with _reparametrize_module(net, params):
                 loss = self._compute_loss(net(*ins), list(labs))
@@ -573,7 +593,7 @@ class Model:
             grads = torch.autograd.grad(loss * share, ps, allow_unused=True)
             if dp is not None:
                 got = {n: g for n, g in zip(params, grads) if g is not None}
-                red = sync_grads(got, dp, quantized)
+                red = psum_tree(got, ref, quantized)
                 grads = [red.get(n) for n in params]
             if opt is None or not hasattr(opt, "_update_rule_arr"):
                 return loss
@@ -613,7 +633,6 @@ class Model:
             from ..analysis import roofline as _roof
             from ..analysis.graph import fakes_on, trace_graph
             from ..analysis.pipeline import analyze as _analyze
-            from ..parallel.trainer import local_rows
 
             batch = fakes_on(self.device, [torch.as_tensor(x) for x in
                                            _to_list(ins) + _to_list(labs)])
@@ -622,16 +641,17 @@ class Model:
             opt = self._optimizer
             states = [getattr(opt, "_accumulators", {}).get(id(p))
                       for p in params.values()]
-            dp, name = self._dp_ref(), "fit.step"
-            if dp is not None and local_rows(tuple(batch), dp) is None:
+            dp, name = self._dp_mesh(), "fit.step"
+            if dp is not None and self._dp_rows(tuple(batch), dp) is None:
                 warnings.warn(
-                    f"fit's static audit: the global mesh has dp={dp.size} "
+                    f"fit's static audit: the global mesh has "
+                    f"dp={dp.shape['dp']} "
                     "but a batch leaf is 0-d or its leading dim does not "
                     "divide by dp — auditing the single-rank step; the dp "
                     "gradient psum is NOT counted")
                 dp = None
             if dp is not None:
-                name = f"fit.step[dp={dp.size}]" + (
+                name = f"fit.step[dp={dp.shape['dp']}]" + (
                     "+int8coll" if self._quantized_collectives else "")
             g = trace_graph(self._step_program(len(_to_list(ins)), dp),
                             params, states, *batch, name=name, grad=True)

@@ -29,6 +29,13 @@ What is here:
   ``_make_decode_step_megakernel`` and, for 'scan', the stacked layout
   (``stack_decode_layer_params``, read back through ``_lw``; one
   layer-major pool whose readers add ``_layer_kv``'s page offset);
+- training over a mesh (`parallel.mesh`): ``llama_sharding_rules``,
+  ``shard_llama`` and ``gather_params`` (the JAX rule table over the
+  ``sharding`` and ``mp`` axes; a rank keeps its blocks), and the
+  training forward at a rank's heads and columns (``TrainTP``:
+  Megatron's f before each column-parallel block, g after each
+  row-parallel one, the embedding's columns and the logits' vocab
+  gathered) with the ZeRO-3 gathers of `parallel.sharding`;
 - tensor- and context-parallel serving: ``ServingTP`` (the head and page
   geometry of ``serving_mp`` / ``serving_cp`` and its three seams, the
   only code that issues a collective: ``gather_heads``, ``psum_partial``,
@@ -93,7 +100,8 @@ from ..kernels.rms_norm import rms_norm_reference
 from ..kernels.rope import apply_rotary_emb
 from ..kernels.swiglu import swiglu_matmul, swiglu_matmul_reference
 from ..nn.quant import weight_quantize
-from ..parallel.collectives import (all_gather, all_reduce,
+from ..parallel.collectives import (all_gather, all_reduce, c_concat,
+                                    c_identity, c_split, mp_allreduce,
                                     quantized_all_gather, quantized_psum,
                                     quantized_psum_prequant,
                                     resolve_quantized_collectives)
@@ -358,24 +366,38 @@ def _meta(*shape) -> nn.Parameter:
 
 
 class _Linear(nn.Module):
-    """paddle ``Linear`` without bias: weight [in, out], y = x @ w."""
+    """paddle ``Linear`` without bias: weight [in, out], y = x @ w. On a
+    sharded model (`_wdist`, a `parallel.sharding.WeightDist`) the weight
+    is this rank's block: its ZeRO axes are gathered for the product."""
+
+    _wdist = None
 
     def __init__(self, n_in: int, n_out: int):
         super().__init__()
         self.weight = _meta(n_in, n_out)
 
     def forward(self, x):
+        if self._wdist is not None:
+            return self._wdist.linear(x, self.weight)
         return _mm(x, self.weight)
 
 
+def _full(mod) -> torch.Tensor:
+    """A module's weight gathered over its ZeRO axes (itself unsharded)."""
+    w = mod.weight
+    return w if mod._wdist is None else mod._wdist.full(w)
+
+
 class LlamaRMSNorm(nn.Module):
+    _wdist = None
+
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.variance_epsilon = config.rms_norm_eps
         self.weight = _meta(config.hidden_size)
 
     def forward(self, x, ops=KERNEL_OPS):
-        return ops.rms_norm(x, self.weight, self.variance_epsilon)
+        return ops.rms_norm(x, _full(self), self.variance_epsilon)
 
 
 class LlamaAttention(nn.Module):
@@ -386,7 +408,13 @@ class LlamaAttention(nn.Module):
     None) before the prompt, else the K/V [b, S_cached, nkv, dh] so far --
     the new K/V are appended on the sequence axis, attention is causal
     only where keys and queries are the same positions (Sk == Sq: the
-    prompt), and the call returns (out, (k, v))."""
+    prompt), and the call returns (out, (k, v)).
+
+    With `_tp` (a `TrainTP`: the training forward over an mp axis) the
+    projections are this rank's columns and rows and it attends its own
+    heads."""
+
+    _tp = None
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
@@ -401,6 +429,8 @@ class LlamaAttention(nn.Module):
         self.o_proj = _Linear(nh * dh, h)
 
     def forward(self, hidden, position_ids, ops=KERNEL_OPS, cache=None):
+        if self._tp is not None and cache is None:
+            return self._forward_tp(hidden, position_ids, ops)
         b, s, _ = hidden.shape
         q = self.q_proj(hidden).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(hidden).reshape(b, s, self.num_kv_heads,
@@ -419,8 +449,34 @@ class LlamaAttention(nn.Module):
         out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
         return out if cache is None else (out, (k, v))
 
+    def _forward_tp(self, hidden, position_ids, ops):
+        """The rank's heads: f, the column-parallel q / k / v (k and v
+        all-gathered when mp does not divide the kv heads, then the kv
+        heads of the rank's q heads picked), rope, attention, the
+        row-parallel o and g."""
+        tp, dh = self._tp, self.head_dim
+        b, s, _ = hidden.shape
+        h = c_identity(hidden, tp.ref)
+        q = self.q_proj(h).reshape(b, s, tp.nq, dh)
+        k, v = self.k_proj(h), self.v_proj(h)
+        if tp.kv_gather:
+            k = all_gather(k, tp.ref, -1, grad="reduce_scatter")
+            v = all_gather(v, tp.ref, -1, grad="reduce_scatter")
+        k = k.reshape(b, s, -1, dh)
+        v = v.reshape(b, s, -1, dh)
+        q, k = apply_rotary_emb(q, k, position_ids=position_ids,
+                                base=self.config.rope_theta)
+        if tp.kv_index is not None:
+            idx = tp.kv_index_on(k.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        out = ops.flash_attention(q, k, v, causal=True)
+        out = self.o_proj(out.reshape(b, s, tp.nq * dh))
+        return mp_allreduce(out, tp.ref)
+
 
 class LlamaMLP(nn.Module):
+    _tp = None
+
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self._fused = config.fused_swiglu
@@ -430,12 +486,18 @@ class LlamaMLP(nn.Module):
         self.down_proj = _Linear(i, h)
 
     def forward(self, x, ops=KERNEL_OPS):
+        tp = self._tp if self._tp is not None and self._tp.mlp_split \
+            else None
+        if tp is not None:
+            x = c_identity(x, tp.ref)
         if self._fused:
             # the JAX route (its llama.py:308-316): the SwiGLU kernels when
             # M, K and F are multiples of 512, the plain composition else
-            return self.down_proj(ops.swiglu(x, self.gate_proj.weight,
-                                             self.up_proj.weight, fused=True))
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+            out = self.down_proj(ops.swiglu(x, _full(self.gate_proj),
+                                            _full(self.up_proj), fused=True))
+        else:
+            out = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return out if tp is None else mp_allreduce(out, tp.ref)
 
 
 # the jax.checkpoint saving policies the JAX model maps remat_policy to
@@ -480,12 +542,18 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class _Embedding(nn.Module):
+    _wdist = None
+
     def __init__(self, n: int, dim: int):
         super().__init__()
         self.weight = _meta(n, dim)
 
     def forward(self, ids):
-        return self.weight[ids]
+        out = _full(self)[ids]
+        if self._wdist is not None and self._wdist.mp_dim == 1:
+            # the table's columns over mp: this rank's, gathered
+            out = c_concat(out, self._wdist.plan.mesh.axis_ref("mp"), -1)
+        return out
 
 
 class LlamaModel(nn.Module):
@@ -542,6 +610,9 @@ class LlamaForCausalLM(nn.Module):
     (the JAX package's dict as numpy arrays). `use_kernels=False` runs
     the plain PyTorch versions of the kernels on any device."""
 
+    _tp = None
+    _shard_plan = None
+
     def __init__(self, config: LlamaConfig, use_kernels: bool = True):
         super().__init__()
         self.config = config
@@ -553,16 +624,50 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, caches=None, position_offset: int = 0):
         """Logits [B, S, vocab]; with `caches` (one (pk, pv) a layer:
         (None, None) before the prompt) returns (logits, new caches), the
-        JAX model's concat-cache call."""
+        JAX model's concat-cache call. A sharded model returns the whole
+        logits on every rank, as JAX's returns a global array."""
         ops = KERNEL_OPS if self.use_kernels else PLAIN_OPS
         out = self.llama(input_ids, caches=caches,
                          position_offset=position_offset, ops=ops)
         hidden = out[0] if caches is not None else out
+        tp = self._tp
         if self.config.tie_word_embeddings:
-            logits = hidden @ self.llama.embed_tokens.weight.T
+            emb = self.llama.embed_tokens
+            if tp is not None and tp.embed_split:
+                # the table's columns over mp: a partial product, summed
+                logits = mp_allreduce(emb._wdist.linear(
+                    c_split(hidden, tp.ref, -1), emb.weight, True), tp.ref)
+            elif emb._wdist is not None:
+                logits = emb._wdist.linear(hidden, emb.weight, True)
+            else:
+                logits = hidden @ emb.weight.T
+        elif tp is not None and tp.head_split:
+            # the vocab over mp: this rank's logits, gathered
+            logits = c_concat(self.lm_head(c_identity(hidden, tp.ref)),
+                              tp.ref, -1)
         else:
             logits = self.lm_head(hidden)
         return (logits, out[1]) if caches is not None else logits
+
+    def apply_shard_plan(self, plan) -> "LlamaForCausalLM":
+        """Lay the model out by a `parallel.sharding.ShardPlan`: each
+        parameter becomes this rank's block (a new spec may only add axes
+        to the current one), the modules compute with it (`_wdist`), and
+        over an mp axis above 1 the training forward runs at the rank's
+        heads and columns (`TrainTP`)."""
+        from ..parallel.sharding import WeightDist, slice_params
+
+        tp = TrainTP(self.config, plan) if plan.mesh.shape.get("mp", 1) > 1 \
+            else None
+        slice_params(self, plan)
+        for name, mod in self.named_modules():
+            if isinstance(mod, (_Linear, _Embedding, LlamaRMSNorm)):
+                mod._wdist = WeightDist(plan, f"{name}.weight")
+            if isinstance(mod, (LlamaAttention, LlamaMLP)):
+                mod._tp = tp
+        self._tp = tp
+        self._shard_plan = plan
+        return self
 
     def load_params(self, params: dict,
                     trainable: bool = False) -> "LlamaForCausalLM":
@@ -835,6 +940,143 @@ class LlamaPretrainingCriterion(nn.Module):
         lse = torch.logsumexp(lg32, dim=-1)
         picked = torch.gather(lg32, -1, labels.long()[..., None])[..., 0]
         return torch.mean(lse - picked)
+
+
+# ---------------------------------------------------------------------------
+# training over a mesh: the rule table, a rank's blocks, its heads
+# ---------------------------------------------------------------------------
+
+MP_AXIS = "mp"
+
+
+def llama_sharding_rules():
+    """(param-name-suffix, partition dims) table, the JAX package's
+    (weights [in, out]): the embedding's vocab over the ZeRO axis and its
+    h over mp; q / k / v / gate / up column-parallel, o / down
+    row-parallel; the lm head's vocab over mp."""
+    return [
+        ("embed_tokens.weight", ("sharding", MP_AXIS)),     # [vocab, h]
+        ("q_proj.weight", ("sharding", MP_AXIS)),           # [h, nh*dh]
+        ("k_proj.weight", ("sharding", MP_AXIS)),
+        ("v_proj.weight", ("sharding", MP_AXIS)),
+        ("o_proj.weight", (MP_AXIS, "sharding")),           # [nh*dh, h]
+        ("gate_proj.weight", ("sharding", MP_AXIS)),
+        ("up_proj.weight", ("sharding", MP_AXIS)),
+        ("down_proj.weight", (MP_AXIS, "sharding")),
+        ("lm_head.weight", ("sharding", MP_AXIS)),          # [h, vocab]
+        ("layernorm.weight", (None,)),
+        ("norm.weight", (None,)),
+    ]
+
+
+def _param_sharding(mesh, name: str, ndim: int, shape) -> tuple:
+    """A parameter's spec by the rule table (JAX's `_param_sharding`): a
+    dim takes its axis where the mesh has it and it divides the dim."""
+    for suffix, dims in llama_sharding_rules():
+        if name.endswith(suffix):
+            spec = []
+            for i in range(ndim):
+                d = dims[i] if i < len(dims) else None
+                if d is not None and d in mesh.axis_names \
+                        and shape[i] % int(mesh.shape[d]) == 0:
+                    spec.append(d)
+                else:
+                    spec.append(None)
+            return tuple(spec)
+    return (None,) * ndim
+
+
+def shard_llama(model: "LlamaForCausalLM", mesh=None) -> "LlamaForCausalLM":
+    """Lay every parameter out per the rule table, TP over ``mp`` and
+    ZeRO-3 / FSDP over ``sharding``: each rank (all holding the same full
+    weights) keeps its block of each, and the model then trains at the
+    rank's heads and columns with the ZeRO gathers (the JAX
+    ``shard_llama``, where XLA makes the collectives). Without a mesh
+    (argument or global) the model is returned unchanged."""
+    from ..parallel import mesh as mesh_mod
+    from ..parallel.placement import dist_attr
+    from ..parallel.sharding import ShardPlan
+
+    mesh = mesh or mesh_mod.get_global_mesh()
+    if mesh is None:
+        return model
+    specs, shapes = {}, {}
+    for name, p in model.named_parameters():
+        attr = dist_attr(p)
+        shapes[name] = tuple(attr.global_shape) if attr else tuple(p.shape)
+        specs[name] = _param_sharding(mesh, name, p.ndim, shapes[name])
+    return model.apply_shard_plan(ShardPlan(mesh, specs, shapes))
+
+
+def gather_params(model_or_params) -> Dict[str, torch.Tensor]:
+    """The full parameters (detached) of a sharded model or params dict:
+    every block all-gathered over its axes (every rank calls it); plain
+    tensors pass through. The inverse of `shard_llama`."""
+    from ..parallel.sharding import gather_tensor
+
+    params = dict(model_or_params.named_parameters()) \
+        if isinstance(model_or_params, nn.Module) else model_or_params
+    return {k: gather_tensor(v).detach() for k, v in params.items()}
+
+
+class TrainTP:
+    """The mp axis of the sharded training forward: the rank's q heads
+    (`nq`; the JAX model splits heads over mp), whether k / v are
+    all-gathered (mp does not divide the kv heads: JAX then keeps them
+    whole, llama.py:273-280) and which kv heads the rank's q heads read
+    (`kv_index`), and whether the MLP, the embedding's columns and the
+    lm head's vocab are split. A layout the forward cannot compute at a
+    rank's heads raises."""
+
+    def __init__(self, cfg: LlamaConfig, plan):
+        self.ref = plan.mesh.axis_ref(MP_AXIS)
+        mp, rank = self.ref.size, self.ref.rank
+        nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+
+        def dims(suffix):
+            return {plan.mp_dim(n) for n in plan.specs if n.endswith(suffix)}
+
+        attn = (dims("q_proj.weight"), dims("k_proj.weight"),
+                dims("v_proj.weight"), dims("o_proj.weight"))
+        if attn != ({1}, {1}, {1}, {0}) or nh % mp:
+            raise NotImplementedError(
+                f"training at mp={mp} needs q / k / v split by columns, o "
+                f"by rows and the {nh} heads divisible by mp (mp dims "
+                f"{attn}; ROADMAP \"Trainer options the port refuses\")")
+        self.nq = nh // mp
+        self.kv_gather = nkv % mp != 0
+        self.kv_index = None
+        if self.kv_gather:
+            g = nh // nkv
+            heads = [t // g for t in range(rank * self.nq,
+                                           (rank + 1) * self.nq)]
+            uniq = sorted(set(heads))
+            per = self.nq // len(uniq)
+            if self.nq % len(uniq) or any(
+                    heads[j] != uniq[j // per] for j in range(self.nq)):
+                uniq = heads      # one kv head a q head
+            self.kv_index = torch.tensor(uniq, dtype=torch.long)
+        self._on = {}
+        mlp = (dims("gate_proj.weight"), dims("up_proj.weight"),
+               dims("down_proj.weight"))
+        if mlp not in (({1}, {1}, {0}), ({None}, {None}, {None})):
+            raise NotImplementedError(
+                f"mp dims of the MLP {mlp} (ROADMAP \"Trainer options the "
+                "port refuses\")")
+        self.mlp_split = mlp[0] == {1}
+        emb = dims("embed_tokens.weight")
+        if emb == {0}:
+            raise NotImplementedError(
+                "an embedding split by vocab over mp (ROADMAP \"Trainer "
+                "options the port refuses\")")
+        self.embed_split = emb == {1}
+        self.head_split = dims("lm_head.weight") == {1}
+
+    def kv_index_on(self, device) -> torch.Tensor:
+        """`kv_index` on `device` (copied there once)."""
+        if device not in self._on:
+            self._on[device] = self.kv_index.to(device)
+        return self._on[device]
 
 
 # ---------------------------------------------------------------------------

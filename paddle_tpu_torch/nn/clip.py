@@ -19,8 +19,11 @@ def _sq_sum(g: torch.Tensor) -> torch.Tensor:
 
 
 class ClipGradBase:
-    def apply(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """grads: tensors aligned with the params; returns a new list."""
+    def apply(self, grads: List[torch.Tensor],
+              reduce_sq=None) -> List[torch.Tensor]:
+        """grads: tensors aligned with the params; returns a new list.
+        `reduce_sq` maps the per-tensor sums of squares of blocks to the
+        global tensors' (a sharded step: `parallel.trainer`)."""
         raise NotImplementedError
 
 
@@ -29,8 +32,11 @@ class ClipGradByGlobalNorm(ClipGradBase):
                  auto_skip_clip=False):
         self.clip_norm = float(clip_norm)
 
-    def apply(self, grads):
-        global_norm = torch.sqrt(sum(_sq_sum(g) for g in grads))
+    def apply(self, grads, reduce_sq=None):
+        sqs = [_sq_sum(g) for g in grads]
+        if reduce_sq is not None:
+            sqs = reduce_sq(sqs)
+        global_norm = torch.sqrt(sum(sqs))
         scale = self.clip_norm / torch.clamp(global_norm, min=self.clip_norm)
         return [(g.to(torch.float32) * scale).to(g.dtype) for g in grads]
 
@@ -39,10 +45,13 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm=1.0):
         self.clip_norm = float(clip_norm)
 
-    def apply(self, grads):
+    def apply(self, grads, reduce_sq=None):
+        sqs = [_sq_sum(g) for g in grads]
+        if reduce_sq is not None:
+            sqs = reduce_sq(sqs)
         out = []
-        for g in grads:
-            n = torch.sqrt(_sq_sum(g))
+        for g, sq in zip(grads, sqs):
+            n = torch.sqrt(sq)
             scale = self.clip_norm / torch.clamp(n, min=self.clip_norm)
             out.append((g.to(torch.float32) * scale).to(g.dtype))
         return out
@@ -53,5 +62,5 @@ class ClipGradByValue(ClipGradBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
-    def apply(self, grads):
+    def apply(self, grads, reduce_sq=None):
         return [torch.clamp(g, self.min, self.max) for g in grads]

@@ -9,6 +9,13 @@ drives it over a params dict). Parameters may be given as tensors, as
 ``(name, tensor)`` pairs (``model.named_parameters()``: the names feed
 ``apply_decay_param_fun``), or as group dicts with a ``"params"`` list.
 
+Under ZeRO (``parallel.sharding.shard_accumulators`` /
+``group_sharded_parallel``, the ``_zero`` state) ``step()`` updates this
+rank's rows of each parameter the sharding axis divides, with state made
+on those rows (each state tensor carries its place in the global state),
+takes the clip's sums of squares over the shards and all-gathers the
+parameters after the update.
+
 ``state_dict()`` / ``set_state_dict()`` use the JAX package's keys:
 ``global_step``, ``LR_Scheduler`` (a scheduler's state) and one
 positional ``param_{i}_{k}`` entry per state tensor (the i-th parameter
@@ -54,6 +61,8 @@ class Optimizer:
         # param id -> dict of state tensors
         self._accumulators: Dict[int, Dict[str, torch.Tensor]] = {}
         self._global_step = 0
+        self._zero = None        # a parallel.sharding.ZeroState
+        self._zero_names = {}    # param id -> its name in the ZeroState
 
     def _take(self, p):
         if isinstance(p, tuple):
@@ -84,9 +93,10 @@ class Optimizer:
     def _update_rule_arr(self, pa, ga, state, lr, wd, step):
         raise NotImplementedError
 
-    @staticmethod
-    def _trainable(p) -> bool:
-        return p.requires_grad and p.grad is not None
+    def _trainable(self, p) -> bool:
+        return p.requires_grad and (p.grad is not None or (
+            self._zero is not None
+            and self._zero_names[id(p)] in self._zero.scattered))
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -94,23 +104,40 @@ class Optimizer:
         """Apply one update to every trainable param with a grad, in
         place (reference Optimizer.step / _apply_optimize)."""
         self._global_step += 1
+        zero = self._zero
         todo = [(p, self._weight_decay_value(group))
                 for group in self._param_groups for p in group["params"]
                 if self._trainable(p)]
         if not todo:
             return
-        grads = [p.grad for p, _ in todo]
+        if zero:
+            names = [self._zero_names[id(p)] for p, _ in todo]
+            got = zero.sync({n: p.grad for n, (p, _) in zip(names, todo)
+                             if n not in zero.scattered}, (zero.axis,))
+            grads = [got[n] for n in names]
+        else:
+            grads = [p.grad for p, _ in todo]
         if self._grad_clip is not None:
-            grads = self._grad_clip.apply(grads)
+            grads = self._grad_clip.apply(
+                grads, reduce_sq=(lambda sqs: zero.reduce_sq(names, sqs))
+                if zero else None)
         lr = self.get_lr()
-        for (p, wd), g in zip(todo, grads):
+        for i, ((p, wd), g) in enumerate(zip(todo, grads)):
+            view = zero.view(names[i], p) if zero else p
             st = self._accumulators.get(id(p))
             if st is None:
-                st = self._create_accumulators(p)
+                st = self._create_accumulators(view)
             decay = self._apply_decay(self._names.get(id(p), ""))
-            new_p, self._accumulators[id(p)] = self._update_rule_arr(
-                p, g, st, lr, wd if decay else 0.0, self._global_step)
-            p.copy_(new_p)
+            new_p, st = self._update_rule_arr(
+                view, g, st, lr, wd if decay else 0.0, self._global_step)
+            self._accumulators[id(p)] = st
+            view.copy_(new_p)
+            if zero and any(zero.sspec[names[i]]):
+                for v in st.values():
+                    if isinstance(v, torch.Tensor) and v.shape == view.shape:
+                        v._dist = zero.attr(names[i])
+        if zero:
+            zero.gather({n: p for n, (p, _) in zip(names, todo)})
 
     def clear_grad(self, set_to_zero=False):
         for p in self._parameter_list:

@@ -19,10 +19,15 @@ copies it into the target, so a directory saved at one world size loads
 at another.
 
 What a rank writes: a `Shard` (a local block of a tensor sharded across
-ranks, with its global offset and shape) is written by its rank; a plain
+ranks, with its global offset and shape) is written by its rank; a block
+with a placement (`placement.DistAttr`: ``shard_llama``'s parameters, a
+ZeRO step's, `api.shard_tensor`'s) is written at its global offset by the
+rank at coordinate 0 of every mesh axis that replicates it; a plain
 tensor is replicated on every rank, so its rows are cut into one
 contiguous block a rank and each rank writes its block (a 0-d tensor, or
-one with fewer rows than ranks, is rank 0's). Each byte lands once.
+one with fewer rows than ranks, is rank 0's). Each byte lands once. A
+target with a placement loads its own block of the assembled tensor, so
+a save at ``sharding2 x mp2`` loads at world 1 or at dp2.
 
 bf16 chunks are written and read as raw 2-byte words, so the port needs
 no ``ml_dtypes``: the entry's npy header names the descr ``'bfloat16'``,
@@ -44,6 +49,8 @@ from typing import Dict, NamedTuple, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .placement import block_offsets, block_slices, dist_attr
 
 __all__ = ["Shard", "load_state_dict", "save_state_dict"]
 
@@ -118,6 +125,20 @@ def _chunks(value, rank: int, world: int):
         t = value.data.detach()
         return (list(value.global_shape), t.dtype,
                 [(list(value.offset), t)])
+    attr = dist_attr(value)
+    if attr is not None:
+        if attr.partial:
+            raise ValueError("save_state_dict: a block holding a partial "
+                             f"sum over {attr.partial} (reshard it first)")
+        t = value.detach()
+        mesh = attr.mesh
+        held = attr.sharded_axes()
+        if any(mesh.axis_rank(a) for a in mesh.axis_names
+               if mesh.shape[a] > 1 and a not in held):
+            return list(attr.global_shape), t.dtype, []
+        offset = [o for o, _ in block_offsets(mesh, attr.spec,
+                                              attr.global_shape)]
+        return list(attr.global_shape), t.dtype, [(offset, t)]
     t = value.detach() if isinstance(value, torch.Tensor) \
         else torch.as_tensor(value)
     shape = list(t.shape)
@@ -144,6 +165,10 @@ def save_state_dict(state_dict: Dict, path: str, process_group=None,
             if isinstance(v, Shard):
                 snap[name] = Shard(v.data.detach().to("cpu", copy=True),
                                    list(v.offset), list(v.global_shape))
+            elif dist_attr(v) is not None:
+                c = v.detach().to("cpu", copy=True)
+                c._dist = dist_attr(v)
+                snap[name] = c
             else:
                 snap[name] = torch.as_tensor(v).detach().to("cpu",
                                                              copy=True)
@@ -247,7 +272,9 @@ def load_state_dict(state_dict: Dict, path: str, process_group=None,
                 continue
             entry = meta[name]
             shape = tuple(entry["shape"])
+            attr = dist_attr(target)
             want = tuple(target.global_shape) if isinstance(target, Shard) \
+                else tuple(attr.global_shape) if attr is not None \
                 else tuple(target.shape)
             if want != shape:
                 raise ValueError(f"{name}: checkpoint shape {shape} vs "
@@ -271,6 +298,9 @@ def load_state_dict(state_dict: Dict, path: str, process_group=None,
                     sl = tuple(slice(o, o + s) for o, s in
                                zip(target.offset, target.data.shape))
                     target.data.copy_(full[sl])
+                elif attr is not None:
+                    target.copy_(full[block_slices(attr.mesh, attr.spec,
+                                                   attr.global_shape)])
                 else:
                     target.copy_(full)
     finally:

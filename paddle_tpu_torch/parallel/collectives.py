@@ -26,6 +26,26 @@ The namespace is not the kernels' (``paddle_tpu``): a collective node is
 never counted as a kernel launch. Size-1 groups never reach an operator
 (the functions return their input).
 
+**Autograd.** Each operator that exchanges in its forward carries its
+backward (``torch.library.register_autograd``), so a training step's
+collectives are graph nodes too, forward and backward:
+
+- ``reduce_scatter`` (this rank's chunk of the sum; on gloo, which has
+  none, an all-reduce and a slice; on NCCL ``reduce_scatter_tensor``):
+  backward, an all-gather;
+- ``all_gather``: its backward is named by the caller (``grad``):
+  ``"reduce_scatter"`` where the ranks' consumers differ (a ZeRO-3
+  weight, k / v gathered for a rank's heads), ``"slice"`` where they
+  compute the same thing (Megatron's ``c_concat``: the embedding's
+  columns, the logits' vocab);
+- ``all_reduce``: identity backward (Megatron's ``g`` after a
+  row-parallel product: the loss downstream is the same on every rank).
+
+Two functions exchange in their backward only, so their forward is no
+graph node: ``c_identity`` (Megatron's ``f`` before a column-parallel
+product: identity forward, all-reduce backward) and ``c_split`` (a slice,
+all-gather backward).
+
 **The wire format** is the JAX package's, byte for byte:
 
 - ``quantize_blocks`` / ``dequantize_blocks``: symmetric absmax int8 in
@@ -52,6 +72,7 @@ is how the audit recognizes the rewrite (JAX's `_mark_quantized`).
 """
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Optional
 
@@ -59,7 +80,7 @@ import torch
 import torch.distributed as dist
 
 from ..framework.flags import flag as _flag
-from .ranks import group_ref, resolve_group
+from .ranks import group_ref, resolve_group, tracing_rank
 
 __all__ = [
     "COMM_NAMESPACE", "QCOLL_BLOCK", "QCOLL_FALLBACK_MSG",
@@ -67,7 +88,9 @@ __all__ = [
     "quantized_all_gather", "quantized_psum", "quantized_psum_prequant",
     "quantized_psum_tree", "quantized_reduce_scatter", "all_gather",
     "all_reduce", "all_reduce_tree", "all_to_all", "WIRE_COUNTS",
-    "reset_wire_counts", "broadcast", "group_size", "tree_leaves",
+    "reset_wire_counts", "broadcast", "broadcast_tree", "c_concat",
+    "c_identity", "c_split", "group_size", "mp_allreduce", "psum_tree",
+    "reduce_scatter", "tree_leaves",
 ]
 
 # lane-width blocks along the last dim (one f32 scale per 128 int8 bytes)
@@ -97,19 +120,23 @@ _OPS = torch.library.Library(COMM_NAMESPACE, "DEF")
 _REDUCE = {"sum": "SUM", "max": "MAX", "min": "MIN"}
 
 # what the real implementations exchanged, by operator: calls, the bytes
-# this rank handed in, and the bytes of other ranks' data its result
-# holds (a gather's (n-1)/n, an all-to-all's (n-1)/n, a reduction's n-1
-# contributions, a broadcast's payload off the source). Moved only by a
-# real exchange: a traced (fake) call counts nothing.
+# this rank handed in, the bytes of other ranks' data its result holds (a
+# gather's (n-1)/n, an all-to-all's (n-1)/n, a reduction's n-1
+# contributions, a reduce-scatter's n-1 contributions to its chunk, a
+# broadcast's payload off the source), and the host seconds inside the
+# implementation (on gloo the host staging and the exchange; on NCCL the
+# enqueue). Moved only by a real exchange: a traced (fake) call counts
+# nothing.
 WIRE_COUNTS = {}
 
 
-def _count(kind: str, handed: int, received: int) -> None:
+def _count(kind: str, handed: int, received: int, t0: float) -> None:
     c = WIRE_COUNTS.setdefault(kind, {"calls": 0, "handed_bytes": 0,
-                                      "received_bytes": 0})
+                                      "received_bytes": 0, "seconds": 0.0})
     c["calls"] += 1
     c["handed_bytes"] += int(handed)
     c["received_bytes"] += int(received)
+    c["seconds"] += time.perf_counter() - t0
 
 
 def reset_wire_counts() -> None:
@@ -125,33 +152,73 @@ def _staged(x: torch.Tensor, pg, inplace: bool = False):
     return (x.clone() if inplace else x).contiguous(), False
 
 
-def _all_gather_impl(x, group: str, size: int, dim: int):
+def _key_rank(key: str) -> int:
+    """This rank's index in the group a registry key names (the key's
+    ranks; under `parallel.ranks.traced_rank`, the traced rank's)."""
+    if key == "world":
+        return dist.get_rank() if dist.is_initialized() else 0
+    ranks = [int(r) for r in key.split("@", 1)[1].split(",")]
+    traced = tracing_rank()
+    me = traced if traced is not None else (
+        dist.get_rank() if dist.is_initialized() else 0)
+    return ranks.index(me) if me in ranks else 0
+
+
+def _all_gather_impl(x, group: str, size: int, dim: int, grad: str):
+    t0 = time.perf_counter()
     pg = resolve_group(group)
     src, staged = _staged(x, pg)
     parts = [torch.empty_like(src) for _ in range(size)]
     dist.all_gather(parts, src, group=pg)
     out = torch.cat(parts, dim=dim)
     nb = src.numel() * src.element_size()
-    _count("all_gather", nb, nb * (size - 1))
+    _count("all_gather", nb, nb * (size - 1), t0)
     return out.to(x.device) if staged else out
 
 
-def _all_gather_fake(x, group: str, size: int, dim: int):
+def _all_gather_fake(x, group: str, size: int, dim: int, grad: str):
     shape = list(x.shape)
     shape[dim] *= size
     return x.new_empty(shape)
 
 
 def _all_reduce_impl(x, group: str, size: int, op: str):
+    t0 = time.perf_counter()
     pg = resolve_group(group)
     out, staged = _staged(x, pg, inplace=True)
     dist.all_reduce(out, op=getattr(dist.ReduceOp, _REDUCE[op]), group=pg)
     nb = out.numel() * out.element_size()
-    _count("all_reduce", nb, nb * (size - 1))
+    _count("all_reduce", nb, nb * (size - 1), t0)
     return out.to(x.device) if staged else out
 
 
+def _reduce_scatter_impl(x, group: str, size: int, dim: int):
+    t0 = time.perf_counter()
+    pg = resolve_group(group)
+    src, staged = _staged(x, pg, inplace=True)
+    n = src.shape[dim] // size
+    if dist.get_backend(pg) == "nccl":
+        moved = src.movedim(dim, 0).contiguous()
+        out = moved.new_empty((n,) + tuple(moved.shape[1:]))
+        dist.reduce_scatter_tensor(out, moved, group=pg)
+        out = out.movedim(0, dim).contiguous()
+    else:
+        # gloo has no reduce-scatter: the sum, then this rank's chunk
+        dist.all_reduce(src, group=pg)
+        out = src.narrow(dim, dist.get_rank(pg) * n, n).contiguous()
+    nb = out.numel() * out.element_size()
+    _count("reduce_scatter", nb * size, nb * (size - 1), t0)
+    return out.to(x.device) if staged else out
+
+
+def _reduce_scatter_fake(x, group: str, size: int, dim: int):
+    shape = list(x.shape)
+    shape[dim] //= size
+    return x.new_empty(shape)
+
+
 def _all_to_all_impl(x, group: str, size: int):
+    t0 = time.perf_counter()
     pg = resolve_group(group)
     src, staged = _staged(x, pg)
     # the single-tensor form: gloo implements it (alltoall_base), not the
@@ -159,17 +226,18 @@ def _all_to_all_impl(x, group: str, size: int):
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=pg)
     nb = src.numel() * src.element_size()
-    _count("all_to_all", nb, nb * (size - 1) // size)
+    _count("all_to_all", nb, nb * (size - 1) // size, t0)
     return out.to(x.device) if staged else out
 
 
 def _broadcast_impl(x, group: str, size: int, src: int):
+    t0 = time.perf_counter()
     pg = resolve_group(group)
     out, staged = _staged(x, pg, inplace=True)
     dist.broadcast(out, src=dist.get_global_rank(pg, src)
                    if pg is not dist.group.WORLD else src, group=pg)
     nb = out.numel() * out.element_size()
-    _count("broadcast", nb, 0 if dist.get_rank(pg) == src else nb)
+    _count("broadcast", nb, 0 if dist.get_rank(pg) == src else nb, t0)
     return out.to(x.device) if staged else out
 
 
@@ -186,11 +254,15 @@ def _comm_op(name, schema, impl, fake):
 
 
 _all_gather_op = _comm_op(
-    "all_gather", "(Tensor x, str group, int size, int dim) -> Tensor",
+    "all_gather",
+    "(Tensor x, str group, int size, int dim, str grad) -> Tensor",
     _all_gather_impl, _all_gather_fake)
 _all_reduce_op = _comm_op(
     "all_reduce", "(Tensor x, str group, int size, str op) -> Tensor",
     _all_reduce_impl, _same_fake)
+_reduce_scatter_op = _comm_op(
+    "reduce_scatter", "(Tensor x, str group, int size, int dim) -> Tensor",
+    _reduce_scatter_impl, _reduce_scatter_fake)
 _all_to_all_op = _comm_op(
     "all_to_all", "(Tensor x, str group, int size) -> Tensor",
     _all_to_all_impl, _same_fake)
@@ -199,17 +271,137 @@ _broadcast_op = _comm_op(
     _broadcast_impl, _same_fake)
 
 
+# the backward formulas (module docstring, "Autograd")
+
+def _setup(ctx, inputs, output):
+    ctx.args = inputs[1:]
+
+
+def _gather_backward(ctx, g):
+    group, size, dim, grad = ctx.args
+    if grad == "slice":
+        n = g.shape[dim] // size
+        out = g.narrow(dim, _key_rank(group) * n, n)
+    else:
+        out = _reduce_scatter_op(g.contiguous(), group, size, dim)
+    return out, None, None, None, None
+
+
+def _reduce_backward(ctx, g):
+    if ctx.args[2] != "sum":
+        raise NotImplementedError(
+            f"all_reduce(op={ctx.args[2]!r}) has no gradient")
+    return g, None, None, None
+
+
+def _scatter_backward(ctx, g):
+    group, size, dim = ctx.args
+    return (_all_gather_op(g.contiguous(), group, size, dim,
+                           "reduce_scatter"), None, None, None)
+
+
+for _name, _bwd in (("all_gather", _gather_backward),
+                    ("all_reduce", _reduce_backward),
+                    ("reduce_scatter", _scatter_backward)):
+    torch.library.register_autograd(f"{COMM_NAMESPACE}::{_name}", _bwd,
+                                    setup_context=_setup, lib=_OPS)
+
+
 def group_size(group=None) -> int:
     return group_ref(group).size
 
 
-def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+GATHER_GRADS = ("reduce_scatter", "slice")
+
+
+def all_gather(x: torch.Tensor, group=None, dim: int = 0,
+               grad: str = "reduce_scatter") -> torch.Tensor:
     """Every rank's `x` concatenated along `dim` in rank order (the JAX
-    ``all_gather(tiled=True)``)."""
+    ``all_gather(tiled=True)``). `grad` names its backward: the
+    reduce-scatter of the gradient (the adjoint, where each rank's
+    consumer differs) or this rank's slice of it (``c_concat``, where
+    every rank computes the same thing downstream)."""
+    if grad not in GATHER_GRADS:
+        raise ValueError(f"all_gather: grad {grad!r} is not one of "
+                         f"{GATHER_GRADS}")
     ref = group_ref(group)
     if ref.size == 1:
         return x
-    return _all_gather_op(x, ref.key, ref.size, dim % max(x.ndim, 1))
+    return _all_gather_op(x, ref.key, ref.size, dim % max(x.ndim, 1), grad)
+
+
+def reduce_scatter(x: torch.Tensor, group=None, dim: int = 0
+                   ) -> torch.Tensor:
+    """This rank's chunk, along `dim`, of the sum of every rank's `x`
+    (the dim must split evenly); backward, an all-gather."""
+    ref = group_ref(group)
+    if ref.size == 1:
+        return x
+    dim = dim % max(x.ndim, 1)
+    if x.shape[dim] % ref.size:
+        raise ValueError(f"reduce_scatter: dim {dim} ({x.shape[dim]}) does "
+                         f"not split into {ref.size} ranks")
+    return _reduce_scatter_op(x.contiguous(), ref.key, ref.size, dim)
+
+
+class _CIdentity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, key, size):
+        ctx.key, ctx.size = key, size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_op(g.contiguous(), ctx.key, ctx.size,
+                              "sum"), None, None
+
+
+class _CSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, key, size, rank, dim):
+        ctx.key, ctx.size, ctx.dim = key, size, dim
+        n = x.shape[dim] // size
+        return x.narrow(dim, rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_gather_op(g.contiguous(), ctx.key, ctx.size, ctx.dim,
+                               "slice"), None, None, None, None)
+
+
+def c_identity(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's f (Paddle's ``_c_identity``): identity forward, the
+    gradient all-reduced over the group backward. It sits before a
+    column-parallel product, whose input gradient is partial a rank."""
+    ref = group_ref(group)
+    if ref.size == 1:
+        return x
+    return _CIdentity.apply(x, ref.key, ref.size)
+
+
+def mp_allreduce(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's g (Paddle's ``_mp_allreduce``): the sum over the group
+    forward, identity backward. It sits after a row-parallel product."""
+    return all_reduce(x, group)
+
+
+def c_concat(x: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:
+    """Paddle's ``_c_concat``: the ranks' blocks gathered along `dim`,
+    this rank's slice of the gradient backward."""
+    return all_gather(x, group, dim, grad="slice")
+
+
+def c_split(x: torch.Tensor, group=None, dim: int = -1) -> torch.Tensor:
+    """Paddle's ``_c_split``: this rank's block of `x` along `dim`,
+    the gradient all-gathered backward."""
+    ref = group_ref(group)
+    if ref.size == 1:
+        return x
+    dim = dim % max(x.ndim, 1)
+    if x.shape[dim] % ref.size:
+        raise ValueError(f"c_split: dim {dim} ({x.shape[dim]}) does not "
+                         f"split into {ref.size} ranks")
+    return _CSplit.apply(x, ref.key, ref.size, ref.rank, dim)
 
 
 def all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
@@ -243,6 +435,22 @@ def broadcast(x: torch.Tensor, group=None, src: int = 0) -> torch.Tensor:
     if ref.size == 1:
         return x
     return _broadcast_op(x, ref.key, ref.size, int(src))
+
+
+def broadcast_tree(tensors, group=None, src: int = 0) -> None:
+    """Overwrite every tensor of the list with the group's rank `src`'s
+    values, in place: one broadcast a dtype (the tensors concatenated
+    flat)."""
+    if group_ref(group).size == 1 or not tensors:
+        return
+    with torch.no_grad():
+        for dtype in dict.fromkeys(t.dtype for t in tensors):
+            same = [t for t in tensors if t.dtype == dtype]
+            got, off = broadcast(torch.cat([t.reshape(-1) for t in same]),
+                                 group, src), 0
+            for t in same:
+                t.copy_(got[off:off + t.numel()].reshape(t.shape))
+                off += t.numel()
 
 
 # ---------------------------------------------------------------------------
@@ -498,3 +706,11 @@ def quantized_psum_tree(tree, group=None, *, block: int = QCOLL_BLOCK):
         else:
             out.append(all_reduce(leaf, group))
     return build(out)
+
+
+def psum_tree(tree, group=None, quantized: bool = False):
+    """The gradient sum over the group: the int8 `quantized_psum_tree`
+    with `quantized`, else `all_reduce_tree`."""
+    if quantized:
+        return quantized_psum_tree(tree, group)
+    return all_reduce_tree(tree, group)

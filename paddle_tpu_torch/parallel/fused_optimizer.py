@@ -57,15 +57,20 @@ class FusedOptimizer:
         return {"step": self._opt._global_step, "acc": acc}
 
     @torch.no_grad()
-    def update(self, params, grads, state, lr):
+    def update(self, params, grads, state, lr, reduce_sq=None):
         """One optimizer step over every trainable param, in place; the
-        global clip sees the grads in sorted-name order, as in JAX."""
+        global clip sees the grads in sorted-name order, as in JAX.
+        `params` may map a name to a view (the rows a ZeRO rank updates);
+        `reduce_sq(names, sums)` turns the clip's per-leaf sums of squares
+        of blocks into the global leaves'."""
         opt = self._opt
         step = state["step"] + 1
         names = sorted(self.trainable)
         gs = [grads[n] for n in names]
         if opt._grad_clip is not None:
-            gs = opt._grad_clip.apply(gs)
+            gs = opt._grad_clip.apply(
+                gs, reduce_sq=None if reduce_sq is None
+                else (lambda sqs: reduce_sq(names, sqs)))
         acc = state["acc"]
         for n, g in zip(names, gs):
             new_p, acc[n] = opt._update_rule_arr(params[n], g, acc[n], lr,

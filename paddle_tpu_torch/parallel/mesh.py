@@ -9,9 +9,14 @@ axis a holds the ranks that differ from r in a alone. Each group is
 registered under ``"<axis>@<ranks>"`` (`parallel.ranks.register_group`),
 so the collectives and the communication audit name it by its axis.
 
-Only the ``dp`` axis may exceed 1 in this slice (data-parallel training:
-`make_train_step(mesh=)`, `DataParallel`, ``hapi.Model.fit``); any other
-axis above 1 raises, naming ROADMAP.md section 1 item 5's later steps.
+The ``dp``, ``sharding`` (ZeRO) and ``mp`` (tensor-parallel) axes, and
+axes of other names, may exceed 1 (`make_train_step(mesh=)`,
+`DataParallel`, ``hapi.Model.fit`` over dp, ``shard_llama``); ``pp`` and
+``sep`` above 1 raise, naming ROADMAP.md section 1 item 5 steps 5-6.
+Beside the one-axis groups, the batch axes (``dp`` and ``sharding``, when
+both exceed 1) get one group of their own, registered as
+``"dp+sharding@<ranks>"``: the rows of a batch split over both, so its
+loss and the gradients of what both replicate are summed over it.
 """
 from __future__ import annotations
 
@@ -35,10 +40,10 @@ HYBRID_AXES = ("dp", "pp", "sharding", "sep", "mp")
 BATCH_AXES = ("dp", "sharding")
 MP_AXIS = "mp"
 CP_AXIS = "cp"
-# the axes this slice builds groups for above size 1
-PORTED_AXES = ("dp",)
-LATER_STEPS = ("ROADMAP.md section 1 item 5's later steps (ZeRO sharding, "
-               "then the model-parallel axes)")
+# the axes that may not exceed 1 yet
+REFUSED_AXES = ("pp", "sep")
+LATER_STEPS = ("ROADMAP.md section 1 item 5 steps 5-6 (pipeline, then "
+               "sequence and context parallel training)")
 
 
 @dataclasses.dataclass
@@ -49,6 +54,8 @@ class Mesh:
 
     shape: Dict[str, int]
     refs: Dict[str, GroupRef]
+    multi_refs: Dict[tuple, GroupRef] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def axis_names(self) -> tuple:
@@ -63,6 +70,22 @@ class Mesh:
 
     def axis_rank(self, axis: str) -> int:
         return self.refs[axis].rank
+
+    def group_ref(self, axes) -> Optional[GroupRef]:
+        """The group over `axes` (a name or a tuple; axes of size 1
+        dropped): None when none is left, the axis group for one, the
+        registered multi-axis group for several."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        axes = tuple(a for a in self.axis_names
+                     if a in axes and self.shape[a] > 1)
+        if not axes:
+            return None
+        if len(axes) == 1:
+            return self.refs[axes[0]]
+        if axes not in self.multi_refs:
+            raise ValueError(f"no process group over {axes} on this mesh "
+                             f"(built: {sorted(self.multi_refs)})")
+        return self.multi_refs[axes]
 
 
 def divisible_prefix(mesh, dim: int, names) -> tuple:
@@ -80,18 +103,23 @@ def divisible_prefix(mesh, dim: int, names) -> tuple:
     return tuple(kept)
 
 
-def _axis_groups(sizes: List[int], axis: int) -> List[List[int]]:
-    """Every group of ranks that differ only in digit `axis` (row-major
-    digits over `sizes`), in a fixed order."""
+def _axis_groups(sizes: List[int], axes) -> List[List[int]]:
+    """Every group of ranks that differ only in the digits `axes` (an
+    index or a tuple of them; row-major digits over `sizes`), in a fixed
+    order, each group's ranks ascending."""
+    axes = (axes,) if isinstance(axes, int) else tuple(axes)
     strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
-    others = [i for i in range(len(sizes)) if i != axis]
+    others = [i for i in range(len(sizes)) if i not in axes]
+    inner = [0]
+    for i in axes:
+        inner = [o + k * strides[i] for o in inner for k in range(sizes[i])]
     out = []
     for combo in range(math.prod(sizes[i] for i in others)):
         base, rem = 0, combo
         for i in reversed(others):
             base += (rem % sizes[i]) * strides[i]
             rem //= sizes[i]
-        out.append([base + k * strides[axis] for k in range(sizes[axis])])
+        out.append(sorted(base + o for o in inner))
     return out
 
 
@@ -108,10 +136,10 @@ def build_mesh(shape, axis_names: Optional[Sequence[str]] = None) -> Mesh:
         sizes = [int(v) for v in shape]
         names = tuple(axis_names or HYBRID_AXES[:len(sizes)])
     for name, n in zip(names, sizes):
-        if n > 1 and name not in PORTED_AXES:
+        if n > 1 and name in REFUSED_AXES:
             raise NotImplementedError(
-                f"mesh axis {name!r} of size {n}: only the dp axis is "
-                f"ported above 1 ({LATER_STEPS})")
+                f"mesh axis {name!r} of size {n}: not ported above 1 "
+                f"({LATER_STEPS})")
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = math.prod(sizes)
     if n != world:
@@ -127,7 +155,16 @@ def build_mesh(shape, axis_names: Optional[Sequence[str]] = None) -> Mesh:
             g = dist.new_group(ranks)
             if rank in ranks:
                 refs[name] = register_group(name, ranks, g)
-    return Mesh(dict(zip(names, sizes)), refs)
+    multi = {}
+    batch = tuple(i for i, a in enumerate(names)
+                  if a in BATCH_AXES and sizes[i] > 1)
+    if len(batch) > 1:
+        key = tuple(names[i] for i in batch)
+        for ranks in _axis_groups(sizes, batch):
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                multi[key] = register_group("+".join(key), ranks, g)
+    return Mesh(dict(zip(names, sizes)), refs, multi)
 
 
 _global_mesh: Optional[Mesh] = None

@@ -1,5 +1,5 @@
 """The train step (counterpart of paddle_tpu/parallel/trainer.py), on one
-GPU or over a data-parallel mesh of ranks.
+GPU or over a mesh of ranks.
 
     step_fn, params, opt_state = make_train_step(model, loss_fn, None, ...)
     loss, params, opt_state = step_fn(params, opt_state, x, y)
@@ -9,46 +9,71 @@ JAX jits a pure (params, opt_state, batch) -> (loss, params', opt_state')
 function with donated buffers; here the step runs eagerly under autograd
 and updates the params and the optimizer state in place (the donation's
 effect, stated: the returned dicts are the ones passed in). `params` maps
-``model.named_parameters()`` keys to the model's own ``nn.Parameter``s,
-so the model must hold trainable weights (``load_params(...,
-trainable=True)`` or ``init_train_params``).
+``model.named_parameters()`` keys to the model's own ``nn.Parameter``s
+(on a sharded mesh, this rank's blocks), so the model must hold trainable
+weights (``load_params(..., trainable=True)`` or ``init_train_params``).
 
 Ported: the default fused AdamW (``adamw_update``: global-norm clip at
 1.0, moments in the params' dtype, decay on ndim > 1 only), the
 ``optimizer=`` route through ``FusedOptimizer``, and the strategy
-sections ``amp``, ``recompute`` and ``gradient_merge`` (a dict of
-section dicts). ``sharding`` (ZeRO, ROADMAP section 1 item 5 step 3) and
-a whole-loss checkpoint for a model without a ``config.recompute`` knob
-are refused ("Trainer options the port refuses").
+sections ``amp``, ``recompute``, ``gradient_merge`` and ``sharding`` (a
+dict of section dicts). A whole-loss checkpoint for a model without a
+``config.recompute`` knob is refused ("Trainer options the port
+refuses").
 
-Data parallelism (``mesh=``, default the global mesh of
-`parallel.mesh`): the JAX step lays the global batch over ``("dp",
-"sharding")`` and the compiler reduces the gradients. Here every rank is
-handed the same global batch and takes its rows (rank r of dp = n the
-r-th of n equal row blocks); its loss is its rows' mean weighted by its
-share of the rows, so the gradients summed over dp (one all-reduce a
-dtype, `collectives.all_reduce_tree`, or with ``quantized_collectives``
-the int8 `quantized_psum_tree`) are the global mean's, and so is the
-returned loss. The sum lands before clipping and the update, so every
-rank applies the same update and the parameters stay bitwise equal
-across ranks (they are broadcast from dp rank 0 when the step is built).
-With gradient merge the micro-batches accumulate locally and sync once.
-A batch whose rows dp does not divide (or a 0-d leaf) runs whole on every
-rank, with a warning: JAX replicates such a batch.
+**Over a mesh** (``mesh=``, default the global mesh of `parallel.mesh`;
+axes ``dp``, ``sharding``, ``mp``). JAX lays the global batch over
+`batch_spec` (default ``(("dp", "sharding"), "sep")``: the rows over the
+longest prefix of dp x sharding whose product divides them) and the
+compiler makes every collective. Here every rank is handed the same
+global batch and takes its rows (the row-major block of its coordinates
+on those axes); its loss is its rows' mean weighted by its share of the
+rows, so sums over the row axes give the global mean's gradients and
+loss. The gradients follow the batch, not the layout:
+
+- over a row axis they are summed: by the reduce-scatter of a sharded
+  parameter's gather (stage 3, ``shard_llama``), by the stage-2 hooks'
+  reduce-scatter as the backward produces them, else by all-reduces (one
+  a dtype and set of axes, `collectives.all_reduce_tree`, or with
+  ``quantized_collectives`` the int8 `quantized_psum_tree`; the group of
+  ``dp`` and ``sharding`` together is the mesh's batch group);
+- over an axis the rows were not split on, each rank holds the whole
+  gradient already and takes its block;
+- over ``mp`` the rows are replicated: a parameter's gradient is its
+  block's (the model's f / g operators make it whole).
+
+The sum lands before the clip and the update. The global-norm clip sums
+each block's squares over the axes on which the blocks differ (a
+replicated leaf counts once). ZeRO (``sharding`` section: ``enable``,
+``stage`` 1 / 2 / 3, default 2, ``axis``, default "sharding";
+`parallel.sharding`, whose `ZeroState` holds the layout, the gradient
+sync, the clip's sums and the gather for this step and the eager
+optimizer alike): stage 3 shards each parameter's free dim 0 over the
+axis; every stage keeps the optimizer state sharded there too, so a rank
+updates its rows of a parameter the axis does not shard and the rows are
+all-gathered after the update. Parameters an axis replicates are
+broadcast from its first rank when the step is built, so the ranks hold
+equal values and, step after step, stay bitwise equal.
+
+With gradient merge the micro-batches accumulate locally and sum once
+(a stage-3 gather reduces its gradient in each micro-batch's backward).
+A batch whose rows the row axes do not divide (or a 0-d leaf) runs whole
+on every rank, with a warning: JAX replicates such a batch.
 """
 from __future__ import annotations
 
+import math
 import warnings
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
 from . import mesh as mesh_mod
-from .collectives import all_reduce, all_reduce_tree, broadcast, \
-    quantized_psum_tree
+from .collectives import all_gather, all_reduce, broadcast_tree
 from .fused_optimizer import FusedOptimizer
+from .sharding import ShardPlan, ZeroState, apply_plan, shard_dim0_spec
 
 
 class AdamWState(NamedTuple):
@@ -67,17 +92,21 @@ def init_adamw_state(params: Dict[str, torch.Tensor]) -> AdamWState:
 @torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, lr, *, beta1=0.9,
                  beta2=0.999, eps=1e-8, weight_decay=0.01,
-                 grad_clip_norm: Optional[float] = 1.0):
+                 grad_clip_norm: Optional[float] = 1.0, reduce_sq=None):
     """AdamW with global-norm clipping over the params that have a grad,
     in place (JAX ``adamw_update``, op for op: the moments are computed
     in f32 and stored in their own dtype). Weight decay applies to params
-    with ndim > 1 only. Returns (params, new state)."""
+    with ndim > 1 only. `reduce_sq` maps the per-leaf sums of squares to
+    the global tensors' (a sharded step's blocks). Returns (params, new
+    state)."""
     step = state.step + 1
     names = sorted(n for n in params if n in grads)
     gs = [grads[n] for n in names]
     if grad_clip_norm is not None:
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in gs))
+        sqs = [torch.sum(torch.square(g.to(torch.float32))) for g in gs]
+        if reduce_sq is not None:
+            sqs = reduce_sq(names, sqs)
+        gnorm = torch.sqrt(sum(sqs))
         scale = torch.clamp(grad_clip_norm / (gnorm + 1e-6), max=1.0)
         gs = [g * scale.to(g.dtype) for g in gs]
     c1 = 1.0 - beta1 ** step
@@ -118,47 +147,70 @@ def _grad(p: torch.Tensor) -> torch.Tensor:
 def _bind(model: nn.Module, params: Dict[str, nn.Parameter]) -> None:
     """Make `params` the model's parameters (by key)."""
     for name, p in params.items():
-        path, leaf = name.rsplit(".", 1)
+        path, _, leaf = name.rpartition(".")   # a top-level param: path ""
         mod = model.get_submodule(path)
         if getattr(mod, leaf) is not p:
             setattr(mod, leaf, p)
 
 
-def dp_ref_of(mesh):
-    """The dp axis' GroupRef of `mesh` when it exceeds 1, else None."""
+def check_mesh(mesh) -> None:
+    """Refuse a mesh with an axis not ported above 1 (pp, sep)."""
     if mesh is None:
-        return None
+        return
     for axis, n in mesh.shape.items():
-        if n > 1 and axis not in mesh_mod.PORTED_AXES:
+        if n > 1 and axis in mesh_mod.REFUSED_AXES:
             raise NotImplementedError(
-                f"mesh axis {axis!r} of size {n}: the port trains over dp "
-                f"only ({mesh_mod.LATER_STEPS})")
-    if mesh.shape.get("dp", 1) <= 1:
-        return None
-    return mesh.axis_ref("dp")
+                f"mesh axis {axis!r} of size {n}: the port does not train "
+                f"over it ({mesh_mod.LATER_STEPS})")
 
 
-def local_rows(batch, dp):
-    """(this rank's rows of every leaf, its share of the rows), or None
-    when a leaf is 0-d or dp does not divide its rows."""
-    n = dp.size
-    if not batch or any(b.ndim == 0 or b.shape[0] % n for b in batch):
-        return None
+def row_axes(mesh, batch, batch_spec=None) -> tuple:
+    """The axes a batch's rows split over (JAX's `batch_sharding` on dim
+    0: the longest prefix of batch_spec[0]'s axes whose product divides
+    the rows), or () when a leaf is 0-d or the leaves' rows differ. A
+    later dim laid over an axis above 1 (sequence sharding) is refused."""
+    if mesh is None or not batch:
+        return ()
+    dims = batch_spec or (("dp", "sharding"), "sep")
+    for d in dims[1:]:
+        for a in ((d,) if isinstance(d, str) else (d or ())):
+            if mesh.shape.get(a, 1) > 1:
+                raise NotImplementedError(
+                    f"batch_spec lays a non-row dim over {a!r}: sequence "
+                    f"sharding is not ported ({mesh_mod.LATER_STEPS})")
+    if any(b.ndim == 0 or b.shape[0] != batch[0].shape[0] for b in batch):
+        return ()
+    d0 = dims[0] if dims else None
+    names = (d0,) if isinstance(d0, str) else tuple(d0 or ())
+    kept = mesh_mod.divisible_prefix(mesh, batch[0].shape[0], names)
+    return tuple(a for a in kept if mesh.shape[a] > 1)
+
+
+def take_rows(mesh, batch, axes):
+    """(this rank's rows of every leaf over `axes`, its share)."""
+    n = math.prod(mesh.shape[a] for a in axes)
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + mesh.axis_rank(a)
     rows = batch[0].shape[0] // n
-    return (tuple(b[dp.rank * rows:(dp.rank + 1) * rows] for b in batch),
-            1.0 / n)
+    return tuple(b[idx * rows:(idx + 1) * rows] for b in batch), 1.0 / n
 
 
-def sync_grads(grads: Dict[str, torch.Tensor], dp, quantized: bool):
-    """The dp gradient sum (`all_reduce_tree`, or `quantized_psum_tree`)."""
-    if quantized:
-        return quantized_psum_tree(grads, dp)
-    return all_reduce_tree(grads, dp)
+def _broadcast_replicas(mesh, params, layout) -> None:
+    """Every parameter from the first rank of each axis that replicates
+    it (the ranks start equal, as JAX's one global value)."""
+    for axis in mesh.axis_names:
+        if mesh.shape[axis] <= 1:
+            continue
+        same = [p.data for n, p in params.items()
+                if axis not in layout.axes(layout.pspec[n])]
+        broadcast_tree(same, mesh.axis_ref(axis), 0)
 
 
 def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
                     lr: float = 1e-4, weight_decay: float = 0.01,
-                    grad_clip_norm: Optional[float] = 1.0, optimizer=None,
+                    grad_clip_norm: Optional[float] = 1.0,
+                    batch_spec: Optional[Tuple] = None, optimizer=None,
                     strategy=None, device=None,
                     quantized_collectives: bool = False):
     """Build (step_fn, params, opt_state) for `model` on `device`
@@ -176,33 +228,50 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
         restored).
       - gradient_merge.enable + k_steps[, avg]: the batch in k_steps
         micro-batches, grads summed in f32, averaged unless avg=False.
-    `mesh` (default: the global mesh) with dp > 1 trains data-parallel
-    (the module docstring); `quantized_collectives` makes its gradient
-    sync the int8 `quantized_psum_tree`.
+      - sharding.enable + stage / axis: ZeRO stage 1 / 2 / 3 over the
+        mesh's axis (the module docstring).
+    `mesh` (default: the global mesh) trains over its axes (the module
+    docstring), the rows laid by `batch_spec`; `quantized_collectives`
+    makes the all-reduce of the gradients the int8 `quantized_psum_tree`.
     """
     strat = _resolve_strategy(strategy)
-    if strat["sharding"].get("enable"):
-        raise NotImplementedError(
-            "the sharding strategy (ZeRO) is not ported: ROADMAP section 1 "
-            "item 5 step 3 (\"Trainer options the port refuses\")")
-    dp = dp_ref_of(mesh if mesh is not None else mesh_mod.get_global_mesh())
+    mesh = mesh if mesh is not None else mesh_mod.get_global_mesh()
+    check_mesh(mesh)
     dev = resolve_device(device)
     params = dict(model.named_parameters())
     for name, p in params.items():
         if p.device != dev:
             raise ValueError(f"{name} lives on {p.device}, the step on {dev}"
                              " (load the params there first)")
-    if dp is not None:
-        # every rank starts from dp rank 0's parameters
-        with torch.no_grad():
-            for p in params.values():
-                p.copy_(broadcast(p.detach(), dp, 0))
+    shard_cfg = strat["sharding"]
+    shard_axis = shard_cfg.get("axis", "sharding")
+    stage = int(shard_cfg.get("stage", 2)) if shard_cfg.get("enable") \
+        and mesh is not None and shard_axis in mesh.axis_names else 0
+    sharded = mesh is not None and mesh.size > 1
+    plan = getattr(model, "_shard_plan", None)
+    hooks = None
+    if stage >= 3:
+        lay = ZeroState(mesh, params, (), 0, shard_axis)
+        specs = {n: shard_dim0_spec(lay.pspec[n], lay.shapes[n], mesh,
+                                    shard_axis) for n in params}
+        if any(specs[n] != lay.pspec[n] for n in params):
+            plan = ShardPlan(mesh, specs, lay.shapes)
+            hooks = apply_plan(model, plan)
+            params = dict(model.named_parameters())
     fused = FusedOptimizer(optimizer, model) if optimizer is not None \
         else None
     trainable = fused.trainable if fused is not None else frozenset(
         n for n, p in params.items() if p.requires_grad)
-    opt_state = fused.init_state(params) if fused is not None \
-        else init_adamw_state({n: params[n] for n in trainable})
+    layout = ZeroState(mesh, params, trainable, stage, shard_axis) \
+        if sharded else None
+    if hooks is not None:
+        plan = hooks.plan
+    if sharded:
+        _broadcast_replicas(mesh, params, layout)
+    views = {n: layout.view(n, params[n]) if layout else params[n]
+             for n in trainable}
+    opt_state = fused.init_state(views) if fused is not None \
+        else init_adamw_state(views)
     amp = bool(strat["amp"].get("enable"))
 
     knobs = {}
@@ -220,6 +289,9 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
     gm = strat["gradient_merge"]
     k_steps = int(gm.get("k_steps", 1)) if gm.get("enable") else 1
     gm_avg = bool(gm.get("avg", True))
+    # stage 2's reduce-scatter as the backward produces each gradient
+    hook_scatter = sharded and stage == 2 and k_steps <= 1
+    scattered = layout.scattered if sharded else {}
 
     def compute_loss(*batch):
         if amp:
@@ -237,7 +309,8 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
             loss = compute_loss(*batch)
             loss.backward()
             return loss.detach(), {n: _grad(work[n]).to(params[n].dtype)
-                                   for n in trainable}
+                                   for n in trainable
+                                   if n not in scattered}
         micro = [b.reshape((k_steps, b.shape[0] // k_steps) + b.shape[1:])
                  for b in batch]
         acc = {n: torch.zeros(params[n].shape, dtype=torch.float32,
@@ -255,53 +328,114 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
                                     for n in trainable}
 
     warned = []
+    d0 = (batch_spec or (("dp", "sharding"),))[0] if sharded else None
+    wanted = tuple(a for a in ((d0,) if isinstance(d0, str) else d0 or ())
+                   if mesh.shape.get(a, 1) > 1)
 
     def step_fn(p, state, *batch):
         nonlocal share
         batch = tuple(torch.as_tensor(b, device=dev) for b in batch)
-        synced = dp
-        if dp is not None:
-            split = local_rows(batch, dp)
-            if split is None:
-                synced = None
-                if not warned:
-                    warned.append(True)
-                    warnings.warn(
-                        f"make_train_step: dp={dp.size} does not divide a "
-                        "batch leaf's rows (or a leaf is 0-d): the batch "
-                        "runs whole on every rank, no gradient sync")
-            else:
-                batch, share = split
+        axes = ()
+        if sharded:
+            axes = row_axes(mesh, batch, batch_spec)
+            if axes:
+                batch, share = take_rows(mesh, batch, axes)
+            elif not warned and wanted:
+                warned.append(True)
+                warnings.warn(
+                    f"make_train_step: the row axes {wanted} do not divide "
+                    "a batch leaf's rows (or a leaf is 0-d): the batch runs "
+                    "whole on every rank, no gradient sum")
+        if plan is not None:
+            plan.row_axes = axes
         work = p
         if amp:
             work = {n: nn.Parameter(t.detach().to(torch.bfloat16),
                                     requires_grad=n in trainable)
                     if t.dtype == torch.float32 else t for n, t in p.items()}
         saved = {k: getattr(model_cfg, k) for k in knobs}
+        handles = []
         try:
             for k, v in knobs.items():
                 setattr(model_cfg, k, v)
             _bind(model, work)
             for n in trainable:
                 work[n].grad = None
+            if hook_scatter:
+                handles = [work[n].register_post_accumulate_grad_hook(
+                    layout.scatter_hook(n, axes, params[n].dtype))
+                    for n in sorted(layout.extra)]
             loss, grads = loss_and_grads(work, *batch)
         finally:
+            for h in handles:
+                h.remove()
             for k, v in saved.items():
                 setattr(model_cfg, k, v)
             _bind(model, p)
         for n in trainable:
             work[n].grad = None
         share = 1.0
-        if synced is not None:
-            grads = sync_grads(grads, synced, quantized_collectives)
-            loss = all_reduce(loss, synced)
+        if sharded:
+            grads = layout.sync(grads, axes, quantized_collectives)
+            if axes:
+                loss = all_reduce(loss, mesh.group_ref(axes))
+        upd = {n: layout.view(n, p[n]) if layout else p[n]
+               for n in trainable}
+        reduce_sq = layout.reduce_sq if sharded else None
         if fused is not None:
-            p, state = fused.update(p, grads, state, fused.host_lr())
+            _, state = fused.update(upd, grads, state, fused.host_lr(),
+                                    reduce_sq=reduce_sq)
             fused.host_tick()
         else:
-            p, state = adamw_update(p, grads, state, lr,
+            _, state = adamw_update(upd, grads, state, lr,
                                     weight_decay=weight_decay,
-                                    grad_clip_norm=grad_clip_norm)
+                                    grad_clip_norm=grad_clip_norm,
+                                    reduce_sq=reduce_sq)
+        if sharded:
+            layout.gather(p)
         return loss, p, state
 
+    if fused is not None:
+        step_fn.fused_optimizer = fused
+    step_fn.layout = layout
     return step_fn, params, opt_state
+
+
+def make_eval_step(model: nn.Module, mesh=None, batch_spec=None,
+                   device=None):
+    """``fwd(params, inputs) -> outputs`` of the whole batch (JAX's
+    ``make_eval_step``) on `device` (default: the CUDA card, where the
+    model's params must live): `params` (the step's dict, or None for the
+    model's own) bound to the model, every rank runs its rows of `inputs`
+    under no_grad in eval mode and the outputs are all-gathered over the
+    row axes, so each rank returns the global batch's."""
+    mesh = mesh if mesh is not None else mesh_mod.get_global_mesh()
+    check_mesh(mesh)
+    dev = resolve_device(device)
+
+    def fwd(p, inputs):
+        inputs = torch.as_tensor(inputs, device=dev)
+        axes = row_axes(mesh, (inputs,), batch_spec) \
+            if mesh is not None and mesh.size > 1 else ()
+        if axes:
+            (inputs,), _ = take_rows(mesh, (inputs,), axes)
+        plan = getattr(model, "_shard_plan", None)
+        if plan is not None:
+            plan.row_axes = axes
+        was = model.training
+        live = dict(model.named_parameters())
+        try:
+            if p is not None:
+                _bind(model, p)
+            model.train(False)
+            with torch.no_grad():
+                out = model(inputs)
+        finally:
+            model.train(was)
+            if p is not None:
+                _bind(model, live)
+        if axes:
+            out = all_gather(out, mesh.group_ref(axes), 0)
+        return out
+
+    return fwd

@@ -1011,6 +1011,45 @@ def test_two_gloo_ranks_on_one_card_match_one_rank(dev):
         pool.close()
 
 
+def test_stage3_gather_linear_matches_dense_and_holds_no_gathered_weight(
+        dev):
+    """ZeRO-3's gather-linear on two gloo ranks sharing cuda:0 (each
+    holding half the weight's rows, both the same input): its output and
+    gradients bitwise a dense bf16 ``x @ W``'s on the card, and its
+    forward leaves only its output allocated, where a dense product over
+    the gathered weight keeps the weight for the backward."""
+    from torch_rank_pool import RankPool, gather_linear_rank_cuda
+
+    pool = RankPool(2)
+    try:
+        outs = pool.run(2, gather_linear_rank_cuda)
+    finally:
+        pool.close()
+    for o in outs:
+        assert o["out"] and o["dx"] and o["dw"], o
+        assert o["held"] == o["y_bytes"], o
+        assert o["held_dense"] >= o["y_bytes"] + o["w_bytes"], o
+
+
+def test_mp_layers_build_on_the_card_and_match_dense(dev):
+    """The mpu layers with no device argument build on the card (two gloo
+    ranks sharing cuda:0, {"mp": 2}): every parameter and the output on
+    cuda, and the vocab embedding -> column -> relu -> row MLP's output
+    and gathered weight gradients within 1e-5 of the largest magnitude
+    of dense f32 products of the gathered weights on the same card."""
+    from torch_rank_pool import RankPool, tp_layers_rank_cuda
+
+    pool = RankPool(2)
+    try:
+        outs = pool.run(2, tp_layers_rank_cuda)
+    finally:
+        pool.close()
+    for on_card, diffs in outs:
+        assert on_card
+        for name, (err, scale) in diffs.items():
+            assert err <= 1e-5 * scale, (name, err, scale)
+
+
 def test_megakernel_engine_int4_steps_down_and_scan_serves(dev):
     """A packed-int4 engine asked for 'scan' warns once per rung and
     serves 'off' (the int4 GEMV, no megakernel); an int8-weight engine

@@ -56,10 +56,10 @@ from paddle_tpu_torch import hapi
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.models import params_from_jax
 from paddle_tpu_torch.optimizer import Adam
-from paddle_tpu_torch.parallel import (HybridCommunicateGroup, Shard,
-                                       build_mesh, get_global_mesh,
-                                       load_state_dict, make_train_step,
-                                       set_global_mesh)
+from paddle_tpu_torch.parallel import (HybridCommunicateGroup, build_mesh,
+                                       get_global_mesh, load_state_dict,
+                                       make_train_step, set_global_mesh)
+from paddle_tpu_torch.parallel.checkpoint import Shard
 from paddle_tpu_torch.parallel import env as penv
 from torch_rank_pool import (RankPool, ckpt_save_rank, data_parallel_rank,
                              dp_train_rank, facade_rank, fit_dp_rank,
@@ -102,14 +102,21 @@ def test_env_mesh_and_refusals_without_a_group(monkeypatch):
     hcg = HybridCommunicateGroup(mesh)
     assert hcg.get_data_parallel_world_size() == 1
     assert hcg.topology() == [1, 1]
-    with pytest.raises(NotImplementedError, match="later steps"):
+    # mp and sharding are ported: such a mesh needs its ranks; pp / sep
+    # above 1 still raise, naming the later steps
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         build_mesh({"dp": 1, "mp": 2})
     with pytest.raises(ValueError, match="needs 2 ranks"):
         build_mesh({"dp": 2})
-    with pytest.raises(NotImplementedError, match="step 3"):
-        make_train_step(torch.nn.Linear(2, 2), lambda o, y: o.sum(),
-                        strategy={"sharding": {"enable": True}},
-                        device="cpu")
+    for axis in ("pp", "sep"):
+        with pytest.raises(NotImplementedError, match="steps 5-6"):
+            build_mesh({"dp": 1, axis: 2})
+    # a sharding strategy without a mesh is JAX's no-op
+    step, p, s = make_train_step(torch.nn.Linear(2, 2),
+                                 lambda o, y: o.sum(),
+                                 strategy={"sharding": {"enable": True}},
+                                 device="cpu")
+    assert torch.isfinite(step(p, s, torch.ones(2, 2), torch.ones(2))[0])
     from paddle_tpu_torch.parallel.mesh import divisible_prefix
 
     assert divisible_prefix(jmesh.build_mesh(

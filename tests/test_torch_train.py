@@ -253,13 +253,17 @@ def test_refused_options_raise():
     loss = lambda lg, lb: crit(lg, lb)  # noqa: E731
     from paddle_tpu_torch.parallel.mesh import Mesh
 
-    # a model-parallel axis (dp alone trains: tests/test_torch_dp.py)
-    with pytest.raises(NotImplementedError, match="section 1 item 5"):
-        make_train_step(tm, loss, mesh=Mesh({"dp": 1, "mp": 2}, {}),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="section 1 item 5"):
-        make_train_step(tm, loss, None, device="cpu",
-                        strategy={"sharding": {"enable": True, "stage": 2}})
+    # the mp and sharding axes train (tests/test_torch_zero.py,
+    # tests/test_torch_tp.py): an mp mesh needs its ranks, and pipeline or
+    # sequence axes above 1 are refused, naming the later steps
+    from paddle_tpu_torch.parallel import build_mesh
+
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        build_mesh({"dp": 1, "mp": 2})
+    for axis in ("pp", "sep"):
+        with pytest.raises(NotImplementedError, match="steps 5-6"):
+            make_train_step(tm, loss, mesh=Mesh({"dp": 1, axis: 2}, {}),
+                            device="cpu")
     step, p, s = make_train_step(
         tm, loss, None, device="cpu",
         strategy={"recompute": {"enable": True,

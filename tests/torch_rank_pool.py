@@ -366,7 +366,8 @@ def ckpt_save_rank(path, arrays, bf16_names, shard_name=None):
     of its array instead of a replicated tensor."""
     import torch
 
-    from paddle_tpu_torch.parallel import Shard, save_state_dict
+    from paddle_tpu_torch.parallel import save_state_dict
+    from paddle_tpu_torch.parallel.checkpoint import Shard
     import torch.distributed as dist
 
     sd = {}
@@ -380,6 +381,7 @@ def ckpt_save_rank(path, arrays, bf16_names, shard_name=None):
                       [_rank() * n] + [0] * (t.ndim - 1), list(t.shape))
         sd[k] = t
     save_state_dict(sd, path)
+    dist.barrier()    # every rank's files are written before the listing
     return sorted(__import__("os").listdir(path))
 
 
@@ -484,3 +486,499 @@ def audit_engine_rank(np_params, engine_kw):
     fleet["tight"] = [d["rule"] for d in
                       tight["programs"]["decode"]["diagnostics"]]
     return fleet, eng.audit_memory(), eng.audit_roofline()
+
+
+def sharded_train_rank(np_params, x, y, steps, lr, shape, strategy=None,
+                       shard=False, cfg_kw=None, adam=False,
+                       batch_spec=None):
+    """`make_train_step` on tiny() f32 over `build_mesh(shape)` (after
+    `shard_llama` when `shard`; `adam`: an Adam optimizer, else the fused
+    AdamW) over the global batch (x, y): (losses, the gathered params
+    after the first step and after the last, each param's spec, each
+    state's spec, and with the fused AdamW the first step's gradients as
+    `adamw_update` gets them, gathered, and the clip's global norm)."""
+    import torch
+
+    from paddle_tpu_torch.models import (LlamaPretrainingCriterion,
+                                         gather_params, shard_llama)
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import (build_mesh, make_train_step,
+                                           trainer)
+    from paddle_tpu_torch.parallel.placement import dist_attr
+    from paddle_tpu_torch.parallel.sharding import gather_tensor
+
+    tm = _tiny_train_model(np_params, cfg_kw)
+    mesh = build_mesh(shape)
+    if shard:
+        shard_llama(tm, mesh)
+    crit = LlamaPretrainingCriterion(tm.config)
+    opt = Adam(learning_rate=lr, parameters=tm.parameters()) if adam \
+        else None
+    step, p, s = make_train_step(tm, lambda lg, lb: crit(lg, lb), mesh,
+                                 lr=lr, strategy=strategy, device="cpu",
+                                 optimizer=opt, batch_spec=batch_spec)
+    specs = {k: tuple(dist_attr(v).spec) if dist_attr(v) else None
+             for k, v in p.items()}
+    sspecs = dict(step.layout.sspec) if step.layout else None
+    seen = {}
+    real = trainer.adamw_update
+
+    def spy(params, grads, state, lr, **kw):
+        # the first step's gradients (the state blocks) and global norm
+        if not seen:
+            reduce_sq = kw.get("reduce_sq")
+
+            def record(names, sqs):
+                out = reduce_sq(names, sqs) if reduce_sq else sqs
+                seen["norm"] = float(torch.sqrt(sum(out)))
+                return out
+            seen["grads"] = {
+                n: gather_tensor(_with(g.clone(), step.layout.attr(n))
+                                 if step.layout else g).numpy()
+                for n, g in grads.items()}
+            kw = dict(kw, reduce_sq=record)
+        return real(params, grads, state, lr, **kw)
+
+    trainer.adamw_update = spy
+    try:
+        losses, first = [], None
+        for i in range(steps):
+            loss, p, s = step(p, s, x, y)
+            losses.append(float(loss))
+            if i == 0:
+                first = {k: v.numpy().copy()
+                         for k, v in gather_params(p).items()}
+    finally:
+        trainer.adamw_update = real
+    last = {k: v.numpy().copy() for k, v in gather_params(p).items()}
+    return (losses, first, last, specs, sspecs, seen.get("grads"),
+            seen.get("norm"))
+
+
+def shard_specs_rank(np_params, shape, cfg_kw=None):
+    """`shard_llama` of tiny() over `build_mesh(shape)`: each param's spec
+    and its block's shape."""
+    from paddle_tpu_torch.models import shard_llama
+    from paddle_tpu_torch.parallel import build_mesh
+    from paddle_tpu_torch.parallel.placement import dist_attr
+
+    tm = shard_llama(_tiny_train_model(np_params, cfg_kw), build_mesh(shape))
+    return {k: (tuple(dist_attr(v).spec), tuple(v.shape))
+            for k, v in tm.named_parameters()}
+
+
+def eager_sharded_rank(ws, xs, level, lr, path=None):
+    """`group_sharded_parallel(level=)` over {"sharding": world} of JAX's
+    MLP Linear(16, 32) - ReLU - Linear(32, 16) (weights `ws`, [in, out]),
+    AdamW, each rank its rows of each global batch, the loss the mean of
+    the squared outputs, then `save_group_sharded_model` to `path`:
+    (first weight gathered, its spec, the first weight's state specs, the
+    loss of each step, and (the gathered weights the first forward made,
+    how many of them were still alive between it and its backward))."""
+    import gc
+    import weakref
+
+    import torch
+
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import (build_mesh,
+                                           group_sharded_parallel,
+                                           save_group_sharded_model,
+                                           set_global_mesh)
+    from paddle_tpu_torch.parallel.placement import dist_attr
+    from paddle_tpu_torch.parallel.sharding import gather_tensor
+    import torch.distributed as dist
+
+    def lin(w, b):
+        m = torch.nn.Linear(*w.shape)
+        with torch.no_grad():
+            m.weight.copy_(torch.from_numpy(w).T)
+            m.bias.copy_(torch.from_numpy(b))
+        return m
+
+    n, r = dist.get_world_size(), _rank()
+    set_global_mesh(build_mesh({"sharding": n}))
+    try:
+        m = torch.nn.Sequential(lin(ws[0], ws[1]), torch.nn.ReLU(),
+                                lin(ws[2], ws[3]))
+        o = AdamW(learning_rate=lr, parameters=m.parameters())
+        m, o = group_sharded_parallel(m, o, level=level)
+        # the values the layers compute with, where a hook gathered them
+        made = []
+
+        def seen(mod, inputs):
+            made.extend(weakref.ref(v) for v in mod._parameters.values()
+                        if not isinstance(v, torch.nn.Parameter))
+        hooks = [m[i].register_forward_pre_hook(seen) for i in (0, 2)]
+        losses, alive = [], None
+        for x in xs:
+            rows = x.shape[0] // n
+            loss = (m(torch.from_numpy(x[r * rows:(r + 1) * rows]))
+                    ** 2).mean()
+            if alive is None:
+                gc.collect()
+                alive = sum(ref() is not None for ref in made)
+                for h in hooks:
+                    h.remove()
+            loss.backward()
+            o.step()
+            o.clear_grad()
+            losses.append(float(loss.detach()))
+        if path is not None:
+            save_group_sharded_model(m, path, o)
+        w0 = m[0].weight
+        st = o._accumulators[id(w0)]
+        return (gather_tensor(w0).numpy().T.copy(),
+                tuple(dist_attr(w0).spec) if dist_attr(w0) else None,
+                {k: tuple(dist_attr(v).spec) if dist_attr(v) else None
+                 for k, v in st.items()}, losses, (len(made), alive))
+    finally:
+        set_global_mesh(None)
+
+
+def strategy_states_rank(ws, x, y):
+    """JAX's test_sharding_strategy_shards_states on {"dp": 1, "sharding":
+    world}: an MLP (weights `ws`) with Adam through
+    make_train_step(strategy=stage 1, batch_spec=(("dp",),)): (the names
+    of the parameters whose state is Shard(0) over sharding, the loss)."""
+    import torch
+
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import build_mesh, make_train_step
+    import torch.distributed as dist
+
+    def lin(w, b):
+        m = torch.nn.Linear(*w.shape)
+        with torch.no_grad():
+            m.weight.copy_(torch.from_numpy(w).T)
+            m.bias.copy_(torch.from_numpy(b))
+        return m
+
+    m = torch.nn.Sequential(lin(ws[0], ws[1]), torch.nn.ReLU(),
+                            lin(ws[2], ws[3]))
+    mesh = build_mesh({"dp": 1, "sharding": dist.get_world_size()})
+    o = Adam(learning_rate=0.01, parameters=m.parameters())
+    step, p, s = make_train_step(
+        m, lambda out, yb: torch.nn.functional.cross_entropy(out, yb),
+        mesh, optimizer=o, device="cpu",
+        strategy={"sharding": {"enable": True, "stage": 1,
+                               "axis": "sharding"}},
+        batch_spec=(("dp",),))
+    sharded = sorted(k for k, sp in step.layout.sspec.items()
+                     if sp and sp[0] == "sharding")
+    loss, p, s = step(p, s, torch.from_numpy(x), torch.from_numpy(y))
+    return sharded, float(loss)
+
+
+def audit_step_rank(np_params, shape, strategy=None, shard=False):
+    """The communication audit of tiny()'s loss and gradients (traced on
+    fakes: nothing exchanged) as `make_train_step` lays the model out
+    over `build_mesh(shape)`: (per_axis, per_kind, the events' (kind,
+    axes, shape, wire bytes))."""
+    import torch
+
+    from paddle_tpu_torch.analysis import comms
+    from paddle_tpu_torch.models import (LlamaPretrainingCriterion,
+                                         shard_llama)
+    from paddle_tpu_torch.parallel import build_mesh, make_train_step
+
+    tm = _tiny_train_model(np_params)
+    mesh = build_mesh(shape)
+    if shard:
+        shard_llama(tm, mesh)
+    crit = LlamaPretrainingCriterion(tm.config)
+    step, p, s = make_train_step(tm, lambda lg, lb: crit(lg, lb), mesh,
+                                 strategy=strategy, device="cpu")
+    plan = tm._shard_plan
+    rows = 4 // max(1, mesh.shape.get("sharding", 1))
+    plan.row_axes = ("sharding",) if mesh.shape.get("sharding", 1) > 1 \
+        else ()
+    x = torch.zeros(rows, 16, dtype=torch.long)
+
+    def grads(params, x, y):
+        loss = crit(torch.func.functional_call(tm, params, (x,)), y)
+        return torch.autograd.grad(loss, list(params.values()))
+
+    rep = comms.audit_comms(grads, dict(p), x, x, grad=True)
+    return (rep.per_axis(), rep.per_kind(),
+            [(e.kind, e.axes, e.shape, e.wire_bytes)
+             for e in rep.collectives])
+
+
+def save_sharded_rank(np_params, path, shape):
+    """tiny() f32 `shard_llama`'d over `build_mesh(shape)`, its blocks
+    saved with `save_state_dict`: the gathered params."""
+    from paddle_tpu_torch.models import gather_params, shard_llama
+    from paddle_tpu_torch.parallel import build_mesh, save_state_dict
+
+    tm = shard_llama(_tiny_train_model(np_params), build_mesh(shape))
+    params = dict(tm.named_parameters())
+    save_state_dict(params, path)
+    return {k: v.numpy() for k, v in gather_params(params).items()}
+
+
+def load_dp_rank(shapes, path):
+    """`load_state_dict` into full f32 tensors on a dp mesh of the world."""
+    import torch
+
+    from paddle_tpu_torch.parallel import build_mesh, load_state_dict
+    import torch.distributed as dist
+
+    build_mesh({"dp": dist.get_world_size()})
+    target = {k: torch.zeros(s) for k, s in shapes.items()}
+    load_state_dict(target, path)
+    return {k: v.numpy() for k, v in target.items()}
+
+
+def shard_tensor_rank(x, a, b):
+    """JAX's TestShardTensor on {"dp": 2, "mp": 2}: what `shard_tensor`,
+    `reshard`, `unshard_dtensor`, `shard_layer` and a sharded matmul give
+    on this rank."""
+    import torch
+
+    from paddle_tpu_torch.parallel import (Partial, ProcessMesh, Replicate,
+                                           Shard, build_mesh,
+                                           get_placements, reshard,
+                                           shard_layer, shard_tensor,
+                                           unshard_dtensor)
+    from paddle_tpu_torch.parallel.api import global_shape
+
+    mesh = build_mesh({"dp": 2, "mp": 2})
+    out = {}
+    d = shard_tensor(torch.from_numpy(x), mesh, [Shard(0)])
+    out["shape"] = (global_shape(d), tuple(d.shape))
+    out["placements"] = [repr(p) for p in get_placements(d)]
+    out["unshard"] = unshard_dtensor(d).numpy()
+    y = reshard(d, mesh, [Replicate(), Shard(1)])
+    out["reshard_placements"] = [repr(p) for p in get_placements(y)]
+    out["reshard"] = unshard_dtensor(y).numpy()
+    # a partial sum, reduced (P -> R) and reduce-scattered (P -> S)
+    pt = shard_tensor(torch.from_numpy(x), mesh, [Partial()])
+    out["partial_local_zero"] = bool((pt == 0).all())
+    out["p_to_r"] = unshard_dtensor(reshard(pt, mesh, [Replicate()])).numpy()
+    out["p_to_s"] = unshard_dtensor(reshard(pt, mesh, [Shard(1)])).numpy()
+    layer = torch.nn.Linear(8, 8)
+    shard_layer(layer, ProcessMesh(mesh))
+    out["layer"] = all(getattr(p, "_dist", None) is not None
+                       for p in layer.parameters())
+    ta = shard_tensor(torch.from_numpy(a), mesh, [Shard(0)])
+    tb = shard_tensor(torch.from_numpy(b), mesh, [Replicate(), Shard(1)])
+    prod = ta @ tb
+    prod._dist = type(ta._dist)(mesh, ("dp", "mp"), (a.shape[0],
+                                                     b.shape[1]))
+    out["matmul"] = unshard_dtensor(prod).numpy()
+    # reshard is differentiable: S -> R's backward takes the slice
+    leaf = shard_tensor(torch.from_numpy(x), mesh, [Shard(0)])
+    leaf.requires_grad_(True)
+    reshard(leaf, mesh, [Replicate()]).sum().backward()
+    out["grad_shape"] = tuple(leaf.grad.shape)
+    return out
+
+
+def tp_layers_rank(case, x, extra=None):
+    """JAX's TestTPLayers on {"mp": world}: the layer's gathered weights,
+    its output (and for "mlp_grad" the gathered gradients)."""
+    import torch
+
+    from paddle_tpu_torch.parallel import (build_mesh, mpu,
+                                           set_global_mesh)
+    from paddle_tpu_torch.parallel.sharding import gather_tensor
+    import torch.distributed as dist
+
+    set_global_mesh(build_mesh({"mp": dist.get_world_size()}))
+    torch.manual_seed(3)
+    try:
+        t = torch.from_numpy(x)
+        if case == "column":
+            layer = mpu.ColumnParallelLinear(8, 16, gather_output=True,
+                                             device="cpu")
+            return (gather_tensor(layer.weight).numpy(),
+                    gather_tensor(layer.bias).numpy(),
+                    layer(t).detach().numpy())
+        if case == "row":
+            layer = mpu.RowParallelLinear(16, 8, input_is_parallel=False,
+                                          device="cpu")
+            return (gather_tensor(layer.weight).numpy(),
+                    gather_tensor(layer.bias).numpy(),
+                    layer(t).detach().numpy())
+        if case == "vocab":
+            layer = mpu.VocabParallelEmbedding(16, 8, device="cpu")
+            return (gather_tensor(layer.weight).numpy(), None,
+                    layer(t).detach().numpy())
+        if case == "ce":
+            ce = mpu.ParallelCrossEntropy()
+            n = x.shape[-1] // dist.get_world_size()
+            r = dist.get_rank()
+            local = t[:, r * n:(r + 1) * n].clone().requires_grad_(True)
+            loss = ce(local, torch.from_numpy(extra))
+            loss.sum().backward()
+            return None, local.grad.numpy(), loss.detach().numpy()
+        col = mpu.ColumnParallelLinear(8, 16, gather_output=False,
+                                       device="cpu")
+        row = mpu.RowParallelLinear(16, 8, input_is_parallel=True,
+                                    device="cpu")
+        out = row(torch.relu(col(t)))
+        (out * out).sum().backward()
+        return ([gather_tensor(p).numpy() for p in (col.weight, col.bias,
+                                                     row.weight, row.bias)],
+                [gather_tensor(p.grad if getattr(p, "_dist", None) is None
+                               else _with(p.grad, p._dist)).numpy()
+                 for p in (col.weight, row.weight)],
+                out.detach().numpy())
+    finally:
+        set_global_mesh(None)
+
+
+def _with(t, attr):
+    t._dist = attr
+    return t
+
+
+def eval_rank(np_params, x, shape):
+    """`make_eval_step` of tiny() f32 `shard_llama`'d over
+    `build_mesh(shape)`: the logits of the global batch."""
+    from paddle_tpu_torch.models import shard_llama
+    from paddle_tpu_torch.parallel import build_mesh, make_eval_step
+
+    mesh = build_mesh(shape)
+    tm = shard_llama(_tiny_train_model(np_params), mesh)
+    fwd = make_eval_step(tm, mesh, device="cpu")
+    return fwd(None, x).numpy()
+
+
+def spmd_apply_rank(x, w):
+    """JAX's TestApplication / TestApplyBackwardConstraint on {"dp": 2,
+    "mp": 2}: the specs `with_spmd_constraint`, `shard_parameters` and
+    `apply_backward_constraint` lay blocks out with, and the constrained
+    product gathered back."""
+    import torch
+
+    from paddle_tpu_torch.parallel import (Replicate, Shard, build_mesh,
+                                           shard_parameters, shard_tensor,
+                                           unshard_dtensor,
+                                           with_spmd_constraint)
+    from paddle_tpu_torch.parallel.spmd_rules import \
+        apply_backward_constraint
+
+    mesh = build_mesh({"dp": 2, "mp": 2})
+    xd = shard_tensor(torch.from_numpy(x), mesh, [Shard(0)])
+    wd = shard_tensor(torch.from_numpy(w), mesh, [Replicate(), Shard(1)])
+    full = torch.from_numpy(x) @ torch.from_numpy(w)
+    out = with_spmd_constraint("matmul", full, xd, wd, mesh=mesh)
+    got = {"matmul_spec": tuple(out._dist.spec),
+           "matmul": unshard_dtensor(out).numpy()}
+    model = torch.nn.Sequential(torch.nn.Linear(16, 64), torch.nn.SiLU(),
+                                torch.nn.Linear(64, 16))
+    shard_parameters(model, mesh, [("0.weight", ("mp", None)),
+                                   ("2.weight", (None, "mp")),
+                                   ("bias", (None,))])
+    got["params"] = {k: tuple(p._dist.spec)
+                     for k, p in model.named_parameters()}
+    wt = torch.zeros(16, 32)
+    xt = torch.zeros(8, 16)
+    got["backward"] = apply_backward_constraint("matmul", ("dp", "mp"), xt,
+                                                wt, mesh=mesh)
+    got["backward_block"] = tuple(wt.shape)
+    return got
+
+
+def gather_linear_rank_cuda():
+    """The stage-3 gather-linear on cuda:0 over two gloo ranks (every rank
+    the same rows, so the weight's gradient is this rank's slice): its
+    output, input gradient and block gradient against a dense ``x @ W``
+    on the same card, as booleans of bitwise equality, and the bytes the
+    forward left allocated beside those of a dense product over the
+    gathered weight (which autograd keeps)."""
+    import torch
+
+    from paddle_tpu_torch.parallel import build_mesh
+    from paddle_tpu_torch.parallel.sharding import gather_full, gather_linear
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    r, n = _rank(), dist.get_world_size()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(4, 256, 512, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    w = torch.randn(512, 1024, generator=g, device="cuda",
+                    dtype=torch.bfloat16) * 0.05
+    dy = torch.randn(4, 256, 1024, generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    ref = build_mesh({"sharding": n}).axis_ref("sharding")
+    gathers = ((ref.key, n, 0, "slice"),)
+    # cuBLAS takes its workspace from the caching allocator at first use
+    warm = w.clone().requires_grad_(True)
+    (x @ warm).backward(dy)
+    del warm
+    rows = 512 // n
+    block = w[r * rows:(r + 1) * rows].clone().requires_grad_(True)
+    xs = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    y = gather_linear(xs, block, gathers)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    y.backward(dy)
+    xd = x.clone().requires_grad_(True)
+    wd = w.clone().requires_grad_(True)
+    yd = xd @ wd
+    yd.backward(dy)
+    # a dense product over the gathered weight keeps the weight
+    xg = x.clone().requires_grad_(True)
+    bg = block.detach().clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    yg = xg @ gather_full(bg, gathers)
+    torch.cuda.synchronize()
+    held_dense = torch.cuda.memory_allocated() - before
+    del yg
+    return dict(
+        out=bool(torch.equal(y, yd)), dx=bool(torch.equal(xs.grad, xd.grad)),
+        dw=bool(torch.equal(block.grad, wd.grad[r * rows:(r + 1) * rows])),
+        held=int(held), held_dense=int(held_dense),
+        y_bytes=y.numel() * y.element_size(),
+        w_bytes=w.numel() * w.element_size())
+
+
+def tp_layers_rank_cuda():
+    """The mpu layers built with no device argument (so on the card) over
+    {"mp": world} gloo ranks sharing cuda:0: whether every parameter and
+    the output are on the card, and the vocab embedding -> column -> relu
+    -> row MLP's output and gathered weight gradients as max abs
+    differences from dense f32 products of the gathered weights on the
+    same card, beside the largest magnitude of each."""
+    import torch
+
+    from paddle_tpu_torch.parallel import build_mesh, mpu, set_global_mesh
+    from paddle_tpu_torch.parallel.sharding import gather_tensor
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    set_global_mesh(build_mesh({"mp": dist.get_world_size()}))
+    torch.manual_seed(3)
+    try:
+        emb = mpu.VocabParallelEmbedding(256, 64)
+        col = mpu.ColumnParallelLinear(64, 128, gather_output=False)
+        row = mpu.RowParallelLinear(128, 64, input_is_parallel=True)
+        layers = (emb.weight, col.weight, col.bias, row.weight, row.bias)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        ids = torch.randint(0, 256, (4, 16), generator=g, device="cuda")
+        out = row(torch.relu(col(emb(ids))))
+        (out * out).sum().backward()
+        dense = [gather_tensor(p).clone().requires_grad_(True)
+                 for p in layers]
+        ref = torch.relu(dense[0][ids] @ dense[1] + dense[2]) @ dense[3] \
+            + dense[4]
+        (ref * ref).sum().backward()
+        diffs = {"out": (float((out - ref).detach().abs().max()),
+                         float(ref.detach().abs().max()))}
+        for name, p, d in (("emb", emb.weight, dense[0]),
+                           ("col", col.weight, dense[1]),
+                           ("row", row.weight, dense[3])):
+            got = gather_tensor(_with(p.grad, p._dist))
+            diffs[name] = (float((got - d.grad).abs().max()),
+                           float(d.grad.abs().max()))
+        on_card = all(p.is_cuda for p in layers) and out.is_cuda
+        return on_card, diffs
+    finally:
+        set_global_mesh(None)
