@@ -129,7 +129,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    program's launches; each program's predicted time and peak beside
    its measured replay and the allocator's peak, the audits' wall time,
    and the card's launch cost (replayed and eager).
-26. tune, the static autotuner: Llama-3-8B's widths at 8 layers (phase
+26. tune, the static autotuner: Llama-3-8B's widths at 4 layers (phase
    2's bf16 weights and geometry; cut from 32 for phase 27's room in the
    1200 s) tuned on the card's row at phase 2's page, every megakernel
    rung and both pool dtypes (8 candidates, split path): nothing allocated or launched by the tuner,
@@ -156,6 +156,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    fault logged), half the pool bytes a rank at mp2, exact seam launches,
    the int8 wire at JAX's token-match bar; tok/s and the head gather's
    ms a layer logged.
+28-30. dp, zero-tp, pp: training over ranks the launcher starts, sharing
+   the card over gloo, one launch of two ranks and one of four for the
+   three (`train_rank`; each phase's function states its runs and gates):
+   dp over two ranks, ZeRO stages 1-3 and mp, then the pipeline (phase
+   30: make_llama_pp_train_step at its five schedules and both heads on
+   {"pp": 2}, 1F1B on {"dp": 2, "pp": 2}, the 1F1B / FThenB memory pair,
+   the pp rank's communication audit against its hand formula).
 Then the kernel table as one JSON line (each kernel's launches from the
 phase that drives it), the card's name and power limit, and the closing
 {"ok": true, ...} line.
@@ -4857,14 +4864,14 @@ def kendall_tau(a, b) -> float:
 
 # the depth of the serving phases that compare only runs of their own (or
 # of each other: 8 -> 11 and 20), cut from 32 to fit the script's time
-# beside phases 27-28 (PERF.md section 4): phases 8, 10, 11, 15-17, 19-21
-# and 25. Their docstrings count launches at Llama-3-8B's 32 layers; the
-# gates count them at the cut depth.
-CUT_LAYERS = 8
+# beside phases 27-30 (PERF.md section 4; 8 until PR 23): phases 8, 10,
+# 11, 15-17, 19-21 and 25. Their docstrings count launches at
+# Llama-3-8B's 32 layers; the gates count them at the cut depth.
+CUT_LAYERS = 4
 # phase 26's depth: a candidate's trace costs about 1 ms a node on the
 # host, and at 32 layers the tune left the 1200 s script no room for
-# phase 27
-TUNE_LAYERS = 8
+# phase 27 (8 until PR 23, cut for phase 30)
+TUNE_LAYERS = 4
 
 
 def cut_depth(cfg, params, layers: int):
@@ -5570,10 +5577,10 @@ DP_LOSS_RTOL = 1e-2
 # TestFitQuantizedDP bar)
 DP_QUANT_RTOL = 0.05
 
-DP_SCRIPT = """import sys
+TRAIN_SCRIPT = """import sys
 sys.path.insert(0, sys.argv[3])
 import chip_smoke
-chip_smoke.dp_rank(sys.argv[1], sys.argv[2])
+chip_smoke.train_rank(sys.argv[1], sys.argv[2])
 """
 
 
@@ -5622,10 +5629,9 @@ def _dp_digest(params: dict) -> torch.Tensor:
     return torch.stack(out)
 
 
-def dp_rank(spec_path: str, out_dir: str) -> None:
-    """One dp rank's body (the launcher starts it through DP_SCRIPT): join
-    the default group (gloo: the ranks share the card), build the dp mesh,
-    then train phase 13's model at DP_LAYERS layers on the global batch
+def dp_rank(spec: dict, out_dir: str, dev) -> None:
+    """Phase 28's part of a rank (`train_rank`): build the dp mesh, then
+    train phase 13's model at DP_LAYERS layers on the global batch
     through make_train_step(mesh=): a warm-up and DP_STEPS steps with the
     plain gradient sync, then the same from the same weights with the
     quantized one, the launch counters reset just before each step and
@@ -5641,12 +5647,9 @@ def dp_rank(spec_path: str, out_dir: str) -> None:
     from paddle_tpu_torch.parallel import (build_mesh, save_state_dict,
                                            set_global_mesh)
     from paddle_tpu_torch.parallel.collectives import all_gather
-    from paddle_tpu_torch.parallel.ranks import init_ranks
     from paddle_tpu_torch.parallel.collectives import psum_tree
 
-    with open(spec_path) as f:
-        spec = json.load(f)
-    rank, world, dev = init_ranks()
+    rank, world = dist.get_rank(), dist.get_world_size()
     cfg = dp_config()
     x, y = bench_batch(cfg, DP_BATCH, DP_SEQ)
     mesh = build_mesh({"dp": world})
@@ -5726,77 +5729,144 @@ def dp_rank(spec_path: str, out_dir: str) -> None:
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
+
+
+def train_rank(spec_path: str, out_dir: str) -> None:
+    """One rank of phases 28-30 (the launcher starts it through
+    TRAIN_SCRIPT): join the default group once (gloo: the ranks share the
+    card), then run each phase's part of the spec in turn (`dp_rank`,
+    `zero_tp_rank`, `pp_rank`), freeing the card between them, so a world
+    size pays its ranks' start and first steps once."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel.ranks import init_ranks
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    _, _, dev = init_ranks()
+    for part, body in (("dp", dp_rank), ("zt", zero_tp_rank),
+                       ("pp", pp_rank)):
+        if spec.get(part):
+            body(spec[part], out_dir, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+    dist.barrier()
     dist.destroy_process_group()
 
 
-def phase_dp():
-    """Phase 28: data-parallel training over torch.distributed ranks that
-    share the card (gloo). `python -m paddle_tpu_torch.parallel.launch
-    --nproc_per_node 2` starts two ranks training phase 13's model
-    (Llama-1B widths, bf16, AdamW) cut to DP_LAYERS layers on phase 13's
-    global batch 4 x 2048 (2 x 2048 a rank) through
-    make_train_step(mesh=dp2): a warm-up and DP_STEPS steps with the plain
-    gradient sum, then with quantized_collectives; one
-    fit(audit_comms=True) step; a sharded save, loaded here at world 1.
-    First, in this process, the one-process step of the same model on
-    the global batch. Gates: both ranks' parameters bitwise equal after
-    every step; losses finite and falling, within DP_LOSS_RTOL of the
-    one-process step's; the quantized run within DP_QUANT_RTOL of the
-    plain one; exactly phase 13's launches a layer a step on each rank
-    (the fit step too); TPU803 names the gradient all-reduce; the
-    reloaded state byte-identical (sha256) to both ranks'."""
-    from paddle_tpu_torch.parallel import load_state_dict
+def train_launch(phase: str, root: str, world: int, spec: dict) -> float:
+    """Start `world` ranks of `train_rank` over `spec` through the
+    launcher; their outputs are files under `root`/w<world>. Returns the
+    launch's wall seconds."""
+    out_dir = os.path.join(root, f"w{world}")
+    os.makedirs(out_dir, exist_ok=True)
+    spec_path = os.path.join(root, f"spec{world}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    script = os.path.join(root, "train_rank.py")
+    with open(script, "w") as f:
+        f.write(TRAIN_SCRIPT)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    logs = os.path.join(root, f"logs{world}")
+    t0 = time.perf_counter()
+    rc = subprocess.call(
+        [sys.executable, "-m", "paddle_tpu_torch.parallel.launch",
+         "--nproc_per_node", str(world), "--max_restart", "0", "--log_dir",
+         logs, script, spec_path, out_dir, repo],
+        env=dict(os.environ, PYTHONPATH=repo), cwd=repo, timeout=1200)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        tails = {os.path.basename(q): open(q).read()[-3000:] for q in
+                 sorted(glob.glob(os.path.join(logs, "*")))}
+        raise AssertionError(f"{phase}: the {world}-rank launcher exited "
+                             f"{rc}; logs {json.dumps(tails)[-8000:]}")
+    return wall
 
-    phase, L = "dp", DP_LAYERS
-    cfg = dp_config()
+
+def rank_outputs(root: str, prefix: str, world: int) -> list:
+    """The `world`-rank launch's `prefix`<r>.json files, in rank order."""
+    out = []
+    for r in range(world):
+        with open(os.path.join(root, f"w{world}", f"{prefix}{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def one_process_losses(layers: int, steps: int) -> list:
+    """(loss, ms) of bench.py main()'s step on phase 28's model at
+    `layers` layers over the global batch in this process: the oracle of
+    phases 28-30."""
+    cfg = dataclasses_replace(dp_config(), num_hidden_layers=layers)
     model = dp_model(cfg)
     step, p, s = build_train_step(model)
     x, y = bench_batch(cfg, DP_BATCH, DP_SEQ)
-    one = []
-    for _ in range(DP_STEPS + 1):
+    out = []
+    for _ in range(steps + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, p, s = step(p, s, x, y)
         torch.cuda.synchronize()
-        one.append((float(loss), 1e3 * (time.perf_counter() - t0)))
-    del step, p, s
+        out.append((float(loss), 1e3 * (time.perf_counter() - t0)))
+    del model, step, p, s
     _release()
-    root = tempfile.mkdtemp(prefix="dp-ranks-")
+    return out
+
+
+def phase_dp():
+    """Phase 28: data-parallel training over torch.distributed ranks that
+    share the card (gloo). First, in this process, the one-process step
+    of phase 13's model (Llama-1B widths, bf16, AdamW) cut to DP_LAYERS
+    layers on phase 13's global batch 4 x 2048 (phases 28 and 30's
+    oracle) and at ZT_LAYERS (phase 29's). Then `python -m
+    paddle_tpu_torch.parallel.launch` starts two ranks once for phases
+    28-30 (`train_rank`), then four for phases 29-30; this phase's part:
+    make_train_step(mesh=dp2) over 2 x 2048 a rank, a warm-up and
+    DP_STEPS steps with the plain gradient sum, then with
+    quantized_collectives; one fit(audit_comms=True) step; a sharded
+    save, loaded here at world 1. Gates: both ranks' parameters bitwise
+    equal after every step; losses finite and falling, within
+    DP_LOSS_RTOL of the one-process step's; the quantized run within
+    DP_QUANT_RTOL of the plain one; exactly phase 13's launches a layer
+    a step on each rank (the fit step too); TPU803 names the gradient
+    all-reduce; the reloaded state byte-identical (sha256) to both
+    ranks'. Returns phases 29-30's rank outputs and oracles too."""
+    from paddle_tpu_torch.models.llama import param_shapes
+    from paddle_tpu_torch.parallel import load_state_dict
+
+    phase, L = "dp", DP_LAYERS
+    cfg = dp_config()
+    one = one_process_losses(L, DP_STEPS)
+    one_zt = [v for v, _ in one_process_losses(ZT_LAYERS, ZT_STEPS)]
+    zt2, zt4 = zt_runs()
+    pp2, pp4 = pp_runs()
+    root = tempfile.mkdtemp(prefix="train-ranks-")
+    ckpt = os.path.join(root, "ckpt")
+    zt4 = [dict(r, save=os.path.join(root, "zt_ckpt")) for r in zt4]
+    wall = train_launch(phase, root, 2, {
+        "dp": {"ckpt": ckpt}, "zt": {"runs": zt2},
+        "pp": {"shape": {"pp": 2}, "runs": pp2, "mem": True}})
+    wall4 = train_launch(phase, root, 4, {
+        "zt": {"runs": zt4},
+        "pp": {"shape": {"dp": 2, "pp": 2}, "runs": pp4}})
+    log(f"[{phase}] phases 28-30's ranks through the launcher: 2 ranks in "
+        f"{wall:.1f}s, 4 ranks in {wall4:.1f}s")
     try:
-        ckpt = os.path.join(root, "ckpt")
-        spec_path = os.path.join(root, "spec.json")
-        with open(spec_path, "w") as f:
-            json.dump({"ckpt": ckpt}, f)
-        script = os.path.join(root, "rank.py")
-        with open(script, "w") as f:
-            f.write(DP_SCRIPT)
-        repo = os.path.dirname(os.path.abspath(__file__))
-        t0 = time.perf_counter()
-        rc = subprocess.call(
-            [sys.executable, "-m", "paddle_tpu_torch.parallel.launch",
-             "--nproc_per_node", "2", "--max_restart", "0", "--log_dir",
-             os.path.join(root, "logs"), script, spec_path, root, repo],
-            env=dict(os.environ, PYTHONPATH=repo), cwd=repo, timeout=600)
-        wall = time.perf_counter() - t0
-        if rc != 0:
-            logs = {os.path.basename(q): open(q).read()[-3000:] for q in
-                    sorted(glob.glob(os.path.join(root, "logs", "*")))}
-            raise AssertionError(f"{phase}: the launcher exited {rc}; logs "
-                                 f"{json.dumps(logs)[-8000:]}")
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(root, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        ranks = rank_outputs(root, "rank", 2)
         # the sharded save loaded at world 1, byte-compared
-        fresh = {k: torch.empty_like(v, device="cpu")
-                 for k, v in model.named_parameters()}
+        fresh = {k: torch.empty(v, dtype=torch.bfloat16) for k, v in
+                 param_shapes(cfg).items()}
         t1 = time.perf_counter()
         load_state_dict(fresh, ckpt)
         load_s = time.perf_counter() - t1
         reloaded = params_sha256(fresh)
-    finally:
+        shared = {"root": root, "zt2": rank_outputs(root, "zt", 2),
+                  "zt4": rank_outputs(root, "zt", 4),
+                  "pp2": rank_outputs(root, "pp", 2),
+                  "pp4": rank_outputs(root, "pp", 4)}
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
-    del model, fresh
+        raise
+    del fresh
     _release()
     want = dp_per_step(L)
     one_losses = [v for v, _ in one]
@@ -5870,26 +5940,22 @@ def phase_dp():
     return {"launches": {k: sum(l.get(k, 0) for l in
                                 o0["runs"]["plain"]["launches"])
                          for k in want}, "losses": plain,
-            "one_losses": one_losses,
-            "step_ms": o0["runs"]["plain"]["ms"], "sync_ms": o0["sync_ms"]}
+            "one_losses": one_losses, "one_zt": one_zt,
+            "step_ms": o0["runs"]["plain"]["ms"], "sync_ms": o0["sync_ms"],
+            **shared}
 
 
 # ---------------------------------------------------------------------------
 # phase 29: ZeRO stages 1-3 and tensor-parallel training
 # ---------------------------------------------------------------------------
 
-# the four-rank run: sharding2 x mp2 at 2 layers, a warm-up and 2 steps
-ZT_LAYERS4, ZT_STEPS4 = 2, 2
+# every run at 2 layers, a warm-up and one step (the two-rank runs took 4
+# layers and 3 steps, the four-rank run 2 steps, until PR 23: cut for
+# phase 30's room in the 1200 s)
+ZT_LAYERS, ZT_STEPS = 2, 1
 # a rank's bytes at the update (params, gradients and optimizer state,
 # activations freed) beside the formula of PERF.md's PR 22 section
 ZT_HELD_RTOL = 0.10
-
-ZT_SCRIPT = """import sys
-sys.path.insert(0, sys.argv[3])
-import chip_smoke
-chip_smoke.zero_tp_rank(sys.argv[1], sys.argv[2])
-"""
-
 
 def zt_held_formula(n_params: int, stage: int, ranks: int = 2) -> int:
     """A rank's bytes at the update of phase 29's bf16 AdamW step: params
@@ -5925,12 +5991,10 @@ def _zt_digests(params: dict, mesh) -> bool:
     return True
 
 
-def zero_tp_rank(spec_path: str, out_dir: str) -> None:
-    """One rank of phase 29 (the launcher starts it through ZT_SCRIPT):
-    join the default group (gloo: the ranks share the card), then for
-    each run of the spec build its mesh, phase 13's model at its depth
-    from SEED (shard_llama first where asked) and bench.py's step with
-    its sharding strategy, and take a warm-up and its steps on the global
+def zero_tp_rank(spec: dict, out_dir: str, dev) -> None:
+    """Phase 29's part of a rank (`train_rank`): for each run of the spec
+    build its mesh, phase 13's model at its depth from SEED (shard_llama
+    first where asked) and bench.py's step with its sharding strategy, and take a warm-up and its steps on the global
     batch. Each step: launch and wire counters reset just before it and
     read just after, the rank's bytes at the update (the optimizer's
     entry) and after the step, its peak, every replica's blocks compared.
@@ -5942,11 +6006,8 @@ def zero_tp_rank(spec_path: str, out_dir: str) -> None:
     from paddle_tpu_torch.models import gather_params, shard_llama
     from paddle_tpu_torch.parallel import build_mesh, save_state_dict
     from paddle_tpu_torch.parallel import collectives as coll
-    from paddle_tpu_torch.parallel.ranks import init_ranks
 
-    with open(spec_path) as f:
-        spec = json.load(f)
-    rank, world, dev = init_ranks()
+    rank, world = dist.get_rank(), dist.get_world_size()
     out = {"rank": rank, "world": world, "backend": dist.get_backend(),
            "runs": {}}
     for run in spec["runs"]:
@@ -6008,38 +6069,22 @@ def zero_tp_rank(spec_path: str, out_dir: str) -> None:
     with open(os.path.join(out_dir, f"zt{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
-    dist.destroy_process_group()
 
 
-def _zt_launch(phase: str, root: str, world: int, runs: list) -> list:
-    """Start `world` ranks of `zero_tp_rank` through the launcher; their
-    outputs in rank order."""
-    spec_path = os.path.join(root, f"spec{world}.json")
-    with open(spec_path, "w") as f:
-        json.dump({"runs": runs}, f)
-    script = os.path.join(root, "zt_rank.py")
-    with open(script, "w") as f:
-        f.write(ZT_SCRIPT)
-    repo = os.path.dirname(os.path.abspath(__file__))
-    logs = os.path.join(root, f"logs{world}")
-    t0 = time.perf_counter()
-    rc = subprocess.call(
-        [sys.executable, "-m", "paddle_tpu_torch.parallel.launch",
-         "--nproc_per_node", str(world), "--max_restart", "0", "--log_dir",
-         logs, script, spec_path, root, repo],
-        env=dict(os.environ, PYTHONPATH=repo), cwd=repo, timeout=600)
-    wall = time.perf_counter() - t0
-    if rc != 0:
-        tails = {os.path.basename(q): open(q).read()[-3000:] for q in
-                 sorted(glob.glob(os.path.join(logs, "*")))}
-        raise AssertionError(f"{phase}: the {world}-rank launcher exited "
-                             f"{rc}; logs {json.dumps(tails)[-8000:]}")
-    ranks = []
-    for r in range(world):
-        with open(os.path.join(root, f"zt{r}.json")) as f:
-            ranks.append(json.load(f))
-    log(f"[{phase}] {world} ranks through the launcher in {wall:.1f}s")
-    return ranks
+def zt_runs():
+    """Phase 29's runs: (the two-rank runs, the four-rank run), every one
+    at ZT_LAYERS layers and ZT_STEPS steps after a warm-up."""
+    stage = lambda k: {"sharding": {"enable": True, "stage": k}}  # noqa
+    common = dict(layers=ZT_LAYERS, steps=ZT_STEPS)
+    runs2 = [dict(name=f"stage{k}", shape={"sharding": 2},
+                  strategy=stage(k), shard=False, **common)
+             for k in (1, 2, 3)]
+    runs2 += [dict(name="shard_llama", shape={"sharding": 2},
+                   strategy=None, shard=True, **common),
+              dict(name="mp2", shape={"mp": 2}, strategy=None, shard=True,
+                   **common)]
+    return runs2, [dict(name="sharding2xmp2", shape={"sharding": 2, "mp": 2},
+                        strategy=None, shard=True, save=True, **common)]
 
 
 def _zt_gate_run(phase, name, ranks, oracle, L):
@@ -6081,66 +6126,42 @@ def _zt_wire(rec) -> str:
 
 def phase_zero_tp(dp_out: dict):
     """Phase 29: ZeRO and tensor-parallel training over torch.distributed
-    ranks that share the card (gloo), through `python -m
-    paddle_tpu_torch.parallel.launch`, on phase 28's model (Llama-1B
-    widths, kv heads 4, bf16, AdamW through make_train_step(optimizer=)
-    with bench's decay function) at DP_LAYERS layers and its global batch
-    4 x 2048: two ranks over {"sharding": 2} at ZeRO stage 1, 2 and 3,
-    bench.py main()'s route (shard_llama over {"sharding": 2}, no
-    strategy) and {"mp": 2} (shard_llama), a warm-up and DP_STEPS steps
-    each from the same weights; then four ranks, {"sharding": 2, "mp":
-    2} at ZT_LAYERS4 layers and ZT_STEPS4 steps, its blocks saved and
-    loaded here at world 1. Gates: losses finite and falling, within
-    DP_LOSS_RTOL of the one-process losses (phase 28's; the 4-rank run's
-    own one-process run at its depth); the replicas of every block
-    bitwise equal after every step; exactly dp_per_step(L) launches a
-    rank a step; a rank's bytes at the update falling from stage 1 to 2
-    to 3, each within ZT_HELD_RTOL of `zt_held_formula`; the reload's
-    sha256 the gathered parameters'."""
+    ranks that share the card (gloo), run in phase 28's launches
+    (`train_rank`), on phase 28's model (Llama-1B widths, kv heads 4,
+    bf16, AdamW through make_train_step(optimizer=) with bench's decay
+    function) at ZT_LAYERS layers and its global batch 4 x 2048: two
+    ranks over {"sharding": 2} at ZeRO stage 1, 2 and 3, bench.py
+    main()'s route (shard_llama over {"sharding": 2}, no strategy) and
+    {"mp": 2} (shard_llama); then four ranks over {"sharding": 2, "mp":
+    2}, its blocks saved and loaded here at world 1; a warm-up and
+    ZT_STEPS steps each from the same weights. Gates: losses finite and
+    falling, within DP_LOSS_RTOL of the one-process losses at ZT_LAYERS
+    (phase 28 took them); the replicas of every block bitwise equal after
+    every step; exactly dp_per_step(ZT_LAYERS) launches a rank a step; a
+    rank's bytes at the update falling from stage 1 to 2 to 3, each
+    within ZT_HELD_RTOL of `zt_held_formula`; the reload's sha256 the
+    gathered parameters'."""
     from paddle_tpu_torch.models.llama import param_shapes
     from paddle_tpu_torch.parallel import load_state_dict
 
-    phase, L = "zero-tp", DP_LAYERS
-    stage = lambda k: {"sharding": {"enable": True, "stage": k}}  # noqa
-    runs2 = [dict(name=f"stage{k}", shape={"sharding": 2},
-                  strategy=stage(k), shard=False, layers=L, steps=DP_STEPS)
-             for k in (1, 2, 3)]
-    runs2 += [dict(name="shard_llama", shape={"sharding": 2},
-                   strategy=None, shard=True, layers=L, steps=DP_STEPS),
-              dict(name="mp2", shape={"mp": 2}, strategy=None, shard=True,
-                   layers=L, steps=DP_STEPS)]
-    # the 4-rank run's oracle: one process at its depth
-    cfg4 = dataclasses_replace(dp_config(), num_hidden_layers=ZT_LAYERS4)
-    model = dp_model(cfg4)
-    step, p, s = build_train_step(model)
-    x, y = bench_batch(cfg4, DP_BATCH, DP_SEQ)
-    one4 = []
-    for _ in range(ZT_STEPS4 + 1):
-        loss, p, s = step(p, s, x, y)
-        one4.append(float(loss))
-    del model, step, p, s
-    _release()
-    root = tempfile.mkdtemp(prefix="zt-ranks-")
+    phase, L = "zero-tp", ZT_LAYERS
+    runs2, _ = zt_runs()
+    r2, r4 = dp_out["zt2"], dp_out["zt4"]
+    cfg = dataclasses_replace(dp_config(), num_hidden_layers=L)
     try:
-        ckpt = os.path.join(root, "ckpt")
-        r2 = _zt_launch(phase, root, 2, runs2)
-        r4 = _zt_launch(phase, root, 4, [dict(
-            name="sharding2xmp2", shape={"sharding": 2, "mp": 2},
-            strategy=None, shard=True, layers=ZT_LAYERS4,
-            steps=ZT_STEPS4, save=ckpt)])
         fresh = {k: torch.empty(v, dtype=torch.bfloat16) for k, v in
-                 param_shapes(cfg4).items()}
+                 param_shapes(cfg).items()}
         t1 = time.perf_counter()
-        load_state_dict(fresh, ckpt)
+        load_state_dict(fresh, os.path.join(dp_out["root"], "zt_ckpt"))
         load_s = time.perf_counter() - t1
         reloaded = params_sha256(fresh)
         del fresh
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-    oracle = dp_out["one_losses"]
+        shutil.rmtree(dp_out["root"], ignore_errors=True)
+    oracle = dp_out["one_zt"]
     recs = {r["name"]: _zt_gate_run(phase, r["name"], r2, oracle, L)
             for r in runs2}
-    rec4 = _zt_gate_run(phase, "sharding2xmp2", r4, one4, ZT_LAYERS4)
+    rec4 = _zt_gate_run(phase, "sharding2xmp2", r4, oracle, L)
     if rec4["sha256"] != reloaded:
         raise AssertionError(f"{phase}: the 4-rank save reloaded at world "
                              "1 differs from the gathered parameters")
@@ -6170,14 +6191,333 @@ def phase_zero_tp(dp_out: dict):
             f"received B, ms) {_zt_wire(rec)}; held at the update "
             f"{max(rec['held'])} B, peak {max(rec['peak'])} B")
     log(f"[{phase}] one process: {[round(v, 4) for v in oracle]} "
-        f"({L} layers), {[round(v, 4) for v in one4]} ({ZT_LAYERS4}); "
-        f"sharded save {rec4['save_s']:.1f}s, loaded at world 1 in "
-        f"{load_s:.1f}s, sha256 {reloaded[:16]} equal")
+        f"({L} layers); sharded save {rec4['save_s']:.1f}s, loaded at "
+        f"world 1 in {load_s:.1f}s, sha256 {reloaded[:16]} equal")
     launches = {k: sum(sum(l.get(k, 0) for l in rec["launches"])
                        for rec in recs.values())
                 + sum(l.get(k, 0) for l in rec4["launches"])
                 for k in dp_per_step(L)}
     return {"launches": launches, "held": held,
+            "step_ms": {k: v["ms"] for k, v in recs.items()}}
+
+# ---------------------------------------------------------------------------
+# phase 30: pipeline-parallel training
+# ---------------------------------------------------------------------------
+
+# phase 28's model and global batch on {"pp": 2}: a warm-up and PP_STEPS
+# steps a schedule at n_micro PP_MICRO (1 x 2048 a microbatch); the 4-rank
+# dp2 x pp2 run at n_micro 2 (its dp rank holds 2 rows); the memory pair at
+# n_micro 8 over a batch of 8 x 1024
+PP_STEPS, PP_MICRO = 3, 4
+PP_RUNS = (("1F1B", None, None), ("1F1B-plain", False, None),
+           ("FThenB", None, None), ("VPP", None, 2), ("ZBH1", None, None),
+           ("Eager1F1B", None, None))
+PP_MEM_BATCH, PP_MEM_SEQ, PP_MEM_MICRO = 8, 1024, 8
+
+def pp_per_step(schedule: str, coop: bool, stage: int, S: int, L: int,
+                M: int) -> dict:
+    """A pp rank's kernel launches a step: its stage's layers (L / S, a
+    rank's VPP chunks together) forward and backward once a microbatch
+    (ZBH1: once more in its batched weight pass), rms_norm twice a layer
+    a forward, and the head's norm: a microbatch on every rank under the
+    cooperative head, on the last rank without it, the whole batch once
+    on every rank under FThenB / VPP (JAX's head over the broadcast
+    output)."""
+    ls = L // S
+    passes = M + 1 if schedule == "ZBH1" else M
+    if schedule in ("FThenB", "VPP"):
+        head = 1
+    elif coop:
+        head = M
+    else:
+        head = M if stage == S - 1 else 0
+    return {"flash_attention_fwd": ls * passes,
+            "flash_attention_bwd_dq": ls * passes,
+            "flash_attention_bwd_dkv": ls * passes,
+            "flash_attention_bwd_delta": ls * passes,
+            "rms_norm": 2 * ls * passes + head, "swiglu_fwd": 0,
+            "swiglu_bwd": 0}
+
+
+def pp_wire_formula(cfg, rows: int, seq: int, M: int, S: int,
+                    schedule: str, coop: bool, vpp: int = 1,
+                    stage: int = 0) -> int:
+    """Pp stage `stage`'s bytes on the pp axis a step by the audit's ring
+    model (a hop costs its sender; S = 2, where every rank sends as many
+    boundaries): the boundary hops (one microbatch's bf16 activation or
+    cotangent each; a microbatch crosses S * V - 1 chunk boundaries each
+    way); FThenB / VPP: the output broadcast and the bf16 outer gradients
+    summed; 1F1B's cooperative head: a microbatch's hidden broadcast, its
+    max, sum and label logit (f32 rows) summed, and a stage's part of
+    the hidden's cotangent (bf16) hopping to the last stage, the head's
+    f32 slice gathered and the norm's parts summed; the plain head: its
+    f32 gradients and the loss broadcast from the last rank; both: the
+    input's bf16 gradient broadcast. The step runs without the clip, so
+    no squares are summed."""
+    H, V = cfg.hidden_size, cfg.vocab_size
+    half, ring = (S - 1) / S, 2 * (S - 1) / S
+    act = rows // M * seq * H * 2
+    f32_row = rows // M * seq * 4
+    whole = rows * seq * H * 2
+    total = M * (vpp * S - 1) * 2 // S * act
+    if schedule in ("FThenB", "VPP"):
+        total += whole * half + (2 * V * H + H) * 2 * ring
+    elif coop:
+        total += (M * act * half + M * 3 * f32_row * ring
+                  + (M * act if stage < S - 1 else 0)
+                  + H * V * 4 * half + H * 4 * ring + whole * half)
+    else:
+        total += (H * V * 4 + H * 4 + whole + 4) * half
+    return int(total)
+
+
+def pp_rank(spec: dict, out_dir: str, dev) -> None:
+    """Phase 30's part of a rank (`train_rank`): build the spec's mesh,
+    then for each run phase 28's model at DP_LAYERS from
+    SEED and make_llama_pp_train_step at the run's schedule, a warm-up
+    and the run's steps on the global batch: launch and wire counters
+    reset just before each step and read just after, its ms, its peak,
+    the outer params' digests compared over pp (and dp) after every step;
+    the last step's compute slots timed (`record_slots`) for the measured
+    bubble; where asked, the step's communication audit (traced on
+    fakes). Then the memory pair: FThenB and 1F1B one step each at n_micro
+    PP_MEM_MICRO, the peak above the bytes held before the step. Writes
+    pp<r>.json."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.analysis import comms
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import llama_pipe
+    from paddle_tpu_torch.parallel import build_mesh
+    from paddle_tpu_torch.parallel import collectives as coll
+    from paddle_tpu_torch.parallel import pipeline_spmd
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = dp_config()
+    x, y = bench_batch(cfg, DP_BATCH, DP_SEQ)
+    mesh = build_mesh(spec["shape"])
+    eq_axes = [a for a in ("pp", "dp") if mesh.shape.get(a, 1) > 1]
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "stage": mesh.axis_rank("pp"), "runs": {}, "mem": {}}
+
+    def build(run):
+        model = dp_model(cfg)
+        step, p, s = llama_pipe.make_llama_pp_train_step(
+            model, mesh, n_micro=run["n_micro"], lr=1e-4,
+            weight_decay=0.01, grad_clip_norm=None,
+            schedule=run["schedule"], coop_head=run["coop"],
+            vpp_degree=run["vpp"], device=dev)
+        return model, step, p, s
+
+    for run in spec["runs"]:
+        model, step, p, s = build(run)
+        rec = dict(losses=[], ms=[], launches=[], wire=[], peak=[],
+                   equal=True, coop=step.coop_head, slots=[])
+        for i in range(run["steps"] + 1):
+            last = i == run["steps"]
+            dist.barrier()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            coll.reset_wire_counts()
+            pipeline_spmd.record_slots(last)
+            t0 = time.perf_counter()
+            loss, p, s = step(p, s, x, y)
+            torch.cuda.synchronize()
+            rec["ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["launches"].append({k: v for k, v in
+                                    _build.launch_counts().items() if v})
+            rec["wire"].append({k: dict(v) for k, v in
+                                coll.WIRE_COUNTS.items()})
+            rec["peak"].append(torch.cuda.max_memory_allocated())
+            rec["losses"].append(float(loss))
+            if last:
+                rec["slots"] = pipeline_spmd.slot_times()
+            pipeline_spmd.record_slots(False)
+            dig = _dp_digest(p["outer"])[None]
+            for a in eq_axes:
+                got = coll.all_gather(dig, mesh.axis_ref(a), 0)
+                rec["equal"] &= all(torch.equal(got[0], got[j])
+                                    for j in range(got.shape[0]))
+        if run.get("audit"):
+            t0 = time.perf_counter()
+            _build.reset_launch_counts()
+            rep = comms.audit_comms(step, p, s, x, y, grad=True)
+            rec["audit"] = {"per_axis": rep.per_axis(),
+                            "per_kind": rep.per_kind(),
+                            "sites": rep.n_collective_sites,
+                            "launched": sum(_build.launch_counts().values()),
+                            "s": time.perf_counter() - t0}
+        out["runs"][run["name"]] = rec
+        del model, step, p, s
+        gc.collect()
+        torch.cuda.empty_cache()
+    if spec.get("mem"):
+        xm, ym = bench_batch(cfg, PP_MEM_BATCH, PP_MEM_SEQ)
+        for sched in ("FThenB", "1F1B"):
+            model, step, p, s = build({"n_micro": PP_MEM_MICRO,
+                                       "schedule": sched, "coop": None,
+                                       "vpp": None})
+            dist.barrier()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            loss, p, s = step(p, s, xm, ym)
+            torch.cuda.synchronize()
+            out["mem"][sched] = {"held": held,
+                                 "peak": torch.cuda.max_memory_allocated(),
+                                 "loss": float(loss)}
+            del model, step, p, s
+            gc.collect()
+            torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"pp{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+
+
+def pp_runs():
+    """Phase 30's runs: (the {"pp": 2} runs, the {"dp": 2, "pp": 2} run);
+    the communication audit on the main path's two 1F1B runs."""
+    runs2 = [dict(name=n, schedule=n.split("-")[0], coop=c, vpp=v,
+                  n_micro=PP_MICRO, steps=PP_STEPS, shape={"pp": 2},
+                  audit=n in ("1F1B", "1F1B-plain"))
+             for n, c, v in PP_RUNS]
+    return runs2, [dict(name="dp2xpp2", schedule="1F1B", coop=None,
+                        vpp=None, n_micro=2, steps=PP_STEPS,
+                        shape={"dp": 2, "pp": 2}, audit=False)]
+
+
+def _pp_gate_run(phase, name, ranks, oracle, run, S):
+    """Phase 30's gates on one run (the phase docstring); returns rank
+    0's record."""
+    L = DP_LAYERS
+    o0 = ranks[0]["runs"][name]
+    for r, o in enumerate(ranks):
+        if o["backend"] != "gloo":
+            raise AssertionError(f"{phase} rank {r}: backend {o['backend']}")
+        rec = o["runs"][name]
+        if not rec["equal"]:
+            raise AssertionError(f"{phase} {name}: the outer params differ "
+                                 "over pp (or dp) after a step")
+        if rec["losses"] != o0["losses"]:
+            raise AssertionError(f"{phase} {name}: the ranks' losses "
+                                 f"differ: {rec['losses']} vs {o0['losses']}")
+        want = pp_per_step(run["schedule"], rec["coop"], o["stage"], S, L,
+                           run["n_micro"])
+        for i, got in enumerate(rec["launches"]):
+            for k, n in want.items():
+                if got.get(k, 0) != n:
+                    raise AssertionError(
+                        f"{phase} {name} rank {r} step {i}: {k} launched "
+                        f"{got.get(k, 0)} times, want {n}")
+        if run.get("audit"):
+            rows = DP_BATCH // math.prod(
+                v for k, v in run["shape"].items() if k != "pp")
+            hand = pp_wire_formula(dp_config(), rows, DP_SEQ,
+                                   run["n_micro"], S, run["schedule"],
+                                   rec["coop"], run["vpp"] or 1,
+                                   o["stage"])
+            got = rec["audit"]["per_axis"].get("pp")
+            if got != hand or rec["audit"]["launched"]:
+                raise AssertionError(
+                    f"{phase} {name} rank {r}: the audit's pp bytes {got}, "
+                    f"the hand formula {hand}; launched "
+                    f"{rec['audit']['launched']}")
+    ls = o0["losses"]
+    if not all(math.isfinite(v) for v in ls) or ls[-1] >= ls[0]:
+        raise AssertionError(f"{phase} {name}: losses {ls}")
+    for a, b in zip(ls, oracle):
+        if abs(a - b) / abs(b) > DP_LOSS_RTOL:
+            raise AssertionError(f"{phase} {name}: losses {ls} vs one "
+                                 f"process {oracle}")
+    return o0
+
+
+def _bubble(rec, ms: float) -> float:
+    """The measured bubble share of a step: 1 - its compute slots' time
+    (CUDA events) over its wall time."""
+    return 1.0 - sum(t for _, t in rec["slots"]) / ms
+
+
+def phase_pp(dp_out: dict):
+    """Phase 30: pipeline-parallel training over torch.distributed ranks
+    that share the card (gloo), run in phase 28's launches
+    (`train_rank`), on phase 28's model (Llama-1B
+    widths, kv heads 4, bf16, DP_LAYERS layers; AdamW at lr 1e-4, weight
+    decay 0.01 and no clip, bench.py's) and global batch 4 x 2048: two
+    ranks on {"pp": 2} run make_llama_pp_train_step at 1F1B (the
+    cooperative head, the default), 1F1B with coop_head=False, FThenB,
+    VPP (2 chunks of one layer a rank), ZBH1 and Eager1F1B, n_micro
+    PP_MICRO, a warm-up and PP_STEPS steps each from the same weights,
+    then the memory pair (FThenB and 1F1B at n_micro 8 on 8 x 1024); then
+    four ranks on {"dp": 2, "pp": 2} at 1F1B, n_micro 2. Gates: losses
+    finite and falling, within DP_LOSS_RTOL of phase 28's one-process
+    losses; the outer params bitwise equal over pp (and dp) after every
+    step; exactly `pp_per_step` launches a rank a step; 1F1B's peak below
+    FThenB's on every rank; the communication audit's pp bytes a step on
+    the main path (1F1B with and without the cooperative head) equal to
+    `pp_wire_formula`, the audit launching nothing (the other schedules'
+    audits, equal too, are left to tests/test_torch_pp.py and PERF.md's
+    PR 23 runs, for the script's 1200 s). Logs ms a step a
+    schedule, the host-staged collectives' ms, the wire delivered, and
+    the bubble share `timeline_stats` predicts beside the measured one."""
+    from paddle_tpu_torch.parallel.pipeline_viz import (pipeline_timeline,
+                                                        timeline_stats)
+
+    phase, S = "pp", 2
+    runs2, (run4,) = pp_runs()
+    r2, r4 = dp_out["pp2"], dp_out["pp4"]
+    oracle = dp_out["one_losses"]
+    recs = {r["name"]: _pp_gate_run(phase, r["name"], r2, oracle, r, S)
+            for r in runs2}
+    rec4 = _pp_gate_run(phase, "dp2xpp2", r4, oracle, run4, S)
+    for r, o in enumerate(r2):
+        m = o["mem"]
+        if not m["1F1B"]["peak"] < m["FThenB"]["peak"]:
+            raise AssertionError(f"{phase} rank {r}: 1F1B's peak "
+                                 f"{m['1F1B']['peak']} is not below "
+                                 f"FThenB's {m['FThenB']['peak']}")
+        log(f"[{phase}] rank {r} (stage {o['stage']}) at n_micro "
+            f"{PP_MEM_MICRO}, {PP_MEM_BATCH} x {PP_MEM_SEQ}: peak above the "
+            f"held {m['FThenB']['held']} B: FThenB "
+            f"{m['FThenB']['peak'] - m['FThenB']['held']} B, 1F1B "
+            f"{m['1F1B']['peak'] - m['1F1B']['held']} B (peaks "
+            f"{m['FThenB']['peak']} / {m['1F1B']['peak']})")
+    for run in runs2 + [run4]:
+        name = run["name"]
+        ranks = r4 if name == "dp2xpp2" else r2
+        rec = rec4 if name == "dp2xpp2" else recs[name]
+        tl = timeline_stats(pipeline_timeline(
+            run["schedule"], S, run["n_micro"], vpp_degree=run["vpp"] or 1))
+        pred = [pr["bubbles"] / tl["total_ticks"] for pr in tl["per_rank"]]
+        meas = [_bubble(o["runs"][name], o["runs"][name]["ms"][-1])
+                for o in ranks]
+        wire = {k: [v["calls"], v["handed_bytes"], v["received_bytes"]]
+                for k, v in sorted(rec["wire"][-1].items())}
+        coll_ms = [1e3 * sum(v["seconds"] for v in
+                             o["runs"][name]["wire"][-1].values())
+                   for o in ranks]
+        audit = ", ".join(
+            f"rank {r} {o['runs'][name]['audit']['per_axis']} in "
+            f"{o['runs'][name]['audit']['s']:.1f}s"
+            for r, o in enumerate(ranks) if "audit" in o["runs"][name])
+        log(f"[{phase}] {name} (coop {rec['coop']}): losses "
+            f"{[round(v, 4) for v in rec['losses']]}; ms a step (warm-up "
+            f"first) rank 0 {[round(v, 1) for v in rec['ms']]}, rank 1 "
+            f"{[round(v, 1) for v in ranks[1]['runs'][name]['ms']]}; "
+            f"host-staged collectives {[round(v, 1) for v in coll_ms]} ms "
+            f"of the last; delivered (calls, handed B, received B) "
+            f"{json.dumps(wire)}"
+            f"; bubble predicted (idle ticks) "
+            f"{[round(v, 3) for v in pred]}, measured "
+            f"{[round(v, 3) for v in meas]}; peak {max(rec['peak'])} B"
+            + (f"; audit {audit}" if audit else ""))
+    log(f"[{phase}] one process (phase 28): "
+        f"{[round(v, 4) for v in oracle]}")
+    launches = {k: sum(sum(l.get(k, 0) for l in rec["launches"])
+                       for rec in list(recs.values()) + [rec4])
+                for k in dp_per_step(DP_LAYERS)}
+    return {"launches": launches,
             "step_ms": {k: v["ms"] for k, v in recs.items()}}
 
 
@@ -6259,7 +6599,8 @@ def main() -> int:
                       lambda: phase_loader(phases["train"]["step_ms"])),
                      ("audit-fit", lambda: phase_audit_fit(phases["loader"])),
                      ("dp", phase_dp),
-                     ("zero-tp", lambda: phase_zero_tp(phases["dp"]))):
+                     ("zero-tp", lambda: phase_zero_tp(phases["dp"])),
+                     ("pp", lambda: phase_pp(phases["dp"]))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")
@@ -6362,9 +6703,10 @@ def main() -> int:
     for name, cases in kernels.items():
         if name not in own_phase:
             continue    # a variant no phase serves: checked in phase 1 only
-        # phase 29's rank 0 drives the training kernels too
+        # phases 29 and 30's rank 0 drive the training kernels too
         n = phases[own_phase[name]]["launches"][name] \
-            + phases["zero-tp"]["launches"].get(name, 0)
+            + phases["zero-tp"]["launches"].get(name, 0) \
+            + phases["pp"]["launches"].get(name, 0)
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"{own_phase[name]} phase's main path")

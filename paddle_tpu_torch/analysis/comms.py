@@ -8,13 +8,16 @@ executes and bounds the bytes each rank puts on the wire.
 
 - **Inventory**: every node of the collective operators
   (``paddle_tpu_comm::all_gather`` / ``all_reduce`` / ``all_to_all`` /
-  ``broadcast``, `parallel/collectives.py`), one per call. Kinds take the
+  ``broadcast`` / ``reduce_scatter`` / ``ppermute``,
+  `parallel/collectives.py`), one per call. Kinds take the
   JAX primitives' names (an all_reduce is ``psum`` / ``pmax`` /
   ``pmin``), and a group's axis is its registry key's axis part
   (``"mp@0,1"`` -> ``mp``), so reports compare one to one with JAX's.
 - **Cost model** (ring algorithms, per rank): all-reduce moves
   ``2(n-1)/n`` of its operand, all-gather / all-to-all / broadcast
-  ``(n-1)/n`` of the full (gathered) payload; a group of 1 moves nothing.
+  ``(n-1)/n`` of the full (gathered) payload, a ``ppermute`` hop its
+  payload once where the rank sends (a receive alone puts nothing on
+  its wire: a pipeline stage's boundary); a group of 1 moves nothing.
   A rank traces its own shard, so operand bytes are per rank by
   construction.
 - **Sites from unrolled steps**: a torch graph has no loops (a Python
@@ -278,6 +281,8 @@ def _event(ctx: NodeCtx) -> CommEvent:
     x = ctx.args["x"]
     out = ctx.outputs[0]
     in_bytes = x.nbytes
+    if kind == "ppermute" and int(ctx.node.args[3]) < 0:
+        in_bytes = 0    # a receive alone: the peer's wire, not this rank's
     base = out.nbytes if kind in GATHER_PRIMS else in_bytes
     return CommEvent(
         kind=kind, path=ctx.path, axes=collective_axes(ctx), n_devices=n,

@@ -474,7 +474,7 @@ class CollectiveRule(Rule):
     ``analysis/comms.py`` inventory, which also carries the byte math):
 
     - dead: the collective's result is never used, yet every rank still
-      pays the exchange;
+      pays the exchange (a send-only ``ppermute`` hop excepted);
     - duplicate: two identical collectives over the same operand and
       group (fold into one);
     - unknown axis: the group's axis is not in the `mesh_axes=` the
@@ -534,7 +534,10 @@ class CollectiveRule(Rule):
                                  "raises at run time (no group is "
                                  "registered for it)",
                             severity=Severity.ERROR)
-            if not ctx.node.users:
+            # a send-only hop (a ppermute receiving nothing) returns an
+            # empty tensor: its work is the send
+            send_only = kind == "ppermute" and int(ctx.node.args[4]) < 0
+            if not ctx.node.users and not send_only:
                 yield self.diag(
                     f"result of {kind} over {axes} is never used (a dead "
                     "collective still makes every rank exchange)",

@@ -1,5 +1,5 @@
-"""Model zoo of the port: Llama serving and training, and the streaming
-checkpoint loader."""
+"""Model zoo of the port: Llama serving and training (over a pp mesh:
+`llama_pipe`), and the streaming checkpoint loader."""
 from .llama import (  # noqa: F401
     LlamaConfig, LlamaForCausalLM, LlamaModel, LlamaPretrainingCriterion,
     PagedKVManager, build_paged_generate, build_quant_generate,
@@ -10,3 +10,5 @@ from .llama import (  # noqa: F401
     resolve_kv_cache_dtype, shard_llama, stack_decode_layer_params,
 )
 from .checkpoint import load_quant_serving_params  # noqa: F401
+from . import llama_pipe  # noqa: F401
+from .llama_pipe import make_llama_pp_train_step  # noqa: F401

@@ -6,8 +6,10 @@ tensor-parallel ``mp``; `make_eval_step`; `DataParallel`;
 `mesh`, `env`), the collectives as graph operators and the quantized wire
 (`collectives`), the semi-auto API over a rank's blocks (`placement`,
 `api`, `spmd_rules`), the Megatron layers (`mpu`), Paddle's collective
-API on torch tensors (`collective`) and the sharded checkpoint
-(`checkpoint`, whose block record is ``checkpoint.Shard``)."""
+API on torch tensors (`collective`), the sharded checkpoint
+(`checkpoint`, whose block record is ``checkpoint.Shard``), pipeline
+parallelism over pp (`pipeline_spmd`'s five schedules, `pipeline`'s
+layer API, `pipeline_viz`) and the pass registry (`passes`)."""
 from . import mpu  # noqa: F401
 from .api import (dtensor_from_fn, get_placements,  # noqa: F401
                   reshard, shard_constraint, shard_layer, shard_optimizer,
@@ -28,3 +30,12 @@ from .spmd_rules import (get_spmd_rule, register_spmd_rule,  # noqa: F401
                          shard_parameters, with_spmd_constraint)
 from .trainer import (AdamWState, adamw_update,  # noqa: F401
                       init_adamw_state, make_eval_step, make_train_step)
+from . import passes  # noqa: F401
+from . import pipeline_spmd  # noqa: F401
+from .pipeline import (LayerDesc, PipelineLayer,  # noqa: F401
+                       PipelineParallel, SharedLayerDesc, pipeline_apply)
+from .pipeline_spmd import pipeline_forward, stack_stage_params  # noqa: F401
+from . import pipeline_viz  # noqa: F401
+from .pipeline_viz import (pipeline_timeline,  # noqa: F401
+                           render_timeline, save_chrome_trace,
+                           timeline_stats)

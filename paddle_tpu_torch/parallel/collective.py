@@ -302,19 +302,21 @@ def barrier(group=None):
 
 
 def _p2p(tensor, peer, group, send_: bool):
-    """Point to point: host-staged for a CUDA tensor on gloo."""
-    if _ref(group).size == 1:
+    """Point to point through the ``ppermute`` operator (`collectives.
+    send_recv`), so a traced program records it; `peer` is a rank of the
+    default group. Synchronous, as JAX's isend / irecv are."""
+    ref = _ref(group)
+    if ref.size == 1:
         return tensor
     pg = _pg(group)
-    staged = tensor.is_cuda and dist.get_backend(pg) == "gloo"
-    buf = tensor.cpu() if staged else tensor
+    idx = int(peer) if pg is dist.group.WORLD \
+        else dist.get_group_rank(pg, int(peer))
     if send_:
-        dist.send(buf.contiguous(), dst=int(peer), group=pg)
+        _c.send_recv(tensor, ref, dst=idx)
     else:
-        dist.recv(buf, src=int(peer), group=pg)
-        if staged:
-            with torch.no_grad():
-                tensor.copy_(buf)
+        got = _c.send_recv(tensor, ref, src=idx)
+        with torch.no_grad():
+            tensor.copy_(got)
     return tensor
 
 

@@ -6,8 +6,9 @@ a process group (None = the default group, a ``ProcessGroup``, or a
 `parallel.ranks.GroupRef`) and run on every rank of it, SPMD.
 
 **Collectives as operators.** Each plain collective (``all_gather``,
-``all_reduce``, ``all_to_all``, ``broadcast``) is one ``torch.library``
-operator ``paddle_tpu_comm::<name>`` (the precedent is
+``all_reduce``, ``all_to_all``, ``broadcast``, and the point-to-point hop
+``ppermute``) is one ``torch.library`` operator
+``paddle_tpu_comm::<name>`` (the precedent is
 ``kernels/_build.kernel_op``), so ``make_fx`` records it as one node
 that the communication audit (``analysis/comms.py``) reads:
 
@@ -39,7 +40,15 @@ collectives are graph nodes too, forward and backward:
   compute the same thing (Megatron's ``c_concat``: the embedding's
   columns, the logits' vocab);
 - ``all_reduce``: identity backward (Megatron's ``g`` after a
-  row-parallel product: the loss downstream is the same on every rank).
+  row-parallel product: the loss downstream is the same on every rank);
+- ``ppermute`` (`send_recv`: this rank's tensor to one peer of the group,
+  another peer's into a new tensor; on NCCL ``batch_isend_irecv``, on
+  gloo ``isend`` / ``irecv`` of host copies): backward, the same hop the
+  other way (the transpose of ``lax.ppermute``), which holds where every
+  rank's received tensor feeds the loss, as in a ring. The pipelines
+  (`parallel/pipeline_spmd.py`) send their activations and cotangents
+  forward and back explicitly, tick by tick, and use no autograd across
+  ranks.
 
 Two functions exchange in their backward only, so their forward is no
 graph node: ``c_identity`` (Megatron's ``f`` before a column-parallel
@@ -90,7 +99,7 @@ __all__ = [
     "all_reduce", "all_reduce_tree", "all_to_all", "WIRE_COUNTS",
     "reset_wire_counts", "broadcast", "broadcast_tree", "c_concat",
     "c_identity", "c_split", "group_size", "mp_allreduce", "psum_tree",
-    "reduce_scatter", "tree_leaves",
+    "reduce_scatter", "tree_leaves", "send_recv", "ppermute",
 ]
 
 # lane-width blocks along the last dim (one f32 scale per 128 int8 bytes)
@@ -241,6 +250,43 @@ def _broadcast_impl(x, group: str, size: int, src: int):
     return out.to(x.device) if staged else out
 
 
+def _peer(pg, idx: int) -> int:
+    """The default group's rank of the group's rank `idx`."""
+    return idx if pg is dist.group.WORLD else dist.get_global_rank(pg, idx)
+
+
+def _ppermute_impl(x, group: str, size: int, dst: int, src: int):
+    t0 = time.perf_counter()
+    pg = resolve_group(group)
+    staged = x.is_cuda and dist.get_backend(pg) == "gloo"
+    nccl = dist.get_backend(pg) == "nccl"
+    out = None
+    ops = []
+    if dst >= 0:
+        buf = x.detach().cpu().contiguous() if staged else x.contiguous()
+        ops.append((dist.isend, buf, _peer(pg, dst)))
+    if src >= 0:
+        out = torch.empty(x.shape, dtype=x.dtype,
+                          device="cpu" if staged else x.device)
+        ops.append((dist.irecv, out, _peer(pg, src)))
+    if nccl:
+        works = dist.batch_isend_irecv(
+            [dist.P2POp(fn, t, peer, group=pg) for fn, t, peer in ops])
+    else:
+        works = [fn(t, peer, group=pg) for fn, t, peer in ops]
+    for w in works:
+        w.wait()
+    nb = x.numel() * x.element_size()
+    _count("ppermute", nb if dst >= 0 else 0, nb if src >= 0 else 0, t0)
+    if out is None:
+        return x.new_empty((0,))
+    return out.to(x.device) if staged else out
+
+
+def _ppermute_fake(x, group: str, size: int, dst: int, src: int):
+    return x.new_empty(tuple(x.shape) if src >= 0 else (0,))
+
+
 def _same_fake(x, *args):
     return torch.empty_like(x)
 
@@ -269,6 +315,9 @@ _all_to_all_op = _comm_op(
 _broadcast_op = _comm_op(
     "broadcast", "(Tensor x, str group, int size, int src) -> Tensor",
     _broadcast_impl, _same_fake)
+_ppermute_op = _comm_op(
+    "ppermute", "(Tensor x, str group, int size, int dst, int src) -> Tensor",
+    _ppermute_impl, _ppermute_fake)
 
 
 # the backward formulas (module docstring, "Autograd")
@@ -300,11 +349,32 @@ def _scatter_backward(ctx, g):
                            "reduce_scatter"), None, None, None)
 
 
+def _ppermute_setup(ctx, inputs, output):
+    x = inputs[0]
+    ctx.args = inputs[1:]
+    ctx.like = (tuple(x.shape), x.dtype, x.device)
+
+
+def _ppermute_backward(ctx, g):
+    # the hop the other way: the cotangent of what this rank received goes
+    # back to its source, that of what it sent comes back from its peer
+    group, size, dst, src = ctx.args
+    shape, dtype, device = ctx.like
+    send = src >= 0 and g is not None
+    tmpl = g.contiguous() if send else torch.empty(shape, dtype=dtype,
+                                                   device=device)
+    out = _ppermute_op(tmpl, group, size, src if send else -1, dst)
+    return (out if dst >= 0 else None), None, None, None, None
+
+
 for _name, _bwd in (("all_gather", _gather_backward),
                     ("all_reduce", _reduce_backward),
                     ("reduce_scatter", _scatter_backward)):
     torch.library.register_autograd(f"{COMM_NAMESPACE}::{_name}", _bwd,
                                     setup_context=_setup, lib=_OPS)
+torch.library.register_autograd(f"{COMM_NAMESPACE}::ppermute",
+                                _ppermute_backward,
+                                setup_context=_ppermute_setup, lib=_OPS)
 
 
 def group_size(group=None) -> int:
@@ -435,6 +505,33 @@ def broadcast(x: torch.Tensor, group=None, src: int = 0) -> torch.Tensor:
     if ref.size == 1:
         return x
     return _broadcast_op(x, ref.key, ref.size, int(src))
+
+
+def send_recv(x: torch.Tensor, group=None, dst: int = -1,
+              src: int = -1) -> torch.Tensor:
+    """One point-to-point hop over the group (ranks by their index in
+    it): this rank's `x` to rank `dst` and rank `src`'s tensor, shaped
+    and typed like `x`, into a new tensor that is returned (-1: no send,
+    no receive; with no receive an empty tensor). Every send must meet
+    its peer's receive in the same call on both ranks."""
+    ref = group_ref(group)
+    if ref.size == 1:
+        return x if src >= 0 else x.new_empty((0,))
+    return _ppermute_op(x.contiguous(), ref.key, ref.size, int(dst),
+                        int(src))
+
+
+def ppermute(x: torch.Tensor, group=None, perm=()) -> torch.Tensor:
+    """JAX's ``lax.ppermute``: `perm` is a list of (source, destination)
+    group ranks; this rank sends `x` where it is a source and returns
+    what it receives (zeros where it is no destination)."""
+    ref = group_ref(group)
+    dst = next((d for s, d in perm if s == ref.rank), -1)
+    src = next((s for s, d in perm if d == ref.rank), -1)
+    if ref.size == 1:
+        return x if src >= 0 else torch.zeros_like(x)
+    out = send_recv(x, ref, dst, src)
+    return out if src >= 0 else torch.zeros_like(x)
 
 
 def broadcast_tree(tensors, group=None, src: int = 0) -> None:

@@ -9,10 +9,16 @@ axis a holds the ranks that differ from r in a alone. Each group is
 registered under ``"<axis>@<ranks>"`` (`parallel.ranks.register_group`),
 so the collectives and the communication audit name it by its axis.
 
-The ``dp``, ``sharding`` (ZeRO) and ``mp`` (tensor-parallel) axes, and
-axes of other names, may exceed 1 (`make_train_step(mesh=)`,
-`DataParallel`, ``hapi.Model.fit`` over dp, ``shard_llama``); ``pp`` and
-``sep`` above 1 raise, naming ROADMAP.md section 1 item 5 steps 5-6.
+The ``dp``, ``pp`` (pipeline), ``sharding`` (ZeRO) and ``mp``
+(tensor-parallel) axes, and axes of other names, may exceed 1
+(`make_train_step(mesh=)`, `DataParallel`, ``hapi.Model.fit`` over dp,
+``shard_llama``, ``models.llama_pipe.make_llama_pp_train_step`` and
+`parallel.pipeline_spmd` over pp); ``sep`` above 1 raises, naming
+ROADMAP.md section 1 item 5 step 6. The ranks take their coordinates in
+the JAX package's device order (`HYBRID_AXES`, row-major), so pp stage
+s of rank r is the stage JAX's device r runs; a rank's pp group holds
+the stages in order, and `pp_neighbours` names the ranks before and
+after it.
 Beside the one-axis groups, the batch axes (``dp`` and ``sharding``, when
 both exceed 1) get one group of their own, registered as
 ``"dp+sharding@<ranks>"``: the rows of a batch split over both, so its
@@ -30,8 +36,8 @@ from .ranks import GroupRef, ranks_key, register_group
 
 __all__ = [
     "BATCH_AXES", "CP_AXIS", "HYBRID_AXES", "HybridCommunicateGroup",
-    "HybridParallelInfo", "MP_AXIS", "Mesh", "auto_mesh", "build_mesh",
-    "divisible_prefix", "get_global_mesh", "set_global_mesh",
+    "HybridParallelInfo", "MP_AXIS", "Mesh", "PP_AXIS", "auto_mesh",
+    "build_mesh", "divisible_prefix", "get_global_mesh", "set_global_mesh",
 ]
 
 # the reference's ["data", "pipe", "sharding", "sep", "model"] order
@@ -41,9 +47,10 @@ BATCH_AXES = ("dp", "sharding")
 MP_AXIS = "mp"
 CP_AXIS = "cp"
 # the axes that may not exceed 1 yet
-REFUSED_AXES = ("pp", "sep")
-LATER_STEPS = ("ROADMAP.md section 1 item 5 steps 5-6 (pipeline, then "
-               "sequence and context parallel training)")
+REFUSED_AXES = ("sep",)
+LATER_STEPS = ("ROADMAP.md section 1 item 5 step 6 (sequence and context "
+               "parallel training)")
+PP_AXIS = "pp"
 
 
 @dataclasses.dataclass
@@ -70,6 +77,22 @@ class Mesh:
 
     def axis_rank(self, axis: str) -> int:
         return self.refs[axis].rank
+
+    def axis_ranks(self, axis: str) -> List[int]:
+        """The default group's ranks of this rank's group on `axis`, in
+        the axis's order."""
+        key = self.refs[axis].key
+        return [int(r) for r in key.split("@", 1)[1].split(",")]
+
+    def pp_neighbours(self, axis: str = PP_AXIS):
+        """(previous, next) stage's rank in the default group on this
+        rank's pp group, None at the first / last stage (and without a pp
+        axis above 1)."""
+        if self.shape.get(axis, 1) <= 1:
+            return None, None
+        ranks, s = self.axis_ranks(axis), self.axis_rank(axis)
+        return (ranks[s - 1] if s > 0 else None,
+                ranks[s + 1] if s + 1 < len(ranks) else None)
 
     def group_ref(self, axes) -> Optional[GroupRef]:
         """The group over `axes` (a name or a tuple; axes of size 1

@@ -59,6 +59,14 @@ With gradient merge the micro-batches accumulate locally and sum once
 (a stage-3 gather reduces its gradient in each micro-batch's backward).
 A batch whose rows the row axes do not divide (or a 0-d leaf) runs whole
 on every rank, with a warning: JAX replicates such a batch.
+
+A ``pp`` axis above 1 is one more replica axis here, as in JAX's
+``make_train_step`` (which has no pipeline code: its step is replicated
+over pp, so each pp rank runs the whole step on the same rows and the
+ranks stay equal). Pipeline training is
+``models.llama_pipe.make_llama_pp_train_step`` over
+`parallel.pipeline_spmd`, whose schedule, microbatches and interleave
+degree the strategy's ``pipeline`` section may set (`resolve_pipeline`).
 """
 from __future__ import annotations
 
@@ -129,14 +137,40 @@ _SECTIONS = ("amp", "recompute", "sharding", "gradient_merge", "pipeline")
 
 
 def _resolve_strategy(strategy) -> Dict[str, dict]:
-    """A strategy dict (or None) -> one plain dict per section."""
+    """A strategy dict, an object with section attributes, or None -> one
+    plain dict per section."""
     out = {s: {} for s in _SECTIONS}
     if strategy is None:
         return out
     for s in _SECTIONS:
-        if isinstance(strategy.get(s), dict):
-            out[s] = dict(strategy[s])
+        val = strategy.get(s) if isinstance(strategy, dict) \
+            else getattr(strategy, s, None)
+        if isinstance(val, dict):
+            out[s] = dict(val)
     return out
+
+
+def resolve_pipeline(strategy, schedule=None, n_micro=None,
+                     vpp_degree=None):
+    """(schedule, n_micro, vpp_degree) of a pipeline step: the explicit
+    arguments win over the strategy's ``pipeline`` section
+    (``schedule_mode``, ``accumulate_steps``, ``vpp_degree``; a section
+    with ``enable`` False is ignored), which wins over the defaults
+    (1F1B, n_micro None: the pp degree, vpp_degree 2). An
+    ``accumulate_steps`` of 1 or less is the pass's own default, not a
+    request for a one-microbatch pipeline (JAX's rule)."""
+    if strategy is not None:
+        pipe = _resolve_strategy(strategy)["pipeline"]
+        if pipe.get("enable", True):
+            if pipe.get("schedule_mode") and schedule is None:
+                schedule = pipe["schedule_mode"]
+            if n_micro is None and int(
+                    pipe.get("accumulate_steps") or 0) > 1:
+                n_micro = int(pipe["accumulate_steps"])
+            if pipe.get("vpp_degree") and vpp_degree is None:
+                vpp_degree = int(pipe["vpp_degree"])
+    return (schedule or "1F1B", n_micro,
+            2 if vpp_degree is None else int(vpp_degree))
 
 
 def _grad(p: torch.Tensor) -> torch.Tensor:
@@ -154,7 +188,7 @@ def _bind(model: nn.Module, params: Dict[str, nn.Parameter]) -> None:
 
 
 def check_mesh(mesh) -> None:
-    """Refuse a mesh with an axis not ported above 1 (pp, sep)."""
+    """Refuse a mesh with an axis not ported above 1 (sep)."""
     if mesh is None:
         return
     for axis, n in mesh.shape.items():
@@ -231,8 +265,9 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
       - sharding.enable + stage / axis: ZeRO stage 1 / 2 / 3 over the
         mesh's axis (the module docstring).
     `mesh` (default: the global mesh) trains over its axes (the module
-    docstring), the rows laid by `batch_spec`; `quantized_collectives`
-    makes the all-reduce of the gradients the int8 `quantized_psum_tree`.
+    docstring; pp replicates the step), the rows laid by `batch_spec`;
+    `quantized_collectives` makes the all-reduce of the gradients the
+    int8 `quantized_psum_tree`.
     """
     strat = _resolve_strategy(strategy)
     mesh = mesh if mesh is not None else mesh_mod.get_global_mesh()

@@ -2648,3 +2648,50 @@ def test_serving_cp2_partial_merge_is_the_sum_that_differs(dev):
     cp2 = finalize_partials(*combine_partials(*parts)).to(torch.bfloat16)
     _within_one_bf16_step(cp2, one)
     assert not torch.equal(cp2, one)
+
+
+def test_ppermute_hop_on_two_gloo_ranks_is_bitwise_with_its_backward(dev):
+    """The pipeline's point-to-point operator (``paddle_tpu_comm::
+    ppermute``) on two gloo ranks sharing cuda:0: each rank receives the
+    other's bf16 and f32 tensors bitwise, on the card, and the ring
+    ppermute's backward hands each rank the other's cotangent bitwise."""
+    from torch_rank_pool import RankPool, ppermute_rank
+
+    pool = RankPool(2)
+    try:
+        outs = pool.run(2, ppermute_rank, "cuda")
+    finally:
+        pool.close()
+    for o in outs:
+        assert o["ok"] and o["fwd"] and o["grad"] and o["on_card"], o
+        # two hops and the ring's forward and backward
+        assert o["wire"]["calls"] == 4, o
+
+
+def test_pp2_1f1b_step_on_the_card_matches_one_process(dev):
+    """A 2-layer Llama-1B-width (bf16) pp2 1F1B step on two gloo ranks
+    sharing cuda:0, the cooperative head, n_micro 4: its losses within
+    1% (chip_smoke's DP_LOSS_RTOL) of the serial step's in one process,
+    the ranks' losses equal, and each rank's launches a step exact (its
+    one layer forward and backward once a microbatch, two rms_norm a
+    layer a forward and the head's norm a microbatch)."""
+    from torch_rank_pool import RankPool, pp_step_rank_cuda
+
+    pool = RankPool(2)
+    try:
+        one = pool.run(1, pp_step_rank_cuda, 2, 512, 2)[0]
+        outs = pool.run(2, pp_step_rank_cuda, 2, 512, 2)
+    finally:
+        pool.close()
+    for losses, launches, backend in outs:
+        assert backend == "gloo"
+        assert losses == outs[0][0]
+        for a, b in zip(losses, one[0]):
+            assert abs(a - b) <= 1e-2 * abs(b), (losses, one[0])
+        for got in launches:
+            for k, n in (("flash_attention_fwd", 4),
+                         ("flash_attention_bwd_dq", 4),
+                         ("flash_attention_bwd_dkv", 4),
+                         ("flash_attention_bwd_delta", 4),
+                         ("rms_norm", 2 * 4 + 4)):
+                assert got.get(k, 0) == n, (k, got)

@@ -253,17 +253,18 @@ def test_refused_options_raise():
     loss = lambda lg, lb: crit(lg, lb)  # noqa: E731
     from paddle_tpu_torch.parallel.mesh import Mesh
 
-    # the mp and sharding axes train (tests/test_torch_zero.py,
-    # tests/test_torch_tp.py): an mp mesh needs its ranks, and pipeline or
-    # sequence axes above 1 are refused, naming the later steps
+    # the mp, sharding and pp axes train (tests/test_torch_zero.py,
+    # tests/test_torch_tp.py, tests/test_torch_pp.py): such a mesh needs
+    # its ranks, and a sequence axis above 1 is refused, naming the later
+    # step
     from paddle_tpu_torch.parallel import build_mesh
 
-    with pytest.raises(ValueError, match="needs 2 ranks"):
-        build_mesh({"dp": 1, "mp": 2})
-    for axis in ("pp", "sep"):
-        with pytest.raises(NotImplementedError, match="steps 5-6"):
-            make_train_step(tm, loss, mesh=Mesh({"dp": 1, axis: 2}, {}),
-                            device="cpu")
+    for axis in ("mp", "pp"):
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            build_mesh({"dp": 1, axis: 2})
+    with pytest.raises(NotImplementedError, match="step 6"):
+        make_train_step(tm, loss, mesh=Mesh({"dp": 1, "sep": 2}, {}),
+                        device="cpu")
     step, p, s = make_train_step(
         tm, loss, None, device="cpu",
         strategy={"recompute": {"enable": True,

@@ -982,3 +982,302 @@ def tp_layers_rank_cuda():
         return on_card, diffs
     finally:
         set_global_mesh(None)
+
+
+# ---------------------------------------------------------------------------
+# pipeline-parallel training
+# ---------------------------------------------------------------------------
+
+def _gather_stage(g, mesh, mp_dim):
+    """A stage gradient block whole: over mp on its split dim, then over
+    pp on the stage dim (JAX's global array)."""
+    from paddle_tpu_torch.parallel.collectives import all_gather
+
+    if mp_dim is not None and mesh.shape.get("mp", 1) > 1:
+        g = all_gather(g.contiguous(), mesh.axis_ref("mp"), mp_dim)
+    if mesh.shape.get("pp", 1) > 1:
+        g = all_gather(g.contiguous(), mesh.axis_ref("pp"), 0)
+    return g
+
+
+def pp_train_rank(np_params, x, y, steps, lr, shape, kw=None, cfg_kw=None):
+    """`make_llama_pp_train_step(**kw)` on tiny() f32 over
+    `build_mesh(shape)`, `steps` steps on the global batch (x, y):
+    (losses, whether the outer params were bitwise equal over pp after
+    every step, the whole params after the last step (JAX's layout, keys
+    "outer/<name>" and "stages/<sub>"), the step's schedule and coop
+    flag, None, the first step's gradients as `adamw_update` gets them,
+    whole, and the clip's global norm) -- `check_grads` reads the last
+    two at 5 and 6."""
+    import torch
+
+    from paddle_tpu_torch.models import llama_pipe
+    from paddle_tpu_torch.parallel import build_mesh
+    from paddle_tpu_torch.parallel.collectives import all_gather
+
+    tm = _tiny_train_model(np_params, cfg_kw)
+    mesh = build_mesh(shape)
+    step, p, s = llama_pipe.make_llama_pp_train_step(
+        tm, mesh, lr=lr, device="cpu", **(kw or {}))
+    seen = {}
+    real = llama_pipe.adamw_update
+
+    def spy(params, grads, state, lr, **k):
+        if not seen:
+            reduce_sq = k.get("reduce_sq")
+
+            def record(names, sqs):
+                out = reduce_sq(names, sqs) if reduce_sq else sqs
+                seen["norm"] = float(torch.sqrt(sum(out)))
+                return out
+            seen["grads"] = {
+                n: (_gather_stage(g, mesh, step.stage_mp_dims[
+                    n.split("/", 1)[1]]) if n.startswith("stages/")
+                    else g).detach().numpy().copy()
+                for n, g in sorted(grads.items())}
+            k = dict(k, reduce_sq=record)
+        return real(params, grads, state, lr, **k)
+
+    llama_pipe.adamw_update = spy
+    losses, equal = [], True
+    try:
+        for _ in range(steps):
+            loss, p, s = step(p, s, x, y)
+            losses.append(float(loss))
+            if mesh.shape.get("pp", 1) > 1:
+                for k in sorted(p["outer"]):
+                    got = all_gather(p["outer"][k][None].contiguous(),
+                                     mesh.axis_ref("pp"), 0)
+                    equal &= all(torch.equal(got[0], got[i])
+                                 for i in range(got.shape[0]))
+    finally:
+        llama_pipe.adamw_update = real
+    last = {f"outer/{k}": v.numpy().copy() for k, v in p["outer"].items()}
+    last.update({f"stages/{k}": _gather_stage(
+        v, mesh, step.stage_mp_dims[k]).numpy().copy()
+        for k, v in p["stages"].items()})
+    return (losses, equal, last, (step.schedule, step.n_micro,
+                                  step.coop_head), None, seen.get("grads"),
+            seen.get("norm"))
+
+
+def toy_pipeline_rank(kind, stacked, head, x, lb, n_micro, mesh_shape):
+    """One of `pipeline_spmd`'s schedules on JAX's toy stages (tanh(h @
+    w), the head mean((h @ u - y)^2)) over `build_mesh(mesh_shape)`:
+    "forward" (the output and the stacked weights' gradient of
+    sum(out^2)), "vpp" (the same through pipeline_vpp_forward over
+    chunked [S, V, d, d] weights), else 1f1b / zb / eager's (loss,
+    d_stage block, d_head, d_x)."""
+    import torch
+
+    from paddle_tpu_torch.parallel import build_mesh
+    from paddle_tpu_torch.parallel import pipeline_spmd as ps
+
+    mesh = build_mesh(mesh_shape)
+    x, lb = torch.from_numpy(x), torch.from_numpy(lb)
+    if kind in ("forward", "vpp"):
+        w = torch.from_numpy(stacked).requires_grad_(True)
+        if kind == "vpp":
+            out = ps.pipeline_vpp_forward(lambda W, h: torch.tanh(h @ W), w,
+                                          x, mesh=mesh, n_micro=n_micro)
+            out.sum().backward()
+        else:
+            out = ps.pipeline_forward(
+                lambda p, h: torch.tanh(h @ p["w"] + p["b"]),
+                {"w": w, "b": torch.from_numpy(head)}, x, mesh=mesh,
+                n_micro=n_micro)
+            (out ** 2).sum().backward()
+        return out.detach().numpy(), w.grad.numpy()
+    fn = {"1f1b": ps.pipeline_1f1b, "zb": ps.pipeline_zb1f1b,
+          "eager": ps.pipeline_eager_1f1b}[kind]
+    loss, d_st, d_hp, d_x = fn(
+        lambda p, h: torch.tanh(h @ p["w"]),
+        lambda hp, h, y: torch.mean((h @ hp["u"] - y) ** 2),
+        {"w": torch.from_numpy(stacked)}, {"u": torch.from_numpy(head)},
+        x, lb, mesh=mesh, n_micro=n_micro)
+    return (float(loss), d_st["w"].numpy(), d_hp["u"].numpy(),
+            d_x.numpy())
+
+
+def pipeline_apply_rank(w, x, n_micro):
+    """`parallel.pipeline_apply` of tanh(a @ w) stages on {"pp": world}:
+    the output and the gradient of sum(y^2) with respect to w."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import build_mesh, pipeline_apply
+
+    mesh = build_mesh({"pp": dist.get_world_size()})
+    wt = torch.from_numpy(w).requires_grad_(True)
+    y = pipeline_apply(lambda p, a: torch.tanh(a @ p["w"]), {"w": wt},
+                       torch.from_numpy(x), n_microbatches=n_micro,
+                       mesh=mesh)
+    (y ** 2).sum().backward()
+    return y.detach().numpy(), wt.grad.numpy()
+
+
+def pp_audit_rank(np_params, x, y, shape, kw):
+    """The communication audit of a pp rank's whole train step (traced on
+    fake tensors after building the step on the live group): its
+    collectives (kind, axis, shape, dtype, wire bytes), one real step's
+    delivered bytes by operator, and TPU401's dead-collective findings."""
+    from paddle_tpu_torch.analysis import comms
+    from paddle_tpu_torch.analysis.graph import trace_graph
+    from paddle_tpu_torch.analysis.rules import CollectiveRule
+    from paddle_tpu_torch.models import llama_pipe
+    from paddle_tpu_torch.parallel import build_mesh
+    from paddle_tpu_torch.parallel import collectives as coll
+
+    tm = _tiny_train_model(np_params)
+    mesh = build_mesh(shape)
+    step, p, s = llama_pipe.make_llama_pp_train_step(
+        tm, mesh, lr=1e-3, device="cpu", **kw)
+    graph = trace_graph(step, p, s, x, y, grad=True)
+    rep = comms.audit_graph(graph)
+    dead = [d.message for d in CollectiveRule().check(graph)
+            if "never used" in d.message]
+    coll.reset_wire_counts()
+    step(p, s, x, y)
+    wire = {k: dict(v) for k, v in coll.WIRE_COUNTS.items()}
+    return ([(e.kind, e.axes, e.shape, e.dtype, e.wire_bytes)
+             for e in rep.collectives], rep.per_axis(), wire, dead)
+
+
+def pp_errors_rank():
+    """The ValueErrors `pipeline_spmd` raises on {"pp": 4}: a batch not
+    divisible by n_micro, a stage dim other than pp, VPP's n_micro not a
+    multiple of pp (their messages, in that order)."""
+    import torch
+
+    from paddle_tpu_torch.parallel import build_mesh
+    from paddle_tpu_torch.parallel import pipeline_spmd as ps
+
+    mesh = build_mesh({"pp": 4})
+    out = []
+    for call in (
+            lambda: ps.pipeline_forward(lambda p, h: h,
+                                        {"w": torch.zeros(4, 2)},
+                                        torch.zeros(6, 2), mesh=mesh,
+                                        n_micro=4),
+            lambda: ps.pipeline_forward(lambda p, h: h,
+                                        {"w": torch.zeros(3, 2)},
+                                        torch.zeros(8, 2), mesh=mesh,
+                                        n_micro=4),
+            lambda: ps.pipeline_vpp_forward(lambda W, h: h,
+                                            torch.zeros(4, 2, 8, 8),
+                                            torch.zeros(6, 8), mesh=mesh,
+                                            n_micro=6)):
+        try:
+            call()
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def coop_errors_rank():
+    """`make_llama_pp_train_step(coop_head=True)`'s refusals on {"pp": 2}:
+    FThenB, then a vocab (127) pp does not divide."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         init_train_params, llama_pipe)
+    from paddle_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh({"pp": 2})
+    out = []
+    for vocab, kw in ((128, {"schedule": "FThenB"}), (127, {})):
+        cfg = LlamaConfig.tiny(vocab_size=vocab)
+        tm = LlamaForCausalLM(cfg).load_params(
+            init_train_params(cfg, 0, "cpu"), trainable=True)
+        try:
+            llama_pipe.make_llama_pp_train_step(tm, mesh, coop_head=True,
+                                                device="cpu", **kw)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def ppermute_rank(device="cuda"):
+    """The ``ppermute`` hop on two gloo ranks (sharing cuda:0, or on the
+    CPU): each rank sends its tensor (bf16 and f32, from a generator
+    seeded by its rank) to the other and receives the other's; then the
+    JAX-style ring ppermute under autograd, whose backward sends the
+    cotangent back. Returns whether the received tensors and the input's
+    gradient are bitwise the other rank's, whether they live on the
+    device, and the wire counts."""
+    import torch
+
+    from paddle_tpu_torch.parallel import collectives as coll
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    r = _rank()
+    mine, theirs = {}, {}
+    for who in (0, 1):
+        g = torch.Generator(device=device).manual_seed(100 + who)
+        d = {dt: torch.randn(2, 1024, 512, generator=g, device=device
+                             ).to(dt) for dt in (torch.bfloat16,
+                                                 torch.float32)}
+        d["w"] = torch.randn(2, 1024, 512, generator=g, device=device)
+        (mine if who == r else theirs).update(d)
+    coll.reset_wire_counts()
+    ok, on_dev = True, True
+    for dt in (torch.bfloat16, torch.float32):
+        got = coll.send_recv(mine[dt], None, dst=1 - r, src=1 - r)
+        ok &= bool(torch.equal(got, theirs[dt]))
+        on_dev &= got.device.type == device
+    x = mine[torch.float32].clone().requires_grad_(True)
+    y = coll.ppermute(x, None, perm=[(0, 1), (1, 0)])
+    (y * mine["w"]).sum().backward()
+    grad_ok = bool(torch.equal(x.grad, theirs["w"]))
+    return dict(ok=ok, grad=grad_ok,
+                on_card=on_dev and x.grad.device.type == device,
+                fwd=bool(torch.equal(y.detach(), theirs[torch.float32])),
+                wire=dict(coll.WIRE_COUNTS["ppermute"]))
+
+
+def pp_step_rank_cuda(layers, seq, steps):
+    """Llama-1B's widths (kv heads 4, bf16) at `layers` layers, random
+    weights from seed 0, a global batch 4 x `seq`: on {"pp": world}
+    make_llama_pp_train_step at 1F1B (the cooperative head), n_micro 4;
+    at world 1 the serial step. Returns (losses, launches a step, the
+    backend)."""
+    import torch
+    import torch.distributed as dist
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         init_train_params, llama_pipe)
+    from paddle_tpu_torch.parallel import build_mesh
+
+    torch.cuda.set_device(0)
+    cfg = LlamaConfig.llama_1b(dtype="bfloat16", num_key_value_heads=4,
+                               num_hidden_layers=layers,
+                               max_position_embeddings=seq)
+    model = LlamaForCausalLM(cfg).load_params(
+        init_train_params(cfg, seed=0, device="cuda"), trainable=True)
+    world = dist.get_world_size()
+    mesh = build_mesh({"pp": world}) if world > 1 else None
+    step, p, s = llama_pipe.make_llama_pp_train_step(
+        model, mesh, n_micro=4, lr=1e-4, grad_clip_norm=None)
+    rng = np.random.default_rng(0)
+    x, y = (torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, seq)),
+                            device="cuda") for _ in range(2))
+    losses, launches = [], []
+    for _ in range(steps):
+        _build.reset_launch_counts()
+        loss, p, s = step(p, s, x, y)
+        torch.cuda.synchronize()
+        launches.append({k: v for k, v in _build.launch_counts().items()
+                         if v})
+        losses.append(float(loss))
+    return losses, launches, dist.get_backend()
+
+
+def mesh_pp_rank(shape):
+    """This rank's pp stage, its pp group's ranks and its (previous,
+    next) stage's rank on `build_mesh(shape)`."""
+    from paddle_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh(shape)
+    return (mesh.axis_rank("pp"), mesh.axis_ranks("pp"),
+            mesh.pp_neighbours())
