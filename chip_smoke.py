@@ -163,6 +163,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    30: make_llama_pp_train_step at its five schedules and both heads on
    {"pp": 2}, 1F1B on {"dp": 2, "pp": 2}, the 1F1B / FThenB memory pair,
    the pp rank's communication audit against its hand formula).
+31. sep, sequence- and context-parallel training in the same two
+   launches: bench_longcontext.py's training row (Llama-1B widths, kv
+   heads 4, bf16, recompute on, AdamW) cut to 2 layers on one row of
+   8192 tokens, split over sep: Ulysses and ring attention on two ranks,
+   mp2 x sep2 through shard_llama on four; against the one-process step
+   and its save_attn twin (the flash forward once a layer, not twice);
+   the Ulysses rank's communication audit against `sep_wire_formula`.
 Then the kernel table as one JSON line (each kernel's launches from the
 phase that drives it), the card's name and power limit, and the closing
 {"ok": true, ...} line.
@@ -1319,7 +1326,13 @@ def phase_kernels():
                                 check_flash(2, 200, 333, 32, 8, 128),
                                 check_flash(4, 2048, 2048, 16, 4, 128),
                                 # phase 29's mp2 rank: its 8 of 16 heads
-                                check_flash(4, 2048, 2048, 8, 2, 128)],
+                                check_flash(4, 2048, 2048, 8, 2, 128),
+                                # phase 31's 8k sequence: a sep2 Ulysses
+                                # rank's 8 of 16 heads, an mp2 x sep2
+                                # rank's 4, the one process's 16
+                                check_flash(1, 8192, 8192, 8, 2, 128),
+                                check_flash(1, 8192, 8192, 4, 1, 128),
+                                check_flash(1, 8192, 8192, 16, 4, 128)],
         "paged_decode_attention": [
             check_paged_decode(8, 32, 8, 128, 64),
             check_paged_decode(8, 32, 32, 128, 64),
@@ -1398,15 +1411,20 @@ def phase_kernels():
     res["decode_attention"] = [
         check_contiguous_decode("decode_attention", 8, 32, 32, 128, 1024)]
     # the training kernels: the flash backward at phase 13's shape
-    # (bench.py's Llama-1B step), at Llama-3-8B's heads (phase 14) and at
-    # phase 29's mp2 rank's heads (8 q, 2 kv);
+    # (bench.py's Llama-1B step), at Llama-3-8B's heads (phase 14), at
+    # phase 29's mp2 rank's heads (8 q, 2 kv) and at phase 31's 8k
+    # sequence (a sep2 rank's 8 q, 2 kv heads, an mp2 x sep2 rank's 4 / 1,
+    # the one process's 16 / 4);
     # SwiGLU at phase 14's MLP (M = 4 x 2048 tokens); the dkv row's time
     # is its wrapper's, delta pre-pass included
     (res["flash_attention_bwd_dq"], res["flash_attention_bwd_dkv"],
      res["flash_attention_bwd_delta"]) = (
         list(rows) for rows in zip(check_flash_bwd(4, 2048, 16, 4, 128),
                                    check_flash_bwd(1, 2048, 32, 8, 128),
-                                   check_flash_bwd(4, 2048, 8, 2, 128)))
+                                   check_flash_bwd(4, 2048, 8, 2, 128),
+                                   check_flash_bwd(1, 8192, 8, 2, 128),
+                                   check_flash_bwd(1, 8192, 4, 1, 128),
+                                   check_flash_bwd(1, 8192, 16, 4, 128)))
     res["swiglu_fwd"], res["swiglu_bwd"] = check_swiglu(8192, 4096, 14336)
     _release()
     from paddle_tpu_torch.models import LlamaConfig
@@ -5732,11 +5750,11 @@ def dp_rank(spec: dict, out_dir: str, dev) -> None:
 
 
 def train_rank(spec_path: str, out_dir: str) -> None:
-    """One rank of phases 28-30 (the launcher starts it through
+    """One rank of phases 28-31 (the launcher starts it through
     TRAIN_SCRIPT): join the default group once (gloo: the ranks share the
     card), then run each phase's part of the spec in turn (`dp_rank`,
-    `zero_tp_rank`, `pp_rank`), freeing the card between them, so a world
-    size pays its ranks' start and first steps once."""
+    `zero_tp_rank`, `pp_rank`, `sep_rank`), freeing the card between
+    them, so a world size pays its ranks' start and first steps once."""
     import torch.distributed as dist
 
     from paddle_tpu_torch.parallel.ranks import init_ranks
@@ -5745,7 +5763,7 @@ def train_rank(spec_path: str, out_dir: str) -> None:
         spec = json.load(f)
     _, _, dev = init_ranks()
     for part, body in (("dp", dp_rank), ("zt", zero_tp_rank),
-                       ("pp", pp_rank)):
+                       ("pp", pp_rank), ("sep", sep_rank)):
         if spec.get(part):
             body(spec[part], out_dir, dev)
             gc.collect()
@@ -5842,13 +5860,16 @@ def phase_dp():
     root = tempfile.mkdtemp(prefix="train-ranks-")
     ckpt = os.path.join(root, "ckpt")
     zt4 = [dict(r, save=os.path.join(root, "zt_ckpt")) for r in zt4]
+    sep2, sep4 = sep_runs()
     wall = train_launch(phase, root, 2, {
         "dp": {"ckpt": ckpt}, "zt": {"runs": zt2},
-        "pp": {"shape": {"pp": 2}, "runs": pp2, "mem": True}})
+        "pp": {"shape": {"pp": 2}, "runs": pp2, "mem": True},
+        "sep": {"runs": sep2}})
     wall4 = train_launch(phase, root, 4, {
         "zt": {"runs": zt4},
-        "pp": {"shape": {"dp": 2, "pp": 2}, "runs": pp4}})
-    log(f"[{phase}] phases 28-30's ranks through the launcher: 2 ranks in "
+        "pp": {"shape": {"dp": 2, "pp": 2}, "runs": pp4},
+        "sep": {"runs": sep4}})
+    log(f"[{phase}] phases 28-31's ranks through the launcher: 2 ranks in "
         f"{wall:.1f}s, 4 ranks in {wall4:.1f}s")
     try:
         ranks = rank_outputs(root, "rank", 2)
@@ -5862,7 +5883,9 @@ def phase_dp():
         shared = {"root": root, "zt2": rank_outputs(root, "zt", 2),
                   "zt4": rank_outputs(root, "zt", 4),
                   "pp2": rank_outputs(root, "pp", 2),
-                  "pp4": rank_outputs(root, "pp", 4)}
+                  "pp4": rank_outputs(root, "pp", 4),
+                  "sep2": rank_outputs(root, "sep", 2),
+                  "sep4": rank_outputs(root, "sep", 4)}
     except BaseException:
         shutil.rmtree(root, ignore_errors=True)
         raise
@@ -6521,6 +6544,370 @@ def phase_pp(dp_out: dict):
             "step_ms": {k: v["ms"] for k, v in recs.items()}}
 
 
+# ---------------------------------------------------------------------------
+# phase 31: sequence- and context-parallel training over sep
+# ---------------------------------------------------------------------------
+
+# bench_longcontext.py's training row (its :103-135): Llama-1B widths, kv
+# heads 4, bf16, recompute on, 8192 positions, cut to SEP_LAYERS layers;
+# the global batch one row of SEP_SEQ tokens, a warm-up and SEP_STEPS
+# steps a run
+SEP_LAYERS, SEP_SEQ, SEP_STEPS = 2, 8192, 2
+# the sep runs' losses beside the one process's (within 0.009% measured
+# on an H100)
+SEP_LOSS_RTOL = 1e-3
+# the attention weights whose first-step gradients the sep runs hold to
+# the one process's (the exchange and the rotation act on q, k and v):
+# each global gradient's norm and SEP_SKETCHES projections on fixed +-1
+# tensors, within SEP_GRAD_RTOL of its norm. bf16 gradients summed in
+# another order differ by a few percent at most (ring's bf16 scores the
+# most); a rope without the rank's offset moves them by tens of percent
+# while the losses move less than that order's noise
+SEP_GRAD_NAMES = tuple(f"llama.layers.{i}.self_attn.{w}_proj.weight"
+                       for i in range(SEP_LAYERS) for w in "qkvo")
+SEP_SKETCHES, SEP_GRAD_RTOL = 4, 0.1
+
+
+def sep_config(**over):
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig.llama_1b(dtype="bfloat16", recompute=True,
+                                num_key_value_heads=4,
+                                num_hidden_layers=SEP_LAYERS,
+                                max_position_embeddings=SEP_SEQ, **over)
+
+
+def sep_per_step(L: int, impl: str, policy: str = "none") -> dict:
+    """A rank's kernel launches a step at L layers under whole-layer
+    recompute: the flash forward twice a layer (forward and recompute;
+    once under save_attn, whose recompute takes the saved output), the
+    backward's three once; none under ring attention (its blocks are
+    plain PyTorch, as JAX's); rms_norm twice a layer a pass (forward and
+    recompute) and the final norm once."""
+    flash = 0 if impl == "ring" else L
+    return {"flash_attention_fwd": flash if policy == "save_attn"
+            else 2 * flash,
+            "flash_attention_bwd_dq": flash,
+            "flash_attention_bwd_dkv": flash,
+            "flash_attention_bwd_delta": flash,
+            "rms_norm": 4 * L + 1, "swiglu_fwd": 0, "swiglu_bwd": 0}
+
+
+def sep_wire_formula(cfg, rows: int, seq: int, n: int, L: int,
+                     grad_bytes: int) -> int:
+    """A sep rank's bytes on the sep axis a step by the audit's ring model
+    (Ulysses, the kv heads split over sep): each layer's four all-to-alls
+    (q, k and v to the rank's heads, the output back; (n - 1) / n of each
+    bf16 operand of the rank's rows x seq / n tokens) in the forward, the
+    recompute and the backward; the gradients' all-reduce (2 (n - 1) / n
+    of the bf16 gradients: sep replicates every parameter) and the f32
+    loss's."""
+    tokens = rows * seq // n
+    heads = 2 * cfg.num_attention_heads + 2 * cfg.num_key_value_heads
+    a2a = tokens * heads * cfg.head_dim * 2
+    ring = 2 * (n - 1) / n
+    return int(3 * L * a2a * (n - 1) / n + (grad_bytes + 4) * ring)
+
+
+def sep_runs():
+    """Phase 31's runs: (the two-rank runs, the four-rank run); the
+    communication audit on the Ulysses run."""
+    return ([dict(name="ulysses", shape={"sep": 2}, impl="ulysses",
+                  shard=False, audit=True),
+             dict(name="ring", shape={"sep": 2}, impl="ring", shard=False,
+                  audit=False)],
+            [dict(name="mp2xsep2", shape={"mp": 2, "sep": 2},
+                  impl="ulysses", shard=True, audit=False)])
+
+
+def sep_grad_sketch(grads: dict, params: dict) -> dict:
+    """{name: [|G|, <G, R_1>, ..., <G, R_k>]} of the global gradient G of
+    each SEP_GRAD_NAMES weight, the R_i fixed +-1 tensors of its global
+    shape drawn from SEED on the card: a rank holding a block sketches it
+    against its block of the R_i and sums the parts over the axes that
+    split the weight."""
+    from paddle_tpu_torch.parallel import collectives as coll
+    from paddle_tpu_torch.parallel.placement import block_slices, dist_attr
+
+    out = {}
+    for name in SEP_GRAD_NAMES:
+        g = grads[name].to(torch.float32)
+        da = dist_attr(params[name])
+        shape = tuple(da.global_shape) if da is not None else tuple(g.shape)
+        gen = torch.Generator(device=g.device).manual_seed(SEED)
+        rs = torch.randint(0, 2, (SEP_SKETCHES,) + shape, generator=gen,
+                           device=g.device, dtype=torch.float32) * 2 - 1
+        axes = da.sharded_axes() if da is not None else ()
+        if axes:
+            rs = rs[(slice(None),) + block_slices(da.mesh, da.spec, shape)]
+        parts = torch.cat([(g * g).sum()[None], (rs * g).flatten(1).sum(1)])
+        if axes:
+            parts = coll.all_reduce(parts, da.mesh.group_ref(axes))
+        parts = parts.tolist()
+        out[name] = [math.sqrt(parts[0])] + parts[1:]
+    return out
+
+
+def _sketch_first_grads(step, params: dict, sink: dict) -> None:
+    """Fill `sink` with `sep_grad_sketch` of the first gradients the
+    step's optimizer is handed (summed over the ranks, before the
+    clip)."""
+    fused = step.fused_optimizer
+    real = fused.update
+
+    def update(upd, grads, *a, **kw):
+        if not sink:
+            sink.update(sep_grad_sketch(grads, params))
+        return real(upd, grads, *a, **kw)
+
+    fused.update = update
+
+
+def sep_grad_errors(got: dict, want: dict) -> float:
+    """The largest difference of a sketch entry of `got` from `want`'s,
+    over the gradient's norm in `want`."""
+    return max(abs(a - b) / w[0] for k, w in want.items()
+               for a, b in zip(got[k], w))
+
+
+def _sep_steps(step, p, s, x, y, before=None, after=None) -> dict:
+    """A warm-up and SEP_STEPS steps: each step's loss, ms, launches, wire
+    counts and peak, the counters reset just before it and read just
+    after; `before()` runs before each step, `after(p)` after it; the
+    warm-up's gradients sketched (`sep_grad_sketch`)."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.parallel import collectives as coll
+
+    rec = dict(losses=[], ms=[], launches=[], wire=[], peak=[], sketch={})
+    _sketch_first_grads(step, p, rec["sketch"])
+    for _ in range(SEP_STEPS + 1):
+        if before is not None:
+            before()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        coll.reset_wire_counts()
+        t0 = time.perf_counter()
+        loss, p, s = step(p, s, x, y)
+        torch.cuda.synchronize()
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["launches"].append({k: v for k, v in
+                                _build.launch_counts().items() if v})
+        rec["wire"].append({k: dict(v) for k, v in coll.WIRE_COUNTS.items()})
+        rec["peak"].append(torch.cuda.max_memory_allocated())
+        rec["losses"].append(float(loss))
+        if after is not None:
+            after(p)
+    return rec
+
+
+def sep_rank(spec: dict, out_dir: str, dev) -> None:
+    """Phase 31's part of a rank (`train_rank`): for each run, its mesh,
+    the long-context model from SEED (`shard_llama` over mp where asked)
+    and bench.py's AdamW step through make_train_step(mesh=), a warm-up
+    and SEP_STEPS steps on the global batch (`_sep_steps`), the params
+    each axis replicates compared over it after every step; where asked,
+    the step's communication audit (traced on fakes; the model is not
+    used after it). Writes sep<r>.json."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.analysis import comms
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import shard_llama
+    from paddle_tpu_torch.parallel import build_mesh
+    from paddle_tpu_torch.parallel import collectives as coll
+    from paddle_tpu_torch.parallel.placement import dist_attr, spec_axes
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "runs": {}}
+    for run in spec["runs"]:
+        cfg = sep_config(attention_impl=run["impl"])
+        x, y = bench_batch(cfg, 1, SEP_SEQ)
+        mesh = build_mesh(run["shape"])
+        model = dp_model(cfg)
+        if run["shard"]:
+            shard_llama(model, mesh)
+        step, p, s = build_train_step(model, mesh=mesh)
+        equal = []
+
+        def compare(p):
+            for axis in ("sep", "mp"):
+                if mesh.shape.get(axis, 1) <= 1:
+                    continue
+                same = {k: v for k, v in p.items() if axis not in {
+                    a for e in getattr(dist_attr(v), "spec", ())
+                    for a in spec_axes(e)}}
+                got = coll.all_gather(_dp_digest(same)[None],
+                                      mesh.axis_ref(axis), 0)
+                equal.append(all(torch.equal(got[0], got[j])
+                                 for j in range(got.shape[0])))
+
+        rec = _sep_steps(step, p, s, x, y, dist.barrier, compare)
+        rec["equal"] = all(equal)
+        rec["grad_bytes"] = sum(v.numel() * v.element_size()
+                                for v in p.values())
+        if run["audit"]:
+            t0 = time.perf_counter()
+            _build.reset_launch_counts()
+            rep = comms.audit_comms(step, p, s, x, y, grad=True)
+            rec["audit"] = {"per_axis": rep.per_axis(),
+                            "per_kind": rep.per_kind(),
+                            "sites": rep.n_collective_sites,
+                            "launched": sum(_build.launch_counts().values()),
+                            "s": time.perf_counter() - t0}
+        out["runs"][run["name"]] = rec
+        del model, step, p, s
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"sep{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+
+
+def sep_one_process(policy: str) -> dict:
+    """(d) / (e): the one-process step of the long-context model at
+    `policy` on the same batch, as `_sep_steps` records it."""
+    model = dp_model(sep_config(remat_policy=policy))
+    step, p, s = build_train_step(model)
+    rec = _sep_steps(step, p, s, *bench_batch(model.config, 1, SEP_SEQ))
+    del model, step, p, s
+    _release()
+    return rec
+
+
+def _sep_gate_run(phase, name, ranks, run, oracle):
+    """Phase 31's gates on one rank run against `oracle`, the one
+    process's record (the phase docstring); returns rank 0's record."""
+    o0 = ranks[0]["runs"][name]
+    want = sep_per_step(SEP_LAYERS, run["impl"])
+    for r, o in enumerate(ranks):
+        if o["backend"] != "gloo":
+            raise AssertionError(f"{phase} rank {r}: backend {o['backend']}")
+        rec = o["runs"][name]
+        if not rec["equal"]:
+            raise AssertionError(f"{phase} {name}: the replicated params "
+                                 "differ over an axis after a step")
+        if rec["losses"] != o0["losses"]:
+            raise AssertionError(f"{phase} {name}: the ranks' losses "
+                                 f"differ: {rec['losses']} vs {o0['losses']}")
+        for i, got in enumerate(rec["launches"]):
+            for k, n in want.items():
+                if got.get(k, 0) != n:
+                    raise AssertionError(
+                        f"{phase} {name} rank {r} step {i}: {k} launched "
+                        f"{got.get(k, 0)} times, want {n}")
+    ls = o0["losses"]
+    if not all(math.isfinite(v) for v in ls) or ls[-1] >= ls[0]:
+        raise AssertionError(f"{phase} {name}: losses {ls}")
+    for a, b in zip(ls, oracle["losses"]):
+        if abs(a - b) / abs(b) > SEP_LOSS_RTOL:
+            raise AssertionError(f"{phase} {name}: losses {ls} vs one "
+                                 f"process {oracle['losses']}")
+    err = sep_grad_errors(o0["sketch"], oracle["sketch"])
+    if err > SEP_GRAD_RTOL:
+        raise AssertionError(f"{phase} {name}: the first step's attention "
+                             f"gradients differ from one process's by "
+                             f"{err:.3e} of their norm")
+    o0["grad_err"] = err
+    return o0
+
+
+def phase_sep(dp_out: dict):
+    """Phase 31: sequence- and context-parallel training over
+    torch.distributed ranks that share the card (gloo), run in phase 28's
+    launches (`train_rank`), on bench_longcontext.py's training row
+    (`sep_config`: Llama-1B widths, kv heads 4, bf16, recompute on) cut
+    to SEP_LAYERS layers, one row of SEP_SEQ tokens, bench.py's AdamW: (a)
+    sep2 with Ulysses and (b) sep2 with ring attention on two ranks, (c)
+    mp2 x sep2 with Ulysses through shard_llama on four; then here, the
+    oracle, (d) the one-process step and (e) the same with
+    remat_policy="save_attn". A warm-up and SEP_STEPS steps each, from
+    the same weights. Gates: the params each axis replicates bitwise
+    equal over it after every step on every rank; every rank's losses
+    equal, finite and falling, within SEP_LOSS_RTOL of (d)'s, and ring's
+    within it of Ulysses'; the first step's attention gradients within
+    SEP_GRAD_RTOL of (d)'s (`sep_grad_sketch`); exactly `sep_per_step`
+    launches a rank a step, (e) launching the flash forward once a layer,
+    with (d)'s losses bitwise; the Ulysses rank's communication audit (traced
+    on fakes, launching nothing) and the bytes its last step delivered
+    both equal to `sep_wire_formula`. Logs ms a step, the host-staged
+    collectives' ms, the peaks."""
+    phase, L = "sep", SEP_LAYERS
+    runs2, (run4,) = sep_runs()
+    r2, r4 = dp_out["sep2"], dp_out["sep4"]
+    one = sep_one_process("none")
+    save = sep_one_process("save_attn")
+    oracle = one["losses"]
+    want = sep_per_step(L, "ulysses")
+    for rec, per in ((one, want),
+                     (save, sep_per_step(L, "ulysses", "save_attn"))):
+        for i, got in enumerate(rec["launches"]):
+            for k, n in per.items():
+                if got.get(k, 0) != n:
+                    raise AssertionError(f"{phase} one process step {i}: "
+                                         f"{k} launched {got.get(k, 0)}, "
+                                         f"want {n}")
+    if save["losses"] != oracle:
+        raise AssertionError(f"{phase}: save_attn losses "
+                             f"{save['losses']} vs {oracle}")
+    recs = {r["name"]: _sep_gate_run(phase, r["name"], r2, r, one)
+            for r in runs2}
+    recs[run4["name"]] = _sep_gate_run(phase, run4["name"], r4, run4, one)
+    ring, uly = recs["ring"]["losses"], recs["ulysses"]["losses"]
+    for a, b in zip(ring, uly):
+        if abs(a - b) / abs(b) > SEP_LOSS_RTOL:
+            raise AssertionError(f"{phase}: ring losses {ring} vs Ulysses "
+                                 f"{uly}")
+    cfg = sep_config()
+    for r, o in enumerate(r2):
+        rec = o["runs"]["ulysses"]
+        hand = sep_wire_formula(cfg, 1, SEP_SEQ, 2, L, rec["grad_bytes"])
+        got = rec["audit"]["per_axis"].get("sep")
+        seen = sum(v["received_bytes"] for v in rec["wire"][-1].values())
+        if got != hand or seen != hand or rec["audit"]["launched"]:
+            raise AssertionError(
+                f"{phase} ulysses rank {r}: the audit's sep bytes {got}, "
+                f"delivered {seen}, the formula {hand}; the audit launched "
+                f"{rec['audit']['launched']}")
+    log(f"[{phase}] one process, {SEP_LAYERS} layers, 1 x {SEP_SEQ}: "
+        f"losses {oracle}, ms a step (warm-up "
+        f"first) {[round(v, 1) for v in one['ms']]}, peak "
+        f"{max(one['peak'])} B; save_attn losses bitwise equal, "
+        f"ms {[round(v, 1) for v in save['ms']]}, peak "
+        f"{max(save['peak'])} B; launches a step "
+        f"{json.dumps(one['launches'][-1])} / "
+        f"{json.dumps(save['launches'][-1])}")
+    for name, rec in recs.items():
+        ranks = r4 if name == run4["name"] else r2
+        wire = {k: [v["calls"], v["handed_bytes"], v["received_bytes"],
+                    round(1e3 * v["seconds"], 1)]
+                for k, v in sorted(rec["wire"][-1].items())}
+        audit = "" if "audit" not in rec else (
+            f"; audit {rec['audit']['per_axis']} "
+            f"{json.dumps(rec['audit']['per_kind'])} in "
+            f"{rec['audit']['s']:.1f}s, formula "
+            f"{sep_wire_formula(cfg, 1, SEP_SEQ, 2, L, rec['grad_bytes'])}")
+        gap = max(abs(a - b) / abs(b)
+                  for a, b in zip(rec["losses"], oracle))
+        log(f"[{phase}] {name} on {len(ranks)} ranks: losses "
+            f"{rec['losses']} (largest gap to one process {gap:.3e}); "
+            f"the first step's attention gradients' gap "
+            f"{rec['grad_err']:.3e}; ms a step (warm-up "
+            f"first) "
+            + "; ".join(f"rank {r} {[round(v, 1) for v in o['runs'][name]['ms']]}"
+                        for r, o in enumerate(ranks))
+            + f"; delivered (calls, handed B, received B, host ms) "
+            f"{json.dumps(wire)}; peaks "
+            f"{[max(o['runs'][name]['peak']) for o in ranks]} B; launches "
+            f"a step {json.dumps(rec['launches'][-1])}" + audit)
+    launches = {k: sum(sum(l.get(k, 0) for l in rec["launches"])
+                       for rec in recs.values())
+                for k in want}
+    return {"launches": launches,
+            "step_ms": {k: v["ms"] for k, v in recs.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -6600,7 +6987,8 @@ def main() -> int:
                      ("audit-fit", lambda: phase_audit_fit(phases["loader"])),
                      ("dp", phase_dp),
                      ("zero-tp", lambda: phase_zero_tp(phases["dp"])),
-                     ("pp", lambda: phase_pp(phases["dp"]))):
+                     ("pp", lambda: phase_pp(phases["dp"])),
+                     ("sep", lambda: phase_sep(phases["dp"]))):
         t0 = time.perf_counter()
         phases[name] = fn()
         log(f"[phase] {name} done in {time.perf_counter() - t0:.1f}s")
@@ -6703,10 +7091,10 @@ def main() -> int:
     for name, cases in kernels.items():
         if name not in own_phase:
             continue    # a variant no phase serves: checked in phase 1 only
-        # phases 29 and 30's rank 0 drive the training kernels too
+        # phases 29-31's rank 0 drive the training kernels too
         n = phases[own_phase[name]]["launches"][name] \
-            + phases["zero-tp"]["launches"].get(name, 0) \
-            + phases["pp"]["launches"].get(name, 0)
+            + sum(phases[p]["launches"].get(name, 0)
+                  for p in ("zero-tp", "pp", "sep"))
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the "
                                  f"{own_phase[name]} phase's main path")

@@ -35,7 +35,12 @@ What is here:
   training forward at a rank's heads and columns (``TrainTP``:
   Megatron's f before each column-parallel block, g after each
   row-parallel one, the embedding's columns and the logits' vocab
-  gathered) with the ZeRO-3 gathers of `parallel.sharding`;
+  gathered) with the ZeRO-3 gathers of `parallel.sharding`; over a
+  ``sep`` axis (inside `parallel.sequence_parallel.seq_sharded`) the
+  forward takes the rank's slice of the sequence, rotates it at its
+  global positions and attends over the whole sequence: Ulysses'
+  all-to-all head swap, ring attention, or the sequence gathered where
+  the heads do not split;
 - tensor- and context-parallel serving: ``ServingTP`` (the head and page
   geometry of ``serving_mp`` / ``serving_cp`` and its three seams, the
   only code that issues a collective: ``gather_heads``, ``psum_partial``,
@@ -64,13 +69,15 @@ from __future__ import annotations
 import dataclasses
 import math
 from collections import OrderedDict, namedtuple
+from functools import partial
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..framework.cuda_graph import GenerateProgram, GraphSite
@@ -105,6 +112,9 @@ from ..parallel.collectives import (all_gather, all_reduce, c_concat,
                                     quantized_all_gather, quantized_psum,
                                     quantized_psum_prequant,
                                     resolve_quantized_collectives)
+from ..parallel.ring_attention import ring_attention
+from ..parallel.sequence_parallel import sep_attention, seq_shard
+from ..parallel.ulysses import minimal_kv_repeat, ulysses_available
 
 WEIGHT_QUANTS = ("weight_only_int8", "weight_only_int4")
 
@@ -124,16 +134,19 @@ class LlamaConfig:
     # training knobs, with the JAX package's defaults (its llama.py:55-86):
     # per-layer recompute, except the last `recompute_skip` layers;
     # `remat_scope` "attn" / "mlp" checkpoints only that sub-block of each
-    # layer; a saving `remat_policy` (SAVING_REMAT_POLICIES) is refused
-    # on whole-layer recompute, any other name recomputes everything as
-    # in JAX (ROADMAP "Trainer options the port refuses"); `fused_swiglu`
-    # routes the MLP through the SwiGLU kernels on 512-aligned shapes;
-    # `dtype` is the dtype of the weights init_train_params makes
+    # layer; a saving `remat_policy` (SAVED_OPS) keeps what it
+    # names through the recompute, any other name recomputes everything as
+    # in JAX; `fused_swiglu` routes the MLP through the SwiGLU kernels on
+    # 512-aligned shapes; `attention_impl` is the attention over a sep
+    # axis, "ulysses" (the all-to-all head swap) or "ring" (k / v rotate
+    # around the ring); `dtype` is the dtype of the weights
+    # init_train_params makes
     recompute: bool = False
     recompute_skip: int = 0
     remat_policy: str = "none"
     remat_scope: str = "layer"
     fused_swiglu: bool = False
+    attention_impl: str = "ulysses"
     dtype: str = "float32"
 
     def __post_init__(self):
@@ -401,8 +414,8 @@ class LlamaRMSNorm(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    """Self-attention (the JAX module's non-mesh branches): q/k/v
-    projections, rope at `position_ids`, flash attention, o projection.
+    """Self-attention (the JAX module): q/k/v projections, rope at
+    `position_ids`, flash attention, o projection.
 
     With `cache` (pk, pv) -- the concat cache of ``generate``: (None,
     None) before the prompt, else the K/V [b, S_cached, nkv, dh] so far --
@@ -412,7 +425,8 @@ class LlamaAttention(nn.Module):
 
     With `_tp` (a `TrainTP`: the training forward over an mp axis) the
     projections are this rank's columns and rows and it attends its own
-    heads."""
+    heads; with `sp` (a `parallel.sequence_parallel.SeqShard`) `hidden`
+    is the rank's slice of the sequence (`_attend_seq`)."""
 
     _tp = None
 
@@ -428,9 +442,10 @@ class LlamaAttention(nn.Module):
         self.v_proj = _Linear(h, nkv * dh)
         self.o_proj = _Linear(nh * dh, h)
 
-    def forward(self, hidden, position_ids, ops=KERNEL_OPS, cache=None):
-        if self._tp is not None and cache is None:
-            return self._forward_tp(hidden, position_ids, ops)
+    def forward(self, hidden, position_ids, ops=KERNEL_OPS, cache=None,
+                sp=None):
+        if cache is None and (self._tp is not None or sp is not None):
+            return self._forward_sharded(hidden, position_ids, ops, sp)
         b, s, _ = hidden.shape
         q = self.q_proj(hidden).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(hidden).reshape(b, s, self.num_kv_heads,
@@ -449,29 +464,74 @@ class LlamaAttention(nn.Module):
         out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
         return out if cache is None else (out, (k, v))
 
-    def _forward_tp(self, hidden, position_ids, ops):
-        """The rank's heads: f, the column-parallel q / k / v (k and v
-        all-gathered when mp does not divide the kv heads, then the kv
-        heads of the rank's q heads picked), rope, attention, the
-        row-parallel o and g."""
+    def _forward_sharded(self, hidden, position_ids, ops, sp):
+        """The training forward at the rank's heads (`_tp`: f, the
+        column-parallel q / k / v, k and v all-gathered when mp does not
+        divide the kv heads, the row-parallel o and g) and / or over its
+        slice of the sequence (`sp`): rope at the given positions, then
+        attention over the whole sequence (`_attend_seq`)."""
         tp, dh = self._tp, self.head_dim
         b, s, _ = hidden.shape
-        h = c_identity(hidden, tp.ref)
-        q = self.q_proj(h).reshape(b, s, tp.nq, dh)
+        h = hidden if tp is None else c_identity(hidden, tp.ref)
+        q = self.q_proj(h).reshape(b, s, -1, dh)
         k, v = self.k_proj(h), self.v_proj(h)
-        if tp.kv_gather:
+        if tp is not None and tp.kv_gather:
             k = all_gather(k, tp.ref, -1, grad="reduce_scatter")
             v = all_gather(v, tp.ref, -1, grad="reduce_scatter")
         k = k.reshape(b, s, -1, dh)
         v = v.reshape(b, s, -1, dh)
         q, k = apply_rotary_emb(q, k, position_ids=position_ids,
                                 base=self.config.rope_theta)
-        if tp.kv_index is not None:
-            idx = tp.kv_index_on(k.device)
-            k, v = k.index_select(2, idx), v.index_select(2, idx)
-        out = ops.flash_attention(q, k, v, causal=True)
-        out = self.o_proj(out.reshape(b, s, tp.nq * dh))
-        return mp_allreduce(out, tp.ref)
+        if sp is not None:
+            out = self._attend_seq(q, k, v, ops, sp)
+        else:
+            out = ops.flash_attention(q, *self._rank_kv(k, v), causal=True)
+        out = self.o_proj(out.reshape(b, s, -1))
+        return out if tp is None else mp_allreduce(out, tp.ref)
+
+    def _rank_kv(self, k, v):
+        """The kv heads the rank's q heads read, where k / v were
+        all-gathered over mp (`TrainTP.kv_index`)."""
+        tp = self._tp
+        if tp is None or tp.kv_index is None:
+            return k, v
+        idx = tp.kv_index_on(k.device)
+        return k.index_select(2, idx), v.index_select(2, idx)
+
+    def _attend_seq(self, q, k, v, ops, sp):
+        """Causal attention of the rank's slice of the sequence (q [b, s,
+        heads, dh] at its global positions) over the whole sequence, the
+        JAX module's routes (its llama.py:224-292):
+
+        - ``attention_impl="ring"``: `ring_attention` over the sep ranks'
+          chunks (GQA inside the ring);
+        - else `sequence_parallel.sep_attention` of the flash kernel:
+          Ulysses where the q heads split over (mp, sep), k / v repeated
+          first by `minimal_kv_repeat` where the kv heads do not (the
+          rank's mp block of the repeated heads when they were
+          all-gathered); the sequence gathered otherwise."""
+        mesh, axis, tp = sp.mesh, sp.axis, self._tp
+        heads = ("mp",) if tp is not None else ()
+        if self.config.attention_impl == "ring":
+            return ring_attention(q, *self._rank_kv(k, v), mesh=mesh,
+                                  axis=axis, causal=True)
+        seq = q.shape[1] * sp.size
+        nh, nkv = self.num_heads, self.num_kv_heads
+        if ulysses_available(mesh, nh, seq, axis, heads) and \
+                not ulysses_available(mesh, nkv, seq, axis, heads):
+            r = minimal_kv_repeat(mesh, nh, nkv, axis, heads)
+            k = k.repeat_interleave(r, dim=2)
+            v = v.repeat_interleave(r, dim=2)
+            if tp is not None and tp.kv_gather:
+                n = k.shape[2] // tp.ref.size
+                k = k.narrow(2, tp.ref.rank * n, n)
+                v = v.narrow(2, tp.ref.rank * n, n)
+        else:
+            k, v = self._rank_kv(k, v)
+        return sep_attention(
+            q, k, v, lambda q, k, v: ops.flash_attention(q, k, v,
+                                                         causal=True),
+            mesh, axis, heads)
 
 
 class LlamaMLP(nn.Module):
@@ -501,15 +561,36 @@ class LlamaMLP(nn.Module):
 
 
 # the jax.checkpoint saving policies the JAX model maps remat_policy to
-# (its llama.py:403-410); any other name there recomputes everything
-SAVING_REMAT_POLICIES = ("save_attn", "dots_saveable",
-                         "dots_with_no_batch_dims_saveable")
+# (its llama.py:403-410), as the operators whose outputs each keeps
+# through the recompute: ``save_attn`` the flash forward's (the attention
+# output and its lse: JAX's ``checkpoint_name(out, "attn_out")``, so the
+# backward does not run the flash forward again), ``dots_saveable`` every
+# matmul's, ``dots_with_no_batch_dims_saveable`` those with no batch dims
+# (the projections, not batched products); any other name recomputes
+# everything
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+SAVED_OPS = {
+    "save_attn": frozenset({torch.ops.paddle_tpu.flash_attention_fwd.default}),
+    "dots_saveable": frozenset(_DOTS + (torch.ops.aten.bmm.default,
+                                        torch.ops.aten.baddbmm.default)),
+    "dots_with_no_batch_dims_saveable": frozenset(_DOTS),
+}
 
 
-def _remat(fn, *args):
-    # recompute `fn`'s activations in the backward instead of keeping
-    # them (the counterpart of jax.checkpoint with no saving policy)
-    return checkpoint(fn, *args, use_reentrant=False)
+def _remat(fn, *args, policy: str = "none"):
+    """`fn(*args)` with its activations recomputed in the backward instead
+    of kept (jax.checkpoint), but for the outputs a saving `policy` names
+    (`SAVED_OPS`: a selective checkpoint, JAX's checkpoint policies)."""
+    saved = SAVED_OPS.get(policy)
+    if not saved:
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    def keep(ctx, op, *a, **kw):
+        return CheckpointPolicy.MUST_SAVE if op in saved \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=partial(
+        create_selective_checkpoint_contexts, keep))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -521,22 +602,26 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = LlamaRMSNorm(config)
 
     def forward(self, hidden, position_ids, ops=KERNEL_OPS, remat=None,
-                cache=None):
+                cache=None, sp=None, policy: str = "none"):
         """remat: None, or "attn" / "mlp" -- checkpoint only that
-        sub-block (the JAX layer's sub-layer recompute). With `cache` (see
-        LlamaAttention) returns (hidden, new cache)."""
+        sub-block (the JAX layer's sub-layer recompute), keeping what
+        `policy` (a remat_policy) saves. With `cache` (see LlamaAttention)
+        returns (hidden, new cache); `sp`: the sequence slice
+        (LlamaAttention)."""
         h = self.input_layernorm(hidden, ops)
         new_cache = None
         if cache is not None:
             attn, new_cache = self.self_attn(h, position_ids, ops,
                                              cache=cache)
         elif remat == "attn":
-            attn = _remat(self.self_attn, h, position_ids, ops)
+            attn = _remat(self.self_attn, h, position_ids, ops, None, sp,
+                          policy=policy)
         else:
-            attn = self.self_attn(h, position_ids, ops)
+            attn = self.self_attn(h, position_ids, ops, sp=sp)
         hidden = hidden + attn
         h = self.post_attention_layernorm(hidden, ops)
-        mlp = _remat(self.mlp, h, ops) if remat == "mlp" else self.mlp(h, ops)
+        mlp = _remat(self.mlp, h, ops, policy=policy) if remat == "mlp" \
+            else self.mlp(h, ops)
         hidden = hidden + mlp
         return hidden if cache is None else (hidden, new_cache)
 
@@ -557,6 +642,10 @@ class _Embedding(nn.Module):
 
 
 class LlamaModel(nn.Module):
+    # it reads `seq_shard()`: handed a sep rank's slice of the sequence,
+    # it computes that slice of the global value (parallel.trainer)
+    handles_seq_shard = True
+
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.config = config
@@ -573,8 +662,11 @@ class LlamaModel(nn.Module):
         (hidden, new caches)."""
         cfg = self.config
         s = input_ids.shape[1]
-        pos = torch.arange(position_offset, position_offset + s,
-                           device=input_ids.device)
+        # the tokens of a sep rank are its slice of the sequence: rotated
+        # at their global positions (parallel.sequence_parallel)
+        sp = seq_shard() if caches is None else None
+        start = position_offset + (sp.rank * s if sp is not None else 0)
+        pos = torch.arange(start, start + s, device=input_ids.device)
         hidden = self.embed_tokens(input_ids)
         if caches is not None:
             new_caches = []
@@ -585,20 +677,16 @@ class LlamaModel(nn.Module):
         # recompute only where a backward will follow (JAX: under the
         # functional train step), every layer but the last recompute_skip
         use_ckpt = cfg.recompute and torch.is_grad_enabled()
-        if use_ckpt and cfg.remat_scope not in ("attn", "mlp") \
-                and cfg.remat_policy in SAVING_REMAT_POLICIES:
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r}: the port recomputes "
-                "whole layers or sub-blocks only (ROADMAP \"Trainer options "
-                "the port refuses\")")
         n_ckpt = len(self.layers) - cfg.recompute_skip if use_ckpt else 0
         for li, layer in enumerate(self.layers):
             if li >= n_ckpt:
-                hidden = layer(hidden, pos, ops)
+                hidden = layer(hidden, pos, ops, sp=sp)
             elif cfg.remat_scope in ("attn", "mlp"):
-                hidden = layer(hidden, pos, ops, remat=cfg.remat_scope)
+                hidden = layer(hidden, pos, ops, remat=cfg.remat_scope,
+                               sp=sp, policy=cfg.remat_policy)
             else:
-                hidden = _remat(layer, hidden, pos, ops)
+                hidden = _remat(layer, hidden, pos, ops, None, None, sp,
+                                policy=cfg.remat_policy)
         return self.norm(hidden, ops)
 
 
@@ -612,6 +700,7 @@ class LlamaForCausalLM(nn.Module):
 
     _tp = None
     _shard_plan = None
+    handles_seq_shard = True
 
     def __init__(self, config: LlamaConfig, use_kernels: bool = True):
         super().__init__()

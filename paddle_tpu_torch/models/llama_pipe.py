@@ -62,7 +62,7 @@ from ..parallel.pipeline_spmd import (pipeline_1f1b, pipeline_eager_1f1b,
                                       pipeline_forward, pipeline_vpp_forward,
                                       pipeline_zb1f1b, stack_stage_params)
 from ..parallel.placement import dist_attr, spec_axes
-from ..parallel.trainer import (adamw_update, check_mesh, init_adamw_state,
+from ..parallel.trainer import (adamw_update, init_adamw_state,
                                 resolve_pipeline, row_axes, take_rows)
 from .llama import (KERNEL_OPS, PLAIN_OPS, LlamaForCausalLM,
                     LlamaPretrainingCriterion, _param_sharding)
@@ -211,7 +211,6 @@ def make_llama_pp_train_step(model: LlamaForCausalLM, mesh=None,
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown pipeline schedule {schedule!r}")
     mesh = mesh if mesh is not None else mesh_mod.get_global_mesh()
-    check_mesh(mesh)
     dev = resolve_device(device)
     cfg = model.config
     S = int(mesh.shape["pp"]) if (mesh is not None

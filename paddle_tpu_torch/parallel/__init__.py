@@ -9,7 +9,9 @@ tensor-parallel ``mp``; `make_eval_step`; `DataParallel`;
 API on torch tensors (`collective`), the sharded checkpoint
 (`checkpoint`, whose block record is ``checkpoint.Shard``), pipeline
 parallelism over pp (`pipeline_spmd`'s five schedules, `pipeline`'s
-layer API, `pipeline_viz`) and the pass registry (`passes`)."""
+layer API, `pipeline_viz`), sequence and context parallelism over sep
+(`sequence_parallel`, `ulysses`, `ring_attention`) and the pass
+registry (`passes`)."""
 from . import mpu  # noqa: F401
 from .api import (dtensor_from_fn, get_placements,  # noqa: F401
                   reshard, shard_constraint, shard_layer, shard_optimizer,
@@ -35,6 +37,14 @@ from . import pipeline_spmd  # noqa: F401
 from .pipeline import (LayerDesc, PipelineLayer,  # noqa: F401
                        PipelineParallel, SharedLayerDesc, pipeline_apply)
 from .pipeline_spmd import pipeline_forward, stack_stage_params  # noqa: F401
+from .sequence_parallel import (AllGatherOp, GatherOp,  # noqa: F401
+                                ReduceScatterOp, ScatterOp, SegmentParallel,
+                                gather_seq,
+                                mark_as_sequence_parallel_parameter,
+                                sep_attention_context, split_seq,
+                                ulysses_alltoall)
+from . import ring_attention as ring_attention_mod  # noqa: F401
+from .ring_attention import ring_attention  # noqa: F401
 from . import pipeline_viz  # noqa: F401
 from .pipeline_viz import (pipeline_timeline,  # noqa: F401
                            render_timeline, save_chrome_trace,

@@ -41,6 +41,10 @@ collectives are graph nodes too, forward and backward:
   columns, the logits' vocab);
 - ``all_reduce``: identity backward (Megatron's ``g`` after a
   row-parallel product: the loss downstream is the same on every rank);
+- ``all_to_all``: backward, the same exchange (it is its own adjoint:
+  each block's cotangent goes back to the rank it came from), so the
+  Ulysses swap (`parallel/ulysses.py`, the tiled ``all_to_all``) is
+  differentiated through it;
 - ``ppermute`` (`send_recv`: this rank's tensor to one peer of the group,
   another peer's into a new tensor; on NCCL ``batch_isend_irecv``, on
   gloo ``isend`` / ``irecv`` of host copies): backward, the same hop the
@@ -349,6 +353,13 @@ def _scatter_backward(ctx, g):
                            "reduce_scatter"), None, None, None)
 
 
+def _all_to_all_backward(ctx, g):
+    # self-adjoint: row j of the result came from rank j's row of this
+    # rank, so its cotangent goes back there by the same exchange
+    group, size = ctx.args
+    return _all_to_all_op(g.contiguous(), group, size), None, None
+
+
 def _ppermute_setup(ctx, inputs, output):
     x = inputs[0]
     ctx.args = inputs[1:]
@@ -369,7 +380,8 @@ def _ppermute_backward(ctx, g):
 
 for _name, _bwd in (("all_gather", _gather_backward),
                     ("all_reduce", _reduce_backward),
-                    ("reduce_scatter", _scatter_backward)):
+                    ("reduce_scatter", _scatter_backward),
+                    ("all_to_all", _all_to_all_backward)):
     torch.library.register_autograd(f"{COMM_NAMESPACE}::{_name}", _bwd,
                                     setup_context=_setup, lib=_OPS)
 torch.library.register_autograd(f"{COMM_NAMESPACE}::ppermute",
@@ -485,18 +497,32 @@ def all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
     return _all_reduce_op(x, ref.key, ref.size, op)
 
 
-def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, group=None, split_dim: Optional[int] = None,
+               concat_dim: Optional[int] = None) -> torch.Tensor:
     """x [n, ...] -> [n, ...]: row j goes to rank j, and row j of the
     result came from rank j (the JAX ``all_to_all(split_axis=0,
-    concat_axis=0)``)."""
+    concat_axis=0)``). With `split_dim` and `concat_dim` it is tiled (the
+    JAX ``all_to_all(..., tiled=True)``): `split_dim` is cut into n
+    blocks, block j goes to rank j, and the blocks that arrive are
+    concatenated along `concat_dim` in rank order. Differentiable: the
+    backward is the exchange that sends each block back."""
     ref = group_ref(group)
     n = ref.size
-    if x.shape[0] != n:
-        raise ValueError(f"all_to_all: leading dim {x.shape[0]} is not the "
-                         f"group size {n}")
+    if split_dim is None:
+        if x.shape[0] != n:
+            raise ValueError(f"all_to_all: leading dim {x.shape[0]} is not "
+                             f"the group size {n}")
+        return x if n == 1 else _all_to_all_op(x, ref.key, n)
+    split_dim, concat_dim = split_dim % x.ndim, concat_dim % x.ndim
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} ({x.shape[split_dim]})"
+                         f" does not split into {n} ranks")
     if n == 1:
         return x
-    return _all_to_all_op(x, ref.key, n)
+    blocks = x.unflatten(split_dim, (n, x.shape[split_dim] // n))
+    got = _all_to_all_op(blocks.movedim(split_dim, 0).contiguous(), ref.key,
+                         n)
+    return got.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
 
 
 def broadcast(x: torch.Tensor, group=None, src: int = 0) -> torch.Tensor:

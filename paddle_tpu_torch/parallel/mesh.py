@@ -9,24 +9,29 @@ axis a holds the ranks that differ from r in a alone. Each group is
 registered under ``"<axis>@<ranks>"`` (`parallel.ranks.register_group`),
 so the collectives and the communication audit name it by its axis.
 
-The ``dp``, ``pp`` (pipeline), ``sharding`` (ZeRO) and ``mp``
-(tensor-parallel) axes, and axes of other names, may exceed 1
-(`make_train_step(mesh=)`, `DataParallel`, ``hapi.Model.fit`` over dp,
-``shard_llama``, ``models.llama_pipe.make_llama_pp_train_step`` and
-`parallel.pipeline_spmd` over pp); ``sep`` above 1 raises, naming
-ROADMAP.md section 1 item 5 step 6. The ranks take their coordinates in
-the JAX package's device order (`HYBRID_AXES`, row-major), so pp stage
-s of rank r is the stage JAX's device r runs; a rank's pp group holds
-the stages in order, and `pp_neighbours` names the ranks before and
-after it.
-Beside the one-axis groups, the batch axes (``dp`` and ``sharding``, when
-both exceed 1) get one group of their own, registered as
-``"dp+sharding@<ranks>"``: the rows of a batch split over both, so its
-loss and the gradients of what both replicate are summed over it.
+Every axis may exceed 1: ``dp``, ``pp`` (pipeline), ``sharding``
+(ZeRO), ``sep`` (sequence and context parallel) and ``mp``
+(tensor-parallel), and axes of other names (`make_train_step(mesh=)`,
+`DataParallel`, ``hapi.Model.fit`` over dp, ``shard_llama``,
+``models.llama_pipe.make_llama_pp_train_step`` and
+`parallel.pipeline_spmd` over pp, `parallel.sequence_parallel`,
+`parallel.ulysses` and `parallel.ring_attention` over sep). The ranks
+take their coordinates in the JAX package's device order
+(`HYBRID_AXES`, row-major), so pp stage s of rank r is the stage JAX's
+device r runs; a rank's pp group holds the stages in order, and
+`pp_neighbours` names the ranks before and after it.
+Beside the one-axis groups, every set of two or more of the summed axes
+(`SUM_AXES`: ``dp``, ``sharding`` and ``sep``, those above 1) gets one
+group of its own, registered as ``"<a>+<b>@<ranks>"`` (``"dp+sharding"``,
+``"dp+sep"``, ``"sharding+sep"``, ``"dp+sharding+sep"``): a batch's rows
+split over dp and sharding and its tokens over sep, while every
+parameter is replicated over sep, so the loss and the gradients of what
+those axes replicate are summed over them together.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Dict, List, Optional, Sequence
 
@@ -36,8 +41,9 @@ from .ranks import GroupRef, ranks_key, register_group
 
 __all__ = [
     "BATCH_AXES", "CP_AXIS", "HYBRID_AXES", "HybridCommunicateGroup",
-    "HybridParallelInfo", "MP_AXIS", "Mesh", "PP_AXIS", "auto_mesh",
-    "build_mesh", "divisible_prefix", "get_global_mesh", "set_global_mesh",
+    "HybridParallelInfo", "MP_AXIS", "Mesh", "PP_AXIS", "SEP_AXIS",
+    "SUM_AXES", "auto_mesh", "build_mesh", "divisible_prefix",
+    "get_global_mesh", "set_global_mesh",
 ]
 
 # the reference's ["data", "pipe", "sharding", "sep", "model"] order
@@ -46,11 +52,11 @@ HYBRID_AXES = ("dp", "pp", "sharding", "sep", "mp")
 BATCH_AXES = ("dp", "sharding")
 MP_AXIS = "mp"
 CP_AXIS = "cp"
-# the axes that may not exceed 1 yet
-REFUSED_AXES = ("sep",)
-LATER_STEPS = ("ROADMAP.md section 1 item 5 step 6 (sequence and context "
-               "parallel training)")
 PP_AXIS = "pp"
+# the sequence axis: a batch's tokens split over it
+SEP_AXIS = "sep"
+# the axes a training step's loss and gradients are summed over
+SUM_AXES = BATCH_AXES + (SEP_AXIS,)
 
 
 @dataclasses.dataclass
@@ -158,11 +164,6 @@ def build_mesh(shape, axis_names: Optional[Sequence[str]] = None) -> Mesh:
     else:
         sizes = [int(v) for v in shape]
         names = tuple(axis_names or HYBRID_AXES[:len(sizes)])
-    for name, n in zip(names, sizes):
-        if n > 1 and name in REFUSED_AXES:
-            raise NotImplementedError(
-                f"mesh axis {name!r} of size {n}: not ported above 1 "
-                f"({LATER_STEPS})")
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = math.prod(sizes)
     if n != world:
@@ -179,11 +180,13 @@ def build_mesh(shape, axis_names: Optional[Sequence[str]] = None) -> Mesh:
             if rank in ranks:
                 refs[name] = register_group(name, ranks, g)
     multi = {}
-    batch = tuple(i for i, a in enumerate(names)
-                  if a in BATCH_AXES and sizes[i] > 1)
-    if len(batch) > 1:
-        key = tuple(names[i] for i in batch)
-        for ranks in _axis_groups(sizes, batch):
+    summed = [i for i, a in enumerate(names) if a in SUM_AXES
+              and sizes[i] > 1]
+    for picked in itertools.chain.from_iterable(
+            itertools.combinations(summed, k)
+            for k in range(2, len(summed) + 1)):
+        key = tuple(names[i] for i in picked)
+        for ranks in _axis_groups(sizes, picked):
             g = dist.new_group(ranks)
             if rank in ranks:
                 multi[key] = register_group("+".join(key), ranks, g)
@@ -250,6 +253,23 @@ class HybridParallelInfo:
 
     def get_model_parallel_rank(self):
         return self.axis_rank("mp")
+
+    def get_sep_parallel_rank(self):
+        return self.axis_rank(SEP_AXIS)
+
+    def get_sep_parallel_group(self) -> GroupRef:
+        """This rank's group on the sep axis (its registry entry)."""
+        return self.mesh.axis_ref(SEP_AXIS)
+
+    def get_sep_parallel_group_src_rank(self) -> int:
+        """The default group's rank of the sep group's first rank."""
+        return self.mesh.axis_ranks(SEP_AXIS)[0]
+
+    def get_dp_sep_parallel_group(self) -> Optional[GroupRef]:
+        """The group over dp and sep together (Paddle's ``dp_sep`` group:
+        a batch's rows and tokens), or the one axis above 1 (None when
+        neither is)."""
+        return self.mesh.group_ref(("dp", SEP_AXIS))
 
 
 class HybridCommunicateGroup(HybridParallelInfo):

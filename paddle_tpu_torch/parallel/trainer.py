@@ -22,21 +22,30 @@ dict of section dicts). A whole-loss checkpoint for a model without a
 refuses").
 
 **Over a mesh** (``mesh=``, default the global mesh of `parallel.mesh`;
-axes ``dp``, ``sharding``, ``mp``). JAX lays the global batch over
-`batch_spec` (default ``(("dp", "sharding"), "sep")``: the rows over the
-longest prefix of dp x sharding whose product divides them) and the
-compiler makes every collective. Here every rank is handed the same
-global batch and takes its rows (the row-major block of its coordinates
-on those axes); its loss is its rows' mean weighted by its share of the
-rows, so sums over the row axes give the global mean's gradients and
-loss. The gradients follow the batch, not the layout:
+axes ``dp``, ``sharding``, ``sep``, ``mp``). JAX lays the global batch
+over `batch_spec` (default ``(("dp", "sharding"), "sep")``: the rows over
+the longest prefix of dp x sharding whose product divides them, the
+sequence over sep where it divides it) and the compiler makes every
+collective. Here every rank is handed the same global batch and takes
+its rows (the row-major block of its coordinates on those axes) and, over
+sep, its slice of their sequence (`seq_axes`). Only a model that
+declares ``handles_seq_shard`` is handed a slice (a Llama model: it runs
+inside `sequence_parallel.seq_sharded`, so it rotates the slice at its
+global positions and attends over the whole sequence), and its loss must
+be a mean over the tokens; any other model runs the whole sequence on
+every sep rank, which then replicates the step. A rank's loss is its
+tokens' mean weighted by its share of the rows x tokens, so sums over
+the row axes and sep give the global mean's gradients and loss. The
+gradients follow the batch, not the layout:
 
-- over a row axis they are summed: by the reduce-scatter of a sharded
+- over a row axis and over sep (which replicates every parameter) they
+  are summed: by the reduce-scatter of a sharded
   parameter's gather (stage 3, ``shard_llama``), by the stage-2 hooks'
   reduce-scatter as the backward produces them, else by all-reduces (one
   a dtype and set of axes, `collectives.all_reduce_tree`, or with
-  ``quantized_collectives`` the int8 `quantized_psum_tree`; the group of
-  ``dp`` and ``sharding`` together is the mesh's batch group);
+  ``quantized_collectives`` the int8 `quantized_psum_tree`; the groups
+  of ``dp``, ``sharding`` and ``sep`` together are the mesh's summed
+  groups);
 - over an axis the rows were not split on, each rank holds the whole
   gradient already and takes its block;
 - over ``mp`` the rows are replicated: a parameter's gradient is its
@@ -78,9 +87,11 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..kernels._build import tracing
 from . import mesh as mesh_mod
 from .collectives import all_gather, all_reduce, broadcast_tree
 from .fused_optimizer import FusedOptimizer
+from .sequence_parallel import seq_sharded
 from .sharding import ShardPlan, ZeroState, apply_plan, shard_dim0_spec
 
 
@@ -178,56 +189,87 @@ def _grad(p: torch.Tensor) -> torch.Tensor:
     return p.grad if p.grad is not None else torch.zeros_like(p)
 
 
+def _stand_ins(params: Dict[str, torch.Tensor]) -> bool:
+    """Whether `params` are the stand-ins of an analysis trace
+    (`analysis.graph` traces a whole step on fake tensors), not
+    ``nn.Parameter``s."""
+    return tracing() and any(not isinstance(p, nn.Parameter)
+                             for p in params.values())
+
+
 def _bind(model: nn.Module, params: Dict[str, nn.Parameter]) -> None:
-    """Make `params` the model's parameters (by key)."""
+    """Make `params` the model's parameters (by key). A tensor that is no
+    ``nn.Parameter`` takes the parameter's slot only as a trace's
+    stand-in (`_stand_ins`); otherwise it raises."""
+    trace = _stand_ins(params)
     for name, p in params.items():
         path, _, leaf = name.rpartition(".")   # a top-level param: path ""
         mod = model.get_submodule(path)
-        if getattr(mod, leaf) is not p:
+        if getattr(mod, leaf) is p:
+            continue
+        if isinstance(p, nn.Parameter):
             setattr(mod, leaf, p)
-
-
-def check_mesh(mesh) -> None:
-    """Refuse a mesh with an axis not ported above 1 (sep)."""
-    if mesh is None:
-        return
-    for axis, n in mesh.shape.items():
-        if n > 1 and axis in mesh_mod.REFUSED_AXES:
-            raise NotImplementedError(
-                f"mesh axis {axis!r} of size {n}: the port does not train "
-                f"over it ({mesh_mod.LATER_STEPS})")
+        elif trace:
+            mod._parameters[leaf] = p
+        else:
+            raise TypeError(f"{name}: the step's params must be the "
+                            f"model's nn.Parameters, not {type(p).__name__}"
+                            " (load_params(..., trainable=True))")
 
 
 def row_axes(mesh, batch, batch_spec=None) -> tuple:
     """The axes a batch's rows split over (JAX's `batch_sharding` on dim
     0: the longest prefix of batch_spec[0]'s axes whose product divides
-    the rows), or () when a leaf is 0-d or the leaves' rows differ. A
-    later dim laid over an axis above 1 (sequence sharding) is refused."""
+    the rows), or () when a leaf is 0-d or the leaves' rows differ."""
     if mesh is None or not batch:
         return ()
-    dims = batch_spec or (("dp", "sharding"), "sep")
-    for d in dims[1:]:
-        for a in ((d,) if isinstance(d, str) else (d or ())):
-            if mesh.shape.get(a, 1) > 1:
-                raise NotImplementedError(
-                    f"batch_spec lays a non-row dim over {a!r}: sequence "
-                    f"sharding is not ported ({mesh_mod.LATER_STEPS})")
     if any(b.ndim == 0 or b.shape[0] != batch[0].shape[0] for b in batch):
         return ()
+    dims = batch_spec or (("dp", "sharding"), "sep")
     d0 = dims[0] if dims else None
     names = (d0,) if isinstance(d0, str) else tuple(d0 or ())
     kept = mesh_mod.divisible_prefix(mesh, batch[0].shape[0], names)
     return tuple(a for a in kept if mesh.shape[a] > 1)
 
 
-def take_rows(mesh, batch, axes):
-    """(this rank's rows of every leaf over `axes`, its share)."""
+def seq_axes(mesh, batch, batch_spec=None, model=None) -> tuple:
+    """("sep",) when the batch's tokens split over the sep axis (JAX's
+    `batch_sharding` on dim 1: batch_spec[1] names sep, above 1, and it
+    divides the sequence of every leaf, all of one length) and `model`
+    declares ``handles_seq_shard``, else (): a sequence that sep does not
+    divide stays whole, as JAX keeps it, and so does the sequence of a
+    model that computes over its tokens alone (each sep rank then runs
+    the whole step). A later dim laid over another axis stays whole too
+    (the values are JAX's global ones either way)."""
+    sep = mesh_mod.SEP_AXIS
+    if mesh is None or not batch or mesh.shape.get(sep, 1) <= 1 \
+            or not getattr(model, "handles_seq_shard", False):
+        return ()
+    dims = batch_spec or (("dp", "sharding"), "sep")
+    d1 = dims[1] if len(dims) > 1 else None
+    if sep not in ((d1,) if isinstance(d1, str) else tuple(d1 or ())):
+        return ()
+    if any(b.ndim < 2 or b.shape[1] != batch[0].shape[1] for b in batch) \
+            or batch[0].shape[1] % mesh.shape[sep]:
+        return ()
+    return (sep,)
+
+
+def take_rows(mesh, batch, axes, seq=()):
+    """(this rank's rows of every leaf over `axes` and its slice of their
+    sequence over `seq`, its share of the batch's rows x tokens)."""
     n = math.prod(mesh.shape[a] for a in axes)
     idx = 0
     for a in axes:
         idx = idx * mesh.shape[a] + mesh.axis_rank(a)
     rows = batch[0].shape[0] // n
-    return tuple(b[idx * rows:(idx + 1) * rows] for b in batch), 1.0 / n
+    out = tuple(b[idx * rows:(idx + 1) * rows] for b in batch)
+    if seq:
+        m, j = mesh.shape[seq[0]], mesh.axis_rank(seq[0])
+        s = batch[0].shape[1] // m
+        out = tuple(b[:, j * s:(j + 1) * s] for b in out)
+        n *= m
+    return out, 1.0 / n
 
 
 def _broadcast_replicas(mesh, params, layout) -> None:
@@ -271,7 +313,6 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
     """
     strat = _resolve_strategy(strategy)
     mesh = mesh if mesh is not None else mesh_mod.get_global_mesh()
-    check_mesh(mesh)
     dev = resolve_device(device)
     params = dict(model.named_parameters())
     for name, p in params.items():
@@ -332,10 +373,12 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
         if amp:
             batch = tuple(b.to(torch.bfloat16) if b.dtype == torch.float32
                           else b for b in batch)
-        loss = loss_fn(model(batch[0]), *batch[1:]).to(torch.float32)
+        with seq_sharded(mesh if seq else None):
+            out = model(batch[0])
+        loss = loss_fn(out, *batch[1:]).to(torch.float32)
         return loss * share if share != 1.0 else loss
 
-    share = 1.0
+    share, seq = 1.0, ()
 
     def loss_and_grads(work, *batch):
         """Forward and backward over `work` (the bound params); returns
@@ -368,19 +411,21 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
                    if mesh.shape.get(a, 1) > 1)
 
     def step_fn(p, state, *batch):
-        nonlocal share
+        nonlocal share, seq
         batch = tuple(torch.as_tensor(b, device=dev) for b in batch)
         axes = ()
         if sharded:
             axes = row_axes(mesh, batch, batch_spec)
-            if axes:
-                batch, share = take_rows(mesh, batch, axes)
-            elif not warned and wanted:
+            seq = seq_axes(mesh, batch, batch_spec, model)
+            if axes or seq:
+                batch, share = take_rows(mesh, batch, axes, seq)
+            if not axes and not warned and wanted:
                 warned.append(True)
                 warnings.warn(
                     f"make_train_step: the row axes {wanted} do not divide "
-                    "a batch leaf's rows (or a leaf is 0-d): the batch runs "
-                    "whole on every rank, no gradient sum")
+                    "a batch leaf's rows (or a leaf is 0-d): the batch's "
+                    "rows run whole on every rank, no gradient sum over "
+                    "them")
         if plan is not None:
             plan.row_axes = axes
         work = p
@@ -389,6 +434,7 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
                                     requires_grad=n in trainable)
                     if t.dtype == torch.float32 else t for n, t in p.items()}
         saved = {k: getattr(model_cfg, k) for k in knobs}
+        live = dict(model.named_parameters())
         handles = []
         try:
             for k, v in knobs.items():
@@ -406,14 +452,18 @@ def make_train_step(model: nn.Module, loss_fn: Callable, mesh=None,
                 h.remove()
             for k, v in saved.items():
                 setattr(model_cfg, k, v)
-            _bind(model, p)
+            # a trace's stand-ins leave, the model keeps its own params
+            _bind(model, live if _stand_ins(p) else p)
         for n in trainable:
             work[n].grad = None
-        share = 1.0
+        # the tokens split over sep: each rank's gradients and loss are
+        # its tokens' part, summed with the rows' over the row axes
+        summed = axes + seq
+        share, seq = 1.0, ()
         if sharded:
-            grads = layout.sync(grads, axes, quantized_collectives)
-            if axes:
-                loss = all_reduce(loss, mesh.group_ref(axes))
+            grads = layout.sync(grads, summed, quantized_collectives)
+            if summed:
+                loss = all_reduce(loss, mesh.group_ref(summed))
         upd = {n: layout.view(n, p[n]) if layout else p[n]
                for n in trainable}
         reduce_sq = layout.reduce_sq if sharded else None
@@ -445,15 +495,16 @@ def make_eval_step(model: nn.Module, mesh=None, batch_spec=None,
     under no_grad in eval mode and the outputs are all-gathered over the
     row axes, so each rank returns the global batch's."""
     mesh = mesh if mesh is not None else mesh_mod.get_global_mesh()
-    check_mesh(mesh)
     dev = resolve_device(device)
 
     def fwd(p, inputs):
         inputs = torch.as_tensor(inputs, device=dev)
-        axes = row_axes(mesh, (inputs,), batch_spec) \
-            if mesh is not None and mesh.size > 1 else ()
-        if axes:
-            (inputs,), _ = take_rows(mesh, (inputs,), axes)
+        axes, seq = (), ()
+        if mesh is not None and mesh.size > 1:
+            axes = row_axes(mesh, (inputs,), batch_spec)
+            seq = seq_axes(mesh, (inputs,), batch_spec, model)
+        if axes or seq:
+            (inputs,), _ = take_rows(mesh, (inputs,), axes, seq)
         plan = getattr(model, "_shard_plan", None)
         if plan is not None:
             plan.row_axes = axes
@@ -463,12 +514,14 @@ def make_eval_step(model: nn.Module, mesh=None, batch_spec=None,
             if p is not None:
                 _bind(model, p)
             model.train(False)
-            with torch.no_grad():
+            with torch.no_grad(), seq_sharded(mesh if seq else None):
                 out = model(inputs)
         finally:
             model.train(was)
             if p is not None:
                 _bind(model, live)
+        if seq:
+            out = all_gather(out, mesh.axis_ref(seq[0]), 1)
         if axes:
             out = all_gather(out, mesh.group_ref(axes), 0)
         return out

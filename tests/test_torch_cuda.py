@@ -1678,6 +1678,41 @@ def test_flash_attention_backward(dev, b, sq, sk, hq, hkv, d, causal):
         _no_worse_than_plain(got, p, r, name)
 
 
+def test_flash_kernels_at_the_sep2_rank_shape(dev):
+    """The shape a sep2 Ulysses rank of the long-context model gives the
+    flash kernels (chip_smoke phase 31): the whole 8192-token sequence at
+    8 of 16 q heads and 2 of 4 kv heads, causal, bf16. The forward within
+    the plain twin's score rounding; dq, dk and dv no worse than the bf16
+    plain backward against the f32 one."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        _plain_bwd, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    b, s, hq, hkv, d = 1, 8192, 8, 2, 128
+    q, k, v = _flash_inputs(dev, b, s, s, hq, hkv, d, seed=8192)
+    do = _flash_inputs(dev, b, s, s, hq, hkv, d, seed=8193)[0]
+    scale = d ** -0.5
+    out, lse = _launched("flash_attention_fwd", lambda: flash_attention(
+        q, k, v, causal=True, return_lse=True))
+    ref, ref_lse = flash_attention_reference(q, k, v, causal=True,
+                                             return_lse=True)
+    assert (out.float() - ref.float()).abs().max() <= 3e-2
+    assert (lse - ref_lse).abs().max() <= 1e-2
+    del ref, ref_lse
+    dq = _launched("flash_attention_bwd_dq", lambda: flash_attention_bwd_dq(
+        q, k, v, out, lse, do, True, scale))
+    dk, dv = _launched("flash_attention_bwd_dkv",
+                       lambda: flash_attention_bwd_dkv(q, k, v, out, lse,
+                                                       do, True, scale))
+    plain = _plain_bwd(q, k, v, out, lse, do, True, scale)
+    f32 = [t.float() for t in (q, k, v, do)]
+    out32, lse32 = flash_attention_reference(*f32[:3], True, scale, True)
+    ref32 = _plain_bwd(*f32[:3], out32, lse32, f32[3], True, scale)
+    for name, got, p, r in zip(("dq", "dk", "dv"), (dq, dk, dv), plain,
+                               ref32):
+        assert got.shape == p.shape and got.dtype == torch.bfloat16
+        _no_worse_than_plain(got, p, r, name)
+
+
 def _moved(got, ref):
     """Where two [M, F] results differ beyond one bf16 step: the count and
     the first rows and columns, to tell a swizzle or transpose fault from
@@ -1857,6 +1892,41 @@ def test_train_step_launch_counts(dev, recompute):
     assert n["swiglu_bwd"] == 2
     assert n["rms_norm"] == 2 * fwd + 1
     assert torch.isfinite(loss)
+
+
+def test_save_attn_launches_the_flash_forward_once_a_layer(dev):
+    """remat_policy="save_attn" under whole-layer recompute: the backward
+    takes the flash forward's saved output and lse, so a step launches
+    the flash forward once a layer (L), where the plain recompute
+    launches it twice (2L); everything else, the SwiGLU forward
+    included, is recomputed; the losses are bitwise the plain step's."""
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import make_train_step
+
+    ids = torch.randint(0, 256, (2, 256), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+    losses, counts = {}, {}
+    for policy in ("none", "save_attn"):
+        model = _tiny_train_model(dev, recompute=True)
+        model.config.remat_policy = policy
+        crit = LlamaPretrainingCriterion()
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        step, p, s = make_train_step(model, lambda lg, lb: crit(lg, lb),
+                                     None, optimizer=opt)
+        _build.reset_launch_counts()
+        loss, p, s = step(p, s, ids, ids)
+        torch.cuda.synchronize()
+        counts[policy] = _build.launch_counts()
+        losses[policy] = float(loss)
+    L = 2
+    assert counts["none"]["flash_attention_fwd"] == 2 * L
+    assert counts["save_attn"]["flash_attention_fwd"] == L
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_delta", "swiglu_fwd", "swiglu_bwd",
+                 "rms_norm"):
+        assert counts["save_attn"][name] == counts["none"][name], name
+    assert losses["save_attn"] == losses["none"]
 
 
 # ---------------------------------------------------------------------------

@@ -102,15 +102,12 @@ def test_env_mesh_and_refusals_without_a_group(monkeypatch):
     hcg = HybridCommunicateGroup(mesh)
     assert hcg.get_data_parallel_world_size() == 1
     assert hcg.topology() == [1, 1]
-    # mp, sharding and pp are ported: such a mesh needs its ranks; sep
-    # above 1 still raises, naming the later step
-    for axis in ("mp", "pp"):
+    # every axis is ported: such a mesh needs its ranks
+    for axis in ("mp", "pp", "sep"):
         with pytest.raises(ValueError, match="needs 2 ranks"):
             build_mesh({"dp": 1, axis: 2})
     with pytest.raises(ValueError, match="needs 2 ranks"):
         build_mesh({"dp": 2})
-    with pytest.raises(NotImplementedError, match="step 6"):
-        build_mesh({"dp": 1, "sep": 2})
     # a sharding strategy without a mesh is JAX's no-op
     step, p, s = make_train_step(torch.nn.Linear(2, 2),
                                  lambda o, y: o.sum(),

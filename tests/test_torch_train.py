@@ -251,27 +251,30 @@ def test_refused_options_raise():
     _, tm = _models()
     crit = LlamaPretrainingCriterion()
     loss = lambda lg, lb: crit(lg, lb)  # noqa: E731
-    from paddle_tpu_torch.parallel.mesh import Mesh
 
-    # the mp, sharding and pp axes train (tests/test_torch_zero.py,
-    # tests/test_torch_tp.py, tests/test_torch_pp.py): such a mesh needs
-    # its ranks, and a sequence axis above 1 is refused, naming the later
-    # step
+    # the mp, sharding, pp and sep axes train (tests/test_torch_zero.py,
+    # tests/test_torch_tp.py, tests/test_torch_pp.py,
+    # tests/test_torch_sep.py): such a mesh needs its ranks
     from paddle_tpu_torch.parallel import build_mesh
 
-    for axis in ("mp", "pp"):
+    for axis in ("mp", "pp", "sep"):
         with pytest.raises(ValueError, match="needs 2 ranks"):
             build_mesh({"dp": 1, axis: 2})
-    with pytest.raises(NotImplementedError, match="step 6"):
-        make_train_step(tm, loss, mesh=Mesh({"dp": 1, "sep": 2}, {}),
-                        device="cpu")
-    step, p, s = make_train_step(
-        tm, loss, None, device="cpu",
-        strategy={"recompute": {"enable": True,
-                                "remat_policy": "save_attn"}})
+    # the saving policy trains (its parameters restored after each step)
+    # and gives the losses of the step that saves nothing
     x, y = _batch(b=1, s=8)
-    with pytest.raises(NotImplementedError, match="Trainer options"):
-        step(p, s, x, y)
+    losses = {}
+    for policy in ("save_attn", "none"):
+        step, p, s = make_train_step(
+            tm, loss, None, device="cpu",
+            strategy={"recompute": {"enable": True,
+                                    "remat_policy": policy}})
+        saved = {k: v.detach().clone() for k, v in p.items()}
+        losses[policy] = [float(step(p, s, x, y)[0]) for _ in range(2)]
+        with torch.no_grad():
+            for k, v in p.items():
+                v.copy_(saved[k])
+    assert losses["save_attn"] == losses["none"], losses
     assert tm.config.remat_policy == "none"
     # a name the JAX model maps to no saving policy recomputes everything
     step, p, s = make_train_step(

@@ -401,10 +401,11 @@ class _LossRec:
         self.cb = Rec()
 
 
-def fit_dp_rank(np_params, batches, quantized, audit=False):
+def fit_dp_rank(np_params, batches, quantized, audit=False, shape=None):
     """`hapi.Model.fit` of tiny() (Adam 0.01, MSE of the logits against
     random targets: JAX's TestFitQuantizedDP model) under a dp mesh of
-    the world: (losses, quantized_dp_steps, params, comms_audit)."""
+    the world (or `build_mesh(shape)`): (losses, quantized_dp_steps,
+    params, comms_audit)."""
     import torch
 
     from paddle_tpu_torch import hapi
@@ -418,7 +419,7 @@ def fit_dp_rank(np_params, batches, quantized, audit=False):
                                  parameters=net.parameters()),
                   loss=lambda out, y: ((out - y) ** 2).mean())
     rec = _LossRec()
-    set_global_mesh(build_mesh({"dp": dist.get_world_size()}))
+    set_global_mesh(build_mesh(shape or {"dp": dist.get_world_size()}))
     try:
         model.fit([(torch.from_numpy(a), torch.from_numpy(b))
                    for a, b in batches], epochs=1, verbose=0,
@@ -1281,3 +1282,184 @@ def mesh_pp_rank(shape):
     mesh = build_mesh(shape)
     return (mesh.axis_rank("pp"), mesh.axis_ranks("pp"),
             mesh.pp_neighbours())
+
+
+# ---------------------------------------------------------------------------
+# sequence and context parallel (tests/test_torch_sep.py)
+# ---------------------------------------------------------------------------
+
+def _seq_block(mesh, t):
+    """This rank's block of a global [b, s, ...] tensor over `mesh`: its
+    rows over dp and its slice of the sequence over sep."""
+    from paddle_tpu_torch.parallel.trainer import take_rows
+
+    rows = ("dp",) if mesh.shape.get("dp", 1) > 1 else ()
+    (blk,), _ = take_rows(mesh, (t,), rows, ("sep",))
+    return blk
+
+
+def ring_rank(q, k, v, shape, causal, grad=False):
+    """`ring_attention` of this rank's block (rows over dp, sequence
+    chunk over sep) of the global q / k / v over `build_mesh(shape)`:
+    its output block and, with `grad`, the gradients of sum(out * cos(q))
+    w.r.t. its q, k and v blocks (summed over the ranks' losses)."""
+    import torch
+
+    from paddle_tpu_torch.parallel import build_mesh
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+
+    mesh = build_mesh(shape)
+    blocks = [_seq_block(mesh, torch.as_tensor(a)).clone() for a in (q, k, v)]
+    for b in blocks:
+        b.requires_grad_(grad)
+    out = ring_attention(*blocks, mesh=mesh, causal=causal)
+    if not grad:
+        return out.detach().numpy()
+    (out * torch.cos(blocks[0])).sum().backward()
+    return out.detach().numpy(), [b.grad.numpy() for b in blocks]
+
+
+def ulysses_rank(x, shape):
+    """`seq_to_head` of this rank's block of the global [b, s, H, d] `x`
+    under JAX's seq spec (rows over dp, sequence over sep, heads over mp)
+    and `head_to_seq` back: (the head-split block, whether the round trip
+    is the identity bitwise)."""
+    import torch
+
+    from paddle_tpu_torch.parallel import build_mesh
+    from paddle_tpu_torch.parallel.ulysses import head_to_seq, seq_to_head
+
+    mesh = build_mesh(shape)
+    blk = _seq_block(mesh, torch.as_tensor(x))
+    mp = mesh.shape.get("mp", 1)
+    h = blk.shape[2] // mp
+    a = mesh.axis_rank("mp") if mp > 1 else 0
+    blk = blk[:, :, a * h:(a + 1) * h].contiguous()
+    y = seq_to_head(blk, mesh)
+    return y.numpy(), bool(torch.equal(head_to_seq(y, mesh), blk))
+
+
+def all_to_all_rank(xs, ws, split_dim, concat_dim):
+    """The tiled `all_to_all(x, split_dim=, concat_dim=)` of this rank's
+    `xs[rank]` under autograd, and the gradient of sum(y * ws[rank]):
+    (y, x.grad)."""
+    import torch
+
+    from paddle_tpu_torch.parallel.collectives import all_to_all
+
+    r = _rank()
+    x = torch.as_tensor(xs[r]).clone().requires_grad_(True)
+    y = all_to_all(x, None, split_dim=split_dim, concat_dim=concat_dim)
+    (y * torch.as_tensor(ws[r])).sum().backward()
+    return y.detach().numpy(), x.grad.numpy()
+
+
+def seq_parallel_rank(x, q, w):
+    """JAX's TestSequenceParallel on {"sep": 2, "rest": 4} (the global
+    mesh), each rank holding its blocks: split_seq of `x` (and the
+    gradient of sum(split * w[sep rank]) through it), gather_seq back,
+    sep_attention_context of q's sequence slice, and the re-annotation
+    route of ulysses_alltoall on the 3-D slice; the sep getters of
+    Paddle's HybridCommunicateGroup."""
+    import torch
+
+    from paddle_tpu_torch.parallel import (HybridCommunicateGroup,
+                                           build_mesh, gather_seq,
+                                           sep_attention_context,
+                                           set_global_mesh, split_seq,
+                                           ulysses_alltoall)
+
+    mesh = build_mesh({"sep": 2, "rest": 4})
+    hcg = HybridCommunicateGroup(mesh)
+    set_global_mesh(mesh)
+    try:
+        j = mesh.axis_rank("sep")
+        xt = torch.as_tensor(x).clone().requires_grad_(True)
+        s = split_seq(xt)
+        (s * torch.as_tensor(w[j])).sum().backward()
+        g = gather_seq(s.detach())
+        qs = torch.as_tensor(q)[:, j * 4:(j + 1) * 4].contiguous()
+        q2, k2, v2 = sep_attention_context(qs, qs, qs)
+        moved = ulysses_alltoall(s.detach(), 2, 1)
+    finally:
+        set_global_mesh(None)
+    return dict(sep=j, hcg=(hcg.get_sep_parallel_rank(),
+                            hcg.get_sep_parallel_world_size(),
+                            hcg.get_sep_parallel_group().key,
+                            hcg.get_sep_parallel_group_src_rank(),
+                            hcg.get_dp_sep_parallel_group().key),
+                split=s.detach().numpy(), grad=xt.grad.numpy(),
+                gathered=g.numpy(), q2=q2.numpy(),
+                kv_same=bool(torch.equal(k2, q2) and torch.equal(v2, q2)),
+                moved=moved.numpy())
+
+
+def segment_parallel_rank(np_params, batches, shape, cfg_kw=None):
+    """`SegmentParallel` over tiny() f32 on `build_mesh(shape)`, ranks
+    past the first perturbed before the wrap, one forward and backward a
+    (x, y) of `batches` without zeroing the gradients in between
+    (gradient accumulation): (whether the wrap made the params equal to
+    the first rank's, each pass's logits of the global batch, each
+    pass's loss, the accumulated gradients)."""
+    import torch
+
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+    from paddle_tpu_torch.parallel import (HybridCommunicateGroup,
+                                           SegmentParallel, build_mesh)
+    from paddle_tpu_torch.parallel.collectives import all_gather
+
+    tm = _tiny_train_model(np_params, cfg_kw)
+    mesh = build_mesh(shape)
+    if _rank() > 0:
+        with torch.no_grad():
+            for p in tm.parameters():
+                p.add_(0.01)
+    sp = SegmentParallel(tm, HybridCommunicateGroup(mesh))
+    crit = LlamaPretrainingCriterion(tm.config)
+    logits, losses = [], []
+    for x, y in batches:
+        lg = sp(torch.as_tensor(x))
+        loss = crit(lg, torch.as_tensor(y))
+        loss.backward()
+        logits.append(lg.detach().numpy())
+        losses.append(float(loss))
+    flat = torch.cat([p.detach().reshape(-1) for p in tm.parameters()])
+    got = all_gather(flat[None], mesh.group_ref("sep"), 0)
+    return (all(torch.equal(got[0], g) for g in got), logits, losses,
+            {k: p.grad.numpy() for k, p in tm.named_parameters()})
+
+
+def segment_parallel_plain_rank(w, b, x, y, lr):
+    """`SegmentParallel` and `make_train_step` on {"sep": 2} of a
+    Linear(w, b) that does not declare ``handles_seq_shard``, on [rows,
+    seq, features] inputs: (whether each sep rank got the whole sequence
+    in every forward, the output, the gradients after a backward, the
+    losses of two steps)."""
+    import torch
+
+    from paddle_tpu_torch.parallel import (SegmentParallel, build_mesh,
+                                           make_train_step)
+
+    mesh = build_mesh({"sep": 2})
+    lin = torch.nn.Linear(*w.shape)
+    with torch.no_grad():
+        lin.weight.copy_(torch.as_tensor(w.T))
+        lin.bias.copy_(torch.as_tensor(b))
+    seen = []
+    lin.register_forward_pre_hook(lambda m, a: seen.append(a[0].shape[1]))
+    xs, ys = torch.as_tensor(x), torch.as_tensor(y)
+
+    def mse(out, lb):           # each output against the next label
+        return ((out[:, :-1] - lb[:, 1:]) ** 2).mean()
+
+    out = SegmentParallel(lin)(xs)
+    mse(out, ys).backward()
+    grads = {k: p.grad.numpy().copy() for k, p in lin.named_parameters()}
+    lin.zero_grad()
+    step, p, s = make_train_step(lin, mse, mesh, lr=lr, device="cpu")
+    losses = []
+    for _ in range(2):
+        loss, p, s = step(p, s, xs, ys)
+        losses.append(float(loss))
+    return (all(n == x.shape[1] for n in seen), out.detach().numpy(),
+            grads, losses)
